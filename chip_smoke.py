@@ -4,17 +4,31 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Setup: prints the card's name and power limit, refuses to run without
-   CUDA, builds the hand-written kernels (csrc/fused_adapter.cu) with nvcc.
-2. Kernels: each kernel against its plain PyTorch version at the B=96
-   pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at the
-   batch-1 shapes of a served request, in bf16 and fp32, with the
+   CUDA, builds the hand-written kernels (csrc/fused_adapter.cu and
+   csrc/contrastive.cu, one nvcc each, in parallel).
+2. Kernels: each forward kernel against its plain PyTorch version at the
+   B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
+   the batch-1 shapes of a served request, in bf16 and fp32, with the
    tolerance stated below, and both timed with CUDA events.
-3. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
+3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
+   contrastive head (forward and backward, [96, 512]) against their
+   plain versions at the B=96 shapes, in bf16 and fp32, timed the same
+   way.
+4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
+   width (seeded random weights) on a synthetic RAF-DB tree on the card
+   and writes its checkpoints, which must load back; then bench.py's
+   step (ViT-B/16, adapters 256/256/2, FAST, Adam 3e-4, one fixed random
+   B=96 batch) runs once with the kernels and once with the plain
+   versions (impl="torch") from the same state, without and with the K4
+   head, and must agree; then 3 warmup + 20 timed steps give pairs/s.
+   Every kernel must have launched on this path.
+5. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
    width, seeded random weights, M adapters loaded from a reference-format
    .pt) answers /embed, /embed_text and /classify over HTTP. Responses must
    be 200s with finite unit-norm features and 7 probabilities summing to
    1; /embed and /embed_text must agree with the same weights run through
-   the plain versions (impl="torch"); every kernel must have launched.
+   the plain versions (impl="torch"); every forward kernel must have
+   launched.
 
 Prints one JSON line with the kernels' results, then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
@@ -42,12 +56,42 @@ B = 96  # the bench batch of the pipeline-M train step
 # fp32: summation order alone, over at most 2048 terms.
 TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 EMBED_ATOL = 5e-3  # unit-norm features, served kernel path vs plain path
+# Gradients: |got - want| <= tol * max|want| per gradient (weight
+# gradients sum over every row, so an elementwise bound would be set by
+# cancellation), tol as above for the dtype.
+# The train step, kernels vs plain versions from the same state (bf16
+# towers under FAST; the kernels and the plain versions differ by bf16
+# rounding flips, which the backward carries into every gradient): loss
+# and grad norm within 1e-2 relative, each adapter gradient within 5e-2
+# relative in Frobenius norm (relative to at least 1e-2 of the global
+# gradient norm).
+STEP_TOL = {"loss": 1e-2, "grad_norm": 1e-2, "grad": 5e-2}
 SOURCE = "vlm_clip_tpu_torch/csrc/fused_adapter.cu"
+K4_SOURCE = "vlm_clip_tpu_torch/csrc/contrastive.cu"
 REPLACES = {
     "seq_adapter_fused": "vlm_clip_tpu/ops/fused_adapter.py:310",
     "cross_attn_block_fused": "vlm_clip_tpu/ops/fused_adapter.py:796",
     "prenorm_mlp_fused": "vlm_clip_tpu/ops/fused_adapter.py:532",
 }
+BWD_REPLACES = {
+    "seq_adapter_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:328",
+    "cross_attn_block_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:807",
+    "prenorm_mlp_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:550",
+    "contrastive_loss_fused": "vlm_clip_tpu/ops/contrastive.py:52",
+    "contrastive_loss_bwd_cuda": "vlm_clip_tpu/ops/contrastive.py:68",
+}
+# H100 SXM peaks (NVIDIA data sheet, dense): the least time a kernel
+# could take is the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+
+def bound(flops: float, nbytes: float, kind: str):
+    """(bound_ms, bound_by) for one call."""
+    t_ops, t_mem = flops / PEAK_FLOPS[kind], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
+                                     else "bytes")
 
 
 def setup() -> str:
@@ -64,11 +108,16 @@ def setup() -> str:
     from vlm_clip_tpu_torch.ops import build, fused_adapter as F
 
     t0 = time.time()
+    build.load_libraries(["fused_adapter", "contrastive"])
     F._lib()
     print(f"built kernels in {time.time() - t0:.1f}s", flush=True)
-    for line in build.build_logs.get("fused_adapter", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    for name, log in build.build_logs.items():
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
+        regs = [ln.split("Used")[1].split(",")[0].strip()
+                for ln in log.splitlines() if "Used" in ln]
+        print(f"  ptxas {name}: registers {regs}; spills {spills or 'none'}",
+              flush=True)
     return torch.cuda.get_device_name(0)
 
 
@@ -133,7 +182,8 @@ def kernel_phase() -> dict:
             ("prenorm_mlp_fused", "text", xt, lambda dt: mlp_args))]
     # ms / plain_ms: sums over the B=96 bf16 shapes (the serving dtype)
     results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "shapes": []} for name in REPLACES}
+                      "bound_ms": 0.0, "bound_by": "", "shapes": []}
+               for name in REPLACES}
     failures = []
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
@@ -147,8 +197,8 @@ def kernel_phase() -> dict:
                 want = plain(x, *args)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs()
-                bound = atol + rtol * want.float().abs()
-                ratio = float((err / bound).max())
+                lim = atol + rtol * want.float().abs()
+                ratio = float((err / lim).max())
                 big = want.float().abs() >= 1e-2
                 max_abs = float(err.max())
                 max_rel = float((err[big] / want.float().abs()[big]).max())
@@ -172,13 +222,383 @@ def kernel_phase() -> dict:
                 r = results[name]
                 r["max_abs_err"] = max(r["max_abs_err"], max_abs)
                 if dtype == torch.bfloat16 and batch == B:
-                    r["ms"] += t_kern
-                    r["plain_ms"] += t_plain
-                    r["shapes"].append(f"{tag} {list(x.shape)} bf16")
+                    _add_time(r, t_kern, t_plain, cost(name, x),
+                              f"{tag} {list(x.shape)} bf16")
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
     return results
+
+
+def _add_time(r: dict, t_kern: float, t_plain: float, work, shape: str):
+    """Sum a case's times and bound into a kernel's entry."""
+    b_ms, b_by = bound(*work)
+    r["ms"] += t_kern
+    r["plain_ms"] += t_plain
+    if b_ms >= r.get("_largest", 0.0):
+        r["_largest"], r["bound_by"] = b_ms, b_by
+    r["bound_ms"] += b_ms
+    r["shapes"].append(shape)
+
+
+def cost(name: str, x: torch.Tensor, need_dx: bool = True):
+    """(operations, bytes, peak kind) of one call at x's shape on the
+    pipeline-M widths: each product counts 2*m*n*k; each input is read
+    once and each output written once (params and their fp32 gradients
+    at 4 bytes, x, g, dx and k, v in x's type)."""
+    N, D = x.shape
+    es = x.element_size()
+    mm = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    K, Tk, H = 256, 197, 512
+    if name in ("seq_adapter_fused", "seq_adapter_bwd_cuda"):
+        params = (2 * D * K + K + 3 * D) * 4
+        if name == "seq_adapter_fused":
+            return 4 * N * D * K, 2 * N * D * es + params, "fp32"
+        return (2 * N * D * K * (6 if need_dx else 5),
+                (3 if need_dx else 2) * N * D * es + 2 * params, "fp32")
+    if name in ("prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"):
+        K = 4 * D
+        params = (2 * D * K + K + 3 * D) * 4
+        if name == "prenorm_mlp_fused":
+            return 4 * N * D * K, 2 * N * D * es + params, mm
+        return 10 * N * D * K, 3 * N * D * es + 2 * params, mm
+    if name in ("cross_attn_block_fused", "cross_attn_block_bwd_cuda"):
+        params = (D * H + 2 * H * H + 5 * H) * 4
+        kv = 2 * Tk * H * es
+        if name == "cross_attn_block_fused":
+            return (2 * N * (D * H + 2 * H * H + 2 * Tk * H),
+                    N * D * es + N * H * es + params + kv, mm)
+        return (2 * N * (3 * D * H + 5 * H * H + 6 * Tk * H),
+                2 * N * D * es + N * H * es + 2 * params + kv
+                + 2 * Tk * H * 4, mm)
+    if name == "contrastive_loss_fused":
+        return 2 * N * N * D, 2 * N * D * es + 8, "fp32"
+    if name == "contrastive_loss_bwd_cuda":
+        return 6 * N * N * D, 4 * N * D * es + 12, "fp32"
+    raise KeyError(name)
+
+
+def _grad_errors(got, want, dtype):
+    """Per gradient: (max abs err, err / (tol * max|want|), max rel err
+    where |want| >= 1e-2 * max|want|)."""
+    tol = TOL[dtype][0]
+    out = []
+    for g, w in zip(got, want):
+        if w is None:
+            if g is not None:
+                raise SystemExit("a gradient that was not asked for")
+            continue
+        if not bool(torch.isfinite(g.float()).all()):
+            out.append((float("inf"),) * 3)
+            continue
+        err = (g.float() - w.float()).abs()
+        scale = max(float(w.float().abs().max()), 1e-2)
+        big = w.float().abs() >= 1e-2 * scale
+        rel = float((err[big] / w.float().abs()[big]).max()) if bool(
+            big.any()) else 0.0
+        out.append((float(err.max()), float(err.max()) / (tol * scale), rel))
+    return out
+
+
+def backward_phase() -> dict:
+    """The backward kernels and K4 against their plain versions at the
+    B=96 shapes of the train step."""
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.models.layers import layer_slice
+    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    dev = torch.device("cuda")
+    cfg = clip_preset("vit-base-patch16")
+    acfg = AdapterConfig()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ad = init_m_adapters(gen, cfg, acfg, device=dev)
+    for leaf in (ad["text_adapter"]["down"]["bias"],
+                 ad["vision_adapter"]["down"]["bias"]):
+        leaf.normal_(generator=gen).mul_(0.1)
+    Tt, Tv = cfg.text.max_positions, cfg.vision.seq_len
+    Ht, Hv = cfg.text.hidden_size, cfg.vision.hidden_size
+    x_text = torch.randn(B * Tt, Ht, generator=gen, device=dev)
+    x_vis = torch.randn(B * Tv, Hv, generator=gen, device=dev)
+    g_text = torch.randn(B * Tt, Ht, generator=gen, device=dev)
+    g_vis = torch.randn(B * Tv, Hv, generator=gen, device=dev)
+    pseudo = torch.randn(1, Tv, Hv, generator=gen, device=dev) * Hv ** -0.5
+    shared = layer_slice(ad["shared_adapters"], 0)
+    feats = [torch.randn(B, cfg.projection_dim, generator=gen, device=dev)
+             for _ in range(2)]
+    logit_scale = torch.tensor(cfg.logit_scale_init, device=dev)
+
+    def seq_args(p):
+        return (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
+                p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
+
+    def cab_args(dtype):
+        k, v = A.shared_kv(shared, pseudo.to(dtype))
+        ap = shared["attn"]
+        return (shared["text_proj"]["kernel"], shared["text_proj"]["bias"],
+                shared["norm2"]["scale"], shared["norm2"]["bias"],
+                ap["q"]["kernel"], ap["q"]["bias"], k, v,
+                ap["out"]["kernel"], ap["out"]["bias"])
+
+    mp = shared["mlp"]
+    mlp_args = (mp["fc1"]["kernel"], mp["fc1"]["bias"], mp["fc2"]["kernel"],
+                mp["fc2"]["bias"], shared["norm3"]["scale"],
+                shared["norm3"]["bias"])
+    # (name, tag, x, g, args(dtype), extra, need_dx). K1's dx: the text
+    # case computes it (as the shared layers' input needs), the vision
+    # case skips it as the train step does (frozen towers).
+    cases = [
+        ("seq_adapter_bwd_cuda", "text", x_text, g_text,
+         lambda dt: seq_args(ad["text_adapter"]), (), True),
+        ("seq_adapter_bwd_cuda", "vision", x_vis, g_vis,
+         lambda dt: seq_args(ad["vision_adapter"]), (), False),
+        ("cross_attn_block_bwd_cuda", "text", x_text, g_text, cab_args,
+         (acfg.shared_num_heads,), True),
+        ("prenorm_mlp_bwd_cuda", "text", x_text, g_text,
+         lambda dt: mlp_args, (), True)]
+    names = list(BWD_REPLACES)
+    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bound_by": "", "shapes": []}
+               for name in names}
+    failures = []
+
+    def record(name, tag, dtype, errs, kern, plain, work, shape):
+        worst = max(e[1] for e in errs)
+        t_plain = _time_ms(plain, 5)
+        t_kern = _time_ms(kern, 5)
+        t_kern = (t_kern + _time_ms(kern, 5)) / 2
+        t_plain = (t_plain + _time_ms(plain, 5)) / 2
+        dt = str(dtype).replace("torch.", "")
+        ok = worst <= 1.0
+        print(f"backward {name}[{tag}] {dt} {shape}: per gradient max_abs_err "
+              f"{[f'{e[0]:.2e}' for e in errs]} max_rel_err "
+              f"{[f'{e[2]:.2e}' for e in errs]} worst err/tol {worst:.3f} "
+              f"(tol {TOL[dtype][0]} x max|grad|) {'ok' if ok else 'FAIL'}; "
+              f"kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms", flush=True)
+        if not ok:
+            failures.append(f"{name}[{tag}] {dt}")
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], max(e[0] for e in errs))
+        if dtype == torch.bfloat16:
+            _add_time(r, t_kern, t_plain, work, f"{tag} {shape} bf16")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, tag, x32, g32, make_args, extra, need_dx in cases:
+            kern = getattr(F, name)
+            plain = getattr(F, name.replace("_cuda", "_torch"))
+            x, g, args = x32.to(dtype), g32.to(dtype), make_args(dtype)
+            call = (*args, g, *extra)
+            with torch.no_grad():
+                got = kern(x, *call, need_dx=need_dx)
+                want = plain(x, *call, need_dx=need_dx)
+                torch.cuda.synchronize()
+                record(name, tag, dtype, _grad_errors(got, want, dtype),
+                       lambda: kern(x, *call, need_dx=need_dx),
+                       lambda: plain(x, *call, need_dx=need_dx),
+                       cost(name, x, need_dx), list(x.shape))
+        # K4: the loss (forward) and its gradients (backward), fp32 math
+        t, m = (f.to(dtype) for f in feats)
+        one = torch.ones((), device=dev)
+        with torch.no_grad():
+            loss = K4.contrastive_loss_fused(t, m, logit_scale)
+            want = K4.contrastive_loss_torch(t, m, logit_scale)
+            torch.cuda.synchronize()
+            record("contrastive_loss_fused", "loss", dtype,
+                   _grad_errors([loss], [want], torch.float32),
+                   lambda: K4.contrastive_loss_fused(t, m, logit_scale),
+                   lambda: K4.contrastive_loss_torch(t, m, logit_scale),
+                   cost("contrastive_loss_fused", t), list(t.shape))
+            got = K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one)
+            want = K4.contrastive_loss_bwd_torch(t, m, logit_scale, one)
+            torch.cuda.synchronize()
+            record("contrastive_loss_bwd_cuda", "grads", dtype,
+                   _grad_errors(got, want, dtype),
+                   lambda: K4.contrastive_loss_bwd_cuda(t, m, logit_scale,
+                                                        one),
+                   lambda: K4.contrastive_loss_bwd_torch(t, m, logit_scale,
+                                                         one),
+                   cost("contrastive_loss_bwd_cuda", t), list(t.shape))
+    if failures:
+        raise SystemExit(f"backward kernels disagree with their plain "
+                         f"versions: {failures}")
+    return results
+
+
+def _write_rafdb(root: str, n_train: int, n_eval: int) -> None:
+    """A synthetic RAF-DB tree: 100x100 JPEGs (the aligned RAF-DB size)
+    under train/val/test/<emotion>/."""
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.core.config import EMOTIONS
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", n_train), ("val", n_eval),
+                     ("test", n_eval)):
+        for e in EMOTIONS:
+            d = os.path.join(root, split, e)
+            os.makedirs(d, exist_ok=True)
+            for i in range(-(-n // len(EMOTIONS))):
+                Image.fromarray(rng.integers(0, 255, (100, 100, 3),
+                                             dtype=np.uint8)).save(
+                    os.path.join(d, f"{e}_{i}.jpg"))
+
+
+def _clone(tree):
+    from vlm_clip_tpu_torch.bridge import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def train_phase() -> dict:
+    """cli/train_m for one epoch, then bench.py's step: kernels against
+    plain versions, then timed."""
+    import shutil
+
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.cli import train_m
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.core.dtypes import FAST
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train import optim
+    from vlm_clip_tpu_torch.train.checkpoint import load_adapter_weights
+    from vlm_clip_tpu_torch.train.steps import (init_train_state,
+                                                make_m_train_step)
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    data, out = os.path.join(work, "rafdb"), os.path.join(work, "train_m")
+    shutil.rmtree(out, ignore_errors=True)
+    _write_rafdb(data, n_train=2 * B, n_eval=14)
+    os.environ["VLM_CLIP_LOG_DIR"] = os.path.join(work, "logs")
+
+    F.reset_launch_counts()
+    K4.reset_launch_counts()
+    t0 = time.time()
+    res = train_m.main(["--data-root", data, "--clip-model-name",
+                        "vit-base-patch16", "--batch-size", str(B),
+                        "--num-epochs", "1", "--warmup-steps", "1",
+                        "--device", "cuda", "--output-dir", out])
+    torch.cuda.synchronize()
+    epoch = res["history"][0]
+    print(f"train_m: one epoch in {time.time() - t0:.1f}s: {epoch}, test "
+          f"loss {res['test_loss']:.4f}", flush=True)
+    if not all(np.isfinite([epoch["train_loss"], epoch["val_loss"],
+                            res["test_loss"]])):
+        raise SystemExit(f"train_m: a loss is not finite: {res}")
+    acfg = AdapterConfig(text_adapter_size=256, vision_adapter_size=256,
+                         shared_adapter_layers=2)
+    for name in ("best_adapter", "adapter_epoch_1", "final_adapter"):
+        params = load_adapter_weights(os.path.join(out, name), acfg)
+        if not all(bool(torch.isfinite(t).all())
+                   for t in tree_leaves(params)):
+            raise SystemExit(f"train_m: {name} holds non-finite weights")
+    print("train_m: best_adapter, adapter_epoch_1, final_adapter written "
+          "and read back", flush=True)
+
+    # bench.py's step: ViT-B/16, adapters 256/256/2, FAST, Adam 3e-4,
+    # one fixed random batch
+    dev = torch.device("cuda")
+    cfg = clip_preset("vit-base-patch16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    clip = init_clip(gen, cfg, device=dev)
+    adapters = init_m_adapters(gen, cfg, acfg, device=dev)
+    batch = {
+        "input_ids": torch.randint(1, cfg.text.vocab_size, (B, 77),
+                                   generator=gen, device=dev),
+        "attention_mask": torch.ones(B, 77, dtype=torch.int32,
+                                     device=dev),
+        "pixel_values": torch.randn(
+            B, 3, cfg.vision.image_size, cfg.vision.image_size,
+            generator=gen, device=dev).to(torch.bfloat16),
+    }
+    tx = optim.adam(3e-4)
+
+    def fresh(impl, fused_loss):
+        state = init_train_state(None, cfg, acfg, tx, clip_params=clip,
+                                 adapter_params=_clone(adapters),
+                                 device=dev)
+        return state, make_m_train_step(cfg, acfg, tx, FAST,
+                                        freeze_clip=True,
+                                        fused_loss=fused_loss, impl=impl)
+
+    def grads(state):
+        return [p.grad for p in tree_leaves(state.adapter_params)]
+
+    def names(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [n for k, v in tree.items()
+                    for n in names(v, f"{prefix}{k}.")]
+        return [prefix[:-1]]
+
+    leaf_names = names(adapters)
+
+    for fused_loss in (False, True):
+        state_k, step_k = fresh("auto", fused_loss)
+        state_k, mk = step_k(state_k, batch)
+        counts = {**F.launch_counts(), **K4.launch_counts()}
+        state_p, step_p = fresh("torch", fused_loss)
+        state_p, mp = step_p(state_p, batch)
+        torch.cuda.synchronize()
+        if {**F.launch_counts(), **K4.launch_counts()} != counts:
+            raise SystemExit("the impl='torch' step launched kernels")
+        d_loss = abs(float(mk.loss) - float(mp.loss)) / abs(float(mp.loss))
+        d_norm = abs(float(mk.grad_norm) - float(mp.grad_norm)) \
+            / float(mp.grad_norm)
+        # a gradient that is zero in exact arithmetic (the attention's
+        # key bias: the softmax is invariant to it) is rounding noise in
+        # both paths, so each is held relative to at least 1e-2 of the
+        # global gradient norm
+        floor = 1e-2 * float(mp.grad_norm)
+        diffs = sorted(
+            ((float((a - b).norm()) / max(float(b.norm()), floor), name)
+             for (a, b), name in zip(zip(grads(state_k), grads(state_p)),
+                                     leaf_names)), reverse=True)
+        d_grad = diffs[0][0]
+        print(f"  largest adapter gradient differences: {diffs[:3]}",
+              flush=True)
+        ok = d_loss <= STEP_TOL["loss"] and d_norm <= STEP_TOL["grad_norm"] \
+            and d_grad <= STEP_TOL["grad"]
+        print(f"bench step fused_loss={fused_loss}: kernels loss "
+              f"{float(mk.loss):.6f} grad_norm {float(mk.grad_norm):.6f}; "
+              f"plain loss {float(mp.loss):.6f} grad_norm "
+              f"{float(mp.grad_norm):.6f}; rel diff loss {d_loss:.2e}, "
+              f"grad_norm {d_norm:.2e}, worst adapter gradient "
+              f"{d_grad:.2e} (limits {STEP_TOL}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit("the kernel step disagrees with the plain "
+                             "step")
+
+    # steps/s: 3 warmup + 20 timed steps, kernels and plain versions in
+    # turns (kernels, plain, kernels, plain)
+    rates = {"auto": [], "torch": []}
+    for impl in ("auto", "torch", "auto", "torch"):
+        state, step = fresh(impl, False)
+        for _ in range(3):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            state, m = step(state, batch)
+        float(m.loss)
+        rates[impl].append(20 * B / (time.perf_counter() - t0))
+    counts = {**F.launch_counts(), **K4.launch_counts()}
+    print(f"launches on the train path: {counts}", flush=True)
+    if min(counts.values()) < 1:
+        raise SystemExit(f"a kernel of the train path never launched: "
+                         f"{counts}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"train step pairs/s (B={B}, ViT-B/16, adapters 256/256/2, FAST, "
+          f"Adam; 20 steps after 3 warmup, two rounds each): kernels "
+          f"{rates['auto']}, plain versions {rates['torch']} on {smi}",
+          flush=True)
+    return counts
 
 
 def _jpeg(seed: int, size) -> bytes:
@@ -266,7 +686,7 @@ def serve_phase() -> dict:
                     and abs(probs.sum() - 1.0) < 1e-4):
                 raise RuntimeError(f"/classify: bad probabilities {out}")
             lat["/classify"].append(ms)
-        counts = F.launch_counts()
+        counts = {fn.__name__: fn.launches for fn in F.FORWARD}
     finally:
         server.shutdown()
         server.server_close()
@@ -316,13 +736,34 @@ def serve_phase() -> dict:
 
 def main() -> None:
     kind = setup()
-    results = kernel_phase()
-    counts = serve_phase()
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": counts[name],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "shapes": r["shapes"]}
-               for name, r in results.items()]
+    phases = []
+
+    def run(name, fn):
+        t0 = time.time()
+        out = fn()
+        phases.append(f"{name} {time.time() - t0:.1f}s")
+        print(f"phase {name}: {time.time() - t0:.1f}s", flush=True)
+        return out
+
+    results = run("kernels", kernel_phase)
+    bwd_results = run("backward", backward_phase)
+    train_counts = run("train", train_phase)
+    serve_counts = run("serve", serve_phase)
+    print("phases:", ", ".join(phases), flush=True)
+    kernels = []
+    for name, r in {**results, **bwd_results}.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": K4_SOURCE if name.startswith("contrastive")
+                 else SOURCE,
+                 "replaces": {**REPLACES, **BWD_REPLACES}[name],
+                 "launches": train_counts[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": None,
+                 "shapes": r["shapes"]}
+        if name in serve_counts:
+            entry["launches_serve"] = serve_counts[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -159,8 +159,14 @@ def test_adapter_checkpoints_cross_packages(tmp_path):
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys; import vlm_clip_tpu_torch.cli.serve, "
+            "vlm_clip_tpu_torch.cli.train_m, "
             "vlm_clip_tpu_torch.models.model_m, "
             "vlm_clip_tpu_torch.ops.fused_adapter, "
+            "vlm_clip_tpu_torch.ops.contrastive, "
+            "vlm_clip_tpu_torch.ops.image, vlm_clip_tpu_torch.data.rafdb, "
+            "vlm_clip_tpu_torch.train.steps, "
+            "vlm_clip_tpu_torch.train.trainer_m, "
+            "vlm_clip_tpu_torch.utils.logging, "
             "vlm_clip_tpu_torch.train.checkpoint, vlm_clip_tpu_torch.bridge; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'vlm_clip_tpu' or "

@@ -1,13 +1,17 @@
 """The plain PyTorch versions of the three fused adapter kernels (K1
-seq_adapter, K2 cross_attn_block, K3 prenorm_mlp) against the JAX
-package's Pallas kernels — run through the Pallas interpreter on the CPU,
-as tests/test_fused_ops.py runs them — and against its jnp composition,
-plus the wrappers' CPU dispatch.
+seq_adapter, K2 cross_attn_block, K3 prenorm_mlp), forward and backward,
+against the JAX package's Pallas kernels — run through the Pallas
+interpreter on the CPU, as tests/test_fused_ops.py runs them — and
+against its jnp composition, plus the wrappers' CPU dispatch.
 
-Tolerances: fp32 1e-5 absolute (same math, summation order differs);
-bf16 2e-2 absolute + relative (both sides round the same operands to
-bf16, so only a rounding flip from summation order separates them: about
-two bf16 ulps of values up to ~4).
+Tolerances: fp32 forward 1e-5 absolute (same math, summation order
+differs); fp32 gradients 1e-5 against autograd of the same plain forward
+and 1e-4 of the largest gradient against the Pallas backward (weight
+gradients sum over every row, in another order, and the Pallas kernels'
+GELU and GELU' come from an erf polynomial good to 1.5e-7); bf16 2e-2
+absolute + relative (both sides round the same operands to bf16, so only
+a rounding flip from summation order separates them: about two bf16 ulps
+of values up to ~4), for gradients 2e-2 of the largest one.
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import jax.numpy as jnp
 from vlm_clip_tpu.models import adapters as RA
 from vlm_clip_tpu.models import layers as RL
 from vlm_clip_tpu.ops import fused_adapter as RF
+from vlm_clip_tpu_torch.bridge import tree_leaves
 from vlm_clip_tpu_torch.models import adapters as A
 from vlm_clip_tpu_torch.ops import fused_adapter as F
 
@@ -117,7 +122,7 @@ def test_cross_modal_adapter_matches_pallas_and_jnp(layers):
     rng = np.random.default_rng(layers)
     text = jnp.asarray(rng.normal(size=(3, 7, 64)).astype(np.float32))
     image = jnp.asarray(rng.normal(size=(1, 5, 96)).astype(np.float32))
-    got, want_f, want_j = torch.from_numpy(np.asarray(text)), text, text
+    got, want_f, want_j = torch.tensor(np.asarray(text)), text, text
     for i in range(layers):
         p = RA.init_cross_modal_adapter(jax.random.PRNGKey(10 + i),
                                         text_dim=64, image_dim=96,
@@ -174,9 +179,11 @@ def test_cpu_dispatch_and_impl_choices():
     auto = A.seq_adapter(p, x)
     plain = A.seq_adapter(p, x, impl="torch")
     torch.testing.assert_close(auto, plain, rtol=0, atol=0)
-    assert F.launch_counts() == {"seq_adapter_fused": 0,
-                                 "cross_attn_block_fused": 0,
-                                 "prenorm_mlp_fused": 0}
+    assert not any(F.launch_counts().values())
+    # a gradient on the CPU comes from autograd of the plain version
+    xg = x.clone().requires_grad_(True)
+    A.seq_adapter(p, xg).sum().backward()
+    assert xg.grad is not None and not any(F.launch_counts().values())
     with pytest.raises(ValueError, match="CUDA"):
         A.seq_adapter(p, x, impl="kernel")
     with pytest.raises(ValueError, match="impl"):
@@ -210,3 +217,162 @@ def test_cross_modal_adapter_needs_batch_shared_image():
     with pytest.raises(ValueError, match="batch-shared"):
         A.cross_modal_adapter(p, torch.zeros(2, 3, 64), torch.zeros(2, 5, 96),
                               4)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _grad_close(got, want, rel, what):
+    """|got - want| <= rel * max|want|, with max|want| taken as at least
+    1e-2: a gradient that is zero in exact arithmetic (the key bias, to
+    which the softmax is invariant) comes out as rounding noise."""
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.detach().float().numpy()
+    assert got.shape == want.shape, what
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rel * max(np.abs(want).max(), 1e-2),
+                               err_msg=what)
+
+
+def _check_bwd(plain_fwd, plain_bwd, ref_fused, port_args, ref_args, names,
+               extra=(), ref_extra=(), rel=1e-4):
+    """The plain backward against autograd of the plain forward and
+    against jax.grad of the Pallas kernel, for the cotangent t."""
+    y = plain_fwd(*port_args, *extra)
+    t = np.random.default_rng(7).normal(size=tuple(y.shape)).astype(
+        np.float32)
+    g = torch.from_numpy(t).to(y.dtype)
+    got = plain_bwd(*port_args, g, *extra)
+    leaves = [a.detach().clone().requires_grad_(True) for a in port_args]
+    (plain_fwd(*leaves, *extra).float() * torch.from_numpy(t)).sum(
+        ).backward()
+    want = jax.grad(lambda *a: jnp.sum(ref_fused(*a, *ref_extra) * t),
+                    argnums=tuple(range(len(ref_args))))(*ref_args)
+    for name, gg, leaf, w in zip(names, got, leaves, want):
+        if port_args[0].dtype == torch.float32:
+            torch.testing.assert_close(gg, leaf.grad.to(gg.dtype),
+                                       atol=1e-5, rtol=1e-5, msg=name)
+        _grad_close(gg, w, rel, name)
+
+
+MLP_NAMES = "x w1 b1 w2 b2 ln_scale ln_bias".split()
+
+
+@pytest.mark.parametrize("n,d,k", [(8, 64, 16), (70, 64, 32)])
+def test_seq_adapter_grads_match_pallas(n, d, k):
+    args = _seq_args(n, d, k, seed=n + 1)
+    _check_bwd(F.seq_adapter_torch, F.seq_adapter_bwd_torch,
+               RF.seq_adapter_fused, list(map(torch.from_numpy, args)),
+               list(map(jnp.asarray, args)), MLP_NAMES)
+
+
+# (40, 64, 1024): the TPU kernel's 512-column hidden chunks
+@pytest.mark.parametrize("n,d,k", [(8, 64, 32), (40, 64, 1024)])
+def test_prenorm_mlp_grads_match_pallas(n, d, k):
+    args = _pnmlp_args(n, d, k, seed=k + 1)
+    _check_bwd(F.prenorm_mlp_torch, F.prenorm_mlp_bwd_torch,
+               RF.prenorm_mlp_fused, list(map(torch.from_numpy, args)),
+               list(map(jnp.asarray, args)), MLP_NAMES)
+
+
+def _pack(k, v, heads, seg):
+    """The reference's block-diagonal packing of k, v [Tk, H], so that
+    jax.grad reaches k and v through it."""
+    from jax.scipy.linalg import block_diag
+
+    Tk, H = k.shape
+    hd = H // heads
+    kT = jnp.pad(jnp.transpose(k.reshape(Tk, heads, hd), (1, 2, 0)),
+                 ((0, 0), (0, 0), (0, seg - Tk)))
+    vp = jnp.pad(jnp.transpose(v.reshape(Tk, heads, hd), (1, 0, 2)),
+                 ((0, 0), (0, seg - Tk), (0, 0)))
+    return (block_diag(*[kT[h] for h in range(heads)]),
+            block_diag(*[vp[h] for h in range(heads)]))
+
+
+CAB_NAMES = "x wt bt ln_scale ln_bias wq bq k v wo bo".split()
+
+
+def _cab_grad_case(n, din, h, heads, tk, dtype, seed):
+    _, port = _cab_case(n, din, h, heads, tk, seed=seed)
+    port = [a.detach() for a in port]
+    port[0], port[7], port[8] = (port[i].to(dtype) for i in (0, 7, 8))
+    ref = [jnp.asarray(a.float().numpy()).astype(
+        jnp.bfloat16 if (dtype == torch.bfloat16 and i in (0, 7, 8))
+        else jnp.float32) for i, a in enumerate(port)]
+
+    def ref_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo):
+        kbd, vbd = _pack(k, v, heads, RF.attn_seg(tk))
+        return RF.cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, kbd,
+                                         vbd, wo, bo, heads, tk)
+    return port, ref, ref_fused
+
+
+@pytest.mark.parametrize("n,din,h,heads,tk", [(21, 64, 64, 4, 5),
+                                              (40, 48, 64, 8, 13)])
+def test_cross_attn_block_grads_match_pallas(n, din, h, heads, tk):
+    port, ref, ref_fused = _cab_grad_case(n, din, h, heads, tk,
+                                          torch.float32, seed=n + 2)
+    _check_bwd(F.cross_attn_block_torch, F.cross_attn_block_bwd_torch,
+               ref_fused, port, ref, CAB_NAMES, extra=(heads,))
+
+
+def test_bf16_backward_rounding_points_match_pallas():
+    """bf16 x, fp32 params: the plain backwards round where the Pallas
+    backward kernels round (K1 none, K2/K3 every product operand)."""
+    for fwd, bwd, ref, args in (
+            (F.seq_adapter_torch, F.seq_adapter_bwd_torch,
+             RF.seq_adapter_fused, _seq_args(40, 64, 16, seed=3)),
+            (F.prenorm_mlp_torch, F.prenorm_mlp_bwd_torch,
+             RF.prenorm_mlp_fused, _pnmlp_args(40, 64, 256, seed=4))):
+        port = list(map(torch.from_numpy, args))
+        port[0] = port[0].bfloat16()
+        refa = [jnp.asarray(args[0], jnp.bfloat16)] + list(
+            map(jnp.asarray, args[1:]))
+        _check_bwd(fwd, bwd, ref, port, refa, MLP_NAMES, rel=BF16_TOL)
+    port, ref, ref_fused = _cab_grad_case(40, 64, 64, 4, 9,
+                                          torch.bfloat16, seed=5)
+    _check_bwd(F.cross_attn_block_torch, F.cross_attn_block_bwd_torch,
+               ref_fused, port, ref, CAB_NAMES, extra=(4,), rel=BF16_TOL)
+
+
+def test_cross_modal_adapter_grads_match_pallas():
+    """Gradients of the whole adapter (shared k/v in torch, K2, K3) with
+    respect to every adapter param and the text, over two stacked
+    layers, against impl='fused' of the reference: dk and dv reach
+    image_proj, norm1, attn.k and attn.v through the shared k/v."""
+    rng = np.random.default_rng(11)
+    text = rng.normal(size=(3, 7, 64)).astype(np.float32)
+    image = jnp.asarray(rng.normal(size=(1, 5, 96)).astype(np.float32))
+    t = rng.normal(size=(3, 7, 64)).astype(np.float32)
+    ps = [RA.init_cross_modal_adapter(jax.random.PRNGKey(20 + i),
+                                      text_dim=64, image_dim=96, hidden=64,
+                                      num_heads=4) for i in range(2)]
+
+    def ref_loss(ps, x):
+        for p in ps:
+            x = RA.cross_modal_adapter(p, x, image, 4, impl="fused")
+        return jnp.sum(x * t)
+
+    gp_want, gx_want = jax.grad(ref_loss, argnums=(0, 1))(
+        ps, jnp.asarray(text))
+    tps = [to_torch(p) for p in ps]
+    leaves = [q for p in tps for q in tree_leaves(p)]
+    for q in leaves:
+        q.requires_grad_(True)
+    x = torch.from_numpy(text).requires_grad_(True)
+    y = x
+    for p in tps:
+        y = A.cross_modal_adapter(p, y, torch.from_numpy(np.asarray(image)),
+                                  4)
+    (y * torch.from_numpy(t)).sum().backward()
+    _grad_close(x.grad, gx_want, 1e-4, "text")
+    for i, (p, gw) in enumerate(zip(tps, gp_want)):
+        want = jax.tree_util.tree_flatten_with_path(gw)[0]
+        got = jax.tree_util.tree_flatten_with_path(
+            jax.tree.map(lambda q: q.grad, p,
+                         is_leaf=lambda q: isinstance(q, torch.Tensor)))[0]
+        assert [a for a, _ in want] == [a for a, _ in got]
+        for (path, w), (_, g) in zip(want, got):
+            _grad_close(g, w, 1e-4, f"layer {i} {jax.tree_util.keystr(path)}")

@@ -24,6 +24,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list/tuple tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def tree_to_torch(np_tree: Any, device="cpu",
                   dtype: Optional[torch.dtype] = None) -> Any:
     """Array-like leaves -> tensors on ``device``; floating leaves are

@@ -1,0 +1,147 @@
+"""Where the pipeline-M train step's time goes on the card.
+
+Runs bench.py's step (ViT-B/16, adapters 256/256/2, FAST, Adam 3e-4, one
+fixed random batch, B=96 by default) with the kernels (``impl="auto"``)
+and with their plain versions (``impl="torch"``): per step the host-clock
+time over 10 steps after 3 warmup steps, then ``torch.profiler`` over 3
+steps for the device time by kernel, grouped. The device busy share is
+the device time of a profiled step (the union of its kernels' device
+intervals) over the host-clock time of an unprofiled one: the profiler's
+own host overhead stretches a profiled step.
+
+    python -m vlm_clip_tpu_torch.cli.profile_m_step [--batch-size 96]
+
+Needs a CUDA card; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+
+# kernel-name fragments -> group, first match wins
+GROUPS = (
+    ("K1 fwd", "seq_adapter_fwd"), ("K1 bwd", "seq_adapter_bwd"),
+    ("K2 fwd", "cross_attn_block_fwd"), ("K2 bwd", "cross_attn_block_bwd"),
+    ("K3 fwd", "prenorm_mlp_fwd"), ("K3 bwd", "prenorm_mlp_bwd"),
+    ("K1-K3 bwd weight grads", "wgrad_kernel"),
+    ("K1-K3 bwd column sums", "colsum_kernel"),
+    ("K4", "contrastive"),
+    ("cuBLAS/cuDNN products", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
+                               "nvjet")),
+    ("softmax", "softmax"), ("reductions", "reduce"),
+    ("elementwise and copies", ("elementwise", "copy", "fill", "index",
+                                "cat", "memcpy", "memset")),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, frags in GROUPS:
+        frags = (frags,) if isinstance(frags, str) else frags
+        if any(f in low for f in frags):
+            return group
+    return "other"
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile(step, state, batch, n: int = 3):
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device kernels")
+    by_group = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        g = by_group[_group(e.name)]
+        g[0] += e.time_range.elapsed_us()
+        g[1] += 1
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in kernels])
+    return state, busy / n / 1e3, len(kernels) / n, {
+        k: (v[0] / n / 1e3, v[1] / n) for k, v in by_group.items()}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--batch-size", type=int, default=96)
+    args = p.parse_args(argv)
+    import torch
+
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.core.dtypes import FAST
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.train import optim
+    from vlm_clip_tpu_torch.train.steps import (init_train_state,
+                                                make_m_train_step)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_m_step needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    B, dev = args.batch_size, torch.device("cuda")
+    cfg = clip_preset("vit-base-patch16")
+    acfg = AdapterConfig(text_adapter_size=256, vision_adapter_size=256,
+                         shared_adapter_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    clip = init_clip(gen, cfg, device=dev)
+    batch = {
+        "input_ids": torch.randint(1, cfg.text.vocab_size, (B, 77),
+                                   generator=gen, device=dev),
+        "attention_mask": torch.ones(B, 77, dtype=torch.int32, device=dev),
+        "pixel_values": torch.randn(
+            B, 3, cfg.vision.image_size, cfg.vision.image_size,
+            generator=gen, device=dev).to(torch.bfloat16),
+    }
+    tx = optim.adam(3e-4)
+    for impl in ("auto", "torch", "auto", "torch"):
+        state = init_train_state(torch.Generator(device=dev).manual_seed(1),
+                                 cfg, acfg, tx, clip_params=clip,
+                                 device=dev)
+        step = make_m_train_step(cfg, acfg, tx, FAST, freeze_clip=True,
+                                 impl=impl)
+        for _ in range(3):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, m = step(state, batch)
+        float(m.loss)
+        ms = (time.perf_counter() - t0) * 100
+        state, dev_ms, launches, groups = profile(step, state, batch)
+        label = "kernels" if impl == "auto" else "plain versions"
+        print(f"\n{label}: step {ms:.2f} ms ({B * 1e3 / ms:.1f} pairs/s), "
+              f"device time {dev_ms:.2f} ms a step, device busy "
+              f"{100 * min(dev_ms / ms, 1.0):.1f}%, {launches:.0f} device "
+              f"kernels a step", flush=True)
+        for g, (gms, cnt) in sorted(groups.items(),
+                                    key=lambda kv: -kv[1][0]):
+            print(f"  {g:28s} {gms:8.3f} ms  {cnt:6.0f} launches",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

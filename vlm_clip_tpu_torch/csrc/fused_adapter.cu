@@ -87,57 +87,73 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Matmul of the block's row tile against a slice of a row-major weight:
-//   acc[i][j] = sum_{k < kd} A[(ty*4 + i)*lda + k] * W[k*ldw + col0 + tx + 32*j]
-// with ty = warp, tx = lane. A is a [ROWS, >= kd] fp32 tile in shared
+// Matmul of the block's row tile against a slice of a weight:
+//   acc[i][j] = sum_{k < kd} A[(ty*RPW + i)*lda + k] * W(k, col0 + tx + 32*j)
+// with ty = warp, tx = lane, W(k, c) = W[k*ldw + c] (row-major weight) or,
+// when TR, W[c*ldw + k] (the product with the weight's transpose, as the
+// backward kernels need). A is a [RPW*8, >= kd] fp32 tile in shared
 // memory, rounded to TA as it is read when RA. W lies in global memory
-// and is staged through `slab` (KC x 32*NJ floats); columns at or past
+// and is staged through `slab` (KC x 32*NJ floats, one more per row when
+// TR so the transposing store hits distinct banks); columns at or past
 // ncols read as 0. Starts with a barrier, so writes made to A before the
 // call are visible; leaves `slab` in use until the next call's barrier.
-template <int NJ, bool RA, typename TA, typename TW>
+template <int NJ, bool RA, typename TA, bool TR = false, int RPW = 4,
+          typename TW = float>
 __device__ __forceinline__ void tile_gemm(const float* A, int lda, int kd,
                                           const TW* __restrict__ W, int ldw,
                                           int col0, int ncols, float* slab,
-                                          float (&acc)[4][NJ]) {
+                                          float (&acc)[RPW][NJ]) {
   constexpr int NC = 32 * NJ;
+  constexpr int SLD = TR ? NC + 1 : NC;
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RPW; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const float* a_rows = A + (ty * 4) * lda;
+  const float* a_rows = A + (ty * RPW) * lda;
   for (int k0 = 0; k0 < kd; k0 += KC) {
     __syncthreads();
-    for (int e = tid; e < KC * NC; e += NT) {
-      const int kk = e / NC, c = e % NC;
-      const int k = k0 + kk, col = col0 + c;
-      slab[e] = (k < kd && col < ncols) ? to_f(W[(size_t)k * ldw + col]) : 0.f;
+    if (TR) {
+      // neighbouring threads read neighbouring k (contiguous in W)
+      for (int e = tid; e < KC * NC; e += NT) {
+        const int kk = e % KC, c = e / KC;
+        const int k = k0 + kk, col = col0 + c;
+        slab[kk * SLD + c] =
+            (k < kd && col < ncols) ? to_f(W[(size_t)col * ldw + k]) : 0.f;
+      }
+    } else {
+      for (int e = tid; e < KC * NC; e += NT) {
+        const int kk = e / NC, c = e % NC;
+        const int k = k0 + kk, col = col0 + c;
+        slab[e] = (k < kd && col < ncols) ? to_f(W[(size_t)k * ldw + col])
+                                          : 0.f;
+      }
     }
     __syncthreads();
     const int kn = min(KC, kd - k0);
 #pragma unroll 4
     for (int kk = 0; kk < kn; ++kk) {
-      float a[4], w[NJ];
+      float a[RPW], w[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RPW; ++i) {
         a[i] = a_rows[i * lda + k0 + kk];
         if (RA) a[i] = round_to<TA>(a[i]);
       }
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) w[j] = slab[kk * NC + tx + 32 * j];
+      for (int j = 0; j < NJ; ++j) w[j] = slab[kk * SLD + tx + 32 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
   }
 }
 
-// x rows [r0, r0 + ROWS) -> fp32 tile X (ld = ldx); rows past n are 0.
-template <typename T>
+// x rows [r0, r0 + R) -> fp32 tile X (ld = ldx); rows past n are 0.
+template <typename T, int R = ROWS>
 __device__ void load_rows(const T* __restrict__ x, int n, int h, int r0,
                           float* X, int ldx) {
-  for (int e = threadIdx.x; e < ROWS * h; e += NT) {
+  for (int e = threadIdx.x; e < R * h; e += NT) {
     const int r = e / h, c = e % h;
     X[r * ldx + c] = (r0 + r < n) ? to_f(x[(size_t)(r0 + r) * h + c]) : 0.f;
   }
@@ -383,6 +399,654 @@ __global__ void __launch_bounds__(NT)
   store_rows(U, h, y, r0, n);
 }
 
+// ===========================================================================
+// Backward kernels
+// ===========================================================================
+//
+// The TPU kernels accumulate the weight gradients across their sequential
+// grid in VMEM (dW_ref[:] += ...). Hopper blocks run in no order, so each
+// backward is split in two deterministic passes (no atomics):
+//
+//   1. a row pass, one block per row tile: recompute the forward (nothing
+//      but the inputs is saved), write dx, write the per-row operands of
+//      each weight-gradient product to device memory, rounded where the
+//      TPU kernel rounds them, and write the tile's column sums of each
+//      vector gradient (biases, LN scale/shift) to a [tiles, V] buffer;
+//   2. wgrad_kernel, shared by K1-K3: out = A^T B summed over all rows
+//      (fp32), one 64x64 output tile per block, the rows split in chunks
+//      when the output tiles alone cannot fill the card, the chunks'
+//      partials then summed in chunk order; and colsum_kernel: the
+//      [tiles, V] partials summed in tile order.
+//
+// The row passes are bound on the H100 by their fp32 FMAs (the same
+// 32-row SIMT tiles as the forward, about twice the forward's products);
+// the intermediates they write (K2: about 12 KB a row in bf16) cost
+// device-memory bandwidth a fused tensor-core version would not spend.
+
+constexpr int SLAB_T = KC * (128 + 1);  // slab that also takes TR loads
+constexpr int R2 = 16;                  // rows per block in K2's backward
+
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+  // d/dv of 0.5 v (1 + erf(v / sqrt 2)) = Phi(v) + v phi(v), exactly
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
+// Per-row mean and 1/std of an fp32 tile Z (R rows, ld = ldz, width h),
+// one warp per row, as the forward's LN takes them.
+template <int R>
+__device__ void row_stats(const float* Z, int ldz, int h, float eps,
+                          float* mean, float* inv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < R; r += NT / 32) {
+    const float* z = Z + r * ldz;
+    float s = 0.f;
+    for (int c = lane; c < h; c += 32) s += z[c];
+    const float m = warp_sum(s) / h;
+    float v = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float d = z[c] - m;
+      v += d * d;
+    }
+    const float iv = rsqrtf(warp_sum(v) / h + eps);
+    if (lane == 0) {
+      mean[r] = m;
+      inv[r] = iv;
+    }
+  }
+}
+
+// out[c] = sum over the first nv rows of tile X (ld = ldx), c < w.
+__device__ void col_sums(const float* X, int ldx, int w, int nv,
+                         float* __restrict__ out) {
+  for (int c = threadIdx.x; c < w; c += NT) {
+    float s = 0.f;
+    for (int r = 0; r < nv; ++r) s += X[r * ldx + c];
+    out[c] = s;
+  }
+}
+
+// fp32 tile (R rows, ld = ldx) -> rows [r0, r0 + nv) of y [., w] in T.
+template <typename T, int R>
+__device__ void store_tile(const float* X, int ldx, int w, int nv,
+                           T* __restrict__ y, int r0) {
+  for (int e = threadIdx.x; e < R * w; e += NT) {
+    const int r = e / w, c = e % w;
+    if (r < nv) y[(size_t)(r0 + r) * w + c] = from_f<T>(X[r * ldx + c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 backward (replaces _seq_bwd_kernel, fused_adapter.py:328): fp32 math.
+// Writes dx (when asked), h = gelu(pre) [n, k], dpre [n, k], dz [n, h] in
+// fp32 for dW1 = x^T dpre and dW2 = h^T dz, and per tile the column sums
+// [db1 (k) | db2 (h) | dls = sum g*xhat (h) | dlb = sum g (h)].
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    seq_adapter_bwd_kernel(const T* __restrict__ x,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ b1,
+                           const float* __restrict__ w2,
+                           const float* __restrict__ b2,
+                           const float* __restrict__ ls,
+                           const T* __restrict__ g, float eps,
+                           T* __restrict__ dx, float* __restrict__ h_out,
+                           float* __restrict__ dpre_out,
+                           float* __restrict__ dz_out,
+                           float* __restrict__ part, int n, int h, int k) {
+  extern __shared__ float smem[];
+  float* X = smem;              // [ROWS][h]: x, z, xhat, then dz
+  float* P = X + ROWS * h;      // [ROWS][k]: pre
+  float* Hs = P + ROWS * k;     // [ROWS][k]: gelu(pre), then dpre
+  float* slab = Hs + ROWS * k;  // SLAB_T
+  float* mean = slab + SLAB_T;  // [ROWS]
+  float* inv = mean + ROWS;     // [ROWS]
+  const int r0 = blockIdx.x * ROWS, nv = min(ROWS, n - r0);
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int lane = tx, warp = ty;
+  float* pt = part + (size_t)blockIdx.x * (k + 3 * h);
+  float acc[4][4];
+
+  load_rows(x, n, h, r0, X, h);
+  // pre = x @ W1 + b1; h = gelu(pre)
+  for (int c0 = 0; c0 < k; c0 += 128) {
+    tile_gemm<4, false, float>(X, h, h, w1, k, c0, k, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 4 + i, c = c0 + tx + 32 * j;
+        const float pre = acc[i][j] + b1[c];
+        const float hv = gelu_erf(pre);
+        P[r * k + c] = pre;
+        Hs[r * k + c] = hv;
+        if (r < nv) h_out[(size_t)(r0 + r) * k + c] = hv;
+      }
+  }
+  // z = x + h @ W2 + b2
+  for (int c0 = 0; c0 < h; c0 += 128) {
+    tile_gemm<4, false, float>(Hs, k, k, w2, h, c0, h, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* z = &X[(ty * 4 + i) * h + c0 + tx + 32 * j];
+        *z = (*z + acc[i][j]) + b2[c0 + tx + 32 * j];
+      }
+  }
+  __syncthreads();
+  row_stats<ROWS>(X, h, h, eps, mean, inv);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ROWS * h; e += NT) {
+    const int r = e / h;
+    X[e] = (X[e] - mean[r]) * inv[r];  // xhat
+  }
+  __syncthreads();
+  // dls = sum g * xhat, dlb = sum g
+  for (int c = threadIdx.x; c < h; c += NT) {
+    float sgx = 0.f, sg = 0.f;
+    for (int r = 0; r < nv; ++r) {
+      const float gv = to_f(g[(size_t)(r0 + r) * h + c]);
+      sgx += gv * X[r * h + c];
+      sg += gv;
+    }
+    pt[k + h + c] = sgx;
+    pt[k + 2 * h + c] = sg;
+  }
+  __syncthreads();
+  // LN backward, one warp per row: dz = inv (gx - mean(gx) - xhat
+  // mean(gx xhat)), gx = g ls; rows past n have g = 0, so dz = 0
+  for (int r = warp; r < ROWS; r += NT / 32) {
+    float* z = X + r * h;
+    const T* gr = g + (size_t)(r0 + r) * h;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float gx = (r < nv ? to_f(gr[c]) : 0.f) * ls[c];
+      s1 += gx;
+      s2 += gx * z[c];
+    }
+    const float m1 = warp_sum(s1) / h, m2 = warp_sum(s2) / h;
+    for (int c = lane; c < h; c += 32) {
+      const float gx = (r < nv ? to_f(gr[c]) : 0.f) * ls[c];
+      const float dz = inv[r] * (gx - m1 - z[c] * m2);
+      z[c] = dz;
+      if (r < nv) dz_out[(size_t)(r0 + r) * h + c] = dz;
+    }
+  }
+  __syncthreads();
+  col_sums(X, h, h, nv, pt + k);  // db2
+  // dh = dz @ W2^T; dpre = dh * gelu'(pre)
+  for (int c0 = 0; c0 < k; c0 += 128) {
+    tile_gemm<4, false, float, true>(X, h, h, w2, h, c0, k, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 4 + i, c = c0 + tx + 32 * j;
+        const float dp = acc[i][j] * gelu_erf_grad(P[r * k + c]);
+        Hs[r * k + c] = dp;
+        if (r < nv) dpre_out[(size_t)(r0 + r) * k + c] = dp;
+      }
+  }
+  __syncthreads();
+  col_sums(Hs, k, k, nv, pt);  // db1
+  if (dx == nullptr) return;
+  // dx = dz + dpre @ W1^T
+  for (int c0 = 0; c0 < h; c0 += 128) {
+    tile_gemm<4, false, float, true>(Hs, k, k, w1, k, c0, h, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 4 + i, c = c0 + tx + 32 * j;
+        if (r < nv)
+          dx[(size_t)(r0 + r) * h + c] = from_f<T>(X[r * h + c] + acc[i][j]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 backward (replaces _pnmlp_bwd_kernel, fused_adapter.py:550): matmul
+// operands in T, fp32 accumulation, the 4H hidden walked in 128-column
+// chunks. Writes dx, um = round(LN(x)) [n, h], hm = round(gelu(pre))
+// [n, k], dpm = round(dpre) [n, k] (dW1 = um^T dpm, dW2 = hm^T g), and per
+// tile [db1 = sum dpre (k) | db2 = sum g (h) | dls = sum du xhat (h) |
+// dlb = sum du (h)].
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    prenorm_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                           const float* __restrict__ b1,
+                           const T* __restrict__ w2,
+                           const float* __restrict__ ls,
+                           const float* __restrict__ lb,
+                           const T* __restrict__ g, float eps,
+                           T* __restrict__ dx, T* __restrict__ um_out,
+                           T* __restrict__ hm_out, T* __restrict__ dpm_out,
+                           float* __restrict__ part, int n, int h, int k) {
+  extern __shared__ float smem[];
+  float* U = smem;               // [ROWS][h]: round(LN(x))
+  float* G = U + ROWS * h;       // [ROWS][h]: g
+  float* DU = G + ROWS * h;      // [ROWS][h]: x, then the du accumulator
+  float* P = DU + ROWS * h;      // [ROWS][128]: pre, dpre, round(dpre)
+  float* slab = P + ROWS * 128;  // SLAB_T
+  float* mean = slab + SLAB_T;   // [ROWS]
+  float* inv = mean + ROWS;      // [ROWS]
+  const int r0 = blockIdx.x * ROWS, nv = min(ROWS, n - r0);
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int lane = tx, warp = ty;
+  float* pt = part + (size_t)blockIdx.x * (k + 3 * h);
+  float acc[4][4];
+
+  load_rows(x, n, h, r0, DU, h);
+  load_rows(g, n, h, r0, G, h);
+  __syncthreads();
+  row_stats<ROWS>(DU, h, h, eps, mean, inv);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ROWS * h; e += NT) {
+    const int r = e / h, c = e % h;
+    U[e] = round_to<T>((DU[e] - mean[r]) * inv[r] * ls[c] + lb[c]);
+    DU[e] = 0.f;
+  }
+  __syncthreads();
+  store_tile<T, ROWS>(U, h, h, nv, um_out, r0);
+  for (int k0 = 0; k0 < k; k0 += 128) {
+    // this chunk's pre = um @ W1[:, k0:k0+128] + b1
+    tile_gemm<4, false, T>(U, h, h, w1, k, k0, k, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 32 * j;
+        P[(ty * 4 + i) * 128 + c] = acc[i][j] + b1[k0 + c];
+      }
+    // dh = g @ W2[k0:k0+128, :]^T; dpre = dh * gelu'(pre)
+    tile_gemm<4, false, T, true>(G, h, h, w2 + (size_t)k0 * h, h, 0, 128,
+                                 slab, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 4 + i, c = tx + 32 * j;
+        const float pre = P[r * 128 + c];
+        const float dp = acc[i][j] * gelu_erf_grad(pre);
+        P[r * 128 + c] = dp;
+        if (r < nv) {
+          const size_t at = (size_t)(r0 + r) * k + k0 + c;
+          hm_out[at] = from_f<T>(gelu_erf(pre));
+          dpm_out[at] = from_f<T>(dp);
+        }
+      }
+    __syncthreads();
+    col_sums(P, 128, 128, nv, pt + k0);  // db1, before rounding
+    __syncthreads();
+    for (int e = threadIdx.x; e < ROWS * 128; e += NT)
+      P[e] = round_to<T>(P[e]);
+    // du += dpm @ W1[:, k0:k0+128]^T
+    for (int c0 = 0; c0 < h; c0 += 128) {
+      tile_gemm<4, false, T, true>(P, 128, 128, w1 + k0, k, c0, h, slab,
+                                   acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          DU[(ty * 4 + i) * h + c0 + tx + 32 * j] += acc[i][j];
+    }
+  }
+  __syncthreads();
+  // db2 = sum g, dls = sum du xhat, dlb = sum du (xhat again from x)
+  for (int c = threadIdx.x; c < h; c += NT) {
+    float sg = 0.f, sdx = 0.f, sd = 0.f;
+    for (int r = 0; r < nv; ++r) {
+      const float xh =
+          (to_f(x[(size_t)(r0 + r) * h + c]) - mean[r]) * inv[r];
+      sg += G[r * h + c];
+      sdx += DU[r * h + c] * xh;
+      sd += DU[r * h + c];
+    }
+    pt[k + c] = sg;
+    pt[k + h + c] = sdx;
+    pt[k + 2 * h + c] = sd;
+  }
+  if (dx == nullptr) return;
+  // LN backward, one warp per row; dx = g + dx_ln, cast once at the end
+  for (int r = warp; r < nv; r += NT / 32) {
+    const T* xr = x + (size_t)(r0 + r) * h;
+    const float* du = DU + r * h;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float xh = (to_f(xr[c]) - mean[r]) * inv[r];
+      const float d = du[c] * ls[c];
+      s1 += d;
+      s2 += d * xh;
+    }
+    const float m1 = warp_sum(s1) / h, m2 = warp_sum(s2) / h;
+    for (int c = lane; c < h; c += 32) {
+      const float xh = (to_f(xr[c]) - mean[r]) * inv[r];
+      const float d = du[c] * ls[c];
+      dx[(size_t)(r0 + r) * h + c] =
+          from_f<T>(G[r * h + c] + inv[r] * (d - m1 - xh * m2));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 backward (replaces _cab_bwd_kernel, fused_adapter.py:807), per head
+// against k, v [Tk, H] with the forward's per-head softmax max; operands
+// rounded to T where the TPU kernel rounds them. 16-row tiles (the block
+// keeps seven [16, H]-sized tiles). Writes dx, um, qm, om, dom, dqm, dtm
+// [n, h] and pm, dsm [n, heads*tk] in T for dWo = om^T g, dv_h = pm_h^T
+// dom_h, dk_h = dsm_h^T qm_h, dWq = um^T dqm and dWt = x^T dtm; per tile
+// [dbo = sum g | dbq = sum dqp | dls = sum du xhat | dlb = sum du |
+// dbt = sum dt], each h wide.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ wt,
+    const float* __restrict__ bt, const float* __restrict__ ls,
+    const float* __restrict__ lb, const T* __restrict__ wq,
+    const float* __restrict__ bq, const T* __restrict__ kk,
+    const T* __restrict__ v, const T* __restrict__ wo,
+    const T* __restrict__ g, float eps, float scale, T* __restrict__ dx,
+    T* __restrict__ um_out, T* __restrict__ qm_out, T* __restrict__ om_out,
+    T* __restrict__ dom_out, T* __restrict__ pm_out, T* __restrict__ dsm_out,
+    T* __restrict__ dqm_out, T* __restrict__ dtm_out,
+    float* __restrict__ part, int n, int din, int h, int tk) {
+  extern __shared__ float smem[];
+  const int ldq = max(din, h);
+  float* B1 = smem;               // [R2][ldq]: x, then qm
+  float* U = B1 + R2 * ldq;       // [R2][h]: t, then xhat
+  float* B2 = U + R2 * h;         // [R2][h]: um, then g, then du
+  float* B3 = B2 + R2 * h;        // [R2][h]: dom, then dt / dtm
+  float* B4 = B3 + R2 * h;        // [R2][h]: dqp, then dqm
+  float* S = B4 + R2 * h;         // [R2][SMAX]: scores, probs, dsm
+  float* DP = S + R2 * SMAX;      // [R2][SMAX]: dprobs
+  float* slab = DP + R2 * SMAX;   // SLAB_T
+  float* mean = slab + SLAB_T;    // [R2]
+  float* inv = mean + R2;         // [R2]
+  const int r0 = blockIdx.x * R2, nv = min(R2, n - r0);
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int lane = tx, warp = ty;
+  const int heads = h / 64, hsz = heads * tk;
+  float* pt = part + (size_t)blockIdx.x * 5 * h;
+  float acc[2][4];
+  float acc2[2][2];
+
+  load_rows<T, R2>(x, n, din, r0, B1, ldq);
+  // t = x @ Wt + bt
+  for (int c0 = 0; c0 < h; c0 += 128) {
+    tile_gemm<4, false, T>(B1, ldq, din, wt, h, c0, h, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 32 * j;
+        U[(ty * 2 + i) * h + c] = acc[i][j] + bt[c];
+      }
+  }
+  __syncthreads();
+  row_stats<R2>(U, h, h, eps, mean, inv);
+  __syncthreads();
+  for (int e = threadIdx.x; e < R2 * h; e += NT) {
+    const int r = e / h, c = e % h;
+    const float xh = (U[e] - mean[r]) * inv[r];
+    U[e] = xh;
+    B2[e] = round_to<T>(xh * ls[c] + lb[c]);  // um
+  }
+  __syncthreads();
+  store_tile<T, R2>(B2, h, h, nv, um_out, r0);
+  // qm = round(um @ Wq + bq), over x (no longer read)
+  for (int c0 = 0; c0 < h; c0 += 128) {
+    tile_gemm<4, false, T>(B2, h, h, wq, h, c0, h, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 32 * j;
+        B1[(ty * 2 + i) * ldq + c] = round_to<T>(acc[i][j] + bq[c]);
+      }
+  }
+  __syncthreads();
+  store_tile<T, R2>(B1, ldq, h, nv, qm_out, r0);
+  load_rows<T, R2>(g, n, h, r0, B2, h);
+  // dom = round(g @ Wo^T)
+  for (int c0 = 0; c0 < h; c0 += 128) {
+    tile_gemm<4, false, T, true>(B2, h, h, wo, h, c0, h, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        B3[(ty * 2 + i) * h + c0 + tx + 32 * j] = round_to<T>(acc[i][j]);
+  }
+  __syncthreads();
+  store_tile<T, R2>(B3, h, h, nv, dom_out, r0);
+  for (int hd = 0; hd < heads; ++hd) {
+    const int ho = hd * 64;
+    // scores = q_h . k_h^T * scale, -inf past tk
+    for (int c0 = 0; c0 < SMAX; c0 += 128) {
+      tile_gemm<4, false, T, true>(B1 + ho, ldq, 64, kk + ho, h, c0, tk,
+                                   slab, acc);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + tx + 32 * j;
+          S[(ty * 2 + i) * SMAX + c] =
+              (c < tk) ? acc[i][j] * scale : -INFINITY;
+        }
+    }
+    __syncthreads();
+    // per-head softmax in fp32, one warp per row (probs kept in fp32)
+    for (int r = warp; r < R2; r += NT / 32) {
+      float* s = S + r * SMAX;
+      float m = -INFINITY;
+      for (int c = lane; c < tk; c += 32) m = fmaxf(m, s[c]);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int c = lane; c < tk; c += 32) {
+        const float e = expf(s[c] - m);
+        s[c] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int c = lane; c < tk; c += 32) {
+        s[c] = s[c] / sum;
+        if (r < nv)
+          pm_out[(size_t)(r0 + r) * hsz + hd * tk + c] = from_f<T>(s[c]);
+      }
+    }
+    // o_h = round(probs) @ v_h -> om (dWo's operand)
+    tile_gemm<2, true, T>(S, SMAX, tk, v + ho, h, 0, 64, slab, acc2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = ty * 2 + i;
+        if (r < nv)
+          om_out[(size_t)(r0 + r) * h + ho + tx + 32 * j] =
+              from_f<T>(acc2[i][j]);
+      }
+    // dprobs = dom_h @ v_h^T
+    for (int c0 = 0; c0 < SMAX; c0 += 128) {
+      tile_gemm<4, false, T, true>(B3 + ho, h, 64, v + ho, h, c0, tk, slab,
+                                   acc);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          DP[(ty * 2 + i) * SMAX + c0 + tx + 32 * j] = acc[i][j];
+    }
+    __syncthreads();
+    // ds = probs (dprobs - <dprobs, probs>) * scale, rounded
+    for (int r = warp; r < R2; r += NT / 32) {
+      float* s = S + r * SMAX;
+      const float* dp = DP + r * SMAX;
+      float in = 0.f;
+      for (int c = lane; c < tk; c += 32) in += dp[c] * s[c];
+      in = warp_sum(in);
+      for (int c = lane; c < tk; c += 32) {
+        s[c] = round_to<T>((s[c] * (dp[c] - in)) * scale);
+        if (r < nv)
+          dsm_out[(size_t)(r0 + r) * hsz + hd * tk + c] = from_f<T>(s[c]);
+      }
+    }
+    // dqp_h = dsm @ k_h (fp32; dbq sums it before rounding)
+    tile_gemm<2, false, T>(S, SMAX, tk, kk + ho, h, 0, 64, slab, acc2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        B4[(ty * 2 + i) * h + ho + tx + 32 * j] = acc2[i][j];
+  }
+  __syncthreads();
+  col_sums(B2, h, h, nv, pt);      // dbo = sum g
+  col_sums(B4, h, h, nv, pt + h);  // dbq = sum dqp
+  __syncthreads();
+  for (int e = threadIdx.x; e < R2 * h; e += NT) B4[e] = round_to<T>(B4[e]);
+  __syncthreads();
+  store_tile<T, R2>(B4, h, h, nv, dqm_out, r0);
+  // du = g + dqm @ Wq^T
+  for (int c0 = 0; c0 < h; c0 += 128) {
+    tile_gemm<4, false, T, true>(B4, h, h, wq, h, c0, h, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        B2[(ty * 2 + i) * h + c0 + tx + 32 * j] += acc[i][j];
+  }
+  __syncthreads();
+  // dls = sum du xhat, dlb = sum du
+  for (int c = threadIdx.x; c < h; c += NT) {
+    float sdx = 0.f, sd = 0.f;
+    for (int r = 0; r < nv; ++r) {
+      sdx += B2[r * h + c] * U[r * h + c];
+      sd += B2[r * h + c];
+    }
+    pt[2 * h + c] = sdx;
+    pt[3 * h + c] = sd;
+  }
+  // LN backward, one warp per row: dt (fp32) into B3
+  for (int r = warp; r < R2; r += NT / 32) {
+    const float* du = B2 + r * h;
+    const float* xh = U + r * h;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float d = du[c] * ls[c];
+      s1 += d;
+      s2 += d * xh[c];
+    }
+    const float m1 = warp_sum(s1) / h, m2 = warp_sum(s2) / h;
+    for (int c = lane; c < h; c += 32)
+      B3[r * h + c] = inv[r] * (du[c] * ls[c] - m1 - xh[c] * m2);
+  }
+  __syncthreads();
+  col_sums(B3, h, h, nv, pt + 4 * h);  // dbt = sum dt
+  __syncthreads();
+  for (int e = threadIdx.x; e < R2 * h; e += NT) B3[e] = round_to<T>(B3[e]);
+  __syncthreads();
+  store_tile<T, R2>(B3, h, h, nv, dtm_out, r0);
+  if (dx == nullptr) return;
+  // dx = dtm @ Wt^T
+  for (int c0 = 0; c0 < din; c0 += 128) {
+    tile_gemm<4, false, T, true>(B3, h, h, wt, h, c0, din, slab, acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 2 + i, c = c0 + tx + 32 * j;
+        if (r < nv && c < din)
+          dx[(size_t)(r0 + r) * din + c] = from_f<T>(acc[i][j]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradients: out[z*so + a*ldo + b] = sum_{r < n} A[r*lda + z*sa + a]
+// * B[r*ldb + z*sb + b] for a < P, b < Q, in fp32. One 64x64 output tile
+// per block (16x16 threads, 4x4 each); 32 rows of A and B staged through
+// shared memory per step. A few dozen output tiles cannot fill 132 SMs,
+// so the rows are also split in `splits` consecutive chunks: block
+// (x, y, s*Z + z) sums chunk s in row order into out + s*split_stride,
+// and split_sum_kernel then adds the chunks' partials in chunk order. The
+// result does not depend on the launch order of the blocks.
+// ---------------------------------------------------------------------------
+constexpr int WR = 32;
+
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(NT)
+    wgrad_kernel(const TA* __restrict__ A, int lda, int sa,
+                 const TB* __restrict__ B, int ldb, int sb,
+                 float* __restrict__ out, int ldo, int so, int n, int P,
+                 int Q, int nz, int chunk, size_t split_stride) {
+  __shared__ float As[WR][64];
+  __shared__ float Bs[WR][64];
+  const int z = blockIdx.z % nz, split = blockIdx.z / nz;
+  const int a0 = blockIdx.y * 64, b0 = blockIdx.x * 64;
+  const int rbeg = split * chunk, rend = min(n, rbeg + chunk);
+  A += (size_t)z * sa;
+  B += (size_t)z * sb;
+  out += (size_t)z * so + split * split_stride;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int r0 = rbeg; r0 < rend; r0 += WR) {
+    __syncthreads();
+    for (int e = tid; e < WR * 64; e += NT) {
+      const int rr = e / 64, c = e % 64, r = r0 + rr;
+      As[rr][c] = (r < rend && a0 + c < P)
+                      ? to_f(A[(size_t)r * lda + a0 + c]) : 0.f;
+      Bs[rr][c] = (r < rend && b0 + c < Q)
+                      ? to_f(B[(size_t)r * ldb + b0 + c]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < WR; ++rr) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[rr][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[rr][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = a0 + ty + 16 * i, b = b0 + tx + 16 * j;
+      if (a < P && b < Q) out[(size_t)a * ldo + b] = acc[i][j];
+    }
+}
+
+// out[e] = sum over s < splits of part[s*m + e], in split order.
+__global__ void __launch_bounds__(NT)
+    split_sum_kernel(const float* __restrict__ part, int splits, size_t m,
+                     float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (e >= m) return;
+  float s = 0.f;
+  for (int t = 0; t < splits; ++t) s += part[(size_t)t * m + e];
+  out[e] = s;
+}
+
+// out[c] = sum over t < tiles of part[t*v + c], in tile order.
+__global__ void __launch_bounds__(NT)
+    colsum_kernel(const float* __restrict__ part, int tiles, int v,
+                  float* __restrict__ out) {
+  const int c = blockIdx.x * NT + threadIdx.x;
+  if (c >= v) return;
+  float s = 0.f;
+  for (int t = 0; t < tiles; ++t) s += part[(size_t)t * v + c];
+  out[c] = s;
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel.
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
@@ -491,6 +1155,161 @@ int vct_cross_attn_block_fwd(int bf16, const void* x, const void* wt,
         (const T*)kt, (const T*)v, (const T*)wo, fbo, eps, scale, (T*)y, n,
         din, h, tk);
   }
+  return (int)cudaGetLastError();
+}
+
+size_t vct_seq_adapter_bwd_smem(int h, int k) {
+  return sizeof(float) *
+         ((size_t)ROWS * h + 2 * (size_t)ROWS * k + SLAB_T + 2 * ROWS);
+}
+size_t vct_prenorm_mlp_bwd_smem(int h) {
+  return sizeof(float) *
+         (3 * (size_t)ROWS * h + ROWS * 128 + SLAB_T + 2 * ROWS);
+}
+size_t vct_cross_attn_block_bwd_smem(int din, int h) {
+  const size_t ldq = din > h ? din : h;
+  return sizeof(float) * (R2 * ldq + 4 * (size_t)R2 * h + 2 * R2 * SMAX +
+                          SLAB_T + 2 * R2);
+}
+
+int vct_seq_adapter_bwd(int bf16, const void* x, const void* w1,
+                        const void* b1, const void* w2, const void* b2,
+                        const void* ls, const void* g, float eps, void* dx,
+                        void* h_out, void* dpre_out, void* dz_out,
+                        void* part, int n, int h, int k, void* stream) {
+  const size_t smem = vct_seq_adapter_bwd_smem(h, k);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid = grid_for(n);
+  const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
+              *fw2 = (const float*)w2, *fb2 = (const float*)b2,
+              *fls = (const float*)ls;
+  float *fh = (float*)h_out, *fdp = (float*)dpre_out, *fdz = (float*)dz_out,
+        *fpt = (float*)part;
+  int err;
+  if (bf16) {
+    typedef __nv_bfloat16 T;
+    auto kern = seq_adapter_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<grid, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, fls,
+                                 (const T*)g, eps, (T*)dx, fh, fdp, fdz, fpt,
+                                 n, h, k);
+  } else {
+    typedef float T;
+    auto kern = seq_adapter_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<grid, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, fls,
+                                 (const T*)g, eps, (T*)dx, fh, fdp, fdz, fpt,
+                                 n, h, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+int vct_prenorm_mlp_bwd(int bf16, const void* x, const void* w1,
+                        const void* b1, const void* w2, const void* ls,
+                        const void* lb, const void* g, float eps, void* dx,
+                        void* um_out, void* hm_out, void* dpm_out,
+                        void* part, int n, int h, int k, void* stream) {
+  const size_t smem = vct_prenorm_mlp_bwd_smem(h);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid = grid_for(n);
+  const float *fb1 = (const float*)b1, *fls = (const float*)ls,
+              *flb = (const float*)lb;
+  int err;
+  if (bf16) {
+    typedef __nv_bfloat16 T;
+    auto kern = prenorm_mlp_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<grid, NT, smem, st>>>((const T*)x, (const T*)w1, fb1,
+                                 (const T*)w2, fls, flb, (const T*)g, eps,
+                                 (T*)dx, (T*)um_out, (T*)hm_out, (T*)dpm_out,
+                                 (float*)part, n, h, k);
+  } else {
+    typedef float T;
+    auto kern = prenorm_mlp_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<grid, NT, smem, st>>>((const T*)x, (const T*)w1, fb1,
+                                 (const T*)w2, fls, flb, (const T*)g, eps,
+                                 (T*)dx, (T*)um_out, (T*)hm_out, (T*)dpm_out,
+                                 (float*)part, n, h, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+int vct_cross_attn_block_bwd(int bf16, const void* x, const void* wt,
+                             const void* bt, const void* ls, const void* lb,
+                             const void* wq, const void* bq, const void* k,
+                             const void* v, const void* wo, const void* g,
+                             float eps, float scale, void* dx, void* um_out,
+                             void* qm_out, void* om_out, void* dom_out,
+                             void* pm_out, void* dsm_out, void* dqm_out,
+                             void* dtm_out, void* part, int n, int din,
+                             int h, int tk, void* stream) {
+  const size_t smem = vct_cross_attn_block_bwd_smem(din, h);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((n + R2 - 1) / R2);
+  const float *fbt = (const float*)bt, *fls = (const float*)ls,
+              *flb = (const float*)lb, *fbq = (const float*)bq;
+  int err;
+  if (bf16) {
+    typedef __nv_bfloat16 T;
+    auto kern = cross_attn_block_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<grid, NT, smem, st>>>(
+        (const T*)x, (const T*)wt, fbt, fls, flb, (const T*)wq, fbq,
+        (const T*)k, (const T*)v, (const T*)wo, (const T*)g, eps, scale,
+        (T*)dx, (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
+        (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, tk);
+  } else {
+    typedef float T;
+    auto kern = cross_attn_block_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<grid, NT, smem, st>>>(
+        (const T*)x, (const T*)wt, fbt, fls, flb, (const T*)wq, fbq,
+        (const T*)k, (const T*)v, (const T*)wo, (const T*)g, eps, scale,
+        (T*)dx, (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
+        (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, tk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// A and B each float (0) or bf16 (1); bf16 A with fp32 B is K1's x^T dpre.
+// With splits > 1, `work` holds splits * out_numel floats of partials
+// (out_numel: the floats of out the products cover) and split_sum_kernel
+// writes out; with splits == 1 the blocks write out directly.
+int vct_wgrad(int a_bf16, int b_bf16, const void* a, int lda, int sa,
+              const void* b, int ldb, int sb, void* out, int ldo, int so,
+              int n, int p, int q, int z, int splits, void* work,
+              size_t out_numel, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((q + 63) / 64, (p + 63) / 64, z * splits);
+  const int chunk = (n + splits - 1) / splits;
+  float* o = splits > 1 ? (float*)work : (float*)out;
+  const size_t stride = splits > 1 ? out_numel : 0;
+  typedef __nv_bfloat16 H;
+  if (!a_bf16 && !b_bf16)
+    wgrad_kernel<float, float><<<grid, NT, 0, st>>>(
+        (const float*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p,
+        q, z, chunk, stride);
+  else if (a_bf16 && !b_bf16)
+    wgrad_kernel<H, float><<<grid, NT, 0, st>>>(
+        (const H*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p, q,
+        z, chunk, stride);
+  else if (a_bf16 && b_bf16)
+    wgrad_kernel<H, H><<<grid, NT, 0, st>>>(
+        (const H*)a, lda, sa, (const H*)b, ldb, sb, o, ldo, so, n, p, q, z,
+        chunk, stride);
+  else
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaGetLastError();
+  if (err || splits == 1) return err;
+  split_sum_kernel<<<(unsigned)((out_numel + NT - 1) / NT), NT, 0, st>>>(
+      (const float*)work, splits, out_numel, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int vct_colsum(const void* part, int tiles, int v, void* out, void* stream) {
+  colsum_kernel<<<(v + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)part, tiles, v, (float*)out);
   return (int)cudaGetLastError();
 }
 

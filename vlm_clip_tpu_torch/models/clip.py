@@ -96,7 +96,8 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def vision_tower(p: Params, pixel_values: torch.Tensor, cfg: VisionConfig,
-                 policy: DTypePolicy = FP32) -> TowerOutput:
+                 policy: DTypePolicy = FP32,
+                 remat: bool = False) -> TowerOutput:
     B = pixel_values.shape[0]
     if tuple(pixel_values.shape[-2:]) != (cfg.image_size, cfg.image_size):
         raise ValueError(
@@ -116,7 +117,7 @@ def vision_tower(p: Params, pixel_values: torch.Tensor, cfg: VisionConfig,
                      policy.stable_dtype)
     x = L.encoder_stack(p["layers"], x, cfg.num_heads, cfg.layer_norm_eps,
                         cfg.hidden_act, mask=None,
-                        stable_dtype=policy.stable_dtype)
+                        stable_dtype=policy.stable_dtype, remat=remat)
     pooled = L.layer_norm(p["post_layernorm"], x[:, 0, :],
                           cfg.layer_norm_eps, policy.stable_dtype)
     return TowerOutput(last_hidden_state=x, pooled=pooled)
@@ -140,7 +141,8 @@ def text_mask(attention_mask: Optional[torch.Tensor], T: int,
 
 def text_tower(p: Params, input_ids: torch.Tensor,
                attention_mask: Optional[torch.Tensor], cfg: TextConfig,
-               policy: DTypePolicy = FP32) -> TowerOutput:
+               policy: DTypePolicy = FP32,
+               remat: bool = False) -> TowerOutput:
     B, T = input_ids.shape
     cd = policy.compute_dtype
     ids = input_ids.long()
@@ -149,7 +151,7 @@ def text_tower(p: Params, input_ids: torch.Tensor,
     mask = text_mask(attention_mask, T, device=x.device)
     x = L.encoder_stack(p["layers"], x, cfg.num_heads, cfg.layer_norm_eps,
                         cfg.hidden_act, mask=mask,
-                        stable_dtype=policy.stable_dtype)
+                        stable_dtype=policy.stable_dtype, remat=remat)
     x = L.layer_norm(p["final_layernorm"], x, cfg.layer_norm_eps,
                      policy.stable_dtype)
     if cfg.pool_by_argmax_ids:

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -199,11 +200,18 @@ def init_encoder_stack(gen: torch.Generator, n_layers: int, dim: int,
 
 def encoder_stack(p: Params, x: torch.Tensor, num_heads: int, eps: float,
                   act: str, mask: Optional[torch.Tensor] = None,
-                  stable_dtype=torch.float32) -> torch.Tensor:
-    """The reference's ``lax.scan`` over stacked layers, as a loop."""
+                  stable_dtype=torch.float32,
+                  remat: bool = False) -> torch.Tensor:
+    """The reference's ``lax.scan`` over stacked layers, as a loop.
+    ``remat=True`` checkpoints each layer (its activations are recomputed
+    in the backward instead of kept), as the reference's ``remat``."""
     for i in range(num_layers(p)):
-        x = encoder_layer(layer_slice(p, i), x, num_heads, eps, act, mask,
-                          stable_dtype)
+        args = (layer_slice(p, i), x, num_heads, eps, act, mask,
+                stable_dtype)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(encoder_layer, *args, use_reentrant=False)
+        else:
+            x = encoder_layer(*args)
     return x
 
 

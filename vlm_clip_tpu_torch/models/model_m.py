@@ -1,4 +1,4 @@
-"""Pipeline M — CLIPWithAdapters, forward only (port of
+"""Pipeline M — CLIPWithAdapters (port of
 ``vlm_clip_tpu/models/model_m.py``).
 
 Reference quirks kept:
@@ -14,12 +14,17 @@ Reference quirks kept:
 - loss: L2-normalize, ``logits_per_text = txt @ img.T * exp(scale)``,
   symmetric CE against ``arange(B)`` (plain, used by tests).
 
-``impl`` is passed to the adapters (see models/adapters.py).
+``impl`` is passed to the adapters (see models/adapters.py); the fused
+adapters carry gradients (backward kernels on the card). ``remat=True``
+checkpoints each tower layer. ``freeze_clip=True`` runs the towers under
+``torch.no_grad()``: gradients then reach the adapters only and no tower
+graph is kept (the reference's frozen ``static_clip`` argument).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -55,14 +60,20 @@ def init_m_adapters(gen: torch.Generator, clip_cfg: CLIPConfig,
     return params
 
 
+def _towers(freeze_clip: bool):
+    return torch.no_grad() if freeze_clip else contextlib.nullcontext()
+
+
 def m_get_text_features(clip_params: Params, adapter_params: Params,
                         input_ids: torch.Tensor,
                         attention_mask: Optional[torch.Tensor],
                         cfg: CLIPConfig, acfg: AdapterConfig,
-                        policy: DTypePolicy = BF16,
-                        impl: str = "auto") -> torch.Tensor:
-    out = C.text_tower(clip_params["text"], input_ids, attention_mask,
-                       cfg.text, policy)
+                        policy: DTypePolicy = BF16, remat: bool = False,
+                        impl: str = "auto",
+                        freeze_clip: bool = False) -> torch.Tensor:
+    with _towers(freeze_clip):
+        out = C.text_tower(clip_params["text"], input_ids, attention_mask,
+                           cfg.text, policy, remat)
     x = out.last_hidden_state
     if acfg.use_text_adapter:
         x = A.seq_adapter(adapter_params["text_adapter"], x,
@@ -81,15 +92,25 @@ def m_get_text_features(clip_params: Params, adapter_params: Params,
 def m_get_image_features(clip_params: Params, adapter_params: Params,
                          pixel_values: torch.Tensor, cfg: CLIPConfig,
                          acfg: AdapterConfig, policy: DTypePolicy = BF16,
-                         impl: str = "auto") -> torch.Tensor:
-    out = C.vision_tower(clip_params["vision"], pixel_values, cfg.vision,
-                         policy)
+                         remat: bool = False, impl: str = "auto",
+                         freeze_clip: bool = False) -> torch.Tensor:
+    with _towers(freeze_clip):
+        out = C.vision_tower(clip_params["vision"], pixel_values,
+                             cfg.vision, policy, remat)
     x = out.last_hidden_state  # un-post-layernormed (quirk)
     if acfg.use_vision_adapter:
         x = A.seq_adapter(adapter_params["vision_adapter"], x,
                           cfg.vision.layer_norm_eps, impl)
     pooled = x[:, 0, :]
     return C.project(clip_params["visual_projection"], pooled)
+
+
+class MForwardOutput(NamedTuple):
+    loss: Optional[torch.Tensor]
+    text_features: Optional[torch.Tensor]
+    image_features: Optional[torch.Tensor]
+    logits_per_text: Optional[torch.Tensor]
+    logits_per_image: Optional[torch.Tensor]
 
 
 def contrastive_loss(text_features: torch.Tensor,
@@ -109,8 +130,8 @@ def contrastive_loss(text_features: torch.Tensor,
 
 
 class CLIPWithAdapters(TreeModule):
-    """Reference-API wrapper (forward only): get_text_features /
-    get_image_features / forward / load_adapter_weights over the
+    """Reference-API wrapper: get_text_features / get_image_features /
+    forward / save_adapter_weights / load_adapter_weights over the
     functional pipeline; the adapters run the kernels for CUDA params."""
 
     _trees = ("clip_params", "adapter_params")
@@ -170,8 +191,40 @@ class CLIPWithAdapters(TreeModule):
                     "logits_per_image": lpi}
         return {"text_features": txt, "image_features": img}
 
+    def save_adapter_weights(self, save_path: str) -> None:
+        from vlm_clip_tpu_torch.train.checkpoint import save_adapter_weights
+
+        save_adapter_weights(save_path, self.adapter_params)
+
     def load_adapter_weights(self, load_path: str) -> None:
         from vlm_clip_tpu_torch.train.checkpoint import load_adapter_weights
 
         self.adapter_params = load_adapter_weights(load_path, self.acfg,
                                                    device=self.device)
+
+
+def m_forward(clip_params: Params, adapter_params: Params,
+              input_ids: Optional[torch.Tensor],
+              attention_mask: Optional[torch.Tensor],
+              pixel_values: Optional[torch.Tensor], cfg: CLIPConfig,
+              acfg: AdapterConfig, policy: DTypePolicy = BF16,
+              return_loss: bool = True, remat: bool = False,
+              impl: str = "auto", freeze_clip: bool = False
+              ) -> MForwardOutput:
+    """forward(input_ids, attention_mask, pixel_values, return_loss):
+    features of whichever inputs are given, and with both the symmetric
+    InfoNCE loss with normalized features and logits."""
+    text_features = image_features = None
+    if input_ids is not None:
+        text_features = m_get_text_features(
+            clip_params, adapter_params, input_ids, attention_mask, cfg,
+            acfg, policy, remat, impl, freeze_clip)
+    if pixel_values is not None:
+        image_features = m_get_image_features(
+            clip_params, adapter_params, pixel_values, cfg, acfg, policy,
+            remat, impl, freeze_clip)
+    if return_loss and text_features is not None \
+            and image_features is not None:
+        return MForwardOutput(*contrastive_loss(
+            text_features, image_features, clip_params["logit_scale"]))
+    return MForwardOutput(None, text_features, image_features, None, None)

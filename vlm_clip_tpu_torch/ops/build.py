@@ -3,7 +3,8 @@
 ``load_library(name)`` compiles ``vlm_clip_tpu_torch/csrc/<name>.cu``
 with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository root (the
 file name carries a hash of the source, so an edited source rebuilds),
-and returns the ``ctypes.CDLL``. It runs on first use, never at import:
+and returns the ``ctypes.CDLL``; ``load_libraries(names)`` runs one
+``nvcc`` per source, all at once. It runs on first use, never at import:
 hosts without ``nvcc`` can import every module. A missing ``nvcc`` or a
 failed build raises; nothing falls back.
 """
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -40,27 +41,52 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (once per source version) and load ``csrc/<name>.cu``."""
+def _out_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(ARCH_FLAGS).encode()
+                              ).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def load_libraries(names) -> List[ctypes.CDLL]:
+    """Build (once per source version) and load ``csrc/<name>.cu`` for
+    each name; the sources not built yet compile in parallel, one
+    ``nvcc`` each."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(ARCH_FLAGS).encode()
-                                  ).hexdigest()[:12]
-        out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-        if not os.path.isfile(out):
+        if all(name in _libs for name in names):  # the per-launch path
+            return [_libs[name] for name in names]
+        builds = []
+        for name in dict.fromkeys(names):
+            if name in _libs:
+                continue
+            out = _out_path(name)
+            if os.path.isfile(out):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
+            src = os.path.join(CSRC_DIR, f"{name}.cu")
             cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_logs[name] = proc.stdout + proc.stderr
+            builds.append((name, src, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, src, tmp, out, proc in builds:
+            build_logs[name] = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {src} (exit {proc.returncode}):\n"
-                    f"{build_logs[name]}")
-            os.replace(tmp, out)
-        _libs[name] = ctypes.CDLL(out)
-        return _libs[name]
+                failed.append(f"nvcc failed building {src} (exit "
+                              f"{proc.returncode}):\n{build_logs[name]}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(_out_path(name))
+        return [_libs[name] for name in names]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (once per source version) and load ``csrc/<name>.cu``."""
+    return load_libraries([name])[0]

@@ -1,28 +1,36 @@
-"""Fused forward kernels for pipeline M's adapters, with plain versions.
+"""Fused kernels for pipeline M's adapters, forward and backward, with
+plain versions.
 
-Port of ``vlm_clip_tpu/ops/fused_adapter.py`` (forward only). Three
-kernels, written by hand in CUDA C++ for Hopper in
-``vlm_clip_tpu_torch/csrc/fused_adapter.cu``:
+Port of ``vlm_clip_tpu/ops/fused_adapter.py``. Kernels written by hand in
+CUDA C++ for Hopper in ``vlm_clip_tpu_torch/csrc/fused_adapter.cu``:
 
 - :func:`seq_adapter_fused`      ``y = LN(x + gelu(x@W1+b1)@W2+b2)``
-  (replaces ``_seq_fwd_kernel``, fused_adapter.py:310);
+  (forward replaces ``_seq_fwd_kernel``, fused_adapter.py:310; backward
+  ``_seq_bwd_kernel``, :328);
 - :func:`cross_attn_block_fused` ``u = LN(x@Wt+bt)``,
-  ``y = u + MHA(u@Wq+bq; shared k, v)@Wo+bo`` (replaces
-  ``_cab_fwd_kernel``, fused_adapter.py:796);
+  ``y = u + MHA(u@Wq+bq; shared k, v)@Wo+bo`` (``_cab_fwd_kernel`` :796,
+  ``_cab_bwd_kernel`` :807);
 - :func:`prenorm_mlp_fused`      ``y = x + gelu(LN(x)@W1+b1)@W2+b2``
-  (replaces ``_pnmlp_fwd_kernel``, fused_adapter.py:532).
+  (``_pnmlp_fwd_kernel`` :532, ``_pnmlp_bwd_kernel`` :550).
 
 Each wrapper launches its kernel for a CUDA tensor and takes the plain
-version beside it (``*_torch``) only for a CPU tensor. The plain
-versions compute what the TPU kernels compute, rounding point for
-rounding point: K1 in fp32 with fp32 weights; K2 and K3 with every
+version beside it (``*_torch``, differentiated by autograd) only for a
+CPU tensor. On CUDA, a call that needs a gradient goes through a
+``torch.autograd.Function`` whose forward launches the forward kernel and
+saves only the inputs (as the TPU rules do), and whose backward launches
+the backward kernel (``*_bwd_cuda``), which recomputes the rest. The
+plain backwards (``*_bwd_torch``) write out the TPU kernels' formulas;
+the tests and ``chip_smoke.py`` hold the backward kernels against them.
+
+The plain versions compute what the TPU kernels compute, rounding point
+for rounding point: K1 in fp32 with fp32 weights; K2 and K3 with every
 matmul operand rounded to ``x.dtype`` and fp32 accumulation, LN and
 softmax in fp32. Differences from the TPU kernels: the softmax max is
 taken per head (the TPU kernel takes one max per row over all heads,
-which can underflow a head far below another), and the shared K/V is
-passed as ``[Tk, H]`` (no block-diagonal packing). Each wrapper counts
-its launches in ``<wrapper>.launches``. Forward only: a call that would
-need a gradient raises (backward kernels come with the train step).
+which can underflow a head far below another), the shared K/V is passed
+as ``[Tk, H]`` (no block-diagonal packing), and GELU and its derivative
+are exact (erf) where the TPU kernels use an erf polynomial. Each wrapper
+counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -46,14 +54,32 @@ def _lib() -> ctypes.CDLL:
             + [_I] * 3 + [_P]
         lib.vct_cross_attn_block_fwd.argtypes = [_I] + [_P] * 11 \
             + [_F, _F, _P] + [_I] * 4 + [_P]
+        lib.vct_seq_adapter_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
+            + [_P] * 5 + [_I] * 3 + [_P]
+        lib.vct_prenorm_mlp_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
+            + [_P] * 5 + [_I] * 3 + [_P]
+        lib.vct_cross_attn_block_bwd.argtypes = [_I] + [_P] * 11 \
+            + [_F, _F] + [_P] * 10 + [_I] * 4 + [_P]
+        lib.vct_wgrad.argtypes = [_I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _P,
+                                  ctypes.c_size_t, _P]
+        lib.vct_colsum.argtypes = [_P, _I, _I, _P, _P]
         for fn in (lib.vct_seq_adapter_fwd, lib.vct_prenorm_mlp_fwd,
-                   lib.vct_cross_attn_block_fwd):
+                   lib.vct_cross_attn_block_fwd, lib.vct_seq_adapter_bwd,
+                   lib.vct_prenorm_mlp_bwd, lib.vct_cross_attn_block_bwd,
+                   lib.vct_wgrad, lib.vct_colsum):
             fn.restype = _I
         lib.vct_seq_adapter_smem.argtypes = [_I, _I]
         lib.vct_prenorm_mlp_smem.argtypes = [_I]
         lib.vct_cross_attn_block_smem.argtypes = [_I, _I]
+        lib.vct_seq_adapter_bwd_smem.argtypes = [_I, _I]
+        lib.vct_prenorm_mlp_bwd_smem.argtypes = [_I]
+        lib.vct_cross_attn_block_bwd_smem.argtypes = [_I, _I]
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
-                   lib.vct_cross_attn_block_smem):
+                   lib.vct_cross_attn_block_smem,
+                   lib.vct_seq_adapter_bwd_smem,
+                   lib.vct_prenorm_mlp_bwd_smem,
+                   lib.vct_cross_attn_block_bwd_smem):
             fn.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -107,6 +133,107 @@ def cross_attn_block_torch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
     return (u + (_r(o, mm) @ _r(wo, mm) + bo.float())).to(mm)
 
 
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the exact GELU: Phi(x) + x phi(x)."""
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) \
+        + x * 0.3989422804014327 * torch.exp(-0.5 * x * x)
+
+
+def _ln_stats(z, eps):
+    """(xhat, inv) of an fp32 LayerNorm, as the kernels take them."""
+    mean = z.mean(dim=-1, keepdim=True)
+    zc = z - mean
+    inv = torch.rsqrt((zc * zc).mean(dim=-1, keepdim=True) + eps)
+    return zc * inv, inv
+
+
+def _ln_bwd(dxhat, xhat, inv):
+    """LayerNorm backward from d(xhat): the TPU kernels' formula."""
+    return inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                  - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+
+
+def seq_adapter_bwd_torch(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
+                          need_dx: bool = True):
+    """Gradients of :func:`seq_adapter_torch` for the cotangent g, as
+    ``_seq_bwd_kernel`` computes them (fp32 throughout): (dx, dw1, db1,
+    dw2, db2, dls, dlb), dx in x's dtype (None unless need_dx), the rest
+    fp32. ``lb`` does not enter the gradients."""
+    del lb
+    xf, w1f, w2f, gf = x.float(), w1.float(), w2.float(), g.float()
+    pre = xf @ w1f + b1.float()
+    h = F.gelu(pre)
+    xhat, inv = _ln_stats(xf + h @ w2f + b2.float(), eps)
+    dz = _ln_bwd(gf * ls.float(), xhat, inv)
+    dpre = (dz @ w2f.T) * gelu_grad(pre)
+    dx = (dz + dpre @ w1f.T).to(x.dtype) if need_dx else None
+    return (dx, xf.T @ dpre, dpre.sum(0), h.T @ dz, dz.sum(0),
+            (gf * xhat).sum(0), gf.sum(0))
+
+
+def prenorm_mlp_bwd_torch(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
+                          need_dx: bool = True):
+    """Gradients of :func:`prenorm_mlp_torch`, as ``_pnmlp_bwd_kernel``
+    computes them: g, dpre, u and h rounded to x.dtype before each
+    product, fp32 accumulation, dx = g + dx_ln kept in fp32 until the
+    final cast. Returns (dx, dw1, db1, dw2, db2, dls, dlb)."""
+    del b2
+    mm = x.dtype
+    xf, gf = x.float(), g.float()
+    xhat, inv = _ln_stats(xf, eps)
+    um = _r(xhat * ls.float() + lb.float(), mm)
+    gm = _r(gf, mm)
+    w1m, w2m = _r(w1, mm), _r(w2, mm)
+    pre = um @ w1m + b1.float()
+    dpre = (gm @ w2m.T) * gelu_grad(pre)
+    dpm = _r(dpre, mm)
+    du = dpm @ w1m.T
+    dx = (gf + _ln_bwd(du * ls.float(), xhat, inv)).to(mm) if need_dx \
+        else None
+    return (dx, um.T @ dpm, dpre.sum(0), _r(F.gelu(pre), mm).T @ gm,
+            gf.sum(0), (du * xhat).sum(0), du.sum(0))
+
+
+def cross_attn_block_bwd_torch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
+                               heads: int, eps: float = 1e-5,
+                               need_dx: bool = True):
+    """Gradients of :func:`cross_attn_block_torch`, per head against k, v
+    [Tk, H], rounding o, g, probs, do, ds, q, u, dq, x and dt to x.dtype
+    before each product as ``_cab_bwd_kernel`` does. Returns (dx, dwt,
+    dbt, dls, dlb, dwq, dbq, dk, dv, dwo, dbo); dk, dv are [Tk, H]."""
+    del bo
+    mm = x.dtype
+    N, H = x.shape[0], wt.shape[1]
+    Tk, hd = k.shape[0], H // heads
+    scale = hd ** -0.5
+    xm, wtm, wqm, wom = _r(x, mm), _r(wt, mm), _r(wq, mm), _r(wo, mm)
+    xhat, inv = _ln_stats(xm @ wtm + bt.float(), eps)
+    um = _r(xhat * ls.float() + lb.float(), mm)
+    qm = _r(um @ wqm + bq.float(), mm)
+    qh = qm.reshape(N, heads, hd).transpose(0, 1)          # [h, N, hd]
+    kh = _r(k, mm).reshape(Tk, heads, hd).transpose(0, 1)  # [h, Tk, hd]
+    vh = _r(v, mm).reshape(Tk, heads, hd).transpose(0, 1)
+    p = torch.softmax((qh @ kh.transpose(1, 2)) * scale, dim=-1)
+    pm = _r(p, mm)
+    om = _r((pm @ vh).transpose(0, 1).reshape(N, H), mm)
+    gf = g.float()
+    gm = _r(gf, mm)
+    dom = _r(gm @ wom.T, mm)
+    domh = dom.reshape(N, heads, hd).transpose(0, 1)
+    dv = (pm.transpose(1, 2) @ domh).transpose(0, 1).reshape(Tk, H)
+    dp = domh @ vh.transpose(1, 2)
+    dsm = _r(p * (dp - (dp * p).sum(-1, keepdim=True)) * scale, mm)
+    dk = (dsm.transpose(1, 2) @ qh).transpose(0, 1).reshape(Tk, H)
+    dqp = (dsm @ kh).transpose(0, 1).reshape(N, H)
+    dqm = _r(dqp, mm)
+    du = gf + dqm @ wqm.T
+    dt = _ln_bwd(du * ls.float(), xhat, inv)
+    dtm = _r(dt, mm)
+    dx = (dtm @ wtm.T).to(mm) if need_dx else None
+    return (dx, xm.T @ dtm, dt.sum(0), (du * xhat).sum(0), du.sum(0),
+            um.T @ dqm, dqp.sum(0), dk, dv, om.T @ gm, gf.sum(0))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -145,15 +272,14 @@ def _check_inputs(name, x, tensors):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: x must be float32 or bfloat16, "
                         f"got {x.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, *tensors)):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is forward only (no backward yet); "
-            "call it under torch.no_grad() / torch.inference_mode()")
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"{name}: all tensors must be on {x.device}, "
                              f"got one on {t.device}")
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _as(t, dtype):
@@ -172,21 +298,72 @@ def _launch(name, fn, smem, x, *args):
                            "per block)")
 
 
-def seq_adapter_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
-    """y = LN(x + gelu(x@w1+b1)@w2+b2) over [N, H] rows, fp32 math."""
+def _check_err(name, err):
+    if err:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+SMS = 132  # H100 SXM streaming multiprocessors
+
+
+def _splits(n: int, tiles: int) -> int:
+    """Row chunks for a weight gradient: enough blocks for two waves of
+    the card, no chunk under 256 rows, at most 16."""
+    return max(1, min(16, -(-2 * SMS // tiles), n // 256))
+
+
+def _wgrad(a, b, out, p, q, *, lda=None, sa=0, ldb=None, sb=0, ldo=None,
+           so=0, z=1):
+    """out[z*so + i*ldo + j] = sum_r a[r, z*sa + i] * b[r, z*sb + j] for
+    i < p, j < q: a weight gradient summed over every row, in fp32."""
+    n = a.shape[0]
+    splits = _splits(n, -(-p // 64) * -(-q // 64) * z)
+    work = torch.empty(splits * out.numel() if splits > 1 else 0,
+                       dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        _check_err("wgrad", _lib().vct_wgrad(
+            int(a.dtype == torch.bfloat16), int(b.dtype == torch.bfloat16),
+            a.data_ptr(), lda or a.shape[1], sa, b.data_ptr(),
+            ldb or b.shape[1], sb, out.data_ptr(), ldo or out.shape[-1], so,
+            n, p, q, z, splits, work.data_ptr(), out.numel(), _stream(a)))
+    return out
+
+
+def _colsum(part):
+    """The row passes' per-tile column sums [tiles, V] -> [V], in order."""
+    out = torch.empty(part.shape[1], dtype=torch.float32,
+                      device=part.device)
+    with torch.cuda.device(part.device):
+        _check_err("colsum", _lib().vct_colsum(
+            part.data_ptr(), part.shape[0], part.shape[1], out.data_ptr(),
+            _stream(part)))
+    return out
+
+
+def _grads_like(grads, inputs, needs):
+    """Each gradient in its input's dtype, None where none is needed."""
+    return tuple(g.to(t.dtype) if (n and g is not None) else None
+                 for g, t, n in zip(grads, inputs, needs))
+
+
+ROWS = 32      # row tile of the K1/K3 kernels
+ROWS_CAB = 16  # row tile of K2's backward
+
+
+# --- K1: sequence adapter --------------------------------------------------
+
+def _seq_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
     name = "seq_adapter_fused"
-    params = (w1, b1, w2, b2, ls, lb)
-    _check_mlp_shapes(name, x, *params)
-    if not _on_cuda(x, name):
-        return seq_adapter_torch(x, *params, eps)
-    _check_inputs(name, x, params)
     N, H = x.shape
     K = w1.shape[1]
-    if H % 128 or K % 128:
-        raise ValueError(f"{name}: the kernel needs H and K multiples of "
-                         f"128; got H {H}, K {K}")
     x = x.contiguous()
-    w1, b1, w2, b2, ls, lb = (_as(t, torch.float32) for t in params)
+    w1, b1, w2, b2, ls, lb = (_as(t, torch.float32)
+                              for t in (w1, b1, w2, b2, ls, lb))
     y = torch.empty_like(x)
     if N:
         lib = _lib()
@@ -198,20 +375,78 @@ def seq_adapter_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
     return y
 
 
-def prenorm_mlp_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
-    """y = x + gelu(LN(x)@w1+b1)@w2+b2 over [N, H] rows; matmul operands
-    in x.dtype, fp32 accumulation, LN in fp32."""
-    name = "prenorm_mlp_fused"
+def seq_adapter_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
+                         need_dx: bool = True):
+    """Backward kernel of K1: same results as :func:`seq_adapter_bwd_torch`
+    (dx in x's dtype, the rest fp32), for CUDA tensors."""
+    name = "seq_adapter_bwd"
+    N, H = x.shape
+    K = w1.shape[1]
+    x = x.contiguous()
+    g = _as(g, x.dtype)
+    w1, b1, w2, b2, ls = (_as(t, torch.float32)
+                          for t in (w1, b1, w2, b2, ls))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    dw1, dw2 = torch.zeros(H, K, **f32), torch.zeros(K, H, **f32)
+    vec = torch.zeros(K + 3 * H, **f32)
+    if N:
+        lib = _lib()
+        hb, dpre = torch.empty(N, K, **f32), torch.empty(N, K, **f32)
+        dz = torch.empty(N, H, **f32)
+        part = torch.empty(-(-N // ROWS), K + 3 * H, **f32)
+        _launch(name, lib.vct_seq_adapter_bwd,
+                lib.vct_seq_adapter_bwd_smem(H, K), x, x.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                ls.data_ptr(), g.data_ptr(), float(eps),
+                None if dx is None else dx.data_ptr(), hb.data_ptr(),
+                dpre.data_ptr(), dz.data_ptr(), part.data_ptr(), N, H, K)
+        _wgrad(x, dpre, dw1, H, K)
+        _wgrad(hb, dz, dw2, K, H)
+        vec = _colsum(part)
+        seq_adapter_bwd_cuda.launches += 1
+    db1, db2, dls, dlb = vec.split([K, H, H, H])
+    return dx, dw1, db1, dw2, db2, dls, dlb
+
+
+class _SeqAdapterFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ls, lb, eps):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ls, lb)
+        ctx.eps = eps
+        return _seq_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:7]
+        grads = seq_adapter_bwd_cuda(*inputs, g, ctx.eps, need_dx=needs[0])
+        return _grads_like(grads, inputs, needs) + (None,)
+
+
+def seq_adapter_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
+    """y = LN(x + gelu(x@w1+b1)@w2+b2) over [N, H] rows, fp32 math."""
+    name = "seq_adapter_fused"
     params = (w1, b1, w2, b2, ls, lb)
     _check_mlp_shapes(name, x, *params)
     if not _on_cuda(x, name):
-        return prenorm_mlp_torch(x, *params, eps)
+        return seq_adapter_torch(x, *params, eps)
     _check_inputs(name, x, params)
-    N, H = x.shape
-    K = w1.shape[1]
+    H, K = x.shape[1], w1.shape[1]
     if H % 128 or K % 128:
         raise ValueError(f"{name}: the kernel needs H and K multiples of "
                          f"128; got H {H}, K {K}")
+    if _needs_grad(x, *params):
+        return _SeqAdapterFn.apply(x, *params, eps)
+    return _seq_fwd_launch(x, *params, eps)
+
+
+# --- K3: pre-norm MLP ------------------------------------------------------
+
+def _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
+    name = "prenorm_mlp_fused"
+    N, H = x.shape
+    K = w1.shape[1]
     x = x.contiguous()
     w1, w2 = _as(w1, x.dtype), _as(w2, x.dtype)
     b1, b2, ls, lb = (_as(t, torch.float32) for t in (b1, b2, ls, lb))
@@ -226,31 +461,84 @@ def prenorm_mlp_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
     return y
 
 
+def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
+                         need_dx: bool = True):
+    """Backward kernel of K3: same results as
+    :func:`prenorm_mlp_bwd_torch`, for CUDA tensors."""
+    name = "prenorm_mlp_bwd"
+    N, H = x.shape
+    K = w1.shape[1]
+    x = x.contiguous()
+    mm = x.dtype
+    g = _as(g, mm)
+    w1, w2 = _as(w1, mm), _as(w2, mm)
+    b1, ls, lb = (_as(t, torch.float32) for t in (b1, ls, lb))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    dw1, dw2 = torch.zeros(H, K, **f32), torch.zeros(K, H, **f32)
+    vec = torch.zeros(K + 3 * H, **f32)
+    if N:
+        lib = _lib()
+        um = torch.empty(N, H, dtype=mm, device=x.device)
+        hm = torch.empty(N, K, dtype=mm, device=x.device)
+        dpm = torch.empty(N, K, dtype=mm, device=x.device)
+        part = torch.empty(-(-N // ROWS), K + 3 * H, **f32)
+        _launch(name, lib.vct_prenorm_mlp_bwd,
+                lib.vct_prenorm_mlp_bwd_smem(H), x, x.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), ls.data_ptr(),
+                lb.data_ptr(), g.data_ptr(), float(eps),
+                None if dx is None else dx.data_ptr(), um.data_ptr(),
+                hm.data_ptr(), dpm.data_ptr(), part.data_ptr(), N, H, K)
+        _wgrad(um, dpm, dw1, H, K)
+        _wgrad(hm, g, dw2, K, H)
+        vec = _colsum(part)
+        prenorm_mlp_bwd_cuda.launches += 1
+    db1, db2, dls, dlb = vec.split([K, H, H, H])
+    return dx, dw1, db1, dw2, db2, dls, dlb
+
+
+class _PrenormMlpFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ls, lb, eps):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ls, lb)
+        ctx.eps = eps
+        return _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:7]
+        grads = prenorm_mlp_bwd_cuda(*inputs, g, ctx.eps, need_dx=needs[0])
+        return _grads_like(grads, inputs, needs) + (None,)
+
+
+def prenorm_mlp_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
+    """y = x + gelu(LN(x)@w1+b1)@w2+b2 over [N, H] rows; matmul operands
+    in x.dtype, fp32 accumulation, LN in fp32."""
+    name = "prenorm_mlp_fused"
+    params = (w1, b1, w2, b2, ls, lb)
+    _check_mlp_shapes(name, x, *params)
+    if not _on_cuda(x, name):
+        return prenorm_mlp_torch(x, *params, eps)
+    _check_inputs(name, x, params)
+    H, K = x.shape[1], w1.shape[1]
+    if H % 128 or K % 128:
+        raise ValueError(f"{name}: the kernel needs H and K multiples of "
+                         f"128; got H {H}, K {K}")
+    if _needs_grad(x, *params):
+        return _PrenormMlpFn.apply(x, *params, eps)
+    return _pnmlp_fwd_launch(x, *params, eps)
+
+
+# --- K2: cross-modal attention block ---------------------------------------
+
 MAX_SHARED_KV = 256  # rows of the batch-shared K/V the kernel takes
 
 
-def cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
-                           heads: int, eps: float = 1e-5):
-    """u = LN(x@wt+bt); y = u + MHA(u@wq+bq; k, v)@wo+bo over [N, Din]
-    rows, against a K/V [Tk, H] shared by every row. Matmul operands in
-    x.dtype, fp32 accumulation, LN and softmax in fp32."""
+def _cab_fwd_launch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, heads, eps):
     name = "cross_attn_block_fused"
-    params = (wt, bt, ls, lb, wq, bq, k, v, wo, bo)
-    Din, H, Tk = x.shape[-1], wt.shape[-1], k.shape[0]
-    _check_shapes(name, x, [
-        ("wt", wt, (Din, H)), ("bt", bt, (H,)), ("ls", ls, (H,)),
-        ("lb", lb, (H,)), ("wq", wq, (H, H)), ("bq", bq, (H,)),
-        ("k", k, (Tk, H)), ("v", v, (Tk, H)), ("wo", wo, (H, H)),
-        ("bo", bo, (H,))])
-    if not _on_cuda(x, name):
-        return cross_attn_block_torch(x, *params, heads, eps)
-    _check_inputs(name, x, params)
-    N = x.shape[0]
-    if H % 128 or H != heads * 64 or not 0 < Tk <= MAX_SHARED_KV:
-        raise ValueError(
-            f"{name}: the kernel needs H a multiple of 128 with 64-wide "
-            f"heads and 0 < Tk <= {MAX_SHARED_KV}; got H {H}, heads "
-            f"{heads}, Tk {Tk}")
+    N, Din = x.shape
+    H, Tk = wt.shape[1], k.shape[0]
     x = x.contiguous()
     mm = x.dtype
     wt, wq, wo, v = (_as(t, mm) for t in (wt, wq, wo, v))
@@ -270,11 +558,110 @@ def cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
     return y
 
 
+def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
+                              heads: int, eps: float = 1e-5,
+                              need_dx: bool = True):
+    """Backward kernel of K2: same results as
+    :func:`cross_attn_block_bwd_torch` (dk, dv [Tk, H]), for CUDA
+    tensors."""
+    name = "cross_attn_block_bwd"
+    N, Din = x.shape
+    H, Tk = wt.shape[1], k.shape[0]
+    hd = H // heads
+    x = x.contiguous()
+    mm = x.dtype
+    g = _as(g, mm)
+    wt, wq, wo, k, v = (_as(t, mm) for t in (wt, wq, wo, k, v))
+    bt, ls, lb, bq = (_as(t, torch.float32) for t in (bt, ls, lb, bq))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    dwt = torch.zeros(Din, H, **f32)
+    dwq, dwo = torch.zeros(H, H, **f32), torch.zeros(H, H, **f32)
+    dk, dv = torch.zeros(Tk, H, **f32), torch.zeros(Tk, H, **f32)
+    vec = torch.zeros(5 * H, **f32)
+    if N:
+        lib = _lib()
+        um, qm, om, dom, dqm, dtm = (
+            torch.empty(N, H, dtype=mm, device=x.device) for _ in range(6))
+        pm, dsm = (torch.empty(N, heads * Tk, dtype=mm, device=x.device)
+                   for _ in range(2))
+        part = torch.empty(-(-N // ROWS_CAB), 5 * H, **f32)
+        _launch(name, lib.vct_cross_attn_block_bwd,
+                lib.vct_cross_attn_block_bwd_smem(Din, H), x, x.data_ptr(),
+                wt.data_ptr(), bt.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+                wq.data_ptr(), bq.data_ptr(), k.data_ptr(), v.data_ptr(),
+                wo.data_ptr(), g.data_ptr(), float(eps), float(hd ** -0.5),
+                None if dx is None else dx.data_ptr(), um.data_ptr(),
+                qm.data_ptr(), om.data_ptr(), dom.data_ptr(), pm.data_ptr(),
+                dsm.data_ptr(), dqm.data_ptr(), dtm.data_ptr(),
+                part.data_ptr(), N, Din, H, Tk)
+        _wgrad(om, g, dwo, H, H)
+        # per head (z): dv_h = pm_h^T dom_h, dk_h = dsm_h^T qm_h
+        _wgrad(pm, dom, dv, Tk, hd, sa=Tk, sb=hd, so=hd, z=heads)
+        _wgrad(dsm, qm, dk, Tk, hd, sa=Tk, sb=hd, so=hd, z=heads)
+        _wgrad(um, dqm, dwq, H, H)
+        _wgrad(x, dtm, dwt, Din, H)
+        vec = _colsum(part)
+        cross_attn_block_bwd_cuda.launches += 1
+    dbo, dbq, dls, dlb, dbt = vec.split([H] * 5)
+    return dx, dwt, dbt, dls, dlb, dwq, dbq, dk, dv, dwo, dbo
+
+
+class _CrossAttnBlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, heads, eps):
+        ctx.save_for_backward(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo)
+        ctx.heads, ctx.eps = heads, eps
+        return _cab_fwd_launch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
+                               heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:11]
+        grads = cross_attn_block_bwd_cuda(*inputs, g, ctx.heads, ctx.eps,
+                                          need_dx=needs[0])
+        return _grads_like(grads, inputs, needs) + (None, None)
+
+
+def cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
+                           heads: int, eps: float = 1e-5):
+    """u = LN(x@wt+bt); y = u + MHA(u@wq+bq; k, v)@wo+bo over [N, Din]
+    rows, against a K/V [Tk, H] shared by every row. Matmul operands in
+    x.dtype, fp32 accumulation, LN and softmax in fp32. Gradients reach
+    k and v as [Tk, H]."""
+    name = "cross_attn_block_fused"
+    params = (wt, bt, ls, lb, wq, bq, k, v, wo, bo)
+    Din, H, Tk = x.shape[-1], wt.shape[-1], k.shape[0]
+    _check_shapes(name, x, [
+        ("wt", wt, (Din, H)), ("bt", bt, (H,)), ("ls", ls, (H,)),
+        ("lb", lb, (H,)), ("wq", wq, (H, H)), ("bq", bq, (H,)),
+        ("k", k, (Tk, H)), ("v", v, (Tk, H)), ("wo", wo, (H, H)),
+        ("bo", bo, (H,))])
+    if not _on_cuda(x, name):
+        return cross_attn_block_torch(x, *params, heads, eps)
+    _check_inputs(name, x, params)
+    if H % 128 or H != heads * 64 or not 0 < Tk <= MAX_SHARED_KV:
+        raise ValueError(
+            f"{name}: the kernel needs H a multiple of 128 with 64-wide "
+            f"heads and 0 < Tk <= {MAX_SHARED_KV}; got H {H}, heads "
+            f"{heads}, Tk {Tk}")
+    if _needs_grad(x, *params):
+        return _CrossAttnBlockFn.apply(x, *params, heads, eps)
+    return _cab_fwd_launch(x, *params, heads, eps)
+
+
 seq_adapter_fused.launches = 0
 prenorm_mlp_fused.launches = 0
 cross_attn_block_fused.launches = 0
+seq_adapter_bwd_cuda.launches = 0
+cross_attn_block_bwd_cuda.launches = 0
+prenorm_mlp_bwd_cuda.launches = 0
 
-KERNELS = (seq_adapter_fused, cross_attn_block_fused, prenorm_mlp_fused)
+FORWARD = (seq_adapter_fused, cross_attn_block_fused, prenorm_mlp_fused)
+BACKWARD = (seq_adapter_bwd_cuda, cross_attn_block_bwd_cuda,
+            prenorm_mlp_bwd_cuda)
+KERNELS = FORWARD + BACKWARD
 
 
 def reset_launch_counts() -> None:

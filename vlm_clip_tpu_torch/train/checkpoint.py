@@ -67,7 +67,7 @@ def save_adapter_weights(save_path: str, adapter_params: Params) -> None:
     d = os.path.dirname(save_path)
     if d:
         os.makedirs(d, exist_ok=True)
-    torch.save({name: {k: v.float().cpu() for k, v in sd.items()}
+    torch.save({name: {k: v.detach().float().cpu() for k, v in sd.items()}
                 for name, sd in dicts.items()}, save_path)
 
 
