@@ -4,8 +4,9 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Setup: prints the card's name and power limit, refuses to run without
-   CUDA, builds the hand-written kernels (csrc/fused_adapter.cu and
-   csrc/contrastive.cu, one nvcc each, in parallel).
+   CUDA, builds the hand-written kernels (csrc/fused_adapter.cu,
+   csrc/contrastive.cu and csrc/attention.cu, one nvcc each, in
+   parallel).
 2. Kernels: each forward kernel against its plain PyTorch version at the
    B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
    the batch-1 shapes of a served request, in bf16 and fp32, with the
@@ -22,13 +23,28 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    versions (impl="torch") from the same state, without and with the K4
    head, and must agree; then 3 warmup + 20 timed steps give pairs/s.
    Every kernel must have launched on this path.
-5. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
+5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
+   at the rows pipeline T gives it (32 image features, 7 class means, 35
+   descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
+   whose mask must equal the plain version's bit for bit; K5 (the towers'
+   attention) at ViT-L/14's and ViT-B/16's shapes with each mask layout
+   the towers give it, beside F.scaled_dot_product_attention's time on
+   the same inputs (timed only, never used by the port).
+6. Pipeline T at ViT-L/14 full width (seeded random weights), with K5
+   switched on: cli/compare_t trains the T adapters for 3 epochs at B=32
+   on a synthetic flat tree and prints the 2x2 accuracies; one T train
+   step with the kernels against one with impl="torch" from the same
+   state; image features and the prompt bank with K5 on against off;
+   cli/predict_image on one JPEG with a T checkpoint the port saved; the
+   cached-feature T step's time and the ViT-L/14 encode time.
+7. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
    width, seeded random weights, M adapters loaded from a reference-format
    .pt) answers /embed, /embed_text and /classify over HTTP. Responses must
    be 200s with finite unit-norm features and 7 probabilities summing to
    1; /embed and /embed_text must agree with the same weights run through
    the plain versions (impl="torch"); every forward kernel must have
-   launched.
+   launched. A second server in t-adapter mode (a T checkpoint) answers
+   /classify, which must agree with the plain path and launch K6.
 
 Prints one JSON line with the kernels' results, then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
@@ -66,8 +82,25 @@ EMBED_ATOL = 5e-3  # unit-norm features, served kernel path vs plain path
 # relative in Frobenius norm (relative to at least 1e-2 of the global
 # gradient norm).
 STEP_TOL = {"loss": 1e-2, "grad_norm": 1e-2, "grad": 5e-2}
+# Pipeline T's step, kernels vs plain versions from the same state: the
+# features and K6 are fp32, so only summation order separates them: the
+# loss within 1e-5 relative, each adapter gradient within 1e-4 relative in
+# Frobenius norm.
+T_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
+# ViT-L/14 under the BF16 policy with K5 on against off: both run fp32
+# softmax over the same bf16 operands, and a bf16 rounding flip in one of
+# the 24 layers carries into the pooled feature: unit-norm features
+# within 5e-2 elementwise and a cosine of at least 0.995 row by row.
+ENCODE_TOL = {"max_abs": 5e-2, "cosine": 0.995}
+CLASSIFY_ATOL = 1e-3  # t-adapter /classify, kernel path vs plain path
 SOURCE = "vlm_clip_tpu_torch/csrc/fused_adapter.cu"
 K4_SOURCE = "vlm_clip_tpu_torch/csrc/contrastive.cu"
+K5_SOURCE = "vlm_clip_tpu_torch/csrc/attention.cu"
+T_REPLACES = {
+    "feature_adapter_blend_fused": "vlm_clip_tpu/ops/fused_adapter.py:109",
+    "feature_adapter_blend_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:127",
+    "fused_attention": "vlm_clip_tpu/ops/attention.py:59",
+}
 REPLACES = {
     "seq_adapter_fused": "vlm_clip_tpu/ops/fused_adapter.py:310",
     "cross_attn_block_fused": "vlm_clip_tpu/ops/fused_adapter.py:796",
@@ -94,22 +127,28 @@ def bound(flops: float, nbytes: float, kind: str):
                                      else "bytes")
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def setup() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from vlm_clip_tpu_torch.ops import attention as K5
     from vlm_clip_tpu_torch.ops import build, fused_adapter as F
 
     t0 = time.time()
-    build.load_libraries(["fused_adapter", "contrastive"])
+    build.load_libraries(["fused_adapter", "contrastive", "attention"])
     F._lib()
+    K5._lib()
     print(f"built kernels in {time.time() - t0:.1f}s", flush=True)
     for name, log in build.build_logs.items():
         spills = [ln.strip() for ln in log.splitlines()
@@ -426,6 +465,204 @@ def backward_phase() -> dict:
     return results
 
 
+def t_cost(name: str, x: torch.Tensor, k: int = 64, mask=None,
+           need_dx: bool = True):
+    """(operations, bytes, peak kind) of one call of K5 or K6: each
+    product counts 2*m*n*k; each input is read once and each output
+    written once. K6 ([N, D] x, fp32 math): params and their gradients at
+    4 bytes. K5 ([B, h, T, d] q, k, v): the scores and p v, the fp32 mask
+    as it is stored (a batch-broadcast one once)."""
+    es = x.element_size()
+    if name == "fused_attention":
+        Bq, h, T, d = x.shape
+        mbytes = 0 if mask is None else mask.numel() * 4
+        return (4 * Bq * h * T * T * d, 4 * x.numel() * es + mbytes,
+                "bf16" if x.dtype == torch.bfloat16 else "fp32")
+    N, D = x.shape
+    params = (2 * D * k + k + D) * 4
+    if name == "feature_adapter_blend_fused":
+        return 4 * N * D * k, 2 * N * D * es + params, "fp32"
+    return (2 * N * D * k * (6 if need_dx else 5),
+            (3 if need_dx else 2) * N * D * es + 2 * params, "fp32")
+
+
+def t_kernel_phase() -> dict:
+    """K6 forward and backward and K5 against their plain versions at
+    pipeline T's shapes (and ViT-B/16's for K5), in bf16 and fp32; the
+    dropout mask bit for bit; times beside SDPA's for K5."""
+    import torch.nn.functional as TF
+
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.models.clip import text_mask
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    D, K, R = 768, 64, 0.2
+    p = A.init_feature_adapter(gen, D, K, device=dev)
+    for leaf in (p["fc1"]["bias"], p["fc2"]["bias"]):
+        leaf.normal_(generator=gen).mul_(0.1)
+    params = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+              p["fc2"]["bias"])
+    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bound_by": "", "shapes": [],
+                      "library_ms": None} for name in T_REPLACES}
+    failures = []
+
+    def timed(kern, plain, library=None, iters=10):
+        """plain, kernel, kernel, plain (and the library call twice)."""
+        t_plain = _time_ms(plain, iters)
+        t_kern = _time_ms(kern, iters)
+        t_kern = (t_kern + _time_ms(kern, iters)) / 2
+        t_plain = (t_plain + _time_ms(plain, iters)) / 2
+        t_lib = None
+        if library is not None:
+            library()  # its first call at a shape picks a backend
+            torch.cuda.synchronize()
+            t_lib = (_time_ms(library, iters) + _time_ms(library, iters)) / 2
+        return t_kern, t_plain, t_lib
+
+    # K6: rows 32 (image features), 7 (class means), 35 (descriptions),
+    # then 600 rows with dropout 0.1 across the 256-row tiles of the hash
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        atol, rtol = TOL[dtype]
+        for n, drop in ((32, 0.0), (7, 0.0), (35, 0.0), (600, 0.1)):
+            x = torch.randn(n, D, generator=gen, device=dev)
+            x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+            g = torch.randn(n, D, generator=gen, device=dev).to(dtype)
+            args = (*params, R, drop, 1234)
+            with torch.no_grad():
+                got = F.feature_adapter_blend_fused(x, *args)
+                want = F.feature_adapter_blend_torch(x, *args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                ratio = float((err / (atol + rtol * want.float().abs())).max())
+                ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1
+                gg = F.feature_adapter_blend_bwd_cuda(x, *params, R, g, drop,
+                                                      1234, need_dx=False)
+                gw = F.feature_adapter_blend_bwd_torch(x, *params, R, g,
+                                                       drop, 1234,
+                                                       need_dx=False)
+                torch.cuda.synchronize()
+                errs = _grad_errors(gg, gw, dtype)
+                worst = max(e[1] for e in errs)
+            fwd_t = bwd_t = (0.0, 0.0, None)
+            if drop == 0.0:
+                with torch.no_grad():
+                    fwd_t = timed(
+                        lambda: F.feature_adapter_blend_fused(x, *args),
+                        lambda: F.feature_adapter_blend_torch(x, *args))
+                    bwd_t = timed(
+                        lambda: F.feature_adapter_blend_bwd_cuda(
+                            x, *params, R, g, need_dx=False),
+                        lambda: F.feature_adapter_blend_bwd_torch(
+                            x, *params, R, g, need_dx=False))
+            print(f"kernel feature_adapter_blend_fused N={n} dropout={drop} "
+                  f"{dt}: max_abs_err {float(err.max()):.3e} err/tol "
+                  f"{ratio:.3f} {'ok' if ok else 'FAIL'}; kernel "
+                  f"{fwd_t[0]:.4f} ms, plain {fwd_t[1]:.4f} ms", flush=True)
+            print(f"backward feature_adapter_blend_bwd_cuda N={n} "
+                  f"dropout={drop} {dt}: per gradient max_abs_err "
+                  f"{[f'{e[0]:.2e}' for e in errs]} worst err/tol "
+                  f"{worst:.3f} {'ok' if worst <= 1 else 'FAIL'}; kernel "
+                  f"{bwd_t[0]:.4f} ms, plain {bwd_t[1]:.4f} ms", flush=True)
+            if not ok:
+                failures.append(f"feature_adapter_blend_fused N={n} {dt}")
+            if worst > 1:
+                failures.append(f"feature_adapter_blend_bwd_cuda N={n} {dt}")
+            rf = results["feature_adapter_blend_fused"]
+            rb = results["feature_adapter_blend_bwd_cuda"]
+            rf["max_abs_err"] = max(rf["max_abs_err"], float(err.max()))
+            rb["max_abs_err"] = max(rb["max_abs_err"],
+                                    max(e[0] for e in errs))
+            # the T path runs K6 on fp32 features: its times are fp32's
+            if dtype == torch.float32 and drop == 0.0:
+                _add_time(rf, fwd_t[0], fwd_t[1],
+                          t_cost("feature_adapter_blend_fused", x),
+                          f"[{n}, {D}] fp32")
+                _add_time(rb, bwd_t[0], bwd_t[1],
+                          t_cost("feature_adapter_blend_bwd_cuda", x,
+                                 need_dx=False), f"[{n}, {D}] fp32 no dx")
+    # the dropout mask, bit for bit: with relu(x@W1+b1) = 1, W2 = [I | 0],
+    # b2 = 0 and r = 1, y's first K columns are the kernel's mask over its
+    # row norm
+    n = 600
+    w1 = torch.zeros(D, K, device=dev)
+    b1 = torch.ones(K, device=dev)
+    w2 = torch.zeros(K, D, device=dev)
+    w2[:, :K] = torch.eye(K, device=dev)
+    b2 = torch.zeros(D, device=dev)
+    mask = F.feature_dropout_mask(n, K, 1234, 0.1, dev)
+    with torch.no_grad():
+        y = F.feature_adapter_blend_fused(torch.ones(n, D, device=dev), w1,
+                                          b1, w2, b2, 1.0, 0.1, 1234)
+    same = bool(torch.equal(y[:, :K] > 0, mask > 0))
+    print(f"K6 dropout mask (600 rows, p=0.1, seed 1234): kernel equals the "
+          f"plain hash bit for bit: {same} (kept {int((mask > 0).sum())} of "
+          f"{mask.numel()})", flush=True)
+    if not same:
+        failures.append("K6 dropout mask")
+
+    # K5: (tag, B, heads, T, mask kind); the ViT-L/14 vision and text
+    # encodes of pipeline T, the broadcast mask, ViT-B/16's towers
+    cases = [("ViT-L/14 vision", 32, 16, 257, None),
+             ("ViT-L/14 text", 35, 12, 77, "batch"),
+             ("ViT-L/14 text", 35, 12, 77, "broadcast"),
+             ("ViT-B/16 vision", 96, 12, 197, None),
+             ("ViT-B/16 text", 96, 8, 77, "batch")]
+    r5 = results["fused_attention"]
+    r5["library_ms"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        atol, rtol = TOL[dtype]
+        for tag, b, h, t, kind in cases:
+            q, k, v = (torch.randn(b, h, t, 64, generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+            mask = None
+            if kind is not None:
+                am = torch.ones(b, t, dtype=torch.int32, device=dev)
+                lens = torch.randint(8, t + 1, (b,), generator=gen,
+                                     device=dev)
+                am[torch.arange(t, device=dev)[None] >= lens[:, None]] = 0
+                mask = text_mask(am if kind == "batch" else None, t,
+                                 device=dev)
+            scale = 64 ** -0.5
+            with torch.no_grad():
+                got = K5.fused_attention(q, k, v, scale, mask)
+                want = K5.fused_attention_torch(q, k, v, scale, mask)
+                torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            ratio = float((err / (atol + rtol * want.float().abs())).max())
+            ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1
+            lib_mask = None if mask is None else mask.to(dtype)
+            with torch.no_grad():
+                t_k, t_p, t_l = timed(
+                    lambda: K5.fused_attention(q, k, v, scale, mask),
+                    lambda: K5.fused_attention_torch(q, k, v, scale, mask),
+                    lambda: TF.scaled_dot_product_attention(
+                        q, k, v, attn_mask=lib_mask, scale=scale))
+            shape = f"{tag} [{b}, {h}, {t}, 64] mask {kind}"
+            print(f"kernel fused_attention {shape} {dt}: max_abs_err "
+                  f"{float(err.max()):.3e} err/tol {ratio:.3f} (atol {atol}, "
+                  f"rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} "
+                  f"ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms", flush=True)
+            if not ok:
+                failures.append(f"fused_attention {shape} {dt}")
+            r5["max_abs_err"] = max(r5["max_abs_err"], float(err.max()))
+            # the pipeline-T encode's shapes, in the BF16 policy's type
+            if dtype == torch.bfloat16 and tag.startswith("ViT-L") \
+                    and kind != "broadcast":
+                _add_time(r5, t_k, t_p, t_cost("fused_attention", q,
+                                               mask=mask), f"{shape} bf16")
+                r5["library_ms"] += t_l
+    if failures:
+        raise SystemExit(f"pipeline-T kernels disagree with their plain "
+                         f"versions: {failures}")
+    return results
+
+
 def _write_rafdb(root: str, n_train: int, n_eval: int) -> None:
     """A synthetic RAF-DB tree: 100x100 JPEGs (the aligned RAF-DB size)
     under train/val/test/<emotion>/."""
@@ -586,18 +823,219 @@ def train_phase() -> dict:
             state, m = step(state, batch)
         float(m.loss)
         rates[impl].append(20 * B / (time.perf_counter() - t0))
-    counts = {**F.launch_counts(), **K4.launch_counts()}
+    counts = {**F.launch_counts(F.M_KERNELS), **K4.launch_counts()}
     print(f"launches on the train path: {counts}", flush=True)
     if min(counts.values()) < 1:
         raise SystemExit(f"a kernel of the train path never launched: "
                          f"{counts}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card()
     print(f"train step pairs/s (B={B}, ViT-B/16, adapters 256/256/2, FAST, "
           f"Adam; 20 steps after 3 warmup, two rounds each): kernels "
           f"{rates['auto']}, plain versions {rates['torch']} on {smi}",
           flush=True)
+    return counts
+
+
+def _write_flat_tree(root: str, per_class: int, seed: int) -> None:
+    """A flat root/<emotion>/*.jpg tree of 100x100 JPEGs (the aligned
+    RAF-DB size), the layout cli/compare_t reads."""
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.core.config import EMOTIONS
+
+    rng = np.random.default_rng(seed)
+    for e in EMOTIONS:
+        d = os.path.join(root, e)
+        os.makedirs(d, exist_ok=True)
+        for i in range(per_class):
+            Image.fromarray(rng.integers(0, 255, (100, 100, 3),
+                                         dtype=np.uint8)).save(
+                os.path.join(d, f"{e}_{i}.jpg"))
+
+
+def pipeline_t_phase() -> dict:
+    """Pipeline T at ViT-L/14 full width with K5 on: cli/compare_t, the
+    kernel T step against the plain one, K5 on against off, and
+    cli/predict_image with a T checkpoint."""
+    import shutil
+
+    from vlm_clip_tpu_torch.bridge import tree_leaves, tree_map
+    from vlm_clip_tpu_torch.cli import compare_t, predict_image
+    from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
+    from vlm_clip_tpu_torch.core.config import EMOTIONS
+    from vlm_clip_tpu_torch.data.captions import get_emotion_descriptions
+    from vlm_clip_tpu_torch.data.preprocess import normalize_batch
+    from vlm_clip_tpu_torch.models import model_t as T
+    from vlm_clip_tpu_torch.models.clip import get_text_features
+    from vlm_clip_tpu_torch.models.layers import l2_normalize
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train import optim
+    from vlm_clip_tpu_torch.train.trainer_t import make_t_train_step
+
+    name, bt = "vit-large-patch14", 32
+    work = os.path.join(REPO, "build", "chip_smoke", "pipeline_t")
+    shutil.rmtree(work, ignore_errors=True)
+    train_dir, test_dir = (os.path.join(work, s) for s in ("train", "test"))
+    _write_flat_tree(train_dir, per_class=10, seed=1)  # 70: 2 steps a epoch
+    _write_flat_tree(test_dir, per_class=5, seed=2)    # 35: 2 eval batches
+    os.environ["VLM_CLIP_LOG_DIR"] = os.path.join(work, "logs")
+
+    # 1. the entry point, K5 on for the frozen towers' encodes
+    was_on = K5.fused_attention_enabled()
+    K5.set_fused_attention(True)
+    try:
+        F.reset_launch_counts()
+        K5.reset_launch_counts()
+        t0 = time.time()
+        res = compare_t.main(["--train-dir", train_dir, "--test-dir",
+                              test_dir, "--clip-model-name", name,
+                              "--batch-size", str(bt), "--num-epochs", "3",
+                              "--no-plots", "--device", "cuda",
+                              "--out-dir", work])
+        torch.cuda.synchronize()
+        counts = {**F.launch_counts(F.T_KERNELS), **K5.launch_counts()}
+    finally:
+        K5.set_fused_attention(was_on)
+    losses = res.pop("losses")
+    print(f"compare_t ViT-L/14, B={bt}, 3 epochs, K5 on: "
+          f"{time.time() - t0:.1f}s; epoch losses {losses}; {res}",
+          flush=True)
+    print(f"launches on the pipeline-T path: {counts}", flush=True)
+    if len(losses) != 3 or not np.isfinite(losses).all() \
+            or not all(0.0 <= v <= 1.0 for v in res.values()):
+        raise SystemExit(f"compare_t: bad losses or accuracies: {losses}, "
+                         f"{res}")
+    if min(counts.values()) < 1:
+        raise SystemExit(f"a kernel of the pipeline-T path never launched: "
+                         f"{counts}")
+
+    # 2. one T train step with the kernels and one with impl="torch" from
+    # the same state, on cached-feature inputs (what epochs >= 2 see)
+    dev = torch.device("cuda")
+    clip, cfg = load_backbone(name, seed=0, device=dev)
+    model = T.CLIPAdapterT(clip, cfg, make_tokenizer(cfg), seed=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    feats = torch.randn(bt, cfg.projection_dim, generator=gen, device=dev)
+    feats = feats / feats.norm(dim=-1, keepdim=True)
+    labels = torch.randint(0, 7, (bt,), generator=gen, device=dev)
+    tx = optim.adam(3e-4)
+
+    def fresh(impl):
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          model.adapter_params)
+        return (params, tx.init(tree_leaves(params)),
+                make_t_train_step(tx, model.alpha, model.beta, impl))
+
+    out = {}
+    for impl in ("auto", "torch"):
+        params, opt, step = fresh(impl)
+        F.reset_launch_counts()
+        loss = step(params, opt, 0, feats, labels, model.bank.mean,
+                    model.temperature)
+        torch.cuda.synchronize()
+        launched = F.launch_counts(F.T_KERNELS)
+        if (impl == "torch") == any(launched.values()):
+            raise SystemExit(f"impl={impl} step launches: {launched}")
+        out[impl] = (float(loss), [p.grad.clone()
+                                   for p in tree_leaves(params)])
+    (lk, gk), (lp, gp) = out["auto"], out["torch"]
+    d_loss = abs(lk - lp) / abs(lp)
+    floor = 1e-2 * float(torch.sqrt(sum((g ** 2).sum() for g in gp)))
+    d_grad = max(float((a - b).norm()) / max(float(b.norm()), floor)
+                 for a, b in zip(gk, gp))
+    ok = d_loss <= T_STEP_TOL["loss"] and d_grad <= T_STEP_TOL["grad"]
+    print(f"T step B={bt}: kernels loss {lk:.7f}, plain {lp:.7f}; rel diff "
+          f"loss {d_loss:.2e}, worst adapter gradient {d_grad:.2e} (limits "
+          f"{T_STEP_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the kernel T step disagrees with the plain step")
+
+    # the cached-feature step's time, kernels and plain in turns
+    step_ms = {"auto": [], "torch": []}
+    for impl in ("auto", "torch", "auto", "torch"):
+        params, opt, step = fresh(impl)
+        for i in range(5):
+            step(params, opt, i, feats, labels, model.bank.mean,
+                 model.temperature)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            loss = step(params, opt, 5 + i, feats, labels, model.bank.mean,
+                        model.temperature)
+        float(loss)
+        step_ms[impl].append((time.perf_counter() - t0) * 1e3 / 50)
+
+    # 3. K5 on against off: one batch of 32 images and the prompt bank
+    px = normalize_batch(torch.randint(0, 255, (bt, cfg.vision.image_size,
+                                                 cfg.vision.image_size, 3),
+                                       generator=gen, device=dev,
+                                       dtype=torch.uint8))
+    ids, am = model.tokenizer([d for e in EMOTIONS for d in
+                               get_emotion_descriptions()[e]])
+    ids = torch.as_tensor(ids, device=dev)
+    am = torch.as_tensor(am, device=dev)
+    enc = {}
+    encode_ms = {False: [], True: []}
+    try:
+        for on in (False, True, True, False):
+            K5.set_fused_attention(on)
+            K5.reset_launch_counts()
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = model.encode_images(px)
+                torch.cuda.synchronize()
+                encode_ms[on].append((time.perf_counter() - t0) * 1e3)
+                n_img = K5.fused_attention.launches
+                txt = l2_normalize(get_text_features(
+                    model.clip_params, ids, am, cfg, model.policy)).float()
+            enc[on] = (img, txt, n_img, K5.fused_attention.launches - n_img)
+    finally:
+        K5.set_fused_attention(was_on)
+    (img0, txt0, _, _), (img1, txt1, n_img, n_txt) = enc[False], enc[True]
+    if (n_img, n_txt) != (cfg.vision.num_layers, cfg.text.num_layers) \
+            or enc[False][2] or enc[False][3]:
+        raise SystemExit(f"K5 launches: image batch {n_img}, bank {n_txt} "
+                         f"(want {cfg.vision.num_layers}, "
+                         f"{cfg.text.num_layers}; none with the toggle off)")
+    worst = {}
+    for what, a, b in (("image", img1, img0), ("bank", txt1, txt0)):
+        worst[what] = (float((a - b).abs().max()),
+                       float((a * b).sum(-1).min()))
+    ok = all(m <= ENCODE_TOL["max_abs"] and c >= ENCODE_TOL["cosine"]
+             for m, c in worst.values())
+    print(f"K5 on vs off, ViT-L/14 BF16 (max abs diff, least cosine): "
+          f"{worst} (limits {ENCODE_TOL}) {'ok' if ok else 'FAIL'}; K5 "
+          f"launches: {n_img} per image batch, {n_txt} for the bank",
+          flush=True)
+    if not ok:
+        raise SystemExit("features with K5 disagree with the plain path")
+
+    # 4. predict_image on one JPEG with a T checkpoint the port saved
+    ckpt = os.path.join(work, "t_adapters.pt")
+    model.save_adapters(ckpt)
+    jpg = os.path.join(work, "face.jpg")
+    with open(jpg, "wb") as f:
+        f.write(_jpeg(7, (120, 96)))
+    F.reset_launch_counts()
+    probs = predict_image.main([jpg, "--clip-model-name", name,
+                                "--adapter-ckpt", ckpt, "--device", "cuda",
+                                "--plot-out", os.path.join(work, "p.png")])
+    if probs.shape != (7,) or not np.isfinite(probs).all() \
+            or abs(float(probs.sum()) - 1.0) > 1e-4 \
+            or not F.feature_adapter_blend_fused.launches:
+        raise SystemExit(f"predict_image: bad output {probs} or no K6 "
+                         "launch")
+    smi = card()
+    print(f"predict_image ViT-L/14 with a T checkpoint: {probs.round(4)}",
+          flush=True)
+    print(f"T train step with cached features (B={bt}, D=768, K=64, Adam; "
+          f"50 steps after 5, two rounds each): kernels {step_ms['auto']} "
+          f"ms, plain versions {step_ms['torch']} ms on {smi}", flush=True)
+    print(f"ViT-L/14 image encode (B={bt}, BF16, host clock to a "
+          f"synchronize): K5 on {encode_ms[True]} ms, off "
+          f"{encode_ms[False]} ms on {smi}", flush=True)
     return counts
 
 
@@ -731,7 +1169,84 @@ def serve_phase() -> dict:
     if any(F.launch_counts().values()):
         raise SystemExit(f"the plain path launched kernels: "
                          f"{F.launch_counts()}")
+    counts.update(serve_t_adapter(images))
     return counts
+
+
+def serve_t_adapter(images) -> dict:
+    """A second server, /classify in t-adapter mode (a T checkpoint),
+    held against the plain path on the same weights."""
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
+    from vlm_clip_tpu_torch.cli.serve import build_server
+    from vlm_clip_tpu_torch.core.config import EMOTIONS, clip_preset
+    from vlm_clip_tpu_torch.data.preprocess import (load_and_resize,
+                                                    normalize_batch)
+    from vlm_clip_tpu_torch.models.model_t import (CLIPAdapterT,
+                                                   init_t_adapters)
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train.checkpoint import save_t_adapters
+
+    name = "vit-base-patch16"
+    cfg = clip_preset(name)
+    ckpt = os.path.join(REPO, "build", "chip_smoke", "t_adapters_vitb16.pt")
+    save_t_adapters(ckpt, init_t_adapters(torch.Generator().manual_seed(2),
+                                          cfg.projection_dim, 64))
+    F.reset_launch_counts()
+    server = build_server(["--port", "0", "--device", "cuda",
+                           "--clip-model-name", name,
+                           "--allow-random-weights", "--allow-hash-tokenizer",
+                           "--adapter-ckpt", ckpt])
+    print(f"server up: {server.mode}", flush=True)
+    if server.mode != "t-adapter":
+        raise SystemExit(f"--adapter-ckpt served mode {server.mode}")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    served, lat = [], []
+    try:
+        F.reset_launch_counts()
+        for body in images:
+            out, ms = _post(port, "/classify", body)
+            served.append(np.asarray([out["probs"][e] for e in EMOTIONS]))
+            lat.append(ms)
+        launched = F.feature_adapter_blend_fused.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    print(f"latency /classify t-adapter: mean {np.mean(lat):.2f} ms, min "
+          f"{np.min(lat):.2f} ms over {len(lat)} requests; K6 forward "
+          f"launches {launched}", flush=True)
+    if not launched:
+        raise SystemExit("t-adapter /classify never launched K6")
+    # the same weights (the server's seed) through the plain versions
+    dev = torch.device("cuda")
+    clip, cfg = load_backbone(name, device=dev)
+    F.reset_launch_counts()
+    with torch.inference_mode():
+        model = CLIPAdapterT(clip, cfg, make_tokenizer(cfg), impl="torch")
+        model.load_adapters(ckpt)
+        S = cfg.vision.image_size
+        for i, body in enumerate(images):
+            u8 = np.zeros((8, S, S, 3), np.uint8)  # the served batch
+            u8[0] = load_and_resize(Image.open(io.BytesIO(body)), S)
+            want = model.predict(normalize_batch(torch.from_numpy(u8).to(
+                dev))).float().cpu().numpy()[0]
+            d = float(np.abs(want - served[i]).max())
+            ok = np.isfinite(served[i]).all() \
+                and abs(served[i].sum() - 1.0) < 1e-4 and d <= CLASSIFY_ATOL
+            print(f"/classify t-adapter[{i}] vs impl=torch: max abs diff "
+                  f"{d:.3e} (limit {CLASSIFY_ATOL}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise SystemExit("t-adapter /classify disagrees with the "
+                                 "plain path")
+    if any(F.launch_counts().values()):
+        raise SystemExit(f"the plain path launched kernels: "
+                         f"{F.launch_counts()}")
+    return {"feature_adapter_blend_fused": launched}
 
 
 def main() -> None:
@@ -747,19 +1262,24 @@ def main() -> None:
 
     results = run("kernels", kernel_phase)
     bwd_results = run("backward", backward_phase)
+    t_results = run("t_kernels", t_kernel_phase)
     train_counts = run("train", train_phase)
+    t_counts = run("pipeline_t", pipeline_t_phase)
     serve_counts = run("serve", serve_phase)
     print("phases:", ", ".join(phases), flush=True)
     kernels = []
-    for name, r in {**results, **bwd_results}.items():
-        entry = {"name": name, "route": "cuda",
-                 "source": K4_SOURCE if name.startswith("contrastive")
-                 else SOURCE,
-                 "replaces": {**REPLACES, **BWD_REPLACES}[name],
-                 "launches": train_counts[name],
+    sources = {**{n: SOURCE for n in REPLACES}, **{
+        n: K4_SOURCE if n.startswith("contrastive") else SOURCE
+        for n in BWD_REPLACES}, **{n: K5_SOURCE if n == "fused_attention"
+                                   else SOURCE for n in T_REPLACES}}
+    for name, r in {**results, **bwd_results, **t_results}.items():
+        entry = {"name": name, "route": "cuda", "source": sources[name],
+                 "replaces": {**REPLACES, **BWD_REPLACES, **T_REPLACES}[name],
+                 "launches": {**train_counts, **t_counts}[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": None,
+                 "bound_by": r["bound_by"],
+                 "library_ms": r.get("library_ms"),
                  "shapes": r["shapes"]}
         if name in serve_counts:
             entry["launches_serve"] = serve_counts[name]

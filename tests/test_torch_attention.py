@@ -1,0 +1,177 @@
+"""K5, the towers' short-sequence attention, in the port against the JAX
+package: the plain PyTorch version and its recompute backward against
+the Pallas kernel (run through the interpreter on the CPU, as
+tests/test_fused_ops.py runs it) and its custom VJP, with each mask
+layout; and ``mha``'s dispatch to it under the opt-in toggle.
+
+Tolerances: fp32 1e-5 absolute for the output and 1e-5 of the largest
+gradient for the gradients (the same fp32 math, summed in another order);
+bf16 2e-2 (both sides take fp32 scores of the same bf16 operands and
+round p and o once each, so a rounding flip separates them).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vlm_clip_tpu.core.dtypes import FP32 as RFP32
+from vlm_clip_tpu.models import clip as RC
+from vlm_clip_tpu.models import layers as RL
+from vlm_clip_tpu.ops import attention as RK5
+from vlm_clip_tpu_torch.core.dtypes import FP32
+from vlm_clip_tpu_torch.models import clip as C
+from vlm_clip_tpu_torch.models import layers as L
+from vlm_clip_tpu_torch.ops import attention as K5
+
+from _torch_port import port_clip_config, to_torch
+from helpers import rand_batch, tiny_clip_config
+
+B, H, T, D = 3, 2, 17, 8
+SCALE = D ** -0.5
+MASKS = ["none", "causal", "padded", "broadcast"]
+
+
+def _mask(kind, rng):
+    """none; causal [T, T]; padding + causal [B, 1, T, T]; a
+    batch-broadcast [1, 1, T, T] (what the text tower emits without an
+    attention mask). Small random biases give the mask a gradient worth
+    comparing."""
+    causal = np.triu(np.full((T, T), -1e9, np.float32), 1)
+    bias = (rng.normal(size=(B, 1, T, T)) * 0.5).astype(np.float32)
+    pad = np.zeros((B, 1, 1, T), np.float32)
+    pad[-1, ..., T // 2:] = -1e9
+    return {"none": None, "causal": causal + bias[0, 0],
+            "padded": causal + bias + pad,
+            "broadcast": (causal + bias[0, 0])[None, None]}[kind]
+
+
+def _case(kind, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.normal(size=(B, H, T, D)).astype(np.float32)
+                  for _ in range(4))
+    return q, k, v, _mask(kind, rng), g
+
+
+@pytest.mark.parametrize("kind", MASKS)
+def test_plain_forward_and_grads_match_pallas(kind):
+    q, k, v, m, g = _case(kind)
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    if m is None:
+        want, vjp = jax.vjp(lambda q_, k_, v_: RK5.fused_attention(
+            q_, k_, v_, SCALE, None), *args)
+    else:
+        want, vjp = jax.vjp(lambda q_, k_, v_, m_: RK5.fused_attention(
+            q_, k_, v_, SCALE, m_), *args, jnp.asarray(m))
+    want_g = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    leaves = [tq, tk, tv]
+    tm = None
+    if m is not None:
+        tm = torch.from_numpy(m).requires_grad_(True)
+        leaves.append(tm)
+    K5.reset_launch_counts()
+    got = K5.fused_attention(tq, tk, tv, SCALE, tm)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        K5.fused_attention_torch(tq, tk, tv, SCALE, tm).detach().numpy(),
+        np.asarray(want), atol=1e-5)
+    got.backward(torch.from_numpy(g))
+    assert K5.launch_counts() == {"fused_attention": 0}
+    top = max(float(np.abs(w).max()) for w in want_g)
+    for leaf, w in zip(leaves, want_g):
+        assert leaf.grad.shape == w.shape
+        np.testing.assert_allclose(leaf.grad.numpy(), w, atol=1e-5 * top)
+
+
+@pytest.mark.parametrize("kind", MASKS)
+def test_plain_forward_bf16_matches_pallas(kind):
+    q, k, v, m, _ = _case(kind, seed=1)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = RK5.fused_attention(*jb, SCALE, None if m is None
+                               else jnp.asarray(m))
+    tb = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    got = K5.fused_attention(*tb, SCALE, None if m is None
+                             else torch.from_numpy(m))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_supports_and_refusals():
+    for shape, ok in [((T, T), True), ((B, 1, T, T), True),
+                      ((1, 1, T, T), True), ((B, H, T, T), False),
+                      ((T,), False), ((T, T + 1), False)]:
+        m = np.zeros(shape, np.float32)
+        assert K5.supports(torch.from_numpy(m), T) == ok \
+            == RK5.supports(jnp.asarray(m), T), shape
+    assert K5.supports(None, T)
+    q = torch.zeros(B, H, T, D)
+    with pytest.raises(ValueError, match="mask"):
+        K5.fused_attention(q, q, q, SCALE, torch.zeros(B, H, T, T))
+    with pytest.raises(ValueError, match="share a shape"):
+        K5.fused_attention(q, q[:, :, :5], q, SCALE)
+
+
+def test_mha_toggle_takes_k5_and_is_restored():
+    """A self-attention layer with the toggle on equals the toggle off in
+    fp32, and ``fused=True`` equals the reference's ``mha(fused=True)``;
+    cross-attention (another key length) never takes K5."""
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_mha(gen, 32)
+    x = torch.randn(B, T, 32, generator=gen)
+    m = torch.from_numpy(_mask("padded", np.random.default_rng(0)))
+    want = L.mha(p, x, x, 4, m)
+    assert not K5.fused_attention_enabled()
+    K5.set_fused_attention(True)
+    try:
+        assert K5.fused_attention_enabled()
+        got = L.mha(p, x, x, 4, m)
+        cross = L.mha(p, x, x[:, :5], 4, None)
+    finally:
+        K5.set_fused_attention(False)
+    assert not K5.fused_attention_enabled()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cross, L.mha(p, x, x[:, :5], 4, None),
+                               atol=0, rtol=0)
+    rp = {k: {"kernel": jnp.asarray(v["kernel"].numpy()),
+              "bias": jnp.asarray(v["bias"].numpy())} for k, v in p.items()}
+    ref = RL.mha(rp, jnp.asarray(x.numpy()), jnp.asarray(x.numpy()), 4,
+                 jnp.asarray(m.numpy()), fused=True)
+    np.testing.assert_allclose(L.mha(p, x, x, 4, m, fused=True).numpy(),
+                               np.asarray(ref), atol=1e-5)
+    torch.testing.assert_close(L.mha(p, x, x, 4, m, fused=False), want,
+                               atol=0, rtol=0)
+
+
+def test_towers_with_the_toggle_match_reference():
+    """The text tower (batch-broadcast causal mask plus padding) and the
+    vision tower (no mask) with K5 on equal the reference with its own
+    toggle on, and the port with the toggle off, in fp32."""
+    cfg = tiny_clip_config()
+    params = RC.init_clip(jax.random.PRNGKey(0), cfg)
+    tp, pcfg = to_torch(params), port_clip_config(cfg)
+    px, ids, am = rand_batch()
+    off_t = C.get_text_features(tp, torch.from_numpy(ids),
+                                torch.from_numpy(am), pcfg, FP32)
+    off_i = C.get_image_features(tp, torch.from_numpy(px), pcfg, FP32)
+    K5.set_fused_attention(True)
+    RK5.set_fused_attention(True)
+    try:
+        on_t = C.get_text_features(tp, torch.from_numpy(ids),
+                                   torch.from_numpy(am), pcfg, FP32)
+        on_i = C.get_image_features(tp, torch.from_numpy(px), pcfg, FP32)
+        ref_t = RC.get_text_features(params, jnp.asarray(ids),
+                                     jnp.asarray(am), cfg, RFP32)
+        ref_i = RC.get_image_features(params, jnp.asarray(px), cfg, RFP32)
+    finally:
+        K5.set_fused_attention(False)
+        RK5.set_fused_attention(False)
+    np.testing.assert_allclose(on_t.numpy(), np.asarray(ref_t), atol=1e-4)
+    np.testing.assert_allclose(on_i.numpy(), np.asarray(ref_i), atol=1e-4)
+    torch.testing.assert_close(on_t, off_t, atol=1e-5, rtol=0)
+    torch.testing.assert_close(on_i, off_i, atol=1e-5, rtol=0)

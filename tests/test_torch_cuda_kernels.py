@@ -17,6 +17,8 @@ import torch
 
 from vlm_clip_tpu_torch.bridge import tree_leaves
 from vlm_clip_tpu_torch.models import adapters as A
+from vlm_clip_tpu_torch.models import layers as L
+from vlm_clip_tpu_torch.ops import attention as K5
 from vlm_clip_tpu_torch.ops import contrastive as K4
 from vlm_clip_tpu_torch.ops import fused_adapter as F
 
@@ -76,7 +78,9 @@ def test_cross_modal_adapter_kernels(dev, dtype, n, tk):
     assert F.launch_counts() == {
         "seq_adapter_fused": 0, "cross_attn_block_fused": 1,
         "prenorm_mlp_fused": 1, "seq_adapter_bwd_cuda": 0,
-        "cross_attn_block_bwd_cuda": 0, "prenorm_mlp_bwd_cuda": 0}
+        "cross_attn_block_bwd_cuda": 0, "prenorm_mlp_bwd_cuda": 0,
+        "feature_adapter_blend_fused": 0,
+        "feature_adapter_blend_bwd_cuda": 0}
     _close(got, want, dtype)
 
 
@@ -230,3 +234,145 @@ def test_contrastive_kernels(dev, dtype, b):
                  K4.contrastive_loss_bwd_torch(t, m, ls,
                                                torch.ones((), device=dev)),
                  dtype, "contrastive")
+
+
+# ---------------------------------------------------------------------------
+# K6: feature adapter blend (pipelines T and V)
+# ---------------------------------------------------------------------------
+
+def _feat_case(dev, n, d, k, dtype, seed=0):
+    p = A.init_feature_adapter(_gen(dev, seed), d, k, device=dev)
+    for leaf in (p["fc1"]["bias"], p["fc2"]["bias"]):
+        leaf.normal_(generator=_gen(dev, seed + 1)).mul_(0.1)
+    x = torch.randn(n, d, generator=_gen(dev, seed + 2), device=dev).to(dtype)
+    return x, (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+               p["fc2"]["bias"])
+
+
+# the T path's rows (32 image features, 7 class means, 35 descriptions)
+# and 600 rows with dropout, across the 256-row tiles the hash keys on
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,dropout", [(32, 0.0), (7, 0.0), (35, 0.0),
+                                       (600, 0.1)])
+def test_feature_adapter_kernels(dev, dtype, n, dropout):
+    x, args = _feat_case(dev, n, 768, 64, dtype)
+    g = torch.randn(n, 768, generator=_gen(dev, 9), device=dev).to(dtype)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        got = F.feature_adapter_blend_fused(x, *args, 0.2, dropout, 1234)
+        want = F.feature_adapter_blend_torch(x, *args, 0.2, dropout, 1234)
+    _close(got, want, dtype)
+    gg = F.feature_adapter_blend_bwd_cuda(x, *args, 0.2, g, dropout, 1234)
+    gw = F.feature_adapter_blend_bwd_torch(x, *args, 0.2, g, dropout, 1234)
+    assert F.launch_counts(F.T_KERNELS) == {
+        "feature_adapter_blend_fused": 1,
+        "feature_adapter_blend_bwd_cuda": 1}
+    _grads_close(gg, gw, dtype, "feature_adapter")
+
+
+@pytest.mark.cuda
+def test_feature_dropout_mask_bits(dev):
+    """The kernel keeps exactly the elements the plain hash keeps: with
+    W2 = I-like probes, y is zero where the mask dropped h."""
+    n, k = 600, 64
+    mask = F.feature_dropout_mask(n, k, 99, 0.1, dev)
+    cpu = F.feature_dropout_mask(n, k, 99, 0.1)
+    assert torch.equal(mask.cpu(), cpu)
+    # relu(x W1 + b1) = 1 everywhere, W2 = [I_k | 0]: a = mask (+ b2 = 0),
+    # so with r = 1, y = mask / |mask| per row
+    x = torch.ones(n, 128, device=dev)
+    w1 = torch.zeros(128, k, device=dev)
+    b1 = torch.ones(k, device=dev)
+    w2 = torch.zeros(k, 128, device=dev)
+    w2[:, :k] = torch.eye(k, device=dev)
+    b2 = torch.zeros(128, device=dev)
+    y = F.feature_adapter_blend_fused(x, w1, b1, w2, b2, 1.0, 0.1, 99)
+    assert torch.equal(y[:, :k] > 0, mask > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_feature_adapter_autograd(dev, dtype):
+    """adapt_features' gradients with the kernels (autograd Function)
+    and with autograd of K6's plain version (fp32 inside for a bf16 x,
+    as the kernels; the plain composition of impl="torch" multiplies in
+    x's dtype, so in bf16 it is another function)."""
+    p = A.init_feature_adapter(_gen(dev), 768, 64, device=dev)
+    x0 = torch.randn(32, 768, generator=_gen(dev, 3), device=dev)
+    x0 = (x0 / x0.norm(dim=-1, keepdim=True)).to(dtype)
+    leaves = tree_leaves(p)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        for t in leaves:
+            t.requires_grad_(True)
+            t.grad = None
+        x = x0.clone().requires_grad_(True)
+        y = A.adapt_features(p, x, 0.2, impl="kernel") if impl == "kernel" \
+            else F.feature_adapter_blend_torch(x, *leaves, 0.2)
+        F.reset_launch_counts()
+        (y.float() * torch.arange(768.0, device=dev)).sum().backward()
+        if impl == "kernel":
+            assert F.launch_counts()["feature_adapter_blend_bwd_cuda"] == 1
+        grads[impl] = [x.grad] + [t.grad for t in leaves]
+    _grads_close(grads["kernel"], grads["plain"], dtype, "adapt_features")
+
+
+# ---------------------------------------------------------------------------
+# K5: short-sequence attention of the towers
+# ---------------------------------------------------------------------------
+
+def _attn_mask(kind, b, t, dev):
+    neg = torch.finfo(torch.float32).min
+    causal = torch.triu(torch.full((t, t), neg, device=dev), diagonal=1)
+    pad = torch.zeros(b, t, device=dev)
+    pad[-1, t // 2:] = 1.0
+    return {"none": None, "causal": causal,
+            "padded": causal[None, None] + pad[:, None, None, :] * neg,
+            "broadcast": causal[None, None]}[kind]
+
+
+# ViT-L/14 vision (257) and text (77) at small batches, ViT-B/16 vision
+# (197) and ViT-L/14-336 (577)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,t,kind", [
+    (3, 16, 257, "none"), (5, 12, 77, "padded"), (5, 12, 77, "broadcast"),
+    (2, 8, 77, "causal"), (2, 12, 197, "none"), (1, 16, 577, "none")])
+def test_fused_attention_kernel(dev, dtype, b, h, t, kind):
+    q, k, v = (torch.randn(b, h, t, 64, generator=_gen(dev, i),
+                           device=dev).to(dtype) for i in range(3))
+    mask = _attn_mask(kind, b, t, dev)
+    K5.reset_launch_counts()
+    got = K5.fused_attention(q, k, v, 0.125, mask)
+    assert K5.launch_counts() == {"fused_attention": 1}
+    _close(got, K5.fused_attention_torch(q, k, v, 0.125, mask), dtype)
+
+
+@pytest.mark.cuda
+def test_mha_fused_toggle_on_card(dev):
+    """A tower layer's attention through K5 equals the plain path, and
+    the toggle is restored."""
+    p = L.init_mha(_gen(dev), 768, device=dev)
+    x = torch.randn(4, 77, 768, generator=_gen(dev, 1), device=dev)
+    mask = _attn_mask("padded", 4, 77, dev)
+    want = L.mha(p, x, x, 12, mask)
+    K5.reset_launch_counts()
+    assert not K5.fused_attention_enabled()
+    K5.set_fused_attention(True)
+    try:
+        got = L.mha(p, x, x, 12, mask)
+    finally:
+        K5.set_fused_attention(False)
+    assert K5.launch_counts() == {"fused_attention": 1}
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_fused_attention_refusals(dev):
+    q = torch.randn(2, 2, 9, 32, device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        K5.fused_attention(q, q, q, 0.1)
+    q = torch.randn(2, 2, 9, 64, device=dev)
+    with pytest.raises(TypeError, match="share"):
+        K5.fused_attention(q, q.bfloat16(), q, 0.1)

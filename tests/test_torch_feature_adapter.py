@@ -1,0 +1,199 @@
+"""K6, the T/V feature adapter blend, in the port against the JAX
+package: the plain PyTorch versions (forward, backward, the counter-hash
+dropout mask) against the Pallas kernels run through the interpreter on
+the CPU, as tests/test_fused_ops.py runs them, and ``adapt_features``
+against the reference's composition.
+
+Tolerances: fp32 1e-5 absolute for y (unit-norm rows, the same fp32 math
+summed in another order) and 1e-5 of the largest gradient for the
+gradients (weight gradients sum over every row, in another order); bf16
+2e-2 (both sides widen the same bf16 x and round y once, so one bf16
+rounding flip separates them). The dropout mask is compared bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vlm_clip_tpu.convert import adapters as RCA
+from vlm_clip_tpu.models import adapters as RA
+from vlm_clip_tpu.ops import fused_adapter as RF
+from vlm_clip_tpu_torch.bridge import tree_leaves
+from vlm_clip_tpu_torch.convert import adapters as CA
+from vlm_clip_tpu_torch.models import adapters as A
+from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+from _torch_port import to_torch
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _case(n, d=64, k=16, seed=0):
+    """x (unit-scale rows) and (w1, b1, w2, b2) as numpy fp32."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w1 = (rng.normal(size=(d, k)) * d ** -0.5).astype(np.float32)
+    b1 = (rng.normal(size=(k,)) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(k, d)) * k ** -0.5).astype(np.float32)
+    b2 = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    return x, (w1, b1, w2, b2), g
+
+
+def _ref_fwd_bwd(x, params, g, ratio, dtype, dropout=0.0, seed=None):
+    """The Pallas kernels' y and (dx, dw1, db1, dw2, db2), as numpy fp32."""
+    jx = jnp.asarray(x).astype(JDT[dtype])
+    jseed = None if seed is None else jnp.int32(seed)
+
+    def f(x_, *p):
+        return RF.feature_adapter_blend_fused(x_, *p, ratio, dropout, jseed)
+
+    y, vjp = jax.vjp(f, jx, *map(jnp.asarray, params))
+    grads = vjp(jnp.asarray(g).astype(JDT[dtype]))
+    return (np.asarray(y.astype(jnp.float32)),
+            [np.asarray(t.astype(jnp.float32)) for t in grads])
+
+
+def _assert_grads(got, want, tol):
+    top = max(float(np.abs(w).max()) for w in want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.float().numpy()
+        assert a.shape == b.shape, i
+        np.testing.assert_allclose(a, b, atol=tol * max(top, 1.0), rtol=0,
+                                   err_msg=f"gradient {i}")
+
+
+# 7 and 37: one ragged TPU tile; 300: two tiles of 256 rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [7, 37, 300])
+def test_plain_forward_backward_match_pallas(n, dtype):
+    x, params, g = _case(n, seed=n)
+    want_y, want_g = _ref_fwd_bwd(x, params, g, 0.2, dtype)
+    tx = torch.from_numpy(x).to(dtype)
+    tp = [torch.from_numpy(p) for p in params]
+    tg = torch.from_numpy(g).to(dtype)
+    y = F.feature_adapter_blend_torch(tx, *tp, 0.2)
+    assert y.dtype == dtype
+    np.testing.assert_allclose(y.float().numpy(), want_y, atol=TOL[dtype])
+    grads = F.feature_adapter_blend_bwd_torch(tx, *tp, 0.2, tg)
+    assert grads[0].dtype == dtype
+    assert all(t.dtype == torch.float32 for t in grads[1:])
+    _assert_grads(grads, want_g, TOL[dtype])
+
+
+@pytest.mark.parametrize("seed", [7, 2 ** 31 - 5])
+def test_dropout_mask_bit_equal_and_y_agrees(seed):
+    """300 rows cross the 256-row tile the hash keys on. The Pallas
+    kernel's mask is read out of its forward: with relu(x@W1+b1) = 1,
+    W2 = [I | 0], b2 = 0 and r = 1, y's first k columns are the mask over
+    its row norm."""
+    n, d, k, drop = 300, 64, 16, 0.1
+    w1 = np.zeros((d, k), np.float32)
+    b1 = np.ones((k,), np.float32)
+    w2 = np.zeros((k, d), np.float32)
+    w2[:, :k] = np.eye(k, dtype=np.float32)
+    b2 = np.zeros((d,), np.float32)
+    y = np.asarray(RF.feature_adapter_blend_fused(
+        jnp.ones((n, d)), *map(jnp.asarray, (w1, b1, w2, b2)), 1.0, drop,
+        jnp.int32(seed)))
+    mask = F.feature_dropout_mask(n, k, seed, drop)
+    np.testing.assert_array_equal(y[:, :k] > 0, mask.numpy() > 0)
+    keep, scale = F.dropout_constants(drop)
+    assert keep == int(0.9 * 4294967295.0)
+    assert set(np.unique(mask.numpy())) <= {0.0, np.float32(scale)}
+    # y and the gradients agree on random weights with this mask
+    x, params, g = _case(n, seed=seed % 1000)
+    want_y, want_g = _ref_fwd_bwd(x, params, g, 0.3, torch.float32, drop,
+                                  seed)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    tp = [torch.from_numpy(p) for p in params]
+    got = F.feature_adapter_blend_torch(tx, *tp, 0.3, drop, seed)
+    np.testing.assert_allclose(got.numpy(), want_y, atol=1e-5)
+    _assert_grads(F.feature_adapter_blend_bwd_torch(tx, *tp, 0.3, tg, drop,
+                                                    seed), want_g, 1e-5)
+
+
+def test_fused_wrapper_on_cpu_is_the_plain_version_with_autograd():
+    """On CPU tensors the wrapper takes the plain version (no launch) and
+    autograd of it equals the written-out backward."""
+    x, params, g = _case(19, seed=3)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tp = [torch.from_numpy(p).requires_grad_(True) for p in params]
+    F.reset_launch_counts()
+    y = F.feature_adapter_blend_fused(tx, *tp, 0.25, 0.1, 11)
+    (y * torch.from_numpy(g)).sum().backward()
+    assert not any(F.launch_counts().values())
+    want = F.feature_adapter_blend_bwd_torch(tx.detach(),
+                                             *(p.detach() for p in tp), 0.25,
+                                             torch.from_numpy(g), 0.1, 11)
+    for a, b in zip([tx.grad] + [p.grad for p in tp], want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="dropout"):
+        F.feature_adapter_blend_fused(tx, *tp, 0.25, 1.0, 1)
+    with pytest.raises(ValueError, match="wrong shapes"):
+        F.feature_adapter_blend_fused(tx[:, :8], *tp, 0.25)
+
+
+@pytest.mark.parametrize("impl", ["torch", "auto"])
+@pytest.mark.parametrize("shape", [(7, 32), (2, 5, 32)])
+def test_adapt_features_matches_reference(impl, shape):
+    """impl="torch" (plain composition) and "auto" (K6 for 2-D x, its
+    plain version on the CPU) against the reference's jnp composition."""
+    p = RA.init_feature_adapter(jax.random.PRNGKey(1), 32, 8)
+    p["fc1"]["bias"] = p["fc1"]["bias"] + 0.1
+    x = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    want = np.asarray(RA.adapt_features(p, jnp.asarray(x), 0.2, impl="jnp"))
+    got = A.adapt_features(to_torch(p), torch.from_numpy(x), 0.2, impl=impl)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got.numpy(), axis=-1), 1.0,
+                               atol=1e-5)
+
+
+def test_adapt_features_dropout_paths():
+    """Active dropout: K6 takes a seed drawn from the generator (the hash
+    mask, so a given generator state gives one answer); the plain
+    composition draws a Bernoulli mask; without a generator both raise,
+    as the reference does."""
+    p = to_torch(RA.init_feature_adapter(jax.random.PRNGKey(0), 32, 8))
+    x = torch.randn(6, 32, generator=torch.Generator().manual_seed(0))
+    kw = dict(dropout=0.5, deterministic=False)
+    for impl in ("auto", "torch"):
+        a = A.adapt_features(p, x, 0.5, generator=torch.Generator()
+                             .manual_seed(4), impl=impl, **kw)
+        b = A.adapt_features(p, x, 0.5, generator=torch.Generator()
+                             .manual_seed(4), impl=impl, **kw)
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+        det = A.adapt_features(p, x, 0.5, impl=impl)
+        assert not torch.allclose(a, det)
+        with pytest.raises(ValueError, match="generator"):
+            A.adapt_features(p, x, 0.5, impl=impl, **kw)
+    # the kernel path's answer is K6 with the drawn seed
+    gen = torch.Generator().manual_seed(4)
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                             generator=torch.Generator().manual_seed(4)))
+    got = A.adapt_features(p, x, 0.5, generator=gen, impl="auto", **kw)
+    want = F.feature_adapter_blend_torch(
+        x, p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+        p["fc2"]["bias"], 0.5, 0.5, seed)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_feature_adapter_state_dict_round_trip():
+    """fc1/fc2 torch state dicts: the port reads the reference's export
+    and writes what the reference reads."""
+    p = RA.init_feature_adapter(jax.random.PRNGKey(5), 24, 6)
+    sd = {k: torch.from_numpy(np.asarray(v))
+          for k, v in RCA.feature_adapter_to_torch(p).items()}
+    tp, want = CA.feature_adapter_from_torch(sd), to_torch(p)
+    for layer in ("fc1", "fc2"):
+        for key in ("kernel", "bias"):
+            torch.testing.assert_close(tp[layer][key], want[layer][key],
+                                       atol=0, rtol=0)
+    back = RCA.feature_adapter_from_torch(
+        {k: v.numpy() for k, v in CA.feature_adapter_to_torch(tp).items()})
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(p)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -40,6 +40,15 @@ def load_backbone(model_name: str, hf_checkpoint: Optional[str] = None,
     return init_clip(gen, cfg, device=device), cfg
 
 
+def resolve_device(name: str) -> torch.device:
+    """The entry points' ``--device``: ``cuda`` (the default) raises when
+    no card is visible rather than falling back to the CPU."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA card is visible; "
+                           "pass --device cpu to run on the CPU")
+    return torch.device(name)
+
+
 def make_tokenizer(cfg: CLIPConfig):
     """Best tokenizer for this run: the package's installed CLIP BPE
     vocab, else one in the HF cache, else the hash fallback (warned)."""

@@ -3,11 +3,14 @@
 
 A ThreadingHTTPServer front-end feeding a micro-batching worker:
 ``/classify`` requests are coalesced for up to ``--batch-window-ms`` into
-one fixed-size padded batch, scored by the zero-shot predict path, and
-fanned back out. With ``--embed`` or ``--m-adapter-ckpt`` the server
-also answers ``/embed`` and ``/embed_text`` with unit-norm projected CLIP
-features; ``--m-adapter-ckpt`` applies pipeline M's adapters, whose
-fused CUDA kernels run when ``--device`` is a GPU.
+one fixed-size padded batch, scored by the zero-shot predict path — or,
+with ``--adapter-ckpt``, by pipeline T's CLIP-Adapter (``t-adapter``
+mode, the feature adapters loaded strictly from a T checkpoint; kernel
+K6 on a GPU) — and fanned back out. With ``--embed`` or
+``--m-adapter-ckpt`` the server also answers ``/embed`` and
+``/embed_text`` with unit-norm projected CLIP features;
+``--m-adapter-ckpt`` applies pipeline M's adapters, whose fused CUDA
+kernels run when ``--device`` is a GPU.
 
 Endpoints:
 - ``POST /classify``   raw image bytes (jpeg/png) -> JSON {probs, label}
@@ -15,12 +18,13 @@ Endpoints:
 - ``POST /embed_text`` text (raw utf-8 or {"text": ...}) -> features
 - ``GET  /healthz``    liveness + model info
 
-Pipelines T and V (``--adapter-ckpt``, ``--v-adapter-ckpt``) are not
-ported yet and raise. Requests run under ``torch.inference_mode()`` on
+Pipeline V (``--v-adapter-ckpt``, ``--context-cache``) is not ported yet
+and raises. Requests run under ``torch.inference_mode()`` on
 ``--device`` (default ``cuda``).
 
 Drive: ``python -m vlm_clip_tpu_torch.cli.serve --port 8899
---allow-random-weights --allow-hash-tokenizer --m-adapter-ckpt m.pt``.
+--allow-random-weights --allow-hash-tokenizer --m-adapter-ckpt m.pt
+[--adapter-ckpt t.pt]``.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-NOT_PORTED = ("pipeline T/V not yet ported (ROADMAP.md): --adapter-ckpt and "
-              "--v-adapter-ckpt are not available in vlm_clip_tpu_torch")
+NOT_PORTED = ("pipeline V not yet ported (ROADMAP.md): --v-adapter-ckpt is "
+              "not available in vlm_clip_tpu_torch")
 
 
 class _Pending:
@@ -274,18 +278,25 @@ def make_handler(classifier: BatchingClassifier, model_name: str,
     return Handler
 
 
-def build_predict_fn(clip_model_name: str, max_batch: int = 8,
+def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
+                     v_adapter_ckpt=None, max_batch: int = 8,
                      backbone=None, policy=None):
-    """(predict_fn, mode, cfg) for zero-shot serving; runs the fixed-shape
-    predict path once before returning (warmup).
+    """(predict_fn, mode, cfg) for the requested serving mode: zero-shot,
+    or ``t-adapter`` with ``adapter_ckpt`` (strict T load); runs the
+    fixed-shape predict path once before returning (warmup).
 
     ``backbone=(clip_params, cfg, tokenizer)`` injects a preloaded tower
     (its params' device is the serving device); the default loads
     ``clip_model_name`` on the CPU.
     """
     from vlm_clip_tpu_torch.data.preprocess import normalize_batch
-    from vlm_clip_tpu_torch.models.model_t import ZeroShotEmotionRecognition
+    from vlm_clip_tpu_torch.models.model_t import (CLIPAdapterT,
+                                                   ZeroShotEmotionRecognition)
 
+    if adapter_ckpt and v_adapter_ckpt:
+        raise ValueError("pass --adapter-ckpt OR --v-adapter-ckpt")
+    if v_adapter_ckpt:
+        raise NotImplementedError(NOT_PORTED)
     if backbone is not None:
         clip_params, cfg, tokenizer = backbone
     else:
@@ -296,8 +307,14 @@ def build_predict_fn(clip_model_name: str, max_batch: int = 8,
     device = clip_params["logit_scale"].device
     model_kw = {} if policy is None else {"policy": policy}
     with torch.inference_mode():
-        model = ZeroShotEmotionRecognition(clip_params, cfg, tokenizer,
-                                           **model_kw)
+        if adapter_ckpt:
+            model = CLIPAdapterT(clip_params, cfg, tokenizer, **model_kw)
+            model.load_adapters(adapter_ckpt)  # strict (train/checkpoint.py)
+            mode = "t-adapter"
+        else:
+            model = ZeroShotEmotionRecognition(clip_params, cfg, tokenizer,
+                                               **model_kw)
+            mode = "zero-shot"
 
     def predict(images_u8: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
@@ -308,7 +325,7 @@ def build_predict_fn(clip_model_name: str, max_batch: int = 8,
     predict(np.zeros((max_batch, cfg.vision.image_size,
                       cfg.vision.image_size, 3), np.uint8))
     print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
-    return predict, "zero-shot", cfg
+    return predict, mode, cfg
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -321,7 +338,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "cpu)")
     p.add_argument("--clip-model-name", default="vit-base-patch32")
     p.add_argument("--adapter-ckpt", default=None,
-                   help="T-adapter checkpoint (not yet ported)")
+                   help="T-adapter checkpoint (visual + text feature "
+                        "adapters): /classify in t-adapter mode")
     p.add_argument("--v-adapter-ckpt", default=None,
                    help="V 3-adapter checkpoint (not yet ported)")
     p.add_argument("--context-cache", default=None,
@@ -351,7 +369,7 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     """Load the model, warm it up, and bind the HTTP server (not yet
     serving). The server carries ``embedder`` and ``classifier``."""
     args = parse_args(argv)
-    if args.adapter_ckpt or args.v_adapter_ckpt:
+    if args.v_adapter_ckpt:
         raise NotImplementedError(NOT_PORTED)
 
     from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
@@ -369,8 +387,8 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     # cannot load
     tokenizer = make_tokenizer(cfg)
     predict_fn, mode, cfg = build_predict_fn(
-        args.clip_model_name, max_batch=args.max_batch,
-        backbone=(clip_params, cfg, tokenizer))
+        args.clip_model_name, adapter_ckpt=args.adapter_ckpt,
+        max_batch=args.max_batch, backbone=(clip_params, cfg, tokenizer))
 
     embedder = None
     if args.embed or args.m_adapter_ckpt:

@@ -57,15 +57,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_device(name: str):
-    import torch
-
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA card is visible; "
-                           "pass --device cpu to train on the CPU")
-    return torch.device(name)
-
-
 def main(argv: Optional[List[str]] = None) -> dict:
     """Train, then evaluate on the test split; returns the epoch history
     and the test loss."""
@@ -73,8 +64,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.zero1:
         raise NotImplementedError("--zero1 is not ported to "
                                   "vlm_clip_tpu_torch yet (ROADMAP.md)")
+    from vlm_clip_tpu_torch.cli.common import (load_backbone, make_tokenizer,
+                                               resolve_device)
+
     device = resolve_device(args.device)
-    from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
     from vlm_clip_tpu_torch.core.config import AdapterConfig
     from vlm_clip_tpu_torch.data.rafdb import create_dataloaders
     from vlm_clip_tpu_torch.train.trainer_m import CLIPAdapterTrainer

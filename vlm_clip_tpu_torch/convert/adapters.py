@@ -1,9 +1,10 @@
 """Adapter state dicts: reference ``.pt`` layout <-> the port's trees
-(port of the M half of ``vlm_clip_tpu/convert/adapters.py``).
+(port of ``vlm_clip_tpu/convert/adapters.py``).
 
 Key layouts (torch ``nn.Linear`` weights are ``[out, in]``; the trees
 keep ``kernel`` as ``[in, out]``):
 
+- feature adapter (T/V): fc1 / fc2
 - sequence adapter:    down_project / up_project / layer_norm
 - cross-modal adapter: text_proj / image_proj / cross_attn (packed
   in_proj) / norm1-3 / mlp.{0,2}
@@ -40,6 +41,14 @@ def _lin_sd(p: Params, prefix: str) -> Dict[str, torch.Tensor]:
 def _ln_sd(p: Params, prefix: str) -> Dict[str, torch.Tensor]:
     return {f"{prefix}.weight": p["scale"].detach().clone(),
             f"{prefix}.bias": p["bias"].detach().clone()}
+
+
+def feature_adapter_from_torch(sd: Mapping[str, Any]) -> Params:
+    return {"fc1": _lin(sd, "fc1"), "fc2": _lin(sd, "fc2")}
+
+
+def feature_adapter_to_torch(p: Params) -> Dict[str, torch.Tensor]:
+    return {**_lin_sd(p["fc1"], "fc1"), **_lin_sd(p["fc2"], "fc2")}
 
 
 def seq_adapter_from_torch(sd: Mapping[str, Any]) -> Params:

@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) forward kernels for the pipeline-M adapters.
+// Hand-written Hopper (sm_90a) kernels for the pipeline-M adapters (K1-K3,
+// forward and backward) and the T/V feature adapter (K6, at the end).
 //
 // Port of the Pallas TPU kernels in vlm_clip_tpu/ops/fused_adapter.py:
 //
@@ -1047,6 +1048,212 @@ __global__ void __launch_bounds__(NT)
   out[c] = s;
 }
 
+// ===========================================================================
+// K6: feature adapter blend (pipelines T and V)
+// ===========================================================================
+//
+// Replaces _feat_fwd_kernel (fused_adapter.py:109) and _feat_bwd_kernel
+// (:127): y = l2norm(r * (relu(x@W1 + b1) * mask)@W2 + b2 + (1 - r) * x)
+// over [n, d] rows, all math in fp32 (weights fp32, x widened), y in T.
+// The norm is rsqrt(sum z^2) with no eps, as the TPU kernel's.
+//
+// Dropout is the TPU kernel's counter hash (_dropout_mask, :87-106),
+// reproduced bit for bit: the TPU grid runs 256-row tiles, so the hash
+// takes the row within its tile and keys the tile into the seed
+// (seed + tile * 1000003), all in wrapping uint32. threshold 0 means no
+// dropout (a keep probability above 0 gives a threshold of at least 1).
+//
+// Design (first, simple version): pipeline T sees few rows (32 image
+// features, 7 class means, 35 descriptions; d = 768, k = 64), so one block
+// of 256 threads takes one row and keeps it in shared memory. W1 and W2
+// (196 KB each at d = 768, k = 64) stay in global memory, where the L2
+// keeps them for every block; each product reads them coalesced: x@W1 by
+// 32 columns of W1 per warp over an eighth of its rows, h@W2 by one
+// column per thread, da@W2^T and dh@W1^T by one row of the weight per
+// warp. What bounds it on the H100: at these row counts, the latency of
+// reading the weights from L2 and of the block reductions, not the 0.1-2
+// MFLOP a row. The backward writes dx and each row's h, dh and da; the
+// weight gradients (x^T dh, h^T da) and bias sums then run through
+// wgrad_kernel and colsum_kernel, in row order, with no atomics.
+
+constexpr unsigned FEAT_TILE = 256;  // the TPU kernel's ROW_TILE
+constexpr int NW = NT / 32;          // warps per block
+
+__device__ __forceinline__ float feat_dropout(int row, int col,
+                                              unsigned seed,
+                                              unsigned threshold,
+                                              float scale) {
+  const unsigned r = (unsigned)row % FEAT_TILE;
+  const unsigned key = seed + ((unsigned)row / FEAT_TILE) * 1000003u;
+  unsigned h = (r * 0x9E3779B1u) ^ ((unsigned)col * 0x85EBCA77u) ^
+               (key * 0xC2B2AE3Du);
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return h < threshold ? scale : 0.f;
+}
+
+// The sum of v over the block, added in the same order on every call.
+// red: NW floats of shared memory.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // red is free: every thread has read the last sum
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < NW; ++w) s += red[w];
+  return s;
+}
+
+// One row of K6's forward in shared memory: X [d] holds x (fp32); fills
+// P [k] = x@W1 + b1, H [k] = relu(P) * mask and Z [d] = r a + (1 - r) x
+// with a = H@W2 + b2, and returns 1 / |z|. part: NT floats.
+__device__ float feat_row_forward(const float* X, int row, int d, int k,
+                                  const float* __restrict__ w1,
+                                  const float* __restrict__ b1,
+                                  const float* __restrict__ w2,
+                                  const float* __restrict__ b2, float r,
+                                  unsigned seed, unsigned threshold,
+                                  float scale, float* P, float* H, float* Z,
+                                  float* part, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // pre = x@W1 + b1: warp w sums its eighth of the rows of W1 for 32
+  // columns at a time (lane = column), then the eight partial sums are
+  // added in warp order
+  const int per = (d + NW - 1) / NW;
+  const int c0 = warp * per, c1 = min(d, c0 + per);
+  for (int j0 = 0; j0 < k; j0 += 32) {
+    const int j = j0 + lane;
+    float s = 0.f;
+    if (j < k)
+      for (int c = c0; c < c1; ++c) s = fmaf(X[c], w1[(size_t)c * k + j], s);
+    part[warp * 32 + lane] = s;
+    __syncthreads();
+    if (warp == 0 && j < k) {
+      float t = 0.f;
+      for (int w = 0; w < NW; ++w) t += part[w * 32 + lane];
+      const float pre = t + b1[j];
+      float h = fmaxf(pre, 0.f);
+      if (threshold) h *= feat_dropout(row, j, seed, threshold, scale);
+      P[j] = pre;
+      H[j] = h;
+    }
+    __syncthreads();
+  }
+  // z = r (h@W2 + b2) + (1 - r) x, one column per thread
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < d; c += NT) {
+    float a = 0.f;
+    for (int j = 0; j < k; ++j) a = fmaf(H[j], w2[(size_t)j * d + c], a);
+    const float z = r * (a + b2[c]) + (1.f - r) * X[c];
+    Z[c] = z;
+    ss += z * z;
+  }
+  return rsqrtf(block_sum(ss, red));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    feature_adapter_fwd_kernel(const T* __restrict__ x,
+                               const float* __restrict__ w1,
+                               const float* __restrict__ b1,
+                               const float* __restrict__ w2,
+                               const float* __restrict__ b2, float r,
+                               unsigned seed, unsigned threshold, float scale,
+                               T* __restrict__ y, int n, int d, int k) {
+  extern __shared__ float smem[];
+  float* X = smem;       // [d]
+  float* Z = X + d;      // [d]
+  float* P = Z + d;      // [k]
+  float* H = P + k;      // [k]
+  float* DH = H + k;     // [k] (unused here; the backward's)
+  float* part = DH + k;  // [NT]
+  float* red = part + NT;  // [NW]
+  const int row = blockIdx.x;
+  const T* xr = x + (size_t)row * d;
+  for (int c = threadIdx.x; c < d; c += NT) X[c] = to_f(xr[c]);
+  __syncthreads();
+  const float inv = feat_row_forward(X, row, d, k, w1, b1, w2, b2, r, seed,
+                                     threshold, scale, P, H, Z, part, red);
+  // each thread reads back only the Z it wrote
+  for (int c = threadIdx.x; c < d; c += NT)
+    y[(size_t)row * d + c] = from_f<T>(Z[c] * inv);
+}
+
+// K6 backward row pass: recomputes the forward, then dz = (g - y<g, y>)
+// inv, da = r dz, dh = (da@W2^T) * mask where pre > 0, dx = (1 - r) dz +
+// dh@W1^T. Writes dx (when asked) and the rows' h [n, k], dh [n, k] and
+// da [n, d] in fp32 for dW1 = x^T dh, dW2 = h^T da, db1 = sum dh, db2 =
+// sum da.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    feature_adapter_bwd_kernel(const T* __restrict__ x,
+                               const float* __restrict__ w1,
+                               const float* __restrict__ b1,
+                               const float* __restrict__ w2,
+                               const float* __restrict__ b2, float r,
+                               unsigned seed, unsigned threshold, float scale,
+                               const T* __restrict__ g, T* __restrict__ dx,
+                               float* __restrict__ h_out,
+                               float* __restrict__ dh_out,
+                               float* __restrict__ da_out, int n, int d,
+                               int k) {
+  extern __shared__ float smem[];
+  float* X = smem;       // [d]
+  float* Z = X + d;      // [d]: z, then dz
+  float* P = Z + d;      // [k]: pre
+  float* H = P + k;      // [k]: h
+  float* DH = H + k;     // [k]: dh
+  float* part = DH + k;  // [NT]
+  float* red = part + NT;  // [NW]
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* xr = x + (size_t)row * d;
+  const T* gr = g + (size_t)row * d;
+  for (int c = threadIdx.x; c < d; c += NT) X[c] = to_f(xr[c]);
+  __syncthreads();
+  const float inv = feat_row_forward(X, row, d, k, w1, b1, w2, b2, r, seed,
+                                     threshold, scale, P, H, Z, part, red);
+  for (int j = threadIdx.x; j < k; j += NT) h_out[(size_t)row * k + j] = H[j];
+  // <g, y>
+  float gy = 0.f;
+  for (int c = threadIdx.x; c < d; c += NT) gy += to_f(gr[c]) * (Z[c] * inv);
+  gy = block_sum(gy, red);
+  for (int c = threadIdx.x; c < d; c += NT) {
+    const float dz = (to_f(gr[c]) - (Z[c] * inv) * gy) * inv;
+    Z[c] = dz;
+    da_out[(size_t)row * d + c] = r * dz;
+  }
+  __syncthreads();
+  // dh = da@W2^T (one row of W2 per warp, lanes along it), then the
+  // dropout mask and relu'
+  for (int j = warp; j < k; j += NW) {
+    const float* w = w2 + (size_t)j * d;
+    float s = 0.f;
+    for (int c = lane; c < d; c += 32) s = fmaf(r * Z[c], w[c], s);
+    s = warp_sum(s);
+    if (lane == 0) {
+      if (threshold) s *= feat_dropout(row, j, seed, threshold, scale);
+      const float dh = P[j] > 0.f ? s : 0.f;
+      DH[j] = dh;
+      dh_out[(size_t)row * k + j] = dh;
+    }
+  }
+  if (dx == nullptr) return;
+  __syncthreads();
+  // dx = (1 - r) dz + dh@W1^T (one row of W1 per warp)
+  for (int c = warp; c < d; c += NW) {
+    const float* w = w1 + (size_t)c * k;
+    float s = 0.f;
+    for (int j = lane; j < k; j += 32) s = fmaf(DH[j], w[j], s);
+    s = warp_sum(s);
+    if (lane == 0) dx[(size_t)row * d + c] = from_f<T>((1.f - r) * Z[c] + s);
+  }
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel.
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
@@ -1310,6 +1517,67 @@ int vct_wgrad(int a_bf16, int b_bf16, const void* a, int lda, int sa,
 int vct_colsum(const void* part, int tiles, int v, void* out, void* stream) {
   colsum_kernel<<<(v + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
       (const float*)part, tiles, v, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// K6, forward and backward: one block per row.
+size_t vct_feature_adapter_smem(int d, int k) {
+  return sizeof(float) * (2 * (size_t)d + 3 * (size_t)k + NT + NW);
+}
+
+int vct_feature_adapter_fwd(int bf16, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            float r, unsigned seed, unsigned threshold,
+                            float scale, void* y, int n, int d, int k,
+                            void* stream) {
+  const size_t smem = vct_feature_adapter_smem(d, k);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
+              *fw2 = (const float*)w2, *fb2 = (const float*)b2;
+  int err;
+  if (bf16) {
+    typedef __nv_bfloat16 T;
+    auto kern = feature_adapter_fwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
+                              threshold, scale, (T*)y, n, d, k);
+  } else {
+    typedef float T;
+    auto kern = feature_adapter_fwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
+                              threshold, scale, (T*)y, n, d, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+int vct_feature_adapter_bwd(int bf16, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            float r, unsigned seed, unsigned threshold,
+                            float scale, const void* g, void* dx,
+                            void* h_out, void* dh_out, void* da_out, int n,
+                            int d, int k, void* stream) {
+  const size_t smem = vct_feature_adapter_smem(d, k);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
+              *fw2 = (const float*)w2, *fb2 = (const float*)b2;
+  float *fh = (float*)h_out, *fdh = (float*)dh_out, *fda = (float*)da_out;
+  int err;
+  if (bf16) {
+    typedef __nv_bfloat16 T;
+    auto kern = feature_adapter_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
+                              threshold, scale, (const T*)g, (T*)dx, fh, fdh,
+                              fda, n, d, k);
+  } else {
+    typedef float T;
+    auto kern = feature_adapter_bwd_kernel<T>;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
+                              threshold, scale, (const T*)g, (T*)dx, fh, fdh,
+                              fda, n, d, k);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 """Image preprocessing (port of ``vlm_clip_tpu/data/preprocess.py``).
 
 Host side: :func:`load_and_resize` (PIL decode + bicubic shortest-edge
-resize + center crop -> uint8 HWC), unchanged from the reference. Device
-side: :func:`normalize_batch` (1/255 rescale + CLIP mean/std + NCHW) on
-a tensor on any device.
+resize + center crop -> uint8 HWC) and :func:`preprocess_host` (the same
+plus rescale and normalize, float32 CHW), unchanged from the reference.
+Device side: :func:`normalize_batch` (1/255 rescale + CLIP mean/std +
+NCHW) on a tensor on any device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,15 @@ def load_and_resize(img: Union[str, "Image.Image", np.ndarray],
     top = (nh - image_size) // 2
     pil = pil.crop((left, top, left + image_size, top + image_size))
     return np.asarray(pil, dtype=np.uint8)
+
+
+def preprocess_host(img, image_size: int = 224,
+                    mean: Sequence[float] = CLIP_IMAGE_MEAN,
+                    std: Sequence[float] = CLIP_IMAGE_STD) -> np.ndarray:
+    """Full host-side CLIPProcessor equivalent -> float32 [3, S, S]."""
+    arr = load_and_resize(img, image_size).astype(np.float32) / 255.0
+    arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return arr.transpose(2, 0, 1)
 
 
 def normalize_batch(uint8_hwc: torch.Tensor,

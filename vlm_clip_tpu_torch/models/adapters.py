@@ -1,6 +1,10 @@
-"""Pipeline M's adapters (port of the M half of
-``vlm_clip_tpu/models/adapters.py``).
+"""The adapters of pipelines T and M (port of
+``vlm_clip_tpu/models/adapters.py``; the unused peclip set is not
+ported).
 
+- Feature bottleneck adapter (T/V): ``fc2(dropout(relu(fc1(x))))`` on
+  pooled features, blended ``r*adapter(x) + (1-r)*x`` and L2-renormed
+  (:func:`adapt_features`) -> kernel K6 for [N, D] features.
 - Sequence (Houlsby) adapter: ``LN(x + up(gelu(down(x))))`` over the
   full [B, T, H] hidden state -> kernel K1.
 - Cross-modal attention adapter: project text; pre-norm MHA with the
@@ -18,7 +22,7 @@ per call, not per row.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -39,6 +43,76 @@ def _pick(impl: str, x: torch.Tensor, kernel_fn, torch_fn):
         raise ValueError(f"impl='kernel' needs a CUDA tensor, got one on "
                          f"{x.device}")
     return kernel_fn
+
+
+# ---------------------------------------------------------------------------
+# feature bottleneck adapter (T/V)
+# ---------------------------------------------------------------------------
+
+def init_feature_adapter(gen: torch.Generator, dim: int, bottleneck: int,
+                         device="cpu") -> Params:
+    b1 = (1.0 / dim) ** 0.5
+    b2 = (1.0 / bottleneck) ** 0.5
+    return {
+        "fc1": {"kernel": L.uniform(gen, (dim, bottleneck), b1, device),
+                "bias": torch.zeros(bottleneck, device=device)},
+        "fc2": {"kernel": L.uniform(gen, (bottleneck, dim), b2, device),
+                "bias": torch.zeros(dim, device=device)},
+    }
+
+
+def feature_adapter(p: Params, x: torch.Tensor, *, dropout: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    deterministic: bool = True) -> torch.Tensor:
+    """fc2(dropout(relu(fc1(x)))); dropout only when not deterministic,
+    drawn from ``generator`` (which must then be given)."""
+    h = torch.relu(L.linear(p["fc1"], x))
+    if dropout > 0.0 and not deterministic:
+        if generator is None:
+            raise ValueError("dropout requires a generator")
+        keep = torch.rand(h.shape, generator=generator,
+                          device=h.device) < 1.0 - dropout
+        h = torch.where(keep, h / (1.0 - dropout), 0.0).to(h.dtype)
+    return L.linear(p["fc2"], h)
+
+
+def residual_blend(adapted: torch.Tensor, original: torch.Tensor,
+                   ratio: float) -> torch.Tensor:
+    """r*adapted + (1-r)*original in fp32, then L2 renorm."""
+    mixed = ratio * adapted.float() + (1.0 - ratio) * original.float()
+    return L.l2_normalize(mixed).to(original.dtype)
+
+
+def adapt_features(p: Params, x: torch.Tensor, ratio: float, *,
+                   dropout: float = 0.0,
+                   generator: Optional[torch.Generator] = None,
+                   deterministic: bool = True,
+                   impl: str = "auto") -> torch.Tensor:
+    """The T/V feature-branch op: adapter -> ratio blend -> renorm.
+
+    ``impl``: ``"auto"`` takes the fused op K6 for 2-D ``x`` (its kernel
+    on a CUDA tensor, its plain version on a CPU one); ``"kernel"`` the
+    same, refusing a CPU tensor; ``"torch"`` the plain composition
+    (:func:`feature_adapter` then :func:`residual_blend`). With dropout
+    active, K6 takes a seed drawn from ``generator`` and applies the TPU
+    kernel's hash mask; without a generator the call raises.
+    """
+    dropout_active = dropout > 0.0 and not deterministic
+    fused = _pick(impl, x, True, False)
+    if fused and x.dim() == 2 and (not dropout_active
+                                   or generator is not None):
+        seed = None
+        if dropout_active:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=generator,
+                                     device=generator.device))
+        return F.feature_adapter_blend_fused(
+            x, p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+            p["fc2"]["bias"], ratio, dropout if dropout_active else 0.0,
+            seed)
+    return residual_blend(
+        feature_adapter(p, x, dropout=dropout, generator=generator,
+                        deterministic=deterministic), x, ratio)
 
 
 # ---------------------------------------------------------------------------

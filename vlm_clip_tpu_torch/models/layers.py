@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from vlm_clip_tpu_torch.ops import attention as fa
+
 Params = Dict[str, Any]
 
 NEG_INF = torch.finfo(torch.float32).min  # matches HF mask fill
@@ -94,16 +96,22 @@ ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu_exact,
 
 def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
         mask: Optional[torch.Tensor] = None,
-        stable_dtype=torch.float32) -> torch.Tensor:
+        stable_dtype=torch.float32,
+        fused: Optional[bool] = None) -> torch.Tensor:
     """Multi-head attention. q_in [B,Tq,H], kv_in [B,Tk,H] or [1,Tk,H].
 
     ``mask`` is an additive bias broadcastable to [B, heads, Tq, Tk].
     With a batch-1 ``kv_in`` and a batch-N query, k/v are projected once
     and broadcast inside the products (the reference's ``khd`` branch).
     Softmax runs in fp32, or max-subtracted in bf16 when ``stable_dtype``
-    is bf16 (FAST). The reference's fused-attention toggle is off by
-    default (``ops/attention.py`` ``_ENABLED=False``), so plain products
-    are its semantics.
+    is bf16 (FAST).
+
+    Self-attention (k's batch and length equal q's) takes the fused
+    attention K5 (``ops/attention.py``, fp32 softmax whatever
+    ``stable_dtype``) when ``fused`` is True, or when ``fused`` is None and
+    the global toggle ``set_fused_attention`` is on (off by default, as in
+    the reference), and the mask is a layout it supports; ``fused=False``
+    never takes it.
     """
     B, Tq, H = q_in.shape
     hd = H // num_heads
@@ -112,6 +120,11 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
     k = linear(p["k"], kv_in).reshape(kv_in.shape[0], -1, num_heads, hd)
     v = linear(p["v"], kv_in).reshape(kv_in.shape[0], -1, num_heads, hd)
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # [Bk, h, Tk, hd]
+    if B == k.shape[0] and Tq == k.shape[2] and fused is not False \
+            and (fused or fa.fused_attention_enabled()) \
+            and fa.supports(mask, Tq):
+        out = fa.fused_attention(q, k, v, scale, mask)
+        return linear(p["out"], out.transpose(1, 2).reshape(B, Tq, H))
     if k.shape[0] == 1 and B != 1:
         k, v = k[0], v[0]  # [h, Tk, hd], broadcast over the batch
     if stable_dtype == torch.float32:

@@ -1,0 +1,208 @@
+"""Short-sequence attention of the frozen CLIP towers (K5), with its plain
+version.
+
+Port of ``vlm_clip_tpu/ops/attention.py``. :func:`fused_attention`
+computes ``softmax(q k^T * scale + mask) v`` over ``[B, h, T, d]`` q, k,
+v: scores in fp32, the mask added in fp32, the softmax in fp32 (whatever
+the caller's ``stable_dtype``), p rounded to v's dtype after it is
+normalized, ``p v`` accumulated in fp32, the output in q's dtype. On a
+CUDA tensor it launches the kernel written by hand for Hopper in
+``vlm_clip_tpu_torch/csrc/attention.cu`` (replaces ``_attn_kernel_nomask``
+:59 and ``_attn_kernel_mask`` :63; head width 64); on a CPU tensor it
+takes :func:`fused_attention_torch` (the reference's ``_xla_attention``).
+
+Masks: none, ``[T, T]`` or ``[B|1, 1, T, T]`` (:func:`supports`); a
+batch-broadcast ``[1, 1, T, T]`` mask is expanded to B before the kernel
+reads it. The backward is the reference's plain recompute
+(:func:`fused_attention_bwd_torch`, attention.py:160-189) inside a
+``torch.autograd.Function``, mask cotangent included: the reference has no
+backward kernel, so the port has none either.
+
+The towers take this path when ``set_fused_attention(True)`` is on (or
+``mha(..., fused=True)``), as in the reference, where it is off by
+default. ``fused_attention.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from vlm_clip_tpu_torch.ops.build import load_library
+
+HEAD_DIM = 64  # the kernel's head width (every CLIP preset's)
+
+_ENABLED = False
+
+
+def set_fused_attention(on: bool) -> None:
+    """Global opt-in consulted by models/layers.py:mha."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+def fused_attention_enabled() -> bool:
+    return _ENABLED
+
+
+def supports(mask: Optional[torch.Tensor], T: int) -> bool:
+    """Mask layouts this kernel handles."""
+    if mask is None:
+        return True
+    if mask.dim() == 2:
+        return tuple(mask.shape) == (T, T)
+    if mask.dim() == 4:
+        return mask.shape[1] == 1 and tuple(mask.shape[2:]) == (T, T)
+    return False
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("attention")
+    if not getattr(lib, "_typed", False):
+        P = ctypes.c_void_p
+        lib.vct_attention_fwd.argtypes = [
+            ctypes.c_int, P, P, P, P, ctypes.c_longlong, ctypes.c_float, P,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
+        lib.vct_attention_fwd.restype = ctypes.c_int
+        lib.vct_attention_smem.argtypes = []
+        lib.vct_attention_smem.restype = ctypes.c_size_t
+        lib._typed = True
+    return lib
+
+
+def _scores(q, k, scale, mask):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + (mask if mask.dim() == 4 else mask[None, None]).float()
+    return s
+
+
+def fused_attention_torch(q, k, v, scale: float,
+                          mask: Optional[torch.Tensor] = None):
+    """The plain version (the reference's ``_xla_attention``)."""
+    p = torch.softmax(_scores(q, k, scale, mask), dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def fused_attention_bwd_torch(q, k, v, scale: float,
+                              mask: Optional[torch.Tensor], g):
+    """The reference's recompute backward (attention.py:160-189): (dq, dk,
+    dv, dmask) in the inputs' dtypes; dmask is None without a mask, summed
+    over batch and heads for a [T, T] mask, over heads (and the batch,
+    for a batch-broadcast one) for a 4-D mask."""
+    p = torch.softmax(_scores(q, k, scale, mask), dim=-1)
+    g32 = g.float()
+    dv = p.transpose(-1, -2) @ g32
+    dp = g32 @ v.float().transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = (ds @ k.float()) * scale
+    dk = (ds.transpose(-1, -2) @ q.float()) * scale
+    dmask = None
+    if mask is not None:
+        if mask.dim() == 2:
+            dmask = ds.sum(dim=(0, 1))
+        else:
+            dmask = ds.sum(dim=1, keepdim=True)
+            if mask.shape[0] == 1:
+                dmask = dmask.sum(dim=0, keepdim=True)
+        dmask = dmask.to(mask.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dmask
+
+
+def _launch(q, k, v, scale, mask):
+    B, h, T, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"fused_attention: the kernel takes head width "
+                         f"{HEAD_DIM}, got {d}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"fused_attention: q, k, v must share float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    tensors = [q, k, v] + ([] if mask is None else [mask])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"fused_attention: all tensors must be on "
+                         f"{q.device}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    m, bstride = None, 0
+    if mask is not None:
+        m = mask.float()
+        if m.dim() == 4:
+            # a batch-broadcast [1, 1, T, T] mask is expanded to B: every
+            # batch reads the same rows (batch stride 0)
+            m = m.expand(B, 1, T, T)
+            if m.stride(3) != 1 or m.stride(2) != T:
+                m = m.contiguous()
+            bstride = m.stride(0)
+        else:
+            m = m.contiguous()
+    out = torch.empty_like(q)
+    if B * h * T:
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            err = lib.vct_attention_fwd(
+                int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), None if m is None else m.data_ptr(), bstride,
+                float(scale), out.data_ptr(), B, h, T,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"fused_attention: CUDA kernel launch failed with cudaError "
+                f"{err} ({lib.vct_attention_smem()} B of shared memory per "
+                "block)")
+        fused_attention.launches += 1
+    return out
+
+
+def _forward(q, k, v, scale, mask):
+    if q.device.type == "cpu":
+        return fused_attention_torch(q, k, v, scale, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention: no kernel for device {q.device}")
+    return _launch(q, k, v, scale, mask)
+
+
+class _AttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        return _forward(q, k, v, scale, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        grads = fused_attention_bwd_torch(q, k, v, ctx.scale, mask, g)
+        return tuple(gr if need else None for gr, need in
+                     zip(grads, ctx.needs_input_grad[:4])) + (None,)
+
+
+def fused_attention(q, k, v, scale: float,
+                    mask: Optional[torch.Tensor] = None):
+    """Attention over [B, h, T, d] q, k, v -> [B, h, T, d] (see the
+    module docstring for the masks and the precision)."""
+    B, h, T, d = q.shape
+    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
+        raise ValueError(f"fused_attention: q, k, v must share a shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not supports(mask, T) or (mask is not None and mask.dim() == 4
+                                 and mask.shape[0] not in (1, B)):
+        raise ValueError(f"fused_attention: unsupported mask shape "
+                         f"{tuple(mask.shape)} for q {tuple(q.shape)}")
+    tensors = [q, k, v] + ([] if mask is None else [mask])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _AttentionFn.apply(q, k, v, mask, scale)
+    return _forward(q, k, v, scale, mask)
+
+
+fused_attention.launches = 0
+
+
+def reset_launch_counts() -> None:
+    fused_attention.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"fused_attention": fused_attention.launches}

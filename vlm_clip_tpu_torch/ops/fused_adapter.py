@@ -1,5 +1,5 @@
-"""Fused kernels for pipeline M's adapters, forward and backward, with
-plain versions.
+"""Fused kernels for the adapters of pipelines M and T, forward and
+backward, with plain versions.
 
 Port of ``vlm_clip_tpu/ops/fused_adapter.py``. Kernels written by hand in
 CUDA C++ for Hopper in ``vlm_clip_tpu_torch/csrc/fused_adapter.cu``:
@@ -11,7 +11,11 @@ CUDA C++ for Hopper in ``vlm_clip_tpu_torch/csrc/fused_adapter.cu``:
   ``y = u + MHA(u@Wq+bq; shared k, v)@Wo+bo`` (``_cab_fwd_kernel`` :796,
   ``_cab_bwd_kernel`` :807);
 - :func:`prenorm_mlp_fused`      ``y = x + gelu(LN(x)@W1+b1)@W2+b2``
-  (``_pnmlp_fwd_kernel`` :532, ``_pnmlp_bwd_kernel`` :550).
+  (``_pnmlp_fwd_kernel`` :532, ``_pnmlp_bwd_kernel`` :550);
+- :func:`feature_adapter_blend_fused`
+  ``y = l2norm(r*(relu(x@W1+b1)*mask)@W2+b2 + (1-r)*x)``, the T/V
+  feature adapter with the TPU kernel's counter-hash dropout
+  (``_feat_fwd_kernel`` :109, ``_feat_bwd_kernel`` :127).
 
 Each wrapper launches its kernel for a CUDA tensor and takes the plain
 version beside it (``*_torch``, differentiated by autograd) only for a
@@ -23,7 +27,7 @@ plain backwards (``*_bwd_torch``) write out the TPU kernels' formulas;
 the tests and ``chip_smoke.py`` hold the backward kernels against them.
 
 The plain versions compute what the TPU kernels compute, rounding point
-for rounding point: K1 in fp32 with fp32 weights; K2 and K3 with every
+for rounding point: K1 and K6 in fp32 with fp32 weights; K2 and K3 with every
 matmul operand rounded to ``x.dtype`` and fp32 accumulation, LN and
 softmax in fp32. Differences from the TPU kernels: the softmax max is
 taken per head (the TPU kernel takes one max per row over all heads,
@@ -37,12 +41,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vlm_clip_tpu_torch.ops.build import load_library
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
 
 def _lib() -> ctypes.CDLL:
@@ -64,10 +69,16 @@ def _lib() -> ctypes.CDLL:
                                   _I, _I, _I, _I, _I, _I, _P,
                                   ctypes.c_size_t, _P]
         lib.vct_colsum.argtypes = [_P, _I, _I, _P, _P]
+        feat = [_F, _U, _U, _F]  # ratio, seed, dropout threshold, 1/keep
+        lib.vct_feature_adapter_fwd.argtypes = [_I] + [_P] * 5 + feat \
+            + [_P] + [_I] * 3 + [_P]
+        lib.vct_feature_adapter_bwd.argtypes = [_I] + [_P] * 5 + feat \
+            + [_P] * 5 + [_I] * 3 + [_P]
         for fn in (lib.vct_seq_adapter_fwd, lib.vct_prenorm_mlp_fwd,
                    lib.vct_cross_attn_block_fwd, lib.vct_seq_adapter_bwd,
                    lib.vct_prenorm_mlp_bwd, lib.vct_cross_attn_block_bwd,
-                   lib.vct_wgrad, lib.vct_colsum):
+                   lib.vct_wgrad, lib.vct_colsum,
+                   lib.vct_feature_adapter_fwd, lib.vct_feature_adapter_bwd):
             fn.restype = _I
         lib.vct_seq_adapter_smem.argtypes = [_I, _I]
         lib.vct_prenorm_mlp_smem.argtypes = [_I]
@@ -75,11 +86,13 @@ def _lib() -> ctypes.CDLL:
         lib.vct_seq_adapter_bwd_smem.argtypes = [_I, _I]
         lib.vct_prenorm_mlp_bwd_smem.argtypes = [_I]
         lib.vct_cross_attn_block_bwd_smem.argtypes = [_I, _I]
+        lib.vct_feature_adapter_smem.argtypes = [_I, _I]
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
                    lib.vct_cross_attn_block_smem,
                    lib.vct_seq_adapter_bwd_smem,
                    lib.vct_prenorm_mlp_bwd_smem,
-                   lib.vct_cross_attn_block_bwd_smem):
+                   lib.vct_cross_attn_block_bwd_smem,
+                   lib.vct_feature_adapter_smem):
             fn.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -232,6 +245,94 @@ def cross_attn_block_bwd_torch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
     dx = (dtm @ wtm.T).to(mm) if need_dx else None
     return (dx, xm.T @ dtm, dt.sum(0), (du * xhat).sum(0), du.sum(0),
             um.T @ dqm, dqp.sum(0), dk, dv, om.T @ gm, gf.sum(0))
+
+
+ROW_TILE = 256  # K6's row tile on the TPU: its dropout hash keys on it
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2**32 for int64 ``a`` in [0, 2**32) and a 32-bit
+    constant ``b``, in halves so that no product leaves int64."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_constants(dropout: float):
+    """(uint32 threshold, fp32 scale of a kept element) of K6's dropout:
+    ``uint32(keep * 4294967295.0)`` with the product in double, truncated,
+    and ``float32(1) / float32(keep)``, as the TPU kernel computes them."""
+    keep = 1.0 - dropout
+    return (int(keep * 4294967295.0),
+            float(np.float32(1.0) / np.float32(keep)))
+
+
+def feature_dropout_mask(n: int, k: int, seed: int, dropout: float,
+                         device="cpu") -> torch.Tensor:
+    """K6's dropout mask [n, k] (0 or 1/keep, fp32), bit for bit the TPU
+    kernel's ``_dropout_mask`` (fused_adapter.py:87-106): a murmur-style
+    hash of (row within its 256-row tile, column, seed + tile * 1000003)
+    in wrapping uint32 arithmetic, kept where it is below the threshold.
+    int64 masked to 32 bits stands in for uint32."""
+    threshold, scale = dropout_constants(dropout)
+    rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(k, dtype=torch.int64, device=device)[None, :]
+    key = ((int(seed) & _M32) + (rows // ROW_TILE) * 1000003) & _M32
+    h = _mul32(rows % ROW_TILE, 0x9E3779B1) ^ _mul32(cols, 0x85EBCA77) \
+        ^ _mul32(key, 0xC2B2AE3D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x2C1B3C6D)
+    h = h ^ (h >> 12)
+    h = _mul32(h, 0x297A2D39)
+    h = h ^ (h >> 15)
+    return (h < threshold).float() * scale
+
+
+def _feat_hidden(xf, w1, b1, dropout, seed):
+    """(pre, mask or None, h = relu(pre) * mask) of K6, fp32."""
+    pre = xf @ w1.float() + b1.float()
+    h = torch.relu(pre)
+    mask = None
+    if dropout > 0.0:
+        mask = feature_dropout_mask(xf.shape[0], h.shape[1], seed or 0,
+                                    dropout, xf.device)
+        h = h * mask
+    return pre, mask, h
+
+
+def feature_adapter_blend_torch(x, w1, b1, w2, b2, ratio: float,
+                                dropout: float = 0.0, seed=None):
+    """y = l2norm(r*(relu(x@w1+b1)*mask)@w2+b2 + (1-r)*x) in fp32, y in
+    x's dtype; the norm is rsqrt(sum z^2) with no eps, as the TPU
+    kernel's."""
+    xf = x.float()
+    _, _, h = _feat_hidden(xf, w1, b1, dropout, seed)
+    z = ratio * (h @ w2.float() + b2.float()) + (1.0 - ratio) * xf
+    return (z * torch.rsqrt((z * z).sum(-1, keepdim=True))).to(x.dtype)
+
+
+def feature_adapter_blend_bwd_torch(x, w1, b1, w2, b2, ratio: float, g,
+                                    dropout: float = 0.0, seed=None,
+                                    need_dx: bool = True):
+    """Gradients of :func:`feature_adapter_blend_torch` for the cotangent
+    g, as ``_feat_bwd_kernel`` (fused_adapter.py:137-176) computes them in
+    fp32: dz = (g - y<g, y>) inv, da = r dz, dh = da w2^T * mask where
+    pre > 0, dx = (1-r) dz + dh w1^T. Returns (dx, dw1, db1, dw2, db2), dx
+    in x's dtype (None unless need_dx), the rest fp32."""
+    xf, gf = x.float(), g.float()
+    pre, mask, h = _feat_hidden(xf, w1, b1, dropout, seed)
+    z = ratio * (h @ w2.float() + b2.float()) + (1.0 - ratio) * xf
+    inv = torch.rsqrt((z * z).sum(-1, keepdim=True))
+    y = z * inv
+    dz = (gf - y * (gf * y).sum(-1, keepdim=True)) * inv
+    da = ratio * dz
+    dh = da @ w2.float().T
+    if mask is not None:
+        dh = dh * mask
+    dh = torch.where(pre > 0.0, dh, 0.0)
+    dx = ((1.0 - ratio) * dz + dh @ w1.float().T).to(x.dtype) if need_dx \
+        else None
+    return dx, xf.T @ dh, dh.sum(0), h.T @ da, da.sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -651,17 +752,126 @@ def cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
     return _cab_fwd_launch(x, *params, heads, eps)
 
 
+# --- K6: feature adapter blend ---------------------------------------------
+
+def _feat_args(ratio, dropout, seed):
+    """The kernels' (ratio, seed, threshold, 1/keep) arguments."""
+    threshold, scale = dropout_constants(dropout) if dropout > 0.0 \
+        else (0, 1.0)
+    return (float(ratio), (int(seed or 0) & _M32) if dropout > 0.0 else 0,
+            threshold, scale)
+
+
+def _feat_fwd_launch(x, w1, b1, w2, b2, ratio, dropout, seed):
+    name = "feature_adapter_blend_fused"
+    N, D = x.shape
+    K = w1.shape[1]
+    x = x.contiguous()
+    w1, b1, w2, b2 = (_as(t, torch.float32) for t in (w1, b1, w2, b2))
+    y = torch.empty_like(x)
+    if N:
+        lib = _lib()
+        _launch(name, lib.vct_feature_adapter_fwd,
+                lib.vct_feature_adapter_smem(D, K), x, x.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                *_feat_args(ratio, dropout, seed), y.data_ptr(), N, D, K)
+        feature_adapter_blend_fused.launches += 1
+    return y
+
+
+def feature_adapter_blend_bwd_cuda(x, w1, b1, w2, b2, ratio: float, g,
+                                   dropout: float = 0.0, seed=None,
+                                   need_dx: bool = True):
+    """Backward kernel of K6: same results as
+    :func:`feature_adapter_blend_bwd_torch`, for CUDA tensors. A row pass
+    writes dx and each row's h, dh and da; the shared weight-gradient and
+    column-sum kernels then give dW1 = x^T dh, dW2 = h^T da, db1, db2."""
+    name = "feature_adapter_blend_bwd"
+    N, D = x.shape
+    K = w1.shape[1]
+    x = x.contiguous()
+    g = _as(g, x.dtype)
+    w1, b1, w2, b2 = (_as(t, torch.float32) for t in (w1, b1, w2, b2))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    dw1, dw2 = torch.zeros(D, K, **f32), torch.zeros(K, D, **f32)
+    db1, db2 = torch.zeros(K, **f32), torch.zeros(D, **f32)
+    if N:
+        lib = _lib()
+        hb, dh = torch.empty(N, K, **f32), torch.empty(N, K, **f32)
+        da = torch.empty(N, D, **f32)
+        _launch(name, lib.vct_feature_adapter_bwd,
+                lib.vct_feature_adapter_smem(D, K), x, x.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                *_feat_args(ratio, dropout, seed), g.data_ptr(),
+                None if dx is None else dx.data_ptr(), hb.data_ptr(),
+                dh.data_ptr(), da.data_ptr(), N, D, K)
+        _wgrad(x, dh, dw1, D, K)
+        _wgrad(hb, da, dw2, K, D)
+        db1, db2 = _colsum(dh), _colsum(da)
+        feature_adapter_blend_bwd_cuda.launches += 1
+    return dx, dw1, db1, dw2, db2
+
+
+class _FeatureAdapterFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ratio, dropout, seed):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.ratio, ctx.dropout, ctx.seed = ratio, dropout, seed
+        return _feat_fwd_launch(x, w1, b1, w2, b2, ratio, dropout, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        grads = feature_adapter_blend_bwd_cuda(
+            *inputs, ctx.ratio, g, ctx.dropout, ctx.seed, need_dx=needs[0])
+        return _grads_like(grads, inputs, needs) + (None, None, None)
+
+
+def feature_adapter_blend_fused(x, w1, b1, w2, b2, ratio: float,
+                                dropout: float = 0.0, seed=None):
+    """y = l2norm(r*(relu(x@w1+b1)*mask)@w2+b2 + (1-r)*x) over [N, D]
+    rows, fp32 math, y in x's dtype. With ``dropout`` > 0 the mask is the
+    TPU kernel's counter hash of ``seed`` (an int), which the backward
+    regenerates."""
+    name = "feature_adapter_blend_fused"
+    params = (w1, b1, w2, b2)
+    D, K = x.shape[-1], w1.shape[-1]
+    _check_shapes(name, x, [("w1", w1, (D, K)), ("b1", b1, (K,)),
+                            ("w2", w2, (K, D)), ("b2", b2, (D,))])
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f"{name}: dropout must be in [0, 1), got "
+                         f"{dropout}")
+    seed = None if seed is None else int(seed)
+    if not _on_cuda(x, name):
+        return feature_adapter_blend_torch(x, *params, ratio, dropout, seed)
+    _check_inputs(name, x, params)
+    if D > FEAT_MAX_D or K > FEAT_MAX_K:
+        raise ValueError(f"{name}: the kernel takes D <= {FEAT_MAX_D} and "
+                         f"K <= {FEAT_MAX_K}; got D {D}, K {K}")
+    if _needs_grad(x, *params):
+        return _FeatureAdapterFn.apply(x, *params, ratio, dropout, seed)
+    return _feat_fwd_launch(x, *params, ratio, dropout, seed)
+
+
+FEAT_MAX_D, FEAT_MAX_K = 4096, 1024  # K6's shared-memory row buffers
+
 seq_adapter_fused.launches = 0
 prenorm_mlp_fused.launches = 0
 cross_attn_block_fused.launches = 0
 seq_adapter_bwd_cuda.launches = 0
 cross_attn_block_bwd_cuda.launches = 0
 prenorm_mlp_bwd_cuda.launches = 0
+feature_adapter_blend_fused.launches = 0
+feature_adapter_blend_bwd_cuda.launches = 0
 
 FORWARD = (seq_adapter_fused, cross_attn_block_fused, prenorm_mlp_fused)
 BACKWARD = (seq_adapter_bwd_cuda, cross_attn_block_bwd_cuda,
             prenorm_mlp_bwd_cuda)
-KERNELS = FORWARD + BACKWARD
+M_KERNELS = FORWARD + BACKWARD  # pipeline M's adapters (K1-K3)
+T_KERNELS = (feature_adapter_blend_fused, feature_adapter_blend_bwd_cuda)
+KERNELS = M_KERNELS + T_KERNELS
 
 
 def reset_launch_counts() -> None:
@@ -669,5 +879,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+def launch_counts(kernels=KERNELS) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}

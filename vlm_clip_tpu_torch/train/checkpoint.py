@@ -1,11 +1,18 @@
-"""Pipeline-M adapter checkpoints in the reference's file format (the
+"""Adapter checkpoints in the reference's file formats (the
 adapter-export half of ``vlm_clip_tpu/train/checkpoint.py``).
 
-A ``torch.save`` of ``{"text_adapter": sd, "vision_adapter": sd,
-"shared_adapters": {"<layer>.<key>": tensor}}`` with torch layouts; the
-JAX package writes and reads the same files. Loading validates strictly:
-every adapter kind enabled in the config must be in the file, and every
-kind in the file must be enabled. Full train-state resume is not ported.
+- Pipeline M: a ``torch.save`` of ``{"text_adapter": sd,
+  "vision_adapter": sd, "shared_adapters": {"<layer>.<key>": tensor}}``
+  with torch layouts. Loading validates strictly: every adapter kind
+  enabled in the config must be in the file, and every kind in the file
+  must be enabled.
+- Pipelines T and V: ``{"<name>_adapter_state_dict": {"fc1.weight", ...}}``
+  for name in visual / text / context (V) or visual / text (T). The V load
+  takes whichever adapters are present; the T load requires both of its
+  own (a V file qualifies; its context adapter is ignored).
+
+The JAX package writes and reads the same files. Full train-state resume
+is not ported.
 """
 
 from __future__ import annotations
@@ -91,3 +98,50 @@ def load_adapter_weights(load_path: str, acfg: AdapterConfig,
             raise ValueError(f"{label} {verb} enabled but no weights found "
                              "in checkpoint")
     return tree_map(lambda t: t.to(device), _m_adapters_from_torch_dicts(sd))
+
+
+_FEATURE_ADAPTERS = ("visual", "text", "context")
+
+
+def save_v_adapters(save_path: str, adapter_params: Params) -> None:
+    """Pipeline-V one-shot export: the visual/text/context feature
+    adapters present, as torch state dicts."""
+    d = os.path.dirname(save_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    torch.save({f"{name}_adapter_state_dict":
+                {k: v.detach().float().cpu() for k, v in
+                 CA.feature_adapter_to_torch(adapter_params[name]).items()}
+                for name in _FEATURE_ADAPTERS if name in adapter_params},
+               save_path)
+
+
+def load_v_adapters(load_path: str, device="cpu") -> Params:
+    """The feature adapters present in a T/V checkpoint, onto ``device``."""
+    sd = torch.load(load_path, map_location="cpu", weights_only=True)
+    return {name: tree_map(lambda t: t.to(device),
+                           CA.feature_adapter_from_torch(
+                               sd[f"{name}_adapter_state_dict"]))
+            for name in _FEATURE_ADAPTERS
+            if f"{name}_adapter_state_dict" in sd}
+
+
+def save_t_adapters(save_path: str, adapter_params: Params) -> None:
+    """Pipeline-T adapter export (visual + text feature adapters), the V
+    file format without the context adapter."""
+    for name in ("visual", "text"):
+        if name not in adapter_params:
+            raise ValueError(f"T adapters must contain '{name}'")
+    save_v_adapters(save_path, adapter_params)
+
+
+def load_t_adapters(load_path: str, device="cpu") -> Params:
+    """Strict T-adapter load: both adapters must be present (a V export
+    also qualifies; its context adapter is ignored)."""
+    out = load_v_adapters(load_path, device)
+    missing = [n for n in ("visual", "text") if n not in out]
+    if missing:
+        raise ValueError(
+            f"{load_path} is not a T/V adapter checkpoint: missing "
+            f"{missing} (found {sorted(out)})")
+    return {"visual": out["visual"], "text": out["text"]}
