@@ -6,7 +6,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Setup: prints the card's name and power limit, refuses to run without
    CUDA, builds the hand-written kernels (csrc/fused_adapter.cu,
    csrc/contrastive.cu, csrc/attention.cu, csrc/quant.cu and
-   csrc/decode_attention.cu, one nvcc each, in parallel).
+   csrc/decode_attention.cu, one nvcc each, in parallel), prints ptxas's
+   registers and spills and the HMMA instructions in the SASS of each
+   tensor-core kernel (K5 and K3 backward in bf16, the bf16 weight
+   gradients), and fails if one of them has none.
 2. Kernels: each forward kernel against its plain PyTorch version at the
    B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
    the batch-1 shapes of a served request, in bf16 and fp32, with the
@@ -14,7 +17,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
    contrastive head (forward and backward, [96, 512]) against their
    plain versions at the B=96 shapes, in bf16 and fp32, timed the same
-   way.
+   way beside their bounds; K3's gradients must repeat bit for bit on a
+   second call; K3's bf16 passes are timed one by one (torch.profiler)
+   and the bf16 weight-gradient route alone.
 4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
    width (seeded random weights) on a synthetic RAF-DB tree on the card
    and writes its checkpoints, which must load back; then bench.py's
@@ -157,6 +162,18 @@ BWD_REPLACES = {
 # could take is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
+# The bf16 kernels on the tensor cores, by wrapper (K5, K3 backward, the
+# bf16 x bf16 weight gradients of K2 and K3): setup() counts each one's
+# HMMA instructions in the built library's SASS and fails on a kernel
+# with none.
+KERNEL_HMMA = {
+    "fused_attention": ("attention_mma_kernel",),
+    "prenorm_mlp_bwd_cuda": ("pnmlp_bwd_hidden_kernel",
+                             "pnmlp_bwd_du_kernel", "wgrad_mma_kernel"),
+    "cross_attn_block_bwd_cuda": ("wgrad_mma_kernel",),
+}
+TENSOR_CORE_KERNELS = sorted({k for ks in KERNEL_HMMA.values() for k in ks})
+HMMA: dict = {}  # kernel -> HMMA instructions in its SASS
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 
 
@@ -200,7 +217,33 @@ def setup() -> str:
                 for ln in log.splitlines() if "Used" in ln]
         print(f"  ptxas {name}: registers {regs}; spills {spills or 'none'}",
               flush=True)
+    for name in ("attention", "fused_adapter"):
+        HMMA.update(hmma_counts(build._out_path(name)))
+    for fn, count in sorted(HMMA.items()):
+        print(f"  SASS HMMA {fn}: {count}", flush=True)
+    missing = [fn for fn in TENSOR_CORE_KERNELS if not HMMA.get(fn)]
+    if missing:
+        raise SystemExit(f"no HMMA instruction in the SASS of {missing}: "
+                         "the bf16 kernels must run on the tensor cores")
     return torch.cuda.get_device_name(0)
+
+
+def hmma_counts(lib: str) -> dict:
+    """{kernel name: HMMA instructions in its SASS} of a built library
+    (cuobjdump -sass), kernels with none left out."""
+    from vlm_clip_tpu_torch.ops.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = next((k for k in TENSOR_CORE_KERNELS if k in line),
+                      line.split("Function :")[1].strip())
+        elif fn is not None and "HMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -211,6 +254,26 @@ def _time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, n: int = 5) -> dict:
+    """{kernel name: device ms per call of fn} from torch.profiler over n
+    calls: the card's own time, without the host's launch overhead that
+    CUDA events around a short kernel also measure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / (
+                1e3 * n)
+    return per
 
 
 def _turns(kern, plain, library=None, iters=10):
@@ -473,7 +536,8 @@ def backward_phase() -> dict:
               f"{[f'{e[0]:.2e}' for e in errs]} max_rel_err "
               f"{[f'{e[2]:.2e}' for e in errs]} worst err/tol {worst:.3f} "
               f"(tol {TOL[dtype][0]} x max|grad|) {'ok' if ok else 'FAIL'}; "
-              f"kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms", flush=True)
+              f"kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, bound "
+              f"{bound(*work)[0]:.4f} ms ({bound(*work)[1]})", flush=True)
         if not ok:
             failures.append(f"{name}[{tag}] {dt}")
         r = results[name]
@@ -495,6 +559,15 @@ def backward_phase() -> dict:
                        lambda: kern(x, *call, need_dx=need_dx),
                        lambda: plain(x, *call, need_dx=need_dx),
                        cost(name, x, need_dx), list(x.shape))
+                if name == "prenorm_mlp_bwd_cuda":
+                    again = kern(x, *call, need_dx=need_dx)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    print(f"backward {name} {dtype}: a second call repeats "
+                          f"every gradient bit for bit: {same}", flush=True)
+                    if not same:
+                        failures.append(f"{name} {dtype} not deterministic")
+                    if dtype == torch.bfloat16:
+                        _k3_breakdown(x, call)
         # K4: the loss (forward) and its gradients (backward), fp32 math
         t, m = (f.to(dtype) for f in feats)
         one = torch.ones((), device=dev)
@@ -521,6 +594,42 @@ def backward_phase() -> dict:
         raise SystemExit(f"backward kernels disagree with their plain "
                          f"versions: {failures}")
     return results
+
+
+def _k3_breakdown(x, call) -> None:
+    """K3 backward's bf16 passes at the B=96 text shape: device time per
+    kernel (torch.profiler over 5 calls), and the bf16 weight-gradient
+    route alone (dW1 = um^T dpm, dW2 = hm^T g) beside its bound."""
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    per = {}
+    for name, ms in _device_ms(lambda: F.prenorm_mlp_bwd_cuda(x, *call)
+                               ).items():
+        key = next((k for k in ("pnmlp_ln_fwd", "pnmlp_bwd_hidden",
+                                "pnmlp_bwd_du", "pnmlp_bwd_ln", "wgrad_mma",
+                                "split_sum", "colsum") if k in name), "other")
+        per[key] = per.get(key, 0.0) + ms
+    print(f"backward prenorm_mlp_bwd_cuda bf16 per call by kernel (ms, "
+          f"profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+          + f"; device {sum(per.values()):.4f} ms in all", flush=True)
+    N, H = x.shape
+    K = 4 * H
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    um, g = (torch.randn(N, H, generator=gen, device=x.device).bfloat16()
+             for _ in range(2))
+    dpm = torch.randn(N, K, generator=gen, device=x.device).bfloat16()
+    dw1 = torch.empty(H, K, device=x.device)
+    dw2 = torch.empty(K, H, device=x.device)
+
+    def route():
+        F._wgrad(um, dpm, dw1, H, K)
+        F._wgrad(dpm, g, dw2, K, H)
+
+    t = (_time_ms(route) + _time_ms(route)) / 2
+    b_ms, b_by = bound(4 * N * H * K, 2 * (N * H + N * K) * 2 + 2 * H * K * 4,
+                       "bf16")
+    print(f"wgrad bf16 x bf16 route (dW1 + dW2 at N={N}, H={H}, K={K}): "
+          f"{t:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
 
 
 def t_cost(name: str, x: torch.Tensor, k: int = 64, mask=None,
@@ -689,10 +798,18 @@ def t_kernel_phase() -> dict:
                     lambda: TF.scaled_dot_product_attention(
                         q, k, v, attn_mask=lib_mask, scale=scale))
             shape = f"{tag} [{b}, {h}, {t}, 64] mask {kind}"
+            b_ms, b_by = bound(*t_cost("fused_attention", q, mask=mask))
+            with torch.no_grad():
+                d_k = sum(_device_ms(lambda: K5.fused_attention(
+                    q, k, v, scale, mask)).values())
+                d_l = sum(_device_ms(lambda: TF.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask, scale=scale)).values())
             print(f"kernel fused_attention {shape} {dt}: max_abs_err "
                   f"{float(err.max()):.3e} err/tol {ratio:.3f} (atol {atol}, "
                   f"rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} "
-                  f"ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms", flush=True)
+                  f"ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); device time (profiler) kernel "
+                  f"{d_k:.4f} ms, SDPA {d_l:.4f} ms", flush=True)
             if not ok:
                 failures.append(f"fused_attention {shape} {dt}")
             r5["max_abs_err"] = max(r5["max_abs_err"], float(err.max()))
@@ -1744,6 +1861,8 @@ def main() -> None:
                  "shapes": r["shapes"]}
         if name in serve_counts:
             entry["launches_serve"] = serve_counts[name]
+        if name in KERNEL_HMMA:
+            entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

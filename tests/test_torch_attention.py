@@ -4,6 +4,10 @@ the Pallas kernel (run through the interpreter on the CPU, as
 tests/test_fused_ops.py runs it) and its custom VJP, with each mask
 layout; and ``mha``'s dispatch to it under the opt-in toggle.
 
+Also K5's bf16 kernel algorithm, emulated in torch chunk by chunk (two
+passes over 64-key chunks, p rounded after it is normalized), against
+the Pallas kernel.
+
 Tolerances: fp32 1e-5 absolute for the output and 1e-5 of the largest
 gradient for the gradients (the same fp32 math, summed in another order);
 bf16 2e-2 (both sides take fp32 scores of the same bf16 operands and
@@ -13,6 +17,7 @@ round p and o once each, so a rounding flip separates them).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as TF
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +180,81 @@ def test_towers_with_the_toggle_match_reference():
     np.testing.assert_allclose(on_i.numpy(), np.asarray(ref_i), atol=1e-4)
     torch.testing.assert_close(on_t, off_t, atol=1e-5, rtol=0)
     torch.testing.assert_close(on_i, off_i, atol=1e-5, rtol=0)
+
+
+KEY_CHUNK = 64  # keys per chunk of the bf16 kernel (csrc/attention.cu)
+
+
+def _two_pass_bf16(q, k, v, scale, mask):
+    """K5's bf16 kernel (attention_mma_kernel) in torch, chunk by chunk as
+    it runs: the scores are fp32 sums of products of the bf16 operands,
+    times scale, plus the fp32 mask, -inf past the last key (the ragged
+    last chunk is masked, not padded in memory); pass 1 keeps each row's
+    max and its sum of exp(s - max) over the chunks, rescaling the sum
+    when the max grows (a chunk with nothing but -inf so far leaves both);
+    pass 2 recomputes each chunk's scores and adds round_bf16(exp(s -
+    max) * (1 / sum)) v in fp32; the output is rounded once."""
+    T = q.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m4 = None if mask is None else (mask if mask.dim() == 4
+                                    else mask[None, None]).float()
+
+    def scores(c0):
+        c1 = min(c0 + KEY_CHUNK, T)
+        s = (qf @ kf[:, :, c0:c1].transpose(-1, -2)) * scale
+        if m4 is not None:
+            s = s + m4[..., c0:c1]
+        return TF.pad(s, (0, KEY_CHUNK - (c1 - c0)), value=float("-inf"))
+
+    ninf = torch.tensor(float("-inf"))
+    m = torch.full(q.shape[:3] + (1,), float("-inf"))
+    l = torch.zeros(q.shape[:3] + (1,))
+    for c0 in range(0, T, KEY_CHUNK):
+        s = scores(c0)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        e = torch.where(mn == ninf, 0.0,
+                        torch.exp(s - mn).sum(-1, keepdim=True))
+        l = torch.where(m == ninf, 0.0, l * torch.exp(m - mn)) + e
+        m = mn
+    inv = 1.0 / l
+    o = torch.zeros(q.shape)
+    for c0 in range(0, T, KEY_CHUNK):
+        n = min(KEY_CHUNK, T - c0)
+        p = (torch.exp(scores(c0) - m) * inv).to(v.dtype).float()
+        o = o + p[..., :n] @ vf[:, :, c0:c0 + n]
+    return o.to(q.dtype)
+
+
+def _tower_mask(kind, b, t, rng):
+    """The text tower's masks with finfo.min entries: causal [t, t], and
+    causal plus padding [b, 1, t, t] (some entries add to -inf)."""
+    neg = np.finfo(np.float32).min
+    causal = np.triu(np.full((t, t), neg, np.float32), 1)
+    if kind == "causal":
+        return causal
+    lens = rng.integers(t // 3, t + 1, size=b)
+    pad = np.where(np.arange(t)[None] >= lens[:, None], neg, 0.0)
+    return (causal[None, None] + pad[:, None, None, :].astype(np.float32))
+
+
+# T = 77 (two chunks, the last ragged) with the text tower's masks; T = 50
+# (shorter than one chunk) without and with padding
+@pytest.mark.parametrize("t,kind", [(77, "padded"), (77, "causal"),
+                                    (50, "none"), (50, "padded")])
+def test_two_pass_bf16_algorithm_matches_pallas(t, kind):
+    rng = np.random.default_rng(t)
+    b, h, d = 3, 2, 64
+    q, k, v = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+               for _ in range(3))
+    m = None if kind == "none" else _tower_mask(kind, b, t, rng)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = RK5.fused_attention(*jb, d ** -0.5,
+                               None if m is None else jnp.asarray(m))
+    tb = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    got = _two_pass_bf16(*tb, d ** -0.5,
+                         None if m is None else torch.from_numpy(m))
+    assert got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=2e-2)

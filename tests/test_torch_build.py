@@ -1,6 +1,7 @@
 """vlm_clip_tpu_torch.ops.build on the CPU, with a stand-in compiler: the
 parallel build reads every compiler's output to the end (more than a pipe
-holds), records each one's time and raises on a failed build."""
+holds), records each one's time and raises on a failed build; a library's
+name changes with its source and with every header under csrc/."""
 
 import os
 import sys
@@ -81,3 +82,46 @@ def test_successful_build_keeps_its_output(fake_nvcc):
     assert os.path.isfile(build._out_path("good"))
     assert len(build.build_logs["good"]) >= CHATTY
     assert build.build_seconds["good"] >= 0.0
+
+
+def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
+    """An edit to a header under csrc/ (which any source may include)
+    renames every library, as an edit to the source renames its own, so a
+    stale build is never loaded; other files do not count."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text(f'#include "mma.cuh"\n// {name}\n')
+    (csrc / "mma.cuh").write_text("// helpers v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    first = {n: build._out_path(n) for n in ("a", "b")}
+    assert first["a"] != first["b"]
+    assert all(os.path.basename(p).startswith(f"lib{n}-")
+               for n, p in first.items())
+    (csrc / "notes.txt").write_text("not a header\n")
+    assert {n: build._out_path(n) for n in ("a", "b")} == first
+    (csrc / "mma.cuh").write_text("// helpers v2\n")
+    second = {n: build._out_path(n) for n in ("a", "b")}
+    assert all(second[n] != first[n] for n in ("a", "b"))
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    third = {n: build._out_path(n) for n in ("a", "b")}
+    assert all(third[n] != second[n] for n in ("a", "b"))
+    (csrc / "a.cu").write_text("// a, edited\n")
+    assert build._out_path("a") != third["a"]
+    assert build._out_path("b") == third["b"]
+
+
+def test_aligned16_copies_only_views_off_a_16_byte_boundary():
+    import torch
+
+    base = torch.arange(64, dtype=torch.bfloat16)
+    assert build.aligned16(base).data_ptr() == base.data_ptr()
+    view = base[3:35]  # starts 6 bytes past an aligned start
+    got = build.aligned16(view)
+    assert got.data_ptr() % 16 == 0 and got.data_ptr() != view.data_ptr()
+    assert torch.equal(got, view)
+    strided = base.view(8, 8)[:, :4]
+    got = build.aligned16(strided)
+    assert got.is_contiguous() and torch.equal(got, strided)
+    assert got.data_ptr() % 16 == 0

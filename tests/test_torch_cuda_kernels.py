@@ -152,18 +152,69 @@ def test_seq_adapter_bwd_kernel(dev, dtype, n, h, k, need_dx):
     _grads_close(got, want, dtype, "seq_adapter")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_prenorm_mlp_bwd_kernel(dev, dtype):
+def _pnmlp_case(dev, n, dtype):
     p = A.init_mlp_gelu(_gen(dev), 512, device=dev)
-    x = torch.randn(77, 512, generator=_gen(dev, 3), device=dev).to(dtype)
+    p["fc1"]["bias"].normal_(generator=_gen(dev, 7)).mul_(0.1)
+    x = torch.randn(n, 512, generator=_gen(dev, 3), device=dev).to(dtype)
     ls = 1 + 0.1 * torch.randn(512, generator=_gen(dev, 4), device=dev)
     lb = 0.1 * torch.randn(512, generator=_gen(dev, 5), device=dev)
     args = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
             p["fc2"]["bias"], ls, lb)
-    g = torch.randn(77, 512, generator=_gen(dev, 6), device=dev).to(dtype)
-    _grads_close(F.prenorm_mlp_bwd_cuda(x, *args, g),
-                 F.prenorm_mlp_bwd_torch(x, *args, g), dtype, "prenorm_mlp")
+    g = torch.randn(n, 512, generator=_gen(dev, 6), device=dev).to(dtype)
+    return x, args, g
+
+
+# 77 rows (one text row of a batch), 200 (a ragged last 128-row tile of
+# the bf16 products and 32-row tile of its LN pass), 7392 (the train
+# step's B=96 text rows); without dx as well
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,need_dx", [(77, True), (200, True),
+                                       (7392, True), (200, False)])
+def test_prenorm_mlp_bwd_kernel(dev, dtype, n, need_dx):
+    x, args, g = _pnmlp_case(dev, n, dtype)
+    F.reset_launch_counts()
+    got = F.prenorm_mlp_bwd_cuda(x, *args, g, need_dx=need_dx)
+    assert F.launch_counts()["prenorm_mlp_bwd_cuda"] == 1
+    _grads_close(got, F.prenorm_mlp_bwd_torch(x, *args, g, need_dx=need_dx),
+                 dtype, "prenorm_mlp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prenorm_mlp_bwd_repeats_bit_for_bit(dev, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x, args, g = _pnmlp_case(dev, 7392, dtype)
+    first = F.prenorm_mlp_bwd_cuda(x, *args, g)
+    second = F.prenorm_mlp_bwd_cuda(x, *args, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# the weight-gradient products alone: bf16 x bf16 on the tensor cores,
+# aligned (16-byte copies) and K2's per-head slices of width Tk (element
+# copies), against fp32 matmuls of the same bf16 values
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,q,z,width", [(7392, 512, 2048, 1, None),
+                                           (300, 136, 72, 1, None),
+                                           (700, 197, 64, 8, 197),
+                                           (50, 5, 64, 8, 5)])
+def test_wgrad_tensor_cores(dev, n, p, q, z, width):
+    gen = _gen(dev, 11)
+    sa = width or 0
+    a = torch.randn(n, z * p if width else p, generator=gen,
+                    device=dev).bfloat16()
+    b = torch.randn(n, z * q, generator=gen, device=dev).bfloat16()
+    out = torch.zeros(p, z * q, device=dev) if z > 1 else \
+        torch.zeros(p, q, device=dev)
+    F._wgrad(a, b, out, p, q, sa=sa, sb=q if z > 1 else 0,
+             so=q if z > 1 else 0, z=z)
+    want = torch.cat([a.float()[:, i * p:(i + 1) * p].T
+                      @ b.float()[:, i * q:(i + 1) * q] for i in range(z)],
+                     dim=1) if z > 1 else a.float().T @ b.float()
+    # fp32 sums of up to 7392 products of bf16 values near 1, in another
+    # order than the matmul: about sqrt(n) ulps of sums near sqrt(n)
+    torch.testing.assert_close(out, want, atol=5e-3, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -335,12 +386,13 @@ def _attn_mask(kind, b, t, dev):
 
 
 # ViT-L/14 vision (257) and text (77) at small batches, ViT-B/16 vision
-# (197) and ViT-L/14-336 (577)
+# (197), ViT-L/14-336 (577) and 50 (shorter than one 64-key chunk)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,h,t,kind", [
     (3, 16, 257, "none"), (5, 12, 77, "padded"), (5, 12, 77, "broadcast"),
-    (2, 8, 77, "causal"), (2, 12, 197, "none"), (1, 16, 577, "none")])
+    (2, 8, 77, "causal"), (2, 12, 197, "none"), (1, 16, 577, "none"),
+    (3, 4, 50, "none"), (3, 4, 50, "padded")])
 def test_fused_attention_kernel(dev, dtype, b, h, t, kind):
     q, k, v = (torch.randn(b, h, t, 64, generator=_gen(dev, i),
                            device=dev).to(dtype) for i in range(3))

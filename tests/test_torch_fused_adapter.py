@@ -11,7 +11,9 @@ gradients sum over every row, in another order, and the Pallas kernels'
 GELU and GELU' come from an erf polynomial good to 1.5e-7); bf16 2e-2
 absolute + relative (both sides round the same operands to bf16, so only
 a rounding flip from summation order separates them: about two bf16 ulps
-of values up to ~4), for gradients 2e-2 of the largest one.
+of values up to ~4), for gradients 2e-2 of the largest one. K3's bf16
+backward on the tensor cores is emulated pass by pass in torch and held
+against the Pallas backward at the bf16 tolerance.
 """
 
 import numpy as np
@@ -376,3 +378,73 @@ def test_cross_modal_adapter_grads_match_pallas():
         assert [a for a, _ in want] == [a for a, _ in got]
         for (path, w), (_, g) in zip(want, got):
             _grad_close(g, w, 1e-4, f"layer {i} {jax.tree_util.keystr(path)}")
+
+
+def _chunked_wgrad(a, b):
+    """a^T b as wgrad_mma_kernel sums it: the rows cut into the wrapper's
+    ordered chunks (for 128 x 128 output tiles), each chunk's fp32 partial
+    product, the partials added in chunk order."""
+    n = a.shape[0]
+    tiles = -(-a.shape[1] // 128) * -(-b.shape[1] // 128)
+    splits = F._tc_splits(n, tiles)
+    chunk = -(-n // splits)
+    out = torch.zeros(a.shape[1], b.shape[1])
+    for s in range(splits):
+        rows = slice(s * chunk, (s + 1) * chunk)
+        out = out + a[rows].T @ b[rows]
+    return out, splits
+
+
+def _tile_sums(v, rows):
+    """Column sums of v per tile of ``rows`` rows, added in tile order
+    (colsum_kernel over the row passes' partials)."""
+    out = torch.zeros(v.shape[1])
+    for r0 in range(0, v.shape[0], rows):
+        out = out + v[r0:r0 + rows].sum(0)
+    return out
+
+
+def _k3_bwd_tensor_cores(x, w1, b1, w2, ls, lb, g, eps=1e-5):
+    """K3's bf16 backward as its tensor-core passes compute it
+    (csrc/fused_adapter.cu, vct_prenorm_mlp_bwd_bf16): um = round(LN(x));
+    per 128-row tile pre = um w1 + b1, dh = g w2^T, hm = round(gelu(pre)),
+    dpre = dh gelu'(pre), the tile's column sums of the unrounded dpre
+    (db1), dpm = round(dpre); du = dpm w1^T in fp32; dx = g + the LN
+    backward of du, cast once; per 32-row tile the sums of g, du xhat and
+    du; dW1 = um^T dpm and dW2 = hm^T g over ordered row chunks."""
+    mm = torch.bfloat16
+    xf, gf = x.float(), g.float()
+    xhat, inv = F._ln_stats(xf, eps)
+    um = F._r(xhat * ls + lb, mm)
+    gm, w1m, w2m = F._r(gf, mm), F._r(w1, mm), F._r(w2, mm)
+    pre = um @ w1m + b1
+    dpre = (gm @ w2m.T) * F.gelu_grad(pre)
+    hm, dpm = F._r(torch.nn.functional.gelu(pre), mm), F._r(dpre, mm)
+    du = dpm @ w1m.T
+    dx = (gf + F._ln_bwd(du * ls, xhat, inv)).to(mm)
+    dw1, splits = _chunked_wgrad(um, dpm)
+    dw2, _ = _chunked_wgrad(hm, gm)
+    return (dx, dw1, _tile_sums(dpre, F.TC_ROWS), dw2,
+            _tile_sums(gf, F.LN_ROWS), _tile_sums(du * xhat, F.LN_ROWS),
+            _tile_sums(du, F.LN_ROWS)), splits
+
+
+def test_k3_bwd_tensor_core_passes_match_pallas():
+    """600 rows: a ragged last 128-row tile (and 32-row tile), and two
+    ordered row chunks in each weight gradient."""
+    args = _pnmlp_args(600, 64, 256, seed=9)
+    x, w1, b1, w2, b2, ls, lb = map(torch.from_numpy, args)
+    xb = x.bfloat16()
+    y = F.prenorm_mlp_torch(xb, w1, b1, w2, b2, ls, lb)
+    t = np.random.default_rng(8).normal(size=tuple(y.shape)).astype(
+        np.float32)
+    got, splits = _k3_bwd_tensor_cores(xb, w1, b1, w2, ls, lb,
+                                       torch.from_numpy(t).bfloat16())
+    assert splits == 2
+    refa = [jnp.asarray(args[0], jnp.bfloat16)] + list(
+        map(jnp.asarray, args[1:]))
+    want = jax.grad(lambda *a: jnp.sum(RF.prenorm_mlp_fused(*a) * t),
+                    argnums=tuple(range(7)))(*refa)
+    assert got[0].dtype == torch.bfloat16
+    for name, gg, w in zip(MLP_NAMES, got, want):
+        _grad_close(gg, w, BF16_TOL, name)

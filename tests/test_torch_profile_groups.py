@@ -1,0 +1,39 @@
+"""cli/profile_m_step's grouping of kernel names: each of the port's
+kernels lands in its own group (by its mangled or demangled name) before
+the library fragments are tried, so none of them counts as cuBLAS."""
+
+import pytest
+
+from vlm_clip_tpu_torch.cli.profile_m_step import _group
+
+NS = "(anonymous namespace)::"
+
+
+@pytest.mark.parametrize("name,group", [
+    (NS + "pnmlp_ln_fwd_kernel(__nv_bfloat16 const*, float const*)",
+     "K3 bwd"),
+    ("_ZN49_GLOBAL__N__a66b3b54_16_fused_adapter_cu_9e7b35ab23pnmlp_bwd_"
+     "hidden_kernelEPK13__nv_bfloat16S2_S2_PKfS2_PS0_S5_Pfiii", "K3 bwd"),
+    (NS + "pnmlp_bwd_du_kernel(__nv_bfloat16 const*, float*, int)",
+     "K3 bwd"),
+    (NS + "pnmlp_bwd_ln_kernel(__nv_bfloat16 const*, float*, int)",
+     "K3 bwd"),
+    (NS + "prenorm_mlp_bwd_kernel<float>(float const*, int)", "K3 bwd"),
+    (NS + "prenorm_mlp_fwd_kernel<__nv_bfloat16>(int)", "K3 fwd"),
+    (NS + "wgrad_mma_kernel<true>(__nv_bfloat16 const*, int)",
+     "K1-K3 bwd weight grads"),
+    (NS + "wgrad_kernel<float, float>(float const*, int)",
+     "K1-K3 bwd weight grads"),
+    (NS + "split_sum_kernel(float const*, int, unsigned long, float*)",
+     "K1-K3 bwd weight grads"),
+    (NS + "colsum_kernel(float const*, int, int, float*)",
+     "K1-K3 bwd column sums"),
+    (NS + "cross_attn_block_bwd_kernel<__nv_bfloat16>(int)", "K2 bwd"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "cuBLAS/cuDNN products"),
+    ("nvjet_tst_192x192_64x3_2x1_v_bz_coopA_NNT", "cuBLAS/cuDNN products"),
+    ("void at::native::vectorized_elementwise_kernel<4>()",
+     "elementwise and copies"),
+])
+def test_kernel_names_keep_their_groups(name, group):
+    assert _group(name) == group

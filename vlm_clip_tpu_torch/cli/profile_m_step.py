@@ -21,12 +21,18 @@ import subprocess
 import time
 from collections import defaultdict
 
-# kernel-name fragments -> group, first match wins
+# kernel-name fragments -> group, first match wins (the port's kernels
+# before the library fragments: a name with "gemm" or "sm90_" in it would
+# otherwise count as cuBLAS). K3 bwd in bf16 is four kernels (pnmlp_*);
+# the weight gradients are wgrad_kernel (CUDA cores), wgrad_mma_kernel
+# (tensor cores) and split_sum_kernel, which adds their row chunks.
 GROUPS = (
     ("K1 fwd", "seq_adapter_fwd"), ("K1 bwd", "seq_adapter_bwd"),
     ("K2 fwd", "cross_attn_block_fwd"), ("K2 bwd", "cross_attn_block_bwd"),
-    ("K3 fwd", "prenorm_mlp_fwd"), ("K3 bwd", "prenorm_mlp_bwd"),
-    ("K1-K3 bwd weight grads", "wgrad_kernel"),
+    ("K3 fwd", "prenorm_mlp_fwd"),
+    ("K3 bwd", ("prenorm_mlp_bwd", "pnmlp_ln_fwd", "pnmlp_bwd")),
+    ("K1-K3 bwd weight grads", ("wgrad_kernel", "wgrad_mma_kernel",
+                                "split_sum_kernel")),
     ("K1-K3 bwd column sums", "colsum_kernel"),
     ("K4", "contrastive"),
     ("cuBLAS/cuDNN products", ("gemm", "xmma", "cutlass", "sm90_", "cublas",

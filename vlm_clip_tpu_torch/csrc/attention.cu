@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for the CLIP towers' short-sequence
+// Hand-written Hopper (sm_90a) kernels for the CLIP towers' short-sequence
 // attention (K5).
 //
 // Port of vlm_clip_tpu/ops/attention.py: fused_attention (:100), Pallas
@@ -13,18 +13,40 @@
 // none, [T, T] (batch stride 0) or [B, 1, T, T] (a batch-broadcast mask
 // comes in expanded, batch stride 0).
 //
-// Design (first, simple version). The TPU kernel holds a whole head's
-// [T, T] scores in VMEM; at T = 257 that is 264 KB of fp32, more than the
-// 227 KB of shared memory a Hopper block may use. So one block of 256
-// threads takes (batch, head, a tile of 64 query rows) and streams K and
-// V through shared memory in chunks of 64 keys, in two passes over the
-// keys: the first keeps each row's running max and sum of exponentials
-// (rescaled when the max grows), the second recomputes the scores, forms
-// p = exp(s - max) / sum, rounds it to T and multiplies it into V. Each
-// thread owns a 4 x 4 tile of the 64 x 64 scores and of the 64 x 64
-// output, and the products are fp32 FMAs on the CUDA cores. What bounds
-// it on the H100: fp32 FMAs and shared-memory reads (q k^T is computed
-// twice); the tensor cores (wgmma on bf16 operands) are the next step.
+// The TPU kernel holds a whole head's [T, T] scores in VMEM; at T = 257
+// that is 264 KB of fp32, more than the 227 KB of shared memory a Hopper
+// block may use. So each block takes (batch, head, a tile of 64 query
+// rows) and streams K (and V) in chunks of 64 keys, in two passes over the
+// keys: the first takes each row's max and sum of exponentials, the
+// second recomputes the scores and multiplies p = exp(s - max) / sum,
+// rounded to T, into V. One pass with an online softmax would round p
+// before it is normalized, which the TPU kernel does not.
+//
+// bf16 (attention_mma_kernel). What bounds it on the H100: the bytes of
+// q, k, v and o (about 0.025 ms at ViT-L/14's shapes) against some 20
+// GFLOP of products and 100 M exponentials: both products (q k^T twice,
+// p v once) run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// fp32 accumulation), fed by ldmatrix from bf16 tiles that cp.async
+// double-buffers, so the second q k^T costs little; each exponential is
+// one FFMA and one ex2 on the special-function unit. A block takes 128
+// query rows on 8 warps of 16, so each K/V chunk read from L2 serves 128
+// rows, and two blocks fill an SM (16 warps, at most 128 registers a
+// thread; 64-row blocks measured no faster). A warp whose rows all lie
+// past T skips its work, and so does a group of 16 keys wholly past T (at
+// T = 257 the last chunk holds one key). What still bounds it: two passes
+// do 1.5 times the products and twice the exponentials of a one-pass
+// online softmax. A thread keeps its rows' max and sum in registers
+// (quad shuffles reduce a score fragment's row) and p goes from the score
+// accumulators straight into the A fragments of p v, rounded to bf16,
+// with no trip through shared memory. The ragged last key chunk and the
+// rows past T are masked (zero-filled tiles, -inf scores), not padded in
+// memory.
+//
+// fp32 (attention_fwd_kernel, the first version). The tensor cores take
+// fp32 only as TF32, which would round operands the TPU kernel keeps, so
+// fp32 stays on the CUDA cores: one block of 256 threads per (batch, head,
+// 64 query rows), q, k and v in fp32 tiles, each thread a 4 x 4 tile of
+// the scores and of the output, fp32 FMAs (q k^T computed twice).
 //
 // Plain C interface, loaded with ctypes. The entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -32,6 +54,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -42,18 +66,11 @@ constexpr int NT = 256;    // threads per block
 constexpr int LD = D + 1;  // padded row of the q / k / score tiles
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -220,42 +237,271 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 8;        // per block, 16 query rows each
+constexpr int MQ = 16 * MMA_WARPS;  // query rows per block
+constexpr int MT_N = 32 * MMA_WARPS;
+constexpr int MMA_BLOCKS = 16 / MMA_WARPS;  // per SM: 16 warps, <= 128 regs
+constexpr int SLD = D + 8;   // shared row of a bf16 q / k / v tile
+constexpr float L2E = 1.4426950408889634f;  // log2(e)
+
+// rows [r0, r0 + R) of a [t, 64] bf16 head -> tile (rows past t zeroed)
+template <int R>
+__device__ __forceinline__ void load_head_rows(vct::bf16* tile,
+                                               const vct::bf16* src, int t,
+                                               int r0) {
+#pragma unroll
+  for (int i = 0; i < R * (D / 8) / MT_N; ++i) {
+    const int e = threadIdx.x + i * MT_N;
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    const bool ok = r0 + r < t;
+    vct::cp_async16(tile + r * SLD + c,
+                    ok ? src + (size_t)(r0 + r) * D + c : src, ok);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 2^x on the special-function unit; exp(s - m) = ex2(s log2e - m log2e)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Steps 0 .. nc-1 are pass 1 over the key chunks (K only), steps nc ..
+// 2nc-1 pass 2 (K and V); step s + 1's chunks load while step s computes.
+// A warp whose 16 rows all lie past t only loads and waits; key pairs
+// (16 keys) wholly past t are skipped.
+__global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
+    attention_mma_kernel(const vct::bf16* __restrict__ q,
+                         const vct::bf16* __restrict__ k,
+                         const vct::bf16* __restrict__ v,
+                         const float* __restrict__ mask,
+                         long long mask_bstride, float scale,
+                         vct::bf16* __restrict__ out, int heads, int t) {
+  using vct::bf16;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(attn_smem);  // [MQ][SLD]
+  bf16* Ks = Qs + MQ * SLD;                       // [2][KC][SLD]
+  bf16* Vs = Ks + 2 * KC * SLD;                   // [2][KC][SLD]
+  const int q0 = blockIdx.x * MQ, hd = blockIdx.y, b = blockIdx.z;
+  const size_t head = ((size_t)b * heads + hd) * t * D;
+  const bf16 *qh = q + head, *kh = k + head, *vh = v + head;
+  const float* mb = mask == nullptr ? nullptr : mask + b * mask_bstride;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;  // this thread's rows
+  const bool active = q0 + warp * 16 < t;
+  const int nc = (t + KC - 1) / KC, steps = 2 * nc;
+
+  auto issue = [&](int s) {
+    const int c = s < nc ? s : s - nc;
+    load_head_rows<KC>(Ks + (s & 1) * KC * SLD, kh, t, c * KC);
+    if (s >= nc) load_head_rows<KC>(Vs + (s & 1) * KC * SLD, vh, t, c * KC);
+  };
+  load_head_rows<MQ>(Qs, qh, t, q0);
+  issue(0);
+  vct::cp_async_commit();
+
+  uint32_t qf[D / 16][4];  // the warp's 16 q rows as A fragments
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // row max (quad-uniform)
+  float l_lo = 0.f, l_hi = 0.f;  // this thread's share of the row sum
+  float ml_lo = 0.f, ml_hi = 0.f, inv_lo = 0.f, inv_hi = 0.f;
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    vct::cp_async_commit();
+    vct::cp_async_wait<1>();
+    __syncthreads();  // step s's chunks (and q) landed
+    if (active) {
+      if (s == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          vct::ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * SLD +
+                                   kk * 16 + (lane >> 4) * 8);
+      }
+      const bool pass2 = s >= nc;
+      const int k0 = (pass2 ? s - nc : s) * KC;
+      const bf16* Kb = Ks + (s & 1) * KC * SLD;
+      // scores of the warp's 16 rows against the chunk's 64 keys
+      float sc[KC / 8][4];
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KC / 8; j += 2) {
+        if (k0 + j * 8 >= t) continue;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t r[4];
+          vct::ldsm_x4(r, Kb + (j * 8 + (lane & 7) + (lane >> 4) * 8) * SLD +
+                              kk * 16 + ((lane >> 3) & 1) * 8);
+          vct::mma_bf16(sc[j], qf[kk], r[0], r[1]);
+          vct::mma_bf16(sc[j + 1], qf[kk], r[2], r[3]);
+        }
+      }
+      // times scale, plus the mask (fp32); -inf past the last key
+      if (mb == nullptr && k0 + KC <= t) {
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
+      } else {
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e < 2 ? r_lo : r_hi;
+            const int c = k0 + j * 8 + 2 * tq + (e & 1);
+            float x = sc[j][e] * scale;
+            if (mb != nullptr && r < t && c < t) x += mb[(size_t)r * t + c];
+            sc[j][e] = c < t ? x : -INFINITY;
+          }
+      }
+      if (!pass2) {
+        float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          mx_lo = fmaxf(mx_lo, fmaxf(sc[j][0], sc[j][1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(sc[j][2], sc[j][3]));
+        }
+        const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
+        const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+        // a chunk with nothing but -inf so far leaves the sums at 0
+        float e_lo = 0.f, e_hi = 0.f;
+        if (mn_lo != -INFINITY) {
+          const float c_lo = -mn_lo * L2E;
+#pragma unroll
+          for (int j = 0; j < KC / 8; ++j)
+            if (k0 + j * 8 < t)
+              e_lo += ex2(fmaf(sc[j][0], L2E, c_lo)) +
+                      ex2(fmaf(sc[j][1], L2E, c_lo));
+        }
+        if (mn_hi != -INFINITY) {
+          const float c_hi = -mn_hi * L2E;
+#pragma unroll
+          for (int j = 0; j < KC / 8; ++j)
+            if (k0 + j * 8 < t)
+              e_hi += ex2(fmaf(sc[j][2], L2E, c_hi)) +
+                      ex2(fmaf(sc[j][3], L2E, c_hi));
+        }
+        l_lo = (m_lo == -INFINITY ? 0.f : l_lo * ex2((m_lo - mn_lo) * L2E)) +
+               e_lo;
+        l_hi = (m_hi == -INFINITY ? 0.f : l_hi * ex2((m_hi - mn_hi) * L2E)) +
+               e_hi;
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+        if (s == nc - 1) {
+          inv_lo = 1.f / quad_sum(l_lo);
+          inv_hi = 1.f / quad_sum(l_hi);
+          ml_lo = -m_lo * L2E;
+          ml_hi = -m_hi * L2E;
+        }
+      } else {
+        // p = exp(s - max) / sum, rounded to bf16 into the A fragments of
+        // p v: keys 16kk .. 16kk + 15 are score tiles 2kk and 2kk + 1
+        const bf16* Vb = Vs + (s & 1) * KC * SLD;
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          if (k0 + kk * 16 >= t) continue;
+          const float* c0 = sc[2 * kk];
+          const float* c1 = sc[2 * kk + 1];
+          uint32_t a[4];
+          a[0] = vct::pack_bf16(ex2(fmaf(c0[0], L2E, ml_lo)) * inv_lo,
+                                ex2(fmaf(c0[1], L2E, ml_lo)) * inv_lo);
+          a[1] = vct::pack_bf16(ex2(fmaf(c0[2], L2E, ml_hi)) * inv_hi,
+                                ex2(fmaf(c0[3], L2E, ml_hi)) * inv_hi);
+          a[2] = vct::pack_bf16(ex2(fmaf(c1[0], L2E, ml_lo)) * inv_lo,
+                                ex2(fmaf(c1[1], L2E, ml_lo)) * inv_lo);
+          a[3] = vct::pack_bf16(ex2(fmaf(c1[2], L2E, ml_hi)) * inv_hi,
+                                ex2(fmaf(c1[3], L2E, ml_hi)) * inv_hi);
+#pragma unroll
+          for (int j = 0; j < D / 8; j += 2) {
+            uint32_t r[4];
+            vct::ldsm_x4_t(r, Vb + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * SLD +
+                                  j * 8 + (lane >> 4) * 8);
+            vct::mma_bf16(o[j], a, r[0], r[1]);
+            vct::mma_bf16(o[j + 1], a, r[2], r[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer s & 1 is free for step s + 2
+  }
+  if (!active) return;
+  bf16* oh = out + head;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * tq;
+    if (r_lo < t)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_lo * D + c) =
+          vct::pack_bf16(o[j][0], o[j][1]);
+    if (r_hi < t)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_hi * D + c) =
+          vct::pack_bf16(o[j][2], o[j][3]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-size_t vct_attention_smem() {
+// Shared memory a block of the bf16 or the fp32 kernel takes, in bytes.
+size_t vct_attention_smem(int bf16) {
+  if (bf16) return sizeof(vct::bf16) * (MQ + 4 * KC) * SLD;
   return sizeof(float) * (2 * QT * LD + KC * LD + KC * D + 2 * QT);
 }
 
 // q, k, v, out: [b, heads, t, 64] contiguous in T (bf16 when bf16 != 0,
-// else fp32); mask: fp32 [t, t] rows at mask + batch * mask_bstride, or
-// null.
+// else fp32; bf16 heads 16-byte aligned); mask: fp32 [t, t] rows at mask +
+// batch * mask_bstride, or null.
 int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
                       const void* mask, long long mask_bstride, float scale,
                       void* out, int b, int heads, int t, void* stream) {
-  const size_t smem = vct_attention_smem();
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((t + QT - 1) / QT, heads, b);
   const float* m = (const float*)mask;
   int err;
   if (bf16) {
-    typedef __nv_bfloat16 T;
-    auto kern = attention_fwd_kernel<T>;
+    typedef vct::bf16 T;
+    const size_t smem = vct_attention_smem(1);
+    const dim3 grid((t + MQ - 1) / MQ, heads, b);
     if ((err = (int)cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+             attention_mma_kernel,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
       return err;
-    kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
-                                 mask_bstride, scale, (T*)out, heads, t);
-  } else {
-    typedef float T;
-    auto kern = attention_fwd_kernel<T>;
-    if ((err = (int)cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-      return err;
-    kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
-                                 mask_bstride, scale, (T*)out, heads, t);
+    attention_mma_kernel<<<grid, MT_N, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, m, mask_bstride, scale,
+        (T*)out, heads, t);
+    return (int)cudaGetLastError();
   }
+  const size_t smem = vct_attention_smem(0);
+  const dim3 grid((t + QT - 1) / QT, heads, b);
+  auto kern = attention_fwd_kernel<float>;
+  if ((err = (int)cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  kern<<<grid, NT, smem, st>>>((const float*)q, (const float*)k,
+                               (const float*)v, m, mask_bstride, scale,
+                               (float*)out, heads, t);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,15 @@
 // (weights stay in the 50 MB L2, each row is read and written once), so
 // the next step is wgmma on bf16 operands, which this layout leaves open.
 //
+// K3's backward in bf16 and the bf16 x bf16 weight gradients (K2, K3) are
+// redesigned for the tensor cores (section "bf16 on the tensor cores"
+// below): at the train step's shape fp32 FMAs bound the first version at
+// 1.16 ms or more a call, the tensor cores at 0.08 ms, so the row pass is
+// split into mma.sync products over 128 x 128 tiles that fill the card,
+// with the GELU, its derivative, the roundings and the column sums fused
+// into their epilogues. The fp32 instantiations keep the CUDA-core
+// kernels: the tensor cores would round fp32 operands to TF32.
+//
 // K2 does not port the TPU kernel's block-diagonal K/V packing (a lane
 // trick): it loops over the heads on K^T [H, Tk] and V [Tk, H] directly,
 // and takes the softmax max per head (the TPU kernel takes one max per
@@ -43,6 +52,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -433,6 +445,13 @@ __device__ __forceinline__ float gelu_erf_grad(float v) {
          v * 0.39894228040143268f * expf(-0.5f * v * v);
 }
 
+// gelu_erf(v) and gelu_erf_grad(v), the same operations, one erff.
+__device__ __forceinline__ void gelu_and_grad(float v, float& h, float& d) {
+  const float e = erff(v * 0.70710678118654752f);
+  h = 0.5f * v * (1.f + e);
+  d = 0.5f * (1.f + e) + v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
 // Per-row mean and 1/std of an fp32 tile Z (R rows, ld = ldz, width h),
 // one warp per row, as the forward's LN takes them.
 template <int R>
@@ -608,7 +627,8 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------------
-// K3 backward (replaces _pnmlp_bwd_kernel, fused_adapter.py:550): matmul
+// K3 backward (replaces _pnmlp_bwd_kernel, fused_adapter.py:550), the
+// fp32 instantiation (bf16 runs on the tensor cores, below): matmul
 // operands in T, fp32 accumulation, the 4H hidden walked in 128-column
 // chunks. Writes dx, um = round(LN(x)) [n, h], hm = round(gelu(pre))
 // [n, k], dpm = round(dpre) [n, k] (dW1 = um^T dpm, dW2 = hm^T g), and per
@@ -1049,6 +1069,323 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ===========================================================================
+// bf16 on the tensor cores: K3 backward and the bf16 x bf16 weight gradients
+// ===========================================================================
+//
+// At the train step's text shape (x, g [7392, 512], W1 [512, 2048]) K3's
+// backward is 77.5 GFLOP, which fp32 FMAs cannot do in under 1.16 ms; on
+// the tensor cores its bound is 0.08 ms. So for T = bf16 the row pass is
+// split into products that fill the card, each a BlockGemm (mma.sync
+// m16n8k16, ldmatrix, a 3-stage cp.async ring) over 128 x 128 output
+// tiles with its elementwise work fused into the epilogue:
+//
+//   pnmlp_ln_fwd_kernel       um = round(LN(x)) and each row's mean, 1/std
+//   pnmlp_bwd_hidden_kernel   per (128 rows, 128 hidden columns):
+//                             pre = um W1[:, c] + b1 and dh = g W2[c, :]^T;
+//                             writes hm = round(gelu(pre)), dpm =
+//                             round(dh gelu'(pre)) and the tile's column
+//                             sums of the unrounded dpre (db1)
+//   pnmlp_bwd_du_kernel       du = dpm W1^T (depth 4H), fp32
+//   pnmlp_bwd_ln_kernel       dx = g + LN backward of du (fp32, cast once)
+//                             and per 32-row tile the column sums of g
+//                             (db2), du xhat (dls) and du (dlb)
+//
+// then dW1 = um^T dpm and dW2 = hm^T g through wgrad_mma_kernel (the same
+// ordered row chunks as wgrad_kernel) and the [tiles, V] partials through
+// colsum_kernel, in order: no atomics, so the gradients repeat bit for
+// bit. Every rounding point is the TPU kernel's (and the fp32 kernel's
+// above): operands in bf16, fp32 accumulation, pre from the rounded um,
+// du from the rounded dpm, db1 from the unrounded dpre; products of bf16
+// values are exact in fp32, so only the summation order differs.
+
+// 128 x 128 block tiles on 8 warps of 64 x 32, 64-deep stages, 3 stages
+typedef vct::BlockGemm<128, 128, 64, 64, 32, false, true, true, 3> GemmNT;
+template <bool VEC>
+using GemmTN = vct::BlockGemm<128, 128, 64, 64, 32, true, false, VEC, 3>;
+constexpr int TC = 128;      // rows and columns of a product's block tile
+constexpr int LN_ROWS = 32;  // rows per block of the LN backward
+
+__global__ void __launch_bounds__(NT)
+    pnmlp_ln_fwd_kernel(const vct::bf16* __restrict__ x,
+                        const float* __restrict__ ls,
+                        const float* __restrict__ lb, float eps,
+                        vct::bf16* __restrict__ um, float* __restrict__ mean,
+                        float* __restrict__ inv, int n, int h) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (r >= n) return;
+  const vct::bf16* xr = x + (size_t)r * h;
+  float s = 0.f;
+  for (int c = lane; c < h; c += 32) s += to_f(xr[c]);
+  const float m = warp_sum(s) / h;
+  float v = 0.f;
+  for (int c = lane; c < h; c += 32) {
+    const float d = to_f(xr[c]) - m;
+    v += d * d;
+  }
+  const float iv = rsqrtf(warp_sum(v) / h + eps);
+  for (int c = lane; c < h; c += 32)
+    um[(size_t)r * h + c] =
+        from_f<vct::bf16>((to_f(xr[c]) - m) * iv * ls[c] + lb[c]);
+  if (lane == 0) {
+    mean[r] = m;
+    inv[r] = iv;
+  }
+}
+
+// The hidden product's block holds two groups of 8 warps on the same
+// 128 x 128 tile, each with its own 32-deep slabs of a 3-stage ring: the
+// first computes pre = um W1[:, c], the second dh = g W2[c, :]^T. 16
+// warps an SM (at most 128 registers a thread) hide more latency than
+// one group holding both accumulators (255 registers, 8 warps). The
+// groups trade half their accumulators through shared memory, in the
+// fragment order both share, and each runs the epilogue (one erff per
+// element for GELU and its derivative) on half the rows.
+typedef vct::BlockGemm<128, 128, 32, 64, 32, false, false, true, 3> HidNN;
+typedef vct::BlockGemm<128, 128, 32, 64, 32, false, true, true, 3> HidNT;
+constexpr int HID_GROUP = HidNN::THREADS;  // threads of one group
+constexpr int HID_STAGE = HidNN::STAGE_ELEMS + HidNT::STAGE_ELEMS;
+constexpr int HID_ACC = HidNN::MT * HidNN::NT * 4;  // accumulators a thread
+constexpr size_t HID_SMEM =
+    3 * HID_STAGE * sizeof(vct::bf16) + HID_ACC * HID_GROUP * sizeof(float);
+
+__global__ void __launch_bounds__(2 * HID_GROUP, 1)
+    pnmlp_bwd_hidden_kernel(const vct::bf16* __restrict__ um,
+                            const vct::bf16* __restrict__ g,
+                            const vct::bf16* __restrict__ w1,
+                            const float* __restrict__ b1,
+                            const vct::bf16* __restrict__ w2,
+                            vct::bf16* __restrict__ hm_out,
+                            vct::bf16* __restrict__ dpm_out,
+                            float* __restrict__ part, int n, int h, int k) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float red[4][TC];
+  vct::bf16* sm = reinterpret_cast<vct::bf16*>(tc_smem);
+  float* handoff = reinterpret_cast<float*>(sm + 3 * HID_STAGE);
+  const int c0 = blockIdx.x * TC, r0 = blockIdx.y * TC;
+  const bool dh_group = threadIdx.x >= HID_GROUP;
+  const int tid = threadIdx.x - (dh_group ? HID_GROUP : 0);
+  const int nk = h / 32;
+  auto load = [&](int j) {
+    vct::bf16* st = sm + (j % 3) * HID_STAGE;
+    if (dh_group)
+      HidNT::load_stage(st + HidNN::STAGE_ELEMS, g, h, w2, h, r0, n, c0, k,
+                        j * 32, h, tid);
+    else
+      HidNN::load_stage(st, um, h, w1, k, r0, n, c0, k, j * 32, h, tid);
+  };
+  HidNN::Acc acc;  // pre in the first group, dh in the second
+  HidNN::zero(acc);
+  for (int j = 0; j < 2; ++j) {
+    if (j < nk) load(j);
+    vct::cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    vct::cp_async_wait<1>();
+    __syncthreads();  // slab i landed; slab i - 1 is free
+    if (i + 2 < nk) load(i + 2);
+    vct::cp_async_commit();
+    const vct::bf16* st = sm + (i % 3) * HID_STAGE;
+    if (dh_group)
+      HidNT::compute_stage(st + HidNN::STAGE_ELEMS, acc, tid);
+    else
+      HidNN::compute_stage(st, acc, tid);
+  }
+  vct::cp_async_wait<0>();
+  // each group runs the epilogue of half the tile's rows (m-tiles 0-1 of
+  // its warp's 64 rows in the first group, 2-3 in the second) and hands
+  // the other half of its accumulators to the other group
+  float* mine_to_dh = handoff;                       // pre, m-tiles 2-3
+  float* mine_to_pre = handoff + HID_ACC / 2 * HID_GROUP;  // dh, 0-1
+  auto slot = [&](int i, int j, int e) {
+    return (((i & 1) * HidNN::NT + j) * 4 + e) * HID_GROUP + tid;
+  };
+#pragma unroll
+  for (int i = 0; i < HidNN::MT; ++i) {
+    if ((i >= HidNN::MT / 2) == dh_group) continue;  // this group's half
+#pragma unroll
+    for (int j = 0; j < HidNN::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        (dh_group ? mine_to_pre : mine_to_dh)[slot(i, j, e)] = acc[i][j][e];
+  }
+  __syncthreads();
+  const float* other = dh_group ? mine_to_dh : mine_to_pre;
+  const int lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = HidNN::warp_m(tid), wn = HidNN::warp_n(tid);
+  float cs[HidNN::NT][2];
+#pragma unroll
+  for (int j = 0; j < HidNN::NT; ++j) cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HidNN::MT; ++i) {
+    if ((i >= HidNN::MT / 2) != dh_group) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + wm + i * 16 + gr + half * 8;
+#pragma unroll
+      for (int j = 0; j < HidNN::NT; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * tq;
+        float hv[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int at = 2 * half + e;
+          const float o = other[slot(i, j, at)];
+          const float p = (dh_group ? o : acc[i][j][at]) + b1[c + e];
+          float gp;
+          gelu_and_grad(p, hv[e], gp);
+          dv[e] = (dh_group ? acc[i][j][at] : o) * gp;
+        }
+        if (r < n) {
+          const size_t at = (size_t)r * k + c;
+          *reinterpret_cast<uint32_t*>(hm_out + at) =
+              vct::pack_bf16(hv[0], hv[1]);
+          *reinterpret_cast<uint32_t*>(dpm_out + at) =
+              vct::pack_bf16(dv[0], dv[1]);
+          cs[j][0] += dv[0];
+          cs[j][1] += dv[1];
+        }
+      }
+    }
+  }
+  // db1: the column sums of dpre (before rounding) over the tile's rows,
+  // across the lanes of a column, then the block's four 32-row quarters
+  // in row order
+#pragma unroll
+  for (int j = 0; j < HidNN::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = cs[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gr == 0)
+        red[wm / (16 * HidNN::MT) * 2 + dh_group][wn + j * 8 + 2 * tq + e] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < TC) {
+    const int c = threadIdx.x;
+    part[(size_t)blockIdx.y * k + c0 + c] =
+        ((red[0][c] + red[1][c]) + red[2][c]) + red[3][c];
+  }
+}
+
+__global__ void __launch_bounds__(GemmNT::THREADS)
+    pnmlp_bwd_du_kernel(const vct::bf16* __restrict__ dpm,
+                        const vct::bf16* __restrict__ w1,
+                        float* __restrict__ du, int n, int h, int k) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  vct::bf16* sm = reinterpret_cast<vct::bf16*>(tc_smem);
+  const int c0 = blockIdx.x * TC, r0 = blockIdx.y * TC;
+  GemmNT::Acc acc;
+  GemmNT::zero(acc);
+  GemmNT::run(acc, sm, dpm, k, w1, k, r0, n, c0, h, 0, k);  // dpm W1^T
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = GemmNT::warp_m(threadIdx.x), wn = GemmNT::warp_n(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < GemmNT::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + wm + i * 16 + gr + half * 8;
+      if (r >= n) continue;
+#pragma unroll
+      for (int j = 0; j < GemmNT::NT; ++j)
+        *reinterpret_cast<float2*>(du + (size_t)r * h + c0 + wn + j * 8 +
+                                   2 * tq) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+    }
+}
+
+__global__ void __launch_bounds__(NT)
+    pnmlp_bwd_ln_kernel(const vct::bf16* __restrict__ x,
+                        const vct::bf16* __restrict__ g,
+                        const float* __restrict__ du,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ inv,
+                        const float* __restrict__ ls,
+                        vct::bf16* __restrict__ dx, float* __restrict__ part,
+                        int n, int h) {
+  const int r0 = blockIdx.x * LN_ROWS, nv = min(LN_ROWS, n - r0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (dx != nullptr) {
+    // one warp per row; dx = g + inv (d - mean(d) - xhat mean(d xhat)),
+    // d = du ls, cast once
+    for (int r = r0 + warp; r < r0 + nv; r += NT / 32) {
+      const vct::bf16* xr = x + (size_t)r * h;
+      const float* dr = du + (size_t)r * h;
+      const float mr = mean[r], ir = inv[r];
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < h; c += 32) {
+        const float xh = (to_f(xr[c]) - mr) * ir, d = dr[c] * ls[c];
+        s1 += d;
+        s2 += d * xh;
+      }
+      const float m1 = warp_sum(s1) / h, m2 = warp_sum(s2) / h;
+      for (int c = lane; c < h; c += 32) {
+        const float xh = (to_f(xr[c]) - mr) * ir, d = dr[c] * ls[c];
+        dx[(size_t)r * h + c] = from_f<vct::bf16>(
+            to_f(g[(size_t)r * h + c]) + ir * (d - m1 - xh * m2));
+      }
+    }
+  }
+  // [db2 = sum g | dls = sum du xhat | dlb = sum du] over the tile's rows
+  float* pt = part + (size_t)blockIdx.x * 3 * h;
+  for (int c = threadIdx.x; c < h; c += NT) {
+    float sg = 0.f, sdx = 0.f, sd = 0.f;
+    for (int r = r0; r < r0 + nv; ++r) {
+      const size_t at = (size_t)r * h + c;
+      const float xh = (to_f(x[at]) - mean[r]) * inv[r], d = du[at];
+      sg += to_f(g[at]);
+      sdx += d * xh;
+      sd += d;
+    }
+    pt[c] = sg;
+    pt[h + c] = sdx;
+    pt[2 * h + c] = sd;
+  }
+}
+
+// out[z*so + a*ldo + b] = sum over the split's rows r of A[r*lda + z*sa +
+// a] * B[r*ldb + z*sb + b], bf16 operands on the tensor cores: the same
+// contract, grid and ordered row chunks as wgrad_kernel, over 128 x 128
+// output tiles. VEC: 16-byte copies (aligned operands, widths multiples
+// of 8); else element copies (K2's per-head slices of width Tk).
+template <bool VEC>
+__global__ void __launch_bounds__(GemmTN<VEC>::THREADS)
+    wgrad_mma_kernel(const vct::bf16* __restrict__ A, int lda, int sa,
+                     const vct::bf16* __restrict__ B, int ldb, int sb,
+                     float* __restrict__ out, int ldo, int so, int n, int P,
+                     int Q, int nz, int chunk, size_t split_stride) {
+  typedef GemmTN<VEC> G;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  vct::bf16* sm = reinterpret_cast<vct::bf16*>(tc_smem);
+  const int z = blockIdx.z % nz, split = blockIdx.z / nz;
+  const int a0 = blockIdx.y * TC, b0 = blockIdx.x * TC;
+  const int rbeg = split * chunk, rend = min(n, rbeg + chunk);
+  A += (size_t)z * sa;
+  B += (size_t)z * sb;
+  out += (size_t)z * so + split * split_stride;
+  typename G::Acc acc;
+  G::zero(acc);
+  G::run(acc, sm, A, lda, B, ldb, a0, P, b0, Q, rbeg, rend);
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = G::warp_m(threadIdx.x), wn = G::warp_n(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int a = a0 + wm + i * 16 + gr + half * 8;
+      if (a >= P) continue;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = b0 + wn + j * 8 + 2 * tq + e;
+          if (b < Q) out[(size_t)a * ldo + b] = acc[i][j][2 * half + e];
+        }
+    }
+}
+
+// ===========================================================================
 // K6: feature adapter blend (pipelines T and V)
 // ===========================================================================
 //
@@ -1411,34 +1748,22 @@ int vct_seq_adapter_bwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
+// fp32 only (the CUDA-core row pass); bf16 takes vct_prenorm_mlp_bwd_bf16.
 int vct_prenorm_mlp_bwd(int bf16, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* ls,
                         const void* lb, const void* g, float eps, void* dx,
                         void* um_out, void* hm_out, void* dpm_out,
                         void* part, int n, int h, int k, void* stream) {
+  if (bf16) return (int)cudaErrorInvalidValue;
   const size_t smem = vct_prenorm_mlp_bwd_smem(h);
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid = grid_for(n);
-  const float *fb1 = (const float*)b1, *fls = (const float*)ls,
-              *flb = (const float*)lb;
+  typedef float T;
+  auto kern = prenorm_mlp_bwd_kernel<T>;
   int err;
-  if (bf16) {
-    typedef __nv_bfloat16 T;
-    auto kern = prenorm_mlp_bwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid, NT, smem, st>>>((const T*)x, (const T*)w1, fb1,
-                                 (const T*)w2, fls, flb, (const T*)g, eps,
-                                 (T*)dx, (T*)um_out, (T*)hm_out, (T*)dpm_out,
-                                 (float*)part, n, h, k);
-  } else {
-    typedef float T;
-    auto kern = prenorm_mlp_bwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid, NT, smem, st>>>((const T*)x, (const T*)w1, fb1,
-                                 (const T*)w2, fls, flb, (const T*)g, eps,
-                                 (T*)dx, (T*)um_out, (T*)hm_out, (T*)dpm_out,
-                                 (float*)part, n, h, k);
-  }
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<grid_for(n), NT, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
+      (const float*)ls, (const float*)lb, (const T*)g, eps, (T*)dx,
+      (T*)um_out, (T*)hm_out, (T*)dpm_out, (float*)part, n, h, k);
   return (int)cudaGetLastError();
 }
 
@@ -1480,6 +1805,9 @@ int vct_cross_attn_block_bwd(int bf16, const void* x, const void* wt,
 }
 
 // A and B each float (0) or bf16 (1); bf16 A with fp32 B is K1's x^T dpre.
+// bf16 x bf16 runs on the tensor cores over 128 x 128 output tiles (grid
+// ceil(q / 128) x ceil(p / 128) x z * splits), the rest on the CUDA cores
+// over 64 x 64 tiles.
 // With splits > 1, `work` holds splits * out_numel floats of partials
 // (out_numel: the floats of out the products cover) and split_sum_kernel
 // writes out; with splits == 1 the blocks write out directly.
@@ -1501,11 +1829,21 @@ int vct_wgrad(int a_bf16, int b_bf16, const void* a, int lda, int sa,
     wgrad_kernel<H, float><<<grid, NT, 0, st>>>(
         (const H*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p, q,
         z, chunk, stride);
-  else if (a_bf16 && b_bf16)
-    wgrad_kernel<H, H><<<grid, NT, 0, st>>>(
+  else if (a_bf16 && b_bf16) {
+    // the tensor cores, over 128 x 128 tiles
+    const dim3 tgrid((q + TC - 1) / TC, (p + TC - 1) / TC, z * splits);
+    const bool vec = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+                     lda % 8 == 0 && ldb % 8 == 0 && sa % 8 == 0 &&
+                     sb % 8 == 0 && p % 8 == 0 && q % 8 == 0;
+    auto kern = vec ? wgrad_mma_kernel<true> : wgrad_mma_kernel<false>;
+    const size_t smem = vec ? GemmTN<true>::SMEM_BYTES
+                            : GemmTN<false>::SMEM_BYTES;
+    int err;
+    if ((err = allow_smem(kern, smem))) return err;
+    kern<<<tgrid, GemmTN<true>::THREADS, smem, st>>>(
         (const H*)a, lda, sa, (const H*)b, ldb, sb, o, ldo, so, n, p, q, z,
         chunk, stride);
-  else
+  } else
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaGetLastError();
   if (err || splits == 1) return err;
@@ -1518,6 +1856,63 @@ int vct_colsum(const void* part, int tiles, int v, void* out, void* stream) {
   colsum_kernel<<<(v + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
       (const float*)part, tiles, v, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// K3 backward in bf16 on the tensor cores (h, k multiples of 128; every
+// pointer 16-byte aligned), all its launches in one call: writes dx
+// (unless null), dw1 [h, k], dw2 [k, h] and vec [db1 (k) | db2 | dls |
+// dlb (h each)]. act: bf16 scratch of n (h + 2k) (um, hm, dpm); scratch:
+// fp32 of n h (du) + 2n (mean, 1/std) + ceil(n / 128) k (db1 partials) +
+// ceil(n / 32) 3h (LN partials) + splits h k (weight-gradient chunks);
+// splits: the row chunks of both weight gradients.
+int vct_prenorm_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* ls, const void* lb,
+                             const void* g, float eps, void* dx, void* dw1,
+                             void* dw2, void* vec, void* act, void* scratch,
+                             int splits, int n, int h, int k, void* stream) {
+  typedef vct::bf16 T;
+  if (h % TC || k % TC) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int row_tiles = (n + TC - 1) / TC;
+  const int ln_tiles = (n + LN_ROWS - 1) / LN_ROWS;
+  T* um = (T*)act;
+  T* hm = um + (size_t)n * h;
+  T* dpm = hm + (size_t)n * k;
+  float* du = (float*)scratch;
+  float* mean = du + (size_t)n * h;
+  float* inv = mean + n;
+  float* part_hidden = inv + n;
+  float* part_ln = part_hidden + (size_t)row_tiles * k;
+  float* work = part_ln + (size_t)ln_tiles * 3 * h;
+  int err;
+  pnmlp_ln_fwd_kernel<<<(n + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+      (const T*)x, (const float*)ls, (const float*)lb, eps, um, mean, inv, n,
+      h);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = allow_smem(pnmlp_bwd_hidden_kernel, HID_SMEM))) return err;
+  pnmlp_bwd_hidden_kernel<<<dim3(k / TC, row_tiles), 2 * HID_GROUP,
+                            HID_SMEM, st>>>(
+      um, (const T*)g, (const T*)w1, (const float*)b1, (const T*)w2, hm, dpm,
+      part_hidden, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = allow_smem(pnmlp_bwd_du_kernel, GemmNT::SMEM_BYTES))) return err;
+  pnmlp_bwd_du_kernel<<<dim3(h / TC, row_tiles), GemmNT::THREADS,
+                        GemmNT::SMEM_BYTES, st>>>(dpm, (const T*)w1, du, n, h,
+                                                  k);
+  if ((err = (int)cudaGetLastError())) return err;
+  pnmlp_bwd_ln_kernel<<<ln_tiles, NT, 0, st>>>(
+      (const T*)x, (const T*)g, du, mean, inv, (const float*)ls, (T*)dx,
+      part_ln, n, h);
+  if ((err = (int)cudaGetLastError())) return err;
+  // dW1 = um^T dpm, dW2 = hm^T g (one work buffer: the stream orders them)
+  if ((err = vct_wgrad(1, 1, um, h, 0, dpm, k, 0, dw1, k, 0, n, h, k, 1,
+                       splits, work, (size_t)h * k, stream)))
+    return err;
+  if ((err = vct_wgrad(1, 1, hm, k, 0, g, h, 0, dw2, h, 0, n, k, h, 1, splits,
+                       work, (size_t)h * k, stream)))
+    return err;
+  if ((err = vct_colsum(part_hidden, row_tiles, k, vec, stream))) return err;
+  return vct_colsum(part_ln, ln_tiles, 3 * h, (float*)vec + k, stream);
 }
 
 // K6, forward and backward: one block per row.

@@ -1,0 +1,253 @@
+// Tensor-core building blocks for the port's Hopper (sm_90a) kernels,
+// shared by csrc/attention.cu and csrc/fused_adapter.cu.
+//
+// - ldmatrix (plain and .trans) from bf16 tiles in shared memory;
+// - mma.sync.m16n8k16 with bf16 operands and fp32 accumulators;
+// - cp.async 16-byte copies (zero-filled past a tile's ragged edge);
+// - load_tile: a bf16 tile of a row-major matrix into shared memory;
+// - BlockGemm: one block's [BM, BN] fp32 tile of A B over a depth range,
+//   through a STAGES-deep cp.async ring, with either operand read in
+//   either layout (the transposed one through ldmatrix.trans).
+//
+// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): an fp32
+// accumulator holds (row g, columns 2t, 2t + 1) in [0], [1] and row g + 8
+// in [2], [3]; an A fragment is four bf16 pairs: (g, k 2t..2t+1),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); a B fragment two:
+// (k 2t..2t+1, column g) and (k 2t + 8.., g). The lower-indexed element of
+// a pair sits in the low 16 bits.
+//
+// Shared-memory tiles keep rows of C + 8 bf16 (C a multiple of 16): the 8
+// rows one ldmatrix phase reads then start 4 banks apart (conflict-free),
+// and every row starts on a 16-byte boundary, as cp.async needs.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace vct {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8, and register j receives matrix j.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same, each matrix transposed on the way.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a b over one m16n8k16 tile: bf16 operands, fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, bypassing L1; writes 16 zero bytes instead
+// when !pred (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (lo, hi) rounded to bf16, lo in the low 16 bits.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + C) of a row-major bf16 matrix
+// (row stride ld elements) -> dst (row stride LDS), by NT threads of
+// which this is thread tid; an element at row >= r_end or column >= c_end
+// reads as 0. VEC copies 16-byte chunks with cp.async (src 16-byte
+// aligned, ld, c0 and c_end multiples of 8); else one element at a time
+// through registers (any alignment).
+template <int R, int C, int LDS, int NT, bool VEC>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long ld, int r0, int r_end,
+                                          int c0, int c_end, int tid) {
+  if constexpr (VEC) {
+    constexpr int CPR = C / 8, N = R * CPR;
+#pragma unroll
+    for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+      const int e = tid + i * NT;
+      if (N % NT != 0 && e >= N) break;
+      const int r = e / CPR, c = (e % CPR) * 8;
+      const bool ok = r0 + r < r_end && c0 + c < c_end;
+      cp_async16(dst + r * LDS + c,
+                 ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  } else {
+    constexpr int N = R * C;
+#pragma unroll 4
+    for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+      const int e = tid + i * NT;
+      if (N % NT != 0 && e >= N) break;
+      const int r = e / C, c = e % C;
+      const bool ok = r0 + r < r_end && c0 + c < c_end;
+      dst[r * LDS + c] =
+          ok ? src[(size_t)(r0 + r) * ld + c0 + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// One block's [BM, BN] tile of C = A B, A [M, K], B [K, N] in bf16, fp32
+// accumulators. Warps tile the block WM x WN each, (BM / WM) x (BN / WN)
+// of them. A_T: A is stored transposed, element (m, k) at A[k * lda + m]
+// (else A[m * lda + k]); B_T: B is stored transposed, (k, n) at
+// B[n * ldb + k] (else B[k * ldb + n]). Each stage holds a BK-deep slab
+// of both operands in their stored layout; the operand whose stored rows
+// run along the depth is read with ldmatrix.trans. The helpers take the
+// thread's index among the THREADS that share the tile (threadIdx.x in
+// run), so that one block may hold two such groups of warps.
+template <int BM, int BN, int BK, int WM, int WN, bool A_T, bool B_T,
+          bool VEC, int STAGES>
+struct BlockGemm {
+  static constexpr int WARPS_N = BN / WN;
+  static constexpr int THREADS = (BM / WM) * WARPS_N * 32;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int A_ROWS = A_T ? BK : BM, A_COLS = A_T ? BM : BK;
+  static constexpr int B_ROWS = B_T ? BN : BK, B_COLS = B_T ? BK : BN;
+  static constexpr int A_LD = A_COLS + 8, B_LD = B_COLS + 8;
+  static constexpr int STAGE_ELEMS = A_ROWS * A_LD + B_ROWS * B_LD;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * 2;
+  static_assert(BK % 16 == 0 && WN % 16 == 0 && WM % 16 == 0, "tile");
+
+  typedef float Acc[MT][NT][4];
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  // The warp's first row and column within the block tile.
+  __device__ static int warp_m(int tid) { return (tid / 32) / WARPS_N * WM; }
+  __device__ static int warp_n(int tid) { return (tid / 32) % WARPS_N * WN; }
+
+  __device__ static void load_stage(bf16* s, const bf16* A, long long lda,
+                                    const bf16* B, long long ldb, int m0,
+                                    int m_end, int n0, int n_end, int k,
+                                    int k_end, int tid) {
+    bf16* sa = s;
+    bf16* sb = s + A_ROWS * A_LD;
+    if (A_T)
+      load_tile<BK, BM, A_LD, THREADS, VEC>(sa, A, lda, k, k_end, m0, m_end,
+                                            tid);
+    else
+      load_tile<BM, BK, A_LD, THREADS, VEC>(sa, A, lda, m0, m_end, k, k_end,
+                                            tid);
+    if (B_T)
+      load_tile<BN, BK, B_LD, THREADS, VEC>(sb, B, ldb, n0, n_end, k, k_end,
+                                            tid);
+    else
+      load_tile<BK, BN, B_LD, THREADS, VEC>(sb, B, ldb, k, k_end, n0, n_end,
+                                            tid);
+  }
+
+  __device__ static void compute_stage(const bf16* s, Acc& acc, int tid) {
+    const bf16* sa = s;
+    const bf16* sb = s + A_ROWS * A_LD;
+    const int lane = tid & 31, wm = warp_m(tid), wn = warp_n(tid);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int m = wm + i * 16;
+        if (A_T)
+          ldsm_x4_t(a[i], sa + (kk + (lane & 7) + (lane >> 4) * 8) * A_LD +
+                              m + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4(a[i], sa + (m + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const int n = wn + j * 8;
+        uint32_t r[4];
+        if (B_T)
+          ldsm_x4(r, sb + (n + (lane & 7) + (lane >> 4) * 8) * B_LD + kk +
+                         ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4_t(r, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD +
+                           n + (lane >> 4) * 8);
+        b[j][0] = r[0];
+        b[j][1] = r[1];
+        b[j + 1][0] = r[2];
+        b[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+
+  // acc += A[m0.., k_begin..k_end) B[k_begin..k_end), n0..) with rows of A
+  // past m_end and columns of B past n_end read as 0. smem holds
+  // SMEM_BYTES; it is free again when this returns.
+  __device__ static void run(Acc& acc, bf16* smem, const bf16* A,
+                             long long lda, const bf16* B, long long ldb,
+                             int m0, int m_end, int n0, int n_end,
+                             int k_begin, int k_end) {
+    const int nk = (k_end - k_begin + BK - 1) / BK;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk)
+        load_stage(smem + s * STAGE_ELEMS, A, lda, B, ldb, m0, m_end, n0,
+                   n_end, k_begin + s * BK, k_end, threadIdx.x);
+      cp_async_commit();
+    }
+    for (int i = 0; i < nk; ++i) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage i landed; stage i - 1 is free
+      const int j = i + STAGES - 1;
+      if (j < nk)
+        load_stage(smem + (j % STAGES) * STAGE_ELEMS, A, lda, B, ldb, m0,
+                   m_end, n0, n_end, k_begin + j * BK, k_end, threadIdx.x);
+      cp_async_commit();
+      compute_stage(smem + (i % STAGES) * STAGE_ELEMS, acc, threadIdx.x);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+};
+
+}  // namespace vct

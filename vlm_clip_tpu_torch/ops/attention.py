@@ -8,8 +8,11 @@ the caller's ``stable_dtype``), p rounded to v's dtype after it is
 normalized, ``p v`` accumulated in fp32, the output in q's dtype. On a
 CUDA tensor it launches the kernel written by hand for Hopper in
 ``vlm_clip_tpu_torch/csrc/attention.cu`` (replaces ``_attn_kernel_nomask``
-:59 and ``_attn_kernel_mask`` :63; head width 64); on a CPU tensor it
-takes :func:`fused_attention_torch` (the reference's ``_xla_attention``).
+:59 and ``_attn_kernel_mask`` :63; head width 64): in bf16 on the tensor
+cores, two passes over 64-key chunks (row max and sum, then p rounded
+after it is normalized, times v); in fp32 on the CUDA cores. On a CPU
+tensor it takes :func:`fused_attention_torch` (the reference's
+``_xla_attention``).
 
 Masks: none, ``[T, T]`` or ``[B|1, 1, T, T]`` (:func:`supports`); a
 batch-broadcast ``[1, 1, T, T]`` mask is expanded to B before the kernel
@@ -30,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from vlm_clip_tpu_torch.ops.build import load_library
+from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
 HEAD_DIM = 64  # the kernel's head width (every CLIP preset's)
 
@@ -66,7 +69,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, P, P, P, P, ctypes.c_longlong, ctypes.c_float, P,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
         lib.vct_attention_fwd.restype = ctypes.c_int
-        lib.vct_attention_smem.argtypes = []
+        lib.vct_attention_smem.argtypes = [ctypes.c_int]
         lib.vct_attention_smem.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -124,7 +127,7 @@ def _launch(q, k, v, scale, mask):
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"fused_attention: all tensors must be on "
                          f"{q.device}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (aligned16(t) for t in (q, k, v))
     m, bstride = None, 0
     if mask is not None:
         m = mask.float()
@@ -140,17 +143,18 @@ def _launch(q, k, v, scale, mask):
     out = torch.empty_like(q)
     if B * h * T:
         lib = _lib()
+        bf16 = int(q.dtype == torch.bfloat16)
         with torch.cuda.device(q.device):
             err = lib.vct_attention_fwd(
-                int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                bf16, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), None if m is None else m.data_ptr(), bstride,
                 float(scale), out.data_ptr(), B, h, T,
                 torch.cuda.current_stream(q.device).cuda_stream)
         if err:
             raise RuntimeError(
                 f"fused_attention: CUDA kernel launch failed with cudaError "
-                f"{err} ({lib.vct_attention_smem()} B of shared memory per "
-                "block)")
+                f"{err} ({lib.vct_attention_smem(bf16)} B of shared memory "
+                "per block)")
         fused_attention.launches += 1
     return out
 

@@ -2,7 +2,8 @@
 
 ``load_library(name)`` compiles ``vlm_clip_tpu_torch/csrc/<name>.cu``
 with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository root (the
-file name carries a hash of the source, so an edited source rebuilds),
+file name carries a hash of the source and of every header under
+``csrc/``, so an edited source or header rebuilds),
 and returns the ``ctypes.CDLL``; ``load_libraries(names)`` runs one
 ``nvcc`` per source, all at once. It runs on first use, never at import:
 hosts without ``nvcc`` can import every module. A missing ``nvcc`` or a
@@ -44,11 +45,16 @@ def find_nvcc() -> str:
 
 
 def _out_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(ARCH_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """build/lib<name>-<hash>.so, the hash over csrc/<name>.cu, every
+    header under csrc/ (any source may include any of them) and the
+    target flags."""
+    h = hashlib.sha1(" ".join(ARCH_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR)
+                     if f.endswith((".cuh", ".h")))
+    for path in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, path), "rb") as f:
+            h.update(path.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def load_libraries(names) -> List[ctypes.CDLL]:
@@ -98,6 +104,13 @@ def load_libraries(names) -> List[ctypes.CDLL]:
             if name not in _libs:
                 _libs[name] = ctypes.CDLL(_out_path(name))
         return [_libs[name] for name in names]
+
+
+def aligned16(t):
+    """t contiguous and starting on a 16-byte boundary, as the tensor-core
+    kernels' 16-byte copies need: a view that starts off one is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vlm_clip_tpu_torch.ops.build import load_library
+from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
@@ -63,6 +63,8 @@ def _lib() -> ctypes.CDLL:
             + [_P] * 5 + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
             + [_P] * 5 + [_I] * 3 + [_P]
+        lib.vct_prenorm_mlp_bwd_bf16.argtypes = [_P] * 7 + [_F] \
+            + [_P] * 6 + [_I] * 4 + [_P]
         lib.vct_cross_attn_block_bwd.argtypes = [_I] + [_P] * 11 \
             + [_F, _F] + [_P] * 10 + [_I] * 4 + [_P]
         lib.vct_wgrad.argtypes = [_I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
@@ -76,7 +78,8 @@ def _lib() -> ctypes.CDLL:
             + [_P] * 5 + [_I] * 3 + [_P]
         for fn in (lib.vct_seq_adapter_fwd, lib.vct_prenorm_mlp_fwd,
                    lib.vct_cross_attn_block_fwd, lib.vct_seq_adapter_bwd,
-                   lib.vct_prenorm_mlp_bwd, lib.vct_cross_attn_block_bwd,
+                   lib.vct_prenorm_mlp_bwd, lib.vct_prenorm_mlp_bwd_bf16,
+                   lib.vct_cross_attn_block_bwd,
                    lib.vct_wgrad, lib.vct_colsum,
                    lib.vct_feature_adapter_fwd, lib.vct_feature_adapter_bwd):
             fn.restype = _I
@@ -413,17 +416,30 @@ SMS = 132  # H100 SXM streaming multiprocessors
 
 
 def _splits(n: int, tiles: int) -> int:
-    """Row chunks for a weight gradient: enough blocks for two waves of
-    the card, no chunk under 256 rows, at most 16."""
+    """Row chunks for a weight gradient on the CUDA cores: enough blocks
+    for two waves of the card, no chunk under 256 rows, at most 16."""
     return max(1, min(16, -(-2 * SMS // tiles), n // 256))
+
+
+def _tc_splits(n: int, tiles: int) -> int:
+    """Row chunks for a weight gradient on the tensor cores (two blocks
+    fit an SM): at most one wave of the card, no chunk under 256 rows, at
+    most 16. A second wave that is mostly empty would take as long as
+    the first."""
+    return max(1, min(16, 2 * SMS // tiles, n // 256))
 
 
 def _wgrad(a, b, out, p, q, *, lda=None, sa=0, ldb=None, sb=0, ldo=None,
            so=0, z=1):
     """out[z*so + i*ldo + j] = sum_r a[r, z*sa + i] * b[r, z*sb + j] for
-    i < p, j < q: a weight gradient summed over every row, in fp32."""
+    i < p, j < q: a weight gradient summed over every row, in fp32. Two
+    bf16 operands take the tensor cores (128 x 128 output tiles), the
+    others the CUDA cores (64 x 64)."""
     n = a.shape[0]
-    splits = _splits(n, -(-p // 64) * -(-q // 64) * z)
+    if a.dtype == b.dtype == torch.bfloat16:
+        splits = _tc_splits(n, -(-p // 128) * -(-q // 128) * z)
+    else:
+        splits = _splits(n, -(-p // 64) * -(-q // 64) * z)
     work = torch.empty(splits * out.numel() if splits > 1 else 0,
                        dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
@@ -435,10 +451,12 @@ def _wgrad(a, b, out, p, q, *, lda=None, sa=0, ldb=None, sb=0, ldo=None,
     return out
 
 
-def _colsum(part):
-    """The row passes' per-tile column sums [tiles, V] -> [V], in order."""
-    out = torch.empty(part.shape[1], dtype=torch.float32,
-                      device=part.device)
+def _colsum(part, out=None):
+    """The row passes' per-tile column sums [tiles, V] -> [V] (into out,
+    a contiguous fp32 [V], when given), in tile order."""
+    if out is None:
+        out = torch.empty(part.shape[1], dtype=torch.float32,
+                          device=part.device)
     with torch.cuda.device(part.device):
         _check_err("colsum", _lib().vct_colsum(
             part.data_ptr(), part.shape[0], part.shape[1], out.data_ptr(),
@@ -454,6 +472,8 @@ def _grads_like(grads, inputs, needs):
 
 ROWS = 32      # row tile of the K1/K3 kernels
 ROWS_CAB = 16  # row tile of K2's backward
+TC_ROWS = 128  # row tile of K3's bf16 backward products (its db1 partials)
+LN_ROWS = 32   # row tile of K3's bf16 LN backward (db2, dls, dlb partials)
 
 
 # --- K1: sequence adapter --------------------------------------------------
@@ -565,7 +585,10 @@ def _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
 def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
                          need_dx: bool = True):
     """Backward kernel of K3: same results as
-    :func:`prenorm_mlp_bwd_torch`, for CUDA tensors."""
+    :func:`prenorm_mlp_bwd_torch`, for CUDA tensors. bf16 runs on the
+    tensor cores (LN forward, the dual product with its GELU epilogue,
+    du = dpm W1^T, the LN backward, then the weight gradients), fp32 on the
+    CUDA cores (one row pass); both then sum their ordered partials."""
     name = "prenorm_mlp_bwd"
     N, H = x.shape
     K = w1.shape[1]
@@ -576,9 +599,28 @@ def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
     b1, ls, lb = (_as(t, torch.float32) for t in (b1, ls, lb))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
-    dw1, dw2 = torch.zeros(H, K, **f32), torch.zeros(K, H, **f32)
-    vec = torch.zeros(K + 3 * H, **f32)
-    if N:
+    alloc = torch.empty if N else torch.zeros  # the kernels write every
+    dw1, dw2 = alloc(H, K, **f32), alloc(K, H, **f32)  # element
+    vec = alloc(K + 3 * H, **f32)
+    if N and mm == torch.bfloat16:
+        # the tensor-core passes, one call: bf16 um, hm, dpm and fp32 du,
+        # LN stats, db1 partials per 128-row tile, [db2 | dls | dlb]
+        # partials per 32-row tile and the weight gradients' row chunks
+        x, g, w1, w2 = (aligned16(t) for t in (x, g, w1, w2))
+        splits = _tc_splits(N, (H // 128) * (K // 128))
+        act = torch.empty(N * (H + 2 * K), dtype=mm, device=x.device)
+        scratch = torch.empty(N * H + 2 * N + -(-N // TC_ROWS) * K
+                              + -(-N // LN_ROWS) * 3 * H
+                              + (splits * H * K if splits > 1 else 0), **f32)
+        with torch.cuda.device(x.device):
+            _check_err(name, _lib().vct_prenorm_mlp_bwd_bf16(
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                ls.data_ptr(), lb.data_ptr(), g.data_ptr(), float(eps),
+                None if dx is None else dx.data_ptr(), dw1.data_ptr(),
+                dw2.data_ptr(), vec.data_ptr(), act.data_ptr(),
+                scratch.data_ptr(), splits, N, H, K, _stream(x)))
+        prenorm_mlp_bwd_cuda.launches += 1
+    elif N:
         lib = _lib()
         um = torch.empty(N, H, dtype=mm, device=x.device)
         hm = torch.empty(N, K, dtype=mm, device=x.device)
@@ -592,7 +634,7 @@ def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
                 hm.data_ptr(), dpm.data_ptr(), part.data_ptr(), N, H, K)
         _wgrad(um, dpm, dw1, H, K)
         _wgrad(hm, g, dw2, K, H)
-        vec = _colsum(part)
+        _colsum(part, vec)
         prenorm_mlp_bwd_cuda.launches += 1
     db1, db2, dls, dlb = vec.split([K, H, H, H])
     return dx, dw1, db1, dw2, db2, dls, dlb
