@@ -8,18 +8,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    csrc/contrastive.cu, csrc/attention.cu, csrc/quant.cu and
    csrc/decode_attention.cu, one nvcc each, in parallel), prints ptxas's
    registers and spills and the HMMA instructions in the SASS of each
-   tensor-core kernel (K5 and K3 backward in bf16, the bf16 weight
-   gradients), and fails if one of them has none.
+   tensor-core kernel (in bf16: K5, K3 forward and backward, K2 backward,
+   the weight gradients), and fails if one of them has none.
 2. Kernels: each forward kernel against its plain PyTorch version at the
    B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
    the batch-1 shapes of a served request, in bf16 and fp32, with the
-   tolerance stated below, and both timed with CUDA events.
+   tolerance stated below, and both timed with CUDA events; K3's bf16
+   passes timed one by one (torch.profiler).
 3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
    contrastive head (forward and backward, [96, 512]) against their
    plain versions at the B=96 shapes, in bf16 and fp32, timed the same
-   way beside their bounds; K3's gradients must repeat bit for bit on a
-   second call; K3's bf16 passes are timed one by one (torch.profiler)
-   and the bf16 weight-gradient route alone.
+   way beside their bounds; K2's and K3's gradients must repeat bit for
+   bit on a second call; their bf16 passes are timed one by one
+   (torch.profiler), and the bf16 weight-gradient route alone.
 4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
    width (seeded random weights) on a synthetic RAF-DB tree on the card
    and writes its checkpoints, which must load back; then bench.py's
@@ -28,6 +29,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    versions (impl="torch") from the same state, without and with the K4
    head, and must agree; then 3 warmup + 20 timed steps give pairs/s.
    Every kernel must have launched on this path.
+   Route: one M step at ViT-L/14's widths (text 768, vision 1024, 8
+   heads of 96, Tk = 257; B=8) with the kernels against the plain
+   versions: K1 and K3 must launch, K2 must take its plain version (past
+   256 shared rows the reference computes plainly too); then K2 at these
+   widths with a 197-row pseudo-image, where the reference runs its
+   kernel: K2 (96-wide heads) must launch, forward and backward, and
+   agree with its plain version.
 5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
    at the rows pipeline T gives it (32 image features, 7 class means, 35
    descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
@@ -162,15 +170,20 @@ BWD_REPLACES = {
 # could take is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
-# The bf16 kernels on the tensor cores, by wrapper (K5, K3 backward, the
-# bf16 x bf16 weight gradients of K2 and K3): setup() counts each one's
-# HMMA instructions in the built library's SASS and fails on a kernel
-# with none.
+# The bf16 kernels on the tensor cores, by wrapper (K5, K3 forward and
+# backward, K2 backward and the bf16 x bf16 weight gradients; the
+# LayerNorm row kernels among their passes do no product): setup()
+# counts each one's HMMA instructions in the built library's SASS and
+# fails on a kernel with none.
 KERNEL_HMMA = {
     "fused_attention": ("attention_mma_kernel",),
+    "prenorm_mlp_fused": ("pnmlp_fwd_hidden_kernel", "pnmlp_fwd_out_kernel"),
     "prenorm_mlp_bwd_cuda": ("pnmlp_bwd_hidden_kernel",
                              "pnmlp_bwd_du_kernel", "wgrad_mma_kernel"),
-    "cross_attn_block_bwd_cuda": ("wgrad_mma_kernel",),
+    "cross_attn_block_bwd_cuda": (
+        "cab_bwd_t_kernel", "cab_bwd_q_kernel", "cab_bwd_dom_kernel",
+        "cab_bwd_attn_kernel", "cab_bwd_du_kernel", "cab_bwd_dx_kernel",
+        "wgrad_mma_kernel"),
 }
 TENSOR_CORE_KERNELS = sorted({k for ks in KERNEL_HMMA.values() for k in ks})
 HMMA: dict = {}  # kernel -> HMMA instructions in its SASS
@@ -376,7 +389,8 @@ def kernel_phase() -> dict:
                       f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
                       f"err/tol {ratio:.3f} (atol {atol}, rtol {rtol}) "
                       f"{'ok' if ok else 'FAIL'}; kernel {t_kern:.4f} ms, "
-                      f"plain {t_plain:.4f} ms", flush=True)
+                      f"plain {t_plain:.4f} ms, bound "
+                      f"{bound(*cost(name, x))[0]:.4f} ms", flush=True)
                 if not ok:
                     failures.append(f"{name}[{tag}] B={batch} {dt}")
                 r = results[name]
@@ -384,6 +398,9 @@ def kernel_phase() -> dict:
                 if dtype == torch.bfloat16 and batch == B:
                     _add_time(r, t_kern, t_plain, cost(name, x),
                               f"{tag} {list(x.shape)} bf16")
+                if dtype == torch.bfloat16 and name == "prenorm_mlp_fused":
+                    _breakdown(f"kernel {name} B={batch}",
+                               lambda: kern(x, *args), K3_FWD_PASSES)
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
@@ -559,15 +576,21 @@ def backward_phase() -> dict:
                        lambda: kern(x, *call, need_dx=need_dx),
                        lambda: plain(x, *call, need_dx=need_dx),
                        cost(name, x, need_dx), list(x.shape))
-                if name == "prenorm_mlp_bwd_cuda":
+                if name in ("prenorm_mlp_bwd_cuda",
+                            "cross_attn_block_bwd_cuda"):
                     again = kern(x, *call, need_dx=need_dx)
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     print(f"backward {name} {dtype}: a second call repeats "
                           f"every gradient bit for bit: {same}", flush=True)
                     if not same:
                         failures.append(f"{name} {dtype} not deterministic")
-                    if dtype == torch.bfloat16:
-                        _k3_breakdown(x, call)
+                if dtype == torch.bfloat16 and name == "prenorm_mlp_bwd_cuda":
+                    _k3_breakdown(x, call)
+                if dtype == torch.bfloat16 and \
+                        name == "cross_attn_block_bwd_cuda":
+                    _breakdown(f"backward {name}",
+                               lambda: kern(x, *call, need_dx=need_dx),
+                               CAB_BWD_PASSES)
         # K4: the loss (forward) and its gradients (backward), fp32 math
         t, m = (f.to(dtype) for f in feats)
         one = torch.ones((), device=dev)
@@ -596,22 +619,36 @@ def backward_phase() -> dict:
     return results
 
 
+# the bf16 passes of the redesigned kernels, by kernel name fragment
+K3_FWD_PASSES = ("pnmlp_fwd_ln", "pnmlp_fwd_hidden", "pnmlp_fwd_out")
+K3_BWD_PASSES = ("pnmlp_ln_fwd", "pnmlp_bwd_hidden", "pnmlp_bwd_du",
+                 "pnmlp_bwd_ln", "wgrad_mma", "split_sum", "colsum")
+CAB_BWD_PASSES = ("cab_bwd_t_", "cab_bwd_ln_fwd", "cab_bwd_q_",
+                  "cab_bwd_dom", "cab_bwd_attn", "cab_bwd_du", "cab_bwd_ln_",
+                  "cab_bwd_dx", "wgrad_mma", "split_sum", "colsum")
+
+
+def _breakdown(label: str, fn, passes) -> dict:
+    """fn's device ms per call by pass (torch.profiler over 5 calls; a
+    kernel is filed under the first fragment of passes in its name)."""
+    per = {}
+    for name, ms in _device_ms(fn).items():
+        key = next((k for k in passes if k in name), "other")
+        per[key] = per.get(key, 0.0) + ms
+    print(f"{label} bf16 per call by kernel (ms, profiler): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+          + f"; device {sum(per.values()):.4f} ms in all", flush=True)
+    return per
+
+
 def _k3_breakdown(x, call) -> None:
     """K3 backward's bf16 passes at the B=96 text shape: device time per
     kernel (torch.profiler over 5 calls), and the bf16 weight-gradient
     route alone (dW1 = um^T dpm, dW2 = hm^T g) beside its bound."""
     from vlm_clip_tpu_torch.ops import fused_adapter as F
 
-    per = {}
-    for name, ms in _device_ms(lambda: F.prenorm_mlp_bwd_cuda(x, *call)
-                               ).items():
-        key = next((k for k in ("pnmlp_ln_fwd", "pnmlp_bwd_hidden",
-                                "pnmlp_bwd_du", "pnmlp_bwd_ln", "wgrad_mma",
-                                "split_sum", "colsum") if k in name), "other")
-        per[key] = per.get(key, 0.0) + ms
-    print(f"backward prenorm_mlp_bwd_cuda bf16 per call by kernel (ms, "
-          f"profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
-          + f"; device {sum(per.values()):.4f} ms in all", flush=True)
+    _breakdown("backward prenorm_mlp_bwd_cuda",
+               lambda: F.prenorm_mlp_bwd_cuda(x, *call), K3_BWD_PASSES)
     N, H = x.shape
     K = 4 * H
     gen = torch.Generator(device=x.device).manual_seed(5)
@@ -850,6 +887,79 @@ def _clone(tree):
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
+def _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss):
+    """A train state from (clip, a copy of adapters) and bench.py's M
+    step (FAST, frozen towers) through impl."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.core.dtypes import FAST
+    from vlm_clip_tpu_torch.train.steps import (init_train_state,
+                                                make_m_train_step)
+
+    state = init_train_state(None, cfg, acfg, tx, clip_params=clip,
+                             adapter_params=_clone(adapters),
+                             device=tree_leaves(clip)[0].device)
+    return state, make_m_train_step(cfg, acfg, tx, FAST, freeze_clip=True,
+                                    fused_loss=fused_loss, impl=impl)
+
+
+def _step_pair(cfg, acfg, tx, clip, adapters, batch, fused_loss,
+               label) -> dict:
+    """One M step with impl="auto" and one with impl="torch" from the same
+    state: loss, grad norm and every adapter gradient within STEP_TOL;
+    the plain step launches nothing. Returns the launch counts (pipeline
+    M's kernels and K4) after the two steps."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    def grads(state):
+        return [p.grad for p in tree_leaves(state.adapter_params)]
+
+    def names(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [n for k, v in tree.items()
+                    for n in names(v, f"{prefix}{k}.")]
+        return [prefix[:-1]]
+
+    state_k, step_k = _fresh_step(cfg, acfg, tx, clip, adapters, "auto",
+                                  fused_loss)
+    state_k, mk = step_k(state_k, batch)
+    counts = {**F.launch_counts(), **K4.launch_counts()}
+    state_p, step_p = _fresh_step(cfg, acfg, tx, clip, adapters, "torch",
+                                  fused_loss)
+    state_p, mp = step_p(state_p, batch)
+    torch.cuda.synchronize()
+    if {**F.launch_counts(), **K4.launch_counts()} != counts:
+        raise SystemExit("the impl='torch' step launched kernels")
+    d_loss = abs(float(mk.loss) - float(mp.loss)) / abs(float(mp.loss))
+    d_norm = abs(float(mk.grad_norm) - float(mp.grad_norm)) \
+        / float(mp.grad_norm)
+    # a gradient that is zero in exact arithmetic (the attention's key
+    # bias: the softmax is invariant to it) is rounding noise in both
+    # paths, so each is held relative to at least 1e-2 of the global
+    # gradient norm
+    floor = 1e-2 * float(mp.grad_norm)
+    diffs = sorted(
+        ((float((a - b).norm()) / max(float(b.norm()), floor), name)
+         for (a, b), name in zip(zip(grads(state_k), grads(state_p)),
+                                 names(adapters))), reverse=True)
+    d_grad = diffs[0][0]
+    print(f"  largest adapter gradient differences: {diffs[:3]}",
+          flush=True)
+    ok = d_loss <= STEP_TOL["loss"] and d_norm <= STEP_TOL["grad_norm"] \
+        and d_grad <= STEP_TOL["grad"]
+    print(f"{label}: kernels loss {float(mk.loss):.6f} grad_norm "
+          f"{float(mk.grad_norm):.6f}; plain loss {float(mp.loss):.6f} "
+          f"grad_norm {float(mp.grad_norm):.6f}; rel diff loss "
+          f"{d_loss:.2e}, grad_norm {d_norm:.2e}, worst adapter gradient "
+          f"{d_grad:.2e} (limits {STEP_TOL}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"{label}: the kernel step disagrees with the "
+                         "plain step")
+    return counts
+
+
 def train_phase() -> dict:
     """cli/train_m for one epoch, then bench.py's step: kernels against
     plain versions, then timed."""
@@ -858,15 +968,12 @@ def train_phase() -> dict:
     from vlm_clip_tpu_torch.bridge import tree_leaves
     from vlm_clip_tpu_torch.cli import train_m
     from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
-    from vlm_clip_tpu_torch.core.dtypes import FAST
     from vlm_clip_tpu_torch.models.clip import init_clip
     from vlm_clip_tpu_torch.models.model_m import init_m_adapters
     from vlm_clip_tpu_torch.ops import contrastive as K4
     from vlm_clip_tpu_torch.ops import fused_adapter as F
     from vlm_clip_tpu_torch.train import optim
     from vlm_clip_tpu_torch.train.checkpoint import load_adapter_weights
-    from vlm_clip_tpu_torch.train.steps import (init_train_state,
-                                                make_m_train_step)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     data, out = os.path.join(work, "rafdb"), os.path.join(work, "train_m")
@@ -917,60 +1024,11 @@ def train_phase() -> dict:
     tx = optim.adam(3e-4)
 
     def fresh(impl, fused_loss):
-        state = init_train_state(None, cfg, acfg, tx, clip_params=clip,
-                                 adapter_params=_clone(adapters),
-                                 device=dev)
-        return state, make_m_train_step(cfg, acfg, tx, FAST,
-                                        freeze_clip=True,
-                                        fused_loss=fused_loss, impl=impl)
-
-    def grads(state):
-        return [p.grad for p in tree_leaves(state.adapter_params)]
-
-    def names(tree, prefix=""):
-        if isinstance(tree, dict):
-            return [n for k, v in tree.items()
-                    for n in names(v, f"{prefix}{k}.")]
-        return [prefix[:-1]]
-
-    leaf_names = names(adapters)
+        return _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss)
 
     for fused_loss in (False, True):
-        state_k, step_k = fresh("auto", fused_loss)
-        state_k, mk = step_k(state_k, batch)
-        counts = {**F.launch_counts(), **K4.launch_counts()}
-        state_p, step_p = fresh("torch", fused_loss)
-        state_p, mp = step_p(state_p, batch)
-        torch.cuda.synchronize()
-        if {**F.launch_counts(), **K4.launch_counts()} != counts:
-            raise SystemExit("the impl='torch' step launched kernels")
-        d_loss = abs(float(mk.loss) - float(mp.loss)) / abs(float(mp.loss))
-        d_norm = abs(float(mk.grad_norm) - float(mp.grad_norm)) \
-            / float(mp.grad_norm)
-        # a gradient that is zero in exact arithmetic (the attention's
-        # key bias: the softmax is invariant to it) is rounding noise in
-        # both paths, so each is held relative to at least 1e-2 of the
-        # global gradient norm
-        floor = 1e-2 * float(mp.grad_norm)
-        diffs = sorted(
-            ((float((a - b).norm()) / max(float(b.norm()), floor), name)
-             for (a, b), name in zip(zip(grads(state_k), grads(state_p)),
-                                     leaf_names)), reverse=True)
-        d_grad = diffs[0][0]
-        print(f"  largest adapter gradient differences: {diffs[:3]}",
-              flush=True)
-        ok = d_loss <= STEP_TOL["loss"] and d_norm <= STEP_TOL["grad_norm"] \
-            and d_grad <= STEP_TOL["grad"]
-        print(f"bench step fused_loss={fused_loss}: kernels loss "
-              f"{float(mk.loss):.6f} grad_norm {float(mk.grad_norm):.6f}; "
-              f"plain loss {float(mp.loss):.6f} grad_norm "
-              f"{float(mp.grad_norm):.6f}; rel diff loss {d_loss:.2e}, "
-              f"grad_norm {d_norm:.2e}, worst adapter gradient "
-              f"{d_grad:.2e} (limits {STEP_TOL}) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            raise SystemExit("the kernel step disagrees with the plain "
-                             "step")
+        _step_pair(cfg, acfg, tx, clip, adapters, batch, fused_loss,
+                   f"bench step fused_loss={fused_loss}")
 
     # steps/s: 3 warmup + 20 timed steps, kernels and plain versions in
     # turns (kernels, plain, kernels, plain)
@@ -996,6 +1054,137 @@ def train_phase() -> dict:
           f"{rates['auto']}, plain versions {rates['torch']} on {smi}",
           flush=True)
     return counts
+
+
+ROUTE_B = 8  # the batch of the ViT-L/14 route check
+
+
+def route_phase() -> dict:
+    """The adapter kernels' shape gates on the card: one pipeline-M train
+    step at ViT-L/14's widths (text 768, vision 1024, adapters 256/256/2,
+    8 heads of 96 over the cross-modal hidden of 768, a pseudo-image of
+    Tk = 257 rows; all 24 + 12 tower layers, B=8, seeded random weights)
+    with impl="auto" against impl="torch" from the same state, within
+    STEP_TOL. K1 and K3 must launch (forward and backward); K2's gate
+    refuses Tk = 257 (the reference computes plainly past 256 shared
+    rows), so impl="auto" must route it to its plain version: its launch
+    counts stay 0. Then one cross-modal adapter at these widths against
+    a 197-row pseudo-image (ViT-L/14 at 196 pixels), where the reference
+    runs its kernel: K2 and K3 must launch, forward and backward, and
+    agree with impl="torch" within TOL (gradients relative to their
+    largest element)."""
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train import optim
+
+    dev = torch.device("cuda")
+    cfg = clip_preset("vit-large-patch14")
+    acfg = AdapterConfig()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    clip = init_clip(gen, cfg, device=dev)
+    adapters = init_m_adapters(gen, cfg, acfg, device=dev)
+    batch = {
+        "input_ids": torch.randint(1, cfg.text.vocab_size, (ROUTE_B, 77),
+                                   generator=gen, device=dev),
+        "attention_mask": torch.ones(ROUTE_B, 77, dtype=torch.int32,
+                                     device=dev),
+        "pixel_values": torch.randn(
+            ROUTE_B, 3, cfg.vision.image_size, cfg.vision.image_size,
+            generator=gen, device=dev).to(torch.bfloat16),
+    }
+    H, Tk = cfg.text.hidden_size, cfg.vision.seq_len
+    supported = {"K2": F.cross_attn_block_supported(Tk)}
+    F.reset_launch_counts()
+    K4.reset_launch_counts()
+    counts = _step_pair(cfg, acfg, optim.adam(3e-4), clip, adapters, batch,
+                        False, f"route step ViT-L/14 B={ROUTE_B} (text {H}, "
+                        f"vision {cfg.vision.hidden_size}, heads "
+                        f"{acfg.shared_num_heads} of "
+                        f"{H // acfg.shared_num_heads}, Tk {Tk})")
+    print(f"route: predicates {supported}; launches {counts}", flush=True)
+    want = {"K2": False}
+    launched = {"seq_adapter_fused", "seq_adapter_bwd_cuda",
+                "prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"}
+    plain = {"cross_attn_block_fused", "cross_attn_block_bwd_cuda"}
+    if supported != want or any(counts[k] < 1 for k in launched) \
+            or any(counts[k] for k in plain):
+        raise SystemExit(f"route: want predicates {want}, launches of "
+                         f"{sorted(launched)} and none of {sorted(plain)}; "
+                         f"got {supported}, {counts}")
+    _wide_heads_check(gen, H, cfg.vision.hidden_size,
+                      acfg.shared_num_heads, dev)
+    return counts
+
+
+def _wide_heads_check(gen, H, image_dim, heads, dev, tk=197) -> None:
+    """One cross-modal adapter (bf16) at ViT-L/14's widths against a
+    pseudo-image of tk <= 256 rows: the kernels against impl="torch",
+    forward and the gradients of every parameter."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    p = A.init_cross_modal_adapter(gen, text_dim=H, image_dim=image_dim,
+                                   hidden=H, device=dev)
+    text = torch.randn(ROUTE_B, 77, H, generator=gen,
+                       device=dev).bfloat16()
+    image = (torch.randn(1, tk, image_dim, generator=gen, device=dev)
+             * image_dim ** -0.5).bfloat16()
+    leaves = tree_leaves(p)
+
+    def run(impl):
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        y = A.cross_modal_adapter(p, text, image, heads, impl=impl)
+        (y.float() ** 2).mean().backward()
+        return y.detach(), [t.grad.clone() for t in leaves]
+
+    want_y, want_g = run("torch")
+    F.reset_launch_counts()
+    got_y, got_g = run("auto")
+    counts = F.launch_counts()
+    atol, rtol = TOL[torch.bfloat16]
+    y_err = float((got_y.float() - want_y.float()).abs().max())
+    y_ok = bool(torch.isclose(got_y.float(), want_y.float(), atol=atol,
+                              rtol=rtol).all())
+    errs = _grad_errors(got_g, want_g, torch.bfloat16)
+    worst = max(e[1] for e in errs)
+    ok = y_ok and worst <= 1.0 and all(
+        counts[k] == 1 for k in ("cross_attn_block_fused",
+                                 "cross_attn_block_bwd_cuda",
+                                 "prenorm_mlp_fused",
+                                 "prenorm_mlp_bwd_cuda"))
+    print(f"route: K2 at {heads} heads of {H // heads}, Tk {tk}, "
+          f"{ROUTE_B * 77} rows: y max abs err {y_err:.3e}, worst gradient "
+          f"err / (tol * max) {worst:.3f}; launches {counts} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("route: K2 at wide heads disagrees with its plain "
+                         "version or did not launch")
+    # K2's own calls at these widths, kernel and plain, by CUDA events
+    with torch.no_grad():
+        k, v = A.shared_kv(p, image)
+        ap = p["attn"]
+        args = (p["text_proj"]["kernel"], p["text_proj"]["bias"],
+                p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
+                ap["q"]["bias"], k, v, ap["out"]["kernel"], ap["out"]["bias"])
+        x = text.reshape(-1, H)
+        g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+        ms = {
+            "fwd": _time_ms(lambda: F.cross_attn_block_fused(x, *args,
+                                                             heads)),
+            "fwd plain": _time_ms(lambda: F.cross_attn_block_torch(
+                x, *args, heads)),
+            "bwd": _time_ms(lambda: F.cross_attn_block_bwd_cuda(
+                x, *args, g, heads, need_dx=False)),
+            "bwd plain": _time_ms(lambda: F.cross_attn_block_bwd_torch(
+                x, *args, g, heads, need_dx=False))}
+    print(f"route: K2 at heads of {H // heads} ms by events "
+          f"{ {k: round(t, 4) for k, t in ms.items()} }", flush=True)
 
 
 def _write_flat_tree(root: str, per_class: int, seed: int) -> None:
@@ -1836,6 +2025,7 @@ def main() -> None:
     bwd_results = run("backward", backward_phase)
     t_results = run("t_kernels", t_kernel_phase)
     train_counts = run("train", train_phase)
+    run("route", route_phase)
     t_counts = run("pipeline_t", pipeline_t_phase)
     serve_counts = run("serve", serve_phase)
     vlm_results = run("vlm_kernels", vlm_kernel_phase)

@@ -258,3 +258,28 @@ def test_two_pass_bf16_algorithm_matches_pallas(t, kind):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [8, 40, 80])
+def test_narrow_heads_zero_padded_match_pallas(d):
+    """A head narrower than a kernel width (64 or 128 columns) runs
+    zero-padded to it (ops/attention.py:_launch): the kernel's algorithm,
+    emulated on the padded q, k, v with the true width's scale and cut
+    back to d columns, against the Pallas kernel at width d. bf16
+    tolerance 2e-2, as above; ``supports`` routes by the mask alone,
+    whatever the width."""
+    rng = np.random.default_rng(d)
+    b, h, t = 2, 3, 77
+    q, k, v = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+               for _ in range(3))
+    m = _tower_mask("padded", b, t, rng)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = RK5.fused_attention(*jb, d ** -0.5, jnp.asarray(m))
+    assert K5.kernel_width(d) == (64 if d <= 64 else 128)
+    tb = [TF.pad(torch.from_numpy(a).bfloat16(), (0, K5.kernel_width(d) - d))
+          for a in (q, k, v)]
+    got = _two_pass_bf16(*tb, d ** -0.5, torch.from_numpy(m))[..., :d]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=2e-2)
+    assert K5.supports(torch.from_numpy(m), t)

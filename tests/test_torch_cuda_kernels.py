@@ -47,10 +47,12 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-# 77 and 250 rows: a ragged last 32-row tile
+# 77 and 250 rows: a ragged last 32-row tile; widths that are not
+# multiples of 128 (K = 64, H = 200 with K = 100: ragged last chunks)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,h,k", [(77, 512, 256), (250, 768, 128)])
+@pytest.mark.parametrize("n,h,k", [(77, 512, 256), (250, 768, 128),
+                                   (77, 512, 64), (40, 200, 100)])
 def test_seq_adapter_kernel(dev, dtype, n, h, k):
     p = A.init_seq_adapter(_gen(dev), h, k, device=dev)
     p["down"]["bias"].normal_(generator=_gen(dev, 1))
@@ -86,19 +88,51 @@ def test_cross_modal_adapter_kernels(dev, dtype, n, tk):
     _close(got, want, dtype)
 
 
+def _cab_args(p, k, v):
+    ap = p["attn"]
+    return (p["text_proj"]["kernel"], p["text_proj"]["bias"],
+            p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
+            ap["q"]["bias"], k, v, ap["out"]["kernel"], ap["out"]["bias"])
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_do(dev):
+    """Each wrapper refuses on the card only what its kernels cannot take:
+    K2 past 256 shared rows (its gate, where impl="auto" routes to the
+    plain version as the reference does), K3 in bf16 at widths that are
+    not multiples of 8, K2's bf16 backward at heads of other than a
+    multiple of 8 columns (refused before the forward runs); never a
+    width the reference's kernel takes."""
     p = A.init_seq_adapter(_gen(dev), 512, 256, device=dev)
     args = (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
             p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
     with pytest.raises(ValueError, match="wrong shapes"):
         F.seq_adapter_fused(torch.randn(8, 500, device=dev), *args)
-    p320 = A.init_seq_adapter(_gen(dev), 320, 256, device=dev)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        F.seq_adapter_fused(torch.randn(8, 320, device=dev),
-                            p320["down"]["kernel"], p320["down"]["bias"],
-                            p320["up"]["kernel"], p320["up"]["bias"],
-                            p320["ln"]["scale"], p320["ln"]["bias"])
+    m = A.init_mlp_gelu(_gen(dev), 512, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        F.prenorm_mlp_fused(torch.randn(8, 512, device=dev).bfloat16(),
+                            m["fc1"]["kernel"][:, :1998],
+                            m["fc1"]["bias"][:1998],
+                            m["fc2"]["kernel"][:1998], m["fc2"]["bias"],
+                            torch.ones(512, device=dev),
+                            torch.zeros(512, device=dev))
+    c = A.init_cross_modal_adapter(_gen(dev), text_dim=512, image_dim=64,
+                                   hidden=512, device=dev)
+    assert not F.cross_attn_block_supported(257)
+    k, v = A.shared_kv(c, torch.randn(1, 257, 64, device=dev))
+    with pytest.raises(ValueError, match="Tk <= 256"):
+        F.cross_attn_block_fused(torch.randn(8, 512, device=dev),
+                                 *_cab_args(c, k, v), 8)
+    c = A.init_cross_modal_adapter(_gen(dev), text_dim=264, image_dim=64,
+                                   hidden=264, device=dev)
+    k, v = A.shared_kv(c, torch.randn(1, 5, 64, device=dev).bfloat16())
+    cab = [t.bfloat16().requires_grad_(True) for t in _cab_args(c, k, v)]
+    with pytest.raises(ValueError, match="multiple of 8 columns"):
+        F.cross_attn_block_fused(torch.randn(8, 264, device=dev).bfloat16(),
+                                 *cab, 8)  # heads of 33
+    with torch.no_grad():  # the forward takes them
+        F.cross_attn_block_fused(torch.randn(8, 264, device=dev).bfloat16(),
+                                 *cab, 8)
     with pytest.raises(ValueError, match="must be on"):
         F.seq_adapter_fused(torch.randn(8, 512, device=dev),
                             *(a.cpu() for a in args))
@@ -141,7 +175,9 @@ def _seq_case(dev, n, h, k, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h,k,need_dx", [(77, 512, 256, True),
-                                           (250, 768, 256, False)])
+                                           (250, 768, 256, False),
+                                           (77, 512, 64, True),
+                                           (40, 200, 100, True)])
 def test_seq_adapter_bwd_kernel(dev, dtype, n, h, k, need_dx):
     x, args = _seq_case(dev, n, h, k, dtype)
     g = torch.randn(n, h, generator=_gen(dev, 3), device=dev).to(dtype)
@@ -192,13 +228,13 @@ def test_prenorm_mlp_bwd_repeats_bit_for_bit(dev, dtype):
 
 
 # the weight-gradient products alone: bf16 x bf16 on the tensor cores,
-# aligned (16-byte copies) and K2's per-head slices of width Tk (element
-# copies), against fp32 matmuls of the same bf16 values
+# whole operands and K2's per-head slices of its keys padded to 8 (Tk =
+# 197 -> 200, 5 -> 8), against fp32 matmuls of the same bf16 values
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,p,q,z,width", [(7392, 512, 2048, 1, None),
                                            (300, 136, 72, 1, None),
-                                           (700, 197, 64, 8, 197),
-                                           (50, 5, 64, 8, 5)])
+                                           (700, 200, 64, 8, 200),
+                                           (50, 8, 64, 8, 8)])
 def test_wgrad_tensor_cores(dev, n, p, q, z, width):
     gen = _gen(dev, 11)
     sa = width or 0
@@ -218,23 +254,174 @@ def test_wgrad_tensor_cores(dev, n, p, q, z, width):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,tk", [(77, 197), (40, 5)])
-def test_cross_attn_block_bwd_kernel(dev, dtype, n, tk):
-    p = A.init_cross_modal_adapter(_gen(dev), text_dim=512, image_dim=768,
+def test_wgrad_tensor_cores_refuses_unaligned(dev):
+    """The tensor-core weight gradient copies 16 bytes at a time: a
+    per-head slice 197 wide is refused, not read past its end (K2 pads
+    each head's keys to a multiple of 8 for it)."""
+    a = torch.randn(64, 8 * 197, device=dev).bfloat16()
+    b = torch.randn(64, 8 * 64, device=dev).bfloat16()
+    out = torch.zeros(197, 8 * 64, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        F._wgrad(a, b, out, 197, 64, sa=197, sb=64, so=64, z=8)
+
+
+def _cab_bwd_case(dev, n, tk, dtype, din=512):
+    p = A.init_cross_modal_adapter(_gen(dev), text_dim=din, image_dim=768,
                                    hidden=512, device=dev)
     image = (torch.randn(1, tk, 768, generator=_gen(dev, 4), device=dev)
              * 768 ** -0.5).to(dtype)
     k, v = A.shared_kv(p, image)
-    ap = p["attn"]
-    args = (p["text_proj"]["kernel"], p["text_proj"]["bias"],
-            p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
-            ap["q"]["bias"], k, v, ap["out"]["kernel"], ap["out"]["bias"])
-    x = torch.randn(n, 512, generator=_gen(dev, 3), device=dev).to(dtype)
+    x = torch.randn(n, din, generator=_gen(dev, 3), device=dev).to(dtype)
     g = torch.randn(n, 512, generator=_gen(dev, 5), device=dev).to(dtype)
+    return x, _cab_args(p, k, v), g
+
+
+# rows: one served text (77), 1, a ragged last 128-row tile (200) and the
+# train step's B=96 text rows (7392); shared K/V rows: 1, 5 and 197 (not
+# multiples of 16: a ragged last key group, padded per head to 8), 256
+# (the most the kernel takes); without dx as well
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 77, 200, 7392])
+@pytest.mark.parametrize("tk", [1, 5, 197, 256])
+def test_cross_attn_block_bwd_kernel(dev, dtype, n, tk):
+    x, args, g = _cab_bwd_case(dev, n, tk, dtype)
+    F.reset_launch_counts()
+    got = F.cross_attn_block_bwd_cuda(x, *args, g, 8)
+    assert F.launch_counts()["cross_attn_block_bwd_cuda"] == 1
+    want = F.cross_attn_block_bwd_torch(x, *args, g, 8)
+    _grads_close(got, want, dtype, "cross_attn_block")
+    if n == 200:
+        nodx = F.cross_attn_block_bwd_cuda(x, *args, g, 8, need_dx=False)
+        assert nodx[0] is None
+        for a, b in zip(nodx[1:], got[1:]):
+            assert torch.equal(a, b)
+
+
+# a text width other than the hidden: 40 (a depth and a dx width that
+# end inside one 64-wide tile), 36 (bf16: zero-padded to 40) and 768
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("din", [40, 36, 768])
+def test_cross_attn_block_bwd_kernel_text_width(dev, dtype, din):
+    x, args, g = _cab_bwd_case(dev, 300, 197, dtype, din)
     _grads_close(F.cross_attn_block_bwd_cuda(x, *args, g, 8),
                  F.cross_attn_block_bwd_torch(x, *args, g, 8), dtype,
                  "cross_attn_block")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_attn_block_bwd_repeats_bit_for_bit(dev, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x, args, g = _cab_bwd_case(dev, 7392, 197, dtype)
+    first = F.cross_attn_block_bwd_cuda(x, *args, g, 8)
+    second = F.cross_attn_block_bwd_cuda(x, *args, g, 8)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# K3 forward: one row (/embed), one served text (77), a ragged last
+# 128-row tile (600) and the train step's text rows (7392)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 77, 600, 7392])
+def test_prenorm_mlp_fwd_kernel(dev, dtype, n):
+    x, args, _ = _pnmlp_case(dev, n, dtype)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        got = F.prenorm_mlp_fused(x, *args)
+    assert F.launch_counts()["prenorm_mlp_fused"] == 1
+    _close(got, F.prenorm_mlp_torch(x, *args), dtype)
+
+
+@pytest.mark.cuda
+def test_cross_modal_adapter_routes_vit_l_widths(dev):
+    """ViT-L/14's cross-modal adapter (H = 768, 8 heads of 96, Tk = 257):
+    under impl="auto" K2 takes its plain version (its predicate fails)
+    and K3 its kernel, forward and backward; impl="kernel" raises."""
+    p = A.init_cross_modal_adapter(_gen(dev), text_dim=768, image_dim=1024,
+                                   hidden=768, device=dev)
+    text = torch.randn(2, 77, 768, generator=_gen(dev, 3),
+                       device=dev).bfloat16()
+    image = (torch.randn(1, 257, 1024, generator=_gen(dev, 4), device=dev)
+             * 1024 ** -0.5).bfloat16()
+    leaves = tree_leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    F.reset_launch_counts()
+    y = A.cross_modal_adapter(p, text, image, 8)
+    (y.float() ** 2).sum().backward()
+    counts = F.launch_counts()
+    assert counts["cross_attn_block_fused"] == 0
+    assert counts["cross_attn_block_bwd_cuda"] == 0
+    assert counts["prenorm_mlp_fused"] == 1
+    assert counts["prenorm_mlp_bwd_cuda"] == 1
+    assert torch.isfinite(y.float()).all()
+    with torch.no_grad():
+        want = A.cross_modal_adapter(p, text, image, 8, impl="torch")
+        _close(A.cross_modal_adapter(p, text, image, 8), want,
+               torch.bfloat16)
+        with pytest.raises(ValueError, match="Tk <= 256"):
+            A.cross_modal_adapter(p, text, image, 8, impl="kernel")
+
+
+# K2 at heads other than 64 wide, forward and backward: ViT-L/14's 8
+# heads of 96 over H = 768 (bf16: the attention pass zero-padded to 128;
+# fp32 forward in 16-row tiles, backward in 8-row tiles), 4 heads of 24
+# over 96 and 2 heads of 128 over 256; Tk 197 and 5
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,heads,tk,n", [(768, 8, 197, 300),
+                                          (768, 8, 5, 77),
+                                          (96, 4, 197, 200),
+                                          (256, 2, 197, 200)])
+def test_cross_attn_block_kernels_other_head_widths(dev, dtype, h, heads,
+                                                    tk, n):
+    p = A.init_cross_modal_adapter(_gen(dev), text_dim=h, image_dim=256,
+                                   hidden=h, device=dev)
+    image = (torch.randn(1, tk, 256, generator=_gen(dev, 4), device=dev)
+             * 256 ** -0.5).to(dtype)
+    k, v = A.shared_kv(p, image)
+    args = _cab_args(p, k, v)
+    x = torch.randn(n, h, generator=_gen(dev, 3), device=dev).to(dtype)
+    g = torch.randn(n, h, generator=_gen(dev, 5), device=dev).to(dtype)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        y = F.cross_attn_block_fused(x, *args, heads)
+    got = F.cross_attn_block_bwd_cuda(x, *args, g, heads)
+    assert F.launch_counts()["cross_attn_block_fused"] == 1
+    assert F.launch_counts()["cross_attn_block_bwd_cuda"] == 1
+    _close(y, F.cross_attn_block_torch(x, *args, heads), dtype)
+    _grads_close(got, F.cross_attn_block_bwd_torch(x, *args, g, heads),
+                 dtype, "cross_attn_block")
+
+
+# K3 at widths that are not multiples of 128 (bf16: multiples of 8 on the
+# tensor cores; fp32 any), forward and backward
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h,k", [(torch.bfloat16, 200, 800),
+                                       (torch.bfloat16, 64, 136),
+                                       (torch.float32, 200, 800),
+                                       (torch.float32, 100, 390)])
+def test_prenorm_mlp_kernels_other_widths(dev, dtype, h, k):
+    gen = _gen(dev, 8)
+    w1 = torch.randn(h, k, generator=gen, device=dev) * h ** -0.5
+    w2 = torch.randn(k, h, generator=gen, device=dev) * k ** -0.5
+    b1, b2, ls, lb = (0.1 * torch.randn(w, generator=gen, device=dev)
+                      for w in (k, h, h, h))
+    args = (w1, b1, w2, b2, 1 + ls, lb)
+    x = torch.randn(300, h, generator=gen, device=dev).to(dtype)
+    g = torch.randn(300, h, generator=gen, device=dev).to(dtype)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        y = F.prenorm_mlp_fused(x, *args)
+    got = F.prenorm_mlp_bwd_cuda(x, *args, g)
+    assert F.launch_counts()["prenorm_mlp_fused"] == 1
+    assert F.launch_counts()["prenorm_mlp_bwd_cuda"] == 1
+    _close(y, F.prenorm_mlp_torch(x, *args), dtype)
+    _grads_close(got, F.prenorm_mlp_bwd_torch(x, *args, g), dtype,
+                 "prenorm_mlp")
 
 
 @pytest.mark.cuda
@@ -422,9 +609,24 @@ def test_mha_fused_toggle_on_card(dev):
     _close(got, want, torch.float32)
 
 
+# head widths other than 64: the 128-wide kernels (128), and narrower
+# heads zero-padded to 64 (8, 40) or to 128 (80, 96)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 40, 80, 96, 128])
+def test_fused_attention_other_head_widths(dev, dtype, d):
+    q, k, v = (torch.randn(2, 3, 77, d, generator=_gen(dev, i),
+                           device=dev).to(dtype) for i in range(3))
+    mask = _attn_mask("padded", 2, 77, dev)
+    K5.reset_launch_counts()
+    got = K5.fused_attention(q, k, v, d ** -0.5, mask)
+    assert K5.launch_counts() == {"fused_attention": 1}
+    _close(got, K5.fused_attention_torch(q, k, v, d ** -0.5, mask), dtype)
+
+
 @pytest.mark.cuda
 def test_fused_attention_refusals(dev):
-    q = torch.randn(2, 2, 9, 32, device=dev)
+    q = torch.randn(2, 2, 9, 160, device=dev)
     with pytest.raises(ValueError, match="head width"):
         K5.fused_attention(q, q, q, 0.1)
     q = torch.randn(2, 2, 9, 64, device=dev)

@@ -448,3 +448,197 @@ def test_k3_bwd_tensor_core_passes_match_pallas():
     assert got[0].dtype == torch.bfloat16
     for name, gg, w in zip(MLP_NAMES, got, want):
         _grad_close(gg, w, BF16_TOL, name)
+
+
+def test_k3_fwd_tensor_core_passes_match_pallas():
+    """K3's bf16 forward as its three tensor-core passes compute it
+    (csrc/fused_adapter.cu, vct_prenorm_mlp_fwd_bf16): um = round(LN(x));
+    hm = round(gelu(um w1 + b1)) [n, 4h] in bf16, through device memory;
+    y = round((x + b2) + hm w2). 600 rows: a ragged last 128-row tile.
+    Against the Pallas forward at the bf16 tolerance (2e-2 absolute and
+    relative: only summation order separates them)."""
+    args = _pnmlp_args(600, 128, 512, seed=12)
+    x, w1, b1, w2, b2, ls, lb = map(torch.from_numpy, args)
+    xb = x.bfloat16()
+    mm = torch.bfloat16
+    xhat, _ = F._ln_stats(xb.float(), 1e-5)
+    um = F._r(xhat * ls + lb, mm)
+    hm = F._r(torch.nn.functional.gelu(um @ F._r(w1, mm) + b1), mm)
+    got = ((xb.float() + b2) + hm @ F._r(w2, mm)).to(mm)
+    want = RF.prenorm_mlp_fused(jnp.asarray(args[0], jnp.bfloat16),
+                                *map(jnp.asarray, args[1:]))
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want)
+
+
+def _per_head_wgrad(a, b, heads):
+    """The per-head weight gradients a_h^T b_h (a [N, heads, P], b [N,
+    heads * Q]) as wgrad_mma_kernel sums them for z = heads: ordered row
+    chunks for heads x ceil(P/128) x ceil(Q/128) output tiles."""
+    n, _, p = a.shape
+    q = b.shape[1] // heads
+    splits = F._tc_splits(n, heads * -(-p // 128) * -(-q // 128))
+    chunk = -(-n // splits)
+    out = torch.zeros(p, heads * q)
+    for s in range(splits):
+        rows = slice(s * chunk, (s + 1) * chunk)
+        out = out + torch.cat([a[rows, i].T @ b[rows, i * q:(i + 1) * q]
+                               for i in range(heads)], dim=1)
+    return out
+
+
+def _k2_bwd_tensor_cores(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads,
+                         eps=1e-5):
+    """K2's bf16 backward as its tensor-core passes compute it
+    (csrc/fused_adapter.cu, vct_cross_attn_block_bwd_bf16): t = x wt + bt
+    (fp32); um = round(LN(t)); qm = round(um wq + bq); dom = round(g
+    wo^T); per head (one attention block per 128-row tile and head): p in
+    fp32, pm = round(p) padded per head to tkp = Tk rounded up to 8 keys,
+    om = round(pm v), dp = dom_h v_h^T, dsm = round(p (dp - <dp, p>)
+    scale) padded likewise, dqp = dsm k_h, the 128-row tiles' column sums
+    of the unrounded dqp (dbq), dqm = round(dqp); du = g + dqm wq^T
+    (fp32); dt = the LN backward of du, dtm = round(dt), the 32-row tiles'
+    column sums of g, du xhat, du and dt; dx = dtm wt^T; the weight
+    gradients over ordered row chunks (dk, dv from the padded pm, dsm,
+    their rows past Tk dropped). As the kernel does, x's columns (wt's
+    rows) are zero-padded to a multiple of 8 and each head's columns to
+    the attention kernel's width (64, or 128 past 64); the zero columns
+    change no product."""
+    mm = torch.bfloat16
+    N, Din = x.shape
+    H = wt.shape[1]
+    Tk, hd = k.shape[0], H // heads
+    tkp = -(-Tk // 8) * 8
+    scale = hd ** -0.5
+    wide = 64 if hd <= 64 else 128  # cab_bwd_attn_kernel<HD>'s HD
+    pad = -Din % 8
+    xm, wtm, wqm, wom = (F._r(a, mm) for a in (x, wt, wq, wo))
+    xm = torch.nn.functional.pad(xm, (0, pad))
+    wtm = torch.nn.functional.pad(wtm, (0, 0, 0, pad))
+    km, vm, gf = F._r(k, mm), F._r(v, mm), g.float()
+    gm = F._r(gf, mm)
+    t = xm @ wtm + bt
+    xhat, inv = F._ln_stats(t, eps)
+    um = F._r(xhat * ls + lb, mm)
+    qm = F._r(um @ wqm + bq, mm)
+    dom = F._r(gm @ wom.T, mm)
+    om, dqp = torch.zeros(N, H), torch.zeros(N, H)
+    pm, dsm = torch.zeros(N, heads, tkp), torch.zeros(N, heads, tkp)
+    def head(a, cols):  # a head's columns, zero-padded to the kernel's
+        return torch.nn.functional.pad(a[:, cols], (0, wide - hd))
+
+    for i in range(heads):
+        cols = slice(i * hd, (i + 1) * hd)
+        qh, kh, vh, dh = (head(a, cols) for a in (qm, km, vm, dom))
+        p = torch.softmax((qh @ kh.T) * scale, dim=-1)
+        pm[:, i, :Tk] = F._r(p, mm)
+        om[:, cols] = F._r(pm[:, i, :Tk] @ vh, mm)[:, :hd]
+        dp = dh @ vh.T
+        dsm[:, i, :Tk] = F._r(
+            (p * (dp - (dp * p).sum(-1, keepdim=True))) * scale, mm)
+        dqp[:, cols] = (dsm[:, i, :Tk] @ kh)[:, :hd]
+    dqm = F._r(dqp, mm)
+    du = gf + dqm @ wqm.T
+    dt = F._ln_bwd(du * ls, xhat, inv)
+    dtm = F._r(dt, mm)
+    dx = (dtm @ wtm.T).to(mm)[:, :Din]
+    dv = _per_head_wgrad(pm, dom, heads)[:Tk]
+    dk = _per_head_wgrad(dsm, qm, heads)[:Tk]
+    dwo, splits = _chunked_wgrad(om, gm)
+    dwq, _ = _chunked_wgrad(um, dqm)
+    dwt, _ = _chunked_wgrad(xm, dtm)
+    dwt = dwt[:Din]
+    return (dx, dwt, _tile_sums(dt, F.LN_ROWS),
+            _tile_sums(du * xhat, F.LN_ROWS), _tile_sums(du, F.LN_ROWS), dwq,
+            _tile_sums(dqp, F.TC_ROWS), dk, dv, dwo,
+            _tile_sums(gf, F.LN_ROWS)), splits
+
+
+@pytest.mark.parametrize("tk,din,h", [(5, 128, 128), (197, 128, 128),
+                                      (197, 36, 192)])
+def test_k2_bwd_tensor_core_passes_match_pallas(tk, din, h):
+    """600 rows (a ragged last 128-row tile and 32-row tile; two ordered
+    row chunks in each weight gradient), 2 heads of 64 (or of 96, run
+    zero-padded to 128, with Din = 36 padded to 40), Tk = 5 and 197 (not
+    multiples of 16; padded per head to 8 and 200 keys). Against jax.grad
+    of the Pallas forward in interpret mode at the bf16 tolerance: each
+    gradient within 2e-2 of its largest element."""
+    port, ref, ref_fused = _cab_grad_case(600, din, h, 2, tk,
+                                          torch.bfloat16, seed=tk + din)
+    y = F.cross_attn_block_torch(*port, 2)
+    t = np.random.default_rng(13).normal(size=tuple(y.shape)).astype(
+        np.float32)
+    args = [a.float() if i not in (0, 7, 8) else a
+            for i, a in enumerate(port)]
+    got, splits = _k2_bwd_tensor_cores(*args[:10],
+                                       torch.from_numpy(t).bfloat16(), 2)
+    assert splits == 2
+    want = jax.grad(lambda *a: jnp.sum(ref_fused(*a).astype(jnp.float32)
+                                       * t),
+                    argnums=tuple(range(11)))(*ref)
+    assert got[0].dtype == torch.bfloat16
+    for name, gg, w in zip(CAB_NAMES, got, want):
+        _grad_close(gg, w, BF16_TOL, name)
+
+
+# ---------------------------------------------------------------------------
+# shape gates: the kernels' predicates and the route under impl="auto"
+# ---------------------------------------------------------------------------
+
+def test_shape_predicates_at_vit_l_widths():
+    """K2's gate is the reference's: its fused path takes at most
+    ATTN_SEG_MAX shared K/V rows, whatever the widths. ViT-L/14's
+    pseudo-image (Tk = 257, or 577 at 336 pixels) fails it and takes the
+    plain version, as the reference does; its 96-wide heads at a smaller
+    image (Tk = 197) and ViT-B/16's shapes pass. K1 and K3 have no gate:
+    their kernels take every width (K = 64 included)."""
+    assert F.MAX_SHARED_KV == RF.ATTN_SEG_MAX
+    for tk, ok in ((257, False), (577, False), (0, False), (1, True),
+                   (197, True), (256, True)):
+        assert F.cross_attn_block_supported(tk) is ok, tk
+    assert not hasattr(F, "seq_adapter_supported")
+    assert not hasattr(F, "prenorm_mlp_supported")
+
+
+class _OnCuda:
+    """Stands in for a CUDA tensor in _pick, which reads only .device."""
+    device = torch.device("cuda")
+
+
+def test_pick_routes_by_the_predicate():
+    """impl="auto": a CUDA call whose shapes fail the predicate takes the
+    plain version, one whose shapes pass the kernel; a CPU call takes the
+    wrapper (which runs its plain version). impl="torch" always the plain
+    version; impl="kernel" always the wrapper (which raises on shapes it
+    does not take), and refuses a CPU tensor."""
+    cuda, cpu = _OnCuda(), torch.zeros(1)
+    kern, plain = object(), object()
+    assert A._pick("auto", cuda, kern, plain, False) is plain
+    assert A._pick("auto", cuda, kern, plain, True) is kern
+    assert A._pick("auto", cpu, kern, plain, False) is kern
+    for x in (cuda, cpu):
+        for ok in (True, False):
+            assert A._pick("torch", x, kern, plain, ok) is plain
+    assert A._pick("kernel", cuda, kern, plain, False) is kern
+    with pytest.raises(ValueError, match="CUDA"):
+        A._pick("kernel", cpu, kern, plain, True)
+    with pytest.raises(ValueError, match="impl"):
+        A._pick("fused", cuda, kern, plain, True)
+
+
+def test_cross_modal_adapter_past_the_gates_matches_reference():
+    """A cross-modal adapter that K2's gate refuses (one 96-wide head,
+    Tk = 257, as ViT-L/14's pseudo-image has) computes what the
+    reference computes (impl="auto", whose gate takes its plain path
+    past 256 shared rows) in fp32."""
+    rng = np.random.default_rng(21)
+    text = rng.normal(size=(2, 7, 96)).astype(np.float32)
+    image = rng.normal(size=(1, 257, 64)).astype(np.float32)
+    p = RA.init_cross_modal_adapter(jax.random.PRNGKey(21), text_dim=96,
+                                    image_dim=64, hidden=96, num_heads=1)
+    assert not F.cross_attn_block_supported(257)
+    want = RA.cross_modal_adapter(p, jnp.asarray(text), jnp.asarray(image),
+                                  1)
+    got = A.cross_modal_adapter(to_torch(p), torch.from_numpy(text),
+                                torch.from_numpy(image), 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

@@ -29,6 +29,18 @@ NS = "(anonymous namespace)::"
     (NS + "colsum_kernel(float const*, int, int, float*)",
      "K1-K3 bwd column sums"),
     (NS + "cross_attn_block_bwd_kernel<__nv_bfloat16>(int)", "K2 bwd"),
+    (NS + "cab_bwd_attn_kernel(__nv_bfloat16 const*, float, int)", "K2 bwd"),
+    (NS + "cab_bwd_attn_kernel<128>(__nv_bfloat16 const*, float, int)",
+     "K2 bwd"),
+    (NS + "cross_attn_block_fwd_kernel<__nv_bfloat16, 16>(int)", "K2 fwd"),
+    (NS + "cross_attn_block_bwd_kernel<float, 8>(float const*, int)",
+     "K2 bwd"),
+    (NS + "cab_bwd_ln_fwd_kernel(float const*, float const*)", "K2 bwd"),
+    (NS + "cab_bwd_t_kernel(__nv_bfloat16 const*, float*, int)", "K2 bwd"),
+    (NS + "pnmlp_fwd_ln_kernel(__nv_bfloat16 const*, int, int)", "K3 fwd"),
+    ("_ZN49_GLOBAL__N__a66b3b54_16_fused_adapter_cu_9e7b35ab23pnmlp_fwd_"
+     "hidden_kernelEPK13__nv_bfloat16S2_PKfPS0_iii", "K3 fwd"),
+    (NS + "pnmlp_fwd_out_kernel(__nv_bfloat16 const*, int)", "K3 fwd"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "cuBLAS/cuDNN products"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopA_NNT", "cuBLAS/cuDNN products"),

@@ -4,7 +4,11 @@
 // Port of vlm_clip_tpu/ops/attention.py: fused_attention (:100), Pallas
 // kernels _attn_kernel_nomask (:59) and _attn_kernel_mask (:63):
 //
-//   o = softmax(q k^T * scale + mask) v   over [B, h, T, 64] q, k, v
+//   o = softmax(q k^T * scale + mask) v   over [B, h, T, d] q, k, v
+//
+// for head widths d of 64 (every CLIP preset) and 128, each its own
+// instantiation; the wrapper zero-pads a narrower head to the next of
+// them (zero columns add nothing to a score and give zero outputs).
 //
 // with the TPU kernel's rounding points: the scores are fp32 sums of
 // products of T values (bf16 products are exact in fp32), times scale,
@@ -46,7 +50,8 @@
 // fp32 only as TF32, which would round operands the TPU kernel keeps, so
 // fp32 stays on the CUDA cores: one block of 256 threads per (batch, head,
 // 64 query rows), q, k and v in fp32 tiles, each thread a 4 x 4 tile of
-// the scores and of the output, fp32 FMAs (q k^T computed twice).
+// the scores and a 4 x d/16 tile of the output, fp32 FMAs (q k^T computed
+// twice).
 //
 // Plain C interface, loaded with ctypes. The entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -59,11 +64,12 @@
 
 namespace {
 
-constexpr int D = 64;      // head width (every CLIP preset)
+// Head widths D: 64 (every CLIP preset) and 128; the wrapper zero-pads a
+// narrower head to the next of them, which changes no score.
 constexpr int QT = 64;     // query rows per block
 constexpr int KC = 64;     // keys per chunk
 constexpr int NT = 256;    // threads per block
-constexpr int LD = D + 1;  // padded row of the q / k / score tiles
+constexpr int SLS = KC + 1;  // padded row of the fp32 score tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 
@@ -85,9 +91,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// rows [r0, r0 + 64) of a [T, 64] head -> fp32 tile (ld = ldt); rows past
+// rows [r0, r0 + 64) of a [T, D] head -> fp32 tile (ld = ldt); rows past
 // t are 0.
-template <typename T>
+template <int D, typename T>
 __device__ void load_tile(const T* __restrict__ src, int t, int r0,
                           float* tile, int ldt) {
   for (int e = threadIdx.x; e < 64 * D; e += NT) {
@@ -100,6 +106,7 @@ __device__ void load_tile(const T* __restrict__ src, int t, int r0,
 // s[i][j] = (q[row_i] . k[col_j]) * scale + mask(row_i, col_j) for the
 // thread's rows row_i = q0 + ty + 16 i and columns col_j = k0 + tx + 16 j;
 // -inf past the last key (and 0 mask past the last query row).
+template <int D>
 __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
                                        const float* __restrict__ mask,
                                        int t, int q0, int k0, float scale,
@@ -109,6 +116,7 @@ __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  constexpr int LD = D + 1;
 #pragma unroll 8
   for (int dd = 0; dd < D; ++dd) {
     float a[4], b[4];
@@ -134,18 +142,20 @@ __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const float* __restrict__ mask, long long mask_bstride,
                          float scale, T* __restrict__ out, int heads, int t) {
+  constexpr int LD = D + 1;  // padded row of the q / k tiles
+  constexpr int OJ = D / 16;  // output columns a thread
   extern __shared__ float smem[];
   float* Qs = smem;           // [QT][LD]
   float* Ks = Qs + QT * LD;   // [KC][LD]
   float* Vs = Ks + KC * LD;   // [KC][D]
-  float* Ss = Vs + KC * D;    // [QT][LD]: scores, then p rounded to T
-  float* M = Ss + QT * LD;    // [QT]: row max
+  float* Ss = Vs + KC * D;    // [QT][SLS]: scores, then p rounded to T
+  float* M = Ss + QT * SLS;   // [QT]: row max
   float* L = M + QT;          // [QT]: row sum of exp(s - max)
   const int q0 = blockIdx.x * QT, hd = blockIdx.y, b = blockIdx.z;
   const size_t head = ((size_t)b * heads + hd) * t * D;
@@ -155,7 +165,7 @@ __global__ void __launch_bounds__(NT)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float s[4][4];
 
-  load_tile(qh, t, q0, Qs, LD);
+  load_tile<D>(qh, t, q0, Qs, LD);
   // pass 1: running max and sum per row; warp w owns rows 8w .. 8w + 7
   float m_run[8], l_run[8];
 #pragma unroll
@@ -165,17 +175,18 @@ __global__ void __launch_bounds__(NT)
   }
   for (int k0 = 0; k0 < t; k0 += KC) {
     __syncthreads();  // Ks and Ss are free
-    load_tile(kh, t, k0, Ks, LD);
+    load_tile<D>(kh, t, k0, Ks, LD);
     __syncthreads();
-    scores(Qs, Ks, mb, t, q0, k0, scale, s);
+    scores<D>(Qs, Ks, mb, t, q0, k0, scale, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ss[(ty + 16 * i) * LD + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < 4; ++j)
+        Ss[(ty + 16 * i) * SLS + tx + 16 * j] = s[i][j];
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float* sr = Ss + (warp * 8 + i) * LD;
+      const float* sr = Ss + (warp * 8 + i) * SLS;
       const float a = sr[lane], c = sr[lane + 32];
       const float mn = fmaxf(m_run[i], warp_max(fmaxf(a, c)));
       float e = 0.f;
@@ -193,37 +204,38 @@ __global__ void __launch_bounds__(NT)
     }
   }
   // pass 2: o = round(p) v, p = exp(s - max) / sum
-  float o[4][4];
+  float o[4][OJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
   for (int k0 = 0; k0 < t; k0 += KC) {
     __syncthreads();  // Ks, Vs, Ss free; M, L written
-    load_tile(kh, t, k0, Ks, LD);
-    load_tile(vh, t, k0, Vs, D);
+    load_tile<D>(kh, t, k0, Ks, LD);
+    load_tile<D>(vh, t, k0, Vs, D);
     __syncthreads();
-    scores(Qs, Ks, mb, t, q0, k0, scale, s);
+    scores<D>(Qs, Ks, mb, t, q0, k0, scale, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
       const float m = M[r], l = L[r];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        Ss[r * LD + tx + 16 * j] = to_f(from_f<T>(expf(s[i][j] - m) / l));
+        Ss[r * SLS + tx + 16 * j] =
+            to_f(from_f<T>(expf(s[i][j] - m) / l));
     }
     __syncthreads();
     const int kn = min(KC, t - k0);
     for (int c = 0; c < kn; ++c) {
-      float p[4], w[4];
+      float p[4], w[OJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * LD + c];
+      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SLS + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Vs[c * D + tx + 16 * j];
+      for (int j = 0; j < OJ; ++j) w[j] = Vs[c * D + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(p[i], w[j], o[i][j]);
+        for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(p[i], w[j], o[i][j]);
     }
   }
   T* oh = out + head;
@@ -232,7 +244,7 @@ __global__ void __launch_bounds__(NT)
     const int r = q0 + ty + 16 * i;
     if (r < t)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < OJ; ++j)
         oh[(size_t)r * D + tx + 16 * j] = from_f<T>(o[i][j]);
   }
 }
@@ -244,15 +256,18 @@ __global__ void __launch_bounds__(NT)
 constexpr int MMA_WARPS = 8;        // per block, 16 query rows each
 constexpr int MQ = 16 * MMA_WARPS;  // query rows per block
 constexpr int MT_N = 32 * MMA_WARPS;
-constexpr int MMA_BLOCKS = 16 / MMA_WARPS;  // per SM: 16 warps, <= 128 regs
-constexpr int SLD = D + 8;   // shared row of a bf16 q / k / v tile
-constexpr float L2E = 1.4426950408889634f;  // log2(e)
+// blocks an SM: at D = 64, 16 warps at <= 128 registers; at D = 128 the
+// output fragments alone take 64 registers, so one block of 8 warps
+template <int D>
+constexpr int mma_blocks() { return D <= 64 ? 16 / MMA_WARPS : 1; }
 
-// rows [r0, r0 + R) of a [t, 64] bf16 head -> tile (rows past t zeroed)
-template <int R>
+// rows [r0, r0 + R) of a [t, D] bf16 head -> tile (row stride D + 8; rows
+// past t zeroed)
+template <int R, int D>
 __device__ __forceinline__ void load_head_rows(vct::bf16* tile,
                                                const vct::bf16* src, int t,
                                                int r0) {
+  constexpr int SLD = D + 8;
 #pragma unroll
   for (int i = 0; i < R * (D / 8) / MT_N; ++i) {
     const int e = threadIdx.x + i * MT_N;
@@ -263,28 +278,17 @@ __device__ __forceinline__ void load_head_rows(vct::bf16* tile,
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// 2^x on the special-function unit; exp(s - m) = ex2(s log2e - m log2e)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using vct::ex2;
+using vct::L2E;
+using vct::quad_max;
+using vct::quad_sum;
 
 // Steps 0 .. nc-1 are pass 1 over the key chunks (K only), steps nc ..
 // 2nc-1 pass 2 (K and V); step s + 1's chunks load while step s computes.
 // A warp whose 16 rows all lie past t only loads and waits; key pairs
 // (16 keys) wholly past t are skipped.
-__global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(MT_N, mma_blocks<D>())
     attention_mma_kernel(const vct::bf16* __restrict__ q,
                          const vct::bf16* __restrict__ k,
                          const vct::bf16* __restrict__ v,
@@ -292,6 +296,7 @@ __global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
                          long long mask_bstride, float scale,
                          vct::bf16* __restrict__ out, int heads, int t) {
   using vct::bf16;
+  constexpr int SLD = D + 8;  // shared row of a bf16 q / k / v tile
   extern __shared__ __align__(16) unsigned char attn_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(attn_smem);  // [MQ][SLD]
   bf16* Ks = Qs + MQ * SLD;                       // [2][KC][SLD]
@@ -308,10 +313,11 @@ __global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
 
   auto issue = [&](int s) {
     const int c = s < nc ? s : s - nc;
-    load_head_rows<KC>(Ks + (s & 1) * KC * SLD, kh, t, c * KC);
-    if (s >= nc) load_head_rows<KC>(Vs + (s & 1) * KC * SLD, vh, t, c * KC);
+    load_head_rows<KC, D>(Ks + (s & 1) * KC * SLD, kh, t, c * KC);
+    if (s >= nc)
+      load_head_rows<KC, D>(Vs + (s & 1) * KC * SLD, vh, t, c * KC);
   };
-  load_head_rows<MQ>(Qs, qh, t, q0);
+  load_head_rows<MQ, D>(Qs, qh, t, q0);
   issue(0);
   vct::cp_async_commit();
 
@@ -331,12 +337,7 @@ __global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
     vct::cp_async_wait<1>();
     __syncthreads();  // step s's chunks (and q) landed
     if (active) {
-      if (s == 0) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          vct::ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * SLD +
-                                   kk * 16 + (lane >> 4) * 8);
-      }
+      if (s == 0) vct::load_a_rows<D>(qf, Qs, SLD, warp * 16, lane);
       const bool pass2 = s >= nc;
       const int k0 = (pass2 ? s - nc : s) * KC;
       const bf16* Kb = Ks + (s & 1) * KC * SLD;
@@ -349,14 +350,7 @@ __global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
 #pragma unroll
       for (int j = 0; j < KC / 8; j += 2) {
         if (k0 + j * 8 >= t) continue;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t r[4];
-          vct::ldsm_x4(r, Kb + (j * 8 + (lane & 7) + (lane >> 4) * 8) * SLD +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
-          vct::mma_bf16(sc[j], qf[kk], r[0], r[1]);
-          vct::mma_bf16(sc[j + 1], qf[kk], r[2], r[3]);
-        }
+        vct::mma_rows_t16<D>(sc[j], sc[j + 1], qf, Kb, SLD, j * 8, lane);
       }
       // times scale, plus the mask (fp32); -inf past the last key
       if (mb == nullptr && k0 + KC <= t) {
@@ -422,26 +416,17 @@ __global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
 #pragma unroll
         for (int kk = 0; kk < KC / 16; ++kk) {
           if (k0 + kk * 16 >= t) continue;
-          const float* c0 = sc[2 * kk];
-          const float* c1 = sc[2 * kk + 1];
-          uint32_t a[4];
-          a[0] = vct::pack_bf16(ex2(fmaf(c0[0], L2E, ml_lo)) * inv_lo,
-                                ex2(fmaf(c0[1], L2E, ml_lo)) * inv_lo);
-          a[1] = vct::pack_bf16(ex2(fmaf(c0[2], L2E, ml_hi)) * inv_hi,
-                                ex2(fmaf(c0[3], L2E, ml_hi)) * inv_hi);
-          a[2] = vct::pack_bf16(ex2(fmaf(c1[0], L2E, ml_lo)) * inv_lo,
-                                ex2(fmaf(c1[1], L2E, ml_lo)) * inv_lo);
-          a[3] = vct::pack_bf16(ex2(fmaf(c1[2], L2E, ml_hi)) * inv_hi,
-                                ex2(fmaf(c1[3], L2E, ml_hi)) * inv_hi);
+          float p0[4], p1[4];
 #pragma unroll
-          for (int j = 0; j < D / 8; j += 2) {
-            uint32_t r[4];
-            vct::ldsm_x4_t(r, Vb + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * SLD +
-                                  j * 8 + (lane >> 4) * 8);
-            vct::mma_bf16(o[j], a, r[0], r[1]);
-            vct::mma_bf16(o[j + 1], a, r[2], r[3]);
+          for (int e = 0; e < 4; ++e) {
+            const float ml = e < 2 ? ml_lo : ml_hi;
+            const float inv = e < 2 ? inv_lo : inv_hi;
+            p0[e] = ex2(fmaf(sc[2 * kk][e], L2E, ml)) * inv;
+            p1[e] = ex2(fmaf(sc[2 * kk + 1][e], L2E, ml)) * inv;
           }
+          uint32_t a[4];
+          vct::pack_a(a, p0, p1);
+          vct::mma_rows16<D>(o, a, Vb, SLD, kk * 16, lane);
         }
       }
     }
@@ -461,41 +446,32 @@ __global__ void __launch_bounds__(MT_N, MMA_BLOCKS)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory a block of the bf16 or the fp32 kernel takes, in bytes.
-size_t vct_attention_smem(int bf16) {
-  if (bf16) return sizeof(vct::bf16) * (MQ + 4 * KC) * SLD;
-  return sizeof(float) * (2 * QT * LD + KC * LD + KC * D + 2 * QT);
+template <int D>
+size_t attention_smem(int bf16) {
+  if (bf16) return sizeof(vct::bf16) * (MQ + 4 * KC) * (D + 8);
+  return sizeof(float) *
+         (QT * (D + 1) + KC * (D + 1) + KC * D + QT * SLS + 2 * QT);
 }
 
-// q, k, v, out: [b, heads, t, 64] contiguous in T (bf16 when bf16 != 0,
-// else fp32; bf16 heads 16-byte aligned); mask: fp32 [t, t] rows at mask +
-// batch * mask_bstride, or null.
-int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
-                      const void* mask, long long mask_bstride, float scale,
-                      void* out, int b, int heads, int t, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* m = (const float*)mask;
+template <int D>
+int attention_launch(int bf16, const void* q, const void* k, const void* v,
+                     const float* m, long long mask_bstride, float scale,
+                     void* out, int b, int heads, int t, cudaStream_t st) {
+  const size_t smem = attention_smem<D>(bf16);
   int err;
   if (bf16) {
     typedef vct::bf16 T;
-    const size_t smem = vct_attention_smem(1);
     const dim3 grid((t + MQ - 1) / MQ, heads, b);
+    auto kern = attention_mma_kernel<D>;
     if ((err = (int)cudaFuncSetAttribute(
-             attention_mma_kernel,
-             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
       return err;
-    attention_mma_kernel<<<grid, MT_N, smem, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, m, mask_bstride, scale,
-        (T*)out, heads, t);
+    kern<<<grid, MT_N, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
+                                   mask_bstride, scale, (T*)out, heads, t);
     return (int)cudaGetLastError();
   }
-  const size_t smem = vct_attention_smem(0);
   const dim3 grid((t + QT - 1) / QT, heads, b);
-  auto kern = attention_fwd_kernel<float>;
+  auto kern = attention_fwd_kernel<float, D>;
   if ((err = (int)cudaFuncSetAttribute(
            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return err;
@@ -503,6 +479,29 @@ int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
                                (const float*)v, m, mask_bstride, scale,
                                (float*)out, heads, t);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory a block of the bf16 or the fp32 kernel takes at head width
+// d (64 or 128), in bytes.
+size_t vct_attention_smem(int bf16, int d) {
+  return d <= 64 ? attention_smem<64>(bf16) : attention_smem<128>(bf16);
+}
+
+// q, k, v, out: [b, heads, t, d] contiguous in T (bf16 when bf16 != 0,
+// else fp32; bf16 heads 16-byte aligned), d 64 or 128; mask: fp32 [t, t]
+// rows at mask + batch * mask_bstride, or null.
+int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
+                      const void* mask, long long mask_bstride, float scale,
+                      void* out, int b, int heads, int t, int d,
+                      void* stream) {
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  auto launch = d == 64 ? attention_launch<64> : attention_launch<128>;
+  return launch(bf16, q, k, v, (const float*)mask, mask_bstride, scale, out,
+                b, heads, t, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -26,20 +26,25 @@
 // (at most 180 KB, so one block per SM). Each matmul walks its weight in
 // 32-deep slabs staged through shared memory; a thread accumulates a
 // 4-row by 4-column register tile in fp32 on the CUDA cores. The ragged
-// last row tile is masked, not padded. What bounds these kernels on the
-// H100: they are compute-bound in fp32 FMA (about 14-31 GFLOP per call at
-// the B=96 shapes against 67 TFLOP/s of fp32 FMA) and move little memory
-// (weights stay in the 50 MB L2, each row is read and written once), so
-// the next step is wgmma on bf16 operands, which this layout leaves open.
+// last row tile is masked, not padded, and so is a ragged last column
+// chunk: the kernels take every width, as the TPU kernels do (K2 heads
+// of any width, at most SMAX shared K/V rows). What bounds these kernels
+// on the H100: they are compute-bound in fp32 FMA (about 14-31 GFLOP per
+// call at the B=96 shapes against 67 TFLOP/s of fp32 FMA) and move little
+// memory (weights stay in the 50 MB L2, each row is read and written
+// once), so the next step is wgmma on bf16 operands, which this layout
+// leaves open.
 //
-// K3's backward in bf16 and the bf16 x bf16 weight gradients (K2, K3) are
-// redesigned for the tensor cores (section "bf16 on the tensor cores"
-// below): at the train step's shape fp32 FMAs bound the first version at
-// 1.16 ms or more a call, the tensor cores at 0.08 ms, so the row pass is
-// split into mma.sync products over 128 x 128 tiles that fill the card,
-// with the GELU, its derivative, the roundings and the column sums fused
-// into their epilogues. The fp32 instantiations keep the CUDA-core
-// kernels: the tensor cores would round fp32 operands to TF32.
+// In bf16, K3 (forward and backward), K2's backward and the bf16 x bf16
+// weight gradients are redesigned for the tensor cores (the sections "bf16
+// on the tensor cores" below): at the train step's shapes fp32 FMAs bound
+// the first versions at 0.4-1.2 ms a call, the tensor cores at 0.03-0.08
+// ms, so each row pass is split into mma.sync products over 128-row
+// tiles that fill the card, with the GELU, its derivative, the roundings
+// and the column sums fused into their epilogues, and K2's attention in
+// one pass per (row tile, head). The fp32 instantiations keep the
+// CUDA-core kernels: the tensor cores would round fp32 operands to TF32.
+// K1 and K2's forward are still the first, CUDA-core versions.
 //
 // K2 does not port the TPU kernel's block-diagonal K/V packing (a lane
 // trick): it loops over the heads on K^T [H, Tk] and V [Tk, H] directly,
@@ -172,14 +177,14 @@ __device__ void load_rows(const T* __restrict__ x, int n, int h, int r0,
   }
 }
 
-// U = LN(Z) row by row (one warp per row), rounded to TR. U may alias Z.
-// Statistics in fp32: mean, then the mean of squared deviations.
-template <typename TR>
+// U = LN(Z) row by row (R rows, one warp per row), rounded to TR. U may
+// alias Z. Statistics in fp32: mean, then the mean of squared deviations.
+template <typename TR, int R = ROWS>
 __device__ void ln_rows(const float* Z, float* U, int h,
                         const float* __restrict__ ls,
                         const float* __restrict__ lb, float eps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < ROWS; r += NT / 32) {
+  for (int r = warp; r < R; r += NT / 32) {
     const float* z = Z + r * h;
     float s = 0.f;
     for (int c = lane; c < h; c += 32) s += z[c];
@@ -195,11 +200,11 @@ __device__ void ln_rows(const float* Z, float* U, int h,
   }
 }
 
-// fp32 tile -> y rows [r0, min(r0 + ROWS, n)) in T.
-template <typename T>
+// fp32 tile -> y rows [r0, min(r0 + R, n)) in T.
+template <typename T, int R = ROWS>
 __device__ void store_rows(const float* Y, int h, T* __restrict__ y, int r0,
                            int n) {
-  for (int e = threadIdx.x; e < ROWS * h; e += NT) {
+  for (int e = threadIdx.x; e < R * h; e += NT) {
     const int r = e / h, c = e % h;
     if (r0 + r < n) y[(size_t)(r0 + r) * h + c] = from_f<T>(Y[e]);
   }
@@ -234,7 +239,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
-        G[(ty * 4 + i) * k + c] = gelu_erf(acc[i][j] + b1[c]);
+        if (c < k) G[(ty * 4 + i) * k + c] = gelu_erf(acc[i][j] + b1[c]);
       }
   }
   for (int c0 = 0; c0 < h; c0 += 128) {
@@ -244,6 +249,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
+        if (c >= h) continue;
         float* z = &X[(ty * 4 + i) * h + c];
         *z = (*z + acc[i][j]) + b2[c];
       }
@@ -281,23 +287,27 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
   for (int e = threadIdx.x; e < ROWS * h; e += NT) X[e] += b2[e % h];
   for (int k0 = 0; k0 < k; k0 += 128) {
+    const int kc = min(128, k - k0);  // columns of this chunk
     tile_gemm<4, false, T>(U, h, h, w1, k, k0, k, slab, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 32 * j;
-        G[(ty * 4 + i) * 128 + c] =
-            round_to<T>(gelu_erf(acc[i][j] + b1[k0 + c]));
+        if (c < kc)
+          G[(ty * 4 + i) * 128 + c] =
+              round_to<T>(gelu_erf(acc[i][j] + b1[k0 + c]));
       }
     for (int c0 = 0; c0 < h; c0 += 128) {
-      tile_gemm<4, false, T>(G, 128, 128, w2 + (size_t)k0 * h, h, c0, h,
+      tile_gemm<4, false, T>(G, 128, kc, w2 + (size_t)k0 * h, h, c0, h,
                              slab, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          X[(ty * 4 + i) * h + c0 + tx + 32 * j] += acc[i][j];
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + tx + 32 * j;
+          if (c < h) X[(ty * 4 + i) * h + c] += acc[i][j];
+        }
     }
   }
   __syncthreads();
@@ -305,9 +315,11 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------------
-// K2: cross-modal attention block against a batch-shared K/V
+// K2: cross-modal attention block against a batch-shared K/V, heads of
+// hd = h / heads columns (any width). R rows a block: 32, or 16 where 32
+// rows' tiles would not fit in shared memory (H or Din past about 700).
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(NT)
     cross_attn_block_fwd_kernel(
         const T* __restrict__ x, const T* __restrict__ wt,
@@ -316,64 +328,68 @@ __global__ void __launch_bounds__(NT)
         const float* __restrict__ bq, const T* __restrict__ kt,
         const T* __restrict__ v, const T* __restrict__ wo,
         const float* __restrict__ bo, float eps, float scale,
-        T* __restrict__ y, int n, int din, int h, int tk) {
+        T* __restrict__ y, int n, int din, int h, int heads, int tk) {
+  constexpr int RPW = R / 8;  // rows a warp
   extern __shared__ float smem[];
   const int ldq = max(din, h);
-  float* Q = smem;               // [ROWS][ldq]: x, then q (rounded), then
+  float* Q = smem;               // [R][ldq]: x, then q (rounded), then
                                  // the attention output o (rounded), head
                                  // by head in place of q
-  float* U = Q + ROWS * ldq;     // [ROWS][h]: t, then u = LN(t) in fp32
-  float* S = U + ROWS * h;       // [ROWS][SMAX]: scores, then probs
-  float* slab = S + ROWS * SMAX;  // [KC][128]
-  const int r0 = blockIdx.x * ROWS;
+  float* U = Q + R * ldq;        // [R][h]: t, then u = LN(t) in fp32
+  float* S = U + R * h;          // [R][SMAX]: scores, then probs
+  float* slab = S + R * SMAX;    // [KC][128]
+  const int r0 = blockIdx.x * R;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int lane = tx, warp = ty;
-  float acc[4][4];
-  float acc2[4][2];
+  const int hd = h / heads;
+  float acc[RPW][4];
+  float acc2[RPW][2];
 
-  load_rows(x, n, din, r0, Q, ldq);
+  load_rows<T, R>(x, n, din, r0, Q, ldq);
   // t = x @ Wt + bt
   for (int c0 = 0; c0 < h; c0 += 128) {
-    tile_gemm<4, false, T>(Q, ldq, din, wt, h, c0, h, slab, acc);
+    tile_gemm<4, false, T, false, RPW>(Q, ldq, din, wt, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
-        U[(ty * 4 + i) * h + c] = acc[i][j] + bt[c];
+        if (c < h) U[(ty * RPW + i) * h + c] = acc[i][j] + bt[c];
       }
   }
   __syncthreads();
-  ln_rows<float>(U, U, h, ls, lb, eps);
+  ln_rows<float, R>(U, U, h, ls, lb, eps);
   // q = round(u) @ Wq + bq, kept rounded: it is the scores' operand
   for (int c0 = 0; c0 < h; c0 += 128) {
-    tile_gemm<4, true, T>(U, h, h, wq, h, c0, h, slab, acc);
+    tile_gemm<4, true, T, false, RPW>(U, h, h, wq, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
-        Q[(ty * 4 + i) * ldq + c] = round_to<T>(acc[i][j] + bq[c]);
+        if (c < h)
+          Q[(ty * RPW + i) * ldq + c] = round_to<T>(acc[i][j] + bq[c]);
       }
   }
-  const int heads = h / 64;
-  for (int hd = 0; hd < heads; ++hd) {
+  for (int hh = 0; hh < heads; ++hh) {
+    const int ho = hh * hd;
     // scores = q_h . k^T * scale over the shared rows, -inf past tk
     for (int c0 = 0; c0 < SMAX; c0 += 128) {
-      tile_gemm<4, false, T>(Q + hd * 64, ldq, 64, kt + (size_t)hd * 64 * tk,
-                             tk, c0, tk, slab, acc);
+      tile_gemm<4, false, T, false, RPW>(Q + ho, ldq, hd,
+                                         kt + (size_t)ho * tk, tk, c0, tk,
+                                         slab, acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = c0 + tx + 32 * j;
-          S[(ty * 4 + i) * SMAX + c] =
+          S[(ty * RPW + i) * SMAX + c] =
               (c < tk) ? acc[i][j] * scale : -INFINITY;
         }
     }
     __syncthreads();
     // per-head softmax in fp32, one warp per row; probs rounded to T
-    for (int r = warp; r < ROWS; r += NT / 32) {
+    for (int r = warp; r < R; r += NT / 32) {
       float* s = S + r * SMAX;
       float m = -INFINITY;
       for (int c = lane; c < tk; c += 32) m = fmaxf(m, s[c]);
@@ -387,29 +403,36 @@ __global__ void __launch_bounds__(NT)
       sum = warp_sum(sum);
       for (int c = lane; c < tk; c += 32) s[c] = round_to<T>(s[c] / sum);
     }
-    // o_h = probs @ v_h, written over q_h (no longer read)
-    tile_gemm<2, false, T>(S, SMAX, tk, v + hd * 64, h, 0, 64, slab, acc2);
+    // o_h = probs @ v_h, 64 columns at a time, written over q_h (no
+    // longer read)
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      tile_gemm<2, false, T, false, RPW>(S, SMAX, tk, v + ho, h, c0, hd,
+                                         slab, acc2);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        Q[(ty * 4 + i) * ldq + hd * 64 + tx + 32 * j] =
-            round_to<T>(acc2[i][j]);
+        for (int j = 0; j < 2; ++j) {
+          const int c = c0 + tx + 32 * j;
+          if (c < hd)
+            Q[(ty * RPW + i) * ldq + ho + c] = round_to<T>(acc2[i][j]);
+        }
+    }
   }
   // y = u + (o @ Wo + bo)
   for (int c0 = 0; c0 < h; c0 += 128) {
-    tile_gemm<4, false, T>(Q, ldq, h, wo, h, c0, h, slab, acc);
+    tile_gemm<4, false, T, false, RPW>(Q, ldq, h, wo, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
-        float* u = &U[(ty * 4 + i) * h + c];
+        if (c >= h) continue;
+        float* u = &U[(ty * RPW + i) * h + c];
         *u = *u + (acc[i][j] + bo[c]);
       }
   }
   __syncthreads();
-  store_rows(U, h, y, r0, n);
+  store_rows<T, R>(U, h, y, r0, n);
 }
 
 // ===========================================================================
@@ -437,7 +460,7 @@ __global__ void __launch_bounds__(NT)
 // device-memory bandwidth a fused tensor-core version would not spend.
 
 constexpr int SLAB_T = KC * (128 + 1);  // slab that also takes TR loads
-constexpr int R2 = 16;                  // rows per block in K2's backward
+constexpr int R2 = 16;  // rows per block in K2's backward (8 past ~560 wide)
 
 __device__ __forceinline__ float gelu_erf_grad(float v) {
   // d/dv of 0.5 v (1 + erf(v / sqrt 2)) = Phi(v) + v phi(v), exactly
@@ -537,6 +560,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = c0 + tx + 32 * j;
+        if (c >= k) continue;
         const float pre = acc[i][j] + b1[c];
         const float hv = gelu_erf(pre);
         P[r * k + c] = pre;
@@ -551,8 +575,10 @@ __global__ void __launch_bounds__(NT)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float* z = &X[(ty * 4 + i) * h + c0 + tx + 32 * j];
-        *z = (*z + acc[i][j]) + b2[c0 + tx + 32 * j];
+        const int c = c0 + tx + 32 * j;
+        if (c >= h) continue;
+        float* z = &X[(ty * 4 + i) * h + c];
+        *z = (*z + acc[i][j]) + b2[c];
       }
   }
   __syncthreads();
@@ -604,6 +630,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = c0 + tx + 32 * j;
+        if (c >= k) continue;
         const float dp = acc[i][j] * gelu_erf_grad(P[r * k + c]);
         Hs[r * k + c] = dp;
         if (r < nv) dpre_out[(size_t)(r0 + r) * k + c] = dp;
@@ -620,7 +647,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = c0 + tx + 32 * j;
-        if (r < nv)
+        if (r < nv && c < h)
           dx[(size_t)(r0 + r) * h + c] = from_f<T>(X[r * h + c] + acc[i][j]);
       }
   }
@@ -673,17 +700,18 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
   store_tile<T, ROWS>(U, h, h, nv, um_out, r0);
   for (int k0 = 0; k0 < k; k0 += 128) {
-    // this chunk's pre = um @ W1[:, k0:k0+128] + b1
+    const int kc = min(128, k - k0);  // columns of this chunk (0 past kc)
+    // this chunk's pre = um @ W1[:, k0:k0+kc] + b1
     tile_gemm<4, false, T>(U, h, h, w1, k, k0, k, slab, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 32 * j;
-        P[(ty * 4 + i) * 128 + c] = acc[i][j] + b1[k0 + c];
+        P[(ty * 4 + i) * 128 + c] = c < kc ? acc[i][j] + b1[k0 + c] : 0.f;
       }
-    // dh = g @ W2[k0:k0+128, :]^T; dpre = dh * gelu'(pre)
-    tile_gemm<4, false, T, true>(G, h, h, w2 + (size_t)k0 * h, h, 0, 128,
+    // dh = g @ W2[k0:k0+kc, :]^T; dpre = dh * gelu'(pre)
+    tile_gemm<4, false, T, true>(G, h, h, w2 + (size_t)k0 * h, h, 0, kc,
                                  slab, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -693,26 +721,28 @@ __global__ void __launch_bounds__(NT)
         const float pre = P[r * 128 + c];
         const float dp = acc[i][j] * gelu_erf_grad(pre);
         P[r * 128 + c] = dp;
-        if (r < nv) {
+        if (r < nv && c < kc) {
           const size_t at = (size_t)(r0 + r) * k + k0 + c;
           hm_out[at] = from_f<T>(gelu_erf(pre));
           dpm_out[at] = from_f<T>(dp);
         }
       }
     __syncthreads();
-    col_sums(P, 128, 128, nv, pt + k0);  // db1, before rounding
+    col_sums(P, 128, kc, nv, pt + k0);  // db1, before rounding
     __syncthreads();
     for (int e = threadIdx.x; e < ROWS * 128; e += NT)
       P[e] = round_to<T>(P[e]);
-    // du += dpm @ W1[:, k0:k0+128]^T
+    // du += dpm @ W1[:, k0:k0+kc]^T
     for (int c0 = 0; c0 < h; c0 += 128) {
-      tile_gemm<4, false, T, true>(P, 128, 128, w1 + k0, k, c0, h, slab,
+      tile_gemm<4, false, T, true>(P, 128, kc, w1 + k0, k, c0, h, slab,
                                    acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          DU[(ty * 4 + i) * h + c0 + tx + 32 * j] += acc[i][j];
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + tx + 32 * j;
+          if (c < h) DU[(ty * 4 + i) * h + c] += acc[i][j];
+        }
     }
   }
   __syncthreads();
@@ -755,14 +785,16 @@ __global__ void __launch_bounds__(NT)
 // ---------------------------------------------------------------------------
 // K2 backward (replaces _cab_bwd_kernel, fused_adapter.py:807), per head
 // against k, v [Tk, H] with the forward's per-head softmax max; operands
-// rounded to T where the TPU kernel rounds them. 16-row tiles (the block
-// keeps seven [16, H]-sized tiles). Writes dx, um, qm, om, dom, dqm, dtm
-// [n, h] and pm, dsm [n, heads*tk] in T for dWo = om^T g, dv_h = pm_h^T
-// dom_h, dk_h = dsm_h^T qm_h, dWq = um^T dqm and dWt = x^T dtm; per tile
+// rounded to T where the TPU kernel rounds them; heads of any width h /
+// heads. R-row tiles: 16 (the block keeps seven [16, H]-sized tiles), or
+// 8 where 16 would not fit in shared memory (H past about 560). Writes
+// dx, um, qm, om, dom, dqm, dtm [n, h] and pm, dsm [n, heads*tk] in T for
+// dWo = om^T g, dv_h = pm_h^T dom_h, dk_h = dsm_h^T qm_h, dWq = um^T dqm
+// and dWt = x^T dtm; per tile
 // [dbo = sum g | dbq = sum dqp | dls = sum du xhat | dlb = sum du |
 // dbt = sum dt], each h wide.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wt,
     const float* __restrict__ bt, const float* __restrict__ ls,
@@ -773,93 +805,97 @@ __global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
     T* __restrict__ um_out, T* __restrict__ qm_out, T* __restrict__ om_out,
     T* __restrict__ dom_out, T* __restrict__ pm_out, T* __restrict__ dsm_out,
     T* __restrict__ dqm_out, T* __restrict__ dtm_out,
-    float* __restrict__ part, int n, int din, int h, int tk) {
+    float* __restrict__ part, int n, int din, int h, int heads, int tk) {
   extern __shared__ float smem[];
   const int ldq = max(din, h);
-  float* B1 = smem;               // [R2][ldq]: x, then qm
-  float* U = B1 + R2 * ldq;       // [R2][h]: t, then xhat
-  float* B2 = U + R2 * h;         // [R2][h]: um, then g, then du
-  float* B3 = B2 + R2 * h;        // [R2][h]: dom, then dt / dtm
-  float* B4 = B3 + R2 * h;        // [R2][h]: dqp, then dqm
-  float* S = B4 + R2 * h;         // [R2][SMAX]: scores, probs, dsm
-  float* DP = S + R2 * SMAX;      // [R2][SMAX]: dprobs
-  float* slab = DP + R2 * SMAX;   // SLAB_T
-  float* mean = slab + SLAB_T;    // [R2]
-  float* inv = mean + R2;         // [R2]
-  const int r0 = blockIdx.x * R2, nv = min(R2, n - r0);
+  float* B1 = smem;               // [R][ldq]: x, then qm
+  float* U = B1 + R * ldq;       // [R][h]: t, then xhat
+  float* B2 = U + R * h;         // [R][h]: um, then g, then du
+  float* B3 = B2 + R * h;        // [R][h]: dom, then dt / dtm
+  float* B4 = B3 + R * h;        // [R][h]: dqp, then dqm
+  float* S = B4 + R * h;         // [R][SMAX]: scores, probs, dsm
+  float* DP = S + R * SMAX;      // [R][SMAX]: dprobs
+  float* slab = DP + R * SMAX;   // SLAB_T
+  float* mean = slab + SLAB_T;    // [R]
+  float* inv = mean + R;         // [R]
+  const int r0 = blockIdx.x * R, nv = min(R, n - r0);
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int lane = tx, warp = ty;
-  const int heads = h / 64, hsz = heads * tk;
+  const int hd = h / heads, hsz = heads * tk;
   float* pt = part + (size_t)blockIdx.x * 5 * h;
-  float acc[2][4];
-  float acc2[2][2];
+  constexpr int RPW = R / 8;  // rows a warp
+  float acc[RPW][4];
+  float acc2[RPW][2];
 
-  load_rows<T, R2>(x, n, din, r0, B1, ldq);
+  load_rows<T, R>(x, n, din, r0, B1, ldq);
   // t = x @ Wt + bt
   for (int c0 = 0; c0 < h; c0 += 128) {
     tile_gemm<4, false, T>(B1, ldq, din, wt, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
-        U[(ty * 2 + i) * h + c] = acc[i][j] + bt[c];
+        if (c < h) U[(ty * RPW + i) * h + c] = acc[i][j] + bt[c];
       }
   }
   __syncthreads();
-  row_stats<R2>(U, h, h, eps, mean, inv);
+  row_stats<R>(U, h, h, eps, mean, inv);
   __syncthreads();
-  for (int e = threadIdx.x; e < R2 * h; e += NT) {
+  for (int e = threadIdx.x; e < R * h; e += NT) {
     const int r = e / h, c = e % h;
     const float xh = (U[e] - mean[r]) * inv[r];
     U[e] = xh;
     B2[e] = round_to<T>(xh * ls[c] + lb[c]);  // um
   }
   __syncthreads();
-  store_tile<T, R2>(B2, h, h, nv, um_out, r0);
+  store_tile<T, R>(B2, h, h, nv, um_out, r0);
   // qm = round(um @ Wq + bq), over x (no longer read)
   for (int c0 = 0; c0 < h; c0 += 128) {
     tile_gemm<4, false, T>(B2, h, h, wq, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx + 32 * j;
-        B1[(ty * 2 + i) * ldq + c] = round_to<T>(acc[i][j] + bq[c]);
+        if (c < h)
+          B1[(ty * RPW + i) * ldq + c] = round_to<T>(acc[i][j] + bq[c]);
       }
   }
   __syncthreads();
-  store_tile<T, R2>(B1, ldq, h, nv, qm_out, r0);
-  load_rows<T, R2>(g, n, h, r0, B2, h);
+  store_tile<T, R>(B1, ldq, h, nv, qm_out, r0);
+  load_rows<T, R>(g, n, h, r0, B2, h);
   // dom = round(g @ Wo^T)
   for (int c0 = 0; c0 < h; c0 += 128) {
     tile_gemm<4, false, T, true>(B2, h, h, wo, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        B3[(ty * 2 + i) * h + c0 + tx + 32 * j] = round_to<T>(acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 32 * j;
+        if (c < h) B3[(ty * RPW + i) * h + c] = round_to<T>(acc[i][j]);
+      }
   }
   __syncthreads();
-  store_tile<T, R2>(B3, h, h, nv, dom_out, r0);
-  for (int hd = 0; hd < heads; ++hd) {
-    const int ho = hd * 64;
+  store_tile<T, R>(B3, h, h, nv, dom_out, r0);
+  for (int hh = 0; hh < heads; ++hh) {
+    const int ho = hh * hd;
     // scores = q_h . k_h^T * scale, -inf past tk
     for (int c0 = 0; c0 < SMAX; c0 += 128) {
-      tile_gemm<4, false, T, true>(B1 + ho, ldq, 64, kk + ho, h, c0, tk,
+      tile_gemm<4, false, T, true>(B1 + ho, ldq, hd, kk + ho, h, c0, tk,
                                    slab, acc);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = c0 + tx + 32 * j;
-          S[(ty * 2 + i) * SMAX + c] =
+          S[(ty * RPW + i) * SMAX + c] =
               (c < tk) ? acc[i][j] * scale : -INFINITY;
         }
     }
     __syncthreads();
     // per-head softmax in fp32, one warp per row (probs kept in fp32)
-    for (int r = warp; r < R2; r += NT / 32) {
+    for (int r = warp; r < R; r += NT / 32) {
       float* s = S + r * SMAX;
       float m = -INFINITY;
       for (int c = lane; c < tk; c += 32) m = fmaxf(m, s[c]);
@@ -874,33 +910,34 @@ __global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
       for (int c = lane; c < tk; c += 32) {
         s[c] = s[c] / sum;
         if (r < nv)
-          pm_out[(size_t)(r0 + r) * hsz + hd * tk + c] = from_f<T>(s[c]);
+          pm_out[(size_t)(r0 + r) * hsz + hh * tk + c] = from_f<T>(s[c]);
       }
     }
-    // o_h = round(probs) @ v_h -> om (dWo's operand)
-    tile_gemm<2, true, T>(S, SMAX, tk, v + ho, h, 0, 64, slab, acc2);
+    // o_h = round(probs) @ v_h -> om (dWo's operand), 64 columns at a time
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      tile_gemm<2, true, T>(S, SMAX, tk, v + ho, h, c0, hd, slab, acc2);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = ty * 2 + i;
-        if (r < nv)
-          om_out[(size_t)(r0 + r) * h + ho + tx + 32 * j] =
-              from_f<T>(acc2[i][j]);
-      }
+        for (int j = 0; j < 2; ++j) {
+          const int r = ty * RPW + i, c = c0 + tx + 32 * j;
+          if (r < nv && c < hd)
+            om_out[(size_t)(r0 + r) * h + ho + c] = from_f<T>(acc2[i][j]);
+        }
+    }
     // dprobs = dom_h @ v_h^T
     for (int c0 = 0; c0 < SMAX; c0 += 128) {
-      tile_gemm<4, false, T, true>(B3 + ho, h, 64, v + ho, h, c0, tk, slab,
+      tile_gemm<4, false, T, true>(B3 + ho, h, hd, v + ho, h, c0, tk, slab,
                                    acc);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          DP[(ty * 2 + i) * SMAX + c0 + tx + 32 * j] = acc[i][j];
+          DP[(ty * RPW + i) * SMAX + c0 + tx + 32 * j] = acc[i][j];
     }
     __syncthreads();
     // ds = probs (dprobs - <dprobs, probs>) * scale, rounded
-    for (int r = warp; r < R2; r += NT / 32) {
+    for (int r = warp; r < R; r += NT / 32) {
       float* s = S + r * SMAX;
       const float* dp = DP + r * SMAX;
       float in = 0.f;
@@ -909,32 +946,38 @@ __global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
       for (int c = lane; c < tk; c += 32) {
         s[c] = round_to<T>((s[c] * (dp[c] - in)) * scale);
         if (r < nv)
-          dsm_out[(size_t)(r0 + r) * hsz + hd * tk + c] = from_f<T>(s[c]);
+          dsm_out[(size_t)(r0 + r) * hsz + hh * tk + c] = from_f<T>(s[c]);
       }
     }
     // dqp_h = dsm @ k_h (fp32; dbq sums it before rounding)
-    tile_gemm<2, false, T>(S, SMAX, tk, kk + ho, h, 0, 64, slab, acc2);
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      tile_gemm<2, false, T>(S, SMAX, tk, kk + ho, h, c0, hd, slab, acc2);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < RPW; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        B4[(ty * 2 + i) * h + ho + tx + 32 * j] = acc2[i][j];
+        for (int j = 0; j < 2; ++j) {
+          const int c = c0 + tx + 32 * j;
+          if (c < hd) B4[(ty * RPW + i) * h + ho + c] = acc2[i][j];
+        }
+    }
   }
   __syncthreads();
   col_sums(B2, h, h, nv, pt);      // dbo = sum g
   col_sums(B4, h, h, nv, pt + h);  // dbq = sum dqp
   __syncthreads();
-  for (int e = threadIdx.x; e < R2 * h; e += NT) B4[e] = round_to<T>(B4[e]);
+  for (int e = threadIdx.x; e < R * h; e += NT) B4[e] = round_to<T>(B4[e]);
   __syncthreads();
-  store_tile<T, R2>(B4, h, h, nv, dqm_out, r0);
+  store_tile<T, R>(B4, h, h, nv, dqm_out, r0);
   // du = g + dqm @ Wq^T
   for (int c0 = 0; c0 < h; c0 += 128) {
     tile_gemm<4, false, T, true>(B4, h, h, wq, h, c0, h, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        B2[(ty * 2 + i) * h + c0 + tx + 32 * j] += acc[i][j];
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 32 * j;
+        if (c < h) B2[(ty * RPW + i) * h + c] += acc[i][j];
+      }
   }
   __syncthreads();
   // dls = sum du xhat, dlb = sum du
@@ -948,7 +991,7 @@ __global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
     pt[3 * h + c] = sd;
   }
   // LN backward, one warp per row: dt (fp32) into B3
-  for (int r = warp; r < R2; r += NT / 32) {
+  for (int r = warp; r < R; r += NT / 32) {
     const float* du = B2 + r * h;
     const float* xh = U + r * h;
     float s1 = 0.f, s2 = 0.f;
@@ -964,18 +1007,18 @@ __global__ void __launch_bounds__(NT) cross_attn_block_bwd_kernel(
   __syncthreads();
   col_sums(B3, h, h, nv, pt + 4 * h);  // dbt = sum dt
   __syncthreads();
-  for (int e = threadIdx.x; e < R2 * h; e += NT) B3[e] = round_to<T>(B3[e]);
+  for (int e = threadIdx.x; e < R * h; e += NT) B3[e] = round_to<T>(B3[e]);
   __syncthreads();
-  store_tile<T, R2>(B3, h, h, nv, dtm_out, r0);
+  store_tile<T, R>(B3, h, h, nv, dtm_out, r0);
   if (dx == nullptr) return;
   // dx = dtm @ Wt^T
   for (int c0 = 0; c0 < din; c0 += 128) {
     tile_gemm<4, false, T, true>(B3, h, h, wt, h, c0, din, slab, acc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int r = ty * 2 + i, c = c0 + tx + 32 * j;
+        const int r = ty * RPW + i, c = c0 + tx + 32 * j;
         if (r < nv && c < din)
           dx[(size_t)(r0 + r) * din + c] = from_f<T>(acc[i][j]);
       }
@@ -1099,22 +1142,28 @@ __global__ void __launch_bounds__(NT)
 // values are exact in fp32, so only the summation order differs.
 
 // 128 x 128 block tiles on 8 warps of 64 x 32, 64-deep stages, 3 stages
-typedef vct::BlockGemm<128, 128, 64, 64, 32, false, true, true, 3> GemmNT;
-template <bool VEC>
-using GemmTN = vct::BlockGemm<128, 128, 64, 64, 32, true, false, VEC, 3>;
+typedef vct::BlockGemm<128, 128, 64, 64, 32, false, true, 3> GemmNT;
+typedef vct::BlockGemm<128, 128, 64, 64, 32, true, false, 3> GemmTN;
 constexpr int TC = 128;      // rows and columns of a product's block tile
 constexpr int LN_ROWS = 32;  // rows per block of the LN backward
 
-__global__ void __launch_bounds__(NT)
-    pnmlp_ln_fwd_kernel(const vct::bf16* __restrict__ x,
-                        const float* __restrict__ ls,
-                        const float* __restrict__ lb, float eps,
-                        vct::bf16* __restrict__ um, float* __restrict__ mean,
-                        float* __restrict__ inv, int n, int h) {
+// um = round(LN(x)) row by row, one warp a row (the forward's
+// statistics: the mean, then the mean of squared deviations), and each
+// row's mean and 1/std unless mean is null. x is bf16 (K3) or fp32 (K2's
+// t = x Wt + bt).
+template <typename TI>
+__device__ __forceinline__ void ln_fwd_rows(const TI* __restrict__ x,
+                                            const float* __restrict__ ls,
+                                            const float* __restrict__ lb,
+                                            float eps,
+                                            vct::bf16* __restrict__ um,
+                                            float* __restrict__ mean,
+                                            float* __restrict__ inv, int n,
+                                            int h) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
   if (r >= n) return;
-  const vct::bf16* xr = x + (size_t)r * h;
+  const TI* xr = x + (size_t)r * h;
   float s = 0.f;
   for (int c = lane; c < h; c += 32) s += to_f(xr[c]);
   const float m = warp_sum(s) / h;
@@ -1127,10 +1176,19 @@ __global__ void __launch_bounds__(NT)
   for (int c = lane; c < h; c += 32)
     um[(size_t)r * h + c] =
         from_f<vct::bf16>((to_f(xr[c]) - m) * iv * ls[c] + lb[c]);
-  if (lane == 0) {
+  if (lane == 0 && mean != nullptr) {
     mean[r] = m;
     inv[r] = iv;
   }
+}
+
+__global__ void __launch_bounds__(NT)
+    pnmlp_ln_fwd_kernel(const vct::bf16* __restrict__ x,
+                        const float* __restrict__ ls,
+                        const float* __restrict__ lb, float eps,
+                        vct::bf16* __restrict__ um, float* __restrict__ mean,
+                        float* __restrict__ inv, int n, int h) {
+  ln_fwd_rows(x, ls, lb, eps, um, mean, inv, n, h);
 }
 
 // The hidden product's block holds two groups of 8 warps on the same
@@ -1141,8 +1199,8 @@ __global__ void __launch_bounds__(NT)
 // groups trade half their accumulators through shared memory, in the
 // fragment order both share, and each runs the epilogue (one erff per
 // element for GELU and its derivative) on half the rows.
-typedef vct::BlockGemm<128, 128, 32, 64, 32, false, false, true, 3> HidNN;
-typedef vct::BlockGemm<128, 128, 32, 64, 32, false, true, true, 3> HidNT;
+typedef vct::BlockGemm<128, 128, 32, 64, 32, false, false, 3> HidNN;
+typedef vct::BlockGemm<128, 128, 32, 64, 32, false, true, 3> HidNT;
 constexpr int HID_GROUP = HidNN::THREADS;  // threads of one group
 constexpr int HID_STAGE = HidNN::STAGE_ELEMS + HidNT::STAGE_ELEMS;
 constexpr int HID_ACC = HidNN::MT * HidNN::NT * 4;  // accumulators a thread
@@ -1165,7 +1223,7 @@ __global__ void __launch_bounds__(2 * HID_GROUP, 1)
   const int c0 = blockIdx.x * TC, r0 = blockIdx.y * TC;
   const bool dh_group = threadIdx.x >= HID_GROUP;
   const int tid = threadIdx.x - (dh_group ? HID_GROUP : 0);
-  const int nk = h / 32;
+  const int nk = (h + 31) / 32;
   auto load = [&](int j) {
     vct::bf16* st = sm + (j % 3) * HID_STAGE;
     if (dh_group)
@@ -1235,7 +1293,7 @@ __global__ void __launch_bounds__(2 * HID_GROUP, 1)
           gelu_and_grad(p, hv[e], gp);
           dv[e] = (dh_group ? acc[i][j][at] : o) * gp;
         }
-        if (r < n) {
+        if (r < n && c < k) {
           const size_t at = (size_t)r * k + c;
           *reinterpret_cast<uint32_t*>(hm_out + at) =
               vct::pack_bf16(hv[0], hv[1]);
@@ -1262,7 +1320,7 @@ __global__ void __launch_bounds__(2 * HID_GROUP, 1)
         red[wm / (16 * HidNN::MT) * 2 + dh_group][wn + j * 8 + 2 * tq + e] = v;
     }
   __syncthreads();
-  if (threadIdx.x < TC) {
+  if (threadIdx.x < TC && c0 + threadIdx.x < k) {
     const int c = threadIdx.x;
     part[(size_t)blockIdx.y * k + c0 + c] =
         ((red[0][c] + red[1][c]) + red[2][c]) + red[3][c];
@@ -1288,10 +1346,12 @@ __global__ void __launch_bounds__(GemmNT::THREADS)
       const int r = r0 + wm + i * 16 + gr + half * 8;
       if (r >= n) continue;
 #pragma unroll
-      for (int j = 0; j < GemmNT::NT; ++j)
-        *reinterpret_cast<float2*>(du + (size_t)r * h + c0 + wn + j * 8 +
-                                   2 * tq) =
-            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      for (int j = 0; j < GemmNT::NT; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * tq;
+        if (c < h)
+          *reinterpret_cast<float2*>(du + (size_t)r * h + c) =
+              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
     }
 }
 
@@ -1347,15 +1407,14 @@ __global__ void __launch_bounds__(NT)
 // out[z*so + a*ldo + b] = sum over the split's rows r of A[r*lda + z*sa +
 // a] * B[r*ldb + z*sb + b], bf16 operands on the tensor cores: the same
 // contract, grid and ordered row chunks as wgrad_kernel, over 128 x 128
-// output tiles. VEC: 16-byte copies (aligned operands, widths multiples
-// of 8); else element copies (K2's per-head slices of width Tk).
-template <bool VEC>
-__global__ void __launch_bounds__(GemmTN<VEC>::THREADS)
+// output tiles. Operands 16-byte aligned, their strides, offsets and
+// widths multiples of 8 (K2 pads each head's keys to 8 for this).
+__global__ void __launch_bounds__(GemmTN::THREADS)
     wgrad_mma_kernel(const vct::bf16* __restrict__ A, int lda, int sa,
                      const vct::bf16* __restrict__ B, int ldb, int sb,
                      float* __restrict__ out, int ldo, int so, int n, int P,
                      int Q, int nz, int chunk, size_t split_stride) {
-  typedef GemmTN<VEC> G;
+  typedef GemmTN G;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   vct::bf16* sm = reinterpret_cast<vct::bf16*>(tc_smem);
   const int z = blockIdx.z % nz, split = blockIdx.z / nz;
@@ -1383,6 +1442,522 @@ __global__ void __launch_bounds__(GemmTN<VEC>::THREADS)
           if (b < Q) out[(size_t)a * ldo + b] = acc[i][j][2 * half + e];
         }
     }
+}
+
+// ===========================================================================
+// bf16 on the tensor cores: K3 forward and K2 backward
+// ===========================================================================
+//
+// The same shape as K3's backward above: the row pass becomes products
+// that fill the card, each a BlockGemm with its elementwise work in the
+// epilogue (gemm_tile below hands each pair of output columns to an
+// epilogue functor), plus row kernels for the LayerNorms and, for K2, one
+// attention pass. Every rounding point stays where the TPU kernels and
+// the fp32 kernels above put it; products of bf16 values are exact in
+// fp32, so only the order of the fp32 sums differs.
+//
+// K3 forward (replaces _pnmlp_fwd_kernel, fused_adapter.py:532): 31 GFLOP
+// at the train step's text shape (x [7392, 512], hidden 2048), which fp32
+// FMAs cannot do in under 0.46 ms; the tensor cores' bound is 0.031 ms.
+//
+//   pnmlp_fwd_ln_kernel       um = round(LN(x))
+//   pnmlp_fwd_hidden_kernel   hm = round(gelu(um W1 + b1)) [n, 4h] in bf16,
+//                             128 x 128 tiles
+//   pnmlp_fwd_out_kernel      y = round(x + b2 + hm W2), 128 x 64 tiles
+//                             (twice the blocks of 128 x 128: 464 at the
+//                             train step, 8 for one served request)
+//
+// The hidden goes through device memory (15 MB each way at the train
+// step, about 0.01 ms): keeping it on chip would take 128 x 4h fp32
+// accumulators a block.
+//
+// K2 backward (replaces _cab_bwd_kernel, fused_adapter.py:807): 40 GFLOP
+// at the train step's text shape (H = 512, 8 heads of 64, Tk = 197):
+//
+//   cab_bwd_t_kernel       t = x Wt + bt (fp32)
+//   cab_bwd_ln_fwd_kernel  um = round(LN(t)), each row's mean and 1/std
+//   cab_bwd_q_kernel       qm = round(um Wq + bq)
+//   cab_bwd_dom_kernel     dom = round(g Wo^T)
+//   cab_bwd_attn_kernel    one block per (128 rows, head), below
+//   cab_bwd_du_kernel      du = g + dqm Wq^T (fp32)
+//   cab_bwd_ln_kernel      dtm = round(dt), dt the LN backward of du; per
+//                          32-row tile the column sums of g (dbo), du
+//                          xhat (dls), du (dlb) and the unrounded dt (dbt)
+//   cab_bwd_dx_kernel      dx = dtm Wt^T (when asked)
+//
+// then dWo = om^T g, dv_h = pm_h^T dom_h, dk_h = dsm_h^T qm_h, dWq = um^T
+// dqm and dWt = x^T dtm through wgrad_mma_kernel and the partials through
+// colsum_kernel, in order: no atomics, the gradients repeat bit for bit.
+// pm and dsm keep each head's keys padded to a multiple of 8 (197 ->
+// 200, zeros past Tk), so the per-head weight gradients read 16-byte
+// rows.
+//
+// The attention pass holds the head's K and V (Tk rows, zero-filled to a
+// multiple of 16; 64 KB at Tk = 256) and the tile's q and dom rows in
+// shared memory; each warp takes 16 rows and walks the keys in groups of
+// 16, three times: (1) the scores, for each row's max and sum of
+// exponentials; (2) p (fp32), pm = round(p), o = round(p) v (-> om),
+// dp = dom_h v_h^T and <dp, p>; (3) p and dp again, ds = round(p (dp -
+// <dp, p>) scale) (-> dsm) and dqp = ds k_h, whose column sums over the
+// tile (dbq, before rounding) go to a [tiles, H] partial and whose
+// rounding is dqm. The [128, Tk] scores never leave registers: recomputing
+// them costs 7 products of 16 x 64 x Tk a warp where 4 would do (10
+// GFLOP at the train step, about 0.07 ms), far below what storing them
+// would cost. Keys past Tk score -inf before the max (ex2(-inf) = 0);
+// groups wholly past Tk are not walked.
+
+// 128 x 64 block tiles on 8 warps of 32 x 32, 64-deep stages, 3 stages
+template <bool B_T>
+using Gemm64 = vct::BlockGemm<128, 64, 64, 32, 32, false, B_T, 3>;
+
+// One block's tile of A B (blockIdx.x the column tile, blockIdx.y the row
+// tile; rows of A past m_end and columns of B past n_end read as 0),
+// handed to epi(r, c, v0, v1) for each pair of columns (c, c + 1) of a
+// row r < m_end with c < n_end (n_end even).
+template <class G, class Epi>
+__device__ __forceinline__ void gemm_tile(const Epi& epi,
+                                          const vct::bf16* A, long long lda,
+                                          const vct::bf16* B, long long ldb,
+                                          int m_end, int n_end, int depth) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int c0 = blockIdx.x * G::TILE_N, r0 = blockIdx.y * G::TILE_M;
+  typename G::Acc acc;
+  G::zero(acc);
+  G::run(acc, reinterpret_cast<vct::bf16*>(tc_smem), A, lda, B, ldb, r0,
+         m_end, c0, n_end, 0, depth);
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = G::warp_m(threadIdx.x), wn = G::warp_n(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + wm + i * 16 + gr + half * 8;
+      if (r >= m_end) continue;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * tq;
+        if (c < n_end)
+          epi(r, c, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+    }
+}
+
+__device__ __forceinline__ void store_pair(vct::bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = vct::pack_bf16(a, b);
+}
+
+// out = round(v + bias) in bf16 (no bias when null)
+struct RoundEpi {
+  vct::bf16* out;
+  const float* bias;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    if (bias != nullptr) {
+      v0 += bias[c];
+      v1 += bias[c + 1];
+    }
+    store_pair(out + (size_t)r * ld + c, v0, v1);
+  }
+};
+
+// out = v + bias in fp32
+struct BiasF32Epi {
+  float* out;
+  const float* bias;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    *reinterpret_cast<float2*>(out + (size_t)r * ld + c) =
+        make_float2(v0 + bias[c], v1 + bias[c + 1]);
+  }
+};
+
+// out = g + v in fp32 (g bf16)
+struct AddGEpi {
+  float* out;
+  const vct::bf16* g;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * ld + c;
+    *reinterpret_cast<float2*>(out + at) =
+        make_float2(to_f(g[at]) + v0, to_f(g[at + 1]) + v1);
+  }
+};
+
+// hm = round(gelu(v + b1))
+struct GeluEpi {
+  vct::bf16* hm;
+  const float* b1;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    store_pair(hm + (size_t)r * ld + c, gelu_erf(v0 + b1[c]),
+               gelu_erf(v1 + b1[c + 1]));
+  }
+};
+
+// y = round((x + b2) + v)
+struct ResidEpi {
+  vct::bf16* y;
+  const vct::bf16* x;
+  const float* b2;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * ld + c;
+    store_pair(y + at, (to_f(x[at]) + b2[c]) + v0,
+               (to_f(x[at + 1]) + b2[c + 1]) + v1);
+  }
+};
+
+// --- K3 forward ----------------------------------------------------------
+
+__global__ void __launch_bounds__(NT)
+    pnmlp_fwd_ln_kernel(const vct::bf16* __restrict__ x,
+                        const float* __restrict__ ls,
+                        const float* __restrict__ lb, float eps,
+                        vct::bf16* __restrict__ um, int n, int h) {
+  ln_fwd_rows(x, ls, lb, eps, um, nullptr, nullptr, n, h);
+}
+
+__global__ void __launch_bounds__(HidNN::THREADS, 2)
+    pnmlp_fwd_hidden_kernel(const vct::bf16* __restrict__ um,
+                            const vct::bf16* __restrict__ w1,
+                            const float* __restrict__ b1,
+                            vct::bf16* __restrict__ hm, int n, int h,
+                            int k) {
+  gemm_tile<HidNN>(GeluEpi{hm, b1, k}, um, h, w1, k, n, k, h);
+}
+
+__global__ void __launch_bounds__(Gemm64<false>::THREADS, 2)
+    pnmlp_fwd_out_kernel(const vct::bf16* __restrict__ hm,
+                         const vct::bf16* __restrict__ w2,
+                         const vct::bf16* __restrict__ x,
+                         const float* __restrict__ b2,
+                         vct::bf16* __restrict__ y, int n, int h, int k) {
+  gemm_tile<Gemm64<false>>(ResidEpi{y, x, b2, h}, hm, k, w2, h, n, h, k);
+}
+
+// --- K2 backward ---------------------------------------------------------
+
+__global__ void __launch_bounds__(Gemm64<false>::THREADS, 2)
+    cab_bwd_t_kernel(const vct::bf16* __restrict__ x,
+                     const vct::bf16* __restrict__ wt,
+                     const float* __restrict__ bt, float* __restrict__ t,
+                     int n, int din, int h) {
+  gemm_tile<Gemm64<false>>(BiasF32Epi{t, bt, h}, x, din, wt, h, n, h, din);
+}
+
+__global__ void __launch_bounds__(NT)
+    cab_bwd_ln_fwd_kernel(const float* __restrict__ t,
+                          const float* __restrict__ ls,
+                          const float* __restrict__ lb, float eps,
+                          vct::bf16* __restrict__ um,
+                          float* __restrict__ mean, float* __restrict__ inv,
+                          int n, int h) {
+  ln_fwd_rows(t, ls, lb, eps, um, mean, inv, n, h);
+}
+
+__global__ void __launch_bounds__(Gemm64<false>::THREADS, 2)
+    cab_bwd_q_kernel(const vct::bf16* __restrict__ um,
+                     const vct::bf16* __restrict__ wq,
+                     const float* __restrict__ bq,
+                     vct::bf16* __restrict__ qm, int n, int h) {
+  gemm_tile<Gemm64<false>>(RoundEpi{qm, bq, h}, um, h, wq, h, n, h, h);
+}
+
+__global__ void __launch_bounds__(Gemm64<true>::THREADS, 2)
+    cab_bwd_dom_kernel(const vct::bf16* __restrict__ g,
+                       const vct::bf16* __restrict__ wo,
+                       vct::bf16* __restrict__ dom, int n, int h) {
+  gemm_tile<Gemm64<true>>(RoundEpi{dom, nullptr, h}, g, h, wo, h, n, h, h);
+}
+
+__global__ void __launch_bounds__(Gemm64<true>::THREADS, 2)
+    cab_bwd_du_kernel(const vct::bf16* __restrict__ dqm,
+                      const vct::bf16* __restrict__ wq,
+                      const vct::bf16* __restrict__ g,
+                      float* __restrict__ du, int n, int h) {
+  gemm_tile<Gemm64<true>>(AddGEpi{du, g, h}, dqm, h, wq, h, n, h, h);
+}
+
+__global__ void __launch_bounds__(Gemm64<true>::THREADS, 2)
+    cab_bwd_dx_kernel(const vct::bf16* __restrict__ dtm,
+                      const vct::bf16* __restrict__ wt,
+                      vct::bf16* __restrict__ dx, int n, int din, int h) {
+  gemm_tile<Gemm64<true>>(RoundEpi{dx, nullptr, din}, dtm, h, wt, h, n, din,
+                          h);
+}
+
+constexpr int AT_ROWS = 128;      // rows of an attention block: 8 warps
+
+// K2's head widths on the tensor cores: a head of hd columns (a multiple
+// of 8) runs in the kernel of the least HD >= hd, zero-filled past hd.
+constexpr int HD_MAX = 128;
+
+size_t cab_attn_smem(int tk, int HD) {
+  const size_t tk16 = (size_t)(tk + 15) / 16 * 16;
+  return sizeof(vct::bf16) * (2 * tk16 + 2 * AT_ROWS) * (HD + 8) +
+         sizeof(float) * (NT / 32) * HD;
+}
+
+// One block per (128-row tile, head), 8 warps of 16 rows; see the section
+// comment. Heads of hd <= HD columns (hd a multiple of 8; the tiles' columns
+// past hd read as 0, which changes no score, and are not written). qm, dom,
+// om, dqm [n, h]; k, v [tk, h]; pm, dsm [n, heads, tkp] (keys past tk
+// written as 0, tkp = tk rounded up to 8); part [tiles, h] (dbq).
+template <int HD>
+__global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
+    cab_bwd_attn_kernel(const vct::bf16* __restrict__ qm,
+                        const vct::bf16* __restrict__ dom,
+                        const vct::bf16* __restrict__ k,
+                        const vct::bf16* __restrict__ v, float scale,
+                        vct::bf16* __restrict__ om, vct::bf16* __restrict__ pm,
+                        vct::bf16* __restrict__ dsm,
+                        vct::bf16* __restrict__ dqm, float* __restrict__ part,
+                        int n, int h, int hd, int tk, int tkp) {
+  using vct::ex2;
+  using vct::L2E;
+  using vct::quad_max;
+  using vct::quad_sum;
+  constexpr int AT_LD = HD + 8;  // shared row of a bf16 head tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tk16 = (tk + 15) & ~15;
+  vct::bf16* Ks = reinterpret_cast<vct::bf16*>(tc_smem);  // [tk16][AT_LD]
+  vct::bf16* Vs = Ks + tk16 * AT_LD;                      // [tk16][AT_LD]
+  vct::bf16* Qs = Vs + tk16 * AT_LD;                      // [128][AT_LD]
+  vct::bf16* Ds = Qs + AT_ROWS * AT_LD;                   // [128][AT_LD]
+  float* red = reinterpret_cast<float*>(Ds + AT_ROWS * AT_LD);  // [8][HD]
+  const int r0 = blockIdx.x * AT_ROWS, head = blockIdx.y, c0 = head * hd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r_lo = r0 + warp * 16 + g, r_hi = r_lo + 8;  // this thread's rows
+  const bool active = r0 + warp * 16 < n;
+  const size_t prow = (size_t)gridDim.y * tkp;  // row stride of pm, dsm
+
+  for (int e = threadIdx.x; e < tk16 * (HD / 8); e += NT) {
+    const int r = e / (HD / 8), c = (e % (HD / 8)) * 8;
+    const bool ok = r < tk && c < hd;
+    const size_t at = (size_t)r * h + c0 + c;
+    vct::cp_async16(Ks + r * AT_LD + c, ok ? k + at : k, ok);
+    vct::cp_async16(Vs + r * AT_LD + c, ok ? v + at : v, ok);
+  }
+  vct::load_tile<AT_ROWS, HD, AT_LD, NT>(Qs, qm, h, r0, n, c0, c0 + hd,
+                                         threadIdx.x);
+  vct::load_tile<AT_ROWS, HD, AT_LD, NT>(Ds, dom, h, r0, n, c0, c0 + hd,
+                                         threadIdx.x);
+  vct::cp_async_commit();
+  vct::cp_async_wait<0>();
+  __syncthreads();
+
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  if (active) {
+    uint32_t qf[HD / 16][4], df[HD / 16][4];
+    vct::load_a_rows<HD>(qf, Qs, AT_LD, warp * 16, lane);
+    vct::load_a_rows<HD>(df, Ds, AT_LD, warp * 16, lane);
+    const int groups = tk16 / 16;
+    // scores of keys kb .. kb + 15 (s0: kb .. kb + 7, s1: the next 8)
+    // times scale, -inf past tk
+    auto scores = [&](int kb, float (&s0)[4], float (&s1)[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s0[e] = s1[e] = 0.f;
+      vct::mma_rows_t16<HD>(s0, s1, qf, Ks, AT_LD, kb, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = kb + 2 * tq + (e & 1);
+        s0[e] = c < tk ? s0[e] * scale : -INFINITY;
+        s1[e] = c + 8 < tk ? s1[e] * scale : -INFINITY;
+      }
+    };
+    // pass 1: each row's max and sum of exponentials, online
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+    for (int kg = 0; kg < groups; ++kg) {
+      float s0[4], s1[4];
+      scores(kg * 16, s0, s1);
+      // every group holds a key below tk, so the new max is finite
+      const float mn_lo = fmaxf(
+          m_lo, quad_max(fmaxf(fmaxf(s0[0], s0[1]), fmaxf(s1[0], s1[1]))));
+      const float mn_hi = fmaxf(
+          m_hi, quad_max(fmaxf(fmaxf(s0[2], s0[3]), fmaxf(s1[2], s1[3]))));
+      const float c_lo = -mn_lo * L2E, c_hi = -mn_hi * L2E;
+      const float e_lo =
+          (ex2(fmaf(s0[0], L2E, c_lo)) + ex2(fmaf(s0[1], L2E, c_lo))) +
+          (ex2(fmaf(s1[0], L2E, c_lo)) + ex2(fmaf(s1[1], L2E, c_lo)));
+      const float e_hi =
+          (ex2(fmaf(s0[2], L2E, c_hi)) + ex2(fmaf(s0[3], L2E, c_hi))) +
+          (ex2(fmaf(s1[2], L2E, c_hi)) + ex2(fmaf(s1[3], L2E, c_hi)));
+      l_lo = (m_lo == -INFINITY ? 0.f : l_lo * ex2((m_lo - mn_lo) * L2E)) +
+             e_lo;
+      l_hi = (m_hi == -INFINITY ? 0.f : l_hi * ex2((m_hi - mn_hi) * L2E)) +
+             e_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+    }
+    const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+    const float ml_lo = -m_lo * L2E, ml_hi = -m_hi * L2E;
+    // p = exp(s - max) / sum in fp32 (0 past tk)
+    auto probs = [&](int kb, float (&p0)[4], float (&p1)[4]) {
+      scores(kb, p0, p1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ml = e < 2 ? ml_lo : ml_hi;
+        const float iv = e < 2 ? inv_lo : inv_hi;
+        p0[e] = ex2(fmaf(p0[e], L2E, ml)) * iv;
+        p1[e] = ex2(fmaf(p1[e], L2E, ml)) * iv;
+      }
+    };
+    // dp = dom_h v_h^T
+    auto dprobs = [&](int kb, float (&d0)[4], float (&d1)[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d0[e] = d1[e] = 0.f;
+      vct::mma_rows_t16<HD>(d0, d1, df, Vs, AT_LD, kb, lane);
+    };
+    // keys kb .. kb + 15 of the thread's rows, rounded, into this head's
+    // slot of pm or dsm (keys below tkp)
+    auto store_keys = [&](vct::bf16* out, int kb, const float (&s0)[4],
+                          const float (&s1)[4]) {
+      vct::bf16* base = out + (size_t)head * tkp;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float* s = jj ? s1 : s0;
+        const int c = kb + jj * 8 + 2 * tq;
+        if (c >= tkp) continue;
+        if (r_lo < n) store_pair(base + r_lo * prow + c, s[0], s[1]);
+        if (r_hi < n) store_pair(base + r_hi * prow + c, s[2], s[3]);
+      }
+    };
+    // pass 2: pm, o = round(p) v, <dp, p>
+    float o[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float dpp_lo = 0.f, dpp_hi = 0.f;
+    for (int kg = 0; kg < groups; ++kg) {
+      const int kb = kg * 16;
+      float p0[4], p1[4], d0[4], d1[4];
+      probs(kb, p0, p1);
+      dprobs(kb, d0, d1);
+      dpp_lo += (d0[0] * p0[0] + d0[1] * p0[1]) +
+                (d1[0] * p1[0] + d1[1] * p1[1]);
+      dpp_hi += (d0[2] * p0[2] + d0[3] * p0[3]) +
+                (d1[2] * p1[2] + d1[3] * p1[3]);
+      uint32_t a[4];
+      vct::pack_a(a, p0, p1);
+      vct::mma_rows16<HD>(o, a, Vs, AT_LD, kb, lane);
+      store_keys(pm, kb, p0, p1);
+    }
+    dpp_lo = quad_sum(dpp_lo);
+    dpp_hi = quad_sum(dpp_hi);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = c0 + j * 8 + 2 * tq;
+      if (j * 8 >= hd) break;
+      if (r_lo < n) store_pair(om + (size_t)r_lo * h + c, o[j][0], o[j][1]);
+      if (r_hi < n) store_pair(om + (size_t)r_hi * h + c, o[j][2], o[j][3]);
+    }
+    // pass 3: ds = round(p (dp - <dp, p>) scale) -> dsm, dqp = ds k
+    for (int kg = 0; kg < groups; ++kg) {
+      const int kb = kg * 16;
+      float p0[4], p1[4], d0[4], d1[4];
+      probs(kb, p0, p1);
+      dprobs(kb, d0, d1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float in = e < 2 ? dpp_lo : dpp_hi;
+        p0[e] = (p0[e] * (d0[e] - in)) * scale;
+        p1[e] = (p1[e] * (d1[e] - in)) * scale;
+      }
+      uint32_t a[4];
+      vct::pack_a(a, p0, p1);
+      vct::mma_rows16<HD>(dq, a, Ks, AT_LD, kb, lane);
+      store_keys(dsm, kb, p0, p1);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = c0 + j * 8 + 2 * tq;
+      if (j * 8 >= hd) break;
+      if (r_lo < n) store_pair(dqm + (size_t)r_lo * h + c, dq[j][0], dq[j][1]);
+      if (r_hi < n) store_pair(dqm + (size_t)r_hi * h + c, dq[j][2], dq[j][3]);
+    }
+  }
+  // dbq: the column sums of the unrounded dqp over the tile's rows, over
+  // the lanes of a column, then the warps in order
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = (r_lo < n ? dq[j][e] : 0.f) + (r_hi < n ? dq[j][2 + e] : 0.f);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) red[warp * HD + j * 8 + 2 * tq + e] = s;
+    }
+  __syncthreads();
+  if (threadIdx.x < hd) {
+    float s = 0.f;
+    for (int w = 0; w < NT / 32; ++w) s += red[w * HD + threadIdx.x];
+    part[(size_t)blockIdx.x * h + c0 + threadIdx.x] = s;
+  }
+}
+
+// dt = LN backward of du (d = du ls: dt = inv (d - mean(d) - xhat
+// mean(d xhat)), xhat from t and the row's statistics), dtm = round(dt),
+// one warp a row; then per 32-row tile [dbo = sum g | dls = sum du xhat |
+// dlb = sum du | dbt = sum dt] (dt recomputed from the rows' two means).
+__global__ void __launch_bounds__(NT)
+    cab_bwd_ln_kernel(const float* __restrict__ t,
+                      const float* __restrict__ du,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ ls,
+                      const vct::bf16* __restrict__ g,
+                      vct::bf16* __restrict__ dtm, float* __restrict__ part,
+                      int n, int h) {
+  __shared__ float m1s[LN_ROWS], m2s[LN_ROWS];
+  const int r0 = blockIdx.x * LN_ROWS, nv = min(LN_ROWS, n - r0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < nv; i += NT / 32) {
+    const int r = r0 + i;
+    const float* tr = t + (size_t)r * h;
+    const float* dr = du + (size_t)r * h;
+    const float mr = mean[r], ir = inv[r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float xh = (tr[c] - mr) * ir, d = dr[c] * ls[c];
+      s1 += d;
+      s2 += d * xh;
+    }
+    const float m1 = warp_sum(s1) / h, m2 = warp_sum(s2) / h;
+    for (int c = lane; c < h; c += 32) {
+      const float xh = (tr[c] - mr) * ir, d = dr[c] * ls[c];
+      dtm[(size_t)r * h + c] = from_f<vct::bf16>(ir * (d - m1 - xh * m2));
+    }
+    if (lane == 0) {
+      m1s[i] = m1;
+      m2s[i] = m2;
+    }
+  }
+  __syncthreads();
+  float* pt = part + (size_t)blockIdx.x * 4 * h;
+  for (int c = threadIdx.x; c < h; c += NT) {
+    float sg = 0.f, sdx = 0.f, sd = 0.f, sdt = 0.f;
+    for (int i = 0; i < nv; ++i) {
+      const int r = r0 + i;
+      const size_t at = (size_t)r * h + c;
+      const float ir = inv[r];
+      const float xh = (t[at] - mean[r]) * ir, d = du[at];
+      sg += to_f(g[at]);
+      sdx += d * xh;
+      sd += d;
+      sdt += ir * (d * ls[c] - m1s[i] - xh * m2s[i]);
+    }
+    pt[c] = sg;
+    pt[h + c] = sdx;
+    pt[2 * h + c] = sd;
+    pt[3 * h + c] = sdt;
+  }
 }
 
 // ===========================================================================
@@ -1600,6 +2175,32 @@ int allow_smem(K kernel, size_t smem) {
 
 inline dim3 grid_for(int n) { return dim3((n + ROWS - 1) / ROWS); }
 
+// K2's forward takes 32-row tiles where they fit in a Hopper block's 227
+// KB of shared memory, else 16-row tiles.
+constexpr size_t SMEM_MAX = 227 * 1024;
+size_t cab_fwd_smem(int rows, int din, int h) {
+  const size_t ldq = din > h ? din : h;
+  return sizeof(float) * ((size_t)rows * (ldq + h + SMAX) + KC * 128);
+}
+template <typename T, int R>
+int cab_fwd_launch(const void* x, const void* wt, const void* bt,
+                          const void* ls, const void* lb, const void* wq,
+                          const void* bq, const void* kt, const void* v,
+                          const void* wo, const void* bo, float eps,
+                          float scale, void* y, int n, int din, int h,
+                          int heads, int tk, size_t smem, cudaStream_t st) {
+  auto kern = cross_attn_block_fwd_kernel<T, R>;
+  int err;
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<(n + R - 1) / R, NT, smem, st>>>(
+      (const T*)x, (const T*)wt, (const float*)bt, (const float*)ls,
+      (const float*)lb, (const T*)wq, (const float*)bq, (const T*)kt,
+      (const T*)v, (const T*)wo, (const float*)bo, eps, scale, (T*)y, n, din,
+      h, heads, tk);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -1613,9 +2214,8 @@ size_t vct_prenorm_mlp_smem(int h) {
   return sizeof(float) * (2 * (size_t)ROWS * h + ROWS * 128 + KC * 128);
 }
 size_t vct_cross_attn_block_smem(int din, int h) {
-  const size_t ldq = din > h ? din : h;
-  return sizeof(float) *
-         (ROWS * ldq + (size_t)ROWS * h + ROWS * SMAX + KC * 128);
+  const size_t s = cab_fwd_smem(ROWS, din, h);
+  return s <= SMEM_MAX ? s : cab_fwd_smem(ROWS / 2, din, h);
 }
 
 int vct_seq_adapter_fwd(int bf16, const void* x, const void* w1,
@@ -1643,30 +2243,21 @@ int vct_seq_adapter_fwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
+// fp32 only (the CUDA-core kernel); bf16 takes vct_prenorm_mlp_fwd_bf16.
 int vct_prenorm_mlp_fwd(int bf16, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* b2,
                         const void* ls, const void* lb, float eps, void* y,
                         int n, int h, int k, void* stream) {
+  if (bf16) return (int)cudaErrorInvalidValue;
   const size_t smem = vct_prenorm_mlp_smem(h);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *fb1 = (const float*)b1, *fb2 = (const float*)b2,
-              *fls = (const float*)ls, *flb = (const float*)lb;
+  typedef float T;
+  auto kern = prenorm_mlp_fwd_kernel<T>;
   int err;
-  if (bf16) {
-    typedef __nv_bfloat16 T;
-    auto kern = prenorm_mlp_fwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid_for(n), NT, smem, st>>>((const T*)x, (const T*)w1, fb1,
-                                        (const T*)w2, fb2, fls, flb, eps,
-                                        (T*)y, n, h, k);
-  } else {
-    typedef float T;
-    auto kern = prenorm_mlp_fwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid_for(n), NT, smem, st>>>((const T*)x, (const T*)w1, fb1,
-                                        (const T*)w2, fb2, fls, flb, eps,
-                                        (T*)y, n, h, k);
-  }
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<grid_for(n), NT, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
+      (const float*)b2, (const float*)ls, (const float*)lb, eps, (T*)y, n, h,
+      k);
   return (int)cudaGetLastError();
 }
 
@@ -1675,31 +2266,17 @@ int vct_cross_attn_block_fwd(int bf16, const void* x, const void* wt,
                              const void* wq, const void* bq, const void* kt,
                              const void* v, const void* wo, const void* bo,
                              float eps, float scale, void* y, int n, int din,
-                             int h, int tk, void* stream) {
+                             int h, int heads, int tk, void* stream) {
   const size_t smem = vct_cross_attn_block_smem(din, h);
+  const bool r32 = smem == cab_fwd_smem(ROWS, din, h);
   cudaStream_t st = (cudaStream_t)stream;
-  const float *fbt = (const float*)bt, *fls = (const float*)ls,
-              *flb = (const float*)lb, *fbq = (const float*)bq,
-              *fbo = (const float*)bo;
-  int err;
-  if (bf16) {
-    typedef __nv_bfloat16 T;
-    auto kern = cross_attn_block_fwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid_for(n), NT, smem, st>>>(
-        (const T*)x, (const T*)wt, fbt, fls, flb, (const T*)wq, fbq,
-        (const T*)kt, (const T*)v, (const T*)wo, fbo, eps, scale, (T*)y, n,
-        din, h, tk);
-  } else {
-    typedef float T;
-    auto kern = cross_attn_block_fwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid_for(n), NT, smem, st>>>(
-        (const T*)x, (const T*)wt, fbt, fls, flb, (const T*)wq, fbq,
-        (const T*)kt, (const T*)v, (const T*)wo, fbo, eps, scale, (T*)y, n,
-        din, h, tk);
-  }
-  return (int)cudaGetLastError();
+  typedef __nv_bfloat16 B;
+  auto launch = bf16 ? (r32 ? cab_fwd_launch<B, ROWS>
+                            : cab_fwd_launch<B, ROWS / 2>)
+                     : (r32 ? cab_fwd_launch<float, ROWS>
+                            : cab_fwd_launch<float, ROWS / 2>);
+  return launch(x, wt, bt, ls, lb, wq, bq, kt, v, wo, bo, eps, scale, y, n,
+                din, h, heads, tk, smem, st);
 }
 
 size_t vct_seq_adapter_bwd_smem(int h, int k) {
@@ -1710,10 +2287,17 @@ size_t vct_prenorm_mlp_bwd_smem(int h) {
   return sizeof(float) *
          (3 * (size_t)ROWS * h + ROWS * 128 + SLAB_T + 2 * ROWS);
 }
-size_t vct_cross_attn_block_bwd_smem(int din, int h) {
+static size_t cab_bwd_smem(int rows, int din, int h) {
   const size_t ldq = din > h ? din : h;
-  return sizeof(float) * (R2 * ldq + 4 * (size_t)R2 * h + 2 * R2 * SMAX +
-                          SLAB_T + 2 * R2);
+  return sizeof(float) * (rows * (ldq + 4 * (size_t)h + 2 * SMAX + 2) +
+                          SLAB_T);
+}
+// Rows a block of K2's fp32 backward takes: 16 where they fit, else 8.
+int vct_cross_attn_block_bwd_rows(int din, int h) {
+  return cab_bwd_smem(R2, din, h) <= SMEM_MAX ? R2 : R2 / 2;
+}
+size_t vct_cross_attn_block_bwd_smem(int din, int h) {
+  return cab_bwd_smem(vct_cross_attn_block_bwd_rows(din, h), din, h);
 }
 
 int vct_seq_adapter_bwd(int bf16, const void* x, const void* w1,
@@ -1767,6 +2351,8 @@ int vct_prenorm_mlp_bwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
+// fp32 only (the CUDA-core row pass); bf16 takes
+// vct_cross_attn_block_bwd_bf16.
 int vct_cross_attn_block_bwd(int bf16, const void* x, const void* wt,
                              const void* bt, const void* ls, const void* lb,
                              const void* wq, const void* bq, const void* k,
@@ -1775,39 +2361,30 @@ int vct_cross_attn_block_bwd(int bf16, const void* x, const void* wt,
                              void* qm_out, void* om_out, void* dom_out,
                              void* pm_out, void* dsm_out, void* dqm_out,
                              void* dtm_out, void* part, int n, int din,
-                             int h, int tk, void* stream) {
+                             int h, int heads, int tk, void* stream) {
+  if (bf16) return (int)cudaErrorInvalidValue;
   const size_t smem = vct_cross_attn_block_bwd_smem(din, h);
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((n + R2 - 1) / R2);
-  const float *fbt = (const float*)bt, *fls = (const float*)ls,
-              *flb = (const float*)lb, *fbq = (const float*)bq;
+  const int rows = vct_cross_attn_block_bwd_rows(din, h);
+  typedef float T;
+  auto kern = rows == R2 ? cross_attn_block_bwd_kernel<T, R2>
+                         : cross_attn_block_bwd_kernel<T, R2 / 2>;
   int err;
-  if (bf16) {
-    typedef __nv_bfloat16 T;
-    auto kern = cross_attn_block_bwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid, NT, smem, st>>>(
-        (const T*)x, (const T*)wt, fbt, fls, flb, (const T*)wq, fbq,
-        (const T*)k, (const T*)v, (const T*)wo, (const T*)g, eps, scale,
-        (T*)dx, (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
-        (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, tk);
-  } else {
-    typedef float T;
-    auto kern = cross_attn_block_bwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<grid, NT, smem, st>>>(
-        (const T*)x, (const T*)wt, fbt, fls, flb, (const T*)wq, fbq,
-        (const T*)k, (const T*)v, (const T*)wo, (const T*)g, eps, scale,
-        (T*)dx, (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
-        (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, tk);
-  }
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<dim3((n + rows - 1) / rows), NT, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)wt, (const float*)bt, (const float*)ls,
+      (const float*)lb, (const T*)wq, (const float*)bq, (const T*)k,
+      (const T*)v, (const T*)wo, (const T*)g, eps, scale, (T*)dx,
+      (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
+      (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, heads,
+      tk);
   return (int)cudaGetLastError();
 }
 
 // A and B each float (0) or bf16 (1); bf16 A with fp32 B is K1's x^T dpre.
 // bf16 x bf16 runs on the tensor cores over 128 x 128 output tiles (grid
-// ceil(q / 128) x ceil(p / 128) x z * splits), the rest on the CUDA cores
-// over 64 x 64 tiles.
+// ceil(q / 128) x ceil(p / 128) x z * splits; a and b 16-byte aligned,
+// lda, ldb, sa, sb, p and q multiples of 8, else cudaErrorMisalignedAddress),
+// the rest on the CUDA cores over 64 x 64 tiles.
 // With splits > 1, `work` holds splits * out_numel floats of partials
 // (out_numel: the floats of out the products cover) and split_sum_kernel
 // writes out; with splits == 1 the blocks write out directly.
@@ -1830,17 +2407,15 @@ int vct_wgrad(int a_bf16, int b_bf16, const void* a, int lda, int sa,
         (const H*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p, q,
         z, chunk, stride);
   else if (a_bf16 && b_bf16) {
-    // the tensor cores, over 128 x 128 tiles
+    // the tensor cores, over 128 x 128 tiles, in 16-byte copies
     const dim3 tgrid((q + TC - 1) / TC, (p + TC - 1) / TC, z * splits);
     const bool vec = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
                      lda % 8 == 0 && ldb % 8 == 0 && sa % 8 == 0 &&
                      sb % 8 == 0 && p % 8 == 0 && q % 8 == 0;
-    auto kern = vec ? wgrad_mma_kernel<true> : wgrad_mma_kernel<false>;
-    const size_t smem = vec ? GemmTN<true>::SMEM_BYTES
-                            : GemmTN<false>::SMEM_BYTES;
+    if (!vec) return (int)cudaErrorMisalignedAddress;
     int err;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<tgrid, GemmTN<true>::THREADS, smem, st>>>(
+    if ((err = allow_smem(wgrad_mma_kernel, GemmTN::SMEM_BYTES))) return err;
+    wgrad_mma_kernel<<<tgrid, GemmTN::THREADS, GemmTN::SMEM_BYTES, st>>>(
         (const H*)a, lda, sa, (const H*)b, ldb, sb, o, ldo, so, n, p, q, z,
         chunk, stride);
   } else
@@ -1858,7 +2433,7 @@ int vct_colsum(const void* part, int tiles, int v, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// K3 backward in bf16 on the tensor cores (h, k multiples of 128; every
+// K3 backward in bf16 on the tensor cores (h, k multiples of 8; every
 // pointer 16-byte aligned), all its launches in one call: writes dx
 // (unless null), dw1 [h, k], dw2 [k, h] and vec [db1 (k) | db2 | dls |
 // dlb (h each)]. act: bf16 scratch of n (h + 2k) (um, hm, dpm); scratch:
@@ -1871,7 +2446,7 @@ int vct_prenorm_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
                              void* dw2, void* vec, void* act, void* scratch,
                              int splits, int n, int h, int k, void* stream) {
   typedef vct::bf16 T;
-  if (h % TC || k % TC) return (int)cudaErrorInvalidValue;
+  if (h % 8 || k % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int row_tiles = (n + TC - 1) / TC;
   const int ln_tiles = (n + LN_ROWS - 1) / LN_ROWS;
@@ -1890,13 +2465,13 @@ int vct_prenorm_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
       h);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = allow_smem(pnmlp_bwd_hidden_kernel, HID_SMEM))) return err;
-  pnmlp_bwd_hidden_kernel<<<dim3(k / TC, row_tiles), 2 * HID_GROUP,
-                            HID_SMEM, st>>>(
+  pnmlp_bwd_hidden_kernel<<<dim3((k + TC - 1) / TC, row_tiles),
+                            2 * HID_GROUP, HID_SMEM, st>>>(
       um, (const T*)g, (const T*)w1, (const float*)b1, (const T*)w2, hm, dpm,
       part_hidden, n, h, k);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = allow_smem(pnmlp_bwd_du_kernel, GemmNT::SMEM_BYTES))) return err;
-  pnmlp_bwd_du_kernel<<<dim3(h / TC, row_tiles), GemmNT::THREADS,
+  pnmlp_bwd_du_kernel<<<dim3((h + TC - 1) / TC, row_tiles), GemmNT::THREADS,
                         GemmNT::SMEM_BYTES, st>>>(dpm, (const T*)w1, du, n, h,
                                                   k);
   if ((err = (int)cudaGetLastError())) return err;
@@ -1913,6 +2488,229 @@ int vct_prenorm_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
     return err;
   if ((err = vct_colsum(part_hidden, row_tiles, k, vec, stream))) return err;
   return vct_colsum(part_ln, ln_tiles, 3 * h, (float*)vec + k, stream);
+}
+
+// K3 forward in bf16 on the tensor cores (h, k multiples of 8; every
+// pointer 16-byte aligned): y [n, h]; ws: vct_prenorm_mlp_fwd_bf16_ws
+// bytes of scratch (um [n, h] and hm [n, k] in bf16).
+size_t vct_prenorm_mlp_fwd_bf16_ws(int n, int h, int k) {
+  return sizeof(vct::bf16) * (size_t)n * (h + k);
+}
+
+int vct_prenorm_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* ls,
+                             const void* lb, float eps, void* y, void* ws,
+                             int n, int h, int k, void* stream) {
+  typedef vct::bf16 T;
+  if (h % 8 || k % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int row_tiles = (n + TC - 1) / TC;
+  T* um = (T*)ws;
+  T* hm = um + (size_t)n * h;
+  int err;
+  pnmlp_fwd_ln_kernel<<<(n + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+      (const T*)x, (const float*)ls, (const float*)lb, eps, um, n, h);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = allow_smem(pnmlp_fwd_hidden_kernel, HidNN::SMEM_BYTES)))
+    return err;
+  pnmlp_fwd_hidden_kernel<<<dim3((k + TC - 1) / TC, row_tiles),
+                            HidNN::THREADS, HidNN::SMEM_BYTES, st>>>(
+      um, (const T*)w1, (const float*)b1, hm, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  typedef Gemm64<false> G;
+  if ((err = allow_smem(pnmlp_fwd_out_kernel, G::SMEM_BYTES))) return err;
+  pnmlp_fwd_out_kernel<<<dim3((h + G::TILE_N - 1) / G::TILE_N, row_tiles),
+                         G::THREADS, G::SMEM_BYTES, st>>>(
+      hm, (const T*)w2, (const T*)x, (const float*)b2, (T*)y, n, h, k);
+  return (int)cudaGetLastError();
+}
+
+// K2 backward in bf16 on the tensor cores: its shape gate, scratch and
+// weight-gradient row chunks, all decided here from the shapes.
+static bool cab_bwd_bf16_ok(int din, int h, int heads, int tk) {
+  const int hd = heads > 0 ? h / heads : 0;
+  return heads > 0 && hd * heads == h && hd % 8 == 0 && hd <= HD_MAX &&
+         din % 8 == 0 && tk > 0 && tk <= SMAX;
+}
+
+// Row chunks of a weight gradient on the tensor cores with `tiles` 128 x
+// 128 output tiles (two blocks fit an SM): at most one wave of the card,
+// no chunk under 256 rows, at most 16 (as _tc_splits in
+// ops/fused_adapter.py, which the other callers of vct_wgrad use).
+constexpr int SMS = 132;  // H100 SXM streaming multiprocessors
+static int tc_splits(int n, int tiles) {
+  int s = 2 * SMS / tiles;
+  if (s > n / 256) s = n / 256;
+  if (s > 16) s = 16;
+  return s > 1 ? s : 1;
+}
+
+// K2 backward's five weight gradients (dWo, dv, dk, dWq, dWt) as (p, q,
+// z): output p x q, z times; and their row chunks.
+struct CabGrads {
+  int p[5], q[5], z[5], splits[5];
+  size_t work;  // floats of row-chunk partials (the largest product)
+  CabGrads(int n, int din, int h, int heads, int tkp) {
+    const int hd = h / heads;
+    const int pqz[5][3] = {{h, h, 1}, {tkp, hd, heads}, {tkp, hd, heads},
+                           {h, h, 1}, {din, h, 1}};
+    work = 0;
+    for (int i = 0; i < 5; ++i) {
+      p[i] = pqz[i][0];
+      q[i] = pqz[i][1];
+      z[i] = pqz[i][2];
+      splits[i] = tc_splits(n, (p[i] + TC - 1) / TC * ((q[i] + TC - 1) / TC) *
+                                   z[i]);
+      const size_t w = (size_t)splits[i] * p[i] * q[i] * z[i];
+      if (splits[i] > 1 && w > work) work = w;
+    }
+  }
+};
+
+// K2 backward's bf16 scratch, carved from one buffer in 16-byte-aligned
+// pieces: bf16 um, qm, dom, om, dqm, dtm [n, h] and pm, dsm [n, heads,
+// tkp]; fp32 t, du [n, h], mean, inv [n], the LN partials [ceil(n / 32),
+// 4h], the dbq partials [ceil(n / 128), h] and the weight gradients' row
+// chunks.
+struct CabWs {
+  vct::bf16 *um, *qm, *dom, *om, *dqm, *dtm, *pm, *dsm;
+  float *t, *du, *mean, *inv, *part_ln, *part_q, *work;
+};
+
+static size_t cab_ws(unsigned char* base, int n, int h, int heads, int tkp,
+                     size_t work, CabWs* w) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    void* p = (void*)((uintptr_t)base + off);
+    off += (bytes + 15) / 16 * 16;
+    return p;
+  };
+  const size_t nh = (size_t)n * h, np = (size_t)n * heads * tkp;
+  const size_t ln_tiles = ((size_t)n + LN_ROWS - 1) / LN_ROWS;
+  const size_t row_tiles = ((size_t)n + TC - 1) / TC;
+  vct::bf16** bf[] = {&w->um, &w->qm, &w->dom, &w->om, &w->dqm, &w->dtm};
+  for (vct::bf16** p : bf) *p = (vct::bf16*)take(sizeof(vct::bf16) * nh);
+  w->pm = (vct::bf16*)take(sizeof(vct::bf16) * np);
+  w->dsm = (vct::bf16*)take(sizeof(vct::bf16) * np);
+  w->t = (float*)take(sizeof(float) * nh);
+  w->du = (float*)take(sizeof(float) * nh);
+  w->mean = (float*)take(sizeof(float) * n);
+  w->inv = (float*)take(sizeof(float) * n);
+  w->part_ln = (float*)take(sizeof(float) * ln_tiles * 4 * h);
+  w->part_q = (float*)take(sizeof(float) * row_tiles * h);
+  w->work = (float*)take(sizeof(float) * work);
+  return off;
+}
+
+// Bytes of scratch vct_cross_attn_block_bwd_bf16 takes; 0 for shapes it
+// does not take.
+size_t vct_cross_attn_block_bwd_bf16_ws(int n, int din, int h, int heads,
+                                        int tk) {
+  if (!cab_bwd_bf16_ok(din, h, heads, tk)) return 0;
+  const int tkp = (tk + 7) / 8 * 8;
+  CabWs w;
+  return cab_ws(nullptr, n, h, heads, tkp,
+                CabGrads(n, din, h, heads, tkp).work, &w);
+}
+
+// K2 backward in bf16 on the tensor cores (heads of hd = h / heads
+// columns, hd a multiple of 8 up to HD_MAX; din a multiple of 8; 0 < tk <=
+// 256; every pointer 16-byte aligned), all its launches in one call:
+// writes dx [n, din] (unless null) and into `grads` (fp32) dWt [din, h],
+// dWq [h, h], dWo [h, h], dk [tkp, h], dv [tkp, h] (rows past tk zero) and
+// [dbo | dls | dlb | dbt | dbq] (h each). ws:
+// vct_cross_attn_block_bwd_bf16_ws bytes.
+int vct_cross_attn_block_bwd_bf16(
+    const void* x, const void* wt, const void* bt, const void* ls,
+    const void* lb, const void* wq, const void* bq, const void* k,
+    const void* v, const void* wo, const void* g, float eps, float scale,
+    void* dx, void* grads, void* ws, int n, int din, int h, int heads,
+    int tk, void* stream) {
+  typedef vct::bf16 T;
+  if (!cab_bwd_bf16_ok(din, h, heads, tk)) return (int)cudaErrorInvalidValue;
+  const int hd = h / heads, tkp = (tk + 7) / 8 * 8;
+  cudaStream_t st = (cudaStream_t)stream;
+  const CabGrads wg(n, din, h, heads, tkp);
+  CabWs w;
+  cab_ws((unsigned char*)ws, n, h, heads, tkp, wg.work, &w);
+  float* dwt = (float*)grads;
+  float* dwq = dwt + (size_t)din * h;
+  float* dwo = dwq + (size_t)h * h;
+  float* dk = dwo + (size_t)h * h;
+  float* dv = dk + (size_t)tkp * h;
+  float* vec = dv + (size_t)tkp * h;
+  const T *tx = (const T*)x, *tg = (const T*)g;
+  const int row_tiles = (n + TC - 1) / TC;
+  const int ln_tiles = (n + LN_ROWS - 1) / LN_ROWS;
+  typedef Gemm64<false> GN;
+  typedef Gemm64<true> GT;
+  const dim3 hgrid((h + GN::TILE_N - 1) / GN::TILE_N, row_tiles);
+  int err;
+#define VCT_CHECK() \
+  if ((err = (int)cudaGetLastError())) return err
+  if ((err = allow_smem(cab_bwd_t_kernel, GN::SMEM_BYTES))) return err;
+  cab_bwd_t_kernel<<<hgrid, GN::THREADS, GN::SMEM_BYTES, st>>>(
+      tx, (const T*)wt, (const float*)bt, w.t, n, din, h);
+  VCT_CHECK();
+  cab_bwd_ln_fwd_kernel<<<(n + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+      w.t, (const float*)ls, (const float*)lb, eps, w.um, w.mean, w.inv, n,
+      h);
+  VCT_CHECK();
+  if ((err = allow_smem(cab_bwd_q_kernel, GN::SMEM_BYTES))) return err;
+  cab_bwd_q_kernel<<<hgrid, GN::THREADS, GN::SMEM_BYTES, st>>>(
+      w.um, (const T*)wq, (const float*)bq, w.qm, n, h);
+  VCT_CHECK();
+  if ((err = allow_smem(cab_bwd_dom_kernel, GT::SMEM_BYTES))) return err;
+  cab_bwd_dom_kernel<<<hgrid, GT::THREADS, GT::SMEM_BYTES, st>>>(
+      tg, (const T*)wo, w.dom, n, h);
+  VCT_CHECK();
+  const dim3 agrid(row_tiles, heads);
+  if (hd <= 64) {
+    const size_t asmem = cab_attn_smem(tk, 64);
+    if ((err = allow_smem(cab_bwd_attn_kernel<64>, asmem))) return err;
+    cab_bwd_attn_kernel<64><<<agrid, NT, asmem, st>>>(
+        w.qm, w.dom, (const T*)k, (const T*)v, scale, w.om, w.pm, w.dsm,
+        w.dqm, w.part_q, n, h, hd, tk, tkp);
+  } else {
+    const size_t asmem = cab_attn_smem(tk, HD_MAX);
+    if ((err = allow_smem(cab_bwd_attn_kernel<HD_MAX>, asmem))) return err;
+    cab_bwd_attn_kernel<HD_MAX><<<agrid, NT, asmem, st>>>(
+        w.qm, w.dom, (const T*)k, (const T*)v, scale, w.om, w.pm, w.dsm,
+        w.dqm, w.part_q, n, h, hd, tk, tkp);
+  }
+  VCT_CHECK();
+  if ((err = allow_smem(cab_bwd_du_kernel, GT::SMEM_BYTES))) return err;
+  cab_bwd_du_kernel<<<hgrid, GT::THREADS, GT::SMEM_BYTES, st>>>(
+      w.dqm, (const T*)wq, tg, w.du, n, h);
+  VCT_CHECK();
+  cab_bwd_ln_kernel<<<ln_tiles, NT, 0, st>>>(w.t, w.du, w.mean, w.inv,
+                                             (const float*)ls, tg, w.dtm,
+                                             w.part_ln, n, h);
+  VCT_CHECK();
+  if (dx != nullptr) {
+    if ((err = allow_smem(cab_bwd_dx_kernel, GT::SMEM_BYTES))) return err;
+    cab_bwd_dx_kernel<<<dim3((din + GT::TILE_N - 1) / GT::TILE_N, row_tiles),
+                        GT::THREADS, GT::SMEM_BYTES, st>>>(
+        w.dtm, (const T*)wt, (T*)dx, n, din, h);
+    VCT_CHECK();
+  }
+#undef VCT_CHECK
+  // dWo = om^T g; per head dv_h = pm_h^T dom_h, dk_h = dsm_h^T qm_h; dWq =
+  // um^T dqm; dWt = x^T dtm (one work buffer: the stream orders them)
+  const int pp = heads * tkp;
+  const T* as[5] = {w.om, w.pm, w.dsm, w.um, tx};
+  const T* bs[5] = {tg, w.dom, w.qm, w.dqm, w.dtm};
+  float* outs[5] = {dwo, dv, dk, dwq, dwt};
+  const int ldas[5] = {h, pp, pp, h, din}, sas[5] = {0, tkp, tkp, 0, 0};
+  const int sbs[5] = {0, hd, hd, 0, 0};
+  for (int i = 0; i < 5; ++i)
+    if ((err = vct_wgrad(1, 1, as[i], ldas[i], sas[i], bs[i], h, sbs[i],
+                         outs[i], h, sbs[i], n, wg.p[i], wg.q[i], wg.z[i],
+                         wg.splits[i], w.work,
+                         (size_t)wg.p[i] * wg.q[i] * wg.z[i], stream)))
+      return err;
+  if ((err = vct_colsum(w.part_ln, ln_tiles, 4 * h, vec, stream))) return err;
+  return vct_colsum(w.part_q, row_tiles, h, vec + 4 * (size_t)h, stream);
 }
 
 // K6, forward and backward: one block per row.

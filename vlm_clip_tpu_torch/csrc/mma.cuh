@@ -2,8 +2,13 @@
 // shared by csrc/attention.cu and csrc/fused_adapter.cu.
 //
 // - ldmatrix (plain and .trans) from bf16 tiles in shared memory;
+// - quad reductions over an accumulator row, ex2 on the SFU;
+// - a warp's 16-row fragment products against a tile of keys (scores
+//   q k^T, p v), shared by K5 and K2's backward;
 // - mma.sync.m16n8k16 with bf16 operands and fp32 accumulators;
 // - cp.async 16-byte copies (zero-filled past a tile's ragged edge);
+//   every operand is 16-byte aligned, its row stride and widths
+//   multiples of 8;
 // - load_tile: a bf16 tile of a row-major matrix into shared memory;
 // - BlockGemm: one block's [BM, BN] fp32 tile of A B over a depth range,
 //   through a STAGES-deep cp.async ring, with either operand read in
@@ -83,44 +88,113 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Reductions over the four lanes of a quad (lane & ~3 alike): the lanes
+// that hold one row of an m16n8 accumulator fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+constexpr float L2E = 1.4426950408889634f;  // log2(e)
+
+// 2^x on the special-function unit; exp(s - m) = ex2(s log2e - m log2e),
+// and ex2(-inf) = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // (lo, hi) rounded to bf16, lo in the low 16 bits.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// A warp's A fragments of 16 rows [row0, row0 + 16) of a bf16 tile s
+// (row stride ld) over a depth of KD: a[kk] covers columns 16kk .. 16kk +
+// 15.
+template <int KD>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[KD / 16][4],
+                                            const bf16* s, int ld, int row0,
+                                            int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk)
+    ldsm_x4(a[kk], s + (row0 + (lane & 15)) * ld + kk * 16 + (lane >> 4) * 8);
+}
+
+// s0, s1 (m16n8 tiles: columns k0 .. k0 + 7 and k0 + 8 .. k0 + 15) +=
+// the warp's 16 rows, as A fragments a over a depth of KD, times rows k0
+// .. k0 + 15 of a row-major bf16 tile Bs (row stride ld) transposed:
+// B(k, n) = Bs[(k0 + n) * ld + k]. With q's rows in a and K's rows in Bs
+// these are the scores of 16 keys.
+template <int KD>
+__device__ __forceinline__ void mma_rows_t16(float (&s0)[4], float (&s1)[4],
+                                             const uint32_t (&a)[KD / 16][4],
+                                             const bf16* Bs, int ld, int k0,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    uint32_t r[4];
+    ldsm_x4(r, Bs + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + kk * 16 +
+                   ((lane >> 3) & 1) * 8);
+    mma_bf16(s0, a[kk], r[0], r[1]);
+    mma_bf16(s1, a[kk], r[2], r[3]);
+  }
+}
+
+// acc[j] (m16n8 tiles over N columns) += a, the warp's 16 rows over 16
+// keys k0 .. k0 + 15 as one A fragment, times rows k0 .. k0 + 15 of a
+// row-major bf16 tile Bs (row stride ld): B(k, n) = Bs[(k0 + k) * ld + n].
+// With p in a and V's rows in Bs this is p v over 16 keys.
+template <int N>
+__device__ __forceinline__ void mma_rows16(float (&acc)[N / 8][4],
+                                           const uint32_t (&a)[4],
+                                           const bf16* Bs, int ld, int k0,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; j += 2) {
+    uint32_t r[4];
+    ldsm_x4_t(r, Bs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + j * 8 +
+                     (lane >> 4) * 8);
+    mma_bf16(acc[j], a, r[0], r[1]);
+    mma_bf16(acc[j + 1], a, r[2], r[3]);
+  }
+}
+
+// The A fragment (16 rows x 16 keys) of two m16n8 fp32 tiles s0 (keys
+// 0-7) and s1 (keys 8-15), each value rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&s0)[4],
+                                       const float (&s1)[4]) {
+  a[0] = pack_bf16(s0[0], s0[1]);
+  a[1] = pack_bf16(s0[2], s0[3]);
+  a[2] = pack_bf16(s1[0], s1[1]);
+  a[3] = pack_bf16(s1[2], s1[3]);
+}
+
 // Rows [r0, r0 + R) and columns [c0, c0 + C) of a row-major bf16 matrix
 // (row stride ld elements) -> dst (row stride LDS), by NT threads of
-// which this is thread tid; an element at row >= r_end or column >= c_end
-// reads as 0. VEC copies 16-byte chunks with cp.async (src 16-byte
-// aligned, ld, c0 and c_end multiples of 8); else one element at a time
-// through registers (any alignment).
-template <int R, int C, int LDS, int NT, bool VEC>
+// which this is thread tid, in 16-byte chunks with cp.async (src 16-byte
+// aligned; ld, c0 and c_end multiples of 8); a chunk at row >= r_end or
+// column >= c_end is zero-filled.
+template <int R, int C, int LDS, int NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long ld, int r0, int r_end,
                                           int c0, int c_end, int tid) {
-  if constexpr (VEC) {
-    constexpr int CPR = C / 8, N = R * CPR;
+  constexpr int CPR = C / 8, N = R * CPR;
 #pragma unroll
-    for (int i = 0; i < (N + NT - 1) / NT; ++i) {
-      const int e = tid + i * NT;
-      if (N % NT != 0 && e >= N) break;
-      const int r = e / CPR, c = (e % CPR) * 8;
-      const bool ok = r0 + r < r_end && c0 + c < c_end;
-      cp_async16(dst + r * LDS + c,
-                 ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
-    }
-  } else {
-    constexpr int N = R * C;
-#pragma unroll 4
-    for (int i = 0; i < (N + NT - 1) / NT; ++i) {
-      const int e = tid + i * NT;
-      if (N % NT != 0 && e >= N) break;
-      const int r = e / C, c = e % C;
-      const bool ok = r0 + r < r_end && c0 + c < c_end;
-      dst[r * LDS + c] =
-          ok ? src[(size_t)(r0 + r) * ld + c0 + c] : __float2bfloat16(0.f);
-    }
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int e = tid + i * NT;
+    if (N % NT != 0 && e >= N) break;
+    const int r = e / CPR, c = (e % CPR) * 8;
+    const bool ok = r0 + r < r_end && c0 + c < c_end;
+    cp_async16(dst + r * LDS + c,
+               ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
   }
 }
 
@@ -134,8 +208,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 // thread's index among the THREADS that share the tile (threadIdx.x in
 // run), so that one block may hold two such groups of warps.
 template <int BM, int BN, int BK, int WM, int WN, bool A_T, bool B_T,
-          bool VEC, int STAGES>
+          int STAGES>
 struct BlockGemm {
+  static constexpr int TILE_M = BM, TILE_N = BN;
   static constexpr int WARPS_N = BN / WN;
   static constexpr int THREADS = (BM / WM) * WARPS_N * 32;
   static constexpr int MT = WM / 16, NT = WN / 8;
@@ -168,16 +243,16 @@ struct BlockGemm {
     bf16* sa = s;
     bf16* sb = s + A_ROWS * A_LD;
     if (A_T)
-      load_tile<BK, BM, A_LD, THREADS, VEC>(sa, A, lda, k, k_end, m0, m_end,
+      load_tile<BK, BM, A_LD, THREADS>(sa, A, lda, k, k_end, m0, m_end,
                                             tid);
     else
-      load_tile<BM, BK, A_LD, THREADS, VEC>(sa, A, lda, m0, m_end, k, k_end,
+      load_tile<BM, BK, A_LD, THREADS>(sa, A, lda, m0, m_end, k, k_end,
                                             tid);
     if (B_T)
-      load_tile<BN, BK, B_LD, THREADS, VEC>(sb, B, ldb, n0, n_end, k, k_end,
+      load_tile<BN, BK, B_LD, THREADS>(sb, B, ldb, n0, n_end, k, k_end,
                                             tid);
     else
-      load_tile<BK, BN, B_LD, THREADS, VEC>(sb, B, ldb, k, k_end, n0, n_end,
+      load_tile<BK, BN, B_LD, THREADS>(sb, B, ldb, k, k_end, n0, n_end,
                                             tid);
   }
 

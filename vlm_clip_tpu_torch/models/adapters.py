@@ -13,11 +13,13 @@ ported).
   then a pre-norm 4xH GELU MLP with residual -> kernels K2 and K3.
 
 ``impl`` picks the implementation: ``"auto"`` launches the kernels for
-CUDA tensors and takes their plain versions for CPU tensors;
-``"torch"`` forces the plain versions; ``"kernel"`` forces the kernels
-and raises on a CPU tensor. The image side (projection, norm1, k/v
-projections of the batch-1 image sequence) is plain torch and runs once
-per call, not per row.
+CUDA tensors and takes the plain versions for CPU tensors; ``"torch"``
+forces the plain versions; ``"kernel"`` forces the kernels and raises on
+a CPU tensor. Where the reference computes the cross-modal block plainly
+(a shared K/V longer than its ATTN_SEG_MAX), ``"auto"`` takes K2's plain
+version too (``F.cross_attn_block_supported``) and ``"kernel"`` raises.
+The image side (projection, norm1, k/v projections of the batch-1 image
+sequence) is plain torch and runs once per call, not per row.
 """
 
 from __future__ import annotations
@@ -34,7 +36,12 @@ Params = Dict[str, Any]
 IMPLS = ("auto", "torch", "kernel")
 
 
-def _pick(impl: str, x: torch.Tensor, kernel_fn, torch_fn):
+def _pick(impl: str, x: torch.Tensor, kernel_fn, torch_fn,
+          supported: bool = True):
+    """The function to call: ``supported`` is False where the reference
+    computes plainly (K2's shape gate). Under "auto" a CUDA call there
+    takes the plain version (a static route decided before any launch; a
+    kernel that fails to build or launch still raises)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "torch":
@@ -42,6 +49,8 @@ def _pick(impl: str, x: torch.Tensor, kernel_fn, torch_fn):
     if impl == "kernel" and x.device.type != "cuda":
         raise ValueError(f"impl='kernel' needs a CUDA tensor, got one on "
                          f"{x.device}")
+    if impl == "auto" and x.device.type == "cuda" and not supported:
+        return torch_fn
     return kernel_fn
 
 
@@ -189,10 +198,11 @@ def cross_modal_adapter(p: Params, text: torch.Tensor, image: torch.Tensor,
     """SharedMHSAttentionAdapter forward on text [B, T, Din] against a
     batch-shared image [1, Tk, image_dim]: the attention half (K2) then
     the pre-norm MLP half (K3), each over the flattened [B*T] rows."""
-    attn_fn = _pick(impl, text, F.cross_attn_block_fused,
-                    F.cross_attn_block_torch)
-    mlp_fn = _pick(impl, text, F.prenorm_mlp_fused, F.prenorm_mlp_torch)
     k, v = shared_kv(p, image, eps)
+    attn_fn = _pick(impl, text, F.cross_attn_block_fused,
+                    F.cross_attn_block_torch,
+                    F.cross_attn_block_supported(k.shape[0]))
+    mlp_fn = _pick(impl, text, F.prenorm_mlp_fused, F.prenorm_mlp_torch)
     B, T = text.shape[:2]
     ap, mp = p["attn"], p["mlp"]
     h = attn_fn(text.reshape(B * T, -1), p["text_proj"]["kernel"],

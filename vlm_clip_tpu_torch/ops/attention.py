@@ -8,7 +8,7 @@ the caller's ``stable_dtype``), p rounded to v's dtype after it is
 normalized, ``p v`` accumulated in fp32, the output in q's dtype. On a
 CUDA tensor it launches the kernel written by hand for Hopper in
 ``vlm_clip_tpu_torch/csrc/attention.cu`` (replaces ``_attn_kernel_nomask``
-:59 and ``_attn_kernel_mask`` :63; head width 64): in bf16 on the tensor
+:59 and ``_attn_kernel_mask`` :63; heads up to 128 wide): in bf16 on the tensor
 cores, two passes over 64-key chunks (row max and sum, then p rounded
 after it is normalized, times v); in fp32 on the CUDA cores. On a CPU
 tensor it takes :func:`fused_attention_torch` (the reference's
@@ -16,10 +16,13 @@ tensor it takes :func:`fused_attention_torch` (the reference's
 
 Masks: none, ``[T, T]`` or ``[B|1, 1, T, T]`` (:func:`supports`); a
 batch-broadcast ``[1, 1, T, T]`` mask is expanded to B before the kernel
-reads it. The backward is the reference's plain recompute
-(:func:`fused_attention_bwd_torch`, attention.py:160-189) inside a
-``torch.autograd.Function``, mask cotangent included: the reference has no
-backward kernel, so the port has none either.
+reads it. The kernels take heads of 64 and 128 columns; a narrower head
+runs zero-padded to the next of them (which changes no score), a head
+wider than 128 raises on a CUDA tensor. The backward is the
+reference's plain recompute (:func:`fused_attention_bwd_torch`,
+attention.py:160-189) inside a ``torch.autograd.Function``, mask
+cotangent included: the reference has no backward kernel, so the port
+has none either.
 
 The towers take this path when ``set_fused_attention(True)`` is on (or
 ``mha(..., fused=True)``), as in the reference, where it is off by
@@ -32,10 +35,21 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
-HEAD_DIM = 64  # the kernel's head width (every CLIP preset's)
+HEAD_DIMS = (64, 128)  # the kernels' head widths (every CLIP preset: 64)
+
+
+def kernel_width(d: int) -> int:
+    """The kernel width a head of d columns runs at, zero-padded: the
+    least of HEAD_DIMS that is at least d."""
+    for w in HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"fused_attention: the kernel takes head widths up "
+                     f"to {HEAD_DIMS[-1]}, got {d}")
 
 _ENABLED = False
 
@@ -67,9 +81,9 @@ def _lib() -> ctypes.CDLL:
         P = ctypes.c_void_p
         lib.vct_attention_fwd.argtypes = [
             ctypes.c_int, P, P, P, P, ctypes.c_longlong, ctypes.c_float, P,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
         lib.vct_attention_fwd.restype = ctypes.c_int
-        lib.vct_attention_smem.argtypes = [ctypes.c_int]
+        lib.vct_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.vct_attention_smem.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -116,9 +130,7 @@ def fused_attention_bwd_torch(q, k, v, scale: float,
 
 def _launch(q, k, v, scale, mask):
     B, h, T, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"fused_attention: the kernel takes head width "
-                         f"{HEAD_DIM}, got {d}")
+    w = kernel_width(d)
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"fused_attention: q, k, v must share float32 or "
@@ -127,6 +139,10 @@ def _launch(q, k, v, scale, mask):
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"fused_attention: all tensors must be on "
                          f"{q.device}")
+    if d < w:
+        # narrower heads run zero-padded to the kernel's width: the zero
+        # columns add nothing to a score and give zero output columns
+        q, k, v = (F.pad(t, (0, w - d)) for t in (q, k, v))
     q, k, v = (aligned16(t) for t in (q, k, v))
     m, bstride = None, 0
     if mask is not None:
@@ -148,15 +164,15 @@ def _launch(q, k, v, scale, mask):
             err = lib.vct_attention_fwd(
                 bf16, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), None if m is None else m.data_ptr(), bstride,
-                float(scale), out.data_ptr(), B, h, T,
+                float(scale), out.data_ptr(), B, h, T, w,
                 torch.cuda.current_stream(q.device).cuda_stream)
         if err:
             raise RuntimeError(
                 f"fused_attention: CUDA kernel launch failed with cudaError "
-                f"{err} ({lib.vct_attention_smem(bf16)} B of shared memory "
-                "per block)")
+                f"{err} ({lib.vct_attention_smem(bf16, w)} B of shared "
+                "memory per block)")
         fused_attention.launches += 1
-    return out
+    return out[..., :d].contiguous() if d < w else out
 
 
 def _forward(q, k, v, scale, mask):

@@ -19,7 +19,14 @@ CUDA C++ for Hopper in ``vlm_clip_tpu_torch/csrc/fused_adapter.cu``:
 
 Each wrapper launches its kernel for a CUDA tensor and takes the plain
 version beside it (``*_torch``, differentiated by autograd) only for a
-CPU tensor. On CUDA, a call that needs a gradient goes through a
+CPU tensor. K1 and K3 take every width; K2 takes what the reference's
+fused path takes (any widths, at most MAX_SHARED_KV shared K/V rows:
+:func:`cross_attn_block_supported`, which ``models/adapters.py`` reads to
+route a longer K/V to the plain version under ``impl="auto"``, as the
+reference does). A wrapper raises on a CUDA tensor whose shapes its
+kernels do not take. In bf16, K3 (forward and backward) and K2's
+backward run on the tensor cores, each as a few passes behind one C
+call. On CUDA, a call that needs a gradient goes through a
 ``torch.autograd.Function`` whose forward launches the forward kernel and
 saves only the inputs (as the TPU rules do), and whose backward launches
 the backward kernel (``*_bwd_cuda``), which recomputes the rest. The
@@ -58,7 +65,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_prenorm_mlp_fwd.argtypes = [_I] + [_P] * 7 + [_F, _P] \
             + [_I] * 3 + [_P]
         lib.vct_cross_attn_block_fwd.argtypes = [_I] + [_P] * 11 \
-            + [_F, _F, _P] + [_I] * 4 + [_P]
+            + [_F, _F, _P] + [_I] * 5 + [_P]
         lib.vct_seq_adapter_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
             + [_P] * 5 + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
@@ -66,7 +73,11 @@ def _lib() -> ctypes.CDLL:
         lib.vct_prenorm_mlp_bwd_bf16.argtypes = [_P] * 7 + [_F] \
             + [_P] * 6 + [_I] * 4 + [_P]
         lib.vct_cross_attn_block_bwd.argtypes = [_I] + [_P] * 11 \
-            + [_F, _F] + [_P] * 10 + [_I] * 4 + [_P]
+            + [_F, _F] + [_P] * 10 + [_I] * 5 + [_P]
+        lib.vct_prenorm_mlp_fwd_bf16.argtypes = [_P] * 7 + [_F] \
+            + [_P] * 2 + [_I] * 3 + [_P]
+        lib.vct_cross_attn_block_bwd_bf16.argtypes = [_P] * 11 \
+            + [_F, _F] + [_P] * 3 + [_I] * 5 + [_P]
         lib.vct_wgrad.argtypes = [_I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _P,
                                   ctypes.c_size_t, _P]
@@ -80,6 +91,8 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_cross_attn_block_fwd, lib.vct_seq_adapter_bwd,
                    lib.vct_prenorm_mlp_bwd, lib.vct_prenorm_mlp_bwd_bf16,
                    lib.vct_cross_attn_block_bwd,
+                   lib.vct_prenorm_mlp_fwd_bf16,
+                   lib.vct_cross_attn_block_bwd_bf16,
                    lib.vct_wgrad, lib.vct_colsum,
                    lib.vct_feature_adapter_fwd, lib.vct_feature_adapter_bwd):
             fn.restype = _I
@@ -90,12 +103,18 @@ def _lib() -> ctypes.CDLL:
         lib.vct_prenorm_mlp_bwd_smem.argtypes = [_I]
         lib.vct_cross_attn_block_bwd_smem.argtypes = [_I, _I]
         lib.vct_feature_adapter_smem.argtypes = [_I, _I]
+        lib.vct_cross_attn_block_bwd_rows.argtypes = [_I, _I]
+        lib.vct_cross_attn_block_bwd_rows.restype = _I
+        lib.vct_prenorm_mlp_fwd_bf16_ws.argtypes = [_I] * 3
+        lib.vct_cross_attn_block_bwd_bf16_ws.argtypes = [_I] * 5
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
                    lib.vct_cross_attn_block_smem,
                    lib.vct_seq_adapter_bwd_smem,
                    lib.vct_prenorm_mlp_bwd_smem,
                    lib.vct_cross_attn_block_bwd_smem,
-                   lib.vct_feature_adapter_smem):
+                   lib.vct_feature_adapter_smem,
+                   lib.vct_prenorm_mlp_fwd_bf16_ws,
+                   lib.vct_cross_attn_block_bwd_bf16_ws):
             fn.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -433,8 +452,9 @@ def _wgrad(a, b, out, p, q, *, lda=None, sa=0, ldb=None, sb=0, ldo=None,
            so=0, z=1):
     """out[z*so + i*ldo + j] = sum_r a[r, z*sa + i] * b[r, z*sb + j] for
     i < p, j < q: a weight gradient summed over every row, in fp32. Two
-    bf16 operands take the tensor cores (128 x 128 output tiles), the
-    others the CUDA cores (64 x 64)."""
+    bf16 operands take the tensor cores (128 x 128 output tiles; 16-byte
+    aligned, strides, offsets and widths multiples of 8), the others the
+    CUDA cores (64 x 64)."""
     n = a.shape[0]
     if a.dtype == b.dtype == torch.bfloat16:
         splits = _tc_splits(n, -(-p // 128) * -(-q // 128) * z)
@@ -470,10 +490,24 @@ def _grads_like(grads, inputs, needs):
                  for g, t, n in zip(grads, inputs, needs))
 
 
+MAX_SHARED_KV = 256  # rows of the batch-shared K/V K2 takes
 ROWS = 32      # row tile of the K1/K3 kernels
-ROWS_CAB = 16  # row tile of K2's backward
 TC_ROWS = 128  # row tile of K3's bf16 backward products (its db1 partials)
 LN_ROWS = 32   # row tile of K3's bf16 LN backward (db2, dls, dlb partials)
+
+
+# --- shape gate -------------------------------------------------------------
+#
+# K2 takes the reference's fused path's shapes: at most MAX_SHARED_KV
+# shared K/V rows (its ATTN_SEG_MAX, past which the reference computes
+# the block plainly). models/adapters.py reads this predicate to route
+# such a call to the plain version under impl="auto", before any launch
+# (as ops/decode_attention.py routes K8); the wrapper raises on it. K1 and
+# K3 take every width, as the reference's kernels do.
+
+def cross_attn_block_supported(tk: int) -> bool:
+    """K2 takes 0 < Tk <= MAX_SHARED_KV shared K/V rows."""
+    return 0 < tk <= MAX_SHARED_KV
 
 
 # --- K1: sequence adapter --------------------------------------------------
@@ -553,10 +587,6 @@ def seq_adapter_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
     if not _on_cuda(x, name):
         return seq_adapter_torch(x, *params, eps)
     _check_inputs(name, x, params)
-    H, K = x.shape[1], w1.shape[1]
-    if H % 128 or K % 128:
-        raise ValueError(f"{name}: the kernel needs H and K multiples of "
-                         f"128; got H {H}, K {K}")
     if _needs_grad(x, *params):
         return _SeqAdapterFn.apply(x, *params, eps)
     return _seq_fwd_launch(x, *params, eps)
@@ -572,7 +602,21 @@ def _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
     w1, w2 = _as(w1, x.dtype), _as(w2, x.dtype)
     b1, b2, ls, lb = (_as(t, torch.float32) for t in (b1, b2, ls, lb))
     y = torch.empty_like(x)
-    if N:
+    if N and x.dtype == torch.bfloat16:
+        # the tensor-core passes, one call: LN, the hidden product with
+        # its GELU epilogue, the output product with the residual; um and
+        # hm in one scratch buffer
+        lib = _lib()
+        x, w1, w2 = (aligned16(t) for t in (x, w1, w2))
+        ws = torch.empty(lib.vct_prenorm_mlp_fwd_bf16_ws(N, H, K),
+                         dtype=torch.uint8, device=x.device)
+        with torch.cuda.device(x.device):
+            _check_err(name, lib.vct_prenorm_mlp_fwd_bf16(
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), ls.data_ptr(), lb.data_ptr(), float(eps),
+                y.data_ptr(), ws.data_ptr(), N, H, K, _stream(x)))
+        prenorm_mlp_fused.launches += 1
+    elif N:
         lib = _lib()
         _launch(name, lib.vct_prenorm_mlp_fwd, lib.vct_prenorm_mlp_smem(H),
                 x, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -607,7 +651,7 @@ def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
         # LN stats, db1 partials per 128-row tile, [db2 | dls | dlb]
         # partials per 32-row tile and the weight gradients' row chunks
         x, g, w1, w2 = (aligned16(t) for t in (x, g, w1, w2))
-        splits = _tc_splits(N, (H // 128) * (K // 128))
+        splits = _tc_splits(N, -(-H // 128) * -(-K // 128))
         act = torch.empty(N * (H + 2 * K), dtype=mm, device=x.device)
         scratch = torch.empty(N * H + 2 * N + -(-N // TC_ROWS) * K
                               + -(-N // LN_ROWS) * 3 * H
@@ -665,18 +709,16 @@ def prenorm_mlp_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
         return prenorm_mlp_torch(x, *params, eps)
     _check_inputs(name, x, params)
     H, K = x.shape[1], w1.shape[1]
-    if H % 128 or K % 128:
-        raise ValueError(f"{name}: the kernel needs H and K multiples of "
-                         f"128; got H {H}, K {K}")
+    if x.dtype == torch.bfloat16 and (H % 8 or K % 8):
+        raise ValueError(f"{name}: the bf16 kernels (tensor cores, 16-byte "
+                         f"rows) need H and K multiples of 8; got H {H}, "
+                         f"K {K}")
     if _needs_grad(x, *params):
         return _PrenormMlpFn.apply(x, *params, eps)
     return _pnmlp_fwd_launch(x, *params, eps)
 
 
 # --- K2: cross-modal attention block ---------------------------------------
-
-MAX_SHARED_KV = 256  # rows of the batch-shared K/V the kernel takes
-
 
 def _cab_fwd_launch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, heads, eps):
     name = "cross_attn_block_fused"
@@ -696,9 +738,64 @@ def _cab_fwd_launch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, heads, eps):
                 wt.data_ptr(), bt.data_ptr(), ls.data_ptr(), lb.data_ptr(),
                 wq.data_ptr(), bq.data_ptr(), kt.data_ptr(), v.data_ptr(),
                 wo.data_ptr(), bo.data_ptr(), float(eps),
-                float((H // heads) ** -0.5), y.data_ptr(), N, Din, H, Tk)
+                float((H // heads) ** -0.5), y.data_ptr(), N, Din, H, heads,
+                Tk)
         cross_attn_block_fused.launches += 1
     return y
+
+
+def _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads, eps,
+                  need_dx):
+    """K2 backward's tensor-core passes, one call (bf16, N > 0): the
+    gradients in one fp32 buffer, the intermediates in one scratch
+    buffer. x's columns (and wt's rows) are zero-padded to a multiple of 8
+    for the 16-byte tile loads, which changes no product. Returns (dx,
+    dwt, dbt, dls, dlb, dwq, dbq, dk, dv, dwo, dbo)."""
+    name = "cross_attn_block_bwd"
+    N, Din = x.shape
+    H, Tk = wt.shape[1], k.shape[0]
+    hd = H // heads
+    pad = -Din % 8
+    if pad:
+        x = F.pad(x, (0, pad))
+        wt = F.pad(wt, (0, 0, 0, pad))
+    din = Din + pad
+    tkp = -(-Tk // 8) * 8  # each head's keys in pm, dsm, dk, dv
+    x, g, wt, wq, wo, k, v = (aligned16(t)
+                              for t in (x, g, wt, wq, wo, k, v))
+    lib = _lib()
+    ws = torch.empty(lib.vct_cross_attn_block_bwd_bf16_ws(N, din, H, heads,
+                                                          Tk),
+                     dtype=torch.uint8, device=x.device)
+    sizes = [din * H, H * H, H * H, tkp * H, tkp * H, 5 * H]
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    with torch.cuda.device(x.device):
+        _check_err(name, lib.vct_cross_attn_block_bwd_bf16(
+            x.data_ptr(), wt.data_ptr(), bt.data_ptr(), ls.data_ptr(),
+            lb.data_ptr(), wq.data_ptr(), bq.data_ptr(), k.data_ptr(),
+            v.data_ptr(), wo.data_ptr(), g.data_ptr(), float(eps),
+            float(hd ** -0.5), None if dx is None else dx.data_ptr(),
+            grads.data_ptr(), ws.data_ptr(), N, din, H, heads, Tk,
+            _stream(x)))
+    dwt, dwq, dwo, dk, dv, vec = grads.split(sizes)
+    dbo, dls, dlb, dbt, dbq = vec.split([H] * 5)
+    if dx is not None and pad:
+        dx = dx[:, :Din].contiguous()
+    return (dx, dwt.view(din, H)[:Din], dbt, dls, dlb, dwq.view(H, H), dbq,
+            dk.view(tkp, H)[:Tk], dv.view(tkp, H)[:Tk], dwo.view(H, H), dbo)
+
+
+def _cab_bwd_bf16_refusal(H: int, heads: int):
+    """Why the bf16 backward cannot take these widths, or None: its
+    tensor-core attention pass takes heads of a multiple of 8 columns, at
+    most 128."""
+    hd = H // heads
+    if hd % 8 or hd > 128:
+        return (f"the bf16 backward (tensor cores) needs heads of a "
+                f"multiple of 8 columns, at most 128; got H {H}, heads "
+                f"{heads}")
+    return None
 
 
 def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
@@ -706,7 +803,10 @@ def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
                               need_dx: bool = True):
     """Backward kernel of K2: same results as
     :func:`cross_attn_block_bwd_torch` (dk, dv [Tk, H]), for CUDA
-    tensors."""
+    tensors. bf16 runs on the tensor cores (the products t, q, dom, du and
+    dx, the LN passes, one attention pass per row tile and head, then the
+    weight gradients), fp32 on the CUDA cores (one row pass); both then
+    sum their ordered partials."""
     name = "cross_attn_block_bwd"
     N, Din = x.shape
     H, Tk = wt.shape[1], k.shape[0]
@@ -716,6 +816,14 @@ def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
     g = _as(g, mm)
     wt, wq, wo, k, v = (_as(t, mm) for t in (wt, wq, wo, k, v))
     bt, ls, lb, bq = (_as(t, torch.float32) for t in (bt, ls, lb, bq))
+    if N and mm == torch.bfloat16:
+        why = _cab_bwd_bf16_refusal(H, heads)
+        if why:
+            raise ValueError(f"{name}: {why}")
+        out = _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads,
+                            eps, need_dx)
+        cross_attn_block_bwd_cuda.launches += 1
+        return out
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
     dwt = torch.zeros(Din, H, **f32)
@@ -728,7 +836,8 @@ def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
             torch.empty(N, H, dtype=mm, device=x.device) for _ in range(6))
         pm, dsm = (torch.empty(N, heads * Tk, dtype=mm, device=x.device)
                    for _ in range(2))
-        part = torch.empty(-(-N // ROWS_CAB), 5 * H, **f32)
+        rows = lib.vct_cross_attn_block_bwd_rows(Din, H)  # its row tile
+        part = torch.empty(-(-N // rows), 5 * H, **f32)
         _launch(name, lib.vct_cross_attn_block_bwd,
                 lib.vct_cross_attn_block_bwd_smem(Din, H), x, x.data_ptr(),
                 wt.data_ptr(), bt.data_ptr(), ls.data_ptr(), lb.data_ptr(),
@@ -737,7 +846,7 @@ def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
                 None if dx is None else dx.data_ptr(), um.data_ptr(),
                 qm.data_ptr(), om.data_ptr(), dom.data_ptr(), pm.data_ptr(),
                 dsm.data_ptr(), dqm.data_ptr(), dtm.data_ptr(),
-                part.data_ptr(), N, Din, H, Tk)
+                part.data_ptr(), N, Din, H, heads, Tk)
         _wgrad(om, g, dwo, H, H)
         # per head (z): dv_h = pm_h^T dom_h, dk_h = dsm_h^T qm_h
         _wgrad(pm, dom, dv, Tk, hd, sa=Tk, sb=hd, so=hd, z=heads)
@@ -784,12 +893,17 @@ def cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
     if not _on_cuda(x, name):
         return cross_attn_block_torch(x, *params, heads, eps)
     _check_inputs(name, x, params)
-    if H % 128 or H != heads * 64 or not 0 < Tk <= MAX_SHARED_KV:
-        raise ValueError(
-            f"{name}: the kernel needs H a multiple of 128 with 64-wide "
-            f"heads and 0 < Tk <= {MAX_SHARED_KV}; got H {H}, heads "
-            f"{heads}, Tk {Tk}")
+    if H % heads:
+        raise ValueError(f"{name}: H {H} is not a multiple of heads "
+                         f"{heads}")
+    if not cross_attn_block_supported(Tk):
+        raise ValueError(f"{name}: the kernel takes 0 < Tk <= "
+                         f"{MAX_SHARED_KV} shared K/V rows; got Tk {Tk}")
     if _needs_grad(x, *params):
+        why = _cab_bwd_bf16_refusal(H, heads) \
+            if x.dtype == torch.bfloat16 else None
+        if why:  # refused before the forward, not in the middle of a step
+            raise ValueError(f"{name}: {why}")
         return _CrossAttnBlockFn.apply(x, *params, heads, eps)
     return _cab_fwd_launch(x, *params, heads, eps)
 
