@@ -9,7 +9,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    csrc/decode_attention.cu, one nvcc each, in parallel), prints ptxas's
    registers and spills and the HMMA instructions in the SASS of each
    tensor-core kernel (in bf16: K5, K3 forward and backward, K2 backward,
-   the weight gradients), and fails if one of them has none.
+   the weight gradients, K7; in compensated TF32: K1 backward and the
+   fp32 weight gradients), and fails if one of them has none.
 2. Kernels: each forward kernel against its plain PyTorch version at the
    B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
    the batch-1 shapes of a served request, in bf16 and fp32, with the
@@ -18,9 +19,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
    contrastive head (forward and backward, [96, 512]) against their
    plain versions at the B=96 shapes, in bf16 and fp32, timed the same
-   way beside their bounds; K2's and K3's gradients must repeat bit for
-   bit on a second call; their bf16 passes are timed one by one
-   (torch.profiler), and the bf16 weight-gradient route alone.
+   way beside their bounds (K1's fp32 parameter gradients at the fp32
+   tolerance in both dtypes: its function is fp32); K1's, K2's and K3's
+   gradients must repeat bit for bit on a second call; their passes are
+   timed one by one (torch.profiler; K1's in both dtypes, beside the
+   bound of its fp32 products at the CUDA cores' peak), and the bf16
+   weight-gradient route alone.
 4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
    width (seeded random weights) on a synthetic RAF-DB tree on the card
    and writes its checkpoints, which must load back; then bench.py's
@@ -170,12 +174,18 @@ BWD_REPLACES = {
 # could take is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
-# The bf16 kernels on the tensor cores, by wrapper (K5, K3 forward and
-# backward, K2 backward and the bf16 x bf16 weight gradients; the
-# LayerNorm row kernels among their passes do no product): setup()
-# counts each one's HMMA instructions in the built library's SASS and
-# fails on a kernel with none.
+# The kernels on the tensor cores, by wrapper (in bf16: K5, K3 forward
+# and backward, K2 backward and the bf16 x bf16 weight gradients; K1
+# backward's error-compensated TF32 products and the fp32 weight
+# gradients, HMMA.1684.F32.TF32; K7's int4 product in bf16; the LayerNorm
+# row kernels among their passes do no product): setup() counts each
+# one's HMMA instructions in the built library's SASS and fails on a
+# kernel with none.
 KERNEL_HMMA = {
+    "seq_adapter_bwd_cuda": ("seqbwd_pre_kernel", "seqbwd_z_kernel",
+                             "seqbwd_dpre_kernel", "seqbwd_dx_kernel",
+                             "wgrad_tf32_kernel"),
+    "quant_matmul_int4": ("qmm4_mma_kernel",),
     "fused_attention": ("attention_mma_kernel",),
     "prenorm_mlp_fused": ("pnmlp_fwd_hidden_kernel", "pnmlp_fwd_out_kernel"),
     "prenorm_mlp_bwd_cuda": ("pnmlp_bwd_hidden_kernel",
@@ -187,7 +197,7 @@ KERNEL_HMMA = {
 }
 TENSOR_CORE_KERNELS = sorted({k for ks in KERNEL_HMMA.values() for k in ks})
 HMMA: dict = {}  # kernel -> HMMA instructions in its SASS
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 
 def bound(flops: float, nbytes: float, kind: str):
@@ -224,20 +234,24 @@ def setup() -> str:
           f"{ {k: round(v, 1) for k, v in build.build_seconds.items()} })",
           flush=True)
     for name, log in build.build_logs.items():
-        spills = [ln.strip() for ln in log.splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
-        regs = [ln.split("Used")[1].split(",")[0].strip()
-                for ln in log.splitlines() if "Used" in ln]
+        regs, spills, fn = [], [], "?"
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif "Used" in ln:
+                regs.append(ln.split("Used")[1].split(",")[0].strip())
+            elif "spill" in ln and not ln.strip().startswith("0 bytes"):
+                spills.append(f"{fn}: {ln.strip()}")
         print(f"  ptxas {name}: registers {regs}; spills {spills or 'none'}",
               flush=True)
-    for name in ("attention", "fused_adapter"):
+    for name in ("attention", "fused_adapter", "quant"):
         HMMA.update(hmma_counts(build._out_path(name)))
     for fn, count in sorted(HMMA.items()):
         print(f"  SASS HMMA {fn}: {count}", flush=True)
     missing = [fn for fn in TENSOR_CORE_KERNELS if not HMMA.get(fn)]
     if missing:
         raise SystemExit(f"no HMMA instruction in the SASS of {missing}: "
-                         "the bf16 kernels must run on the tensor cores")
+                         "these kernels must run on the tensor cores")
     return torch.cuda.get_device_name(0)
 
 
@@ -399,7 +413,7 @@ def kernel_phase() -> dict:
                     _add_time(r, t_kern, t_plain, cost(name, x),
                               f"{tag} {list(x.shape)} bf16")
                 if dtype == torch.bfloat16 and name == "prenorm_mlp_fused":
-                    _breakdown(f"kernel {name} B={batch}",
+                    _breakdown(f"kernel {name} B={batch} bf16",
                                lambda: kern(x, *args), K3_FWD_PASSES)
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
@@ -418,11 +432,14 @@ def _add_time(r: dict, t_kern: float, t_plain: float, work, shape: str):
     r["shapes"].append(shape)
 
 
-def cost(name: str, x: torch.Tensor, need_dx: bool = True):
+def cost(name: str, x: torch.Tensor, need_dx: bool = True,
+         fp32_yardstick: bool = False):
     """(operations, bytes, peak kind) of one call at x's shape on the
     pipeline-M widths: each product counts 2*m*n*k; each input is read
     once and each output written once (params and their fp32 gradients
-    at 4 bytes, x, g, dx and k, v in x's type)."""
+    at 4 bytes, x, g, dx and k, v in x's type). K1's backward counts the
+    TF32 tensor-core passes it runs (fp32_yardstick: its fp32 products
+    at the CUDA cores' peak, the yardstick of its first version)."""
     N, D = x.shape
     es = x.element_size()
     mm = "bf16" if x.dtype == torch.bfloat16 else "fp32"
@@ -431,8 +448,14 @@ def cost(name: str, x: torch.Tensor, need_dx: bool = True):
         params = (2 * D * K + K + 3 * D) * 4
         if name == "seq_adapter_fused":
             return 4 * N * D * K, 2 * N * D * es + params, "fp32"
-        return (2 * N * D * K * (6 if need_dx else 5),
-                (3 if need_dx else 2) * N * D * es + 2 * params, "fp32")
+        nbytes = (3 if need_dx else 2) * N * D * es + 2 * params
+        if fp32_yardstick:
+            return (2 * N * D * K * (6 if need_dx else 5), nbytes, "fp32")
+        # the error-compensated TF32 products it runs: 3 passes each, 2
+        # for x W1 and x^T dpre when x is bf16 (exact in TF32)
+        x_passes = 2 if x.dtype == torch.bfloat16 else 3
+        passes = 2 * x_passes + 3 * (3 if need_dx else 2)
+        return 2 * N * D * K * passes, nbytes, "tf32"
     if name in ("prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"):
         K = 4 * D
         params = (2 * D * K + K + 3 * D) * 4
@@ -455,12 +478,15 @@ def cost(name: str, x: torch.Tensor, need_dx: bool = True):
     raise KeyError(name)
 
 
-def _grad_errors(got, want, dtype):
+def _grad_errors(got, want, dtype, fp32_from=None):
     """Per gradient: (max abs err, err / (tol * max|want|), max rel err
-    where |want| >= 1e-2 * max|want|)."""
-    tol = TOL[dtype][0]
+    where |want| >= 1e-2 * max|want|); tol is the dtype's, or fp32's for
+    the gradients from index fp32_from on (K1's function is fp32 in both
+    dtypes: its parameter gradients are held to fp32's tolerance)."""
     out = []
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = TOL[torch.float32 if fp32_from is not None and i >= fp32_from
+                  else dtype][0]
         if w is None:
             if g is not None:
                 raise SystemExit("a gradient that was not asked for")
@@ -572,23 +598,37 @@ def backward_phase() -> dict:
                 got = kern(x, *call, need_dx=need_dx)
                 want = plain(x, *call, need_dx=need_dx)
                 torch.cuda.synchronize()
-                record(name, tag, dtype, _grad_errors(got, want, dtype),
+                record(name, tag, dtype, _grad_errors(
+                    got, want, dtype,
+                    1 if name == "seq_adapter_bwd_cuda" else None),
                        lambda: kern(x, *call, need_dx=need_dx),
                        lambda: plain(x, *call, need_dx=need_dx),
                        cost(name, x, need_dx), list(x.shape))
-                if name in ("prenorm_mlp_bwd_cuda",
+                if name in ("prenorm_mlp_bwd_cuda", "seq_adapter_bwd_cuda",
                             "cross_attn_block_bwd_cuda"):
                     again = kern(x, *call, need_dx=need_dx)
-                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    same = all((a is None and b is None) or torch.equal(a, b)
+                               for a, b in zip(got, again))
                     print(f"backward {name} {dtype}: a second call repeats "
                           f"every gradient bit for bit: {same}", flush=True)
                     if not same:
                         failures.append(f"{name} {dtype} not deterministic")
                 if dtype == torch.bfloat16 and name == "prenorm_mlp_bwd_cuda":
                     _k3_breakdown(x, call)
+                if name == "seq_adapter_bwd_cuda":
+                    _breakdown(f"backward {name}[{tag}] {dtype}",
+                               lambda: kern(x, *call, need_dx=need_dx),
+                               K1_BWD_PASSES)
+                    b_ms = bound(*cost(name, x, need_dx, True))[0]
+                    print(f"backward {name}[{tag}] {dtype}: bound of its "
+                          f"fp32 products at the CUDA cores' peak (67 "
+                          f"TFLOP/s) {b_ms:.4f} ms, of its compensated TF32 "
+                          f"passes (495 TFLOP/s) "
+                          f"{bound(*cost(name, x, need_dx))[0]:.4f} ms",
+                          flush=True)
                 if dtype == torch.bfloat16 and \
                         name == "cross_attn_block_bwd_cuda":
-                    _breakdown(f"backward {name}",
+                    _breakdown(f"backward {name} bf16",
                                lambda: kern(x, *call, need_dx=need_dx),
                                CAB_BWD_PASSES)
         # K4: the loss (forward) and its gradients (backward), fp32 math
@@ -619,8 +659,10 @@ def backward_phase() -> dict:
     return results
 
 
-# the bf16 passes of the redesigned kernels, by kernel name fragment
+# the passes of the redesigned kernels, by kernel name fragment
 K3_FWD_PASSES = ("pnmlp_fwd_ln", "pnmlp_fwd_hidden", "pnmlp_fwd_out")
+K1_BWD_PASSES = ("seqbwd_pre", "seqbwd_z", "seqbwd_ln", "seqbwd_dpre",
+                 "seqbwd_dx", "wgrad_tf32", "split_sum", "colsum")
 K3_BWD_PASSES = ("pnmlp_ln_fwd", "pnmlp_bwd_hidden", "pnmlp_bwd_du",
                  "pnmlp_bwd_ln", "wgrad_mma", "split_sum", "colsum")
 CAB_BWD_PASSES = ("cab_bwd_t_", "cab_bwd_ln_fwd", "cab_bwd_q_",
@@ -635,7 +677,7 @@ def _breakdown(label: str, fn, passes) -> dict:
     for name, ms in _device_ms(fn).items():
         key = next((k for k in passes if k in name), "other")
         per[key] = per.get(key, 0.0) + ms
-    print(f"{label} bf16 per call by kernel (ms, profiler): "
+    print(f"{label} per call by kernel (ms, profiler): "
           + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
           + f"; device {sum(per.values()):.4f} ms in all", flush=True)
     return per
@@ -647,7 +689,7 @@ def _k3_breakdown(x, call) -> None:
     route alone (dW1 = um^T dpm, dW2 = hm^T g) beside its bound."""
     from vlm_clip_tpu_torch.ops import fused_adapter as F
 
-    _breakdown("backward prenorm_mlp_bwd_cuda",
+    _breakdown("backward prenorm_mlp_bwd_cuda bf16",
                lambda: F.prenorm_mlp_bwd_cuda(x, *call), K3_BWD_PASSES)
     N, H = x.shape
     K = 4 * H

@@ -471,6 +471,144 @@ def test_k3_fwd_tensor_core_passes_match_pallas():
     _bf16_close(got, want)
 
 
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 on its bits as cvt.rna.tf32.f32 rounds it: to
+    nearest, ties away from zero, 10 mantissa bits (adding half an ulp of
+    TF32 to the magnitude's bits, then clearing the 13 low bits)."""
+    bits = a.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
+    """a @ b as vct::Tf32Gemm computes it: each fp32 operand split into
+    big = tf32(v) and small = tf32(v - big), the products small b + big s
+    + big b summed in fp32 (a bf16-valued operand has small = 0: one pass
+    fewer; the kernel adds each 8-deep step's passes to its fp32 sum with
+    round to nearest, as these fp32 sums round). passes=1: a single TF32
+    pass, big b alone."""
+    a, b = a.float(), b.float()
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return (_tf32(a - ab) @ bb + ab @ _tf32(b - bb)) + ab @ bb
+
+
+def _k1_bwd_tensor_cores(x, w1, b1, w2, b2, ls, g, eps=1e-5, passes=3):
+    """K1's backward as its TF32 passes compute it (csrc/fused_adapter.cu,
+    vct_seq_adapter_bwd_tf32), every product error-compensated: pre = x w1
+    + b1 -> h, gelu'(pre); z = (x + h w2) + b2; the LN backward dz and, per
+    32-row tile, the sums of dz, g xhat and g; dpre = (dz w2^T) gelu'(pre)
+    and its 128-row tile sums; dx = dz + dpre w1^T; dW1 = x^T dpre and
+    dW2 = h^T dz over the ordered row chunks of 128 x 64 output tiles."""
+    xf, gf = x.float(), g.float()
+    n, hdim = xf.shape
+    k = w1.shape[1]
+    pre = _mm_tf32(xf, w1, passes) + b1
+    hh, gp = torch.nn.functional.gelu(pre), F.gelu_grad(pre)
+    z = (xf + _mm_tf32(hh, w2, passes)) + b2
+    xhat, inv = F._ln_stats(z, eps)
+    dz = F._ln_bwd(gf * ls, xhat, inv)
+    dpre = _mm_tf32(dz, w2.T, passes) * gp
+    dx = (dz + _mm_tf32(dpre, w1.T, passes)).to(x.dtype)
+
+    def wgrad(a, b):
+        tiles = -(-a.shape[1] // 128) * -(-b.shape[1] // 64)
+        chunk = -(-n // F._tc_splits(n, tiles))
+        out = torch.zeros(a.shape[1], b.shape[1])
+        for r0 in range(0, n, chunk):
+            out = out + _mm_tf32(a[r0:r0 + chunk].T, b[r0:r0 + chunk],
+                                 passes)
+        return out
+
+    return (dx, wgrad(xf, dpre), _tile_sums(dpre, 128), wgrad(hh, dz),
+            _tile_sums(dz, 32), _tile_sums(gf * xhat, 32),
+            _tile_sums(gf, 32))
+
+
+def _k1_case(n, d, k, seed, offset=0.0):
+    """K1's inputs; with an offset, weights w = offset + 0.01 u (scaled by
+    the fan-in): a large common part that the LayerNorm's backward cancels
+    (dz sums to about 0 along a row, so dz w2^T keeps only the 0.01 u
+    part), which magnifies each product's rounding error. At offset 0.5
+    one TF32 pass misses the fp32 tolerance by 100x or more, the
+    compensated products use about a fifth of it (at the train step's
+    shapes too, by this emulation); at offset 1 they would use up to
+    four fifths: 2^-22 a product is several times fp32's own error."""
+    args = _seq_args(n, d, k, seed)
+    if offset:
+        rng = np.random.default_rng(seed + 1)
+        args[1] = (offset + 0.01 * rng.normal(size=(d, k))).astype(
+            np.float32) * d ** -0.5
+        args[3] = (offset + 0.01 * rng.normal(size=(k, d))).astype(
+            np.float32) * k ** -0.5
+    return args
+
+
+def _k1_worst(got, want):
+    """Worst |got - want| / (1e-4 * max|want|) over the fp32 gradients
+    (dW1, db1, dW2, db2, dls, dlb) and dx."""
+    worst = 0.0
+    for gg, w in zip(got, want):
+        w = np.asarray(jnp.asarray(w, jnp.float32))
+        err = np.abs(gg.float().numpy() - w).max()
+        worst = max(worst, err / (1e-4 * max(np.abs(w).max(), 1e-2)))
+    return worst
+
+
+def _k1_ref_grads(args, dtype, t):
+    refa = [jnp.asarray(args[0], dtype)] + list(map(jnp.asarray, args[1:]))
+    return jax.grad(lambda *a: jnp.sum(RF.seq_adapter_fused(*a) * t),
+                    argnums=tuple(range(7)))(*refa)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0.0, 0.5])
+def test_k1_bwd_compensated_tf32_matches_pallas(dtype, offset):
+    """K1's backward on compensated TF32 products, emulated pass by pass,
+    against jax.grad of the Pallas kernel at the fp32 tolerance (1e-4 of
+    the largest element, every gradient; dx too in fp32, at the bf16
+    tolerance in bf16): 300 rows (ragged 128- and 32-row tiles), with and
+    without a large common offset in the weights."""
+    args = _k1_case(300, 64, 32, seed=31, offset=offset)
+    x = torch.from_numpy(args[0]).to(dtype)
+    w1, b1, w2, b2, ls, lb = map(torch.from_numpy, args[1:])
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    y = F.seq_adapter_torch(x, w1, b1, w2, b2, ls, lb)
+    t = np.random.default_rng(3).normal(size=tuple(y.shape)).astype(
+        np.float32)
+    got = _k1_bwd_tensor_cores(x, w1, b1, w2, b2, ls,
+                               torch.from_numpy(t).to(dtype))
+    want = _k1_ref_grads(args, jdt, jnp.asarray(t, jdt).astype(jnp.float32))
+    assert got[0].dtype == dtype
+    if dtype == torch.float32:
+        assert _k1_worst(got, want) <= 1.0
+    else:
+        _grad_close(got[0], want[0], BF16_TOL, "x")
+        assert _k1_worst(got[1:], want[1:]) <= 1.0
+    # the plain backward the card holds the kernel against agrees too
+    plain = F.seq_adapter_bwd_torch(x, w1, b1, w2, b2, ls, lb,
+                                    torch.from_numpy(t).to(dtype))
+    assert _k1_worst(got[1:], [p.numpy() for p in plain[1:]]) <= 1.0
+
+
+def test_k1_bwd_single_tf32_pass_fails_on_offset_weights():
+    """The negative control: the same emulation with one TF32 pass per
+    product misses the fp32 tolerance by a wide margin on weights with a
+    large common offset, where the compensated products hold it: the
+    tolerance tells the two apart."""
+    args = _k1_case(300, 64, 32, seed=31, offset=0.5)
+    x, w1, b1, w2, b2, ls, lb = map(torch.from_numpy, args)
+    y = F.seq_adapter_torch(x, w1, b1, w2, b2, ls, lb)
+    t = np.random.default_rng(3).normal(size=tuple(y.shape)).astype(
+        np.float32)
+    want = _k1_ref_grads(args, jnp.float32, t)
+    g = torch.from_numpy(t)
+    three = _k1_worst(_k1_bwd_tensor_cores(x, w1, b1, w2, b2, ls, g), want)
+    one = _k1_worst(_k1_bwd_tensor_cores(x, w1, b1, w2, b2, ls, g,
+                                         passes=1), want)
+    assert three <= 1.0 and one > 10.0, (three, one)
+
+
 def _per_head_wgrad(a, b, heads):
     """The per-head weight gradients a_h^T b_h (a [N, heads, P], b [N,
     heads * Q]) as wgrad_mma_kernel sums them for z = heads: ordered row

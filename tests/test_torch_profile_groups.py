@@ -41,6 +41,19 @@ NS = "(anonymous namespace)::"
     ("_ZN49_GLOBAL__N__a66b3b54_16_fused_adapter_cu_9e7b35ab23pnmlp_fwd_"
      "hidden_kernelEPK13__nv_bfloat16S2_PKfPS0_iii", "K3 fwd"),
     (NS + "pnmlp_fwd_out_kernel(__nv_bfloat16 const*, int)", "K3 fwd"),
+    (NS + "seqbwd_pre_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)",
+     "K1 bwd"),
+    (NS + "seqbwd_z_kernel<float>(float const*, float const*, int)",
+     "K1 bwd"),
+    (NS + "seqbwd_ln_kernel<__nv_bfloat16>(float*, float, int)", "K1 bwd"),
+    ("_ZN49_GLOBAL__N__a66b3b54_16_fused_adapter_cu_9e7b35ab18seqbwd_dpre_"
+     "kernelEPKfS1_S1_PfS2_iii", "K1 bwd"),
+    (NS + "seqbwd_dx_kernel<float>(float const*, float*, int)", "K1 bwd"),
+    (NS + "seq_adapter_bwd_kernel<float>(float const*, int)", "K1 bwd"),
+    (NS + "wgrad_tf32_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)",
+     "K1-K3 bwd weight grads"),
+    (NS + "wgrad_tf32_kernel<float>(float const*, int, int)",
+     "K1-K3 bwd weight grads"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "cuBLAS/cuDNN products"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopA_NNT", "cuBLAS/cuDNN products"),

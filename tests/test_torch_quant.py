@@ -119,11 +119,169 @@ def test_int4_route_is_the_references():
 
 
 def test_k_splits_fill_the_card():
-    """Ordered K slices only where the column blocks cannot fill the
-    card twice: the 8h4 head (149 blocks) in 2, the gateup (22) in 12."""
-    assert PQ.k_splits(151936, 1024) == 2
-    assert PQ.k_splits(22016, 1024) == 12
+    """Ordered depth slices only where the 64-column tiles cannot cover
+    the card twice: the 8h4 head (2,374 tiles) and the gateup (344) in
+    one, a 4096-column weight (64 tiles) in 5; never so many that a warp
+    gets under 4 of the 16-deep steps."""
+    assert PQ.k_splits(151936, 1024) == 1
+    assert PQ.k_splits(22016, 1024) == 1
+    assert PQ.k_splits(4096, 1024) == 5
+    assert PQ.k_splits(4100, 1024) == 5
     assert PQ.k_splits(4096, 32) == 1
+
+
+# ---------------------------------------------------------------------------
+# K7's tensor-core arithmetic (csrc/quant.cu), emulated in numpy/torch
+# ---------------------------------------------------------------------------
+
+def _bf16_bits(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bit patterns -> their fp32 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _int4_pairs(w: np.ndarray, w4: np.ndarray, q: int):
+    """vct::int4_pairs on uint32 words: byte q of packed rows r (w) and
+    r + 4 (w4) -> (lo pair, hi pair) of bf16 weights as fp32 values
+    [..., 2], the lower element first. prmt puts the two bytes at byte 0
+    and 2; OR-ing a nibble into 0x4300 gives 128 + v; subtracting 136
+    (exact in bf16, as the hardware's bf16 subtraction rounds an exact
+    result to itself) leaves v - 8."""
+    b = ((w >> (8 * q)) & 0xFF) | (((w4 >> (8 * q)) & 0xFF) << 16)
+    out = []
+    for word in ((b & 0x000F000F) | 0x43004300,
+                 ((b >> 4) & 0x000F000F) | 0x43004300):
+        halves = np.stack([word & 0xFFFF, word >> 16], -1)
+        out.append(_bf16_bits(halves) - np.float32(136.0))
+    return out
+
+
+def test_k7_nibble_to_bf16_all_values():
+    """Every packed byte (both nibbles, all 16 values each) in both
+    positions of the pair converts to exactly nib - 8, and each pair's
+    low half comes from packed row r, its high half from r + 4."""
+    v = np.arange(256, dtype=np.uint32)
+    other = v[::-1].copy()
+    for q in range(4):
+        lo, hi = _int4_pairs(v << (8 * q), other << (8 * q), q)
+        np.testing.assert_array_equal(lo[:, 0], (v & 0xF).astype(np.float32)
+                                      - 8)
+        np.testing.assert_array_equal(hi[:, 0], (v >> 4).astype(np.float32)
+                                      - 8)
+        np.testing.assert_array_equal(lo[:, 1], (other & 0xF).astype(
+            np.float32) - 8)
+        np.testing.assert_array_equal(hi[:, 1], (other >> 4).astype(
+            np.float32) - 8)
+    # every value the conversion produces is an integer in -8..7, exact
+    # in bf16 (its bits survive a round trip)
+    vals = np.arange(-8, 8, dtype=np.float32)
+    np.testing.assert_array_equal(
+        torch.from_numpy(vals).bfloat16().float().numpy(), vals)
+
+
+def _split3(x: torch.Tensor):
+    """The kernel's three bf16 terms of an fp32 x: h = bf16(x),
+    m = bf16(x - h), l = bf16(x - h - m)."""
+    h = x.bfloat16()
+    r = x - h.float()
+    m = r.bfloat16()
+    return h, m, (r - m.float()).bfloat16()
+
+
+def test_k7_three_bf16_terms_reproduce_fp32_x():
+    """h + m + l == x exactly for fp32 x over many binades (normal
+    values, below bf16's largest finite 3.39e38, past which h rounds to
+    inf), the edge cases of bf16 rounding included."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=200000) * np.exp2(rng.integers(-60, 60, 200000))
+         ).astype(np.float32)
+    edge = np.array([1.0, -1.0, 1 + 2 ** -8, 1 + 2 ** -9 + 2 ** -23,
+                     1 - 2 ** -24, 3.3e38, -1.1754944e-38 * 4, 0.0],
+                    dtype=np.float32)
+    x = torch.from_numpy(np.concatenate([x, edge]))
+    h, m, l = _split3(x)
+    total = h.double() + m.double() + l.double()
+    assert torch.equal(total, x.double())
+
+
+def _k7_tensor_cores(x: torch.Tensor, q) -> np.ndarray:
+    """K7 as csrc/quant.cu computes it, fragment by fragment: per 16-deep
+    step s, lane (g, t) of the warp on a 64-column tile reads bytes
+    8g .. 8g + 7 of packed rows 8s + t and 8s + t + 4; int4_pairs turns
+    byte q into tile q's A registers (row g from word 0, row g + 8 from
+    word 1: columns 8g + q and 8g + 4 + q), with logical k (2t, 2t + 1)
+    = physical (2t, 2t + 8) and (2t + 8, 2t + 9) = (2t + 1, 2t + 9);
+    B takes x (each bf16 term) in that order. fp32 sums per quarter of
+    the depth (the block's 4 warps), added in warp order, then * scale."""
+    M, K = x.shape
+    N = q.logical_out
+    packed = q.qweight.numpy().astype(np.uint32)
+    K2p, ldw = packed.shape
+    steps = -(-K // 16)
+    terms = [x] if x.dtype == torch.bfloat16 else list(_split3(x.float()))
+    xs = [np.pad(t.float().numpy(), ((0, 0), (0, 16 * steps - K)))
+          for t in terms]
+    g = np.arange(8)[:, None]
+    t = np.arange(4)[None, :]
+    # logical -> physical k inside a step, for (t, slot 0..3 of 2t, 2t + 1,
+    # 2t + 8, 2t + 9)
+    phys = np.stack([2 * t, 2 * t + 8, 2 * t + 1, 2 * t + 9], -1)[0]  # [4,4]
+    logical = np.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], -1)[0]
+    per = -(-steps // 4)
+    out = np.zeros((M, ldw), np.float32)
+    for c0 in range(0, ldw, 64):
+        quarter_sums = []
+        for w in range(4):
+            acc = np.zeros((64, M), np.float32)
+            for s in range(w * per, min(steps, (w + 1) * per)):
+                A = np.zeros((64, 16), np.float32)  # [column, logical k]
+                for h in range(2):  # word 0: rows g, word 1: rows g + 8
+                    for qq in range(4):
+                        cols = c0 + 8 * g + 4 * h + qq            # [8, 1]
+                        rows = 8 * s + t                          # [1, 4]
+                        w0 = np.zeros((8, 4), np.uint32)
+                        w1 = np.zeros((8, 4), np.uint32)
+                        ok0 = rows < K2p
+                        ok1 = rows + 4 < K2p
+                        w0[:, ok0[0]] = packed[np.clip(rows, 0, K2p - 1),
+                                               cols][:, ok0[0]] << (8 * qq)
+                        w1[:, ok1[0]] = packed[np.clip(rows + 4, 0, K2p - 1),
+                                               cols][:, ok1[0]] << (8 * qq)
+                        lo, hi = _int4_pairs(w0, w1, qq)          # [8,4,2]
+                        a_col = (8 * g + 4 * h + qq)[:, 0]
+                        for tt in range(4):
+                            A[a_col, logical[tt, 0]] = lo[:, tt, 0]
+                            A[a_col, logical[tt, 1]] = lo[:, tt, 1]
+                            A[a_col, logical[tt, 2]] = hi[:, tt, 0]
+                            A[a_col, logical[tt, 3]] = hi[:, tt, 1]
+                for xt in xs:
+                    B = np.zeros((16, M), np.float32)  # [logical k, row]
+                    for tt in range(4):
+                        for j in range(4):
+                            B[logical[tt, j]] = xt[:, 16 * s + phys[tt, j]]
+                    acc = acc + A @ B  # exact products, fp32 sums
+            quarter_sums.append(acc)
+        tot = ((quarter_sums[0] + quarter_sums[1]) + quarter_sums[2]) \
+            + quarter_sums[3]
+        out[:, c0:c0 + 64] = tot.T
+    return out[:, :N] * q.scale.numpy()[None, :N]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 5])
+def test_k7_tensor_core_emulation_matches_pallas(dtype, M):
+    """The swapped bf16 product, emulated fragment by fragment, against
+    quant_matmul_pallas_int4 (interpret mode) at 1e-4: K = 300 (a ragged
+    last 16-deep step), N = 130 (a ragged last 64-column tile of the
+    padded weight)."""
+    K, N = 300, 130
+    _, ref, got = _pair((K, N), 4, seed=20 + M)
+    x = torch.from_numpy(np.random.default_rng(M).normal(
+        size=(M, K)).astype(np.float32)).to(dtype)
+    want = RQ.quant_matmul_pallas_int4(jnp.asarray(x.float().numpy()),
+                                       ref.qweight, ref.scale,
+                                       out_features=N, in_features=K)
+    out = _k7_tensor_cores(x, got)
+    np.testing.assert_allclose(out, np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
 def test_bridge_carries_quantized_linears():

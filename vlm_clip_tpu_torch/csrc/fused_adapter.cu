@@ -43,8 +43,11 @@
 // tiles that fill the card, with the GELU, its derivative, the roundings
 // and the column sums fused into their epilogues, and K2's attention in
 // one pass per (row tile, head). The fp32 instantiations keep the
-// CUDA-core kernels: the tensor cores would round fp32 operands to TF32.
-// K1 and K2's forward are still the first, CUDA-core versions.
+// CUDA-core row passes: one TF32 pass would round fp32 operands. K1's
+// backward, whose function is fp32 in both dtypes, runs on the TF32
+// tensor cores error-compensated (the last section), as do the fp32
+// weight gradients. K1's and K2's forwards are still the first,
+// CUDA-core versions.
 //
 // K2 does not port the TPU kernel's block-diagonal K/V packing (a lane
 // trick): it loops over the heads on K^T [H, Tk] and V [Tk, H] directly,
@@ -2166,6 +2169,313 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ===========================================================================
+// K1 backward and fp32 weight gradients on the TF32 tensor cores
+// ===========================================================================
+//
+// K1's function is fp32 (the TPU kernel widens x, W1, W2 and g to fp32),
+// so its products cannot round their operands to bf16, nor to TF32 in one
+// pass (2^-11 relative a product). They run as error-compensated TF32
+// products (vct::Tf32Gemm): each fp32 operand element is split into a
+// TF32 big part and a TF32 small remainder and the products accumulate
+// small b + big s + big b in fp32, about 2^-22 relative a product against
+// fp32's 2^-24. A bf16 x (the FAST policy) is exact in TF32, so x W1 and
+// x^T dpre take two passes, the other products three. At the train
+// step's vision shape ([18912, 768], hidden 256, no dx) that is 97 GFLOP
+// of TF32 products (0.20 ms at 495 TFLOP/s) where fp32 FMAs would take
+// 0.56 ms at best. The row pass becomes products over 128 x 64 tiles with
+// fused epilogues, a LayerNorm pass and ordered weight gradients:
+//
+//   seqbwd_pre_kernel    pre = x W1 + b1; writes h = gelu(pre) and
+//                        gelu'(pre) [n, k], fp32
+//   seqbwd_z_kernel      z = (x + h W2) + b2 [n, h], fp32
+//   seqbwd_ln_kernel     per 32-row tile: each row's statistics (one warp
+//                        a row), then dz = LN backward of g ls, written
+//                        over z, and the tile's column sums of dz (db2),
+//                        g xhat (dls) and g (dlb)
+//   seqbwd_dpre_kernel   dpre = (dz W2^T) gelu'(pre) [n, k] and the
+//                        128-row tile's column sums of dpre (db1)
+//   seqbwd_dx_kernel     dx = dz + dpre W1^T (when asked), cast once
+//
+// then dW1 = x^T dpre and dW2 = h^T dz through wgrad_tf32_kernel (ordered
+// row chunks, as wgrad_kernel) and the partials through colsum_kernel, in
+// order: no atomics, so the gradients repeat bit for bit. The fp32
+// intermediates (h, gelu'(pre), dpre, z / dz) go through device memory:
+// about 0.3 GB at the vision shape, 0.1 ms of HBM. Widths: h a multiple
+// of 8 and k of 4 (every row copies in 16-byte chunks); the wrapper sends
+// other widths to seq_adapter_bwd_kernel above. The fp32 weight gradients
+// of K2, K3 and K6 take wgrad_tf32_kernel as well where their operands
+// copy in 16-byte chunks (vct_wgrad_tf32).
+
+// 128 x 64 block tiles on 8 warps of 32 x 32, 32-deep stages, 3 stages
+template <typename TA, bool A_T, bool B_T>
+using Tf32G = vct::Tf32Gemm<128, 64, 32, 32, 32, A_T, B_T, 3, TA, float>;
+constexpr int LNB_ROWS = 32;  // rows a block of K1's LN backward
+
+// One block's tile of A B (blockIdx.x the column tile, blockIdx.y the row
+// tile), handed to epi(r, c, v0, v1) for each pair of columns (c, c + 1)
+// of a row r < m_end with c < n_end (n_end even).
+template <class G, class Epi, typename TA>
+__device__ __forceinline__ void tf32_tile(const Epi& epi, const TA* A,
+                                          long long lda, const float* B,
+                                          long long ldb, int m_end,
+                                          int n_end, int depth) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int c0 = blockIdx.x * G::TILE_N, r0 = blockIdx.y * G::TILE_M;
+  typename G::Acc acc;
+  G::zero(acc);
+  G::run(acc, tc_smem, A, lda, B, ldb, r0, m_end, c0, n_end, 0, depth);
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = G::warp_m(threadIdx.x), wn = G::warp_n(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + wm + i * 16 + gr + half * 8;
+      if (r >= m_end) continue;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * tq;
+        if (c < n_end)
+          epi(r, c, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+    }
+}
+
+// h = gelu(v + b1), gp = gelu'(v + b1), fp32
+struct PreEpi {
+  float* hh;
+  float* gp;
+  const float* b1;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    float h0, h1, d0, d1;
+    gelu_and_grad(v0 + b1[c], h0, d0);
+    gelu_and_grad(v1 + b1[c + 1], h1, d1);
+    const size_t at = (size_t)r * ld + c;
+    *reinterpret_cast<float2*>(hh + at) = make_float2(h0, h1);
+    *reinterpret_cast<float2*>(gp + at) = make_float2(d0, d1);
+  }
+};
+
+// z = (x + v) + b2, fp32
+template <typename TX>
+struct ZEpi {
+  float* z;
+  const TX* x;
+  const float* b2;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * ld + c;
+    *reinterpret_cast<float2*>(z + at) =
+        make_float2((to_f(x[at]) + v0) + b2[c],
+                    (to_f(x[at + 1]) + v1) + b2[c + 1]);
+  }
+};
+
+// dx = dz + v, cast to TX
+template <typename TX>
+struct DxEpi {
+  TX* dx;
+  const float* dz;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * ld + c;
+    dx[at] = from_f<TX>(dz[at] + v0);
+    dx[at + 1] = from_f<TX>(dz[at + 1] + v1);
+  }
+};
+
+template <typename TX>
+__global__ void __launch_bounds__(Tf32G<TX, false, false>::THREADS, 2)
+    seqbwd_pre_kernel(const TX* __restrict__ x, const float* __restrict__ w1,
+                      const float* __restrict__ b1, float* __restrict__ hh,
+                      float* __restrict__ gp, int n, int h, int k) {
+  tf32_tile<Tf32G<TX, false, false>>(PreEpi{hh, gp, b1, k}, x, h, w1, k, n,
+                                     k, h);
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(Tf32G<float, false, false>::THREADS, 2)
+    seqbwd_z_kernel(const float* __restrict__ hh,
+                    const float* __restrict__ w2, const TX* __restrict__ x,
+                    const float* __restrict__ b2, float* __restrict__ z,
+                    int n, int h, int k) {
+  tf32_tile<Tf32G<float, false, false>>(ZEpi<TX>{z, x, b2, h}, hh, k, w2, h,
+                                        n, h, k);
+}
+
+// zd: z in, dz out. Per 32-row tile: one warp a row for the row's mean,
+// 1/std (the forward's statistics: the mean, then the mean of squared
+// deviations), m1 = mean(g ls) and m2 = mean(g ls xhat); then one thread a
+// column over the tile's rows: dz = inv (g ls - m1 - xhat m2) and the
+// column sums [db2 = sum dz | dls = sum g xhat | dlb = sum g] -> part.
+template <typename TX>
+__global__ void __launch_bounds__(NT)
+    seqbwd_ln_kernel(float* __restrict__ zd, const TX* __restrict__ g,
+                     const float* __restrict__ ls, float eps,
+                     float* __restrict__ part, int n, int h) {
+  __shared__ float stat[LNB_ROWS][4];  // mean, 1/std, m1, m2
+  const int r0 = blockIdx.x * LNB_ROWS, nv = min(LNB_ROWS, n - r0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int rr = warp; rr < nv; rr += NT / 32) {
+    const float* z = zd + (size_t)(r0 + rr) * h;
+    const TX* gr = g + (size_t)(r0 + rr) * h;
+    float s = 0.f;
+    for (int c = lane; c < h; c += 32) s += z[c];
+    const float mean = warp_sum(s) / h;
+    float v = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float d = z[c] - mean;
+      v += d * d;
+    }
+    const float inv = rsqrtf(warp_sum(v) / h + eps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < h; c += 32) {
+      const float gx = to_f(gr[c]) * ls[c];
+      s1 += gx;
+      s2 += gx * ((z[c] - mean) * inv);
+    }
+    const float m1 = warp_sum(s1) / h, m2 = warp_sum(s2) / h;
+    if (lane == 0) {
+      stat[rr][0] = mean;
+      stat[rr][1] = inv;
+      stat[rr][2] = m1;
+      stat[rr][3] = m2;
+    }
+  }
+  __syncthreads();
+  float* pt = part + (size_t)blockIdx.x * 3 * h;
+  for (int c = threadIdx.x; c < h; c += NT) {
+    const float lsc = ls[c];
+    float sdz = 0.f, sgx = 0.f, sg = 0.f;
+#pragma unroll 8
+    for (int rr = 0; rr < nv; ++rr) {
+      const size_t at = (size_t)(r0 + rr) * h + c;
+      const float gv = to_f(g[at]);
+      const float xh = (zd[at] - stat[rr][0]) * stat[rr][1];
+      const float dz =
+          stat[rr][1] * (gv * lsc - stat[rr][2] - xh * stat[rr][3]);
+      zd[at] = dz;
+      sdz += dz;
+      sgx += gv * xh;
+      sg += gv;
+    }
+    pt[c] = sdz;
+    pt[h + c] = sgx;
+    pt[2 * h + c] = sg;
+  }
+}
+
+// dpre = (dz W2^T) gelu'(pre) [n, k] and the 128-row tile's column sums
+// of dpre -> part [row tiles, k]: across the lanes of a column, then the
+// four 32-row warp rows of the block in row order.
+__global__ void __launch_bounds__(Tf32G<float, false, true>::THREADS, 2)
+    seqbwd_dpre_kernel(const float* __restrict__ dz,
+                       const float* __restrict__ w2,
+                       const float* __restrict__ gp,
+                       float* __restrict__ dpre, float* __restrict__ part,
+                       int n, int h, int k) {
+  typedef Tf32G<float, false, true> G;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float red[G::TILE_M / 32][G::TILE_N];
+  const int c0 = blockIdx.x * G::TILE_N, r0 = blockIdx.y * G::TILE_M;
+  typename G::Acc acc;
+  G::zero(acc);
+  G::run(acc, tc_smem, dz, h, w2, h, r0, n, c0, k, 0, h);  // dz W2^T
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = G::warp_m(threadIdx.x), wn = G::warp_n(threadIdx.x);
+  float cs[G::NT][2];
+#pragma unroll
+  for (int j = 0; j < G::NT; ++j) cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + wm + i * 16 + gr + half * 8;
+      if (r >= n) continue;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * tq;
+        if (c >= k) continue;
+        const size_t at = (size_t)r * k + c;
+        const float2 d = *reinterpret_cast<const float2*>(gp + at);
+        const float p0 = acc[i][j][2 * half] * d.x;
+        const float p1 = acc[i][j][2 * half + 1] * d.y;
+        *reinterpret_cast<float2*>(dpre + at) = make_float2(p0, p1);
+        cs[j][0] += p0;
+        cs[j][1] += p1;
+      }
+    }
+#pragma unroll
+  for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = cs[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gr == 0) red[wm / 32][wn + j * 8 + 2 * tq + e] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < G::TILE_N && c0 + threadIdx.x < k) {
+    float v = red[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < G::TILE_M / 32; ++w) v += red[w][threadIdx.x];
+    part[(size_t)blockIdx.y * k + c0 + threadIdx.x] = v;
+  }
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(Tf32G<float, false, true>::THREADS, 2)
+    seqbwd_dx_kernel(const float* __restrict__ dpre,
+                     const float* __restrict__ w1,
+                     const float* __restrict__ dz, TX* __restrict__ dx,
+                     int n, int h, int k) {
+  tf32_tile<Tf32G<float, false, true>>(DxEpi<TX>{dx, dz, h}, dpre, k, w1, k,
+                                       n, h, k);  // dpre W1^T
+}
+
+// out[z*so + a*ldo + b] = sum over the split's rows r of A[r*lda + z*sa +
+// a] * B[r*ldb + z*sb + b], fp32 B and fp32 or bf16 A, error-compensated
+// on the TF32 tensor cores: wgrad_kernel's contract, grid and ordered row
+// chunks over 128 x 64 output tiles. Operands 16-byte aligned, their
+// strides, offsets and widths multiples of a 16-byte chunk.
+template <typename TA>
+__global__ void __launch_bounds__(Tf32G<TA, true, false>::THREADS, 2)
+    wgrad_tf32_kernel(const TA* __restrict__ A, int lda, int sa,
+                      const float* __restrict__ B, int ldb, int sb,
+                      float* __restrict__ out, int ldo, int so, int n, int P,
+                      int Q, int nz, int chunk, size_t split_stride) {
+  typedef Tf32G<TA, true, false> G;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int z = blockIdx.z % nz, split = blockIdx.z / nz;
+  const int a0 = blockIdx.y * G::TILE_M, b0 = blockIdx.x * G::TILE_N;
+  const int rbeg = split * chunk, rend = min(n, rbeg + chunk);
+  A += (size_t)z * sa;
+  B += (size_t)z * sb;
+  out += (size_t)z * so + split * split_stride;
+  typename G::Acc acc;
+  G::zero(acc);
+  G::run(acc, tc_smem, A, lda, B, ldb, a0, P, b0, Q, rbeg, rend);
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int wm = G::warp_m(threadIdx.x), wn = G::warp_n(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int a = a0 + wm + i * 16 + gr + half * 8;
+      if (a >= P) continue;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = b0 + wn + j * 8 + 2 * tq + e;
+          if (b < Q) out[(size_t)a * ldo + b] = acc[i][j][2 * half + e];
+        }
+    }
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel.
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
@@ -2200,6 +2510,96 @@ int cab_fwd_launch(const void* x, const void* wt, const void* bt,
   return (int)cudaGetLastError();
 }
 
+
+}  // namespace
+
+extern "C" int vct_wgrad_tf32(int a_bf16, const void* a, int lda, int sa,
+                              const void* b, int ldb, int sb, void* out,
+                              int ldo, int so, int n, int p, int q, int z,
+                              int splits, void* work, size_t out_numel,
+                              void* stream);
+extern "C" int vct_colsum(const void* part, int tiles, int v, void* out,
+                          void* stream);
+
+namespace {
+
+// Row chunks of a weight gradient on the tensor cores with `tiles` output
+// tiles (128 x 128 or, TF32, 128 x 64; two blocks fit an SM): at most one
+// wave of the card,
+// no chunk under 256 rows, at most 16 (as _tc_splits in
+// ops/fused_adapter.py, which the other callers of vct_wgrad use).
+constexpr int SMS = 132;  // H100 SXM streaming multiprocessors
+static int tc_splits(int n, int tiles) {
+  int s = 2 * SMS / tiles;
+  if (s > n / 256) s = n / 256;
+  if (s > 16) s = 16;
+  return s > 1 ? s : 1;
+}
+
+// K1 backward on the TF32 tensor cores: the row chunks of its two weight
+// gradients (dW1 [h, k] and dW2 [k, h], 128 x 64 tiles).
+void seqbwd_splits(int n, int h, int k, int* s1, int* s2) {
+  *s1 = tc_splits(n, ((k + 63) / 64) * ((h + 127) / 128));
+  *s2 = tc_splits(n, ((h + 63) / 64) * ((k + 127) / 128));
+}
+
+template <typename TX>
+int seqbwd_launch(const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* b2, const void* ls,
+                         const void* g, float eps, void* dx, void* dw1,
+                         void* dw2, void* vec, void* ws, int n, int h, int k,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rt = (n + 127) / 128, lt = (n + LNB_ROWS - 1) / LNB_ROWS;
+  float* hh = (float*)ws;
+  float* gp = hh + (size_t)n * k;
+  float* dpre = gp + (size_t)n * k;
+  float* zd = dpre + (size_t)n * k;
+  float* part_dpre = zd + (size_t)n * h;
+  float* part_ln = part_dpre + (size_t)rt * k;
+  float* work = part_ln + (size_t)lt * 3 * h;
+  const float *fw1 = (const float*)w1, *fw2 = (const float*)w2;
+  const TX* tx = (const TX*)x;
+  int err;
+  typedef Tf32G<TX, false, false> GP;
+  typedef Tf32G<float, false, false> GZ;
+  typedef Tf32G<float, false, true> GT;
+  if ((err = allow_smem(seqbwd_pre_kernel<TX>, GP::SMEM_BYTES))) return err;
+  seqbwd_pre_kernel<TX><<<dim3((k + 63) / 64, rt), GP::THREADS,
+                          GP::SMEM_BYTES, st>>>(tx, fw1, (const float*)b1, hh,
+                                                gp, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = allow_smem(seqbwd_z_kernel<TX>, GZ::SMEM_BYTES))) return err;
+  seqbwd_z_kernel<TX><<<dim3((h + 63) / 64, rt), GZ::THREADS, GZ::SMEM_BYTES,
+                        st>>>(hh, fw2, tx, (const float*)b2, zd, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  seqbwd_ln_kernel<TX><<<lt, NT, 0, st>>>(zd, (const TX*)g, (const float*)ls,
+                                          eps, part_ln, n, h);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = allow_smem(seqbwd_dpre_kernel, GT::SMEM_BYTES))) return err;
+  seqbwd_dpre_kernel<<<dim3((k + 63) / 64, rt), GT::THREADS, GT::SMEM_BYTES,
+                       st>>>(zd, fw2, gp, dpre, part_dpre, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (dx != nullptr) {
+    if ((err = allow_smem(seqbwd_dx_kernel<TX>, GT::SMEM_BYTES))) return err;
+    seqbwd_dx_kernel<TX><<<dim3((h + 63) / 64, rt), GT::THREADS,
+                           GT::SMEM_BYTES, st>>>(dpre, fw1, zd, (TX*)dx, n, h,
+                                                 k);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  int s1, s2;
+  seqbwd_splits(n, h, k, &s1, &s2);
+  const int abf = sizeof(TX) == 2;
+  // dW1 = x^T dpre, dW2 = h^T dz (one work buffer: the stream orders them)
+  if ((err = vct_wgrad_tf32(abf, x, h, 0, dpre, k, 0, dw1, k, 0, n, h, k, 1,
+                            s1, work, (size_t)h * k, stream)))
+    return err;
+  if ((err = vct_wgrad_tf32(0, hh, k, 0, zd, h, 0, dw2, h, 0, n, k, h, 1, s2,
+                            work, (size_t)h * k, stream)))
+    return err;
+  if ((err = vct_colsum(part_dpre, rt, k, vec, stream))) return err;
+  return vct_colsum(part_ln, lt, 3 * h, (float*)vec + k, stream);
+}
 
 }  // namespace
 
@@ -2433,6 +2833,78 @@ int vct_colsum(const void* part, int tiles, int v, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// fp32 weight gradients on the TF32 tensor cores, error-compensated:
+// vct_wgrad's contract for an fp32 B and an fp32 (a_bf16 = 0) or bf16 A
+// over 128 x 64 output tiles (grid ceil(q / 64) x ceil(p / 128) x z *
+// splits). a and b 16-byte aligned, lda, sa and p multiples of 4 (fp32 A)
+// or 8 (bf16 A), ldb, sb and q multiples of 4, else
+// cudaErrorMisalignedAddress.
+int vct_wgrad_tf32(int a_bf16, const void* a, int lda, int sa,
+                   const void* b, int ldb, int sb, void* out, int ldo, int so,
+                   int n, int p, int q, int z, int splits, void* work,
+                   size_t out_numel, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ea = a_bf16 ? 8 : 4;
+  const bool vec = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+                   lda % ea == 0 && sa % ea == 0 && p % ea == 0 &&
+                   ldb % 4 == 0 && sb % 4 == 0 && q % 4 == 0;
+  if (!vec) return (int)cudaErrorMisalignedAddress;
+  const dim3 grid((q + 63) / 64, (p + 127) / 128, z * splits);
+  const int chunk = (n + splits - 1) / splits;
+  float* o = splits > 1 ? (float*)work : (float*)out;
+  const size_t stride = splits > 1 ? out_numel : 0;
+  int err;
+  if (a_bf16) {
+    typedef Tf32G<vct::bf16, true, false> G;
+    if ((err = allow_smem(wgrad_tf32_kernel<vct::bf16>, G::SMEM_BYTES)))
+      return err;
+    wgrad_tf32_kernel<vct::bf16><<<grid, G::THREADS, G::SMEM_BYTES, st>>>(
+        (const vct::bf16*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so,
+        n, p, q, z, chunk, stride);
+  } else {
+    typedef Tf32G<float, true, false> G;
+    if ((err = allow_smem(wgrad_tf32_kernel<float>, G::SMEM_BYTES)))
+      return err;
+    wgrad_tf32_kernel<float><<<grid, G::THREADS, G::SMEM_BYTES, st>>>(
+        (const float*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p,
+        q, z, chunk, stride);
+  }
+  if ((err = (int)cudaGetLastError()) || splits == 1) return err;
+  split_sum_kernel<<<(unsigned)((out_numel + NT - 1) / NT), NT, 0, st>>>(
+      (const float*)work, splits, out_numel, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of scratch vct_seq_adapter_bwd_tf32 needs: h, gelu'(pre), dpre
+// [n, k] and z / dz [n, h] in fp32, the column-sum partials of dpre
+// (128-row tiles, k) and of the LN pass (32-row tiles, 3h), and the
+// weight gradients' row-chunk partials.
+size_t vct_seq_adapter_bwd_tf32_ws(int n, int h, int k) {
+  int s1, s2;
+  seqbwd_splits(n, h, k, &s1, &s2);
+  const int s = s1 > s2 ? s1 : s2;
+  return sizeof(float) *
+         (3 * (size_t)n * k + (size_t)n * h + (size_t)((n + 127) / 128) * k +
+          (size_t)((n + LNB_ROWS - 1) / LNB_ROWS) * 3 * h +
+          (s > 1 ? (size_t)s * h * k : 0));
+}
+
+// K1 backward on the TF32 tensor cores (h a multiple of 8, k of 4; every
+// pointer 16-byte aligned), all its launches in one call: writes dx
+// (unless null), dw1 [h, k], dw2 [k, h] and vec [db1 (k) | db2 | dls |
+// dlb (h each)]; ws: vct_seq_adapter_bwd_tf32_ws bytes of scratch.
+int vct_seq_adapter_bwd_tf32(int bf16, const void* x, const void* w1,
+                             const void* b1, const void* w2, const void* b2,
+                             const void* ls, const void* g, float eps,
+                             void* dx, void* dw1, void* dw2, void* vec,
+                             void* ws, int n, int h, int k, void* stream) {
+  if (h % 8 || k % 4 || n < 1) return (int)cudaErrorInvalidValue;
+  return bf16 ? seqbwd_launch<vct::bf16>(x, w1, b1, w2, b2, ls, g, eps, dx,
+                                         dw1, dw2, vec, ws, n, h, k, stream)
+              : seqbwd_launch<float>(x, w1, b1, w2, b2, ls, g, eps, dx, dw1,
+                                     dw2, vec, ws, n, h, k, stream);
+}
+
 // K3 backward in bf16 on the tensor cores (h, k multiples of 8; every
 // pointer 16-byte aligned), all its launches in one call: writes dx
 // (unless null), dw1 [h, k], dw2 [k, h] and vec [db1 (k) | db2 | dls |
@@ -2531,18 +3003,6 @@ static bool cab_bwd_bf16_ok(int din, int h, int heads, int tk) {
   const int hd = heads > 0 ? h / heads : 0;
   return heads > 0 && hd * heads == h && hd % 8 == 0 && hd <= HD_MAX &&
          din % 8 == 0 && tk > 0 && tk <= SMAX;
-}
-
-// Row chunks of a weight gradient on the tensor cores with `tiles` 128 x
-// 128 output tiles (two blocks fit an SM): at most one wave of the card,
-// no chunk under 256 rows, at most 16 (as _tc_splits in
-// ops/fused_adapter.py, which the other callers of vct_wgrad use).
-constexpr int SMS = 132;  // H100 SXM streaming multiprocessors
-static int tc_splits(int n, int tiles) {
-  int s = 2 * SMS / tiles;
-  if (s > n / 256) s = n / 256;
-  if (s > 16) s = 16;
-  return s > 1 ? s : 1;
 }
 
 // K2 backward's five weight gradients (dWo, dv, dk, dWq, dWt) as (p, q,

@@ -26,7 +26,11 @@ route a longer K/V to the plain version under ``impl="auto"``, as the
 reference does). A wrapper raises on a CUDA tensor whose shapes its
 kernels do not take. In bf16, K3 (forward and backward) and K2's
 backward run on the tensor cores, each as a few passes behind one C
-call. On CUDA, a call that needs a gradient goes through a
+call. K1's backward (fp32 math in both dtypes) runs its products as
+error-compensated TF32 on the tensor cores (split big + small, three
+passes, two where the operand is a bf16 x), and so do the fp32 weight
+gradients of the others (:func:`_wgrad`). On CUDA, a call that needs a
+gradient goes through a
 ``torch.autograd.Function`` whose forward launches the forward kernel and
 saves only the inputs (as the TPU rules do), and whose backward launches
 the backward kernel (``*_bwd_cuda``), which recomputes the rest. The
@@ -81,6 +85,11 @@ def _lib() -> ctypes.CDLL:
         lib.vct_wgrad.argtypes = [_I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _P,
                                   ctypes.c_size_t, _P]
+        lib.vct_wgrad_tf32.argtypes = [_I, _P, _I, _I, _P, _I, _I, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _P,
+                                       ctypes.c_size_t, _P]
+        lib.vct_seq_adapter_bwd_tf32.argtypes = [_I] + [_P] * 7 + [_F] \
+            + [_P] * 5 + [_I] * 3 + [_P]
         lib.vct_colsum.argtypes = [_P, _I, _I, _P, _P]
         feat = [_F, _U, _U, _F]  # ratio, seed, dropout threshold, 1/keep
         lib.vct_feature_adapter_fwd.argtypes = [_I] + [_P] * 5 + feat \
@@ -93,7 +102,8 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_cross_attn_block_bwd,
                    lib.vct_prenorm_mlp_fwd_bf16,
                    lib.vct_cross_attn_block_bwd_bf16,
-                   lib.vct_wgrad, lib.vct_colsum,
+                   lib.vct_wgrad, lib.vct_wgrad_tf32,
+                   lib.vct_seq_adapter_bwd_tf32, lib.vct_colsum,
                    lib.vct_feature_adapter_fwd, lib.vct_feature_adapter_bwd):
             fn.restype = _I
         lib.vct_seq_adapter_smem.argtypes = [_I, _I]
@@ -106,6 +116,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_cross_attn_block_bwd_rows.argtypes = [_I, _I]
         lib.vct_cross_attn_block_bwd_rows.restype = _I
         lib.vct_prenorm_mlp_fwd_bf16_ws.argtypes = [_I] * 3
+        lib.vct_seq_adapter_bwd_tf32_ws.argtypes = [_I] * 3
         lib.vct_cross_attn_block_bwd_bf16_ws.argtypes = [_I] * 5
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
                    lib.vct_cross_attn_block_smem,
@@ -114,6 +125,7 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_cross_attn_block_bwd_smem,
                    lib.vct_feature_adapter_smem,
                    lib.vct_prenorm_mlp_fwd_bf16_ws,
+                   lib.vct_seq_adapter_bwd_tf32_ws,
                    lib.vct_cross_attn_block_bwd_bf16_ws):
             fn.restype = ctypes.c_size_t
         lib._typed = True
@@ -448,26 +460,48 @@ def _tc_splits(n: int, tiles: int) -> int:
     return max(1, min(16, 2 * SMS // tiles, n // 256))
 
 
+def _tf32_route(a, b, p, q, lda, sa, ldb, sb) -> bool:
+    """Whether a weight gradient with an fp32 b takes the error-compensated
+    TF32 tensor cores: every row of both operands copies in 16-byte
+    chunks (4 fp32 or 8 bf16 elements) from a 16-byte aligned start."""
+    ea = 8 if a.dtype == torch.bfloat16 else 4
+    return (b.dtype == torch.float32 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0
+            and all(v % ea == 0 for v in (lda, sa, p))
+            and all(v % 4 == 0 for v in (ldb, sb, q)))
+
+
 def _wgrad(a, b, out, p, q, *, lda=None, sa=0, ldb=None, sb=0, ldo=None,
            so=0, z=1):
     """out[z*so + i*ldo + j] = sum_r a[r, z*sa + i] * b[r, z*sb + j] for
     i < p, j < q: a weight gradient summed over every row, in fp32. Two
-    bf16 operands take the tensor cores (128 x 128 output tiles; 16-byte
-    aligned, strides, offsets and widths multiples of 8), the others the
-    CUDA cores (64 x 64)."""
+    bf16 operands take the bf16 tensor cores (128 x 128 output tiles;
+    16-byte aligned, strides, offsets and widths multiples of 8); an fp32
+    b whose rows copy in 16-byte chunks (:func:`_tf32_route`) the
+    error-compensated TF32 tensor cores (128 x 64 tiles: three passes,
+    two with a bf16 a); the others the CUDA cores (64 x 64)."""
     n = a.shape[0]
-    if a.dtype == b.dtype == torch.bfloat16:
+    lda, ldb = lda or a.shape[1], ldb or b.shape[1]
+    bf16 = a.dtype == b.dtype == torch.bfloat16
+    tf32 = not bf16 and _tf32_route(a, b, p, q, lda, sa, ldb, sb)
+    if bf16:
         splits = _tc_splits(n, -(-p // 128) * -(-q // 128) * z)
+    elif tf32:
+        splits = _tc_splits(n, -(-p // 128) * -(-q // 64) * z)
     else:
         splits = _splits(n, -(-p // 64) * -(-q // 64) * z)
     work = torch.empty(splits * out.numel() if splits > 1 else 0,
                        dtype=torch.float32, device=a.device)
+    args = (a.data_ptr(), lda, sa, b.data_ptr(), ldb, sb, out.data_ptr(),
+            ldo or out.shape[-1], so, n, p, q, z, splits, work.data_ptr(),
+            out.numel(), _stream(a))
+    a_bf16 = int(a.dtype == torch.bfloat16)
     with torch.cuda.device(a.device):
-        _check_err("wgrad", _lib().vct_wgrad(
-            int(a.dtype == torch.bfloat16), int(b.dtype == torch.bfloat16),
-            a.data_ptr(), lda or a.shape[1], sa, b.data_ptr(),
-            ldb or b.shape[1], sb, out.data_ptr(), ldo or out.shape[-1], so,
-            n, p, q, z, splits, work.data_ptr(), out.numel(), _stream(a)))
+        if tf32:
+            _check_err("wgrad", _lib().vct_wgrad_tf32(a_bf16, *args))
+        else:
+            _check_err("wgrad", _lib().vct_wgrad(
+                a_bf16, int(b.dtype == torch.bfloat16), *args))
     return out
 
 
@@ -530,23 +564,47 @@ def _seq_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
     return y
 
 
+def seq_adapter_bwd_tensor_cores(h: int, k: int) -> bool:
+    """K1's backward runs on the TF32 tensor cores where every row copies
+    in 16-byte chunks (h a multiple of 8, k of 4), else on the CUDA cores
+    (``seq_adapter_bwd_kernel``): both compute the same fp32 function."""
+    return h % 8 == 0 and k % 4 == 0
+
+
 def seq_adapter_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
                          need_dx: bool = True):
     """Backward kernel of K1: same results as :func:`seq_adapter_bwd_torch`
-    (dx in x's dtype, the rest fp32), for CUDA tensors."""
+    (dx in x's dtype, the rest fp32), for CUDA tensors. Its products run
+    as error-compensated TF32 on the tensor cores (about 2^-22 relative a
+    product; two passes where one operand is a bf16 x, three otherwise)
+    at the widths :func:`seq_adapter_bwd_tensor_cores` admits, fp32 FMAs
+    on the CUDA cores at the others."""
     name = "seq_adapter_bwd"
     N, H = x.shape
     K = w1.shape[1]
-    x = x.contiguous()
-    g = _as(g, x.dtype)
-    w1, b1, w2, b2, ls = (_as(t, torch.float32)
+    x = aligned16(x)
+    g = aligned16(_as(g, x.dtype))
+    w1, b1, w2, b2, ls = (aligned16(_as(t, torch.float32))
                           for t in (w1, b1, w2, b2, ls))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
-    dw1, dw2 = torch.zeros(H, K, **f32), torch.zeros(K, H, **f32)
-    vec = torch.zeros(K + 3 * H, **f32)
-    if N:
-        lib = _lib()
+    alloc = torch.empty if N else torch.zeros  # the kernels write all
+    dw1, dw2 = alloc(H, K, **f32), alloc(K, H, **f32)
+    vec = alloc(K + 3 * H, **f32)
+    lib = _lib()
+    if N and seq_adapter_bwd_tensor_cores(H, K):
+        ws = torch.empty(lib.vct_seq_adapter_bwd_tf32_ws(N, H, K),
+                         dtype=torch.uint8, device=x.device)
+        with torch.cuda.device(x.device):
+            _check_err(name, lib.vct_seq_adapter_bwd_tf32(
+                int(x.dtype == torch.bfloat16), x.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ls.data_ptr(),
+                g.data_ptr(), float(eps),
+                None if dx is None else dx.data_ptr(), dw1.data_ptr(),
+                dw2.data_ptr(), vec.data_ptr(), ws.data_ptr(), N, H, K,
+                _stream(x)))
+        seq_adapter_bwd_cuda.launches += 1
+    elif N:
         hb, dpre = torch.empty(N, K, **f32), torch.empty(N, K, **f32)
         dz = torch.empty(N, H, **f32)
         part = torch.empty(-(-N // ROWS), K + 3 * H, **f32)

@@ -18,6 +18,17 @@ quant.py:233); 32 < M <= 1024 takes the row-pair product
 tensor every int4 matmul dequantizes, as the reference does off its chip.
 ``quant_matmul_int4.launches`` counts the kernel's launches.
 
+K7's arithmetic: the nibbles (-8..7) are exact in bf16, so the kernel
+runs on the bf16 tensor cores (mma.sync, fp32 accumulation) with the
+weight as the A operand, converted nibble pair by nibble pair in
+registers, and x^T as the B operand. A bf16 x is an exact operand as it
+is. An fp32 x is split into three bf16 terms h = bf16(x), m = bf16(x - h),
+l = bf16(x - h - m) that sum to x exactly (above the subnormals, below
+bf16's largest finite value, 3.39e38), each multiplied by the same
+nibbles: every product is exact, and the result differs from the
+reference's fp32 unpack-and-multiply only in summation order (there is
+no CUDA-core path).
+
 The reference's ``pallas_ok`` / ``set_int4_pallas_enabled`` exist for
 GSPMD tensor parallelism and are not ported.
 """
@@ -30,15 +41,15 @@ from typing import Optional
 
 import torch
 
-from vlm_clip_tpu_torch.ops.build import load_library
+from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
 # int4 tile grid of the reference kernel; quantize-time padding targets
 # multiples of these (packed rows _I4_TK // 2, columns _I4_TN)
 _I4_TN, _I4_TK = 1024, 2048
 # the kernel's limits: rows of x (the reference's GEMV route) and columns
-# per block (256 threads x 4 columns)
+# per block (a 64-column tile, 4 warps over the depth)
 KERNEL_MAX_M = 32
-_COLS_PER_BLOCK = 1024
+_COLS_PER_BLOCK = 64
 _SMS = 132  # H100 SXM
 
 
@@ -155,23 +166,25 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("quant")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vct_qmm4.argtypes = [I, P, P, P, P, P, I, I, I, I, I, P]
+        lib.vct_qmm4.argtypes = [I, I, P, P, P, P, P, P] + [I] * 6 + [P]
         lib.vct_qmm4.restype = I
         lib._typed = True
     return lib
 
 
 def k_splits(n_cols: int, k_rows: int) -> int:
-    """How many ordered K slices the kernel cuts the packed rows into so
-    that column blocks times slices cover the 132 SMs about twice."""
+    """How many ordered depth slices the kernel cuts the packed rows into:
+    only where the 64-column tiles cannot cover the 132 SMs twice, and
+    never so many that a warp of a tile's four gets under 4 of the
+    16-deep steps (8 packed rows each)."""
     blocks = -(-n_cols // _COLS_PER_BLOCK)
-    splits = max(1, min(-(-2 * _SMS // blocks), k_rows // 64))
-    return splits
+    steps = -(-k_rows // 8)
+    return max(1, min(-(-2 * _SMS // blocks), steps // 16))
 
 
 def _launch(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     M, K = x.shape
-    K2, N = K // 2, q.logical_out
+    N = q.logical_out
     if M > KERNEL_MAX_M or M < 1:
         raise ValueError(f"quant_matmul_int4: the kernel takes 1..."
                          f"{KERNEL_MAX_M} rows, got {M}")
@@ -180,31 +193,41 @@ def _launch(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
                         f"got {x.dtype}")
     if q.bits != 4 or q.qweight.dim() != 2 \
             or q.qweight.dtype != torch.uint8 or K != q.logical_in \
-            or q.qweight.shape[0] < K2 or q.qweight.shape[1] < N \
-            or q.qweight.shape[1] % 4 or q.scale.shape[-1] < N:
+            or q.qweight.shape[0] < K // 2 or q.qweight.shape[1] < N \
+            or q.qweight.shape[1] % 16 or q.scale.shape[-1] < N:
         raise ValueError(f"quant_matmul_int4: need a packed int4 weight for "
-                         f"x {tuple(x.shape)}, got qweight "
+                         f"x {tuple(x.shape)} (columns padded to a multiple "
+                         f"of 16, as quantize_weight pads them), got qweight "
                          f"{tuple(q.qweight.shape)} {q.qweight.dtype} "
                          f"(in {q.logical_in}, out {N})")
     if any(t.device != x.device for t in (q.qweight, q.scale)):
         raise ValueError(f"quant_matmul_int4: all tensors must be on "
                          f"{x.device}")
-    if not q.qweight.is_contiguous() or q.scale.dtype != torch.float32:
-        raise ValueError("quant_matmul_int4: qweight must be contiguous and "
-                         "scale float32")
+    if q.scale.dtype != torch.float32:
+        raise ValueError("quant_matmul_int4: scale must be float32")
     x = x.contiguous()
+    qweight = aligned16(q.qweight)
     scale = q.scale.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    # a bf16 x whose rows copy in 16-byte chunks is read in place; an fp32
+    # x (three bf16 terms) or another bf16 x goes through the split pass
+    direct = bf16 and K % 8 == 0 and x.data_ptr() % 16 == 0
+    lib = _lib()
+    # the bf16 terms of x, [terms, M, K rounded up to 8]
+    xs = None if direct else torch.empty(
+        (1 if bf16 else 3) * M * (-(-K // 8) * 8), dtype=torch.bfloat16,
+        device=x.device)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    splits = k_splits(N, K2)
+    splits = k_splits(N, K // 2)
     partial = (torch.empty(splits, M, N, dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.vct_qmm4(
-            int(x.dtype == torch.bfloat16), x.data_ptr(),
-            q.qweight.data_ptr(), scale.data_ptr(),
+            int(bf16), int(direct), x.data_ptr(),
+            None if xs is None else xs.data_ptr(),
+            qweight.data_ptr(), scale.data_ptr(),
             None if partial is None else partial.data_ptr(), out.data_ptr(),
-            M, K2, N, q.qweight.shape[1], splits,
+            M, K, qweight.shape[0], N, qweight.shape[1], splits,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"quant_matmul_int4: CUDA kernel launch failed "
@@ -215,8 +238,10 @@ def _launch(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
 
 def quant_matmul_int4(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     """K7: x [M <= 32, K] @ unpack_int4(q) * scale -> fp32 [M, N] (the
-    logical columns). A CUDA tensor launches the kernel; a CPU tensor
-    takes :func:`quant_matmul_int4_torch`."""
+    logical columns). A CUDA tensor launches the kernel on the bf16
+    tensor cores (an fp32 x as three exact bf16 terms, not on the CUDA
+    cores: see the module docstring); a CPU tensor takes
+    :func:`quant_matmul_int4_torch`."""
     if x.device.type == "cpu":
         return quant_matmul_int4_torch(x, q)
     if x.device.type != "cuda":
