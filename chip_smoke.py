@@ -8,14 +8,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    csrc/contrastive.cu, csrc/attention.cu, csrc/quant.cu and
    csrc/decode_attention.cu, one nvcc each, in parallel), prints ptxas's
    registers and spills and the HMMA instructions in the SASS of each
-   tensor-core kernel (in bf16: K5, K3 forward and backward, K2 backward,
-   the weight gradients, K7; in compensated TF32: K1 backward and the
+   tensor-core kernel (in bf16: K5, K3 and K2 forward and backward, the
+   weight gradients, K7, K8; in compensated TF32: K1 backward and the
    fp32 weight gradients), and fails if one of them has none.
 2. Kernels: each forward kernel against its plain PyTorch version at the
    B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
    the batch-1 shapes of a served request, in bf16 and fp32, with the
-   tolerance stated below, and both timed with CUDA events; K3's bf16
-   passes timed one by one (torch.profiler).
+   tolerance stated below, and both timed with CUDA events; K3's and
+   K2's bf16 passes timed one by one (torch.profiler).
 3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
    contrastive head (forward and backward, [96, 512]) against their
    plain versions at the B=96 shapes, in bf16 and fp32, timed the same
@@ -39,7 +39,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    256 shared rows the reference computes plainly too); then K2 at these
    widths with a 197-row pseudo-image, where the reference runs its
    kernel: K2 (96-wide heads) must launch, forward and backward, and
-   agree with its plain version.
+   agree with its plain version; its forward's passes timed one by one.
 5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
    at the rows pipeline T gives it (32 image features, 7 class means, 35
    descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
@@ -68,7 +68,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    weight; K8 (decode attention, csrc/decode_attention.cu) at the 3B heads
    (16 q, 2 kv, d=128), S=768, T=1 and T=5, a bf16 cache at B=8, an int8
    cache at B=16 and fp32 at B=2, depths 0 and S - T included, beside
-   F.scaled_dot_product_attention on the bf16 cache; then the port's
+   F.scaled_dot_product_attention on the bf16 cache, with K8's device
+   time (torch.profiler), column splits and blocks; then the port's
    cli/check_decode_attn.
 9. VLM: Qwen2.5-VL-3B at full width (seeded random weights made on the
    card, the 8h4 preset through quantize_qwen_params, the folded patch
@@ -76,8 +77,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    generate_batch_from_ids with 32 new tokens with K8 off and on, with an
    int8 KV cache at B=16, and through the plain versions (impl="torch");
    prefill and first-step logits and every row's first token are held
-   across them; then the port's cli/bench_decode (8h4, fused, B=8, 64
-   tokens) with K8 off and on.
+   across them, and K8 must launch once a layer a decode forward; then
+   the port's cli/bench_decode (8h4, fused, B=8, 64 tokens) with K8 off
+   and on.
 
 Prints one JSON line with the kernels' results, then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
@@ -174,13 +176,14 @@ BWD_REPLACES = {
 # could take is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
-# The kernels on the tensor cores, by wrapper (in bf16: K5, K3 forward
-# and backward, K2 backward and the bf16 x bf16 weight gradients; K1
+# The kernels on the tensor cores, by wrapper (in bf16: K5, K3 and K2
+# forward and backward, the bf16 x bf16 weight gradients and K8; K1
 # backward's error-compensated TF32 products and the fp32 weight
 # gradients, HMMA.1684.F32.TF32; K7's int4 product in bf16; the LayerNorm
 # row kernels among their passes do no product): setup() counts each
 # one's HMMA instructions in the built library's SASS and fails on a
 # kernel with none.
+K8_BF16_SASS = "decode_attention_kernelI13__nv_bfloat16"
 KERNEL_HMMA = {
     "seq_adapter_bwd_cuda": ("seqbwd_pre_kernel", "seqbwd_z_kernel",
                              "seqbwd_dpre_kernel", "seqbwd_dx_kernel",
@@ -194,6 +197,11 @@ KERNEL_HMMA = {
         "cab_bwd_t_kernel", "cab_bwd_q_kernel", "cab_bwd_dom_kernel",
         "cab_bwd_attn_kernel", "cab_bwd_du_kernel", "cab_bwd_dx_kernel",
         "wgrad_mma_kernel"),
+    "cross_attn_block_fused": ("cab_fwd_t_kernel", "cab_fwd_q_kernel",
+                               "cab_fwd_attn_kernel", "cab_fwd_out_kernel"),
+    # K8's bf16-q instantiations (bf16 and int8 cache), by their mangled
+    # names; its fp32 ones run on the CUDA cores
+    "decode_attention_kernel": (K8_BF16_SASS,),
 }
 TENSOR_CORE_KERNELS = sorted({k for ks in KERNEL_HMMA.values() for k in ks})
 HMMA: dict = {}  # kernel -> HMMA instructions in its SASS
@@ -244,7 +252,7 @@ def setup() -> str:
                 spills.append(f"{fn}: {ln.strip()}")
         print(f"  ptxas {name}: registers {regs}; spills {spills or 'none'}",
               flush=True)
-    for name in ("attention", "fused_adapter", "quant"):
+    for name in ("attention", "fused_adapter", "quant", "decode_attention"):
         HMMA.update(hmma_counts(build._out_path(name)))
     for fn, count in sorted(HMMA.items()):
         print(f"  SASS HMMA {fn}: {count}", flush=True)
@@ -291,15 +299,18 @@ def _device_ms(fn, n: int = 5) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / (
-                1e3 * n)
+    for _ in range(3):  # a trace of a few short kernels can come back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per[e.name] = per.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / (1e3 * n)
+        if per:
+            break
     return per
 
 
@@ -412,9 +423,9 @@ def kernel_phase() -> dict:
                 if dtype == torch.bfloat16 and batch == B:
                     _add_time(r, t_kern, t_plain, cost(name, x),
                               f"{tag} {list(x.shape)} bf16")
-                if dtype == torch.bfloat16 and name == "prenorm_mlp_fused":
+                if dtype == torch.bfloat16 and name in FWD_PASSES:
                     _breakdown(f"kernel {name} B={batch} bf16",
-                               lambda: kern(x, *args), K3_FWD_PASSES)
+                               lambda: kern(x, *args), FWD_PASSES[name])
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
@@ -661,6 +672,10 @@ def backward_phase() -> dict:
 
 # the passes of the redesigned kernels, by kernel name fragment
 K3_FWD_PASSES = ("pnmlp_fwd_ln", "pnmlp_fwd_hidden", "pnmlp_fwd_out")
+K2_FWD_PASSES = ("cab_fwd_t_", "cab_fwd_ln", "cab_fwd_q_", "cab_fwd_attn",
+                 "cab_fwd_out", "cross_attn_block_fwd")
+FWD_PASSES = {"prenorm_mlp_fused": K3_FWD_PASSES,
+              "cross_attn_block_fused": K2_FWD_PASSES}
 K1_BWD_PASSES = ("seqbwd_pre", "seqbwd_z", "seqbwd_ln", "seqbwd_dpre",
                  "seqbwd_dx", "wgrad_tf32", "split_sum", "colsum")
 K3_BWD_PASSES = ("pnmlp_ln_fwd", "pnmlp_bwd_hidden", "pnmlp_bwd_du",
@@ -1225,8 +1240,11 @@ def _wide_heads_check(gen, H, image_dim, heads, dev, tk=197) -> None:
                 x, *args, g, heads, need_dx=False)),
             "bwd plain": _time_ms(lambda: F.cross_attn_block_bwd_torch(
                 x, *args, g, heads, need_dx=False))}
-    print(f"route: K2 at heads of {H // heads} ms by events "
-          f"{ {k: round(t, 4) for k, t in ms.items()} }", flush=True)
+        print(f"route: K2 at heads of {H // heads} ms by events "
+              f"{ {k: round(t, 4) for k, t in ms.items()} }", flush=True)
+        _breakdown(f"route: K2 fwd at heads of {H // heads} bf16",
+                   lambda: F.cross_attn_block_fused(x, *args, heads),
+                   K2_FWD_PASSES)
 
 
 def _write_flat_tree(root: str, per_class: int, seed: int) -> None:
@@ -1728,6 +1746,7 @@ def vlm_kernel_phase() -> dict:
     # decode depth (its prompt plus half of VLM_NEW)
     r8 = results["decode_attention_kernel"]
     depth, S = len(_qwen_prompt()) + VLM_NEW // 2, 768
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     for tag, b, dtype, quant in (("bf16 cache", 8, torch.bfloat16, False),
                                  ("int8 cache", 16, torch.bfloat16, True),
                                  ("fp32", 2, torch.float32, False)):
@@ -1763,12 +1782,25 @@ def vlm_kernel_phase() -> dict:
                            lambda: K8.decode_attention_reference(*tcase),
                            lib, iters=20)
             b_ms, b_by = bound(*k8_cost(tcase))
+            with torch.no_grad():
+                dev_ms = sum(_device_ms(
+                    lambda: K8.decode_attention_kernel(*tcase)).values())
+                # the decode step streams the model's weights between two
+                # layers' calls, so there the cache is read from HBM: the
+                # same call after 256 MB written over the 50 MB L2
+                cold = sum(ms for name, ms in _device_ms(lambda: (
+                    flush.zero_(), K8.decode_attention_kernel(*tcase))
+                ).items() if "decode_attention" in name)
+            splits = K8.kernel_splits(b, 2, 128, S)
             dt = str(dtype).replace("torch.", "")
             shape = (f"{tag} B={b} T={T} S={S} depth {depth} (check: depths "
                      f"0..{S - T})")
             print(f"kernel decode_attention_kernel {shape} {dt}: max_abs_err "
                   f"{err:.3e} err/limit {ratio:.3f} {'ok' if ok else 'FAIL'};"
-                  f" kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, SDPA "
+                  f" kernel {t[0]:.4f} ms by events, {dev_ms:.4f} ms device "
+                  f"(profiler), {cold:.4f} ms device after an L2 flush, "
+                  f"{splits} column splits, {b * 2 * splits} blocks; plain "
+                  f"{t[1]:.4f} ms, SDPA "
                   f"{t[2] if t[2] is None else round(t[2], 4)} ms; bound "
                   f"{b_ms:.5f} ms ({b_by})", flush=True)
             if not ok:
@@ -1776,6 +1808,7 @@ def vlm_kernel_phase() -> dict:
             if tag == "bf16 cache" and T == 1:
                 _add_time(r8, t[0], t[1], k8_cost(tcase), f"{shape} {dt}")
                 r8["library_ms"] = t[2]
+    del flush
     if failures:
         raise SystemExit(f"VLM kernels disagree with their plain versions: "
                          f"{failures}")
@@ -1967,7 +2000,7 @@ def vlm_phase() -> dict:
 
     # 2. timed generations: vision + prefill alone (1 token), then
     # VLM_NEW tokens; host clock to a synchronize
-    runs, counts = {}, {}
+    runs, counts, forwards = {}, {}, {}
     for name, g, on, visions_b in (
             ("kernels, K8 off", gk, False, visions),
             ("kernels, K8 on", gk, True, visions),
@@ -1991,7 +2024,7 @@ def vlm_phase() -> dict:
             torch.cuda.synchronize()
             t_all = time.perf_counter() - t0
             counts[name] = {**K7.launch_counts(), **K8.launch_counts()}
-            n_fwd = _forwards(out)
+            n_fwd = forwards[name] = _forwards(out)
             ms_tok = (t_all - t_pf) * 1e3 / n_fwd
             runs[name] = out
             print(f"generate {name}: vision + prefill {t_pf * 1e3:.1f} ms, "
@@ -2006,7 +2039,10 @@ def vlm_phase() -> dict:
         "decode_attention_kernel"] // L
     wide = mixed["text"]["layers"]["mlp"]["gateup"].qweight.shape[-1] \
         >= 4 * 1024
-    if min(path.values()) < 1 or \
+    # one K8 launch a layer a decode forward (1,116 for 36 layers and 31
+    # forwards), however its columns split across blocks
+    if min(path.values()) < 1 or path["decode_attention_kernel"] \
+            != L * forwards["kernels, K8 on"] or \
             counts["kernels, K8 on, mixed preset"]["quant_matmul_int4"] \
             != 1 + (1 + L * wide) * n_fwd or \
             counts["kernels, K8 on, int8 cache, B=16"][

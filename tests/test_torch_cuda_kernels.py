@@ -453,6 +453,52 @@ def test_cross_attn_block_kernels_other_head_widths(dev, dtype, h, heads,
                  dtype, "cross_attn_block")
 
 
+def _device_kernels(fn) -> set:
+    """The names of the kernels fn launches on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+# K2 forward: the train step's B=96 text rows (7392), one served text
+# (77), Tk 5, ViT-L/14's 8 heads of 96 (bf16: zero-padded to 128 in the
+# attention pass), and 8 heads of 100 (bf16: the CUDA-core kernel, whose
+# width the tensor-core passes do not take), Din 36 (padded to 40)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,din,h,tk", [(7392, 512, 512, 197),
+                                        (77, 512, 512, 197),
+                                        (200, 512, 512, 5),
+                                        (616, 768, 768, 197),
+                                        (300, 800, 800, 197),
+                                        (600, 36, 512, 197)])
+def test_cross_attn_block_fwd_kernel(dev, dtype, n, din, h, tk):
+    p = A.init_cross_modal_adapter(_gen(dev), text_dim=din, image_dim=256,
+                                   hidden=h, device=dev)
+    image = (torch.randn(1, tk, 256, generator=_gen(dev, 4), device=dev)
+             * 256 ** -0.5).to(dtype)
+    args = _cab_args(p, *A.shared_kv(p, image))
+    x = torch.randn(n, din, generator=_gen(dev, 3), device=dev).to(dtype)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        got = F.cross_attn_block_fused(x, *args, 8)
+        assert F.launch_counts()["cross_attn_block_fused"] == 1
+        _close(got, F.cross_attn_block_torch(x, *args, 8), dtype)
+        names = _device_kernels(lambda: F.cross_attn_block_fused(x, *args,
+                                                                 8))
+    tc = dtype == torch.bfloat16 and F.cross_attn_block_tensor_cores(h, 8)
+    assert tc == (dtype == torch.bfloat16 and h != 800)
+    passes = ("cab_fwd_t_", "cab_fwd_ln", "cab_fwd_q_", "cab_fwd_attn",
+              "cab_fwd_out")
+    for frag in passes:
+        assert any(frag in nm for nm in names) == tc, (frag, names)
+    assert any("cross_attn_block_fwd_kernel" in nm for nm in names) != tc
+
+
 # K3 at widths that are not multiples of 128 (bf16: multiples of 8 on the
 # tensor cores; fp32 any), forward and backward
 @pytest.mark.cuda
@@ -743,6 +789,34 @@ def test_decode_attention_kernel(dev, T, dtype, quant, B):
     assert K8.launch_counts() == {"decode_attention_kernel": 1}
     want = K8.decode_attention_reference(*case)
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    err, ratio = compare(got, want, case)
+    assert ratio <= 1.0, (err, ratio)
+
+
+# K8's column splits: at B=8 (bf16) and B=16 (int8), S=768, T=1 and 5,
+# rows at depth 0, S - T, and under one split's columns; one launch a
+# call, and a second call repeats the first bit for bit (the splits merge
+# in order; the merging block resets its ticket)
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("quant,B", [(False, 8), (True, 16)])
+def test_decode_attention_split_kernel(dev, T, quant, B):
+    from vlm_clip_tpu_torch.cli.check_decode_attn import compare, rand_case
+
+    case = rand_case(_gen(dev, 7 + T), B, T, 16, 2, 128, 768,
+                     torch.bfloat16, quant, dev)
+    splits = K8.kernel_splits(B, 2, 128, 768)
+    cps = -(-768 // splits)
+    assert B * 2 * splits >= 132  # at least one block an SM
+    case[5][1:4] = torch.tensor([1, cps - 1, cps + 3], dtype=torch.int32)
+    K8.reset_launch_counts()
+    got = K8.decode_attention_kernel(*case)
+    assert K8.launch_counts() == {"decode_attention_kernel": 1}
+    again = K8.decode_attention_kernel(*case)
+    assert K8.launch_counts() == {"decode_attention_kernel": 2}
+    assert torch.equal(got, again)
+    want = K8.decode_attention_reference(*case)
+    assert torch.isfinite(got.float()).all()
     err, ratio = compare(got, want, case)
     assert ratio <= 1.0, (err, ratio)
 

@@ -133,6 +133,129 @@ def test_limits_hold_the_rounding_and_catch_a_dropped_chunk():
                          case)[1] > 1.0
 
 
+MNEG = -1e30  # the kernel's masked score
+
+
+def _k8_split(case, cps, ch=64, rescale=True):
+    """K8 as its split kernel computes it (csrc/decode_attention.cu): each
+    (row, kv head)'s cache columns in splits of cps columns; within a
+    split, chunks of ch columns with an online softmax (scores in fp32
+    from q's type, k scales folded in, p = exp(s - running max) summed
+    unrounded into l, then times the v scales and rounded to q's type
+    before p v); a split wholly at or past the depth is empty. The merge
+    takes, in split order, M = the largest running max of the non-empty
+    splits, acc = sum acc_s w_s and l = sum l_s w_s with w_s = exp(m_s -
+    M) (rescale=False: w_s = 1, the fault the negative test shows), then
+    the T fresh columns in fp32 (causal), out = (acc alpha + sum p_t v_t)
+    / l in q's type."""
+    q, k_old, v_old, k_cur, v_cur, depths, ks, vs = case
+    B, T, h, d = q.shape
+    S, kv = k_old.shape[1], k_old.shape[2]
+    rep, R, mm = h // kv, T * (h // kv), q.dtype
+    scale = d ** -0.5
+    rows_t = torch.arange(R) // rep
+    out = torch.empty(B, T, h, d, dtype=mm)
+    for b in range(B):
+        depth = min(max(int(depths[b]), 0), S)
+        for g in range(kv):
+            qg = q[b, :, g * rep:(g + 1) * rep].reshape(R, d).float()
+            parts = []
+            for cs in range(0, S, cps):
+                ce = min(cs + cps, depth)
+                if cs >= ce:
+                    parts.append(None)
+                    continue
+                m = torch.full((R,), MNEG)
+                l, acc = torch.zeros(R), torch.zeros(R, d)
+                for c0 in range(cs, ce, ch):
+                    cols = slice(c0, min(c0 + ch, ce))
+                    s = qg @ k_old[b, cols, g].to(mm).float().T
+                    if ks is not None:
+                        s = s * ks[b, cols, g]
+                    s = s * scale
+                    mn = torch.maximum(m, s.max(1).values)
+                    p = torch.exp(s - mn[:, None])
+                    alpha = torch.exp(m - mn)
+                    l = l * alpha + p.sum(1)
+                    if vs is not None:
+                        p = p * vs[b, cols, g]
+                    acc = acc * alpha[:, None] + p.to(mm).float() @ \
+                        v_old[b, cols, g].to(mm).float()
+                    m = mn
+                parts.append((acc, m, l))
+            live = [pt for pt in parts if pt is not None]
+            M = torch.stack([pt[1] for pt in live]).max(0).values if live \
+                else torch.full((R,), MNEG)
+            acc, l = torch.zeros(R, d), torch.zeros(R)
+            for pt in live:
+                w = torch.exp(pt[1] - M) if rescale else torch.ones(R)
+                acc = acc + pt[0] * w[:, None]
+                l = l + pt[2] * w
+            kf = k_cur[b, :, g].to(mm).float()
+            vf = v_cur[b, :, g].to(mm).float()
+            causal = torch.arange(T)[None, :] <= rows_t[:, None]
+            sf = torch.where(causal, (qg @ kf.T) * scale,
+                             torch.tensor(MNEG))
+            mn = torch.maximum(M, sf.max(1).values)
+            pf = torch.where(causal, torch.exp(sf - mn[:, None]),
+                             torch.tensor(0.0))
+            alpha = torch.exp(M - mn)
+            l = l * alpha + pf.sum(1)
+            o = (acc * alpha[:, None] + pf @ vf) / l[:, None]
+            out[b, :, g * rep:(g + 1) * rep] = o.reshape(T, rep, d).to(mm)
+    return out.reshape(B, T, h * d)
+
+
+def _k8_case(T, quant, dtype, S=256):
+    """The 3B heads (16 q, 2 kv, d 128), S = 256 (four 64-column chunks),
+    depths 0, 37 (inside the first split), S - T and 150 (the splits past
+    it empty), from numpy."""
+    case = _case(40 + T, B=4, T=T, h=16, kv=2, d=128, S=S, quant=quant,
+                 depths=[0, 37, S - T, 150])
+    return _both(case, dtype)
+
+
+def _k8_ratio(got, jx, tx):
+    """max |got - want| / limit, want the JAX package's reference."""
+    from vlm_clip_tpu_torch.cli import check_decode_attn as C
+
+    want = torch.from_numpy(np.array(
+        RD.decode_attention_reference(*jx), np.float32))
+    return C.compare(got, want, tx)[1]
+
+
+@pytest.mark.parametrize("cps", [64, 128])
+@pytest.mark.parametrize("T,quant,dtype", [
+    (1, False, torch.bfloat16), (1, True, torch.bfloat16),
+    (16, False, torch.bfloat16), (5, True, torch.bfloat16),
+    (1, False, torch.float32), (5, True, torch.float32)])
+def test_k8_split_merge_matches_reference(T, quant, dtype, cps):
+    """K8's split kernel, emulated (splits of one and of two 64-column
+    chunks), against the JAX package's decode_attention_reference within
+    cli/check_decode_attn's limits, at depth 0, inside the first split,
+    S - T and with splits wholly past the depth; the Pallas kernel
+    (interpret mode) agrees on the same inputs."""
+    jx, tx = _k8_case(T, quant, dtype)
+    got = _k8_split(tx, cps)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert _k8_ratio(got, jx, tx) <= 1.0
+    if T == 1 and cps == 64:
+        pal = torch.from_numpy(np.array(RD.decode_attention_pallas(
+            *jx, chunk=128, interpret=True), np.float32))
+        from vlm_clip_tpu_torch.cli import check_decode_attn as C
+        assert C.compare(pal, got, tx)[1] <= 1.0
+
+
+def test_k8_merge_without_rescaling_fails():
+    """The negative control: merging the splits' partials without
+    rescaling each by exp(m_s - M) exceeds the limit, where the rescaled
+    merge holds it."""
+    jx, tx = _k8_case(1, False, torch.bfloat16)
+    good = _k8_ratio(_k8_split(tx, 64), jx, tx)
+    bad = _k8_ratio(_k8_split(tx, 64, rescale=False), jx, tx)
+    assert good <= 1.0 and bad > 1.0, (good, bad)
+
+
 def test_text_forward_mask_none_matches_reference():
     """End to end through a 2-layer stack with per-row depths: the port's
     text_forward(mask=None) (the dispatcher's route) == the JAX

@@ -719,6 +719,91 @@ def test_k2_bwd_tensor_core_passes_match_pallas(tk, din, h):
         _grad_close(gg, w, BF16_TOL, name)
 
 
+def _k2_fwd_tensor_cores(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, heads,
+                         eps=1e-5, u_bf16=False):
+    """K2's bf16 forward as its tensor-core passes compute it
+    (csrc/fused_adapter.cu, vct_cross_attn_block_fwd in bf16): t = x wt +
+    bt in fp32 (x's columns, wt's rows zero-padded to a multiple of 8);
+    um = round(LN(t)); qm = round(um wq + bq); per head, zero-padded to the
+    attention kernel's width (64, or 128 past 64), p = softmax(q k^T
+    scale) in fp32 and om = round(round(p) v); y = round(u + (om wo +
+    bo)) with the fp32 u (u_bf16: its rounding, which the kernel does not
+    add)."""
+    mm = torch.bfloat16
+    Din, H = wt.shape
+    hd = H // heads
+    wide = 64 if hd <= 64 else 128
+    pad = -Din % 8
+    xm = torch.nn.functional.pad(F._r(x, mm), (0, pad))
+    wtm = torch.nn.functional.pad(F._r(wt, mm), (0, 0, 0, pad))
+    t = xm @ wtm + bt
+    xhat, _ = F._ln_stats(t, eps)
+    u = xhat * ls + lb
+    um = F._r(u, mm)
+    qm = F._r(um @ F._r(wq, mm) + bq, mm)
+    km, vm = F._r(k, mm), F._r(v, mm)
+    om = torch.zeros(x.shape[0], H)
+    for i in range(heads):
+        cols = slice(i * hd, (i + 1) * hd)
+        qh, kh, vh = (torch.nn.functional.pad(a[:, cols], (0, wide - hd))
+                      for a in (qm, km, vm))
+        p = torch.softmax((qh @ kh.T) * hd ** -0.5, dim=-1)
+        om[:, cols] = F._r(F._r(p, mm) @ vh, mm)[:, :hd]
+    res = um if u_bf16 else u
+    return (res + (om @ F._r(wo, mm) + bo)).to(mm)
+
+
+def _k2_fwd_case(tk, din, h, seed, offset=0.0):
+    """600 rows (a ragged last 128-row tile), 2 heads; with an offset,
+    the LN bias of the first 4 columns is raised by it and the output
+    bias lowered by it: there u is about `offset` and y is small, so
+    rounding u to bf16 before the residual moves y by up to half a bf16
+    ulp of the offset."""
+    port, ref, ref_fused = _cab_grad_case(600, din, h, 2, tk, torch.bfloat16,
+                                          seed=tk + din + 1)
+    if offset:
+        port[4], port[10] = port[4].clone(), port[10].clone()
+        port[4][:4] += offset
+        port[10][:4] -= offset
+        ref[4], ref[10] = (jnp.asarray(port[i].numpy()) for i in (4, 10))
+    return port, ref_fused(*ref)
+
+
+def _bf16_ratio(got, want):
+    """max |got - want| / (BF16_TOL + BF16_TOL |want|)."""
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    err = np.abs(got.float().numpy() - want)
+    return float((err / (BF16_TOL + BF16_TOL * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("tk,din,h", [(5, 128, 128), (197, 128, 128),
+                                      (197, 36, 192)])
+def test_k2_fwd_tensor_core_passes_match_pallas(tk, din, h):
+    """K2's bf16 forward, emulated pass by pass, against the Pallas
+    forward in interpret mode at the bf16 tolerance: 600 rows, 2 heads of
+    64 (or of 96, run zero-padded to 128, with Din = 36 padded to 40), Tk
+    = 5 and 197."""
+    port, want = _k2_fwd_case(tk, din, h, seed=tk + din)
+    args = [a.float() if i not in (0, 7, 8) else a
+            for i, a in enumerate(port)]
+    got = _k2_fwd_tensor_cores(*args, 2)
+    assert got.dtype == torch.bfloat16 and got.shape == (600, h)
+    _bf16_close(got, want)
+
+
+def test_k2_fwd_residual_on_a_bf16_u_fails():
+    """The negative control: where u is large and y small (LN bias 64 and
+    output bias -64 on 4 columns), the emulation with the fp32 u in the
+    residual holds the bf16 tolerance against the Pallas forward; the
+    same passes with u rounded to bf16 miss it."""
+    port, want = _k2_fwd_case(197, 128, 128, seed=0, offset=64.0)
+    args = [a.float() if i not in (0, 7, 8) else a
+            for i, a in enumerate(port)]
+    good = _bf16_ratio(_k2_fwd_tensor_cores(*args, 2), want)
+    bad = _bf16_ratio(_k2_fwd_tensor_cores(*args, 2, u_bf16=True), want)
+    assert good <= 1.0 and bad > 1.0, (good, bad)
+
+
 # ---------------------------------------------------------------------------
 # shape gates: the kernels' predicates and the route under impl="auto"
 # ---------------------------------------------------------------------------

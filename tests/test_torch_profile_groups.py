@@ -33,6 +33,13 @@ NS = "(anonymous namespace)::"
     (NS + "cab_bwd_attn_kernel<128>(__nv_bfloat16 const*, float, int)",
      "K2 bwd"),
     (NS + "cross_attn_block_fwd_kernel<__nv_bfloat16, 16>(int)", "K2 fwd"),
+    (NS + "cab_fwd_t_kernel(__nv_bfloat16 const*, float*, int)", "K2 fwd"),
+    (NS + "cab_fwd_ln_kernel(float const*, float const*)", "K2 fwd"),
+    (NS + "cab_fwd_q_kernel(__nv_bfloat16 const*, int, int)", "K2 fwd"),
+    (NS + "cab_fwd_attn_kernel<64>(__nv_bfloat16 const*, float, int)",
+     "K2 fwd"),
+    ("_ZN49_GLOBAL__N__a66b3b54_16_fused_adapter_cu_9e7b35ab18cab_fwd_out_"
+     "kernelEPK13__nv_bfloat16S2_PKfS4_S4_S4_S4_S4_PS0_ii", "K2 fwd"),
     (NS + "cross_attn_block_bwd_kernel<float, 8>(float const*, int)",
      "K2 bwd"),
     (NS + "cab_bwd_ln_fwd_kernel(float const*, float const*)", "K2 bwd"),

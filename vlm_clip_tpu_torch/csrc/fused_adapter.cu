@@ -35,9 +35,9 @@
 // once), so the next step is wgmma on bf16 operands, which this layout
 // leaves open.
 //
-// In bf16, K3 (forward and backward), K2's backward and the bf16 x bf16
-// weight gradients are redesigned for the tensor cores (the sections "bf16
-// on the tensor cores" below): at the train step's shapes fp32 FMAs bound
+// In bf16, K3 and K2 (forward and backward) and the bf16 x bf16 weight
+// gradients are redesigned for the tensor cores (the sections "bf16 on
+// the tensor cores" below): at the train step's shapes fp32 FMAs bound
 // the first versions at 0.4-1.2 ms a call, the tensor cores at 0.03-0.08
 // ms, so each row pass is split into mma.sync products over 128-row
 // tiles that fill the card, with the GELU, its derivative, the roundings
@@ -46,8 +46,10 @@
 // CUDA-core row passes: one TF32 pass would round fp32 operands. K1's
 // backward, whose function is fp32 in both dtypes, runs on the TF32
 // tensor cores error-compensated (the last section), as do the fp32
-// weight gradients. K1's and K2's forwards are still the first,
-// CUDA-core versions.
+// weight gradients. K1's forward is still the first, CUDA-core version;
+// so is K2's forward in fp32 and, in bf16, at widths its tensor-core
+// passes do not take (heads not a multiple of 8 columns, or wider than
+// 128).
 //
 // K2 does not port the TPU kernel's block-diagonal K/V packing (a lane
 // trick): it loops over the heads on K^T [H, Tk] and V [Tk, H] directly,
@@ -321,6 +323,7 @@ __global__ void __launch_bounds__(NT)
 // K2: cross-modal attention block against a batch-shared K/V, heads of
 // hd = h / heads columns (any width). R rows a block: 32, or 16 where 32
 // rows' tiles would not fit in shared memory (H or Din past about 700).
+// fp32, and bf16 at the widths the tensor-core passes do not take.
 // ---------------------------------------------------------------------------
 template <typename T, int R>
 __global__ void __launch_bounds__(NT)
@@ -1448,7 +1451,7 @@ __global__ void __launch_bounds__(GemmTN::THREADS)
 }
 
 // ===========================================================================
-// bf16 on the tensor cores: K3 forward and K2 backward
+// bf16 on the tensor cores: K3 forward, K2 backward and K2 forward
 // ===========================================================================
 //
 // The same shape as K3's backward above: the row pass becomes products
@@ -1508,6 +1511,25 @@ __global__ void __launch_bounds__(GemmTN::THREADS)
 // GFLOP at the train step, about 0.07 ms), far below what storing them
 // would cost. Keys past Tk score -inf before the max (ex2(-inf) = 0);
 // groups wholly past Tk are not walked.
+//
+// K2 forward (replaces _cab_fwd_kernel, fused_adapter.py:796): 14.6 GFLOP
+// at the train step's text shape, which the first, CUDA-core kernel ran
+// in 1.56 ms (fp32 FMAs on bf16-rounded operands, one 32-row block for
+// the whole block); the tensor cores' bound is 0.015 ms. The same passes
+// as the backward's recompute:
+//
+//   cab_fwd_t_kernel      t = x Wt + bt (fp32)
+//   cab_fwd_ln_kernel     um = round(LN(t)), each row's mean and 1/std
+//   cab_fwd_q_kernel      qm = round(um Wq + bq)
+//   cab_fwd_attn_kernel   per (128 rows, head): passes 1 and 2 of the
+//                         backward's attention pass (the same device
+//                         functions: head_stats, head_probs, head_pv), om
+//                         = round(round(p) v)
+//   cab_fwd_out_kernel    y = round(u + (om Wo + bo)), u = LN(t) in fp32
+//                         recomputed from t and the row's statistics
+//
+// 128 x 64 output tiles give a served request (77 rows, H = 512) 8 blocks
+// a product and 8 attention blocks, where the CUDA-core kernel ran 3.
 
 // 128 x 64 block tiles on 8 warps of 32 x 32, 64-deep stages, 3 stages
 template <bool B_T>
@@ -1695,10 +1717,145 @@ constexpr int AT_ROWS = 128;      // rows of an attention block: 8 warps
 // of 8) runs in the kernel of the least HD >= hd, zero-filled past hd.
 constexpr int HD_MAX = 128;
 
-size_t cab_attn_smem(int tk, int HD) {
+// Shared memory of an attention block: K and V of the head (Tk rows
+// zero-filled to a multiple of 16) and `tiles` 128-row tiles of bf16
+// (the backward's q and dom, the forward's q), plus `red` floats.
+size_t cab_attn_smem(int tk, int HD, int tiles, int red) {
   const size_t tk16 = (size_t)(tk + 15) / 16 * 16;
-  return sizeof(vct::bf16) * (2 * tk16 + 2 * AT_ROWS) * (HD + 8) +
-         sizeof(float) * (NT / 32) * HD;
+  return sizeof(vct::bf16) * (2 * tk16 + tiles * AT_ROWS) * (HD + 8) +
+         sizeof(float) * red;
+}
+
+// --- one head's attention for a warp's 16 rows, shared by K2's forward
+// and backward attention passes, so that both compute p, round(p) and o
+// = round(p) v identically. qf: the rows' q as A fragments; Ks, Vs: the
+// head's keys and values in shared memory (row stride ld); keys past tk
+// score -inf (ex2(-inf) = 0).
+
+// s0, s1 = the scores of keys kb .. kb + 7 and kb + 8 .. kb + 15, times
+// scale, -inf past tk
+template <int HD>
+__device__ __forceinline__ void head_scores(const uint32_t (&qf)[HD / 16][4],
+                                            const vct::bf16* Ks, int ld,
+                                            int kb, int tk, float scale,
+                                            int lane, float (&s0)[4],
+                                            float (&s1)[4]) {
+  const int tq = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s0[e] = s1[e] = 0.f;
+  vct::mma_rows_t16<HD>(s0, s1, qf, Ks, ld, kb, lane);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = kb + 2 * tq + (e & 1);
+    s0[e] = c < tk ? s0[e] * scale : -INFINITY;
+    s1[e] = c + 8 < tk ? s1[e] * scale : -INFINITY;
+  }
+}
+
+// Each row's softmax statistics over every key, online (pass 1): -max
+// log2(e) (ml) and 1 / sum of exponentials (inv), for the thread's rows g
+// (lo) and g + 8 (hi).
+struct RowStats {
+  float ml_lo, ml_hi, inv_lo, inv_hi;
+};
+
+template <int HD>
+__device__ __forceinline__ RowStats head_stats(
+    const uint32_t (&qf)[HD / 16][4], const vct::bf16* Ks, int ld, int tk,
+    float scale, int lane) {
+  using vct::ex2;
+  using vct::L2E;
+  using vct::quad_max;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  for (int kb = 0; kb < tk; kb += 16) {
+    float s0[4], s1[4];
+    head_scores<HD>(qf, Ks, ld, kb, tk, scale, lane, s0, s1);
+    // every group holds a key below tk, so the new max is finite
+    const float mn_lo = fmaxf(
+        m_lo, quad_max(fmaxf(fmaxf(s0[0], s0[1]), fmaxf(s1[0], s1[1]))));
+    const float mn_hi = fmaxf(
+        m_hi, quad_max(fmaxf(fmaxf(s0[2], s0[3]), fmaxf(s1[2], s1[3]))));
+    const float c_lo = -mn_lo * L2E, c_hi = -mn_hi * L2E;
+    const float e_lo =
+        (ex2(fmaf(s0[0], L2E, c_lo)) + ex2(fmaf(s0[1], L2E, c_lo))) +
+        (ex2(fmaf(s1[0], L2E, c_lo)) + ex2(fmaf(s1[1], L2E, c_lo)));
+    const float e_hi =
+        (ex2(fmaf(s0[2], L2E, c_hi)) + ex2(fmaf(s0[3], L2E, c_hi))) +
+        (ex2(fmaf(s1[2], L2E, c_hi)) + ex2(fmaf(s1[3], L2E, c_hi)));
+    l_lo = (m_lo == -INFINITY ? 0.f : l_lo * ex2((m_lo - mn_lo) * L2E)) +
+           e_lo;
+    l_hi = (m_hi == -INFINITY ? 0.f : l_hi * ex2((m_hi - mn_hi) * L2E)) +
+           e_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+  }
+  return {-m_lo * L2E, -m_hi * L2E, 1.f / vct::quad_sum(l_lo),
+          1.f / vct::quad_sum(l_hi)};
+}
+
+// p = exp(s - max) / sum in fp32 for keys kb .. kb + 15 (0 past tk)
+template <int HD>
+__device__ __forceinline__ void head_probs(const uint32_t (&qf)[HD / 16][4],
+                                           const vct::bf16* Ks, int ld,
+                                           int kb, int tk, float scale,
+                                           const RowStats& st, int lane,
+                                           float (&p0)[4], float (&p1)[4]) {
+  using vct::ex2;
+  using vct::L2E;
+  head_scores<HD>(qf, Ks, ld, kb, tk, scale, lane, p0, p1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float ml = e < 2 ? st.ml_lo : st.ml_hi;
+    const float iv = e < 2 ? st.inv_lo : st.inv_hi;
+    p0[e] = ex2(fmaf(p0[e], L2E, ml)) * iv;
+    p1[e] = ex2(fmaf(p1[e], L2E, ml)) * iv;
+  }
+}
+
+// o (m16n8 tiles over HD columns) += round(p) v over keys kb .. kb + 15
+template <int HD>
+__device__ __forceinline__ void head_pv(float (&o)[HD / 8][4],
+                                        const float (&p0)[4],
+                                        const float (&p1)[4],
+                                        const vct::bf16* Vs, int ld, int kb,
+                                        int lane) {
+  uint32_t a[4];
+  vct::pack_a(a, p0, p1);
+  vct::mma_rows16<HD>(o, a, Vs, ld, kb, lane);
+}
+
+// o's first hd columns, rounded, into rows r_lo, r_hi (< n) of out
+// (row stride h) from column c0
+template <int HD>
+__device__ __forceinline__ void store_head(const float (&o)[HD / 8][4],
+                                           vct::bf16* out, int h, int c0,
+                                           int hd, int r_lo, int r_hi, int n,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = c0 + j * 8 + 2 * (lane & 3);
+    if (j * 8 >= hd) break;
+    if (r_lo < n) store_pair(out + (size_t)r_lo * h + c, o[j][0], o[j][1]);
+    if (r_hi < n) store_pair(out + (size_t)r_hi * h + c, o[j][2], o[j][3]);
+  }
+}
+
+// The head's K and V (columns c0 .. c0 + hd of rows < tk, zero-filled to
+// tk16 rows and HD columns) into Ks, Vs by cp.async (not committed).
+template <int HD>
+__device__ __forceinline__ void load_head_kv(vct::bf16* Ks, vct::bf16* Vs,
+                                             const vct::bf16* k,
+                                             const vct::bf16* v, int h,
+                                             int c0, int hd, int tk,
+                                             int tk16) {
+  constexpr int AT_LD = HD + 8;
+  for (int e = threadIdx.x; e < tk16 * (HD / 8); e += NT) {
+    const int r = e / (HD / 8), c = (e % (HD / 8)) * 8;
+    const bool ok = r < tk && c < hd;
+    const size_t at = (size_t)r * h + c0 + c;
+    vct::cp_async16(Ks + r * AT_LD + c, ok ? k + at : k, ok);
+    vct::cp_async16(Vs + r * AT_LD + c, ok ? v + at : v, ok);
+  }
 }
 
 // One block per (128-row tile, head), 8 warps of 16 rows; see the section
@@ -1716,10 +1873,6 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
                         vct::bf16* __restrict__ dsm,
                         vct::bf16* __restrict__ dqm, float* __restrict__ part,
                         int n, int h, int hd, int tk, int tkp) {
-  using vct::ex2;
-  using vct::L2E;
-  using vct::quad_max;
-  using vct::quad_sum;
   constexpr int AT_LD = HD + 8;  // shared row of a bf16 head tile
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int tk16 = (tk + 15) & ~15;
@@ -1735,13 +1888,7 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   const bool active = r0 + warp * 16 < n;
   const size_t prow = (size_t)gridDim.y * tkp;  // row stride of pm, dsm
 
-  for (int e = threadIdx.x; e < tk16 * (HD / 8); e += NT) {
-    const int r = e / (HD / 8), c = (e % (HD / 8)) * 8;
-    const bool ok = r < tk && c < hd;
-    const size_t at = (size_t)r * h + c0 + c;
-    vct::cp_async16(Ks + r * AT_LD + c, ok ? k + at : k, ok);
-    vct::cp_async16(Vs + r * AT_LD + c, ok ? v + at : v, ok);
-  }
+  load_head_kv<HD>(Ks, Vs, k, v, h, c0, hd, tk, tk16);
   vct::load_tile<AT_ROWS, HD, AT_LD, NT>(Qs, qm, h, r0, n, c0, c0 + hd,
                                          threadIdx.x);
   vct::load_tile<AT_ROWS, HD, AT_LD, NT>(Ds, dom, h, r0, n, c0, c0 + hd,
@@ -1760,56 +1907,8 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     vct::load_a_rows<HD>(qf, Qs, AT_LD, warp * 16, lane);
     vct::load_a_rows<HD>(df, Ds, AT_LD, warp * 16, lane);
     const int groups = tk16 / 16;
-    // scores of keys kb .. kb + 15 (s0: kb .. kb + 7, s1: the next 8)
-    // times scale, -inf past tk
-    auto scores = [&](int kb, float (&s0)[4], float (&s1)[4]) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s0[e] = s1[e] = 0.f;
-      vct::mma_rows_t16<HD>(s0, s1, qf, Ks, AT_LD, kb, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = kb + 2 * tq + (e & 1);
-        s0[e] = c < tk ? s0[e] * scale : -INFINITY;
-        s1[e] = c + 8 < tk ? s1[e] * scale : -INFINITY;
-      }
-    };
     // pass 1: each row's max and sum of exponentials, online
-    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-    for (int kg = 0; kg < groups; ++kg) {
-      float s0[4], s1[4];
-      scores(kg * 16, s0, s1);
-      // every group holds a key below tk, so the new max is finite
-      const float mn_lo = fmaxf(
-          m_lo, quad_max(fmaxf(fmaxf(s0[0], s0[1]), fmaxf(s1[0], s1[1]))));
-      const float mn_hi = fmaxf(
-          m_hi, quad_max(fmaxf(fmaxf(s0[2], s0[3]), fmaxf(s1[2], s1[3]))));
-      const float c_lo = -mn_lo * L2E, c_hi = -mn_hi * L2E;
-      const float e_lo =
-          (ex2(fmaf(s0[0], L2E, c_lo)) + ex2(fmaf(s0[1], L2E, c_lo))) +
-          (ex2(fmaf(s1[0], L2E, c_lo)) + ex2(fmaf(s1[1], L2E, c_lo)));
-      const float e_hi =
-          (ex2(fmaf(s0[2], L2E, c_hi)) + ex2(fmaf(s0[3], L2E, c_hi))) +
-          (ex2(fmaf(s1[2], L2E, c_hi)) + ex2(fmaf(s1[3], L2E, c_hi)));
-      l_lo = (m_lo == -INFINITY ? 0.f : l_lo * ex2((m_lo - mn_lo) * L2E)) +
-             e_lo;
-      l_hi = (m_hi == -INFINITY ? 0.f : l_hi * ex2((m_hi - mn_hi) * L2E)) +
-             e_hi;
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-    }
-    const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
-    const float ml_lo = -m_lo * L2E, ml_hi = -m_hi * L2E;
-    // p = exp(s - max) / sum in fp32 (0 past tk)
-    auto probs = [&](int kb, float (&p0)[4], float (&p1)[4]) {
-      scores(kb, p0, p1);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float ml = e < 2 ? ml_lo : ml_hi;
-        const float iv = e < 2 ? inv_lo : inv_hi;
-        p0[e] = ex2(fmaf(p0[e], L2E, ml)) * iv;
-        p1[e] = ex2(fmaf(p1[e], L2E, ml)) * iv;
-      }
-    };
+    const RowStats st = head_stats<HD>(qf, Ks, AT_LD, tk, scale, lane);
     // dp = dom_h v_h^T
     auto dprobs = [&](int kb, float (&d0)[4], float (&d1)[4]) {
 #pragma unroll
@@ -1840,31 +1939,23 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     for (int kg = 0; kg < groups; ++kg) {
       const int kb = kg * 16;
       float p0[4], p1[4], d0[4], d1[4];
-      probs(kb, p0, p1);
+      head_probs<HD>(qf, Ks, AT_LD, kb, tk, scale, st, lane, p0, p1);
       dprobs(kb, d0, d1);
       dpp_lo += (d0[0] * p0[0] + d0[1] * p0[1]) +
                 (d1[0] * p1[0] + d1[1] * p1[1]);
       dpp_hi += (d0[2] * p0[2] + d0[3] * p0[3]) +
                 (d1[2] * p1[2] + d1[3] * p1[3]);
-      uint32_t a[4];
-      vct::pack_a(a, p0, p1);
-      vct::mma_rows16<HD>(o, a, Vs, AT_LD, kb, lane);
+      head_pv<HD>(o, p0, p1, Vs, AT_LD, kb, lane);
       store_keys(pm, kb, p0, p1);
     }
-    dpp_lo = quad_sum(dpp_lo);
-    dpp_hi = quad_sum(dpp_hi);
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int c = c0 + j * 8 + 2 * tq;
-      if (j * 8 >= hd) break;
-      if (r_lo < n) store_pair(om + (size_t)r_lo * h + c, o[j][0], o[j][1]);
-      if (r_hi < n) store_pair(om + (size_t)r_hi * h + c, o[j][2], o[j][3]);
-    }
+    dpp_lo = vct::quad_sum(dpp_lo);
+    dpp_hi = vct::quad_sum(dpp_hi);
+    store_head<HD>(o, om, h, c0, hd, r_lo, r_hi, n, lane);
     // pass 3: ds = round(p (dp - <dp, p>) scale) -> dsm, dqp = ds k
     for (int kg = 0; kg < groups; ++kg) {
       const int kb = kg * 16;
       float p0[4], p1[4], d0[4], d1[4];
-      probs(kb, p0, p1);
+      head_probs<HD>(qf, Ks, AT_LD, kb, tk, scale, st, lane, p0, p1);
       dprobs(kb, d0, d1);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1877,13 +1968,7 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
       vct::mma_rows16<HD>(dq, a, Ks, AT_LD, kb, lane);
       store_keys(dsm, kb, p0, p1);
     }
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int c = c0 + j * 8 + 2 * tq;
-      if (j * 8 >= hd) break;
-      if (r_lo < n) store_pair(dqm + (size_t)r_lo * h + c, dq[j][0], dq[j][1]);
-      if (r_hi < n) store_pair(dqm + (size_t)r_hi * h + c, dq[j][2], dq[j][3]);
-    }
+    store_head<HD>(dq, dqm, h, c0, hd, r_lo, r_hi, n, lane);
   }
   // dbq: the column sums of the unrounded dqp over the tile's rows, over
   // the lanes of a column, then the warps in order
@@ -1903,6 +1988,105 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     for (int w = 0; w < NT / 32; ++w) s += red[w * HD + threadIdx.x];
     part[(size_t)blockIdx.x * h + c0 + threadIdx.x] = s;
   }
+}
+
+// --- K2 forward ----------------------------------------------------------
+
+__global__ void __launch_bounds__(Gemm64<false>::THREADS, 2)
+    cab_fwd_t_kernel(const vct::bf16* __restrict__ x,
+                     const vct::bf16* __restrict__ wt,
+                     const float* __restrict__ bt, float* __restrict__ t,
+                     int n, int din, int h) {
+  gemm_tile<Gemm64<false>>(BiasF32Epi{t, bt, h}, x, din, wt, h, n, h, din);
+}
+
+__global__ void __launch_bounds__(NT)
+    cab_fwd_ln_kernel(const float* __restrict__ t,
+                      const float* __restrict__ ls,
+                      const float* __restrict__ lb, float eps,
+                      vct::bf16* __restrict__ um, float* __restrict__ mean,
+                      float* __restrict__ inv, int n, int h) {
+  ln_fwd_rows(t, ls, lb, eps, um, mean, inv, n, h);
+}
+
+__global__ void __launch_bounds__(Gemm64<false>::THREADS, 2)
+    cab_fwd_q_kernel(const vct::bf16* __restrict__ um,
+                     const vct::bf16* __restrict__ wq,
+                     const float* __restrict__ bq,
+                     vct::bf16* __restrict__ qm, int n, int h) {
+  gemm_tile<Gemm64<false>>(RoundEpi{qm, bq, h}, um, h, wq, h, n, h, h);
+}
+
+// One block per (128-row tile, head): pass 1 and the o of pass 2 of
+// cab_bwd_attn_kernel (the same device functions), om = round(o).
+template <int HD>
+__global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
+    cab_fwd_attn_kernel(const vct::bf16* __restrict__ qm,
+                        const vct::bf16* __restrict__ k,
+                        const vct::bf16* __restrict__ v, float scale,
+                        vct::bf16* __restrict__ om, int n, int h, int hd,
+                        int tk) {
+  constexpr int AT_LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tk16 = (tk + 15) & ~15;
+  vct::bf16* Ks = reinterpret_cast<vct::bf16*>(tc_smem);  // [tk16][AT_LD]
+  vct::bf16* Vs = Ks + tk16 * AT_LD;                      // [tk16][AT_LD]
+  vct::bf16* Qs = Vs + tk16 * AT_LD;                      // [128][AT_LD]
+  const int r0 = blockIdx.x * AT_ROWS, c0 = blockIdx.y * hd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r_lo = r0 + warp * 16 + (lane >> 2), r_hi = r_lo + 8;
+
+  load_head_kv<HD>(Ks, Vs, k, v, h, c0, hd, tk, tk16);
+  vct::load_tile<AT_ROWS, HD, AT_LD, NT>(Qs, qm, h, r0, n, c0, c0 + hd,
+                                         threadIdx.x);
+  vct::cp_async_commit();
+  vct::cp_async_wait<0>();
+  __syncthreads();
+  if (r0 + warp * 16 >= n) return;
+  uint32_t qf[HD / 16][4];
+  vct::load_a_rows<HD>(qf, Qs, AT_LD, warp * 16, lane);
+  const RowStats st = head_stats<HD>(qf, Ks, AT_LD, tk, scale, lane);
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int kb = 0; kb < tk; kb += 16) {
+    float p0[4], p1[4];
+    head_probs<HD>(qf, Ks, AT_LD, kb, tk, scale, st, lane, p0, p1);
+    head_pv<HD>(o, p0, p1, Vs, AT_LD, kb, lane);
+  }
+  store_head<HD>(o, om, h, c0, hd, r_lo, r_hi, n, lane);
+}
+
+// y = round(u + (v + bo)) with u = LN(t) in fp32, recomputed from t and
+// the row's mean and 1/std as ln_fwd_rows computes it (the reference adds
+// the fp32 LN output, not its rounding)
+struct LnResidEpi {
+  vct::bf16* y;
+  const float *t, *mean, *inv, *ls, *lb, *bo;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * ld + c;
+    const float m = mean[r], iv = inv[r];
+    const float u0 = (t[at] - m) * iv * ls[c] + lb[c];
+    const float u1 = (t[at + 1] - m) * iv * ls[c + 1] + lb[c + 1];
+    store_pair(y + at, u0 + (v0 + bo[c]), u1 + (v1 + bo[c + 1]));
+  }
+};
+
+__global__ void __launch_bounds__(Gemm64<false>::THREADS, 2)
+    cab_fwd_out_kernel(const vct::bf16* __restrict__ om,
+                       const vct::bf16* __restrict__ wo,
+                       const float* __restrict__ t,
+                       const float* __restrict__ mean,
+                       const float* __restrict__ inv,
+                       const float* __restrict__ ls,
+                       const float* __restrict__ lb,
+                       const float* __restrict__ bo, vct::bf16* __restrict__ y,
+                       int n, int h) {
+  gemm_tile<Gemm64<false>>(LnResidEpi{y, t, mean, inv, ls, lb, bo, h}, om, h,
+                           wo, h, n, h, h);
 }
 
 // dt = LN backward of du (d = du ls: dt = inv (d - mean(d) - xhat
@@ -2661,24 +2845,6 @@ int vct_prenorm_mlp_fwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
-int vct_cross_attn_block_fwd(int bf16, const void* x, const void* wt,
-                             const void* bt, const void* ls, const void* lb,
-                             const void* wq, const void* bq, const void* kt,
-                             const void* v, const void* wo, const void* bo,
-                             float eps, float scale, void* y, int n, int din,
-                             int h, int heads, int tk, void* stream) {
-  const size_t smem = vct_cross_attn_block_smem(din, h);
-  const bool r32 = smem == cab_fwd_smem(ROWS, din, h);
-  cudaStream_t st = (cudaStream_t)stream;
-  typedef __nv_bfloat16 B;
-  auto launch = bf16 ? (r32 ? cab_fwd_launch<B, ROWS>
-                            : cab_fwd_launch<B, ROWS / 2>)
-                     : (r32 ? cab_fwd_launch<float, ROWS>
-                            : cab_fwd_launch<float, ROWS / 2>);
-  return launch(x, wt, bt, ls, lb, wq, bq, kt, v, wo, bo, eps, scale, y, n,
-                din, h, heads, tk, smem, st);
-}
-
 size_t vct_seq_adapter_bwd_smem(int h, int k) {
   return sizeof(float) *
          ((size_t)ROWS * h + 2 * (size_t)ROWS * k + SLAB_T + 2 * ROWS);
@@ -2997,12 +3163,129 @@ int vct_prenorm_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
   return (int)cudaGetLastError();
 }
 
-// K2 backward in bf16 on the tensor cores: its shape gate, scratch and
-// weight-gradient row chunks, all decided here from the shapes.
-static bool cab_bwd_bf16_ok(int din, int h, int heads, int tk) {
+// K2 in bf16 on the tensor cores, forward and backward: its shape gate
+// (heads of a multiple of 8 columns, at most HD_MAX; din a multiple of 8,
+// which the wrapper pads to; 0 < tk <= SMAX), then the scratch, all
+// decided here from the shapes.
+static bool cab_tc_ok(int din, int h, int heads, int tk) {
   const int hd = heads > 0 ? h / heads : 0;
   return heads > 0 && hd * heads == h && hd % 8 == 0 && hd <= HD_MAX &&
          din % 8 == 0 && tk > 0 && tk <= SMAX;
+}
+
+// K2 forward's scratch, in 16-byte-aligned pieces: fp32 t [n, h], bf16
+// um [n, h] (then om, which the attention pass writes over it), bf16 qm
+// [n, h], fp32 mean, inv [n].
+struct CabFwdWs {
+  float *t, *mean, *inv;
+  vct::bf16 *um, *qm;
+};
+
+static size_t cab_fwd_ws(unsigned char* base, int n, int h, CabFwdWs* w) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    void* p = (void*)((uintptr_t)base + off);
+    off += (bytes + 15) / 16 * 16;
+    return p;
+  };
+  const size_t nh = (size_t)n * h;
+  w->t = (float*)take(sizeof(float) * nh);
+  w->um = (vct::bf16*)take(sizeof(vct::bf16) * nh);
+  w->qm = (vct::bf16*)take(sizeof(vct::bf16) * nh);
+  w->mean = (float*)take(sizeof(float) * n);
+  w->inv = (float*)take(sizeof(float) * n);
+  return off;
+}
+
+// Bytes of scratch K2's forward takes: the tensor-core passes' in bf16
+// where cab_tc_ok holds, else 0 (the CUDA-core kernel needs none).
+size_t vct_cross_attn_block_fwd_ws(int bf16, int n, int din, int h,
+                                   int heads, int tk) {
+  if (!bf16 || !cab_tc_ok(din, h, heads, tk)) return 0;
+  CabFwdWs w;
+  return cab_fwd_ws(nullptr, n, h, &w);
+}
+
+// K2 forward in bf16 on the tensor cores: the five passes (t = x Wt + bt
+// in fp32; the LN, um = round(u) and each row's mean and 1/std; qm =
+// round(um Wq + bq); om = round(softmax(q k^T scale) v) per (128-row
+// tile, head); y = round(u + (om Wo + bo)) with the fp32 u).
+static int cab_fwd_bf16(const void* x, const void* wt, const void* bt,
+                        const void* ls, const void* lb, const void* wq,
+                        const void* bq, const void* k, const void* v,
+                        const void* wo, const void* bo, float eps,
+                        float scale, void* y, void* ws, int n, int din, int h,
+                        int heads, int tk, cudaStream_t st) {
+  typedef vct::bf16 T;
+  typedef Gemm64<false> G;
+  const int hd = h / heads, row_tiles = (n + TC - 1) / TC;
+  CabFwdWs w;
+  cab_fwd_ws((unsigned char*)ws, n, h, &w);
+  const dim3 hgrid((h + G::TILE_N - 1) / G::TILE_N, row_tiles);
+  const float *fls = (const float*)ls, *flb = (const float*)lb;
+  int err;
+#define VCT_CHECK() \
+  if ((err = (int)cudaGetLastError())) return err
+  if ((err = allow_smem(cab_fwd_t_kernel, G::SMEM_BYTES))) return err;
+  cab_fwd_t_kernel<<<hgrid, G::THREADS, G::SMEM_BYTES, st>>>(
+      (const T*)x, (const T*)wt, (const float*)bt, w.t, n, din, h);
+  VCT_CHECK();
+  cab_fwd_ln_kernel<<<(n + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+      w.t, fls, flb, eps, w.um, w.mean, w.inv, n, h);
+  VCT_CHECK();
+  if ((err = allow_smem(cab_fwd_q_kernel, G::SMEM_BYTES))) return err;
+  cab_fwd_q_kernel<<<hgrid, G::THREADS, G::SMEM_BYTES, st>>>(
+      w.um, (const T*)wq, (const float*)bq, w.qm, n, h);
+  VCT_CHECK();
+  T* om = w.um;  // um is not read again
+  const dim3 agrid(row_tiles, heads);
+  if (hd <= 64) {
+    const size_t asmem = cab_attn_smem(tk, 64, 1, 0);
+    if ((err = allow_smem(cab_fwd_attn_kernel<64>, asmem))) return err;
+    cab_fwd_attn_kernel<64><<<agrid, NT, asmem, st>>>(
+        w.qm, (const T*)k, (const T*)v, scale, om, n, h, hd, tk);
+  } else {
+    const size_t asmem = cab_attn_smem(tk, HD_MAX, 1, 0);
+    if ((err = allow_smem(cab_fwd_attn_kernel<HD_MAX>, asmem))) return err;
+    cab_fwd_attn_kernel<HD_MAX><<<agrid, NT, asmem, st>>>(
+        w.qm, (const T*)k, (const T*)v, scale, om, n, h, hd, tk);
+  }
+  VCT_CHECK();
+  if ((err = allow_smem(cab_fwd_out_kernel, G::SMEM_BYTES))) return err;
+  cab_fwd_out_kernel<<<hgrid, G::THREADS, G::SMEM_BYTES, st>>>(
+      om, (const T*)wo, w.t, w.mean, w.inv, fls, flb, (const float*)bo,
+      (T*)y, n, h);
+#undef VCT_CHECK
+  return (int)cudaGetLastError();
+}
+
+// K2 forward, one entry for both routes: in bf16 where cab_tc_ok holds,
+// the tensor-core passes (k [tk, h]; x, wt, k, v, wq, wo 16-byte aligned;
+// ws: vct_cross_attn_block_fwd_ws bytes); otherwise, and in fp32, the
+// CUDA-core kernel in 32- or 16-row tiles (kt = k^T [h, tk]). n >= 1.
+int vct_cross_attn_block_fwd(int bf16, const void* x, const void* wt,
+                             const void* bt, const void* ls, const void* lb,
+                             const void* wq, const void* bq, const void* k,
+                             const void* kt, const void* v, const void* wo,
+                             const void* bo, float eps, float scale, void* y,
+                             void* ws, int n, int din, int h, int heads,
+                             int tk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16 && cab_tc_ok(din, h, heads, tk)) {
+    if (ws == nullptr || k == nullptr) return (int)cudaErrorInvalidValue;
+    return cab_fwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, eps, scale,
+                        y, ws, n, din, h, heads, tk, st);
+  }
+  if (kt == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = vct_cross_attn_block_smem(din, h);
+  const bool r32 = smem == cab_fwd_smem(ROWS, din, h);
+  typedef __nv_bfloat16 B;
+  auto launch = bf16 ? (r32 ? cab_fwd_launch<B, ROWS>
+                            : cab_fwd_launch<B, ROWS / 2>)
+                     : (r32 ? cab_fwd_launch<float, ROWS>
+                            : cab_fwd_launch<float, ROWS / 2>);
+  return launch(x, wt, bt, ls, lb, wq, bq, kt, v, wo, bo, eps, scale, y, n,
+                din, h, heads, tk, smem, st);
 }
 
 // K2 backward's five weight gradients (dWo, dv, dk, dWq, dWt) as (p, q,
@@ -3066,7 +3349,7 @@ static size_t cab_ws(unsigned char* base, int n, int h, int heads, int tkp,
 // does not take.
 size_t vct_cross_attn_block_bwd_bf16_ws(int n, int din, int h, int heads,
                                         int tk) {
-  if (!cab_bwd_bf16_ok(din, h, heads, tk)) return 0;
+  if (!cab_tc_ok(din, h, heads, tk)) return 0;
   const int tkp = (tk + 7) / 8 * 8;
   CabWs w;
   return cab_ws(nullptr, n, h, heads, tkp,
@@ -3087,7 +3370,7 @@ int vct_cross_attn_block_bwd_bf16(
     void* dx, void* grads, void* ws, int n, int din, int h, int heads,
     int tk, void* stream) {
   typedef vct::bf16 T;
-  if (!cab_bwd_bf16_ok(din, h, heads, tk)) return (int)cudaErrorInvalidValue;
+  if (!cab_tc_ok(din, h, heads, tk)) return (int)cudaErrorInvalidValue;
   const int hd = h / heads, tkp = (tk + 7) / 8 * 8;
   cudaStream_t st = (cudaStream_t)stream;
   const CabGrads wg(n, din, h, heads, tkp);
@@ -3126,13 +3409,14 @@ int vct_cross_attn_block_bwd_bf16(
   VCT_CHECK();
   const dim3 agrid(row_tiles, heads);
   if (hd <= 64) {
-    const size_t asmem = cab_attn_smem(tk, 64);
+    const size_t asmem = cab_attn_smem(tk, 64, 2, (NT / 32) * 64);
     if ((err = allow_smem(cab_bwd_attn_kernel<64>, asmem))) return err;
     cab_bwd_attn_kernel<64><<<agrid, NT, asmem, st>>>(
         w.qm, w.dom, (const T*)k, (const T*)v, scale, w.om, w.pm, w.dsm,
         w.dqm, w.part_q, n, h, hd, tk, tkp);
   } else {
-    const size_t asmem = cab_attn_smem(tk, HD_MAX);
+    const size_t asmem =
+        cab_attn_smem(tk, HD_MAX, 2, (NT / 32) * HD_MAX);
     if ((err = allow_smem(cab_bwd_attn_kernel<HD_MAX>, asmem))) return err;
     cab_bwd_attn_kernel<HD_MAX><<<agrid, NT, asmem, st>>>(
         w.qm, w.dom, (const T*)k, (const T*)v, scale, w.om, w.pm, w.dsm,

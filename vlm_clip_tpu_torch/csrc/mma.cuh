@@ -1,5 +1,6 @@
 // Tensor-core building blocks for the port's Hopper (sm_90a) kernels,
-// shared by csrc/attention.cu, csrc/fused_adapter.cu and csrc/quant.cu.
+// shared by csrc/attention.cu, csrc/fused_adapter.cu, csrc/quant.cu and
+// csrc/decode_attention.cu.
 //
 // - ldmatrix (plain and .trans) from bf16 tiles in shared memory;
 // - quad reductions over an accumulator row, ex2 on the SFU;
@@ -55,6 +56,16 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// Two 8x8 b16 matrices; lanes 0-15 give the row addresses (lane i: row
+// i % 8 of matrix i / 8), register j receives matrix j.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p))
       : "memory");
 }

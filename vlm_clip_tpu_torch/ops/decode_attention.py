@@ -13,6 +13,9 @@ of the same name). :func:`decode_attention_kernel` launches the kernel
 written by hand for Hopper in ``vlm_clip_tpu_torch/csrc/decode_attention.cu``
 (replaces ``_make_kernel`` decode_attention.py:130) on CUDA tensors and
 takes the plain version on CPU tensors; ``.launches`` counts its launches.
+The kernel splits each row's cache columns across blocks
+(:func:`kernel_splits`), each block rounding p against its own running
+max, and merges the splits in order inside the same launch.
 :func:`decode_attention` dispatches with the reference's shape gate: the
 kernel when the tensors are on the card, ``d % 128 == 0``, ``S >= 128``
 and ``T <= 16``; the plain version otherwise, or with ``impl="torch"``.
@@ -25,11 +28,12 @@ shape measured, so the port routes to it by default and has no flag.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
 
-from vlm_clip_tpu_torch.ops.build import load_library
+from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
 _NEG = float(torch.finfo(torch.float32).min)  # additive-mask -inf
 _TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -77,15 +81,51 @@ def decode_attention_reference(q, k_old, v_old, k_cur, v_cur, depths,
 def _lib() -> ctypes.CDLL:
     lib = load_library("decode_attention")
     if not getattr(lib, "_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
         lib.vct_decode_attention.argtypes = [
-            I, I, P, P, P, P, P, P, P, P, P, ctypes.c_longlong,
+            I, I, P, P, P, P, P, P, P, P, P, P, ctypes.c_longlong,
             ctypes.c_longlong, I, I, I, I, I, I, ctypes.c_float, P]
         lib.vct_decode_attention.restype = I
-        lib.vct_decode_attention_smem.argtypes = [I, I, I, I]
-        lib.vct_decode_attention_smem.restype = ctypes.c_ulonglong
+        lib.vct_decode_attention_ws.argtypes = [I] * 6
+        lib.vct_decode_attention_ws.restype = U
+        lib.vct_decode_attention_splits.argtypes = [I] * 4
+        lib.vct_decode_attention_splits.restype = I
+        lib.vct_decode_attention_smem.argtypes = [I] * 8
+        lib.vct_decode_attention_smem.restype = U
         lib._typed = True
     return lib
+
+
+# The kernel's workspace, one per device, kept across calls and grown when
+# a call needs more: the merge tickets, zeroed once here (the kernel's
+# merging blocks leave them zero), then the per-split partials. Calls on
+# one device share it, so they run on one stream at a time, as the
+# decode loop does.
+_WORKSPACE: dict = {}
+_WS_BYTES: dict = {}  # (device, (B, T, h, kv, d, S)) -> workspace bytes
+_WS_LOCK = threading.Lock()
+
+
+def _workspace(device: torch.device, shape) -> torch.Tensor:
+    """The device's workspace, at least as large as these shapes need
+    (the split count behind the size is the card's: call this with the
+    device current)."""
+    with _WS_LOCK:
+        nbytes = _WS_BYTES.get((device, shape))
+        if nbytes is None:
+            nbytes = _lib().vct_decode_attention_ws(*shape)
+            _WS_BYTES[(device, shape)] = nbytes
+        ws = _WORKSPACE.get(device)
+        if ws is None or ws.numel() < nbytes:
+            ws = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+            _WORKSPACE[device] = ws
+        return ws
+
+
+def kernel_splits(B: int, kv: int, d: int, S: int) -> int:
+    """The column splits a (batch row, kv head) takes on the current
+    card: about two blocks an SM over B x kv x splits blocks."""
+    return _lib().vct_decode_attention_splits(B, kv, d, S)
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
@@ -137,28 +177,31 @@ def _launch(q, k_old, v_old, k_cur, v_cur, depths, k_scale, v_scale):
         # the kernel reads a float cache in q's type (the plain version
         # rounds it to q's type too); no decode path gives another
         k_old, v_old = k_old.to(q.dtype), v_old.to(q.dtype)
-    q = q.contiguous()
-    k_cur = k_cur.to(q.dtype).contiguous()
-    v_cur = v_cur.to(q.dtype).contiguous()
+    if k_old.data_ptr() % 16 or v_old.data_ptr() % 16:
+        raise ValueError("decode_attention: the cache must start on a "
+                         "16-byte boundary (the kernel copies 16-byte rows)")
+    q, k_cur, v_cur = (aligned16(t.to(q.dtype)) for t in (q, k_cur, v_cur))
     depths = depths.to(torch.int32).expand(B).contiguous()
     out = torch.empty(B, T, h, d, dtype=q.dtype, device=q.device)
     lib = _lib()
+    types = (_TYPES[q.dtype], _TYPES[k_old.dtype])
     with torch.cuda.device(q.device):
+        ws = _workspace(q.device, (B, T, h, kv, d, S))
         err = lib.vct_decode_attention(
-            _TYPES[q.dtype], _TYPES[k_old.dtype], q.data_ptr(),
-            k_old.data_ptr(), v_old.data_ptr(), k_cur.data_ptr(),
-            v_cur.data_ptr(), depths.data_ptr(),
+            *types, q.data_ptr(), k_old.data_ptr(), v_old.data_ptr(),
+            k_cur.data_ptr(), v_cur.data_ptr(), depths.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, out.data_ptr(),
-            k_old.stride(0), k_scale.stride(0) if quant else 0,
-            B, T, h, kv, d, S, float(d) ** -0.5,
+            ws.data_ptr(), k_old.stride(0),
+            k_scale.stride(0) if quant else 0, B, T, h, kv, d, S,
+            float(d) ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"decode_attention: CUDA kernel launch failed with cudaError "
-            f"{err} (T={T}, h={h}, kv={kv}, d={d}: "
-            f"{lib.vct_decode_attention_smem(T, h, kv, d)} B of shared "
-            "memory per block)")
+        if err:
+            smem = lib.vct_decode_attention_smem(*types, B, T, h, kv, d, S)
+            raise RuntimeError(
+                f"decode_attention: CUDA kernel launch failed with "
+                f"cudaError {err} (B={B}, T={T}, h={h}, kv={kv}, d={d}, "
+                f"S={S}: {smem} B of shared memory per block)")
     decode_attention_kernel.launches += 1
     return out.reshape(B, T, h * d)
 

@@ -24,12 +24,13 @@ fused path takes (any widths, at most MAX_SHARED_KV shared K/V rows:
 :func:`cross_attn_block_supported`, which ``models/adapters.py`` reads to
 route a longer K/V to the plain version under ``impl="auto"``, as the
 reference does). A wrapper raises on a CUDA tensor whose shapes its
-kernels do not take. In bf16, K3 (forward and backward) and K2's
-backward run on the tensor cores, each as a few passes behind one C
-call. K1's backward (fp32 math in both dtypes) runs its products as
-error-compensated TF32 on the tensor cores (split big + small, three
-passes, two where the operand is a bf16 x), and so do the fp32 weight
-gradients of the others (:func:`_wgrad`). On CUDA, a call that needs a
+kernels do not take. In bf16, K3 and K2 (forward and backward) run on
+the tensor cores, each as a few passes behind one C call (K2's forward
+keeps its CUDA-core kernel at head widths the passes do not take:
+:func:`cross_attn_block_tensor_cores`). K1's backward (fp32 math in both
+dtypes) runs its products as error-compensated TF32 on the tensor cores
+(split big + small, three passes, two where the operand is a bf16 x),
+and so do the fp32 weight gradients of the others (:func:`_wgrad`). On CUDA, a call that needs a
 gradient goes through a
 ``torch.autograd.Function`` whose forward launches the forward kernel and
 saves only the inputs (as the TPU rules do), and whose backward launches
@@ -68,8 +69,8 @@ def _lib() -> ctypes.CDLL:
             + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_fwd.argtypes = [_I] + [_P] * 7 + [_F, _P] \
             + [_I] * 3 + [_P]
-        lib.vct_cross_attn_block_fwd.argtypes = [_I] + [_P] * 11 \
-            + [_F, _F, _P] + [_I] * 5 + [_P]
+        lib.vct_cross_attn_block_fwd.argtypes = [_I] + [_P] * 12 \
+            + [_F, _F, _P, _P] + [_I] * 5 + [_P]
         lib.vct_seq_adapter_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
             + [_P] * 5 + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
@@ -118,6 +119,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_prenorm_mlp_fwd_bf16_ws.argtypes = [_I] * 3
         lib.vct_seq_adapter_bwd_tf32_ws.argtypes = [_I] * 3
         lib.vct_cross_attn_block_bwd_bf16_ws.argtypes = [_I] * 5
+        lib.vct_cross_attn_block_fwd_ws.argtypes = [_I] * 6
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
                    lib.vct_cross_attn_block_smem,
                    lib.vct_seq_adapter_bwd_smem,
@@ -126,7 +128,8 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_feature_adapter_smem,
                    lib.vct_prenorm_mlp_fwd_bf16_ws,
                    lib.vct_seq_adapter_bwd_tf32_ws,
-                   lib.vct_cross_attn_block_bwd_bf16_ws):
+                   lib.vct_cross_attn_block_bwd_bf16_ws,
+                   lib.vct_cross_attn_block_fwd_ws):
             fn.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -423,14 +426,16 @@ def _as(t, dtype):
 
 def _launch(name, fn, smem, x, *args):
     """Launch on the current stream of x's device; raise on a refused
-    launch (e.g. more shared memory than the device allows a block)."""
+    launch (e.g. more shared memory than the device allows a block; smem:
+    the bytes a block asks for, None for a chain of kernels)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(int(x.dtype == torch.bfloat16), *args, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError {err} ({smem} B of shared memory "
-                           "per block)")
+                           f"cudaError {err}" + (
+                               "" if smem is None else
+                               f" ({smem} B of shared memory per block)"))
 
 
 def _check_err(name, err):
@@ -778,27 +783,64 @@ def prenorm_mlp_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
 
 # --- K2: cross-modal attention block ---------------------------------------
 
+def cross_attn_block_tensor_cores(h: int, heads: int) -> bool:
+    """K2 in bf16 runs on the tensor cores, forward and backward, where
+    its heads are a multiple of 8 columns, at most 128 (the attention
+    pass zero-fills a head to 64 or 128 columns); the text width is
+    zero-padded to a multiple of 8 there. The bf16 forward runs its
+    CUDA-core kernel at other widths; the bf16 backward has none."""
+    hd = h // heads
+    return hd % 8 == 0 and hd <= 128
+
+
+def _pad_din(x, wt):
+    """x's columns and wt's rows zero-padded to a multiple of 8, for the
+    tensor-core passes' 16-byte tile loads; the zeros change no
+    product."""
+    pad = -x.shape[1] % 8
+    if pad:
+        x = F.pad(x, (0, pad))
+        wt = F.pad(wt, (0, 0, 0, pad))
+    return x, wt
+
+
 def _cab_fwd_launch(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, heads, eps):
+    """K2's forward, one C call: in bf16 at the widths of
+    :func:`cross_attn_block_tensor_cores`, the five tensor-core passes
+    with their scratch; otherwise the CUDA-core kernel (K^T [H, Tk])."""
     name = "cross_attn_block_fused"
-    N, Din = x.shape
+    N = x.shape[0]
     H, Tk = wt.shape[1], k.shape[0]
     x = x.contiguous()
     mm = x.dtype
-    wt, wq, wo, v = (_as(t, mm) for t in (wt, wq, wo, v))
-    kt = _as(k.t(), mm)  # [H, Tk]: the scores' weight, read row-major
+    wt, wq, wo, k, v = (_as(t, mm) for t in (wt, wq, wo, k, v))
     bt, ls, lb, bq, bo = (_as(t, torch.float32) for t in (bt, ls, lb, bq,
                                                           bo))
     y = torch.empty((N, H), dtype=mm, device=x.device)
-    if N:
-        lib = _lib()
-        _launch(name, lib.vct_cross_attn_block_fwd,
-                lib.vct_cross_attn_block_smem(Din, H), x, x.data_ptr(),
-                wt.data_ptr(), bt.data_ptr(), ls.data_ptr(), lb.data_ptr(),
-                wq.data_ptr(), bq.data_ptr(), kt.data_ptr(), v.data_ptr(),
-                wo.data_ptr(), bo.data_ptr(), float(eps),
-                float((H // heads) ** -0.5), y.data_ptr(), N, Din, H, heads,
-                Tk)
-        cross_attn_block_fused.launches += 1
+    if not N:
+        return y
+    lib = _lib()
+    tc = mm == torch.bfloat16 and cross_attn_block_tensor_cores(H, heads)
+    if tc:
+        x, wt = _pad_din(x, wt)
+        x, wt, wq, wo, k, v = (aligned16(t) for t in (x, wt, wq, wo, k, v))
+        kt = None
+    else:
+        kt = _as(k.t(), mm)  # [H, Tk]: the scores' weight, read row-major
+    din = x.shape[1]
+    ws = torch.empty(lib.vct_cross_attn_block_fwd_ws(1, N, din, H, heads,
+                                                     Tk),
+                     dtype=torch.uint8, device=x.device) if tc else None
+    _launch(name, lib.vct_cross_attn_block_fwd,
+            None if tc else lib.vct_cross_attn_block_smem(din, H), x,
+            x.data_ptr(), wt.data_ptr(), bt.data_ptr(), ls.data_ptr(),
+            lb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+            k.data_ptr() if tc else None,
+            None if kt is None else kt.data_ptr(), v.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), float(eps),
+            float((H // heads) ** -0.5), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), N, din, H, heads, Tk)
+    cross_attn_block_fused.launches += 1
     return y
 
 
@@ -813,11 +855,8 @@ def _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads, eps,
     N, Din = x.shape
     H, Tk = wt.shape[1], k.shape[0]
     hd = H // heads
-    pad = -Din % 8
-    if pad:
-        x = F.pad(x, (0, pad))
-        wt = F.pad(wt, (0, 0, 0, pad))
-    din = Din + pad
+    x, wt = _pad_din(x, wt)
+    din = x.shape[1]
     tkp = -(-Tk // 8) * 8  # each head's keys in pm, dsm, dk, dv
     x, g, wt, wq, wo, k, v = (aligned16(t)
                               for t in (x, g, wt, wq, wo, k, v))
@@ -838,7 +877,7 @@ def _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads, eps,
             _stream(x)))
     dwt, dwq, dwo, dk, dv, vec = grads.split(sizes)
     dbo, dls, dlb, dbt, dbq = vec.split([H] * 5)
-    if dx is not None and pad:
+    if dx is not None and din != Din:
         dx = dx[:, :Din].contiguous()
     return (dx, dwt.view(din, H)[:Din], dbt, dls, dlb, dwq.view(H, H), dbq,
             dk.view(tkp, H)[:Tk], dv.view(tkp, H)[:Tk], dwo.view(H, H), dbo)
@@ -847,9 +886,8 @@ def _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads, eps,
 def _cab_bwd_bf16_refusal(H: int, heads: int):
     """Why the bf16 backward cannot take these widths, or None: its
     tensor-core attention pass takes heads of a multiple of 8 columns, at
-    most 128."""
-    hd = H // heads
-    if hd % 8 or hd > 128:
+    most 128 (:func:`cross_attn_block_tensor_cores`)."""
+    if not cross_attn_block_tensor_cores(H, heads):
         return (f"the bf16 backward (tensor cores) needs heads of a "
                 f"multiple of 8 columns, at most 128; got H {H}, heads "
                 f"{heads}")
