@@ -9,13 +9,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    csrc/decode_attention.cu, one nvcc each, in parallel), prints ptxas's
    registers and spills and the HMMA instructions in the SASS of each
    tensor-core kernel (in bf16: K5, K3 and K2 forward and backward, the
-   weight gradients, K7, K8; in compensated TF32: K1 backward and the
-   fp32 weight gradients), and fails if one of them has none.
+   weight gradients, K7, K8; in compensated TF32: K1 forward and backward
+   and the fp32 weight gradients), and fails if one of them has none.
 2. Kernels: each forward kernel against its plain PyTorch version at the
    B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
    the batch-1 shapes of a served request, in bf16 and fp32, with the
-   tolerance stated below, and both timed with CUDA events; K3's and
-   K2's bf16 passes timed one by one (torch.profiler).
+   tolerance stated below, and both timed with CUDA events; K1's, K3's
+   and K2's bf16 passes timed one by one (torch.profiler), K1's bound
+   printed for its compensated TF32 passes and for its fp32 products.
 3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
    contrastive head (forward and backward, [96, 512]) against their
    plain versions at the B=96 shapes, in bf16 and fp32, timed the same
@@ -43,7 +44,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
    at the rows pipeline T gives it (32 image features, 7 class means, 35
    descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
-   whose mask must equal the plain version's bit for bit; K5 (the towers'
+   whose mask must equal the plain version's bit for bit; K6 backward's
+   kernels and launches a call (torch.profiler); K5 (the towers'
    attention) at ViT-L/14's and ViT-B/16's shapes with each mask layout
    the towers give it, beside F.scaled_dot_product_attention's time on
    the same inputs (timed only, never used by the port).
@@ -178,13 +180,14 @@ BWD_REPLACES = {
 HBM_BYTES_PER_S = 3.35e12
 # The kernels on the tensor cores, by wrapper (in bf16: K5, K3 and K2
 # forward and backward, the bf16 x bf16 weight gradients and K8; K1
-# backward's error-compensated TF32 products and the fp32 weight
-# gradients, HMMA.1684.F32.TF32; K7's int4 product in bf16; the LayerNorm
-# row kernels among their passes do no product): setup() counts each
+# forward's and backward's error-compensated TF32 products and the fp32
+# weight gradients, HMMA.1684.F32.TF32; K7's int4 product in bf16; the
+# LayerNorm row kernels among their passes do no product): setup() counts each
 # one's HMMA instructions in the built library's SASS and fails on a
 # kernel with none.
 K8_BF16_SASS = "decode_attention_kernelI13__nv_bfloat16"
 KERNEL_HMMA = {
+    "seq_adapter_fused": ("seqfwd_pre_kernel", "seqfwd_z_kernel"),
     "seq_adapter_bwd_cuda": ("seqbwd_pre_kernel", "seqbwd_z_kernel",
                              "seqbwd_dpre_kernel", "seqbwd_dx_kernel",
                              "wgrad_tf32_kernel"),
@@ -291,26 +294,33 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, n: int = 5) -> dict:
-    """{kernel name: device ms per call of fn} from torch.profiler over n
-    calls: the card's own time, without the host's launch overhead that
-    CUDA events around a short kernel also measure."""
+def _device_events(fn, n: int = 5) -> list:
+    """[(kernel name, device ms)], one entry a launch, over n calls of fn
+    (torch.profiler): the card's own time, without the host's launch
+    overhead that CUDA events around a short kernel also measure."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    per = {}
+    events = []
     for _ in range(3):  # a trace of a few short kernels can come back empty
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per[e.name] = per.get(e.name, 0.0) \
-                    + e.time_range.elapsed_us() / (1e3 * n)
-        if per:
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
             break
+    return events
+
+
+def _device_ms(fn, n: int = 5) -> dict:
+    """{kernel name: device ms per call of fn} (torch.profiler, n calls)."""
+    per = {}
+    for name, ms in _device_events(fn, n):
+        per[name] = per.get(name, 0.0) + ms / n
     return per
 
 
@@ -424,8 +434,15 @@ def kernel_phase() -> dict:
                     _add_time(r, t_kern, t_plain, cost(name, x),
                               f"{tag} {list(x.shape)} bf16")
                 if dtype == torch.bfloat16 and name in FWD_PASSES:
-                    _breakdown(f"kernel {name} B={batch} bf16",
+                    _breakdown(f"kernel {name}[{tag}] B={batch} bf16",
                                lambda: kern(x, *args), FWD_PASSES[name])
+                if name == "seq_adapter_fused":
+                    yard = bound(*cost(name, x, fp32_yardstick=True))[0]
+                    print(f"kernel {name}[{tag}] B={batch} {dt}: bound of "
+                          f"its fp32 products at the CUDA cores' peak (67 "
+                          f"TFLOP/s) {yard:.4f} ms, of its compensated TF32 "
+                          f"passes (495 TFLOP/s) "
+                          f"{bound(*cost(name, x))[0]:.4f} ms", flush=True)
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
@@ -448,24 +465,29 @@ def cost(name: str, x: torch.Tensor, need_dx: bool = True,
     """(operations, bytes, peak kind) of one call at x's shape on the
     pipeline-M widths: each product counts 2*m*n*k; each input is read
     once and each output written once (params and their fp32 gradients
-    at 4 bytes, x, g, dx and k, v in x's type). K1's backward counts the
-    TF32 tensor-core passes it runs (fp32_yardstick: its fp32 products
-    at the CUDA cores' peak, the yardstick of its first version)."""
+    at 4 bytes, x, g, dx and k, v in x's type). K1 counts the TF32
+    tensor-core passes it runs, forward and backward (fp32_yardstick, or
+    widths off those passes: its fp32 products at the CUDA cores' peak,
+    the yardstick of its first version)."""
+    from vlm_clip_tpu_torch.ops.fused_adapter import seq_adapter_tensor_cores
+
     N, D = x.shape
     es = x.element_size()
     mm = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     K, Tk, H = 256, 197, 512
     if name in ("seq_adapter_fused", "seq_adapter_bwd_cuda"):
         params = (2 * D * K + K + 3 * D) * 4
-        if name == "seq_adapter_fused":
-            return 4 * N * D * K, 2 * N * D * es + params, "fp32"
-        nbytes = (3 if need_dx else 2) * N * D * es + 2 * params
-        if fp32_yardstick:
-            return (2 * N * D * K * (6 if need_dx else 5), nbytes, "fp32")
+        fwd = name == "seq_adapter_fused"
+        nbytes = 2 * N * D * es + params if fwd else \
+            (3 if need_dx else 2) * N * D * es + 2 * params
+        if fp32_yardstick or not seq_adapter_tensor_cores(D, K):
+            products = 2 if fwd else (6 if need_dx else 5)
+            return 2 * N * D * K * products, nbytes, "fp32"
         # the error-compensated TF32 products it runs: 3 passes each, 2
         # for x W1 and x^T dpre when x is bf16 (exact in TF32)
         x_passes = 2 if x.dtype == torch.bfloat16 else 3
-        passes = 2 * x_passes + 3 * (3 if need_dx else 2)
+        passes = x_passes + 3 if fwd else \
+            2 * x_passes + 3 * (3 if need_dx else 2)
         return 2 * N * D * K * passes, nbytes, "tf32"
     if name in ("prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"):
         K = 4 * D
@@ -674,7 +696,9 @@ def backward_phase() -> dict:
 K3_FWD_PASSES = ("pnmlp_fwd_ln", "pnmlp_fwd_hidden", "pnmlp_fwd_out")
 K2_FWD_PASSES = ("cab_fwd_t_", "cab_fwd_ln", "cab_fwd_q_", "cab_fwd_attn",
                  "cab_fwd_out", "cross_attn_block_fwd")
-FWD_PASSES = {"prenorm_mlp_fused": K3_FWD_PASSES,
+K1_FWD_PASSES = ("seqfwd_pre", "seqfwd_z", "seqfwd_ln", "seq_adapter_fwd")
+FWD_PASSES = {"seq_adapter_fused": K1_FWD_PASSES,
+              "prenorm_mlp_fused": K3_FWD_PASSES,
               "cross_attn_block_fused": K2_FWD_PASSES}
 K1_BWD_PASSES = ("seqbwd_pre", "seqbwd_z", "seqbwd_ln", "seqbwd_dpre",
                  "seqbwd_dx", "wgrad_tf32", "split_sum", "colsum")
@@ -683,18 +707,24 @@ K3_BWD_PASSES = ("pnmlp_ln_fwd", "pnmlp_bwd_hidden", "pnmlp_bwd_du",
 CAB_BWD_PASSES = ("cab_bwd_t_", "cab_bwd_ln_fwd", "cab_bwd_q_",
                   "cab_bwd_dom", "cab_bwd_attn", "cab_bwd_du", "cab_bwd_ln_",
                   "cab_bwd_dx", "wgrad_mma", "split_sum", "colsum")
+K6_BWD_PASSES = ("feature_adapter_bwd_cluster", "colsum", "wgrad",
+                 "split_sum", "fill")
 
 
 def _breakdown(label: str, fn, passes) -> dict:
-    """fn's device ms per call by pass (torch.profiler over 5 calls; a
-    kernel is filed under the first fragment of passes in its name)."""
+    """fn's device ms per call by pass and its launches a call
+    (torch.profiler over 5 calls; a kernel is filed under the first
+    fragment of passes in its name)."""
+    n = 5
     per = {}
-    for name, ms in _device_ms(fn).items():
+    events = _device_events(fn, n)
+    for name, ms in events:
         key = next((k for k in passes if k in name), "other")
-        per[key] = per.get(key, 0.0) + ms
+        per[key] = per.get(key, 0.0) + ms / n
     print(f"{label} per call by kernel (ms, profiler): "
           + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
-          + f"; device {sum(per.values()):.4f} ms in all", flush=True)
+          + f"; device {sum(per.values()):.4f} ms in all, "
+          f"{len(events) / n:g} launches a call", flush=True)
     return per
 
 
@@ -827,6 +857,11 @@ def t_kernel_phase() -> dict:
                                     max(e[0] for e in errs))
             # the T path runs K6 on fp32 features: its times are fp32's
             if dtype == torch.float32 and drop == 0.0:
+                with torch.no_grad():
+                    _breakdown(
+                        f"backward feature_adapter_blend_bwd_cuda N={n} fp32",
+                        lambda: F.feature_adapter_blend_bwd_cuda(
+                            x, *params, R, g, need_dx=False), K6_BWD_PASSES)
                 _add_time(rf, fwd_t[0], fwd_t[1],
                           t_cost("feature_adapter_blend_fused", x),
                           f"[{n}, {D}] fp32")

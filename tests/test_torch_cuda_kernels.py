@@ -225,7 +225,7 @@ def test_seq_adapter_bwd_kernel_offset_weights(dev, dtype, n, h, k):
         * k ** -0.5
     args = (w1, args[1], w2) + args[3:]
     g = torch.randn(n, h, generator=_gen(dev, 3), device=dev).to(dtype)
-    assert F.seq_adapter_bwd_tensor_cores(h, k) == (h % 8 == 0)
+    assert F.seq_adapter_tensor_cores(h, k) == (h % 8 == 0)
     got = F.seq_adapter_bwd_cuda(x, *args, g)
     want = F.seq_adapter_bwd_torch(x, *args, g)
     _k1_grads_close(got, want, dtype, "seq_adapter offset")
@@ -453,15 +453,59 @@ def test_cross_attn_block_kernels_other_head_widths(dev, dtype, h, heads,
                  dtype, "cross_attn_block")
 
 
-def _device_kernels(fn) -> set:
-    """The names of the kernels fn launches on the card (torch.profiler)."""
+def _device_kernels(fn) -> list:
+    """The names of the kernels fn launches on the card, one a launch
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# K1 forward: 77 and 250 rows (ragged 128-row tiles) at the text and
+# vision widths on the TF32 tensor cores, with and without a large common
+# offset in the weights (w = 0.5 + 0.01 u, scaled by the fan-in), widths
+# that are not multiples of the 128 x 64 tiles (h 200, k 100: on the
+# passes' gate), and a width off it (h 100), which the CUDA-core kernel
+# takes. fp32 y within 1e-4 of the largest |y| (K1's function is fp32);
+# bf16 y at the bf16 tolerance.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,h,k,offset", [(77, 512, 256, 0.0),
+                                          (250, 768, 256, 0.0),
+                                          (77, 512, 256, 0.5),
+                                          (250, 768, 256, 0.5),
+                                          (77, 200, 100, 0.0),
+                                          (77, 100, 64, 0.0)])
+def test_seq_adapter_fwd_tensor_cores(dev, dtype, n, h, k, offset):
+    x, args = _seq_case(dev, n, h, k, dtype)
+    if offset:
+        gen = _gen(dev, 9)
+        w1 = (offset + 0.01 * torch.randn(h, k, generator=gen, device=dev)) \
+            * h ** -0.5
+        w2 = (offset + 0.01 * torch.randn(k, h, generator=gen, device=dev)) \
+            * k ** -0.5
+        args = (w1, args[1], w2) + args[3:]
+    F.reset_launch_counts()
+    with torch.no_grad():
+        got = F.seq_adapter_fused(x, *args)
+        assert F.launch_counts()["seq_adapter_fused"] == 1
+        want = F.seq_adapter_torch(x, *args)
+        names = _device_kernels(lambda: F.seq_adapter_fused(x, *args))
+    assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    else:
+        _close(got, want, dtype)
+    tc = F.seq_adapter_tensor_cores(h, k)
+    assert tc == (h != 100)
+    for frag in ("seqfwd_pre", "seqfwd_z", "seqfwd_ln"):
+        assert any(frag in nm for nm in names) == tc, (frag, names)
+    assert any("seq_adapter_fwd_kernel" in nm for nm in names) != tc
 
 
 # K2 forward: the train step's B=96 text rows (7392), one served text
@@ -611,6 +655,47 @@ def test_feature_adapter_kernels(dev, dtype, n, dropout):
         "feature_adapter_blend_fused": 1,
         "feature_adapter_blend_bwd_cuda": 1}
     _grads_close(gg, gw, dtype, "feature_adapter")
+
+
+# K6 backward, one cluster launch: the T path's rows (1, 7, 35: one group;
+# the weight slices in shared memory) and 600 rows with dropout (ten
+# groups across the hash's 256-row tiles, then one colsum launch), with
+# and without dx; 77 rows at d 1024, k 192 (two groups; slices too large
+# for shared memory beside 64 rows, read in place) and d 100 (ragged
+# slices); bit for bit on a repeat; no weight-gradient, column-sum (within
+# one group) or fill kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("n,d,k,dropout", [(1, 768, 64, 0.0),
+                                           (7, 768, 64, 0.0),
+                                           (35, 768, 64, 0.0),
+                                           (600, 768, 64, 0.1),
+                                           (77, 1024, 192, 0.1),
+                                           (20, 100, 24, 0.0)])
+def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
+                                            dropout):
+    x, args = _feat_case(dev, n, d, k, dtype)
+    g = torch.randn(n, d, generator=_gen(dev, 9), device=dev).to(dtype)
+
+    def call():
+        return F.feature_adapter_blend_bwd_cuda(x, *args, 0.2, g, dropout,
+                                                1234, need_dx=need_dx)
+
+    F.reset_launch_counts()
+    got = call()
+    assert F.launch_counts()["feature_adapter_blend_bwd_cuda"] == 1
+    want = F.feature_adapter_blend_bwd_torch(x, *args, 0.2, g, dropout, 1234,
+                                             need_dx=need_dx)
+    _grads_close(got, want, dtype, "feature_adapter bwd")
+    again = call()
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    names = _device_kernels(call)
+    want_names = ["feature_adapter_bwd_cluster_kernel"] + (
+        ["colsum_kernel"] if n > 64 else [])
+    assert len(names) == len(want_names), names
+    assert all(any(frag in nm for nm in names) for frag in want_names), names
 
 
 @pytest.mark.cuda

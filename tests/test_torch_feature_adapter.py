@@ -85,6 +85,77 @@ def test_plain_forward_backward_match_pallas(n, dtype):
     _assert_grads(grads, want_g, TOL[dtype])
 
 
+def _k6_bwd_cluster(x, w1, b1, w2, b2, r, g, dropout, seed, rows):
+    """K6's backward in the order its cluster kernel takes
+    (csrc/fused_adapter.cu, feature_adapter_bwd_cluster_kernel): groups of
+    ``rows`` rows, 8 blocks each owning ds = ceil(d / 8) columns of d
+    (the last ones fewer). Per group: pre = the blocks' partials x_q W1_q
+    added in rank order, + b1; h = relu(pre) * mask; z_q = r (h W2_q + b2_q)
+    + (1 - r) x_q; the rows' sums of z^2 and g z added in rank order, inv =
+    1 / |z|, <g, y> = (g z) inv; dz_q = (g_q - z_q inv <g, y>) inv; dh =
+    the partials r (dz_q W2_q^T) in rank order, * mask where h > 0; each
+    block's slices of dW1 = x^T dh, dW2 = r (h^T dz), db2 = r (the sum of
+    dz) and rank 0's db1 over the group's rows; the groups' partials added
+    in group order. Returns (dx, dw1, db1, dw2, db2), dx in x's dtype."""
+    xf, gf = x.float(), g.float()
+    n, d = xf.shape
+    k = w1.shape[1]
+    ds = -(-d // 8)
+    cols = [slice(q * ds, min(d, (q + 1) * ds)) for q in range(8)]
+    mask = F.feature_dropout_mask(n, k, seed or 0, dropout) if dropout \
+        else torch.ones(n, k)
+
+    def ranks(parts):
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    dx = torch.zeros(n, d)
+    grads = None
+    for r0 in range(0, n, rows):
+        rs = slice(r0, min(n, r0 + rows))
+        xg, gg, m = xf[rs], gf[rs], mask[rs]
+        pre = ranks([xg[:, c] @ w1[c] for c in cols]) + b1
+        h = torch.relu(pre) * m
+        z = [r * (h @ w2[:, c] + b2[c]) + (1 - r) * xg[:, c] for c in cols]
+        inv = torch.rsqrt(ranks([(zq * zq).sum(1) for zq in z]))[:, None]
+        gy = ranks([(gg[:, c] * zq).sum(1) for c, zq in zip(cols, z)]
+                   )[:, None] * inv
+        dz = [(gg[:, c] - (zq * inv) * gy) * inv for c, zq in zip(cols, z)]
+        dh = ranks([r * (dzq @ w2[:, c].T) for c, dzq in zip(cols, dz)]) * m
+        dh = torch.where(h > 0, dh, 0.0)
+        part = (torch.cat([xg[:, c].T @ dh for c in cols]), dh.sum(0),
+                torch.cat([r * (h.T @ dzq) for dzq in dz], 1),
+                torch.cat([r * dzq.sum(0) for dzq in dz]))
+        grads = part if grads is None else [a + b for a, b in
+                                            zip(grads, part)]
+        for c, dzq in zip(cols, dz):
+            dx[rs, c] = (1 - r) * dzq + dh @ w1[c].T
+    return (dx.to(x.dtype), *grads)
+
+
+# n = 1, 7, 35: one group (the T path's rows); 300 with dropout: five
+# groups of 64 across the hash's 256-row tiles; d = 100: a ragged last
+# slice (13 columns a block, 9 in the last)
+@pytest.mark.parametrize("n,d,dropout", [(1, 64, 0.0), (7, 64, 0.0),
+                                         (35, 100, 0.0), (300, 64, 0.1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_bwd_cluster_order_matches_pallas(n, d, dropout, dtype):
+    """K6's backward in its cluster kernel's order against jax.grad of the
+    Pallas K6, at 1e-5 of the largest gradient (fp32) or 2e-2 (bf16, dx
+    rounded once)."""
+    x, params, g = _case(n, d=d, k=16, seed=n + d)
+    seed = 1234 if dropout else None
+    _, want = _ref_fwd_bwd(x, params, g, 0.2, dtype, dropout, seed)
+    tp = [torch.from_numpy(p) for p in params]
+    got = _k6_bwd_cluster(torch.from_numpy(x).to(dtype), *tp, 0.2,
+                          torch.from_numpy(g).to(dtype), dropout, seed,
+                          rows=min(64, -(-n // 8) * 8))
+    assert got[0].dtype == dtype
+    _assert_grads(got, want, TOL[dtype])
+
+
 @pytest.mark.parametrize("seed", [7, 2 ** 31 - 5])
 def test_dropout_mask_bit_equal_and_y_agrees(seed):
     """300 rows cross the 256-row tile the hash keys on. The Pallas

@@ -609,6 +609,59 @@ def test_k1_bwd_single_tf32_pass_fails_on_offset_weights():
     assert three <= 1.0 and one > 10.0, (three, one)
 
 
+def _k1_fwd_tensor_cores(x, w1, b1, w2, b2, ls, lb, eps=1e-5, passes=3):
+    """K1's forward as its TF32 passes compute it (csrc/fused_adapter.cu,
+    vct_seq_adapter_fwd): h = gelu(x w1 + b1) and z = (x + h w2) + b2 with
+    error-compensated products (x w1 takes two passes for a bf16 x: its
+    small part is 0), then y = LN(z) in fp32, rounded once to x's type."""
+    xf = x.float()
+    hh = torch.nn.functional.gelu(_mm_tf32(xf, w1, passes) + b1)
+    z = (xf + _mm_tf32(hh, w2, passes)) + b2
+    return F._ln32(z, ls, lb, eps).to(x.dtype)
+
+
+def _k1_fwd_ratio(got, want):
+    """max |got - want| / (1e-4 max |want|): K1's fp32 forward tolerance."""
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return float(np.abs(got.float().numpy() - want).max()
+                 / (1e-4 * np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0.0, 0.5])
+def test_k1_fwd_compensated_tf32_matches_pallas(dtype, offset):
+    """K1's forward on compensated TF32 products, emulated pass by pass,
+    against the Pallas forward: fp32 y within 1e-4 of the largest |y|, bf16
+    y at the bf16 tolerance; 300 rows (a ragged 128-row tile), with and
+    without a large common offset in the weights."""
+    args = _k1_case(300, 64, 32, seed=37, offset=offset)
+    x = torch.from_numpy(args[0]).to(dtype)
+    w1, b1, w2, b2, ls, lb = map(torch.from_numpy, args[1:])
+    got = _k1_fwd_tensor_cores(x, w1, b1, w2, b2, ls, lb)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = RF.seq_adapter_fused(jnp.asarray(args[0], jdt),
+                                *map(jnp.asarray, args[1:]))
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        assert _k1_fwd_ratio(got, want) <= 1.0
+    else:
+        _bf16_close(got, want)
+
+
+def test_k1_fwd_single_tf32_pass_fails():
+    """The forward's negative control: one TF32 pass per product misses
+    the fp32 tolerance where the compensated products hold it, on weights
+    without an offset (at offset 0.5, whose weights are scaled by the
+    fan-in and so smaller, one pass stays inside the tolerance by this
+    emulation: the forward has no LayerNorm backward to magnify it)."""
+    args = _k1_case(300, 64, 32, seed=37)
+    t = list(map(torch.from_numpy, args))
+    want = RF.seq_adapter_fused(*map(jnp.asarray, args))
+    three = _k1_fwd_ratio(_k1_fwd_tensor_cores(*t), want)
+    one = _k1_fwd_ratio(_k1_fwd_tensor_cores(*t, passes=1), want)
+    assert three <= 0.1 and one > 1.0, (three, one)
+
+
 def _per_head_wgrad(a, b, heads):
     """The per-head weight gradients a_h^T b_h (a [N, heads, P], b [N,
     heads * Q]) as wgrad_mma_kernel sums them for z = heads: ordered row

@@ -57,6 +57,15 @@ NS = "(anonymous namespace)::"
      "kernelEPKfS1_S1_PfS2_iii", "K1 bwd"),
     (NS + "seqbwd_dx_kernel<float>(float const*, float*, int)", "K1 bwd"),
     (NS + "seq_adapter_bwd_kernel<float>(float const*, int)", "K1 bwd"),
+    (NS + "seqfwd_pre_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)",
+     "K1 fwd"),
+    (NS + "seqfwd_z_kernel<__nv_bfloat16>(float const*, float const*, int)",
+     "K1 fwd"),
+    ("_ZN49_GLOBAL__N__a66b3b54_16_fused_adapter_cu_9e7b35ab15seqfwd_z_"
+     "kernelIfEEvPKfS2_PKT_S2_Pfiii", "K1 fwd"),
+    (NS + "seqfwd_ln_kernel<float>(float const*, float const*, int)",
+     "K1 fwd"),
+    (NS + "seq_adapter_fwd_kernel<float>(float const*, int)", "K1 fwd"),
     (NS + "wgrad_tf32_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)",
      "K1-K3 bwd weight grads"),
     (NS + "wgrad_tf32_kernel<float>(float const*, int, int)",

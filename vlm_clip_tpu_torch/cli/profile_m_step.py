@@ -25,12 +25,13 @@ from collections import defaultdict
 # before the library fragments: a name with "gemm" or "sm90_" in it would
 # otherwise count as cuBLAS). In bf16, K3 fwd is three kernels
 # (pnmlp_fwd_*), K3 bwd four (pnmlp_ln_fwd, pnmlp_bwd_*), K2 fwd five
-# (cab_fwd_*) and K2 bwd eight (cab_bwd_*); K1 bwd is five (seqbwd_*) on
-# the TF32 tensor cores; the weight gradients are wgrad_kernel (CUDA
-# cores), wgrad_mma_kernel (bf16 tensor cores), wgrad_tf32_kernel
-# (compensated TF32) and split_sum_kernel, which adds their row chunks.
+# (cab_fwd_*) and K2 bwd eight (cab_bwd_*); on the TF32 tensor cores K1
+# fwd is three (seqfwd_*) and K1 bwd five (seqbwd_*); the weight
+# gradients are wgrad_kernel (CUDA cores), wgrad_mma_kernel (bf16 tensor
+# cores), wgrad_tf32_kernel (compensated TF32) and split_sum_kernel,
+# which adds their row chunks.
 GROUPS = (
-    ("K1 fwd", "seq_adapter_fwd"),
+    ("K1 fwd", ("seq_adapter_fwd", "seqfwd_")),
     ("K1 bwd", ("seq_adapter_bwd", "seqbwd_")),
     ("K2 fwd", ("cross_attn_block_fwd", "cab_fwd")),
     ("K2 bwd", ("cross_attn_block_bwd", "cab_bwd")),

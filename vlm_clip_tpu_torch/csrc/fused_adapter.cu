@@ -43,13 +43,13 @@
 // tiles that fill the card, with the GELU, its derivative, the roundings
 // and the column sums fused into their epilogues, and K2's attention in
 // one pass per (row tile, head). The fp32 instantiations keep the
-// CUDA-core row passes: one TF32 pass would round fp32 operands. K1's
-// backward, whose function is fp32 in both dtypes, runs on the TF32
-// tensor cores error-compensated (the last section), as do the fp32
-// weight gradients. K1's forward is still the first, CUDA-core version;
-// so is K2's forward in fp32 and, in bf16, at widths its tensor-core
-// passes do not take (heads not a multiple of 8 columns, or wider than
-// 128).
+// CUDA-core row passes: one TF32 pass would round fp32 operands. K1,
+// whose function is fp32 in both dtypes, runs forward and backward on the
+// TF32 tensor cores error-compensated (the last section), as do the fp32
+// weight gradients; its first, CUDA-core kernels stay for the widths
+// those passes do not take. So does K2's forward in fp32 and, in bf16, at
+// widths its tensor-core passes do not take (heads not a multiple of 8
+// columns, or wider than 128).
 //
 // K2 does not port the TPU kernel's block-diagonal K/V packing (a lane
 // trick): it loops over the heads on K^T [H, Tk] and V [Tk, H] directly,
@@ -61,6 +61,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -2162,18 +2163,34 @@ __global__ void __launch_bounds__(NT)
 // (seed + tile * 1000003), all in wrapping uint32. threshold 0 means no
 // dropout (a keep probability above 0 gives a threshold of at least 1).
 //
-// Design (first, simple version): pipeline T sees few rows (32 image
+// Forward (first, simple version): pipeline T sees few rows (32 image
 // features, 7 class means, 35 descriptions; d = 768, k = 64), so one block
 // of 256 threads takes one row and keeps it in shared memory. W1 and W2
 // (196 KB each at d = 768, k = 64) stay in global memory, where the L2
 // keeps them for every block; each product reads them coalesced: x@W1 by
 // 32 columns of W1 per warp over an eighth of its rows, h@W2 by one
-// column per thread, da@W2^T and dh@W1^T by one row of the weight per
-// warp. What bounds it on the H100: at these row counts, the latency of
-// reading the weights from L2 and of the block reductions, not the 0.1-2
-// MFLOP a row. The backward writes dx and each row's h, dh and da; the
-// weight gradients (x^T dh, h^T da) and bias sums then run through
-// wgrad_kernel and colsum_kernel, in row order, with no atomics.
+// column per thread. What bounds it on the H100: at these row counts, the
+// latency of reading the weights from L2 and of the block reductions, not
+// the 0.1-2 MFLOP a row.
+//
+// Backward: one launch of thread-block clusters (the section's last
+// kernel). A call does 1-6 MFLOP, so the tensor cores would not help; what
+// set the first version's 0.29 ms a call was a block per row, each
+// reading both weights from L2 through chains of dependent loads, and
+// nine launches (four fills, the row pass, two weight gradients, two
+// column sums). A cluster of 8 blocks takes a group of up to 64 rows;
+// each block owns an eighth of d (x's, g's and z's columns, W1's rows,
+// W2's columns), so each weight element is read by one SM per group (its
+// slices copied into shared memory first where they fit beside the rows,
+// every copy in flight at once), and it adds the cluster's partial
+// products and row sums through distributed shared memory in rank order.
+// The weight gradients come out of the same launch, each block summing
+// its slice over the group's rows in row order; past one group the
+// groups' partials go through colsum_kernel, in group order. No atomics:
+// the results repeat bit for bit. At pipeline T's 7-35 rows the loops
+// are latency-bound, so a block has 512 threads (16 warps, 4 a
+// scheduler) and the weight slices are copied with one 4-byte cp.async
+// an element, all in flight together.
 
 constexpr unsigned FEAT_TILE = 256;  // the TPU kernel's ROW_TILE
 constexpr int NW = NT / 32;          // warps per block
@@ -2282,79 +2299,290 @@ __global__ void __launch_bounds__(NT)
     y[(size_t)row * d + c] = from_f<T>(Z[c] * inv);
 }
 
-// K6 backward row pass: recomputes the forward, then dz = (g - y<g, y>)
-// inv, da = r dz, dh = (da@W2^T) * mask where pre > 0, dx = (1 - r) dz +
-// dh@W1^T. Writes dx (when asked) and the rows' h [n, k], dh [n, k] and
-// da [n, d] in fp32 for dW1 = x^T dh, dW2 = h^T da, db1 = sum dh, db2 =
-// sum da.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    feature_adapter_bwd_kernel(const T* __restrict__ x,
-                               const float* __restrict__ w1,
-                               const float* __restrict__ b1,
-                               const float* __restrict__ w2,
-                               const float* __restrict__ b2, float r,
-                               unsigned seed, unsigned threshold, float scale,
-                               const T* __restrict__ g, T* __restrict__ dx,
-                               float* __restrict__ h_out,
-                               float* __restrict__ dh_out,
-                               float* __restrict__ da_out, int n, int d,
-                               int k) {
-  extern __shared__ float smem[];
-  float* X = smem;       // [d]
-  float* Z = X + d;      // [d]: z, then dz
-  float* P = Z + d;      // [k]: pre
-  float* H = P + k;      // [k]: h
-  float* DH = H + k;     // [k]: dh
-  float* part = DH + k;  // [NT]
-  float* red = part + NT;  // [NW]
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* xr = x + (size_t)row * d;
-  const T* gr = g + (size_t)row * d;
-  for (int c = threadIdx.x; c < d; c += NT) X[c] = to_f(xr[c]);
-  __syncthreads();
-  const float inv = feat_row_forward(X, row, d, k, w1, b1, w2, b2, r, seed,
-                                     threshold, scale, P, H, Z, part, red);
-  for (int j = threadIdx.x; j < k; j += NT) h_out[(size_t)row * k + j] = H[j];
-  // <g, y>
-  float gy = 0.f;
-  for (int c = threadIdx.x; c < d; c += NT) gy += to_f(gr[c]) * (Z[c] * inv);
-  gy = block_sum(gy, red);
-  for (int c = threadIdx.x; c < d; c += NT) {
-    const float dz = (to_f(gr[c]) - (Z[c] * inv) * gy) * inv;
-    Z[c] = dz;
-    da_out[(size_t)row * d + c] = r * dz;
-  }
-  __syncthreads();
-  // dh = da@W2^T (one row of W2 per warp, lanes along it), then the
-  // dropout mask and relu'
-  for (int j = warp; j < k; j += NW) {
-    const float* w = w2 + (size_t)j * d;
-    float s = 0.f;
-    for (int c = lane; c < d; c += 32) s = fmaf(r * Z[c], w[c], s);
-    s = warp_sum(s);
-    if (lane == 0) {
-      if (threshold) s *= feat_dropout(row, j, seed, threshold, scale);
-      const float dh = P[j] > 0.f ? s : 0.f;
-      DH[j] = dh;
-      dh_out[(size_t)row * k + j] = dh;
-    }
-  }
-  if (dx == nullptr) return;
-  __syncthreads();
-  // dx = (1 - r) dz + dh@W1^T (one row of W1 per warp)
-  for (int c = warp; c < d; c += NW) {
-    const float* w = w1 + (size_t)c * k;
-    float s = 0.f;
-    for (int j = lane; j < k; j += 32) s = fmaf(DH[j], w[j], s);
-    s = warp_sum(s);
-    if (lane == 0) dx[(size_t)row * d + c] = from_f<T>((1.f - r) * Z[c] + s);
+// --- K6 backward: one launch of 8-block thread-block clusters ------------
+
+constexpr int FEAT_CLUSTER = 8;  // blocks a cluster: each owns 1/8 of d
+constexpr int FRT = 8;           // rows of a thread's register tile
+constexpr int FEAT_RMAX = 64;    // rows a group, at most
+constexpr int FNT = 512;         // threads a block: 16 warps
+
+// store(e, load(e)) for e < count over the block's threads, eight loads
+// in flight a thread before their stores.
+template <class Load, class Store>
+__device__ __forceinline__ void stage(int count, const Load& load,
+                                      const Store& store) {
+  constexpr int B = 8;
+  for (int e0 = threadIdx.x; e0 < count; e0 += B * FNT) {
+    float v[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      v[b] = e0 + b * FNT < count ? load(e0 + b * FNT) : 0.f;
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      if (e0 + b * FNT < count) store(e0 + b * FNT, v[b]);
   }
 }
 
+// The sum over the cluster's blocks, in rank order, of the float at
+// offset `at` of each block's copy of the shared buffer `buf`.
+__device__ __forceinline__ float cluster_sum(
+    const cooperative_groups::cluster_group& cluster, float* buf, int at) {
+  float s = cluster.map_shared_rank(buf, 0)[at];
+#pragma unroll
+  for (int q = 1; q < FEAT_CLUSTER; ++q)
+    s += cluster.map_shared_rank(buf, q)[at];
+  return s;
+}
+
+// The products of the cluster backward, out(r, col) = sum over t < depth
+// of R[r * ldr + t] W[col * wc + t * wt] for the rows of nrb tiles of FRT
+// and col < ncol, handed to epi(r, col, out) (every row of the tiles; R's
+// rows finite and 0 from depth up to a multiple of 4): a thread takes a
+// column and a tile of rows, R read 16 bytes at a time.
+template <class Epi>
+__device__ __forceinline__ void rows_product(const float* R, int ldr,
+                                             int nrb, int depth,
+                                             const float* W, int ncol,
+                                             int wc, int wt, const Epi& epi) {
+  for (int u = threadIdx.x; u < ncol * nrb; u += FNT) {
+    const int col = u % ncol, r0 = u / ncol * FRT;
+    const float* w = W + col * wc;  // int offsets: d k < 2^31
+    float acc[FRT] = {};
+    for (int t = 0; t < depth; t += 4) {
+      float wv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wv[q] = t + q < depth ? w[(t + q) * wt] : 0.f;
+#pragma unroll
+      for (int i = 0; i < FRT; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(R + (r0 + i) * ldr + t);
+        acc[i] = fmaf(v.x, wv[0], acc[i]);
+        acc[i] = fmaf(v.y, wv[1], acc[i]);
+        acc[i] = fmaf(v.z, wv[2], acc[i]);
+        acc[i] = fmaf(v.w, wv[3], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < FRT; ++i) epi(r0 + i, col, acc[i]);
+  }
+}
+
+// Floats of one group's gradients [dW1 (d k) | db1 (k) | dW2 (k d) | db2 (d)].
+inline size_t feat_grads(int d, int k) {
+  return 2 * (size_t)d * k + k + d;
+}
+
+// Shared memory of a cluster block: for groups of `rows` rows the x and
+// z / dz slices [rows][dsp], the partial product and h / dh [rows][kp]
+// and the row partials and statistics [rows][2] each; with `resident`
+// weights also W1's rows [ds][k | 1] and W2's columns [k][ds | 1] of the
+// slice (odd row strides: a warp reading a column of either, one row a
+// lane, hits 32 banks).
+inline size_t feat_bwd_smem(int rows, int d, int k, bool resident) {
+  const int ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
+  const int dsp = (ds + 3) & ~3, kp = (k + 3) & ~3;
+  return sizeof(float) *
+         ((size_t)rows * (2 * dsp + 2 * kp + 4) +
+          (resident ? (size_t)ds * (k | 1) + (size_t)k * (ds | 1) : 0));
+}
+
+// K6's gradients for the rows [grp * rows, ...) of cluster grp (blockIdx.x
+// / 8), written to grads + grp * gstride (the gradients themselves with
+// one group, a group's partials with more); dx when not null. Block rank
+// q owns columns [q ds, q ds + ds) of d (ds = ceil(d / 8); the last ones
+// may own fewer, or none). rows: a multiple of FRT. resident: the block's
+// weight slices are copied into shared memory first (else read in place,
+// through L1).
+template <typename T>
+__global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
+    feature_adapter_bwd_cluster_kernel(
+        const T* __restrict__ x, const float* __restrict__ w1,
+        const float* __restrict__ b1, const float* __restrict__ w2,
+        const float* __restrict__ b2, float r, unsigned seed,
+        unsigned threshold, float scale, const T* __restrict__ g,
+        T* __restrict__ dx, float* __restrict__ grads, size_t gstride,
+        int rows, int resident, int n, int d, int k) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float fsm[];
+  const int rank = (int)cluster.block_rank(), grp = blockIdx.x / FEAT_CLUSTER;
+  const int ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
+  const int dsp = (ds + 3) & ~3, kp = (k + 3) & ~3;
+  const int c0 = rank * ds, dsz = max(0, min(ds, d - c0));
+  const int row0 = grp * rows, nr = min(rows, n - row0);
+  const int nrb = (nr + FRT - 1) / FRT;  // register tiles of rows
+  float* X = fsm;                 // [rows][dsp] x's slice
+  float* Z = X + rows * dsp;      // [rows][dsp] z's slice, then dz's
+  float* A = Z + rows * dsp;      // [rows][kp] the block's partial product
+  float* H = A + rows * kp;       // [rows][kp] h, then dh
+  float* RS = H + rows * kp;      // [rows][2] partial sums of z^2 and g z
+  float* ST = RS + 2 * rows;      // [rows][2] 1 / |z| and <g, y>
+  float* gout = grads + (size_t)grp * gstride;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the weight slices: W1(c, j) = W1s[c * ld1 + j] and W2(j, c) = W2s[j *
+  // ld2 + c] for c < dsz, j < k (generic loads: shared or global memory)
+  const float* W1s = w1 + (size_t)c0 * k;
+  const float* W2s = w2 + c0;
+  int ld1 = k, ld2 = d;
+  if (resident) {  // every copy in flight at once (cp.async, 4 bytes)
+    float* s1 = ST + 2 * rows;
+    float* s2 = s1 + ds * (k | 1);
+    for (int e = tid; e < dsz * k; e += FNT)
+      vct::cp_async4(s1 + (e / k) * (k | 1) + e % k, W1s + e);
+    for (int e = tid; e < k * dsz; e += FNT)
+      vct::cp_async4(s2 + (e / dsz) * (ds | 1) + e % dsz,
+                     W2s + (size_t)(e / dsz) * d + e % dsz);
+    vct::cp_async_commit();
+    W1s = s1;
+    W2s = s2;
+    ld1 = k | 1;
+    ld2 = ds | 1;
+  }
+  // x's slice; rows past the group and padding columns 0
+  stage(rows * dsp,
+        [=](int e) {
+          const int rr = e / dsp, c = e % dsp;
+          return rr < nr && c < dsz
+                     ? to_f(x[(size_t)(row0 + rr) * d + c0 + c]) : 0.f;
+        },
+        [=](int e, float v) {
+          X[e] = v;
+          Z[e] = 0.f;
+        });
+  vct::cp_async_wait<0>();
+  __syncthreads();
+  // 1. A = x_slice W1[slice, :]
+  rows_product(X, dsp, nrb, dsz, W1s, k, 1, ld1,
+               [=](int rr, int j, float v) { A[rr * kp + j] = v; });
+  cluster.sync();
+  // pre = the ranks' partials in rank order + b1; h = relu(pre) * mask
+  // (0 past the group's rows and k)
+  for (int e = tid; e < nrb * FRT * kp; e += FNT) {
+    const int rr = e / kp, j = e % kp;
+    float v = 0.f;
+    if (rr < nr && j < k) {
+      v = fmaxf(cluster_sum(cluster, A, e) + b1[j], 0.f);
+      if (threshold) v *= feat_dropout(row0 + rr, j, seed, threshold, scale);
+    }
+    H[e] = v;
+  }
+  __syncthreads();
+  // 2. z = r (h W2[:, slice] + b2) + (1 - r) x
+  rows_product(H, kp, nrb, k, W2s, dsz, 1, ld2,
+               [=](int rr, int c, float v) {
+                 const int at = rr * dsp + c;
+                 Z[at] = r * (v + b2[c0 + c]) + (1.f - r) * X[at];
+               });
+  __syncthreads();
+  // the slice's sums of z^2 and g z, one warp a row
+  for (int rr = warp; rr < nr; rr += FNT / 32) {
+    const T* gr = g + (size_t)(row0 + rr) * d + c0;
+    float ss = 0.f, gz = 0.f;
+    for (int c = lane; c < dsz; c += 32) {
+      const float zv = Z[rr * dsp + c];
+      ss = fmaf(zv, zv, ss);
+      gz = fmaf(to_f(gr[c]), zv, gz);
+    }
+    ss = warp_sum(ss);
+    gz = warp_sum(gz);
+    if (lane == 0) {
+      RS[2 * rr] = ss;
+      RS[2 * rr + 1] = gz;
+    }
+  }
+  cluster.sync();
+  if (tid < nr) {  // the row's sums over d, in rank order
+    const float inv = rsqrtf(cluster_sum(cluster, RS, 2 * tid));
+    ST[2 * tid] = inv;
+    ST[2 * tid + 1] = cluster_sum(cluster, RS, 2 * tid + 1) * inv;
+  }
+  __syncthreads();
+  // dz = (g - y <g, y>) / |z| over z
+  for (int e = tid; e < nr * dsz; e += FNT) {
+    const int rr = e / dsz, c = e % dsz;
+    const float inv = ST[2 * rr], gy = ST[2 * rr + 1];
+    const float zv = Z[rr * dsp + c];
+    Z[rr * dsp + c] =
+        (to_f(g[(size_t)(row0 + rr) * d + c0 + c]) - (zv * inv) * gy) * inv;
+  }
+  __syncthreads();
+  // 3. A = da_slice W2[:, slice]^T = r (dz_slice W2[:, slice]^T)
+  rows_product(Z, dsp, nrb, dsz, W2s, k, ld2, 1,
+               [=](int rr, int j, float v) { A[rr * kp + j] = r * v; });
+  // dW2[:, slice] = h^T da = r (h^T dz) (a thread: row j, 4 columns),
+  // db2[slice] = r (the sum of dz), over the group's rows in order
+  const int dq = (dsz + 3) / 4;
+  float* dw2 = gout + (size_t)d * k + k + c0;
+  for (int u = tid; u < k * dq; u += FNT) {
+    const int j = u / dq, c = (u % dq) * 4;
+    float acc[4] = {};
+    for (int rr = 0; rr < nr; ++rr) {
+      const float hv = H[rr * kp + j];
+      const float4 zv = *reinterpret_cast<const float4*>(Z + rr * dsp + c);
+      acc[0] = fmaf(hv, zv.x, acc[0]);
+      acc[1] = fmaf(hv, zv.y, acc[1]);
+      acc[2] = fmaf(hv, zv.z, acc[2]);
+      acc[3] = fmaf(hv, zv.w, acc[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c + q < dsz) dw2[(size_t)j * d + c + q] = r * acc[q];
+  }
+  for (int c = tid; c < dsz; c += FNT) {
+    float s = 0.f;
+    for (int rr = 0; rr < nr; ++rr) s += Z[rr * dsp + c];
+    gout[2 * (size_t)d * k + k + c0 + c] = r * s;
+  }
+  cluster.sync();
+  // dh = (the ranks' partials in rank order) * mask where pre > 0, over h
+  // (h > 0 exactly where pre > 0 and the mask keeps the element)
+  for (int e = tid; e < nr * k; e += FNT) {
+    const int at = (e / k) * kp + e % k;
+    float s = cluster_sum(cluster, A, at);
+    if (threshold) s *= feat_dropout(row0 + e / k, e % k, seed, threshold,
+                                     scale);
+    H[at] = H[at] > 0.f ? s : 0.f;
+  }
+  __syncthreads();
+  // dW1[slice, :] = x_slice^T dh (a thread: row c, 4 columns); db1 = the
+  // sum of dh, by rank 0
+  const int kq = kp / 4;
+  for (int u = tid; u < dsz * kq; u += FNT) {
+    const int c = u / kq, j = (u % kq) * 4;
+    float acc[4] = {};
+    for (int rr = 0; rr < nr; ++rr) {
+      const float xv = X[rr * dsp + c];
+      const float4 hv = *reinterpret_cast<const float4*>(H + rr * kp + j);
+      acc[0] = fmaf(xv, hv.x, acc[0]);
+      acc[1] = fmaf(xv, hv.y, acc[1]);
+      acc[2] = fmaf(xv, hv.z, acc[2]);
+      acc[3] = fmaf(xv, hv.w, acc[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (j + q < k) gout[(size_t)(c0 + c) * k + j + q] = acc[q];
+  }
+  if (rank == 0)
+    for (int j = tid; j < k; j += FNT) {
+      float s = 0.f;
+      for (int rr = 0; rr < nr; ++rr) s += H[rr * kp + j];
+      gout[(size_t)d * k + j] = s;
+    }
+  // 4. dx = (1 - r) dz + dh W1[slice, :]^T
+  if (dx != nullptr)
+    rows_product(H, kp, nrb, k, W1s, dsz, ld1, 1,
+                 [=](int rr, int c, float v) {
+                   if (rr < nr)
+                     dx[(size_t)(row0 + rr) * d + c0 + c] =
+                         from_f<T>((1.f - r) * Z[rr * dsp + c] + v);
+                 });
+  cluster.sync();  // no block leaves while the cluster may read its A
+}
+
 // ===========================================================================
-// K1 backward and fp32 weight gradients on the TF32 tensor cores
+// K1 (forward and backward) and fp32 weight gradients on the TF32 tensor
+// cores
 // ===========================================================================
 //
 // K1's function is fp32 (the TPU kernel widens x, W1, W2 and g to fp32),
@@ -2390,6 +2618,25 @@ __global__ void __launch_bounds__(NT)
 // other widths to seq_adapter_bwd_kernel above. The fp32 weight gradients
 // of K2, K3 and K6 take wgrad_tf32_kernel as well where their operands
 // copy in 16-byte chunks (vct_wgrad_tf32).
+//
+// K1's forward (replaces _seq_fwd_kernel, fused_adapter.py:310) takes the
+// same passes at the same widths, three launches behind
+// vct_seq_adapter_fwd:
+//
+//   seqfwd_pre_kernel    h = gelu(x W1 + b1) [n, k], fp32
+//   seqfwd_z_kernel      z = (x + h W2) + b2 [n, h], fp32 (the body of
+//                        seqbwd_z_kernel under its own name, so a profile
+//                        files it under the forward)
+//   seqfwd_ln_kernel     y = LN(z), one warp a row (the mean, then the
+//                        mean of squared deviations), rounded once to x's
+//                        type
+//
+// At the train step's vision shape ([18912, 768], hidden 256, bf16 x) its
+// products are 37 GFLOP of TF32 passes (0.075 ms at 495 TFLOP/s) where
+// the first, CUDA-core kernel's fp32 FMAs needed 0.22 ms at the least
+// and took 1.4; h and z go through device memory (87 MB with the LN
+// pass's reads and writes, 0.026 ms of HBM). A served request (77 or 197
+// rows) gives the passes 4-24 blocks.
 
 // 128 x 64 block tiles on 8 warps of 32 x 32, 32-deep stages, 3 stages
 template <typename TA, bool A_T, bool B_T>
@@ -2479,14 +2726,22 @@ __global__ void __launch_bounds__(Tf32G<TX, false, false>::THREADS, 2)
                                      k, h);
 }
 
+// z = (x + h W2) + b2, one block's 128 x 64 tile
+template <typename TX>
+__device__ __forceinline__ void seq_z_tile(const float* hh, const float* w2,
+                                           const TX* x, const float* b2,
+                                           float* z, int n, int h, int k) {
+  tf32_tile<Tf32G<float, false, false>>(ZEpi<TX>{z, x, b2, h}, hh, k, w2, h,
+                                        n, h, k);
+}
+
 template <typename TX>
 __global__ void __launch_bounds__(Tf32G<float, false, false>::THREADS, 2)
     seqbwd_z_kernel(const float* __restrict__ hh,
                     const float* __restrict__ w2, const TX* __restrict__ x,
                     const float* __restrict__ b2, float* __restrict__ z,
                     int n, int h, int k) {
-  tf32_tile<Tf32G<float, false, false>>(ZEpi<TX>{z, x, b2, h}, hh, k, w2, h,
-                                        n, h, k);
+  seq_z_tile(hh, w2, x, b2, z, n, h, k);
 }
 
 // zd: z in, dz out. Per 32-row tile: one warp a row for the row's mean,
@@ -2618,6 +2873,73 @@ __global__ void __launch_bounds__(Tf32G<float, false, true>::THREADS, 2)
                      int n, int h, int k) {
   tf32_tile<Tf32G<float, false, true>>(DxEpi<TX>{dx, dz, h}, dpre, k, w1, k,
                                        n, h, k);  // dpre W1^T
+}
+
+// h = gelu(v + b1), fp32: the forward's pre pass, which needs no gelu'
+struct HEpi {
+  float* hh;
+  const float* b1;
+  int ld;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    *reinterpret_cast<float2*>(hh + (size_t)r * ld + c) =
+        make_float2(gelu_erf(v0 + b1[c]), gelu_erf(v1 + b1[c + 1]));
+  }
+};
+
+template <typename TX>
+__global__ void __launch_bounds__(Tf32G<TX, false, false>::THREADS, 2)
+    seqfwd_pre_kernel(const TX* __restrict__ x, const float* __restrict__ w1,
+                      const float* __restrict__ b1, float* __restrict__ hh,
+                      int n, int h, int k) {
+  tf32_tile<Tf32G<TX, false, false>>(HEpi{hh, b1, k}, x, h, w1, k, n, k, h);
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(Tf32G<float, false, false>::THREADS, 2)
+    seqfwd_z_kernel(const float* __restrict__ hh,
+                    const float* __restrict__ w2, const TX* __restrict__ x,
+                    const float* __restrict__ b2, float* __restrict__ z,
+                    int n, int h, int k) {
+  seq_z_tile(hh, w2, x, b2, z, n, h, k);
+}
+
+// y = LN(z) rounded once to TX, one warp a row, 16-byte loads (h a
+// multiple of 4; z, ls and lb 16-byte aligned)
+template <typename TX>
+__global__ void __launch_bounds__(NT)
+    seqfwd_ln_kernel(const float* __restrict__ z,
+                     const float* __restrict__ ls,
+                     const float* __restrict__ lb, float eps,
+                     TX* __restrict__ y, int n, int h) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (r >= n) return;
+  const float4* zr = reinterpret_cast<const float4*>(z + (size_t)r * h);
+  const float4* ls4 = reinterpret_cast<const float4*>(ls);
+  const float4* lb4 = reinterpret_cast<const float4*>(lb);
+  const int h4 = h / 4;
+  float s = 0.f;
+  for (int c = lane; c < h4; c += 32) {
+    const float4 v = zr[c];
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mean = warp_sum(s) / h;
+  float q = 0.f;
+  for (int c = lane; c < h4; c += 32) {
+    const float4 v = zr[c];
+    const float a = v.x - mean, b = v.y - mean, e = v.z - mean,
+                f = v.w - mean;
+    q += (a * a + b * b) + (e * e + f * f);
+  }
+  const float inv = rsqrtf(warp_sum(q) / h + eps);
+  TX* yr = y + (size_t)r * h;
+  for (int c = lane; c < h4; c += 32) {
+    const float4 v = zr[c], sc = ls4[c], sh = lb4[c];
+    yr[4 * c] = from_f<TX>((v.x - mean) * inv * sc.x + sh.x);
+    yr[4 * c + 1] = from_f<TX>((v.y - mean) * inv * sc.y + sh.y);
+    yr[4 * c + 2] = from_f<TX>((v.z - mean) * inv * sc.z + sh.z);
+    yr[4 * c + 3] = from_f<TX>((v.w - mean) * inv * sc.w + sh.w);
+  }
 }
 
 // out[z*so + a*ldo + b] = sum over the split's rows r of A[r*lda + z*sa +
@@ -2785,6 +3107,37 @@ int seqbwd_launch(const void* x, const void* w1, const void* b1,
   return vct_colsum(part_ln, lt, 3 * h, (float*)vec + k, stream);
 }
 
+// The widths K1 runs on the TF32 tensor cores, forward and backward:
+// every row of x, W1, W2, h and z copies in 16-byte chunks.
+bool seq_tc(int h, int k) { return h % 8 == 0 && k % 4 == 0; }
+
+// K1 forward on the TF32 tensor cores: ws holds h [n, k] and z [n, h].
+template <typename TX>
+int seqfwd_launch(const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, const void* ls,
+                  const void* lb, float eps, void* y, void* ws, int n, int h,
+                  int k, cudaStream_t st) {
+  float* hh = (float*)ws;
+  float* z = hh + (size_t)n * k;
+  const int rt = (n + 127) / 128;
+  typedef Tf32G<TX, false, false> GP;
+  typedef Tf32G<float, false, false> GZ;
+  int err;
+  if ((err = allow_smem(seqfwd_pre_kernel<TX>, GP::SMEM_BYTES))) return err;
+  seqfwd_pre_kernel<TX><<<dim3((k + 63) / 64, rt), GP::THREADS,
+                          GP::SMEM_BYTES, st>>>(
+      (const TX*)x, (const float*)w1, (const float*)b1, hh, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = allow_smem(seqfwd_z_kernel<TX>, GZ::SMEM_BYTES))) return err;
+  seqfwd_z_kernel<TX><<<dim3((h + 63) / 64, rt), GZ::THREADS, GZ::SMEM_BYTES,
+                        st>>>(hh, (const float*)w2, (const TX*)x,
+                              (const float*)b2, z, n, h, k);
+  if ((err = (int)cudaGetLastError())) return err;
+  seqfwd_ln_kernel<TX><<<(n + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+      z, (const float*)ls, (const float*)lb, eps, (TX*)y, n, h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -2802,12 +3155,26 @@ size_t vct_cross_attn_block_smem(int din, int h) {
   return s <= SMEM_MAX ? s : cab_fwd_smem(ROWS / 2, din, h);
 }
 
+// Bytes of scratch vct_seq_adapter_fwd needs: h [n, k] and z [n, h] in
+// fp32 on the TF32 tensor cores, none on the CUDA cores.
+size_t vct_seq_adapter_fwd_ws(int n, int h, int k) {
+  return seq_tc(h, k) ? sizeof(float) * (size_t)n * (h + k) : 0;
+}
+
+// K1 forward: the TF32 tensor-core passes at the widths seq_tc takes
+// (every pointer 16-byte aligned; ws: vct_seq_adapter_fwd_ws bytes), the
+// CUDA-core seq_adapter_fwd_kernel at the others (ws unused).
 int vct_seq_adapter_fwd(int bf16, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* b2,
                         const void* ls, const void* lb, float eps, void* y,
-                        int n, int h, int k, void* stream) {
+                        void* ws, int n, int h, int k, void* stream) {
   const size_t smem = vct_seq_adapter_smem(h, k);
   cudaStream_t st = (cudaStream_t)stream;
+  if (seq_tc(h, k))
+    return bf16 ? seqfwd_launch<vct::bf16>(x, w1, b1, w2, b2, ls, lb, eps, y,
+                                           ws, n, h, k, st)
+                : seqfwd_launch<float>(x, w1, b1, w2, b2, ls, lb, eps, y, ws,
+                                       n, h, k, st);
   const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
               *fw2 = (const float*)w2, *fb2 = (const float*)b2,
               *fls = (const float*)ls, *flb = (const float*)lb;
@@ -3064,7 +3431,7 @@ int vct_seq_adapter_bwd_tf32(int bf16, const void* x, const void* w1,
                              const void* ls, const void* g, float eps,
                              void* dx, void* dw1, void* dw2, void* vec,
                              void* ws, int n, int h, int k, void* stream) {
-  if (h % 8 || k % 4 || n < 1) return (int)cudaErrorInvalidValue;
+  if (!seq_tc(h, k) || n < 1) return (int)cudaErrorInvalidValue;
   return bf16 ? seqbwd_launch<vct::bf16>(x, w1, b1, w2, b2, ls, g, eps, dx,
                                          dw1, dw2, vec, ws, n, h, k, stream)
               : seqbwd_launch<float>(x, w1, b1, w2, b2, ls, g, eps, dx, dw1,
@@ -3457,7 +3824,7 @@ int vct_cross_attn_block_bwd_bf16(
   return vct_colsum(w.part_q, row_tiles, h, vec + 4 * (size_t)h, stream);
 }
 
-// K6, forward and backward: one block per row.
+// K6 forward: one block per row.
 size_t vct_feature_adapter_smem(int d, int k) {
   return sizeof(float) * (2 * (size_t)d + 3 * (size_t)k + NT + NW);
 }
@@ -3488,34 +3855,67 @@ int vct_feature_adapter_fwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
+// Rows a group of K6's cluster backward (a multiple of FRT, at most
+// FEAT_RMAX and n rounded up) and whether each block keeps its weight
+// slices in shared memory: it does where they fit beside those rows,
+// else it takes the most rows that fit without them (FRT rows fit at
+// every width the wrapper takes, d <= 4096 and k <= 1024: 98 KB).
+static int feat_bwd_rows(int n, int d, int k, bool* resident) {
+  int rows = (n + FRT - 1) / FRT * FRT;
+  if (rows > FEAT_RMAX) rows = FEAT_RMAX;
+  *resident = feat_bwd_smem(rows, d, k, true) <= SMEM_MAX;
+  while (!*resident && rows > FRT &&
+         feat_bwd_smem(rows, d, k, false) > SMEM_MAX)
+    rows -= FRT;
+  return rows;
+}
+
+// Bytes of scratch vct_feature_adapter_bwd needs: the groups' partial
+// gradients past one group, none within one.
+size_t vct_feature_adapter_bwd_ws(int n, int d, int k) {
+  bool resident;
+  const int rows = feat_bwd_rows(n, d, k, &resident);
+  const int groups = (n + rows - 1) / rows;
+  return groups > 1 ? sizeof(float) * groups * feat_grads(d, k) : 0;
+}
+
+// K6 backward: writes dx (unless null) and grads [dW1 (d k) | db1 (k) |
+// dW2 (k d) | db2 (d)], every element; one launch of 8-block clusters, and
+// past one group of rows one colsum launch over ws
+// (vct_feature_adapter_bwd_ws bytes).
 int vct_feature_adapter_bwd(int bf16, const void* x, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             float r, unsigned seed, unsigned threshold,
                             float scale, const void* g, void* dx,
-                            void* h_out, void* dh_out, void* da_out, int n,
-                            int d, int k, void* stream) {
-  const size_t smem = vct_feature_adapter_smem(d, k);
+                            void* grads, void* ws, int n, int d, int k,
+                            void* stream) {
+  bool resident;
+  const int rows = feat_bwd_rows(n, d, k, &resident);
+  const int groups = (n + rows - 1) / rows;
+  const size_t smem = feat_bwd_smem(rows, d, k, resident);
+  const size_t v = feat_grads(d, k);
   cudaStream_t st = (cudaStream_t)stream;
   const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
               *fw2 = (const float*)w2, *fb2 = (const float*)b2;
-  float *fh = (float*)h_out, *fdh = (float*)dh_out, *fda = (float*)da_out;
+  float* dst = groups > 1 ? (float*)ws : (float*)grads;
   int err;
   if (bf16) {
     typedef __nv_bfloat16 T;
-    auto kern = feature_adapter_bwd_kernel<T>;
+    auto kern = feature_adapter_bwd_cluster_kernel<T>;
     if ((err = allow_smem(kern, smem))) return err;
-    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
-                              threshold, scale, (const T*)g, (T*)dx, fh, fdh,
-                              fda, n, d, k);
+    kern<<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+        (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
+        (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
   } else {
     typedef float T;
-    auto kern = feature_adapter_bwd_kernel<T>;
+    auto kern = feature_adapter_bwd_cluster_kernel<T>;
     if ((err = allow_smem(kern, smem))) return err;
-    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
-                              threshold, scale, (const T*)g, (T*)dx, fh, fdh,
-                              fda, n, d, k);
+    kern<<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+        (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
+        (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
   }
-  return (int)cudaGetLastError();
+  if ((err = (int)cudaGetLastError()) || groups == 1) return err;
+  return vct_colsum(ws, groups, (int)v, grads, stream);
 }
 
 }  // extern "C"

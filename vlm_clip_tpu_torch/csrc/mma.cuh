@@ -9,7 +9,7 @@
 // - mma.sync.m16n8k16 with bf16 operands and fp32 accumulators;
 // - cp.async 16-byte copies (zero-filled past a tile's ragged edge),
 //   past L1 or through it; every operand is 16-byte aligned, its row
-//   stride and widths multiples of 8;
+//   stride and widths multiples of 8; 4-byte copies through L1;
 // - load_tile: a bf16 tile of a row-major matrix into shared memory;
 // - BlockGemm: one block's [BM, BN] fp32 tile of A B over a depth range,
 //   through a STAGES-deep cp.async ring, with either operand read in
@@ -110,6 +110,15 @@ __device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared through L1: for copies into padded layouts
+// whose rows do not start on 16-byte boundaries.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
                : "memory");
 }
 

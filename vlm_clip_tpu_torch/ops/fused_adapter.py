@@ -27,11 +27,13 @@ reference does). A wrapper raises on a CUDA tensor whose shapes its
 kernels do not take. In bf16, K3 and K2 (forward and backward) run on
 the tensor cores, each as a few passes behind one C call (K2's forward
 keeps its CUDA-core kernel at head widths the passes do not take:
-:func:`cross_attn_block_tensor_cores`). K1's backward (fp32 math in both
-dtypes) runs its products as error-compensated TF32 on the tensor cores
-(split big + small, three passes, two where the operand is a bf16 x),
-and so do the fp32 weight gradients of the others (:func:`_wgrad`). On CUDA, a call that needs a
-gradient goes through a
+:func:`cross_attn_block_tensor_cores`). K1 (fp32 math in both dtypes,
+forward and backward) runs its products as error-compensated TF32 on
+the tensor cores (split big + small, three passes, two where the operand
+is a bf16 x) at the widths :func:`seq_adapter_tensor_cores` admits, and
+so do the fp32 weight gradients of the others (:func:`_wgrad`). K6's
+backward is one launch of thread-block clusters. On CUDA, a call that
+needs a gradient goes through a
 ``torch.autograd.Function`` whose forward launches the forward kernel and
 saves only the inputs (as the TPU rules do), and whose backward launches
 the backward kernel (``*_bwd_cuda``), which recomputes the rest. The
@@ -65,7 +67,7 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_adapter")
     if not getattr(lib, "_typed", False):
-        lib.vct_seq_adapter_fwd.argtypes = [_I] + [_P] * 7 + [_F, _P] \
+        lib.vct_seq_adapter_fwd.argtypes = [_I] + [_P] * 7 + [_F, _P, _P] \
             + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_fwd.argtypes = [_I] + [_P] * 7 + [_F, _P] \
             + [_I] * 3 + [_P]
@@ -96,7 +98,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_feature_adapter_fwd.argtypes = [_I] + [_P] * 5 + feat \
             + [_P] + [_I] * 3 + [_P]
         lib.vct_feature_adapter_bwd.argtypes = [_I] + [_P] * 5 + feat \
-            + [_P] * 5 + [_I] * 3 + [_P]
+            + [_P] * 4 + [_I] * 3 + [_P]
         for fn in (lib.vct_seq_adapter_fwd, lib.vct_prenorm_mlp_fwd,
                    lib.vct_cross_attn_block_fwd, lib.vct_seq_adapter_bwd,
                    lib.vct_prenorm_mlp_bwd, lib.vct_prenorm_mlp_bwd_bf16,
@@ -118,6 +120,8 @@ def _lib() -> ctypes.CDLL:
         lib.vct_cross_attn_block_bwd_rows.restype = _I
         lib.vct_prenorm_mlp_fwd_bf16_ws.argtypes = [_I] * 3
         lib.vct_seq_adapter_bwd_tf32_ws.argtypes = [_I] * 3
+        lib.vct_seq_adapter_fwd_ws.argtypes = [_I] * 3
+        lib.vct_feature_adapter_bwd_ws.argtypes = [_I] * 3
         lib.vct_cross_attn_block_bwd_bf16_ws.argtypes = [_I] * 5
         lib.vct_cross_attn_block_fwd_ws.argtypes = [_I] * 6
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
@@ -128,6 +132,8 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_feature_adapter_smem,
                    lib.vct_prenorm_mlp_fwd_bf16_ws,
                    lib.vct_seq_adapter_bwd_tf32_ws,
+                   lib.vct_seq_adapter_fwd_ws,
+                   lib.vct_feature_adapter_bwd_ws,
                    lib.vct_cross_attn_block_bwd_bf16_ws,
                    lib.vct_cross_attn_block_fwd_ws):
             fn.restype = ctypes.c_size_t
@@ -551,29 +557,38 @@ def cross_attn_block_supported(tk: int) -> bool:
 
 # --- K1: sequence adapter --------------------------------------------------
 
+def seq_adapter_tensor_cores(h: int, k: int) -> bool:
+    """K1, forward and backward, runs on the TF32 tensor cores where every
+    row copies in 16-byte chunks (h a multiple of 8, k of 4), else on the
+    CUDA cores (``seq_adapter_fwd_kernel``, ``seq_adapter_bwd_kernel``):
+    both compute the same fp32 function."""
+    return h % 8 == 0 and k % 4 == 0
+
+
 def _seq_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
+    """K1's forward: three error-compensated TF32 passes (h = gelu(x W1 +
+    b1), z = (x + h W2) + b2, y = LN(z)) through one workspace at the
+    widths :func:`seq_adapter_tensor_cores` admits, the CUDA-core kernel
+    at the others; one C call either way."""
     name = "seq_adapter_fused"
     N, H = x.shape
     K = w1.shape[1]
-    x = x.contiguous()
-    w1, b1, w2, b2, ls, lb = (_as(t, torch.float32)
+    x = aligned16(x)
+    w1, b1, w2, b2, ls, lb = (aligned16(_as(t, torch.float32))
                               for t in (w1, b1, w2, b2, ls, lb))
     y = torch.empty_like(x)
     if N:
         lib = _lib()
-        _launch(name, lib.vct_seq_adapter_fwd, lib.vct_seq_adapter_smem(H, K),
-                x, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                w2.data_ptr(), b2.data_ptr(), ls.data_ptr(), lb.data_ptr(),
-                float(eps), y.data_ptr(), N, H, K)
+        tc = seq_adapter_tensor_cores(H, K)
+        ws = torch.empty(lib.vct_seq_adapter_fwd_ws(N, H, K),
+                         dtype=torch.uint8, device=x.device)
+        _launch(name, lib.vct_seq_adapter_fwd,
+                None if tc else lib.vct_seq_adapter_smem(H, K), x,
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), ls.data_ptr(), lb.data_ptr(), float(eps),
+                y.data_ptr(), ws.data_ptr(), N, H, K)
         seq_adapter_fused.launches += 1
     return y
-
-
-def seq_adapter_bwd_tensor_cores(h: int, k: int) -> bool:
-    """K1's backward runs on the TF32 tensor cores where every row copies
-    in 16-byte chunks (h a multiple of 8, k of 4), else on the CUDA cores
-    (``seq_adapter_bwd_kernel``): both compute the same fp32 function."""
-    return h % 8 == 0 and k % 4 == 0
 
 
 def seq_adapter_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
@@ -582,7 +597,7 @@ def seq_adapter_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
     (dx in x's dtype, the rest fp32), for CUDA tensors. Its products run
     as error-compensated TF32 on the tensor cores (about 2^-22 relative a
     product; two passes where one operand is a bf16 x, three otherwise)
-    at the widths :func:`seq_adapter_bwd_tensor_cores` admits, fp32 FMAs
+    at the widths :func:`seq_adapter_tensor_cores` admits, fp32 FMAs
     on the CUDA cores at the others."""
     name = "seq_adapter_bwd"
     N, H = x.shape
@@ -597,7 +612,7 @@ def seq_adapter_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
     dw1, dw2 = alloc(H, K, **f32), alloc(K, H, **f32)
     vec = alloc(K + 3 * H, **f32)
     lib = _lib()
-    if N and seq_adapter_bwd_tensor_cores(H, K):
+    if N and seq_adapter_tensor_cores(H, K):
         ws = torch.empty(lib.vct_seq_adapter_bwd_tf32_ws(N, H, K),
                          dtype=torch.uint8, device=x.device)
         with torch.cuda.device(x.device):
@@ -1035,34 +1050,32 @@ def feature_adapter_blend_bwd_cuda(x, w1, b1, w2, b2, ratio: float, g,
                                    dropout: float = 0.0, seed=None,
                                    need_dx: bool = True):
     """Backward kernel of K6: same results as
-    :func:`feature_adapter_blend_bwd_torch`, for CUDA tensors. A row pass
-    writes dx and each row's h, dh and da; the shared weight-gradient and
-    column-sum kernels then give dW1 = x^T dh, dW2 = h^T da, db1, db2."""
+    :func:`feature_adapter_blend_bwd_torch`, for CUDA tensors. One launch
+    of 8-block thread-block clusters, a cluster per group of up to 64 rows
+    (each block an eighth of D), writes dx and the weight and bias
+    gradients, views of one flat fp32 buffer; past one group, one more
+    launch adds the groups' partials in group order."""
     name = "feature_adapter_blend_bwd"
     N, D = x.shape
     K = w1.shape[1]
     x = x.contiguous()
     g = _as(g, x.dtype)
     w1, b1, w2, b2 = (_as(t, torch.float32) for t in (w1, b1, w2, b2))
-    f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
-    dw1, dw2 = torch.zeros(D, K, **f32), torch.zeros(K, D, **f32)
-    db1, db2 = torch.zeros(K, **f32), torch.zeros(D, **f32)
+    alloc = torch.empty if N else torch.zeros  # the kernel writes all
+    flat = alloc(2 * D * K + K + D, dtype=torch.float32, device=x.device)
     if N:
         lib = _lib()
-        hb, dh = torch.empty(N, K, **f32), torch.empty(N, K, **f32)
-        da = torch.empty(N, D, **f32)
-        _launch(name, lib.vct_feature_adapter_bwd,
-                lib.vct_feature_adapter_smem(D, K), x, x.data_ptr(),
+        ws = torch.empty(lib.vct_feature_adapter_bwd_ws(N, D, K),
+                         dtype=torch.uint8, device=x.device)
+        _launch(name, lib.vct_feature_adapter_bwd, None, x, x.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 *_feat_args(ratio, dropout, seed), g.data_ptr(),
-                None if dx is None else dx.data_ptr(), hb.data_ptr(),
-                dh.data_ptr(), da.data_ptr(), N, D, K)
-        _wgrad(x, dh, dw1, D, K)
-        _wgrad(hb, da, dw2, K, D)
-        db1, db2 = _colsum(dh), _colsum(da)
+                None if dx is None else dx.data_ptr(), flat.data_ptr(),
+                ws.data_ptr(), N, D, K)
         feature_adapter_blend_bwd_cuda.launches += 1
-    return dx, dw1, db1, dw2, db2
+    dw1, db1, dw2, db2 = flat.split([D * K, K, K * D, D])
+    return dx, dw1.view(D, K), db1, dw2.view(K, D), db2
 
 
 class _FeatureAdapterFn(torch.autograd.Function):
