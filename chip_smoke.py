@@ -25,7 +25,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    gradients must repeat bit for bit on a second call; their passes are
    timed one by one (torch.profiler; K1's in both dtypes, beside the
    bound of its fp32 products at the CUDA cores' peak), and the bf16
-   weight-gradient route alone.
+   weight-gradient route alone. K4's backward (one cluster launch) must
+   repeat bit for bit too; its launches a call, device time and CUDA-
+   event time are printed beside its earlier time (PERF.md's table).
 4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
    width (seeded random weights) on a synthetic RAF-DB tree on the card
    and writes its checkpoints, which must load back; then bench.py's
@@ -41,11 +43,18 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    widths with a 197-row pseudo-image, where the reference runs its
    kernel: K2 (96-wide heads) must launch, forward and backward, and
    agree with its plain version; its forward's passes timed one by one.
+   Then each width the bf16 tensor-core passes do not take runs once on
+   its CUDA-core kernel against its plain version: K3 at H = 100, K =
+   400, K2 at heads of 25 and 192 columns (forward and backward), and K5
+   at heads of 160 and 256 columns in both dtypes.
 5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
    at the rows pipeline T gives it (32 image features, 7 class means, 35
    descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
-   whose mask must equal the plain version's bit for bit; K6 backward's
-   kernels and launches a call (torch.profiler); K5 (the towers'
+   whose mask must equal the plain version's bit for bit; K6 forward's
+   and backward's kernels and launches a call (torch.profiler, one
+   cluster launch each), the forward bit for bit on a repeat, its three
+   T-path calls' device and CUDA-event time beside its earlier time
+   (PERF.md's table); K5 (the towers'
    attention) at ViT-L/14's and ViT-B/16's shapes with each mask layout
    the towers give it, beside F.scaled_dot_product_attention's time on
    the same inputs (timed only, never used by the port).
@@ -85,6 +94,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Prints one JSON line with the kernels' results, then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
+
+``python3 chip_smoke.py --times <checkout>`` instead times the kernels
+this slice redesigned (K6 forward, K4 backward) in the package at
+<checkout>, to compare two checkouts in turns in one call
+(:func:`redesign_times`).
 """
 
 from __future__ import annotations
@@ -226,11 +240,13 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def setup() -> str:
+def setup(root: str = REPO) -> str:
+    """Refuse without CUDA, print the card, build and load the kernels of
+    the package at root (this checkout unless another one is compared)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     print(card(), flush=True)
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from vlm_clip_tpu_torch.ops import attention as K5
@@ -686,6 +702,24 @@ def backward_phase() -> dict:
                    lambda: K4.contrastive_loss_bwd_torch(t, m, logit_scale,
                                                          one),
                    cost("contrastive_loss_bwd_cuda", t), list(t.shape))
+            again = K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"backward contrastive_loss_bwd_cuda {dtype}: a second "
+                  f"call repeats every gradient bit for bit: {same}",
+                  flush=True)
+            if not same:
+                failures.append(f"contrastive_loss_bwd_cuda {dtype} not "
+                                "deterministic")
+            per = _breakdown(
+                f"backward contrastive_loss_bwd_cuda {list(t.shape)} {dtype}",
+                lambda: K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one),
+                K4_BWD_PASSES)
+            ev = _time_ms(lambda: K4.contrastive_loss_bwd_cuda(
+                t, m, logit_scale, one), 20)
+            print(f"backward contrastive_loss_bwd_cuda {list(t.shape)} "
+                  f"{dtype}: device {sum(per.values()):.4f} ms, events "
+                  f"{ev:.4f} ms a call; earlier (PERF.md table, bf16) "
+                  f"{EARLIER_MS['contrastive_loss_bwd_cuda']} ms", flush=True)
     if failures:
         raise SystemExit(f"backward kernels disagree with their plain "
                          f"versions: {failures}")
@@ -709,6 +743,15 @@ CAB_BWD_PASSES = ("cab_bwd_t_", "cab_bwd_ln_fwd", "cab_bwd_q_",
                   "cab_bwd_dx", "wgrad_mma", "split_sum", "colsum")
 K6_BWD_PASSES = ("feature_adapter_bwd_cluster", "colsum", "wgrad",
                  "split_sum", "fill")
+K6_FWD_PASSES = ("feature_adapter_fwd_cluster",)
+K4_BWD_PASSES = ("contrastive_bwd_cluster",)
+# The redesigned kernels' earlier times by CUDA events, from PERF.md's
+# kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's:
+# K6 forward, the three pipeline-T calls (32, 7, 35 rows, fp32) summed;
+# K4 backward at B=96, bf16. A comparison of two trees runs each tree's
+# own phases in one call.
+EARLIER_MS = {"feature_adapter_blend_fused": 0.1949,
+              "contrastive_loss_bwd_cuda": 0.0871}
 
 
 def _breakdown(label: str, fn, passes) -> dict:
@@ -800,6 +843,7 @@ def t_kernel_phase() -> dict:
                       "bound_ms": 0.0, "bound_by": "", "shapes": [],
                       "library_ms": None} for name in T_REPLACES}
     failures = []
+    k6_fwd = []  # (rows, device ms, events ms) of the T path's calls
 
     # K6: rows 32 (image features), 7 (class means), 35 (descriptions),
     # then 600 rows with dropout 0.1 across the 256-row tiles of the hash
@@ -862,12 +906,27 @@ def t_kernel_phase() -> dict:
                         f"backward feature_adapter_blend_bwd_cuda N={n} fp32",
                         lambda: F.feature_adapter_blend_bwd_cuda(
                             x, *params, R, g, need_dx=False), K6_BWD_PASSES)
+                    per = _breakdown(
+                        f"kernel feature_adapter_blend_fused N={n} fp32",
+                        lambda: F.feature_adapter_blend_fused(x, *args),
+                        K6_FWD_PASSES)
+                    again = F.feature_adapter_blend_fused(x, *args)
+                k6_fwd.append((n, sum(per.values()), fwd_t[0]))
+                if not torch.equal(got, again):
+                    failures.append(f"feature_adapter_blend_fused N={n} not "
+                                    "bit for bit on a repeat")
                 _add_time(rf, fwd_t[0], fwd_t[1],
                           t_cost("feature_adapter_blend_fused", x),
                           f"[{n}, {D}] fp32")
                 _add_time(rb, bwd_t[0], bwd_t[1],
                           t_cost("feature_adapter_blend_bwd_cuda", x,
                                  need_dx=False), f"[{n}, {D}] fp32 no dx")
+    print(f"K6 forward, pipeline T's calls (rows, device ms, events ms): "
+          f"{[(n, round(dv, 4), round(ev, 4)) for n, dv, ev in k6_fwd]}; "
+          f"sum by events {sum(ev for _, _, ev in k6_fwd):.4f} ms, device "
+          f"{sum(dv for _, dv, _ in k6_fwd):.4f} ms; earlier (PERF.md "
+          f"table) {EARLIER_MS['feature_adapter_blend_fused']} ms by events",
+          flush=True)
     # the dropout mask, bit for bit: with relu(x@W1+b1) = 1, W2 = [I | 0],
     # b2 = 0 and r = 1, y's first K columns are the kernel's mask over its
     # row norm
@@ -1208,7 +1267,91 @@ def route_phase() -> dict:
                          f"got {supported}, {counts}")
     _wide_heads_check(gen, H, cfg.vision.hidden_size,
                       acfg.shared_num_heads, dev)
+    _repaired_widths_check(gen, dev)
     return counts
+
+
+def _repaired_widths_check(gen, dev) -> None:
+    """The widths the bf16 tensor-core passes do not take, each once on
+    its CUDA-core kernel against its plain version (TOL; gradients
+    relative to their largest element): K3 in bf16 at H = 100, K = 400
+    (forward, backward); K2 in bf16 at 8 heads of 25 and 2 heads of 192
+    (forward, backward; Tk 197); K5 at heads of 160 and 256 columns in
+    both dtypes. Each must launch its kernel, once a call."""
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    bf, failures = torch.bfloat16, []
+
+    def check(what, y, want_y, grads, want_g, dtype, counts, names):
+        atol, rtol = TOL[dtype]
+        y_ok = bool(torch.isclose(y.float(), want_y.float(), atol=atol,
+                                  rtol=rtol).all())
+        worst = max(e[1] for e in _grad_errors(grads, want_g, dtype)) \
+            if grads is not None else 0.0
+        ok = y_ok and worst <= 1.0 and all(counts[k] == 1 for k in names)
+        print(f"route: {what}: y max abs err "
+              f"{float((y.float() - want_y.float()).abs().max()):.3e}, "
+              f"worst gradient err / (tol * max) {worst:.3f}; launches "
+              f"{ {k: counts[k] for k in names} } {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(what)
+
+    h, k = 100, 400
+    w1 = torch.randn(h, k, generator=gen, device=dev) * h ** -0.5
+    w2 = torch.randn(k, h, generator=gen, device=dev) * k ** -0.5
+    b1, b2, ls, lb = (0.1 * torch.randn(w, generator=gen, device=dev)
+                      for w in (k, h, h, h))
+    args = (w1, b1, w2, b2, 1 + ls, lb)
+    x = torch.randn(ROUTE_B * 77, h, generator=gen, device=dev).to(bf)
+    g = torch.randn(x.shape, generator=gen, device=dev).to(bf)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        y = F.prenorm_mlp_fused(x, *args)
+        grads = F.prenorm_mlp_bwd_cuda(x, *args, g)
+    check(f"K3 bf16 H {h} K {k} (CUDA cores)", y,
+          F.prenorm_mlp_torch(x, *args), grads,
+          F.prenorm_mlp_bwd_torch(x, *args, g), bf, F.launch_counts(),
+          ("prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"))
+    for H, heads in ((200, 8), (384, 2)):
+        p = A.init_cross_modal_adapter(gen, text_dim=H, image_dim=256,
+                                       hidden=H, device=dev)
+        image = (torch.randn(1, 197, 256, generator=gen, device=dev)
+                 * 256 ** -0.5).to(bf)
+        kk, vv = A.shared_kv(p, image)
+        ap = p["attn"]
+        cab = (p["text_proj"]["kernel"], p["text_proj"]["bias"],
+               p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
+               ap["q"]["bias"], kk, vv, ap["out"]["kernel"],
+               ap["out"]["bias"])
+        x = torch.randn(ROUTE_B * 77, H, generator=gen, device=dev).to(bf)
+        g = torch.randn(x.shape, generator=gen, device=dev).to(bf)
+        F.reset_launch_counts()
+        with torch.no_grad():
+            y = F.cross_attn_block_fused(x, *cab, heads)
+            grads = F.cross_attn_block_bwd_cuda(x, *cab, g, heads)
+        check(f"K2 bf16 {heads} heads of {H // heads} (CUDA cores)", y,
+              F.cross_attn_block_torch(x, *cab, heads), grads,
+              F.cross_attn_block_bwd_torch(x, *cab, g, heads), bf,
+              F.launch_counts(), ("cross_attn_block_fused",
+                                  "cross_attn_block_bwd_cuda"))
+    for d in (160, 256):
+        for dtype in (bf, torch.float32):
+            q, kq, vq = (torch.randn(4, 4, 77, d, generator=gen,
+                                     device=dev).to(dtype)
+                         for _ in range(3))
+            K5.reset_launch_counts()
+            with torch.no_grad():
+                y = K5.fused_attention(q, kq, vq, d ** -0.5)
+            check(f"K5 {str(dtype).replace('torch.', '')} heads of {d} "
+                  f"(kernel width {K5.kernel_width(d)})", y,
+                  K5.fused_attention_torch(q, kq, vq, d ** -0.5), None,
+                  None, dtype, K5.launch_counts(), ("fused_attention",))
+    if failures:
+        raise SystemExit(f"route: repaired widths disagree with their plain "
+                         f"versions or did not launch: {failures}")
 
 
 def _wide_heads_check(gen, H, image_dim, heads, dev, tk=197) -> None:
@@ -2123,7 +2266,76 @@ def vlm_phase() -> dict:
     return path
 
 
+def redesign_times(root: str) -> None:
+    """CUDA-event and device times (torch.profiler) of the two kernels
+    this slice redesigned, in the package at root: K6's forward and
+    backward (which shares the forward's device function) at pipeline T's
+    three calls (32, 7, 35 rows, D=768, K=64, fp32) and K4's backward at
+    B=96, D=512 in bf16 and fp32, each the least of three
+    runs of 50 calls by events and a 20-call profile. Run once for each
+    checkout to compare, in turns, in one chip call:
+    ``python3 chip_smoke.py --times <checkout>``."""
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = A.init_feature_adapter(gen, 768, 64, device=dev)
+    params = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+              p["fc2"]["bias"])
+
+    def times(fn):
+        ev = min(_time_ms(fn, 50) for _ in range(3))
+        launches = _device_events(fn, 20)
+        return ev, sum(ms for _, ms in launches) / 20, len(launches) / 20
+
+    total = [0.0, 0.0]
+    for n in (32, 7, 35):
+        x = torch.randn(n, 768, generator=gen, device=dev)
+        x = x / x.norm(dim=-1, keepdim=True)
+        with torch.no_grad():
+            ev, dv, nl = times(
+                lambda: F.feature_adapter_blend_fused(x, *params, 0.2))
+        total[0] += ev
+        total[1] += dv
+        print(f"times {root}: K6 forward N={n} fp32: events {ev:.4f} ms, "
+              f"device {dv:.4f} ms, {nl:g} launches a call", flush=True)
+    print(f"times {root}: K6 forward, the three calls: events "
+          f"{total[0]:.4f} ms, device {total[1]:.4f} ms", flush=True)
+    total = [0.0, 0.0]
+    for n in (32, 7, 35):  # the T step's backward: no dx (frozen features)
+        x = torch.randn(n, 768, generator=gen, device=dev)
+        x = x / x.norm(dim=-1, keepdim=True)
+        g = torch.randn(n, 768, generator=gen, device=dev)
+        with torch.no_grad():
+            ev, dv, nl = times(lambda: F.feature_adapter_blend_bwd_cuda(
+                x, *params, 0.2, g, need_dx=False))
+        total[0] += ev
+        total[1] += dv
+        print(f"times {root}: K6 backward N={n} fp32: events {ev:.4f} ms, "
+              f"device {dv:.4f} ms, {nl:g} launches a call", flush=True)
+    print(f"times {root}: K6 backward, the three calls: events "
+          f"{total[0]:.4f} ms, device {total[1]:.4f} ms on {card()}",
+          flush=True)
+    ls, one = torch.tensor(2.6592, device=dev), torch.ones((), device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        t, m = (torch.randn(B, 512, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        ev, dv, nl = times(lambda: K4.contrastive_loss_bwd_cuda(t, m, ls,
+                                                                one))
+        print(f"times {root}: K4 backward [{B}, 512] "
+              f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
+              f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
+              flush=True)
+
+
 def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--times":
+        root = os.path.abspath(sys.argv[2])
+        setup(root)
+        redesign_times(root)
+        return
     kind = setup()
     phases = []
 

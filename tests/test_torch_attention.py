@@ -283,3 +283,40 @@ def test_narrow_heads_zero_padded_match_pallas(d):
                                np.asarray(want.astype(jnp.float32)),
                                atol=2e-2, rtol=2e-2)
     assert K5.supports(torch.from_numpy(m), t)
+
+
+@pytest.mark.parametrize("d,width", [(1, 64), (64, 64), (65, 128),
+                                     (128, 128), (129, 256), (160, 256),
+                                     (256, 256)])
+def test_kernel_width_up_to_256(d, width):
+    """The kernel width a head runs at: 64, 128 or 256 columns (heads of
+    129-256 on the CUDA-core kernel's D = 256 instantiation); wider heads
+    raise, since that kernel's fp32 tiles at D = 512 would not fit a
+    block's shared memory."""
+    assert K5.HEAD_DIMS == (64, 128, 256)
+    assert K5.kernel_width(d) == width
+    with pytest.raises(ValueError, match="up to 256"):
+        K5.kernel_width(257)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_wide_heads_two_pass_match_pallas(d):
+    """Heads of 129-256 columns, zero-padded to 256: the CUDA-core
+    kernel's two passes (the row max and sum, then p rounded to bf16
+    after it is normalized, times v; the same rounding points as the
+    tensor-core kernel's), emulated on the padded q, k, v with the true
+    width's scale and cut back to d columns, against the Pallas kernel at
+    width d. bf16 tolerance 2e-2, as above."""
+    rng = np.random.default_rng(d)
+    b, h, t = 1, 2, 77
+    q, k, v = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+               for _ in range(3))
+    m = _tower_mask("padded", b, t, rng)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = RK5.fused_attention(*jb, d ** -0.5, jnp.asarray(m))
+    tb = [TF.pad(torch.from_numpy(a).bfloat16(), (0, K5.kernel_width(d) - d))
+          for a in (q, k, v)]
+    got = _two_pass_bf16(*tb, d ** -0.5, torch.from_numpy(m))[..., :d]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=2e-2)

@@ -98,24 +98,27 @@ def _cab_args(p, k, v):
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_do(dev):
     """Each wrapper refuses on the card only what its kernels cannot take:
-    K2 past 256 shared rows (its gate, where impl="auto" routes to the
-    plain version as the reference does), K3 in bf16 at widths that are
-    not multiples of 8, K2's bf16 backward at heads of other than a
-    multiple of 8 columns (refused before the forward runs); never a
-    width the reference's kernel takes."""
+    shapes that do not match x, K2 past 256 shared rows (its gate, where
+    impl="auto" routes to the plain version as the reference does),
+    tensors on two devices or of two dtypes; never a width the
+    reference's kernel takes (bf16 K3 at widths that are not multiples of
+    8 and bf16 K2 at heads of other than a multiple of 8 columns run
+    their CUDA-core kernels, forward and backward)."""
     p = A.init_seq_adapter(_gen(dev), 512, 256, device=dev)
     args = (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
             p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
     with pytest.raises(ValueError, match="wrong shapes"):
         F.seq_adapter_fused(torch.randn(8, 500, device=dev), *args)
     m = A.init_mlp_gelu(_gen(dev), 512, device=dev)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        F.prenorm_mlp_fused(torch.randn(8, 512, device=dev).bfloat16(),
-                            m["fc1"]["kernel"][:, :1998],
-                            m["fc1"]["bias"][:1998],
-                            m["fc2"]["kernel"][:1998], m["fc2"]["bias"],
-                            torch.ones(512, device=dev),
-                            torch.zeros(512, device=dev))
+    mlp = [t.bfloat16().requires_grad_(True) for t in (
+        m["fc1"]["kernel"][:, :1998], m["fc1"]["bias"][:1998],
+        m["fc2"]["kernel"][:1998], m["fc2"]["bias"],
+        torch.ones(512, device=dev), torch.zeros(512, device=dev))]
+    F.reset_launch_counts()
+    F.prenorm_mlp_fused(torch.randn(8, 512, device=dev).bfloat16(),
+                        *mlp).float().sum().backward()  # K = 1998
+    assert F.launch_counts()["prenorm_mlp_fused"] == 1
+    assert F.launch_counts()["prenorm_mlp_bwd_cuda"] == 1
     c = A.init_cross_modal_adapter(_gen(dev), text_dim=512, image_dim=64,
                                    hidden=512, device=dev)
     assert not F.cross_attn_block_supported(257)
@@ -127,12 +130,9 @@ def test_kernels_refuse_what_they_cannot_do(dev):
                                    hidden=264, device=dev)
     k, v = A.shared_kv(c, torch.randn(1, 5, 64, device=dev).bfloat16())
     cab = [t.bfloat16().requires_grad_(True) for t in _cab_args(c, k, v)]
-    with pytest.raises(ValueError, match="multiple of 8 columns"):
-        F.cross_attn_block_fused(torch.randn(8, 264, device=dev).bfloat16(),
-                                 *cab, 8)  # heads of 33
-    with torch.no_grad():  # the forward takes them
-        F.cross_attn_block_fused(torch.randn(8, 264, device=dev).bfloat16(),
-                                 *cab, 8)
+    F.cross_attn_block_fused(torch.randn(8, 264, device=dev).bfloat16(),
+                             *cab, 8).float().sum().backward()  # heads of 33
+    assert F.launch_counts()["cross_attn_block_bwd_cuda"] == 1
     with pytest.raises(ValueError, match="must be on"):
         F.seq_adapter_fused(torch.randn(8, 512, device=dev),
                             *(a.cpu() for a in args))
@@ -311,14 +311,23 @@ def test_wgrad_tensor_cores(dev, n, p, q, z, width):
 
 @pytest.mark.cuda
 def test_wgrad_tensor_cores_refuses_unaligned(dev):
-    """The tensor-core weight gradient copies 16 bytes at a time: a
-    per-head slice 197 wide is refused, not read past its end (K2 pads
-    each head's keys to a multiple of 8 for it)."""
-    a = torch.randn(64, 8 * 197, device=dev).bfloat16()
-    b = torch.randn(64, 8 * 64, device=dev).bfloat16()
+    """The tensor-core weight gradient copies 16 bytes at a time, so it
+    refuses a per-head slice 197 wide: F._bf16_tc_route (and vct_wgrad in
+    C) sends it to the CUDA cores, which read nothing past its end and
+    give the same sums as fp32 matmuls of the bf16 values."""
+    gen = _gen(dev, 12)
+    a = torch.randn(64, 8 * 197, generator=gen, device=dev).bfloat16()
+    b = torch.randn(64, 8 * 64, generator=gen, device=dev).bfloat16()
     out = torch.zeros(197, 8 * 64, device=dev)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        F._wgrad(a, b, out, 197, 64, sa=197, sb=64, so=64, z=8)
+    assert not F._bf16_tc_route(a, b, 197, 64, 8 * 197, 197, 8 * 64, 64)
+    F._wgrad(a, b, out, 197, 64, sa=197, sb=64, so=64, z=8)
+    want = torch.cat([a.float()[:, i * 197:(i + 1) * 197].T
+                      @ b.float()[:, i * 64:(i + 1) * 64] for i in range(8)],
+                     dim=1)
+    torch.testing.assert_close(out, want, atol=5e-3, rtol=1e-4)
+    names = _device_kernels(
+        lambda: F._wgrad(a, b, out, 197, 64, sa=197, sb=64, so=64, z=8))
+    assert names and not any("mma" in nm for nm in names), names
 
 
 def _cab_bwd_case(dev, n, tk, dtype, din=512):
@@ -425,13 +434,17 @@ def test_cross_modal_adapter_routes_vit_l_widths(dev):
 # K2 at heads other than 64 wide, forward and backward: ViT-L/14's 8
 # heads of 96 over H = 768 (bf16: the attention pass zero-padded to 128;
 # fp32 forward in 16-row tiles, backward in 8-row tiles), 4 heads of 24
-# over 96 and 2 heads of 128 over 256; Tk 197 and 5
+# over 96 and 2 heads of 128 over 256; Tk 197 and 5; and heads the bf16
+# tensor-core passes do not take, which bf16 runs on the CUDA-core
+# kernels in both directions: 8 heads of 25 over 200, 2 of 192 over 384
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h,heads,tk,n", [(768, 8, 197, 300),
                                           (768, 8, 5, 77),
                                           (96, 4, 197, 200),
-                                          (256, 2, 197, 200)])
+                                          (256, 2, 197, 200),
+                                          (200, 8, 197, 200),
+                                          (384, 2, 197, 77)])
 def test_cross_attn_block_kernels_other_head_widths(dev, dtype, h, heads,
                                                     tk, n):
     p = A.init_cross_modal_adapter(_gen(dev), text_dim=h, image_dim=256,
@@ -548,6 +561,7 @@ def test_cross_attn_block_fwd_kernel(dev, dtype, n, din, h, tk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,h,k", [(torch.bfloat16, 200, 800),
                                        (torch.bfloat16, 64, 136),
+                                       (torch.bfloat16, 100, 390),
                                        (torch.float32, 200, 800),
                                        (torch.float32, 100, 390)])
 def test_prenorm_mlp_kernels_other_widths(dev, dtype, h, k):
@@ -620,6 +634,60 @@ def test_contrastive_kernels(dev, dtype, b):
                  K4.contrastive_loss_bwd_torch(t, m, ls,
                                                torch.ones((), device=dev)),
                  dtype, "contrastive")
+
+
+# K4 backward: one cluster launch at B = 1, 7, 96 and the largest batch
+# its blocks' shared memory takes at D = 512 (and no other kernel), the
+# multi-kernel route at B = 1100; bit for bit on a repeat
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 7, 96, "max", 1100])
+def test_contrastive_bwd_cluster_kernel(dev, dtype, b):
+    b = K4.bwd_cluster_max(512) if b == "max" else b
+    assert K4.bwd_cluster_max(512) == 128
+    t = torch.randn(b, 512, generator=_gen(dev, 1), device=dev).to(dtype)
+    m = torch.randn(b, 512, generator=_gen(dev, 2), device=dev).to(dtype)
+    ls = torch.tensor(2.6592, device=dev)
+    one = torch.ones((), device=dev)
+
+    def call():
+        return K4.contrastive_loss_bwd_cuda(t, m, ls, one)
+
+    K4.reset_launch_counts()
+    got = call()
+    assert K4.launch_counts()["contrastive_loss_bwd_cuda"] == 1
+    _grads_close(got, K4.contrastive_loss_bwd_torch(t, m, ls, one), dtype,
+                 "contrastive bwd")
+    again = call()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    names = _device_kernels(call)
+    if b <= 128:
+        assert len(names) == 1 and "contrastive_bwd_cluster_kernel" in \
+            names[0], names
+    else:
+        assert len(names) == 8 and not any("cluster" in nm
+                                           for nm in names), names
+
+
+# K4 backward at D = 24: three blocks of the cluster own 8 columns each and
+# five own none (they load nothing and still reach every cluster.sync())
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 5])
+def test_contrastive_bwd_cluster_kernel_empty_slices(dev, dtype, b):
+    t = torch.randn(b, 24, generator=_gen(dev, 1), device=dev).to(dtype)
+    m = torch.randn(b, 24, generator=_gen(dev, 2), device=dev).to(dtype)
+    ls = torch.tensor(2.6592, device=dev)
+    one = torch.ones((), device=dev)
+    K4.reset_launch_counts()
+    got = K4.contrastive_loss_bwd_cuda(t, m, ls, one)
+    assert K4.launch_counts()["contrastive_loss_bwd_cuda"] == 1
+    _grads_close(got, K4.contrastive_loss_bwd_torch(t, m, ls, one), dtype,
+                 "contrastive bwd")
+    names = _device_kernels(
+        lambda: K4.contrastive_loss_bwd_cuda(t, m, ls, one))
+    assert len(names) == 1 and "contrastive_bwd_cluster_kernel" in \
+        names[0], names
 
 
 # ---------------------------------------------------------------------------
@@ -696,6 +764,58 @@ def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
         ["colsum_kernel"] if n > 64 else [])
     assert len(names) == len(want_names), names
     assert all(any(frag in nm for nm in names) for frag in want_names), names
+
+
+# K6 forward, one cluster launch: the T path's rows (1, 7, 32, 35: one to
+# five groups of 8), 600 rows with dropout (groups of 40 across the
+# hash's 256-row tiles), d 100 (ragged slices) and d 1024 with k 192
+# (weight slices too large for shared memory beside 8 rows: read in
+# place); bit for bit on a repeat; one launch a call and no other kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d,k,dropout", [(1, 768, 64, 0.0),
+                                           (7, 768, 64, 0.0),
+                                           (32, 768, 64, 0.0),
+                                           (35, 768, 64, 0.0),
+                                           (600, 768, 64, 0.1),
+                                           (20, 100, 24, 0.0),
+                                           (77, 1024, 192, 0.1)])
+def test_feature_adapter_fwd_cluster_kernel(dev, dtype, n, d, k, dropout):
+    x, args = _feat_case(dev, n, d, k, dtype)
+
+    def call():
+        with torch.no_grad():
+            return F.feature_adapter_blend_fused(x, *args, 0.2, dropout,
+                                                 1234)
+
+    F.reset_launch_counts()
+    got = call()
+    assert F.launch_counts()["feature_adapter_blend_fused"] == 1
+    _close(got, F.feature_adapter_blend_torch(x, *args, 0.2, dropout, 1234),
+           dtype)
+    assert torch.equal(got, call())
+    names = _device_kernels(call)
+    assert len(names) == 1 and "feature_adapter_fwd_cluster_kernel" in \
+        names[0], names
+
+
+# K6's forward y does not depend on the rows a cluster takes: the first
+# n0 rows of a call whose groups are the backward's at n0 rows (512 rows:
+# groups of 32, the backward's at 32 rows; 600 rows: groups of 40, its
+# at 35) carry the bits of the call of n0 rows (groups of 8). The
+# backward recomputes y through the same device function
+# (feat_cluster_forward) at those groups, so its recompute is the
+# forward's y bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n0,n", [(32, 512), (35, 600)])
+def test_feature_adapter_fwd_bits_at_every_group_size(dev, dtype, n0, n):
+    x, args = _feat_case(dev, n, 768, 64, dtype)
+    with torch.no_grad():
+        small = F.feature_adapter_blend_fused(x[:n0].contiguous(), *args,
+                                              0.2)
+        big = F.feature_adapter_blend_fused(x, *args, 0.2)
+    assert torch.equal(small, big[:n0])
 
 
 @pytest.mark.cuda
@@ -796,11 +916,12 @@ def test_mha_fused_toggle_on_card(dev):
     _close(got, want, torch.float32)
 
 
-# head widths other than 64: the 128-wide kernels (128), and narrower
-# heads zero-padded to 64 (8, 40) or to 128 (80, 96)
+# head widths other than 64: the 128-wide kernels (128), narrower heads
+# zero-padded to 64 (8, 40) or to 128 (80, 96), and the CUDA-core D = 256
+# kernel in both dtypes (256; 160 zero-padded to it)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [8, 40, 80, 96, 128])
+@pytest.mark.parametrize("d", [8, 40, 80, 96, 128, 160, 256])
 def test_fused_attention_other_head_widths(dev, dtype, d):
     q, k, v = (torch.randn(2, 3, 77, d, generator=_gen(dev, i),
                            device=dev).to(dtype) for i in range(3))
@@ -813,7 +934,7 @@ def test_fused_attention_other_head_widths(dev, dtype, d):
 
 @pytest.mark.cuda
 def test_fused_attention_refusals(dev):
-    q = torch.randn(2, 2, 9, 160, device=dev)
+    q = torch.randn(2, 2, 9, 272, device=dev)
     with pytest.raises(ValueError, match="head width"):
         K5.fused_attention(q, q, q, 0.1)
     q = torch.randn(2, 2, 9, 64, device=dev)

@@ -85,45 +85,109 @@ def test_plain_forward_backward_match_pallas(n, dtype):
     _assert_grads(grads, want_g, TOL[dtype])
 
 
+def _ranks(parts):
+    """The cluster's partials added in rank order."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def _ranges_matmul(a, w):
+    """a @ w in the order of the cluster kernels' products (rows_product):
+    the depth cut into S ranges (S = 512 // ncol, at most 8, at least 1,
+    from the output columns alone; each range 4-aligned), the ranges'
+    partials added in range order."""
+    depth, ncol = w.shape
+    s = max(1, min(8, 512 // max(ncol, 1)))
+    span = (-(-depth // s) + 3) & ~3
+    if depth == 0:
+        return a @ w
+    return _ranks([a[:, t:t + span] @ w[t:t + span]
+                   for t in range(0, depth, span)])
+
+
+def _slices(d):
+    """The columns of d each of the cluster's 8 blocks owns: ceil(d / 8),
+    the last ones fewer (or none)."""
+    ds = -(-d // 8)
+    return [slice(q * ds, min(d, (q + 1) * ds)) for q in range(8)]
+
+
+def _k6_cluster_forward(xg, w1, b1, w2, b2, r, m, cols):
+    """K6's forward for one group's rows in the order of the cluster
+    kernels' shared device function (csrc/fused_adapter.cu,
+    feat_cluster_forward): pre = the blocks' partials x_q W1_q (each over
+    its depth ranges, :func:`_ranges_matmul`, as every product here) added
+    in rank order, + b1; h = relu(pre) * mask; z_q = r (h W2_q + b2_q) +
+    (1 - r) x_q; inv = 1 / |z| from the rows' sums of z_q^2 in rank order.
+    Returns (h, [z_q], inv)."""
+    pre = _ranks([_ranges_matmul(xg[:, c], w1[c]) for c in cols]) + b1
+    h = torch.relu(pre) * m
+    z = [r * (_ranges_matmul(h, w2[:, c]) + b2[c]) + (1 - r) * xg[:, c]
+         for c in cols]
+    inv = torch.rsqrt(_ranks([(zq * zq).sum(1) for zq in z]))[:, None]
+    return h, z, inv
+
+
+def _mask(n, k, dropout, seed):
+    return F.feature_dropout_mask(n, k, seed or 0, dropout) if dropout \
+        else torch.ones(n, k)
+
+
+def _k6_fwd_rows(n):
+    """Rows a group of K6's cluster forward (feat_fwd_rows in C at widths
+    whose shared memory fits): 8 rows a group up to 128 rows, so the
+    clusters stay within 16 (one wave of 8-block clusters on the H100),
+    more past that, at most 64."""
+    tiles = -(-n // 8)
+    return min(64, 8 * -(-tiles // 16))
+
+
+def _k6_fwd_cluster(x, w1, b1, w2, b2, r, dropout, seed, rows):
+    """K6's forward in the order of its cluster kernel
+    (feature_adapter_fwd_cluster_kernel): groups of ``rows`` rows, each
+    the shared forward, then y_q = z_q inv, in x's dtype."""
+    xf = x.float()
+    n, d = xf.shape
+    cols = _slices(d)
+    mask = _mask(n, w1.shape[1], dropout, seed)
+    y = torch.zeros(n, d)
+    for r0 in range(0, n, rows):
+        rs = slice(r0, min(n, r0 + rows))
+        _, z, inv = _k6_cluster_forward(xf[rs], w1, b1, w2, b2, r, mask[rs],
+                                        cols)
+        for c, zq in zip(cols, z):
+            y[rs, c] = zq * inv
+    return y.to(x.dtype)
+
+
 def _k6_bwd_cluster(x, w1, b1, w2, b2, r, g, dropout, seed, rows):
     """K6's backward in the order its cluster kernel takes
     (csrc/fused_adapter.cu, feature_adapter_bwd_cluster_kernel): groups of
     ``rows`` rows, 8 blocks each owning ds = ceil(d / 8) columns of d
-    (the last ones fewer). Per group: pre = the blocks' partials x_q W1_q
-    added in rank order, + b1; h = relu(pre) * mask; z_q = r (h W2_q + b2_q)
-    + (1 - r) x_q; the rows' sums of z^2 and g z added in rank order, inv =
-    1 / |z|, <g, y> = (g z) inv; dz_q = (g_q - z_q inv <g, y>) inv; dh =
+    (the last ones fewer). Per group: the shared forward
+    (:func:`_k6_cluster_forward`); the rows' sums of g z added in rank
+    order, <g, y> = (g z) inv; dz_q = (g_q - z_q inv <g, y>) inv; dh =
     the partials r (dz_q W2_q^T) in rank order, * mask where h > 0; each
     block's slices of dW1 = x^T dh, dW2 = r (h^T dz), db2 = r (the sum of
     dz) and rank 0's db1 over the group's rows; the groups' partials added
     in group order. Returns (dx, dw1, db1, dw2, db2), dx in x's dtype."""
     xf, gf = x.float(), g.float()
     n, d = xf.shape
-    k = w1.shape[1]
-    ds = -(-d // 8)
-    cols = [slice(q * ds, min(d, (q + 1) * ds)) for q in range(8)]
-    mask = F.feature_dropout_mask(n, k, seed or 0, dropout) if dropout \
-        else torch.ones(n, k)
-
-    def ranks(parts):
-        out = parts[0]
-        for p in parts[1:]:
-            out = out + p
-        return out
-
+    cols = _slices(d)
+    mask = _mask(n, w1.shape[1], dropout, seed)
     dx = torch.zeros(n, d)
     grads = None
     for r0 in range(0, n, rows):
         rs = slice(r0, min(n, r0 + rows))
         xg, gg, m = xf[rs], gf[rs], mask[rs]
-        pre = ranks([xg[:, c] @ w1[c] for c in cols]) + b1
-        h = torch.relu(pre) * m
-        z = [r * (h @ w2[:, c] + b2[c]) + (1 - r) * xg[:, c] for c in cols]
-        inv = torch.rsqrt(ranks([(zq * zq).sum(1) for zq in z]))[:, None]
-        gy = ranks([(gg[:, c] * zq).sum(1) for c, zq in zip(cols, z)]
-                   )[:, None] * inv
+        h, z, inv = _k6_cluster_forward(xg, w1, b1, w2, b2, r, m, cols)
+        gy = _ranks([(gg[:, c] * zq).sum(1) for c, zq in zip(cols, z)]
+                    )[:, None] * inv
         dz = [(gg[:, c] - (zq * inv) * gy) * inv for c, zq in zip(cols, z)]
-        dh = ranks([r * (dzq @ w2[:, c].T) for c, dzq in zip(cols, dz)]) * m
+        dh = _ranks([r * _ranges_matmul(dzq, w2[:, c].T)
+                     for c, dzq in zip(cols, dz)]) * m
         dh = torch.where(h > 0, dh, 0.0)
         part = (torch.cat([xg[:, c].T @ dh for c in cols]), dh.sum(0),
                 torch.cat([r * (h.T @ dzq) for dzq in dz], 1),
@@ -131,7 +195,7 @@ def _k6_bwd_cluster(x, w1, b1, w2, b2, r, g, dropout, seed, rows):
         grads = part if grads is None else [a + b for a, b in
                                             zip(grads, part)]
         for c, dzq in zip(cols, dz):
-            dx[rs, c] = (1 - r) * dzq + dh @ w1[c].T
+            dx[rs, c] = (1 - r) * dzq + _ranges_matmul(dh, w1[c].T)
     return (dx.to(x.dtype), *grads)
 
 
@@ -154,6 +218,30 @@ def test_k6_bwd_cluster_order_matches_pallas(n, d, dropout, dtype):
                           rows=min(64, -(-n // 8) * 8))
     assert got[0].dtype == dtype
     _assert_grads(got, want, TOL[dtype])
+
+
+# n = 1, 7, 35: the T path's rows (one to five groups of 8); 300 with
+# dropout: groups of 24 rows (13, the last of 12) across the hash's
+# 256-row tiles; d = 100: a ragged last slice (13 columns a block, 9 in
+# the last)
+@pytest.mark.parametrize("n,d,dropout", [(1, 64, 0.0), (7, 64, 0.0),
+                                         (35, 64, 0.0), (300, 64, 0.1),
+                                         (35, 100, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_fwd_cluster_order_matches_pallas(n, d, dropout, dtype):
+    """K6's forward in its cluster kernel's order against the Pallas
+    forward (interpret mode): y within 1e-5 of max|y| in fp32, the bf16
+    tolerance in bf16 (y rounded once)."""
+    x, params, g = _case(n, d=d, k=16, seed=n + d + 1)
+    seed = 4321 if dropout else None
+    want, _ = _ref_fwd_bwd(x, params, g, 0.2, dtype, dropout, seed)
+    tp = [torch.from_numpy(p) for p in params]
+    got = _k6_fwd_cluster(torch.from_numpy(x).to(dtype), *tp, 0.2, dropout,
+                          seed, rows=_k6_fwd_rows(n))
+    assert got.dtype == dtype
+    top = float(np.abs(want).max())
+    tol = 1e-5 * top if dtype == torch.float32 else TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("seed", [7, 2 ** 31 - 5])

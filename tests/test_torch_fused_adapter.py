@@ -172,6 +172,21 @@ def test_bf16_rounding_points_match_pallas():
                 RF.cross_attn_block_fused(*ref, 4, 9))
 
 
+# bf16 weight gradients take the tensor cores exactly where every row of
+# both operands copies in 16-byte chunks: K2's dWo at heads of 192 (H =
+# 384) does; a per-head key slice 197 wide, a K3 width of 100 and a start
+# off a 16-byte boundary do not; an fp32 operand never does
+@pytest.mark.parametrize("p,q,lda,sa,off,want", [
+    (384, 384, 384, 0, 0, True), (197, 64, 8 * 197, 197, 0, False),
+    (100, 400, 100, 0, 0, False), (512, 512, 512, 0, 1, False)])
+def test_bf16_tc_route_follows_alignment(p, q, lda, sa, off, want):
+    base = torch.zeros(8 * lda + 8, dtype=torch.bfloat16)
+    a = base[off:off + 8 * lda].view(8, lda)
+    b = torch.zeros(8, q, dtype=torch.bfloat16)
+    assert F._bf16_tc_route(a, b, p, q, lda, sa, q, 0) is want
+    assert not F._bf16_tc_route(a.float(), b, p, q, lda, sa, q, 0)
+
+
 def test_cpu_dispatch_and_impl_choices():
     """On a CPU tensor the wrappers take the plain versions and launch
     nothing; impl='kernel' refuses a CPU tensor."""
@@ -874,6 +889,18 @@ def test_shape_predicates_at_vit_l_widths():
         assert F.cross_attn_block_supported(tk) is ok, tk
     assert not hasattr(F, "seq_adapter_supported")
     assert not hasattr(F, "prenorm_mlp_supported")
+
+
+# pipeline M's widths (H 512, K 2048), a K3 of K = 136 (rows of 16
+# bytes), and widths whose bf16 rows do not copy in 16-byte chunks
+@pytest.mark.parametrize("h,k,tc", [(512, 2048, True), (768, 3072, True),
+                                    (64, 136, True), (100, 400, False),
+                                    (512, 2044, False), (200, 100, False)])
+def test_prenorm_mlp_tensor_core_gate(h, k, tc):
+    """K3's route in bf16: the tensor-core passes where H and K are
+    multiples of 8, else the CUDA-core kernels (which fp32 takes at every
+    width), so no width the reference's kernel takes is refused."""
+    assert F.prenorm_mlp_tensor_cores(h, k) is tc
 
 
 class _OnCuda:

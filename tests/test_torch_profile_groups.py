@@ -70,6 +70,29 @@ NS = "(anonymous namespace)::"
      "K1-K3 bwd weight grads"),
     (NS + "wgrad_tf32_kernel<float>(float const*, int, int)",
      "K1-K3 bwd weight grads"),
+    (NS + "contrastive_bwd_cluster_kernel<__nv_bfloat16>(__nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, float const*, float const*, int, int)",
+     "K4 bwd"),
+    ("_ZN56_GLOBAL__N__1e2a43d5_14_contrastive_cu_7c0b1f1130contrastive_bwd_"
+     "cluster_kernelIfEEvPKT_S3_PKfS5_PS1_S6_Pfii", "K4 bwd"),
+    (NS + "dz_kernel(float const*, float const*, float const*, float*, "
+     "int)", "K4 bwd"),
+    ("_ZN56_GLOBAL__N__1e2a43d5_14_contrastive_cu_7c0b1f119dz_kernelEPKfS1_"
+     "S1_Pfi", "K4 bwd"),
+    (NS + "norm_bwd_kernel<float>(float const*, float const*, int, int)",
+     "K4 bwd"),
+    (NS + "dls_kernel(float const*, float const*, float*, int)", "K4 bwd"),
+    (NS + "norm_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int, int)",
+     "K4 fwd"),
+    (NS + "gemm_kernel(float const*, int, int, float const*, int, int, "
+     "float*, int, int, int, int, float const*)", "K4 fwd"),
+    (NS + "lse_kernel(float const*, float*, int)", "K4 fwd"),
+    (NS + "loss_kernel(float const*, float const*, float*, int)",
+     "K4 fwd"),
+    (NS + "feature_adapter_fwd_cluster_kernel<float>(float const*, int)",
+     "K6 fwd"),
+    (NS + "feature_adapter_bwd_cluster_kernel<__nv_bfloat16>(int)",
+     "K6 bwd"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "cuBLAS/cuDNN products"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopA_NNT", "cuBLAS/cuDNN products"),

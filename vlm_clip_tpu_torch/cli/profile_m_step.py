@@ -2,7 +2,10 @@
 
 Runs bench.py's step (ViT-B/16, adapters 256/256/2, FAST, Adam 3e-4, one
 fixed random batch, B=96 by default) with the kernels (``impl="auto"``)
-and with their plain versions (``impl="torch"``): per step the host-clock
+and with their plain versions (``impl="torch"``), with the contrastive
+head plain (``fused_loss=False``, the reference's default) or through K4
+(``--fused-loss on``), or both in one call (``--fused-loss both``): per
+step the host-clock
 time over 10 steps after 3 warmup steps, then ``torch.profiler`` over 3
 steps for the device time by kernel, grouped. The device busy share is
 the device time of a profiled step (the union of its kernels' device
@@ -10,6 +13,7 @@ intervals) over the host-clock time of an unprofiled one: the profiler's
 own host overhead stretches a profiled step.
 
     python -m vlm_clip_tpu_torch.cli.profile_m_step [--batch-size 96]
+        [--fused-loss off|on|both]
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -29,7 +33,13 @@ from collections import defaultdict
 # fwd is three (seqfwd_*) and K1 bwd five (seqbwd_*); the weight
 # gradients are wgrad_kernel (CUDA cores), wgrad_mma_kernel (bf16 tensor
 # cores), wgrad_tf32_kernel (compensated TF32) and split_sum_kernel,
-# which adds their row chunks.
+# which adds their row chunks. K4's backward is one cluster kernel
+# (contrastive_bwd_cluster_kernel) up to its batch limit, past it eight
+# (its forward's norm, gemm and lse kernels, then dz, two gemms,
+# norm_bwd, dls); its forward four (norm, gemm, lse, loss): their
+# demangled names carry no file name, so each is named (and the
+# backward's by its mangled length prefix too). K6 (pipeline T)
+# is one cluster kernel a direction.
 GROUPS = (
     ("K1 fwd", ("seq_adapter_fwd", "seqfwd_")),
     ("K1 bwd", ("seq_adapter_bwd", "seqbwd_")),
@@ -40,7 +50,13 @@ GROUPS = (
     ("K1-K3 bwd weight grads", ("wgrad_kernel", "wgrad_mma_kernel",
                                 "wgrad_tf32_kernel", "split_sum_kernel")),
     ("K1-K3 bwd column sums", "colsum_kernel"),
-    ("K4", "contrastive"),
+    ("K4 bwd", ("contrastive_bwd", "::dz_kernel", "::dls_kernel",
+                "::norm_bwd_kernel", "9dz_kernel", "10dls_kernel",
+                "15norm_bwd_kernel")),
+    ("K4 fwd", ("contrastive", "::norm_kernel", "::gemm_kernel",
+                "::lse_kernel", "::loss_kernel")),
+    ("K6 fwd", "feature_adapter_fwd"),
+    ("K6 bwd", "feature_adapter_bwd"),
     ("cuBLAS/cuDNN products", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
                                "nvjet")),
     ("softmax", "softmax"), ("reductions", "reduce"),
@@ -97,6 +113,10 @@ def profile(step, state, batch, n: int = 3):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch-size", type=int, default=96)
+    p.add_argument("--fused-loss", choices=("off", "on", "both"),
+                   default="off", help="the contrastive head through K4 "
+                   "(on), plain (off, the reference's default), or each "
+                   "in turn in this call (both)")
     args = p.parse_args(argv)
     import torch
 
@@ -129,12 +149,15 @@ def main(argv=None) -> None:
             generator=gen, device=dev).to(torch.bfloat16),
     }
     tx = optim.adam(3e-4)
-    for impl in ("auto", "torch", "auto", "torch"):
+    losses = {"off": (False,), "on": (True,),
+              "both": (False, True)}[args.fused_loss]
+    for impl, fused in [(i, f) for i in ("auto", "torch", "auto", "torch")
+                        for f in losses]:
         state = init_train_state(torch.Generator(device=dev).manual_seed(1),
                                  cfg, acfg, tx, clip_params=clip,
                                  device=dev)
         step = make_m_train_step(cfg, acfg, tx, FAST, freeze_clip=True,
-                                 impl=impl)
+                                 impl=impl, fused_loss=fused)
         for _ in range(3):
             state, m = step(state, batch)
         torch.cuda.synchronize()
@@ -144,7 +167,8 @@ def main(argv=None) -> None:
         float(m.loss)
         ms = (time.perf_counter() - t0) * 100
         state, dev_ms, launches, groups = profile(step, state, batch)
-        label = "kernels" if impl == "auto" else "plain versions"
+        label = ("kernels" if impl == "auto" else "plain versions") + (
+            f", K4 {'on' if fused else 'off'}" if len(losses) > 1 else "")
         print(f"\n{label}: step {ms:.2f} ms ({B * 1e3 / ms:.1f} pairs/s), "
               f"device time {dev_ms:.2f} ms a step, device busy "
               f"{100 * min(dev_ms / ms, 1.0):.1f}%, {launches:.0f} device "

@@ -6,7 +6,7 @@
 //
 //   o = softmax(q k^T * scale + mask) v   over [B, h, T, d] q, k, v
 //
-// for head widths d of 64 (every CLIP preset) and 128, each its own
+// for head widths d of 64 (every CLIP preset), 128 and 256, each its own
 // instantiation; the wrapper zero-pads a narrower head to the next of
 // them (zero columns add nothing to a score and give zero outputs).
 //
@@ -51,7 +51,14 @@
 // fp32 stays on the CUDA cores: one block of 256 threads per (batch, head,
 // 64 query rows), q, k and v in fp32 tiles, each thread a 4 x 4 tile of
 // the scores and a 4 x d/16 tile of the output, fp32 FMAs (q k^T computed
-// twice).
+// twice). It also takes bf16 heads of 129-256 columns (D = 256), which
+// the tensor-core kernel's registers do not hold: the bf16 operands are
+// widened as they are loaded (their products are exact in fp32), p is
+// rounded to bf16 after it is normalized and o once at the end, the
+// rounding points of the tensor-core kernel and of the TPU kernel. At D =
+// 256 a block takes 4 (64 257 + 64 257 + 64 256 + 64 65 + 128) = 214,272
+// bytes of shared memory, under the 232,448 a Hopper block may use; D =
+// 512 would take 410,880, so heads past 256 columns raise.
 //
 // Plain C interface, loaded with ctypes. The entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -64,19 +71,26 @@
 
 namespace {
 
-// Head widths D: 64 (every CLIP preset) and 128; the wrapper zero-pads a
-// narrower head to the next of them, which changes no score.
+// Head widths D: 64 (every CLIP preset), 128 and 256; the wrapper
+// zero-pads a narrower head to the next of them, which changes no score.
 constexpr int QT = 64;     // query rows per block
 constexpr int KC = 64;     // keys per chunk
 constexpr int NT = 256;    // threads per block
 constexpr int SLS = KC + 1;  // padded row of the fp32 score tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -446,11 +460,29 @@ __global__ void __launch_bounds__(MT_N, mma_blocks<D>())
   }
 }
 
+// bf16 heads up to 128 columns take the tensor-core kernel; fp32, and
+// bf16 at D = 256, the CUDA-core kernel.
 template <int D>
 size_t attention_smem(int bf16) {
-  if (bf16) return sizeof(vct::bf16) * (MQ + 4 * KC) * (D + 8);
+  if (bf16 && D <= 128) return sizeof(vct::bf16) * (MQ + 4 * KC) * (D + 8);
   return sizeof(float) *
          (QT * (D + 1) + KC * (D + 1) + KC * D + QT * SLS + 2 * QT);
+}
+
+template <typename T, int D>
+int attention_cuda_cores(const void* q, const void* k, const void* v,
+                         const float* m, long long mask_bstride, float scale,
+                         void* out, int b, int heads, int t, size_t smem,
+                         cudaStream_t st) {
+  const dim3 grid((t + QT - 1) / QT, heads, b);
+  auto kern = attention_fwd_kernel<T, D>;
+  int err;
+  if ((err = (int)cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
+                               mask_bstride, scale, (T*)out, heads, t);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -458,27 +490,27 @@ int attention_launch(int bf16, const void* q, const void* k, const void* v,
                      const float* m, long long mask_bstride, float scale,
                      void* out, int b, int heads, int t, cudaStream_t st) {
   const size_t smem = attention_smem<D>(bf16);
-  int err;
-  if (bf16) {
-    typedef vct::bf16 T;
-    const dim3 grid((t + MQ - 1) / MQ, heads, b);
-    auto kern = attention_mma_kernel<D>;
-    if ((err = (int)cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-      return err;
-    kern<<<grid, MT_N, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
-                                   mask_bstride, scale, (T*)out, heads, t);
-    return (int)cudaGetLastError();
+  if constexpr (D <= 128) {
+    if (bf16) {
+      typedef vct::bf16 T;
+      const dim3 grid((t + MQ - 1) / MQ, heads, b);
+      auto kern = attention_mma_kernel<D>;
+      int err;
+      if ((err = (int)cudaFuncSetAttribute(
+               kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+        return err;
+      kern<<<grid, MT_N, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                     m, mask_bstride, scale, (T*)out, heads,
+                                     t);
+      return (int)cudaGetLastError();
+    }
+  } else if (bf16) {
+    return attention_cuda_cores<vct::bf16, D>(q, k, v, m, mask_bstride,
+                                              scale, out, b, heads, t, smem,
+                                              st);
   }
-  const dim3 grid((t + QT - 1) / QT, heads, b);
-  auto kern = attention_fwd_kernel<float, D>;
-  if ((err = (int)cudaFuncSetAttribute(
-           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return err;
-  kern<<<grid, NT, smem, st>>>((const float*)q, (const float*)k,
-                               (const float*)v, m, mask_bstride, scale,
-                               (float*)out, heads, t);
-  return (int)cudaGetLastError();
+  return attention_cuda_cores<float, D>(q, k, v, m, mask_bstride, scale, out,
+                                        b, heads, t, smem, st);
 }
 
 }  // namespace
@@ -486,20 +518,24 @@ int attention_launch(int bf16, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Shared memory a block of the bf16 or the fp32 kernel takes at head width
-// d (64 or 128), in bytes.
+// d (64, 128 or 256), in bytes.
 size_t vct_attention_smem(int bf16, int d) {
-  return d <= 64 ? attention_smem<64>(bf16) : attention_smem<128>(bf16);
+  return d <= 64    ? attention_smem<64>(bf16)
+         : d <= 128 ? attention_smem<128>(bf16)
+                    : attention_smem<256>(bf16);
 }
 
 // q, k, v, out: [b, heads, t, d] contiguous in T (bf16 when bf16 != 0,
-// else fp32; bf16 heads 16-byte aligned), d 64 or 128; mask: fp32 [t, t]
-// rows at mask + batch * mask_bstride, or null.
+// else fp32; bf16 heads 16-byte aligned), d 64, 128 or 256; mask: fp32
+// [t, t] rows at mask + batch * mask_bstride, or null.
 int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
                       const void* mask, long long mask_bstride, float scale,
                       void* out, int b, int heads, int t, int d,
                       void* stream) {
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
-  auto launch = d == 64 ? attention_launch<64> : attention_launch<128>;
+  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  auto launch = d == 64    ? attention_launch<64>
+                : d == 128 ? attention_launch<128>
+                           : attention_launch<256>;
   return launch(bf16, q, k, v, (const float*)mask, mask_bstride, scale, out,
                 b, heads, t, (cudaStream_t)stream);
 }

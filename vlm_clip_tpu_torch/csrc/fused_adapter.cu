@@ -65,6 +65,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -2163,37 +2164,36 @@ __global__ void __launch_bounds__(NT)
 // (seed + tile * 1000003), all in wrapping uint32. threshold 0 means no
 // dropout (a keep probability above 0 gives a threshold of at least 1).
 //
-// Forward (first, simple version): pipeline T sees few rows (32 image
-// features, 7 class means, 35 descriptions; d = 768, k = 64), so one block
-// of 256 threads takes one row and keeps it in shared memory. W1 and W2
-// (196 KB each at d = 768, k = 64) stay in global memory, where the L2
-// keeps them for every block; each product reads them coalesced: x@W1 by
-// 32 columns of W1 per warp over an eighth of its rows, h@W2 by one
-// column per thread. What bounds it on the H100: at these row counts, the
-// latency of reading the weights from L2 and of the block reductions, not
-// the 0.1-2 MFLOP a row.
+// Both directions run as one launch of thread-block clusters. A call does
+// 0.1-6 MFLOP, so the tensor cores would not help; what set the first
+// versions' time (0.065 ms a forward call, 0.29 a backward one, on the
+// H100) was a block per row, each reading both weights from L2 through
+// chains of dependent loads, and the launches around it. A cluster of 8
+// blocks takes a group of rows; each block owns an eighth of d (x's, g's,
+// z's and y's columns, W1's rows, W2's columns), so each weight element
+// is read by one SM per group (its slices copied into shared memory first
+// where they fit beside the rows, every copy in flight at once), and it
+// adds the cluster's partial products and row sums through distributed
+// shared memory in rank order (cluster_sum). The forward half is one
+// device function, feat_cluster_forward, that both kernels run, so the
+// forward's y and the backward's recompute agree bit for bit.
 //
-// Backward: one launch of thread-block clusters (the section's last
-// kernel). A call does 1-6 MFLOP, so the tensor cores would not help; what
-// set the first version's 0.29 ms a call was a block per row, each
-// reading both weights from L2 through chains of dependent loads, and
-// nine launches (four fills, the row pass, two weight gradients, two
-// column sums). A cluster of 8 blocks takes a group of up to 64 rows;
-// each block owns an eighth of d (x's, g's and z's columns, W1's rows,
-// W2's columns), so each weight element is read by one SM per group (its
-// slices copied into shared memory first where they fit beside the rows,
-// every copy in flight at once), and it adds the cluster's partial
-// products and row sums through distributed shared memory in rank order.
-// The weight gradients come out of the same launch, each block summing
-// its slice over the group's rows in row order; past one group the
-// groups' partials go through colsum_kernel, in group order. No atomics:
-// the results repeat bit for bit. At pipeline T's 7-35 rows the loops
-// are latency-bound, so a block has 512 threads (16 warps, 4 a
-// scheduler) and the weight slices are copied with one 4-byte cp.async
-// an element, all in flight together.
+// Forward: feature_adapter_fwd_cluster_kernel writes y = z / |z| over the
+// block's slice. It has no reduction across rows, so its groups are as
+// small as fills the card (feat_fwd_rows: 8 rows a group at pipeline T's
+// 7-35 rows, five clusters at 35).
+//
+// Backward: feature_adapter_bwd_cluster_kernel (groups of up to 64 rows:
+// its weight gradients sum over a group's rows). The weight gradients
+// come out of the same launch, each block summing its slice over the
+// group's rows in row order; past one group the groups' partials go
+// through colsum_kernel, in group order. No atomics: the results repeat
+// bit for bit. At pipeline T's 7-35 rows the loops are latency-bound, so
+// a block has 512 threads (16 warps, 4 a scheduler) and the weight
+// slices are copied with one 4-byte cp.async an element, all in flight
+// together.
 
 constexpr unsigned FEAT_TILE = 256;  // the TPU kernel's ROW_TILE
-constexpr int NW = NT / 32;          // warps per block
 
 __device__ __forceinline__ float feat_dropout(int row, int col,
                                               unsigned seed,
@@ -2211,103 +2211,23 @@ __device__ __forceinline__ float feat_dropout(int row, int col,
   return h < threshold ? scale : 0.f;
 }
 
-// The sum of v over the block, added in the same order on every call.
-// red: NW floats of shared memory.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // red is free: every thread has read the last sum
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < NW; ++w) s += red[w];
-  return s;
-}
-
-// One row of K6's forward in shared memory: X [d] holds x (fp32); fills
-// P [k] = x@W1 + b1, H [k] = relu(P) * mask and Z [d] = r a + (1 - r) x
-// with a = H@W2 + b2, and returns 1 / |z|. part: NT floats.
-__device__ float feat_row_forward(const float* X, int row, int d, int k,
-                                  const float* __restrict__ w1,
-                                  const float* __restrict__ b1,
-                                  const float* __restrict__ w2,
-                                  const float* __restrict__ b2, float r,
-                                  unsigned seed, unsigned threshold,
-                                  float scale, float* P, float* H, float* Z,
-                                  float* part, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // pre = x@W1 + b1: warp w sums its eighth of the rows of W1 for 32
-  // columns at a time (lane = column), then the eight partial sums are
-  // added in warp order
-  const int per = (d + NW - 1) / NW;
-  const int c0 = warp * per, c1 = min(d, c0 + per);
-  for (int j0 = 0; j0 < k; j0 += 32) {
-    const int j = j0 + lane;
-    float s = 0.f;
-    if (j < k)
-      for (int c = c0; c < c1; ++c) s = fmaf(X[c], w1[(size_t)c * k + j], s);
-    part[warp * 32 + lane] = s;
-    __syncthreads();
-    if (warp == 0 && j < k) {
-      float t = 0.f;
-      for (int w = 0; w < NW; ++w) t += part[w * 32 + lane];
-      const float pre = t + b1[j];
-      float h = fmaxf(pre, 0.f);
-      if (threshold) h *= feat_dropout(row, j, seed, threshold, scale);
-      P[j] = pre;
-      H[j] = h;
-    }
-    __syncthreads();
-  }
-  // z = r (h@W2 + b2) + (1 - r) x, one column per thread
-  float ss = 0.f;
-  for (int c = threadIdx.x; c < d; c += NT) {
-    float a = 0.f;
-    for (int j = 0; j < k; ++j) a = fmaf(H[j], w2[(size_t)j * d + c], a);
-    const float z = r * (a + b2[c]) + (1.f - r) * X[c];
-    Z[c] = z;
-    ss += z * z;
-  }
-  return rsqrtf(block_sum(ss, red));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    feature_adapter_fwd_kernel(const T* __restrict__ x,
-                               const float* __restrict__ w1,
-                               const float* __restrict__ b1,
-                               const float* __restrict__ w2,
-                               const float* __restrict__ b2, float r,
-                               unsigned seed, unsigned threshold, float scale,
-                               T* __restrict__ y, int n, int d, int k) {
-  extern __shared__ float smem[];
-  float* X = smem;       // [d]
-  float* Z = X + d;      // [d]
-  float* P = Z + d;      // [k]
-  float* H = P + k;      // [k]
-  float* DH = H + k;     // [k] (unused here; the backward's)
-  float* part = DH + k;  // [NT]
-  float* red = part + NT;  // [NW]
-  const int row = blockIdx.x;
-  const T* xr = x + (size_t)row * d;
-  for (int c = threadIdx.x; c < d; c += NT) X[c] = to_f(xr[c]);
-  __syncthreads();
-  const float inv = feat_row_forward(X, row, d, k, w1, b1, w2, b2, r, seed,
-                                     threshold, scale, P, H, Z, part, red);
-  // each thread reads back only the Z it wrote
-  for (int c = threadIdx.x; c < d; c += NT)
-    y[(size_t)row * d + c] = from_f<T>(Z[c] * inv);
-}
-
-// --- K6 backward: one launch of 8-block thread-block clusters ------------
+// --- K6: one launch of 8-block thread-block clusters --------------------
 
 constexpr int FEAT_CLUSTER = 8;  // blocks a cluster: each owns 1/8 of d
 constexpr int FRT = 8;           // rows of a thread's register tile
 constexpr int FEAT_RMAX = 64;    // rows a group, at most
 constexpr int FNT = 512;         // threads a block: 16 warps
 
+// The rank-order sum over a K6 cluster (vct::cluster_sum).
+__device__ __forceinline__ float feat_sum(
+    const cooperative_groups::cluster_group& cluster, float* buf, int at) {
+  return vct::cluster_sum<FEAT_CLUSTER>(cluster, buf, at);
+}
+
 // store(e, load(e)) for e < count over the block's threads, eight loads
-// in flight a thread before their stores.
+// in flight a thread before their stores: every load is issued (an e past
+// count loads element count - 1; load clamps its addresses and zero-fills
+// by a select), since a load behind a branch waits for the one before.
 template <class Load, class Store>
 __device__ __forceinline__ void stage(int count, const Load& load,
                                       const Store& store) {
@@ -2315,44 +2235,91 @@ __device__ __forceinline__ void stage(int count, const Load& load,
   for (int e0 = threadIdx.x; e0 < count; e0 += B * FNT) {
     float v[B];
 #pragma unroll
-    for (int b = 0; b < B; ++b)
-      v[b] = e0 + b * FNT < count ? load(e0 + b * FNT) : 0.f;
+    for (int b = 0; b < B; ++b) v[b] = load(min(e0 + b * FNT, count - 1));
 #pragma unroll
     for (int b = 0; b < B; ++b)
       if (e0 + b * FNT < count) store(e0 + b * FNT, v[b]);
   }
 }
 
-// The sum over the cluster's blocks, in rank order, of the float at
-// offset `at` of each block's copy of the shared buffer `buf`.
-__device__ __forceinline__ float cluster_sum(
-    const cooperative_groups::cluster_group& cluster, float* buf, int at) {
-  float s = cluster.map_shared_rank(buf, 0)[at];
+// acc[i] = the sum over t in [t0, t1) of R[(r0 + i) * ldr + t] w[t * wt]
+// for i < FRT, 4 steps of the depth at a time, R read 16 bytes at a time
+// (R's rows finite and 0 from depth up to a multiple of 4, so w's last row
+// stands in for the rows past depth and every load is issued).
+__device__ __forceinline__ void range_dot(const float* R, int ldr, int r0,
+                                          const float* w, int wt, int t0,
+                                          int t1, int depth,
+                                          float (&acc)[FRT]) {
 #pragma unroll
-  for (int q = 1; q < FEAT_CLUSTER; ++q)
-    s += cluster.map_shared_rank(buf, q)[at];
-  return s;
+  for (int i = 0; i < FRT; ++i) acc[i] = 0.f;
+  for (int t = t0; t < t1; t += 4) {
+    float wv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wv[q] = w[min(t + q, depth - 1) * wt];
+#pragma unroll
+    for (int i = 0; i < FRT; ++i) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(R + (r0 + i) * ldr + t);
+      acc[i] = fmaf(v.x, wv[0], acc[i]);
+      acc[i] = fmaf(v.y, wv[1], acc[i]);
+      acc[i] = fmaf(v.z, wv[2], acc[i]);
+      acc[i] = fmaf(v.w, wv[3], acc[i]);
+    }
+  }
 }
 
-// The products of the cluster backward, out(r, col) = sum over t < depth
+// The products of the cluster kernels, out(r, col) = sum over t < depth
 // of R[r * ldr + t] W[col * wc + t * wt] for the rows of nrb tiles of FRT
-// and col < ncol, handed to epi(r, col, out) (every row of the tiles; R's
-// rows finite and 0 from depth up to a multiple of 4): a thread takes a
-// column and a tile of rows, R read 16 bytes at a time.
+// and col < ncol, handed to epi(r, col, out) (every row of the tiles; R as
+// range_dot takes it). The depth is cut into S ranges (4-aligned, in
+// order), S = FNT / ncol, at most 8, at least 1, and a sum is its ranges'
+// sums added in range order. S comes from the columns alone, never the
+// group's rows, so a product's sums take one order at every group size,
+// and the forward kernel and the backward's recompute give the same bits.
+// Where the columns, tiles and ranges fit the block's threads (few rows,
+// as in the forward on pipeline T) a thread takes one of each and the
+// ranges' partials go through part ([S][nrb FRT][ncol], at most FNT FRT
+// floats); else a thread takes a column and a tile and sums its ranges in
+// turn, each from zero, into the total (the same additions, no barrier).
 template <class Epi>
 __device__ __forceinline__ void rows_product(const float* R, int ldr,
                                              int nrb, int depth,
                                              const float* W, int ncol,
-                                             int wc, int wt, const Epi& epi) {
-  for (int u = threadIdx.x; u < ncol * nrb; u += FNT) {
+                                             int wc, int wt, float* part,
+                                             const Epi& epi) {
+  const int S = max(1, min(8, FNT / max(ncol, 1)));
+  const int span = ((depth + S - 1) / S + 3) & ~3;
+  const int tiles = ncol * nrb;
+  float acc[FRT];
+  if (S > 1 && tiles * S <= FNT) {
+    const int u = threadIdx.x;
+    if (u < tiles * S) {  // int offsets: d k < 2^31
+      const int col = u % ncol, r0 = (u / ncol) % nrb * FRT, sr = u / tiles;
+      range_dot(R, ldr, r0, W + col * wc, wt, sr * span,
+                min(depth, sr * span + span), depth, acc);
+#pragma unroll
+      for (int i = 0; i < FRT; ++i)
+        part[(sr * nrb * FRT + r0 + i) * ncol + col] = acc[i];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < nrb * FRT * ncol; e += FNT) {
+      float v = part[e];
+      for (int sr = 1; sr < S; ++sr) v += part[sr * nrb * FRT * ncol + e];
+      epi(e / ncol, e % ncol, v);
+    }
+    return;
+  }
+  for (int u = threadIdx.x; u < tiles; u += FNT) {
     const int col = u % ncol, r0 = u / ncol * FRT;
-    const float* w = W + col * wc;  // int offsets: d k < 2^31
-    float acc[FRT] = {};
+    const float* w = W + col * wc;
+    float tot[FRT];
+#pragma unroll
+    for (int i = 0; i < FRT; ++i) acc[i] = 0.f;
+    int sr = 0, stop = min(depth, span);  // the running range, its end
     for (int t = 0; t < depth; t += 4) {
       float wv[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        wv[q] = t + q < depth ? w[(t + q) * wt] : 0.f;
+      for (int q = 0; q < 4; ++q) wv[q] = w[min(t + q, depth - 1) * wt];
 #pragma unroll
       for (int i = 0; i < FRT; ++i) {
         const float4 v =
@@ -2362,9 +2329,21 @@ __device__ __forceinline__ void rows_product(const float* R, int ldr,
         acc[i] = fmaf(v.z, wv[2], acc[i]);
         acc[i] = fmaf(v.w, wv[3], acc[i]);
       }
-    }
+      if (t + 4 >= stop) {  // the range ends: into the total, from zero
 #pragma unroll
-    for (int i = 0; i < FRT; ++i) epi(r0 + i, col, acc[i]);
+        for (int i = 0; i < FRT; ++i) {
+          tot[i] = sr ? tot[i] + acc[i] : acc[i];
+          acc[i] = 0.f;
+        }
+        ++sr;
+        stop = min(depth, stop + span);
+      }
+    }
+    for (; sr < S; ++sr)  // the ranges past the depth: zeros, as above
+#pragma unroll
+      for (int i = 0; i < FRT; ++i) tot[i] = sr ? tot[i] + 0.f : 0.f;
+#pragma unroll
+    for (int i = 0; i < FRT; ++i) epi(r0 + i, col, tot[i]);
   }
 }
 
@@ -2375,25 +2354,187 @@ inline size_t feat_grads(int d, int k) {
 
 // Shared memory of a cluster block: for groups of `rows` rows the x and
 // z / dz slices [rows][dsp], the partial product and h / dh [rows][kp]
-// and the row partials and statistics [rows][2] each; with `resident`
-// weights also W1's rows [ds][k | 1] and W2's columns [k][ds | 1] of the
-// slice (odd row strides: a warp reading a column of either, one row a
-// lane, hits 32 banks).
-inline size_t feat_bwd_smem(int rows, int d, int k, bool resident) {
+// and the row partials and statistics [rows][2] each; the products'
+// depth-range partials [FNT FRT]; with `resident` weights also W1's rows
+// [ds][k | 1] and W2's columns [k][ds | 1] of the slice (odd row strides:
+// a warp reading a column of either, one row a lane, hits 32 banks).
+inline size_t feat_smem(int rows, int d, int k, bool resident) {
   const int ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
   const int dsp = (ds + 3) & ~3, kp = (k + 3) & ~3;
   return sizeof(float) *
-         ((size_t)rows * (2 * dsp + 2 * kp + 4) +
+         ((size_t)rows * (2 * dsp + 2 * kp + 4) + (size_t)FNT * FRT +
           (resident ? (size_t)ds * (k | 1) + (size_t)k * (ds | 1) : 0));
 }
 
-// K6's gradients for the rows [grp * rows, ...) of cluster grp (blockIdx.x
-// / 8), written to grads + grp * gstride (the gradients themselves with
-// one group, a group's partials with more); dx when not null. Block rank
-// q owns columns [q ds, q ds + ds) of d (ds = ceil(d / 8); the last ones
-// may own fewer, or none). rows: a multiple of FRT. resident: the block's
-// weight slices are copied into shared memory first (else read in place,
-// through L1).
+// A cluster block's share of K6: block rank q of cluster grp (blockIdx.x
+// / 8) owns columns [q ds, q ds + ds) of d (ds = ceil(d / 8); the last
+// ones may own fewer, or none) for the group's rows [grp * rows, ...)
+// (rows: a multiple of FRT), and lays out its shared memory as feat_smem
+// says. The weight slices: W1(c, j) = W1s[c * ld1 + j] and W2(j, c) =
+// W2s[j * ld2 + c] for c < dsz, j < k, in shared memory once
+// feat_cluster_forward has copied them there (resident), else in place.
+struct FeatBlock {
+  int ds, dsp, kp, c0, dsz, row0, nr, nrb, ld1, ld2;
+  float *X, *Z, *A, *H, *RS, *ST, *P;
+  const float *W1s, *W2s;
+  __device__ FeatBlock(float* fsm, int rank, int grp, int rows, int n,
+                       int d, int k, const float* w1, const float* w2) {
+    ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
+    dsp = (ds + 3) & ~3;
+    kp = (k + 3) & ~3;
+    c0 = rank * ds;
+    dsz = max(0, min(ds, d - c0));
+    row0 = grp * rows;
+    nr = min(rows, n - row0);
+    nrb = (nr + FRT - 1) / FRT;  // register tiles of rows
+    X = fsm;                 // [rows][dsp] x's slice
+    Z = X + rows * dsp;      // [rows][dsp] z's slice (the backward: then dz)
+    A = Z + rows * dsp;      // [rows][kp] the block's partial product
+    H = A + rows * kp;       // [rows][kp] h (the backward: then dh)
+    RS = H + rows * kp;      // [rows][2] partial sums of z^2 (and g z)
+    ST = RS + 2 * rows;      // [rows][2] 1 / |z| (and <g, y>)
+    P = ST + 2 * rows;       // [FNT FRT] the products' range partials
+    W1s = w1 + (size_t)c0 * k;
+    W2s = w2 + c0;
+    ld1 = k;
+    ld2 = d;
+  }
+};
+
+// K6's forward for a cluster block's share (both kernels run it, so they
+// round alike): copies the weight slices when resident and x's slice;
+// A = x_slice W1[slice, :]; h = relu(the ranks' partials in rank order +
+// b1) * mask over the group's rows (0 past them and past k; the mask keyed
+// by the global row); z's slice = r (h W2[:, slice] + b2) + (1 - r) x; and
+// per row ST[2 r] = 1 / |z| from the ranks' sums of z^2 in rank order,
+// rsqrt with no eps as the TPU kernel's. With WITH_G also ST[2 r + 1] =
+// <g, y>, from the sums of g z taken beside them. Every block calls it,
+// whatever its share (a block with no columns, a group with fewer rows
+// than its tiles): it holds two cluster.sync() that all must reach. The
+// caller keeps the cluster together (cluster.sync()) before a block may
+// leave: the others read its A and RS.
+template <typename T, bool WITH_G>
+__device__ __forceinline__ void feat_cluster_forward(
+    const cooperative_groups::cluster_group& cluster, FeatBlock& b,
+    const T* __restrict__ x, const float* __restrict__ b1,
+    const float* __restrict__ b2, float r, unsigned seed, unsigned threshold,
+    float scale, const T* __restrict__ g, int rows, int resident, int d,
+    int k) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float *X = b.X, *Z = b.Z, *A = b.A, *H = b.H, *RS = b.RS, *ST = b.ST;
+  const int dsp = b.dsp, kp = b.kp, ds = b.ds, dsz = b.dsz, c0 = b.c0;
+  const int row0 = b.row0, nr = b.nr, nrb = b.nrb;
+  if (resident) {  // every copy in flight at once (cp.async, 4 bytes); a
+                   // warp a row of either slice, no division
+    float* s1 = b.P + FNT * FRT;
+    float* s2 = s1 + ds * (k | 1);
+    const float *w1s = b.W1s, *w2s = b.W2s;
+    for (int c = warp; c < dsz; c += FNT / 32)
+      for (int j = lane; j < k; j += 32)
+        vct::cp_async4(s1 + c * (k | 1) + j, w1s + (size_t)c * k + j);
+    for (int j = warp; j < k; j += FNT / 32)
+      for (int c = lane; c < dsz; c += 32)
+        vct::cp_async4(s2 + j * (ds | 1) + c, w2s + (size_t)j * d + c);
+    vct::cp_async_commit();
+    b.W1s = s1;
+    b.W2s = s2;
+    b.ld1 = k | 1;
+    b.ld2 = ds | 1;
+  }
+  // x's slice; rows past the group and padding columns 0 (the loads
+  // clamped into x, then selected)
+  const int n_last = row0 + nr - 1;
+  stage(rows * dsp,
+        [=](int e) {
+          const int rr = e / dsp, c = e % dsp;
+          const float v = to_f(x[(size_t)min(row0 + rr, n_last) * d +
+                                 min(c0 + c, d - 1)]);
+          return rr < nr && c < dsz ? v : 0.f;
+        },
+        [=](int e, float v) {
+          X[e] = v;
+          Z[e] = 0.f;
+        });
+  vct::cp_async_wait<0>();
+  __syncthreads();
+  // 1. A = x_slice W1[slice, :]
+  rows_product(X, dsp, nrb, dsz, b.W1s, k, 1, b.ld1, b.P,
+               [=](int rr, int j, float v) { A[rr * kp + j] = v; });
+  cluster.sync();
+  // pre = the ranks' partials in rank order + b1; h = relu(pre) * mask
+  // (0 past the group's rows and k)
+  for (int e = tid; e < nrb * FRT * kp; e += FNT) {
+    const int rr = e / kp, j = e % kp;
+    float v = 0.f;
+    if (rr < nr && j < k) {
+      v = fmaxf(feat_sum(cluster, A, e) + b1[j], 0.f);
+      if (threshold) v *= feat_dropout(row0 + rr, j, seed, threshold, scale);
+    }
+    H[e] = v;
+  }
+  __syncthreads();
+  // 2. z = r (h W2[:, slice] + b2) + (1 - r) x
+  rows_product(H, kp, nrb, k, b.W2s, dsz, 1, b.ld2, b.P,
+               [=](int rr, int c, float v) {
+                 const int at = rr * dsp + c;
+                 Z[at] = r * (v + b2[c0 + c]) + (1.f - r) * X[at];
+               });
+  __syncthreads();
+  // the slice's sums of z^2 (and g z), one warp a row
+  for (int rr = warp; rr < nr; rr += FNT / 32) {
+    float ss = 0.f, gz = 0.f;
+    for (int c = lane; c < dsz; c += 32) {
+      const float zv = Z[rr * dsp + c];
+      ss = fmaf(zv, zv, ss);
+      if (WITH_G)
+        gz = fmaf(to_f(g[(size_t)(row0 + rr) * d + c0 + c]), zv, gz);
+    }
+    ss = warp_sum(ss);
+    if (WITH_G) gz = warp_sum(gz);
+    if (lane == 0) {
+      RS[2 * rr] = ss;
+      RS[2 * rr + 1] = gz;
+    }
+  }
+  cluster.sync();
+  if (tid < nr) {  // the row's sums over d, in rank order
+    const float inv = rsqrtf(feat_sum(cluster, RS, 2 * tid));
+    ST[2 * tid] = inv;
+    if (WITH_G) ST[2 * tid + 1] = feat_sum(cluster, RS, 2 * tid + 1) * inv;
+  }
+  __syncthreads();
+}
+
+// K6's forward for the rows [grp * rows, ...) of cluster grp: y = z / |z|
+// over the block's slice (the share and layout of FeatBlock).
+template <typename T>
+__global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
+    feature_adapter_fwd_cluster_kernel(
+        const T* __restrict__ x, const float* __restrict__ w1,
+        const float* __restrict__ b1, const float* __restrict__ w2,
+        const float* __restrict__ b2, float r, unsigned seed,
+        unsigned threshold, float scale, T* __restrict__ y, int rows,
+        int resident, int n, int d, int k) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float fsm[];
+  FeatBlock b(fsm, (int)cluster.block_rank(), blockIdx.x / FEAT_CLUSTER,
+              rows, n, d, k, w1, w2);
+  feat_cluster_forward<T, false>(cluster, b, x, b1, b2, r, seed, threshold,
+                                 scale, (const T*)nullptr, rows, resident, d,
+                                 k);
+  for (int e = threadIdx.x; e < b.nr * b.dsz; e += FNT) {
+    const int rr = e / b.dsz, c = e % b.dsz;
+    y[(size_t)(b.row0 + rr) * d + b.c0 + c] =
+        from_f<T>(b.Z[rr * b.dsp + c] * b.ST[2 * rr]);
+  }
+  cluster.sync();  // no block leaves while the cluster may read its RS
+}
+
+// K6's gradients for the rows [grp * rows, ...) of cluster grp, written
+// to grads + grp * gstride (the gradients themselves with one group, a
+// group's partials with more); dx when not null (the share and layout of
+// FeatBlock).
 template <typename T>
 __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
     feature_adapter_bwd_cluster_kernel(
@@ -2407,97 +2548,16 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float fsm[];
   const int rank = (int)cluster.block_rank(), grp = blockIdx.x / FEAT_CLUSTER;
-  const int ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
-  const int dsp = (ds + 3) & ~3, kp = (k + 3) & ~3;
-  const int c0 = rank * ds, dsz = max(0, min(ds, d - c0));
-  const int row0 = grp * rows, nr = min(rows, n - row0);
-  const int nrb = (nr + FRT - 1) / FRT;  // register tiles of rows
-  float* X = fsm;                 // [rows][dsp] x's slice
-  float* Z = X + rows * dsp;      // [rows][dsp] z's slice, then dz's
-  float* A = Z + rows * dsp;      // [rows][kp] the block's partial product
-  float* H = A + rows * kp;       // [rows][kp] h, then dh
-  float* RS = H + rows * kp;      // [rows][2] partial sums of z^2 and g z
-  float* ST = RS + 2 * rows;      // [rows][2] 1 / |z| and <g, y>
+  FeatBlock b(fsm, rank, grp, rows, n, d, k, w1, w2);
+  feat_cluster_forward<T, true>(cluster, b, x, b1, b2, r, seed, threshold,
+                                scale, g, rows, resident, d, k);
+  const int dsp = b.dsp, kp = b.kp, c0 = b.c0, dsz = b.dsz;
+  const int row0 = b.row0, nr = b.nr, nrb = b.nrb;
+  float *X = b.X, *Z = b.Z, *A = b.A, *H = b.H, *ST = b.ST;
+  const float *W1s = b.W1s, *W2s = b.W2s;
+  const int ld1 = b.ld1, ld2 = b.ld2;
   float* gout = grads + (size_t)grp * gstride;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the weight slices: W1(c, j) = W1s[c * ld1 + j] and W2(j, c) = W2s[j *
-  // ld2 + c] for c < dsz, j < k (generic loads: shared or global memory)
-  const float* W1s = w1 + (size_t)c0 * k;
-  const float* W2s = w2 + c0;
-  int ld1 = k, ld2 = d;
-  if (resident) {  // every copy in flight at once (cp.async, 4 bytes)
-    float* s1 = ST + 2 * rows;
-    float* s2 = s1 + ds * (k | 1);
-    for (int e = tid; e < dsz * k; e += FNT)
-      vct::cp_async4(s1 + (e / k) * (k | 1) + e % k, W1s + e);
-    for (int e = tid; e < k * dsz; e += FNT)
-      vct::cp_async4(s2 + (e / dsz) * (ds | 1) + e % dsz,
-                     W2s + (size_t)(e / dsz) * d + e % dsz);
-    vct::cp_async_commit();
-    W1s = s1;
-    W2s = s2;
-    ld1 = k | 1;
-    ld2 = ds | 1;
-  }
-  // x's slice; rows past the group and padding columns 0
-  stage(rows * dsp,
-        [=](int e) {
-          const int rr = e / dsp, c = e % dsp;
-          return rr < nr && c < dsz
-                     ? to_f(x[(size_t)(row0 + rr) * d + c0 + c]) : 0.f;
-        },
-        [=](int e, float v) {
-          X[e] = v;
-          Z[e] = 0.f;
-        });
-  vct::cp_async_wait<0>();
-  __syncthreads();
-  // 1. A = x_slice W1[slice, :]
-  rows_product(X, dsp, nrb, dsz, W1s, k, 1, ld1,
-               [=](int rr, int j, float v) { A[rr * kp + j] = v; });
-  cluster.sync();
-  // pre = the ranks' partials in rank order + b1; h = relu(pre) * mask
-  // (0 past the group's rows and k)
-  for (int e = tid; e < nrb * FRT * kp; e += FNT) {
-    const int rr = e / kp, j = e % kp;
-    float v = 0.f;
-    if (rr < nr && j < k) {
-      v = fmaxf(cluster_sum(cluster, A, e) + b1[j], 0.f);
-      if (threshold) v *= feat_dropout(row0 + rr, j, seed, threshold, scale);
-    }
-    H[e] = v;
-  }
-  __syncthreads();
-  // 2. z = r (h W2[:, slice] + b2) + (1 - r) x
-  rows_product(H, kp, nrb, k, W2s, dsz, 1, ld2,
-               [=](int rr, int c, float v) {
-                 const int at = rr * dsp + c;
-                 Z[at] = r * (v + b2[c0 + c]) + (1.f - r) * X[at];
-               });
-  __syncthreads();
-  // the slice's sums of z^2 and g z, one warp a row
-  for (int rr = warp; rr < nr; rr += FNT / 32) {
-    const T* gr = g + (size_t)(row0 + rr) * d + c0;
-    float ss = 0.f, gz = 0.f;
-    for (int c = lane; c < dsz; c += 32) {
-      const float zv = Z[rr * dsp + c];
-      ss = fmaf(zv, zv, ss);
-      gz = fmaf(to_f(gr[c]), zv, gz);
-    }
-    ss = warp_sum(ss);
-    gz = warp_sum(gz);
-    if (lane == 0) {
-      RS[2 * rr] = ss;
-      RS[2 * rr + 1] = gz;
-    }
-  }
-  cluster.sync();
-  if (tid < nr) {  // the row's sums over d, in rank order
-    const float inv = rsqrtf(cluster_sum(cluster, RS, 2 * tid));
-    ST[2 * tid] = inv;
-    ST[2 * tid + 1] = cluster_sum(cluster, RS, 2 * tid + 1) * inv;
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
   // dz = (g - y <g, y>) / |z| over z
   for (int e = tid; e < nr * dsz; e += FNT) {
     const int rr = e / dsz, c = e % dsz;
@@ -2508,7 +2568,7 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
   }
   __syncthreads();
   // 3. A = da_slice W2[:, slice]^T = r (dz_slice W2[:, slice]^T)
-  rows_product(Z, dsp, nrb, dsz, W2s, k, ld2, 1,
+  rows_product(Z, dsp, nrb, dsz, W2s, k, ld2, 1, b.P,
                [=](int rr, int j, float v) { A[rr * kp + j] = r * v; });
   // dW2[:, slice] = h^T da = r (h^T dz) (a thread: row j, 4 columns),
   // db2[slice] = r (the sum of dz), over the group's rows in order
@@ -2539,7 +2599,7 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
   // (h > 0 exactly where pre > 0 and the mask keeps the element)
   for (int e = tid; e < nr * k; e += FNT) {
     const int at = (e / k) * kp + e % k;
-    float s = cluster_sum(cluster, A, at);
+    float s = feat_sum(cluster, A, at);
     if (threshold) s *= feat_dropout(row0 + e / k, e % k, seed, threshold,
                                      scale);
     H[at] = H[at] > 0.f ? s : 0.f;
@@ -2571,7 +2631,7 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
     }
   // 4. dx = (1 - r) dz + dh W1[slice, :]^T
   if (dx != nullptr)
-    rows_product(H, kp, nrb, k, W1s, dsz, ld1, 1,
+    rows_product(H, kp, nrb, k, W1s, dsz, ld1, 1, b.P,
                  [=](int rr, int c, float v) {
                    if (rr < nr)
                      dx[(size_t)(row0 + rr) * d + c0 + c] =
@@ -3016,7 +3076,6 @@ int cab_fwd_launch(const void* x, const void* wt, const void* bt,
   return (int)cudaGetLastError();
 }
 
-
 }  // namespace
 
 extern "C" int vct_wgrad_tf32(int a_bf16, const void* a, int lda, int sa,
@@ -3111,6 +3170,13 @@ int seqbwd_launch(const void* x, const void* w1, const void* b1,
 // every row of x, W1, W2, h and z copies in 16-byte chunks.
 bool seq_tc(int h, int k) { return h % 8 == 0 && k % 4 == 0; }
 
+// The widths K3 runs on the bf16 tensor cores, forward and backward: every
+// row of x, W1, W2, um, hm and dpm copies in 16-byte chunks. At the others
+// (and in fp32) it runs its CUDA-core kernels, prenorm_mlp_fwd_kernel and
+// prenorm_mlp_bwd_kernel, which compute the same function (ops.
+// fused_adapter.prenorm_mlp_tensor_cores is this gate in Python).
+bool pnmlp_tc(int h, int k) { return h % 8 == 0 && k % 8 == 0; }
+
 // K1 forward on the TF32 tensor cores: ws holds h [n, k] and z [n, h].
 template <typename TX>
 int seqfwd_launch(const void* x, const void* w1, const void* b1,
@@ -3138,6 +3204,73 @@ int seqfwd_launch(const void* x, const void* w1, const void* b1,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" size_t vct_prenorm_mlp_smem(int h);
+extern "C" size_t vct_prenorm_mlp_bwd_smem(int h);
+
+namespace {
+
+// The CUDA-core kernel: fp32, and bf16 at the widths pnmlp_tc refuses
+// (bf16 on its gate takes vct_prenorm_mlp_fwd_bf16).
+template <typename T>
+int pnmlp_fwd_launch(const void* x, const void* w1, const void* b1,
+                     const void* w2, const void* b2, const void* ls,
+                     const void* lb, float eps, void* y, int n, int h, int k,
+                     cudaStream_t st) {
+  const size_t smem = vct_prenorm_mlp_smem(h);
+  auto kern = prenorm_mlp_fwd_kernel<T>;
+  int err;
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<grid_for(n), NT, smem, st>>>(
+      (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
+      (const float*)b2, (const float*)ls, (const float*)lb, eps, (T*)y, n, h,
+      k);
+  return (int)cudaGetLastError();
+}
+
+// The CUDA-core row pass: fp32, and bf16 at the widths pnmlp_tc refuses
+// (bf16 on its gate takes vct_prenorm_mlp_bwd_bf16).
+template <typename T>
+int pnmlp_bwd_launch(const void* x, const void* w1, const void* b1,
+                     const void* w2, const void* ls, const void* lb,
+                     const void* g, float eps, void* dx, void* um_out,
+                     void* hm_out, void* dpm_out, void* part, int n, int h,
+                     int k, cudaStream_t st) {
+  const size_t smem = vct_prenorm_mlp_bwd_smem(h);
+  auto kern = prenorm_mlp_bwd_kernel<T>;
+  int err;
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<grid_for(n), NT, smem, st>>>(
+      (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
+      (const float*)ls, (const float*)lb, (const T*)g, eps, (T*)dx,
+      (T*)um_out, (T*)hm_out, (T*)dpm_out, (float*)part, n, h, k);
+  return (int)cudaGetLastError();
+}
+// K2 backward's CUDA-core row pass at R = rows rows a block (R2 or R2 / 2).
+template <typename T>
+int cab_bwd_launch(const void* x, const void* wt, const void* bt,
+                   const void* ls, const void* lb, const void* wq,
+                   const void* bq, const void* k, const void* v,
+                   const void* wo, const void* g, float eps, float scale,
+                   void* dx, void* um_out, void* qm_out, void* om_out,
+                   void* dom_out, void* pm_out, void* dsm_out, void* dqm_out,
+                   void* dtm_out, void* part, int n, int din, int h,
+                   int heads, int tk, int rows, size_t smem,
+                   cudaStream_t st) {
+  auto kern = rows == R2 ? cross_attn_block_bwd_kernel<T, R2>
+                         : cross_attn_block_bwd_kernel<T, R2 / 2>;
+  int err;
+  if ((err = allow_smem(kern, smem))) return err;
+  kern<<<dim3((n + rows - 1) / rows), NT, smem, st>>>(
+      (const T*)x, (const T*)wt, (const float*)bt, (const float*)ls,
+      (const float*)lb, (const T*)wq, (const float*)bq, (const T*)k,
+      (const T*)v, (const T*)wo, (const T*)g, eps, scale, (T*)dx,
+      (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
+      (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, heads,
+      tk);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 extern "C" {
@@ -3194,22 +3327,17 @@ int vct_seq_adapter_fwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// fp32 only (the CUDA-core kernel); bf16 takes vct_prenorm_mlp_fwd_bf16.
+// K3 forward on the CUDA cores (pnmlp_fwd_launch).
 int vct_prenorm_mlp_fwd(int bf16, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* b2,
                         const void* ls, const void* lb, float eps, void* y,
                         int n, int h, int k, void* stream) {
-  if (bf16) return (int)cudaErrorInvalidValue;
-  const size_t smem = vct_prenorm_mlp_smem(h);
-  typedef float T;
-  auto kern = prenorm_mlp_fwd_kernel<T>;
-  int err;
-  if ((err = allow_smem(kern, smem))) return err;
-  kern<<<grid_for(n), NT, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)b2, (const float*)ls, (const float*)lb, eps, (T*)y, n, h,
-      k);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16 && pnmlp_tc(h, k)) return (int)cudaErrorInvalidValue;
+  return bf16 ? pnmlp_fwd_launch<__nv_bfloat16>(x, w1, b1, w2, b2, ls, lb,
+                                                eps, y, n, h, k, st)
+              : pnmlp_fwd_launch<float>(x, w1, b1, w2, b2, ls, lb, eps, y, n,
+                                        h, k, st);
 }
 
 size_t vct_seq_adapter_bwd_smem(int h, int k) {
@@ -3265,27 +3393,25 @@ int vct_seq_adapter_bwd(int bf16, const void* x, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// fp32 only (the CUDA-core row pass); bf16 takes vct_prenorm_mlp_bwd_bf16.
+// K3 backward's CUDA-core row pass (pnmlp_bwd_launch).
 int vct_prenorm_mlp_bwd(int bf16, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* ls,
                         const void* lb, const void* g, float eps, void* dx,
                         void* um_out, void* hm_out, void* dpm_out,
                         void* part, int n, int h, int k, void* stream) {
-  if (bf16) return (int)cudaErrorInvalidValue;
-  const size_t smem = vct_prenorm_mlp_bwd_smem(h);
-  typedef float T;
-  auto kern = prenorm_mlp_bwd_kernel<T>;
-  int err;
-  if ((err = allow_smem(kern, smem))) return err;
-  kern<<<grid_for(n), NT, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)ls, (const float*)lb, (const T*)g, eps, (T*)dx,
-      (T*)um_out, (T*)hm_out, (T*)dpm_out, (float*)part, n, h, k);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16 && pnmlp_tc(h, k)) return (int)cudaErrorInvalidValue;
+  return bf16 ? pnmlp_bwd_launch<__nv_bfloat16>(
+                    x, w1, b1, w2, ls, lb, g, eps, dx, um_out, hm_out,
+                    dpm_out, part, n, h, k, st)
+              : pnmlp_bwd_launch<float>(x, w1, b1, w2, ls, lb, g, eps, dx,
+                                        um_out, hm_out, dpm_out, part, n, h,
+                                        k, st);
 }
 
-// fp32 only (the CUDA-core row pass); bf16 takes
-// vct_cross_attn_block_bwd_bf16.
+// K2 backward's CUDA-core row pass: fp32, and bf16 at head widths its
+// tensor-core passes do not take (cab_tc_ok; bf16 on the gate takes
+// vct_cross_attn_block_bwd_bf16). Every intermediate out in T.
 int vct_cross_attn_block_bwd(int bf16, const void* x, const void* wt,
                              const void* bt, const void* ls, const void* lb,
                              const void* wq, const void* bq, const void* k,
@@ -3295,29 +3421,21 @@ int vct_cross_attn_block_bwd(int bf16, const void* x, const void* wt,
                              void* pm_out, void* dsm_out, void* dqm_out,
                              void* dtm_out, void* part, int n, int din,
                              int h, int heads, int tk, void* stream) {
-  if (bf16) return (int)cudaErrorInvalidValue;
   const size_t smem = vct_cross_attn_block_bwd_smem(din, h);
   const int rows = vct_cross_attn_block_bwd_rows(din, h);
-  typedef float T;
-  auto kern = rows == R2 ? cross_attn_block_bwd_kernel<T, R2>
-                         : cross_attn_block_bwd_kernel<T, R2 / 2>;
-  int err;
-  if ((err = allow_smem(kern, smem))) return err;
-  kern<<<dim3((n + rows - 1) / rows), NT, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)wt, (const float*)bt, (const float*)ls,
-      (const float*)lb, (const T*)wq, (const float*)bq, (const T*)k,
-      (const T*)v, (const T*)wo, (const T*)g, eps, scale, (T*)dx,
-      (T*)um_out, (T*)qm_out, (T*)om_out, (T*)dom_out, (T*)pm_out,
-      (T*)dsm_out, (T*)dqm_out, (T*)dtm_out, (float*)part, n, din, h, heads,
-      tk);
-  return (int)cudaGetLastError();
+  auto launch = bf16 ? cab_bwd_launch<__nv_bfloat16> : cab_bwd_launch<float>;
+  return launch(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, eps, scale, dx,
+                um_out, qm_out, om_out, dom_out, pm_out, dsm_out, dqm_out,
+                dtm_out, part, n, din, h, heads, tk, rows, smem,
+                (cudaStream_t)stream);
 }
 
 // A and B each float (0) or bf16 (1); bf16 A with fp32 B is K1's x^T dpre.
 // bf16 x bf16 runs on the tensor cores over 128 x 128 output tiles (grid
-// ceil(q / 128) x ceil(p / 128) x z * splits; a and b 16-byte aligned,
-// lda, ldb, sa, sb, p and q multiples of 8, else cudaErrorMisalignedAddress),
-// the rest on the CUDA cores over 64 x 64 tiles.
+// ceil(q / 128) x ceil(p / 128) x z * splits) where every row copies in
+// 16-byte chunks (a and b 16-byte aligned; lda, ldb, sa, sb, p and q
+// multiples of 8; ops/fused_adapter.py _bf16_tc_route makes the same
+// choice), the rest on the CUDA cores over 64 x 64 tiles.
 // With splits > 1, `work` holds splits * out_numel floats of partials
 // (out_numel: the floats of out the products cover) and split_sum_kernel
 // writes out; with splits == 1 the blocks write out directly.
@@ -3331,6 +3449,9 @@ int vct_wgrad(int a_bf16, int b_bf16, const void* a, int lda, int sa,
   float* o = splits > 1 ? (float*)work : (float*)out;
   const size_t stride = splits > 1 ? out_numel : 0;
   typedef __nv_bfloat16 H;
+  const bool vec = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+                   lda % 8 == 0 && ldb % 8 == 0 && sa % 8 == 0 &&
+                   sb % 8 == 0 && p % 8 == 0 && q % 8 == 0;
   if (!a_bf16 && !b_bf16)
     wgrad_kernel<float, float><<<grid, NT, 0, st>>>(
         (const float*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p,
@@ -3339,13 +3460,13 @@ int vct_wgrad(int a_bf16, int b_bf16, const void* a, int lda, int sa,
     wgrad_kernel<H, float><<<grid, NT, 0, st>>>(
         (const H*)a, lda, sa, (const float*)b, ldb, sb, o, ldo, so, n, p, q,
         z, chunk, stride);
+  else if (a_bf16 && b_bf16 && !vec)
+    wgrad_kernel<H, H><<<grid, NT, 0, st>>>(
+        (const H*)a, lda, sa, (const H*)b, ldb, sb, o, ldo, so, n, p, q, z,
+        chunk, stride);
   else if (a_bf16 && b_bf16) {
     // the tensor cores, over 128 x 128 tiles, in 16-byte copies
     const dim3 tgrid((q + TC - 1) / TC, (p + TC - 1) / TC, z * splits);
-    const bool vec = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
-                     lda % 8 == 0 && ldb % 8 == 0 && sa % 8 == 0 &&
-                     sb % 8 == 0 && p % 8 == 0 && q % 8 == 0;
-    if (!vec) return (int)cudaErrorMisalignedAddress;
     int err;
     if ((err = allow_smem(wgrad_mma_kernel, GemmTN::SMEM_BYTES))) return err;
     wgrad_mma_kernel<<<tgrid, GemmTN::THREADS, GemmTN::SMEM_BYTES, st>>>(
@@ -3451,7 +3572,7 @@ int vct_prenorm_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
                              void* dw2, void* vec, void* act, void* scratch,
                              int splits, int n, int h, int k, void* stream) {
   typedef vct::bf16 T;
-  if (h % 8 || k % 8) return (int)cudaErrorInvalidValue;
+  if (!pnmlp_tc(h, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int row_tiles = (n + TC - 1) / TC;
   const int ln_tiles = (n + LN_ROWS - 1) / LN_ROWS;
@@ -3488,8 +3609,8 @@ int vct_prenorm_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
   if ((err = vct_wgrad(1, 1, um, h, 0, dpm, k, 0, dw1, k, 0, n, h, k, 1,
                        splits, work, (size_t)h * k, stream)))
     return err;
-  if ((err = vct_wgrad(1, 1, hm, k, 0, g, h, 0, dw2, h, 0, n, k, h, 1, splits,
-                       work, (size_t)h * k, stream)))
+  if ((err = vct_wgrad(1, 1, hm, k, 0, g, h, 0, dw2, h, 0, n, k, h, 1,
+                       splits, work, (size_t)h * k, stream)))
     return err;
   if ((err = vct_colsum(part_hidden, row_tiles, k, vec, stream))) return err;
   return vct_colsum(part_ln, ln_tiles, 3 * h, (float*)vec + k, stream);
@@ -3507,7 +3628,7 @@ int vct_prenorm_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
                              const void* lb, float eps, void* y, void* ws,
                              int n, int h, int k, void* stream) {
   typedef vct::bf16 T;
-  if (h % 8 || k % 8) return (int)cudaErrorInvalidValue;
+  if (!pnmlp_tc(h, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int row_tiles = (n + TC - 1) / TC;
   T* um = (T*)ws;
@@ -3824,50 +3945,74 @@ int vct_cross_attn_block_bwd_bf16(
   return vct_colsum(w.part_q, row_tiles, h, vec + 4 * (size_t)h, stream);
 }
 
-// K6 forward: one block per row.
-size_t vct_feature_adapter_smem(int d, int k) {
-  return sizeof(float) * (2 * (size_t)d + 3 * (size_t)k + NT + NW);
+// Rows a group of K6's cluster kernels takes (a multiple of FRT, at most
+// FEAT_RMAX) from `want` rows, and whether each block keeps its weight
+// slices in shared memory: it does where they fit beside those rows, else
+// it takes the most rows that fit without them (FRT rows fit at every
+// width the wrapper takes, d <= 4096 and k <= 1024: 98 KB).
+static int feat_rows(int want, int d, int k, bool* resident) {
+  int rows = (want + FRT - 1) / FRT * FRT;
+  if (rows > FEAT_RMAX) rows = FEAT_RMAX;
+  *resident = feat_smem(rows, d, k, true) <= SMEM_MAX;
+  while (!*resident && rows > FRT && feat_smem(rows, d, k, false) > SMEM_MAX)
+    rows -= FRT;
+  return rows;
 }
 
+// The backward's groups: up to FEAT_RMAX rows, since it sums its weight
+// gradients over a group's rows in the launch and over the groups in one
+// more launch.
+static int feat_bwd_rows(int n, int d, int k, bool* resident) {
+  return feat_rows(n, d, k, resident);
+}
+
+// The forward's groups: it sums nothing across rows, so a group takes the
+// fewest rows that keep the clusters within one wave of the card
+// (FEAT_WAVE clusters of 8 blocks, 128 of its 132 SMs): FRT rows a group
+// up to 128 rows (pipeline T's 7-35 rows: one to five clusters, every
+// cluster's rows one register tile), more rows a group past that.
+constexpr int FEAT_WAVE = 16;
+static int feat_fwd_rows(int n, int d, int k, bool* resident) {
+  const int tiles = (n + FRT - 1) / FRT;
+  return feat_rows(FRT * ((tiles + FEAT_WAVE - 1) / FEAT_WAVE), d, k,
+                   resident);
+}
+
+// K6 forward: y [n, d] in T, one launch of 8-block clusters, a cluster
+// per group of feat_fwd_rows rows.
 int vct_feature_adapter_fwd(int bf16, const void* x, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             float r, unsigned seed, unsigned threshold,
                             float scale, void* y, int n, int d, int k,
                             void* stream) {
-  const size_t smem = vct_feature_adapter_smem(d, k);
+  bool resident;
+  const int rows = feat_fwd_rows(n, d, k, &resident);
+  const int groups = (n + rows - 1) / rows;
+  const size_t smem = feat_smem(rows, d, k, resident);
   cudaStream_t st = (cudaStream_t)stream;
   const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
               *fw2 = (const float*)w2, *fb2 = (const float*)b2;
   int err;
   if (bf16) {
     typedef __nv_bfloat16 T;
-    auto kern = feature_adapter_fwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
-                              threshold, scale, (T*)y, n, d, k);
+    if ((err = vct::cluster_ready<feature_adapter_fwd_cluster_kernel<T>,
+                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
+      return err;
+    feature_adapter_fwd_cluster_kernel<T>
+        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
+            (T*)y, rows, (int)resident, n, d, k);
   } else {
     typedef float T;
-    auto kern = feature_adapter_fwd_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<n, NT, smem, st>>>((const T*)x, fw1, fb1, fw2, fb2, r, seed,
-                              threshold, scale, (T*)y, n, d, k);
+    if ((err = vct::cluster_ready<feature_adapter_fwd_cluster_kernel<T>,
+                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
+      return err;
+    feature_adapter_fwd_cluster_kernel<T>
+        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
+            (T*)y, rows, (int)resident, n, d, k);
   }
   return (int)cudaGetLastError();
-}
-
-// Rows a group of K6's cluster backward (a multiple of FRT, at most
-// FEAT_RMAX and n rounded up) and whether each block keeps its weight
-// slices in shared memory: it does where they fit beside those rows,
-// else it takes the most rows that fit without them (FRT rows fit at
-// every width the wrapper takes, d <= 4096 and k <= 1024: 98 KB).
-static int feat_bwd_rows(int n, int d, int k, bool* resident) {
-  int rows = (n + FRT - 1) / FRT * FRT;
-  if (rows > FEAT_RMAX) rows = FEAT_RMAX;
-  *resident = feat_bwd_smem(rows, d, k, true) <= SMEM_MAX;
-  while (!*resident && rows > FRT &&
-         feat_bwd_smem(rows, d, k, false) > SMEM_MAX)
-    rows -= FRT;
-  return rows;
 }
 
 // Bytes of scratch vct_feature_adapter_bwd needs: the groups' partial
@@ -3892,7 +4037,7 @@ int vct_feature_adapter_bwd(int bf16, const void* x, const void* w1,
   bool resident;
   const int rows = feat_bwd_rows(n, d, k, &resident);
   const int groups = (n + rows - 1) / rows;
-  const size_t smem = feat_bwd_smem(rows, d, k, resident);
+  const size_t smem = feat_smem(rows, d, k, resident);
   const size_t v = feat_grads(d, k);
   cudaStream_t st = (cudaStream_t)stream;
   const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
@@ -3901,18 +4046,22 @@ int vct_feature_adapter_bwd(int bf16, const void* x, const void* w1,
   int err;
   if (bf16) {
     typedef __nv_bfloat16 T;
-    auto kern = feature_adapter_bwd_cluster_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
-        (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
-        (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
+    if ((err = vct::cluster_ready<feature_adapter_bwd_cluster_kernel<T>,
+                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
+      return err;
+    feature_adapter_bwd_cluster_kernel<T>
+        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
+            (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
   } else {
     typedef float T;
-    auto kern = feature_adapter_bwd_cluster_kernel<T>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
-        (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
-        (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
+    if ((err = vct::cluster_ready<feature_adapter_bwd_cluster_kernel<T>,
+                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
+      return err;
+    feature_adapter_bwd_cluster_kernel<T>
+        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
+            (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
   }
   if ((err = (int)cudaGetLastError()) || groups == 1) return err;
   return vct_colsum(ws, groups, (int)v, grads, stream);

@@ -8,17 +8,20 @@ the caller's ``stable_dtype``), p rounded to v's dtype after it is
 normalized, ``p v`` accumulated in fp32, the output in q's dtype. On a
 CUDA tensor it launches the kernel written by hand for Hopper in
 ``vlm_clip_tpu_torch/csrc/attention.cu`` (replaces ``_attn_kernel_nomask``
-:59 and ``_attn_kernel_mask`` :63; heads up to 128 wide): in bf16 on the tensor
-cores, two passes over 64-key chunks (row max and sum, then p rounded
-after it is normalized, times v); in fp32 on the CUDA cores. On a CPU
+:59 and ``_attn_kernel_mask`` :63; heads up to 256 wide): in bf16 with
+heads up to 128 wide on the tensor cores, two passes over 64-key chunks
+(row max and sum, then p rounded after it is normalized, times v); in
+fp32, and in bf16 with heads of 129-256 columns, on the CUDA cores with
+the same passes and rounding points. On a CPU
 tensor it takes :func:`fused_attention_torch` (the reference's
 ``_xla_attention``).
 
 Masks: none, ``[T, T]`` or ``[B|1, 1, T, T]`` (:func:`supports`); a
 batch-broadcast ``[1, 1, T, T]`` mask is expanded to B before the kernel
-reads it. The kernels take heads of 64 and 128 columns; a narrower head
-runs zero-padded to the next of them (which changes no score), a head
-wider than 128 raises on a CUDA tensor. The backward is the
+reads it. The kernels take heads of 64, 128 and 256 columns; a narrower
+head runs zero-padded to the next of them (which changes no score), a
+head wider than 256 raises on a CUDA tensor (its fp32 tiles would not fit
+a block's shared memory). The backward is the
 reference's plain recompute (:func:`fused_attention_bwd_torch`,
 attention.py:160-189) inside a ``torch.autograd.Function``, mask
 cotangent included: the reference has no backward kernel, so the port
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 
 from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
-HEAD_DIMS = (64, 128)  # the kernels' head widths (every CLIP preset: 64)
+HEAD_DIMS = (64, 128, 256)  # the kernels' head widths (every CLIP preset: 64)
 
 
 def kernel_width(d: int) -> int:

@@ -12,9 +12,13 @@ hand in CUDA C++ for Hopper in ``vlm_clip_tpu_torch/csrc/contrastive.cu``
     d_txt, d_img through the norm; d_logit_scale = sum(dZ * Z)
 
 All math in fp32 on the inputs widened to fp32. The TPU version holds
-the batch in one block and hands batches above 1024 to XLA; here the
-logits live in device memory, so the kernels take every batch size and
-nothing switches to the plain version on the card. :func:`
+the batch in one block and hands batches above 1024 to XLA. Here the
+backward is one launch of an 8-block thread-block cluster for every
+batch whose rows fit its blocks' shared memory
+(:func:`bwd_cluster_max`: B <= 128 at D = 512), the logits kept on the
+chip; past that, and in the forward, the logits live in device memory
+and each pass is its own kernel. So the kernels take every batch size
+and nothing switches to the plain version on the card. :func:`
 contrastive_loss_fused` launches the kernels for CUDA tensors (through a
 ``torch.autograd.Function`` that saves only its inputs when a gradient
 is needed) and takes :func:`contrastive_loss_torch` only for CPU
@@ -25,11 +29,12 @@ tensors. Launches are counted in ``contrastive_loss_fused.launches``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from vlm_clip_tpu_torch.ops.build import load_library
+from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 from vlm_clip_tpu_torch.ops.fused_adapter import _needs_grad, _on_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -44,6 +49,8 @@ def _lib() -> ctypes.CDLL:
         lib.vct_contrastive_bwd.restype = _I
         lib.vct_contrastive_work.argtypes = [_I, _I]
         lib.vct_contrastive_work.restype = ctypes.c_size_t
+        lib.vct_contrastive_bwd_cluster_max.argtypes = [_I]
+        lib.vct_contrastive_bwd_cluster_max.restype = _I
         lib._typed = True
     return lib
 
@@ -116,20 +123,38 @@ def _fwd_launch(txt, img, logit_scale):
     return loss
 
 
+@functools.lru_cache(maxsize=64)
+def bwd_cluster_max(d: int) -> int:
+    """The largest batch K4's backward takes in one cluster launch at
+    width d (computed by the library from its shared memory, once a
+    width; 0 unless d is a multiple of 8); larger batches take the
+    multi-kernel route."""
+    return _lib().vct_contrastive_bwd_cluster_max(d)
+
+
+def _scalar_f32(t):
+    """A one-float fp32 tensor for the kernel to read: t itself when it
+    is one already (a parameter's scalar, autograd's cotangent)."""
+    if t.dtype == torch.float32 and t.numel() == 1 and t.is_contiguous():
+        return t
+    return t.float().reshape(1).contiguous()
+
+
 def contrastive_loss_bwd_cuda(txt, img, logit_scale, g):
     """Backward kernel of K4: same results as
-    :func:`contrastive_loss_bwd_torch`, for CUDA tensors."""
+    :func:`contrastive_loss_bwd_torch`, for CUDA tensors. One C call;
+    within :func:`bwd_cluster_max` one cluster launch and only dt, dm and
+    dls allocated, past it the multi-kernel route with its workspace."""
     B, D = txt.shape
-    txt, img = txt.contiguous(), img.contiguous()
-    ls = logit_scale.float().reshape(1).contiguous()
-    gf = g.float().reshape(1).contiguous()
+    txt, img = aligned16(txt), aligned16(img)  # the cluster's 16-byte loads
+    ls, gf = _scalar_f32(logit_scale), _scalar_f32(g)
     dt, dm = torch.empty_like(txt), torch.empty_like(img)
     dls = torch.empty((), dtype=torch.float32, device=txt.device)
-    work = _work(txt)
+    work = None if B <= bwd_cluster_max(D) else _work(txt)
     _launch("contrastive_loss_bwd", _lib().vct_contrastive_bwd, txt,
             txt.data_ptr(), img.data_ptr(), ls.data_ptr(), gf.data_ptr(),
-            work.data_ptr(), dt.data_ptr(), dm.data_ptr(), dls.data_ptr(),
-            B, D)
+            None if work is None else work.data_ptr(), dt.data_ptr(),
+            dm.data_ptr(), dls.data_ptr(), B, D)
     contrastive_loss_bwd_cuda.launches += 1
     return dt, dm, dls.to(logit_scale.dtype)
 

@@ -25,14 +25,15 @@ fused path takes (any widths, at most MAX_SHARED_KV shared K/V rows:
 route a longer K/V to the plain version under ``impl="auto"``, as the
 reference does). A wrapper raises on a CUDA tensor whose shapes its
 kernels do not take. In bf16, K3 and K2 (forward and backward) run on
-the tensor cores, each as a few passes behind one C call (K2's forward
-keeps its CUDA-core kernel at head widths the passes do not take:
-:func:`cross_attn_block_tensor_cores`). K1 (fp32 math in both dtypes,
-forward and backward) runs its products as error-compensated TF32 on
-the tensor cores (split big + small, three passes, two where the operand
-is a bf16 x) at the widths :func:`seq_adapter_tensor_cores` admits, and
-so do the fp32 weight gradients of the others (:func:`_wgrad`). K6's
-backward is one launch of thread-block clusters. On CUDA, a call that
+the tensor cores, each as a few passes behind one C call, at the widths
+:func:`prenorm_mlp_tensor_cores` and :func:`cross_attn_block_tensor_cores`
+admit, and on the CUDA-core kernels that fp32 takes at the others. K1
+(fp32 math in both dtypes, forward and backward) runs its products as
+error-compensated TF32 on the tensor cores (split big + small, three
+passes, two where the operand is a bf16 x) at the widths
+:func:`seq_adapter_tensor_cores` admits, and so do the fp32 weight
+gradients of the others (:func:`_wgrad`). K6, forward and backward, is
+one launch of thread-block clusters each. On CUDA, a call that
 needs a gradient goes through a
 ``torch.autograd.Function`` whose forward launches the forward kernel and
 saves only the inputs (as the TPU rules do), and whose backward launches
@@ -54,6 +55,7 @@ counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -115,7 +117,6 @@ def _lib() -> ctypes.CDLL:
         lib.vct_seq_adapter_bwd_smem.argtypes = [_I, _I]
         lib.vct_prenorm_mlp_bwd_smem.argtypes = [_I]
         lib.vct_cross_attn_block_bwd_smem.argtypes = [_I, _I]
-        lib.vct_feature_adapter_smem.argtypes = [_I, _I]
         lib.vct_cross_attn_block_bwd_rows.argtypes = [_I, _I]
         lib.vct_cross_attn_block_bwd_rows.restype = _I
         lib.vct_prenorm_mlp_fwd_bf16_ws.argtypes = [_I] * 3
@@ -129,7 +130,6 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_seq_adapter_bwd_smem,
                    lib.vct_prenorm_mlp_bwd_smem,
                    lib.vct_cross_attn_block_bwd_smem,
-                   lib.vct_feature_adapter_smem,
                    lib.vct_prenorm_mlp_fwd_bf16_ws,
                    lib.vct_seq_adapter_bwd_tf32_ws,
                    lib.vct_seq_adapter_fwd_ws,
@@ -482,18 +482,29 @@ def _tf32_route(a, b, p, q, lda, sa, ldb, sb) -> bool:
             and all(v % 4 == 0 for v in (ldb, sb, q)))
 
 
+def _bf16_tc_route(a, b, p, q, lda, sa, ldb, sb) -> bool:
+    """Whether a weight gradient with two bf16 operands takes the bf16
+    tensor cores: every row of both operands copies in 16-byte chunks
+    (8 elements) from a 16-byte aligned start, and p and q are multiples
+    of 8. vct_wgrad makes the same choice in C."""
+    return (a.dtype == b.dtype == torch.bfloat16
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and all(v % 8 == 0 for v in (lda, sa, ldb, sb, p, q)))
+
+
 def _wgrad(a, b, out, p, q, *, lda=None, sa=0, ldb=None, sb=0, ldo=None,
            so=0, z=1):
     """out[z*so + i*ldo + j] = sum_r a[r, z*sa + i] * b[r, z*sb + j] for
     i < p, j < q: a weight gradient summed over every row, in fp32. Two
-    bf16 operands take the bf16 tensor cores (128 x 128 output tiles;
-    16-byte aligned, strides, offsets and widths multiples of 8); an fp32
-    b whose rows copy in 16-byte chunks (:func:`_tf32_route`) the
-    error-compensated TF32 tensor cores (128 x 64 tiles: three passes,
-    two with a bf16 a); the others the CUDA cores (64 x 64)."""
+    bf16 operands whose rows copy in 16-byte chunks
+    (:func:`_bf16_tc_route`) take the bf16 tensor cores (128 x 128 output
+    tiles); an fp32 b whose rows copy in 16-byte chunks
+    (:func:`_tf32_route`) the error-compensated TF32 tensor cores (128 x
+    64 tiles: three passes, two with a bf16 a); the others the CUDA cores
+    (64 x 64)."""
     n = a.shape[0]
     lda, ldb = lda or a.shape[1], ldb or b.shape[1]
-    bf16 = a.dtype == b.dtype == torch.bfloat16
+    bf16 = _bf16_tc_route(a, b, p, q, lda, sa, ldb, sb)
     tf32 = not bf16 and _tf32_route(a, b, p, q, lda, sa, ldb, sb)
     if bf16:
         splits = _tc_splits(n, -(-p // 128) * -(-q // 128) * z)
@@ -672,6 +683,14 @@ def seq_adapter_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
 
 # --- K3: pre-norm MLP ------------------------------------------------------
 
+def prenorm_mlp_tensor_cores(h: int, k: int) -> bool:
+    """K3 in bf16 runs on the tensor cores, forward and backward, where
+    every row copies in 16-byte chunks (h and k multiples of 8), else on
+    the CUDA cores (``prenorm_mlp_fwd_kernel``, ``prenorm_mlp_bwd_kernel``,
+    which fp32 takes at every width): both compute the same function."""
+    return h % 8 == 0 and k % 8 == 0
+
+
 def _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
     name = "prenorm_mlp_fused"
     N, H = x.shape
@@ -680,7 +699,7 @@ def _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
     w1, w2 = _as(w1, x.dtype), _as(w2, x.dtype)
     b1, b2, ls, lb = (_as(t, torch.float32) for t in (b1, b2, ls, lb))
     y = torch.empty_like(x)
-    if N and x.dtype == torch.bfloat16:
+    if N and x.dtype == torch.bfloat16 and prenorm_mlp_tensor_cores(H, K):
         # the tensor-core passes, one call: LN, the hidden product with
         # its GELU epilogue, the output product with the residual; um and
         # hm in one scratch buffer
@@ -707,10 +726,12 @@ def _pnmlp_fwd_launch(x, w1, b1, w2, b2, ls, lb, eps):
 def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
                          need_dx: bool = True):
     """Backward kernel of K3: same results as
-    :func:`prenorm_mlp_bwd_torch`, for CUDA tensors. bf16 runs on the
-    tensor cores (LN forward, the dual product with its GELU epilogue,
-    du = dpm W1^T, the LN backward, then the weight gradients), fp32 on the
-    CUDA cores (one row pass); both then sum their ordered partials."""
+    :func:`prenorm_mlp_bwd_torch`, for CUDA tensors. bf16 at the widths of
+    :func:`prenorm_mlp_tensor_cores` runs on the tensor cores (LN forward,
+    the dual product with its GELU epilogue, du = dpm W1^T, the LN
+    backward, then the weight gradients), fp32 and the other bf16 widths
+    on the CUDA cores (one row pass, then CUDA-core weight gradients);
+    both then sum their ordered partials."""
     name = "prenorm_mlp_bwd"
     N, H = x.shape
     K = w1.shape[1]
@@ -724,7 +745,7 @@ def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
     alloc = torch.empty if N else torch.zeros  # the kernels write every
     dw1, dw2 = alloc(H, K, **f32), alloc(K, H, **f32)  # element
     vec = alloc(K + 3 * H, **f32)
-    if N and mm == torch.bfloat16:
+    if N and mm == torch.bfloat16 and prenorm_mlp_tensor_cores(H, K):
         # the tensor-core passes, one call: bf16 um, hm, dpm and fp32 du,
         # LN stats, db1 partials per 128-row tile, [db2 | dls | dlb]
         # partials per 32-row tile and the weight gradients' row chunks
@@ -786,11 +807,6 @@ def prenorm_mlp_fused(x, w1, b1, w2, b2, ls, lb, eps: float = 1e-5):
     if not _on_cuda(x, name):
         return prenorm_mlp_torch(x, *params, eps)
     _check_inputs(name, x, params)
-    H, K = x.shape[1], w1.shape[1]
-    if x.dtype == torch.bfloat16 and (H % 8 or K % 8):
-        raise ValueError(f"{name}: the bf16 kernels (tensor cores, 16-byte "
-                         f"rows) need H and K multiples of 8; got H {H}, "
-                         f"K {K}")
     if _needs_grad(x, *params):
         return _PrenormMlpFn.apply(x, *params, eps)
     return _pnmlp_fwd_launch(x, *params, eps)
@@ -802,8 +818,10 @@ def cross_attn_block_tensor_cores(h: int, heads: int) -> bool:
     """K2 in bf16 runs on the tensor cores, forward and backward, where
     its heads are a multiple of 8 columns, at most 128 (the attention
     pass zero-fills a head to 64 or 128 columns); the text width is
-    zero-padded to a multiple of 8 there. The bf16 forward runs its
-    CUDA-core kernel at other widths; the bf16 backward has none."""
+    zero-padded to a multiple of 8 there. At other head widths the bf16
+    forward and backward run the CUDA-core kernels fp32 takes at every
+    width (``cross_attn_block_fwd_kernel``, ``cross_attn_block_bwd_kernel``
+    and CUDA-core weight gradients)."""
     hd = h // heads
     return hd % 8 == 0 and hd <= 128
 
@@ -898,26 +916,17 @@ def _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads, eps,
             dk.view(tkp, H)[:Tk], dv.view(tkp, H)[:Tk], dwo.view(H, H), dbo)
 
 
-def _cab_bwd_bf16_refusal(H: int, heads: int):
-    """Why the bf16 backward cannot take these widths, or None: its
-    tensor-core attention pass takes heads of a multiple of 8 columns, at
-    most 128 (:func:`cross_attn_block_tensor_cores`)."""
-    if not cross_attn_block_tensor_cores(H, heads):
-        return (f"the bf16 backward (tensor cores) needs heads of a "
-                f"multiple of 8 columns, at most 128; got H {H}, heads "
-                f"{heads}")
-    return None
-
-
 def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
                               heads: int, eps: float = 1e-5,
                               need_dx: bool = True):
     """Backward kernel of K2: same results as
     :func:`cross_attn_block_bwd_torch` (dk, dv [Tk, H]), for CUDA
-    tensors. bf16 runs on the tensor cores (the products t, q, dom, du and
-    dx, the LN passes, one attention pass per row tile and head, then the
-    weight gradients), fp32 on the CUDA cores (one row pass); both then
-    sum their ordered partials."""
+    tensors. bf16 at the widths of :func:`cross_attn_block_tensor_cores`
+    runs on the tensor cores (the products t, q, dom, du and dx, the LN
+    passes, one attention pass per row tile and head, then the weight
+    gradients), fp32 and the other bf16 head widths on the CUDA cores (one
+    row pass, with every intermediate in x's dtype, then CUDA-core weight
+    gradients); both then sum their ordered partials."""
     name = "cross_attn_block_bwd"
     N, Din = x.shape
     H, Tk = wt.shape[1], k.shape[0]
@@ -927,10 +936,7 @@ def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
     g = _as(g, mm)
     wt, wq, wo, k, v = (_as(t, mm) for t in (wt, wq, wo, k, v))
     bt, ls, lb, bq = (_as(t, torch.float32) for t in (bt, ls, lb, bq))
-    if N and mm == torch.bfloat16:
-        why = _cab_bwd_bf16_refusal(H, heads)
-        if why:
-            raise ValueError(f"{name}: {why}")
+    if N and mm == torch.bfloat16 and cross_attn_block_tensor_cores(H, heads):
         out = _cab_bwd_bf16(x, wt, bt, ls, lb, wq, bq, k, v, wo, g, heads,
                             eps, need_dx)
         cross_attn_block_bwd_cuda.launches += 1
@@ -958,6 +964,7 @@ def cross_attn_block_bwd_cuda(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo, g,
                 qm.data_ptr(), om.data_ptr(), dom.data_ptr(), pm.data_ptr(),
                 dsm.data_ptr(), dqm.data_ptr(), dtm.data_ptr(),
                 part.data_ptr(), N, Din, H, heads, Tk)
+        # the CUDA cores: bf16 heads here need not copy in 16-byte rows
         _wgrad(om, g, dwo, H, H)
         # per head (z): dv_h = pm_h^T dom_h, dk_h = dsm_h^T qm_h
         _wgrad(pm, dom, dv, Tk, hd, sa=Tk, sb=hd, so=hd, z=heads)
@@ -1011,10 +1018,6 @@ def cross_attn_block_fused(x, wt, bt, ls, lb, wq, bq, k, v, wo, bo,
         raise ValueError(f"{name}: the kernel takes 0 < Tk <= "
                          f"{MAX_SHARED_KV} shared K/V rows; got Tk {Tk}")
     if _needs_grad(x, *params):
-        why = _cab_bwd_bf16_refusal(H, heads) \
-            if x.dtype == torch.bfloat16 else None
-        if why:  # refused before the forward, not in the middle of a step
-            raise ValueError(f"{name}: {why}")
         return _CrossAttnBlockFn.apply(x, *params, heads, eps)
     return _cab_fwd_launch(x, *params, heads, eps)
 
@@ -1029,17 +1032,33 @@ def _feat_args(ratio, dropout, seed):
             threshold, scale)
 
 
+def _f32(t):
+    """t as a contiguous fp32 tensor: itself when it is one already (the
+    weights of the T path are), so the wrapper makes no copy or call."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def _feat_bwd_ws(n: int, d: int, k: int) -> int:
+    """Bytes of scratch K6's backward needs at these shapes (0 within one
+    group of rows), asked of the library once a shape."""
+    return _lib().vct_feature_adapter_bwd_ws(n, d, k)
+
+
 def _feat_fwd_launch(x, w1, b1, w2, b2, ratio, dropout, seed):
+    """K6's forward: one launch of 8-block clusters (a cluster per group
+    of rows, each block an eighth of D), one C call; only y is
+    allocated."""
     name = "feature_adapter_blend_fused"
     N, D = x.shape
     K = w1.shape[1]
-    x = x.contiguous()
-    w1, b1, w2, b2 = (_as(t, torch.float32) for t in (w1, b1, w2, b2))
+    x = x if x.is_contiguous() else x.contiguous()
+    w1, b1, w2, b2 = _f32(w1), _f32(b1), _f32(w2), _f32(b2)
     y = torch.empty_like(x)
     if N:
-        lib = _lib()
-        _launch(name, lib.vct_feature_adapter_fwd,
-                lib.vct_feature_adapter_smem(D, K), x, x.data_ptr(),
+        _launch(name, _lib().vct_feature_adapter_fwd, None, x, x.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 *_feat_args(ratio, dropout, seed), y.data_ptr(), N, D, K)
         feature_adapter_blend_fused.launches += 1
@@ -1058,21 +1077,21 @@ def feature_adapter_blend_bwd_cuda(x, w1, b1, w2, b2, ratio: float, g,
     name = "feature_adapter_blend_bwd"
     N, D = x.shape
     K = w1.shape[1]
-    x = x.contiguous()
-    g = _as(g, x.dtype)
-    w1, b1, w2, b2 = (_as(t, torch.float32) for t in (w1, b1, w2, b2))
+    x = x if x.is_contiguous() else x.contiguous()
+    g = g if g.dtype == x.dtype and g.is_contiguous() else _as(g, x.dtype)
+    w1, b1, w2, b2 = _f32(w1), _f32(b1), _f32(w2), _f32(b2)
     dx = torch.empty_like(x) if need_dx else None
     alloc = torch.empty if N else torch.zeros  # the kernel writes all
     flat = alloc(2 * D * K + K + D, dtype=torch.float32, device=x.device)
     if N:
-        lib = _lib()
-        ws = torch.empty(lib.vct_feature_adapter_bwd_ws(N, D, K),
-                         dtype=torch.uint8, device=x.device)
-        _launch(name, lib.vct_feature_adapter_bwd, None, x, x.data_ptr(),
+        nws = _feat_bwd_ws(N, D, K)  # past one group of rows only
+        ws = torch.empty(nws, dtype=torch.uint8, device=x.device) \
+            if nws else None
+        _launch(name, _lib().vct_feature_adapter_bwd, None, x, x.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 *_feat_args(ratio, dropout, seed), g.data_ptr(),
                 None if dx is None else dx.data_ptr(), flat.data_ptr(),
-                ws.data_ptr(), N, D, K)
+                None if ws is None else ws.data_ptr(), N, D, K)
         feature_adapter_blend_bwd_cuda.launches += 1
     dw1, db1, dw2, db2 = flat.split([D * K, K, K * D, D])
     return dx, dw1.view(D, K), db1, dw2.view(K, D), db2
