@@ -27,7 +27,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    bound of its fp32 products at the CUDA cores' peak), and the bf16
    weight-gradient route alone. K4's backward (one cluster launch) must
    repeat bit for bit too; its launches a call, device time and CUDA-
-   event time are printed beside its earlier time (PERF.md's table).
+   event time are printed beside its earlier time (PERF.md's table). K4's
+   forward must be one cluster launch a call, repeat its loss bit for bit
+   and give the row and column LSEs the backward recomputes, bit for bit;
+   its device and CUDA-event times are printed beside its earlier time.
 4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
    width (seeded random weights) on a synthetic RAF-DB tree on the card
    and writes its checkpoints, which must load back; then bench.py's
@@ -46,7 +49,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    Then each width the bf16 tensor-core passes do not take runs once on
    its CUDA-core kernel against its plain version: K3 at H = 100, K =
    400, K2 at heads of 25 and 192 columns (forward and backward), and K5
-   at heads of 160 and 256 columns in both dtypes.
+   at heads of 160 and 256 columns in both dtypes; and the widths the
+   kernels once refused, timed beside their plain versions: K5 at heads
+   of 272 and 512 columns (the column-chunk kernel) in both dtypes, K6
+   at D 4100, K 1100 with dropout, forward and backward, in both.
 5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
    at the rows pipeline T gives it (32 image features, 7 class means, 35
    descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
@@ -65,7 +71,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    state; image features and the prompt bank with K5 on against off;
    cli/predict_image on one JPEG with a T checkpoint the port saved; the
    cached-feature T step's time and the ViT-L/14 encode time.
-7. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
+7. Pipeline V at ViT-L/14 full width (seeded random weights, stub
+   contexts): cli/main_v trains the three V adapters for 2 epochs at B=4
+   (bottleneck 192, dropout 0.1 through K6's hash) on 42 synthetic
+   images and evaluates 21; cli/build_context_cache caches the test
+   tree's contexts; serve --v-adapter-ckpt --context-cache answers 3
+   /classify requests. K6 must launch forward and backward on that path;
+   V's eval logits, one V step and the served probabilities are held
+   against impl="torch" from the trained adapters.
+8. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
    width, seeded random weights, M adapters loaded from a reference-format
    .pt) answers /embed, /embed_text and /classify over HTTP. Responses must
    be 200s with finite unit-norm features and 7 probabilities summing to
@@ -73,7 +87,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the plain versions (impl="torch"); every forward kernel must have
    launched. A second server in t-adapter mode (a T checkpoint) answers
    /classify, which must agree with the plain path and launch K6.
-8. VLM kernels: K7 (the int4 GEMV, csrc/quant.cu) at M = 1, 8, 32 on the
+9. VLM kernels: K7 (the int4 GEMV, csrc/quant.cu) at M = 1, 8, 32 on the
    8h4 LM head (K=2048, N=151,936) and the mixed preset's gateup
    (N=22,016) in bf16 and fp32, beside a bf16 matmul on the pre-dequantized
    weight; K8 (decode attention, csrc/decode_attention.cu) at the 3B heads
@@ -82,7 +96,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    F.scaled_dot_product_attention on the bf16 cache, with K8's device
    time (torch.profiler), column splits and blocks; then the port's
    cli/check_decode_attn.
-9. VLM: Qwen2.5-VL-3B at full width (seeded random weights made on the
+10. VLM: Qwen2.5-VL-3B at full width (seeded random weights made on the
    card, the 8h4 preset through quantize_qwen_params, the folded patch
    embed with raw uint8 patches) describes 8 synthetic 448x448 images:
    generate_batch_from_ids with 32 new tokens with K8 off and on, with an
@@ -96,9 +110,9 @@ Prints one JSON line with the kernels' results, then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
 
 ``python3 chip_smoke.py --times <checkout>`` instead times the kernels
-this slice redesigned (K6 forward, K4 backward) in the package at
-<checkout>, to compare two checkouts in turns in one call
-(:func:`redesign_times`).
+this slice redesigned or touched (K4 forward and backward, K6 forward
+and backward, K5's CUDA-core kernel) in the package at <checkout>, to
+compare two checkouts in turns in one call (:func:`redesign_times`).
 """
 
 from __future__ import annotations
@@ -145,6 +159,10 @@ T_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
 # within 5e-2 elementwise and a cosine of at least 0.995 row by row.
 ENCODE_TOL = {"max_abs": 5e-2, "cosine": 0.995}
 CLASSIFY_ATOL = 1e-3  # t-adapter /classify, kernel path vs plain path
+# Pipeline V's eval logits, kernels vs plain versions from the same
+# state: fp32 features and fp32 K6 math, only summation order between
+# them, times exp(logit_scale) (14.3 at the init): 1e-4 absolute.
+V_LOGIT_ATOL = 1e-4
 # K7 against its plain version: both unpack the same nibbles exactly and
 # sum 2048 fp32 products in another order: |got - want| <= 1e-4 + 1e-4 *
 # |want| elementwise, in bf16 and fp32 x alike (the output is fp32).
@@ -710,6 +728,7 @@ def backward_phase() -> dict:
             if not same:
                 failures.append(f"contrastive_loss_bwd_cuda {dtype} not "
                                 "deterministic")
+            _k4_forward_check(t, m, logit_scale, dtype, failures)
             per = _breakdown(
                 f"backward contrastive_loss_bwd_cuda {list(t.shape)} {dtype}",
                 lambda: K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one),
@@ -745,13 +764,45 @@ K6_BWD_PASSES = ("feature_adapter_bwd_cluster", "colsum", "wgrad",
                  "split_sum", "fill")
 K6_FWD_PASSES = ("feature_adapter_fwd_cluster",)
 K4_BWD_PASSES = ("contrastive_bwd_cluster",)
+K4_FWD_PASSES = ("contrastive_fwd_cluster",)
 # The redesigned kernels' earlier times by CUDA events, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's:
 # K6 forward, the three pipeline-T calls (32, 7, 35 rows, fp32) summed;
-# K4 backward at B=96, bf16. A comparison of two trees runs each tree's
-# own phases in one call.
+# K4 backward and forward at B=96, bf16. A comparison of two trees runs
+# each tree's own phases in one call.
 EARLIER_MS = {"feature_adapter_blend_fused": 0.1949,
-              "contrastive_loss_bwd_cuda": 0.0871}
+              "contrastive_loss_bwd_cuda": 0.0871,
+              "contrastive_loss_fused": 0.0780}
+
+
+def _k4_forward_check(t, m, logit_scale, dtype, failures) -> None:
+    """K4's forward, one cluster launch a call at the M step's [96, 512]:
+    the loss bit for bit on a repeat, every row's and column's LSE the
+    bits the backward recomputes, its device and CUDA-event time beside
+    its earlier time (PERF.md's table)."""
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+
+    def call():
+        return K4.contrastive_loss_fused(t, m, logit_scale)
+
+    same = torch.equal(call(), call())
+    lse = [K4.cluster_lse(t, m, logit_scale, backward)
+           for backward in (False, True)]
+    lse_same = bool(torch.isfinite(lse[0]).all()) and torch.equal(*lse)
+    per = _breakdown(f"kernel contrastive_loss_fused {list(t.shape)} "
+                     f"{dtype}", call, K4_FWD_PASSES)
+    launches = len(_device_events(call, 5)) / 5
+    ev = _time_ms(call, 20)
+    print(f"kernel contrastive_loss_fused {list(t.shape)} {dtype}: a second "
+          f"call repeats the loss bit for bit: {same}; row and column LSEs "
+          f"equal the backward's bit for bit: {lse_same}; {launches:g} "
+          f"launches a call; device {sum(per.values()):.4f} ms, events "
+          f"{ev:.4f} ms a call; earlier (PERF.md table, bf16) "
+          f"{EARLIER_MS['contrastive_loss_fused']} ms", flush=True)
+    if not (same and lse_same and launches == 1):
+        failures.append(f"contrastive_loss_fused {dtype}: repeat {same}, "
+                        f"LSEs as the backward's {lse_same}, {launches:g} "
+                        "launches a call")
 
 
 def _breakdown(label: str, fn, passes) -> dict:
@@ -1032,10 +1083,11 @@ def _write_rafdb(root: str, n_train: int, n_eval: int) -> None:
                     os.path.join(d, f"{e}_{i}.jpg"))
 
 
-def _clone(tree):
+def _clone(tree, device=None):
+    """A detached copy of tree's tensors (on ``device`` when given)."""
     from vlm_clip_tpu_torch.bridge import tree_map
 
-    return tree_map(lambda t: t.detach().clone(), tree)
+    return tree_map(lambda t: t.detach().to(device).clone(), tree)
 
 
 def _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss):
@@ -1277,7 +1329,11 @@ def _repaired_widths_check(gen, dev) -> None:
     relative to their largest element): K3 in bf16 at H = 100, K = 400
     (forward, backward); K2 in bf16 at 8 heads of 25 and 2 heads of 192
     (forward, backward; Tk 197); K5 at heads of 160 and 256 columns in
-    both dtypes. Each must launch its kernel, once a call."""
+    both dtypes; and the widths the kernels once refused: K5 at heads of
+    272 and 512 columns (the column-chunk kernel) in both dtypes, K6 at
+    D 4100, K 1100 (35 rows, dropout 0.1; forward, backward) in both,
+    those timed beside their plain versions. Each must launch its
+    kernel, once a call."""
     from vlm_clip_tpu_torch.models import adapters as A
     from vlm_clip_tpu_torch.ops import attention as K5
     from vlm_clip_tpu_torch.ops import fused_adapter as F
@@ -1337,7 +1393,8 @@ def _repaired_widths_check(gen, dev) -> None:
               F.cross_attn_block_bwd_torch(x, *cab, g, heads), bf,
               F.launch_counts(), ("cross_attn_block_fused",
                                   "cross_attn_block_bwd_cuda"))
-    for d in (160, 256):
+    # K5 past 256 columns: the column-chunk kernel (272 runs at 320)
+    for d in (160, 256, 272, 512):
         for dtype in (bf, torch.float32):
             q, kq, vq = (torch.randn(4, 4, 77, d, generator=gen,
                                      device=dev).to(dtype)
@@ -1345,13 +1402,67 @@ def _repaired_widths_check(gen, dev) -> None:
             K5.reset_launch_counts()
             with torch.no_grad():
                 y = K5.fused_attention(q, kq, vq, d ** -0.5)
-            check(f"K5 {str(dtype).replace('torch.', '')} heads of {d} "
-                  f"(kernel width {K5.kernel_width(d)})", y,
-                  K5.fused_attention_torch(q, kq, vq, d ** -0.5), None,
-                  None, dtype, K5.launch_counts(), ("fused_attention",))
+            what = (f"K5 {str(dtype).replace('torch.', '')} heads of {d} "
+                    f"(kernel width {K5.kernel_width(d)})")
+            check(what, y, K5.fused_attention_torch(q, kq, vq, d ** -0.5),
+                  None, None, dtype, K5.launch_counts(), ("fused_attention",))
+            if d > 256:
+                sc = d ** -0.5
+                with torch.no_grad():
+                    _width_times(
+                        what, lambda: K5.fused_attention(q, kq, vq, sc),
+                        lambda: K5.fused_attention_torch(q, kq, vq, sc),
+                        t_cost("fused_attention", q))
+    # K6 past the widths it once refused (D 4096, K 1024), dropout on
+    d6, k6, r6, drop = 4100, 1100, 0.2, 0.1
+    p6 = A.init_feature_adapter(gen, d6, k6, device=dev)
+    for leaf in (p6["fc1"]["bias"], p6["fc2"]["bias"]):
+        leaf.normal_(generator=gen).mul_(0.1)
+    w6 = (p6["fc1"]["kernel"], p6["fc1"]["bias"], p6["fc2"]["kernel"],
+          p6["fc2"]["bias"])
+    for dtype in (torch.float32, bf):
+        x = torch.randn(35, d6, generator=gen, device=dev)
+        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+        g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        F.reset_launch_counts()
+        with torch.no_grad():
+            y = F.feature_adapter_blend_fused(x, *w6, r6, drop, 1234)
+            grads = F.feature_adapter_blend_bwd_cuda(x, *w6, r6, g, drop,
+                                                     1234)
+        what = (f"K6 {str(dtype).replace('torch.', '')} [35, {d6}], K {k6}, "
+                f"dropout {drop}")
+        check(what, y, F.feature_adapter_blend_torch(x, *w6, r6, drop, 1234),
+              grads, F.feature_adapter_blend_bwd_torch(x, *w6, r6, g, drop,
+                                                       1234), dtype,
+              F.launch_counts(), ("feature_adapter_blend_fused",
+                                  "feature_adapter_blend_bwd_cuda"))
+        with torch.no_grad():
+            _width_times(f"{what} forward",
+                         lambda: F.feature_adapter_blend_fused(
+                             x, *w6, r6, drop, 1234),
+                         lambda: F.feature_adapter_blend_torch(
+                             x, *w6, r6, drop, 1234),
+                         t_cost("feature_adapter_blend_fused", x, k6))
+            _width_times(f"{what} backward",
+                         lambda: F.feature_adapter_blend_bwd_cuda(
+                             x, *w6, r6, g, drop, 1234),
+                         lambda: F.feature_adapter_blend_bwd_torch(
+                             x, *w6, r6, g, drop, 1234),
+                         t_cost("feature_adapter_blend_bwd_cuda", x, k6))
     if failures:
         raise SystemExit(f"route: repaired widths disagree with their plain "
                          f"versions or did not launch: {failures}")
+
+
+def _width_times(what, kern, plain, work) -> None:
+    """A repaired width's kernel and plain ms (CUDA events, in turns), its
+    device ms (profiler) and its bound, printed."""
+    t_k, t_p, _ = _turns(kern, plain, iters=5)
+    d_k = sum(ms for _, ms in _device_events(kern, 3)) / 3
+    b_ms, b_by = bound(*work)
+    print(f"route: {what}: kernel {t_k:.4f} ms (device {d_k:.4f} ms), "
+          f"plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card()}",
+          flush=True)
 
 
 def _wide_heads_check(gen, H, image_dim, heads, dev, tk=197) -> None:
@@ -1625,6 +1736,215 @@ def pipeline_t_phase() -> dict:
     print(f"ViT-L/14 image encode (B={bt}, BF16, host clock to a "
           f"synchronize): K5 on {encode_ms[True]} ms, off "
           f"{encode_ms[False]} ms on {smi}", flush=True)
+    return counts
+
+
+V_NAME, V_B = "vit-large-patch14", 4  # pipeline V's backbone and batch
+
+
+def pipeline_v_phase() -> dict:
+    """Pipeline V at ViT-L/14 full width (24 + 12 layers, seeded random
+    weights), the stub context backend: cli/main_v (bottleneck 192,
+    B=4, 2 epochs, dropout 0.1 through K6's hash, on 42 train and 21 test
+    synthetic images), then cli/build_context_cache on the test tree,
+    then serve --v-adapter-ckpt --context-cache answering 3 /classify
+    requests (two images the cache holds, one it does not). K6 must
+    launch, forward and backward, on that path (counts zeroed just before
+    it, read just after). Then, from the trained adapters: V's eval
+    logits with the kernels against impl="torch" (V_LOGIT_ATOL), one V
+    train step at dropout 0 (B=8) and one as main_v trains (dropout 0.1,
+    B=4, the same seeds on both sides) against impl="torch"
+    (T_STEP_TOL), and the served probabilities against impl="torch"
+    (CLASSIFY_ATOL)."""
+    import shutil
+    from pathlib import Path
+
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.cli import build_context_cache, main_v
+    from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
+    from vlm_clip_tpu_torch.cli.serve import build_server
+    from vlm_clip_tpu_torch.core.config import EMOTIONS, clip_preset
+    from vlm_clip_tpu_torch.data.preprocess import (load_and_resize,
+                                                    normalize_batch)
+    from vlm_clip_tpu_torch.data.rafdb import scan_class_folders
+    from vlm_clip_tpu_torch.models import model_v as V
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train import optim
+    from vlm_clip_tpu_torch.train.checkpoint import load_v_adapters
+    from vlm_clip_tpu_torch.train.trainer_v import make_v_train_step
+    from vlm_clip_tpu_torch.vlm.extractor import CachedContextExtractor
+
+    work = os.path.join(REPO, "build", "chip_smoke", "pipeline_v")
+    shutil.rmtree(work, ignore_errors=True)
+    train_dir, test_dir, cache_dir = (os.path.join(work, s) for s in
+                                      ("train", "test", "cache"))
+    _write_flat_tree(train_dir, per_class=6, seed=3)  # 42: 10 steps a epoch
+    _write_flat_tree(test_dir, per_class=3, seed=4)   # 21
+    os.environ["VLM_CLIP_LOG_DIR"] = os.path.join(work, "logs")
+    ckpt = os.path.join(work, "v_adapters.pt")
+    bodies = []
+    test_images = [path for path, _ in scan_class_folders(Path(test_dir))]
+    for path in test_images[:2]:
+        with open(path, "rb") as f:
+            bodies.append(f.read())
+    bodies.append(_jpeg(9, (140, 120)))  # an image the cache lacks
+
+    # the main path: the entry points a user calls
+    F.reset_launch_counts()
+    t0 = time.time()
+    res = main_v.main(["--train-dir", train_dir, "--test-dir", test_dir,
+                       "--clip-model-name", V_NAME, "--vlm-backend", "stub",
+                       "--bottleneck-dim", "192", "--batch-size", str(V_B),
+                       "--num-epochs", "2", "--adapter-out", ckpt,
+                       "--device", "cuda", "--no-plots"])
+    torch.cuda.synchronize()
+    t_main = time.time() - t0
+    t0 = time.time()
+    # the content keys at the served image size
+    size = clip_preset(V_NAME).vision.image_size
+    cache = build_context_cache.main([
+        "--data-dir", test_dir, "--out-dir", cache_dir, "--clip-model-name",
+        V_NAME, "--image-size", str(size), "--device", "cuda"])
+    t_cache = time.time() - t0
+    server = build_server(["--port", "0", "--device", "cuda",
+                           "--clip-model-name", V_NAME,
+                           "--allow-random-weights", "--allow-hash-tokenizer",
+                           "--v-adapter-ckpt", ckpt, "--context-cache",
+                           cache_dir])
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    served, lat = [], []
+    try:
+        for body in bodies:
+            out, ms = _post(port, "/classify", body)
+            served.append(np.asarray([out["probs"][e] for e in EMOTIONS]))
+            lat.append(ms)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    torch.cuda.synchronize()
+    counts = F.launch_counts(F.T_KERNELS)
+    losses, results = res["losses"], res["results"]
+    print(f"main_v ViT-L/14, stub contexts, B={V_B}, 2 epochs: "
+          f"{t_main:.1f}s; epoch losses {losses}; accuracy "
+          f"{results.accuracy:.4f} over {len(results.labels)} images; "
+          f"context success rate {res['context_stats']['success_rate']}%",
+          flush=True)
+    print(f"build_context_cache ViT-L/14: {cache} in {t_cache:.1f}s; "
+          f"server mode {server.mode}", flush=True)
+    print(f"latency /classify v-context: mean {np.mean(lat):.2f} ms, min "
+          f"{np.min(lat):.2f} ms over {len(lat)} requests", flush=True)
+    print(f"launches on the pipeline-V path: {counts}", flush=True)
+    if len(losses) != 2 or not np.isfinite(losses).all() \
+            or len(results.astuple()) != 9 or len(results.labels) != 21 \
+            or cache != {"images": 21, "keys": 42, "failures": 0} \
+            or server.mode != "v-context+cache":
+        raise SystemExit(f"pipeline V: bad losses, results, cache or mode: "
+                         f"{losses}, {len(results.labels)}, {cache}, "
+                         f"{server.mode}")
+    if min(counts.values()) < 1:
+        raise SystemExit(f"a kernel of the pipeline-V path never launched: "
+                         f"{counts}")
+
+    # the trained adapters against impl="torch" on the served backbone
+    dev = torch.device("cuda")
+    clip, cfg = load_backbone(V_NAME, device=dev)
+    tok = make_tokenizer(cfg)
+    models = {}
+    for impl in ("auto", "torch"):
+        with torch.no_grad():
+            m = V.EnhancedCLIPAdapterV(clip, cfg, tok, impl=impl)
+            m.adapter_params = load_v_adapters(ckpt, device=dev)
+            m.encode_emotion_descriptions()
+        models[impl] = m
+    lookup = CachedContextExtractor(cache_dir)
+    S = cfg.vision.image_size
+    u8 = np.zeros((8, S, S, 3), np.uint8)
+    ctx = np.zeros((8, cfg.projection_dim), np.float32)
+    for i, path in enumerate(test_images[:8]):
+        u8[i] = load_and_resize(path, S)
+        f = lookup.encode_context_descriptions(
+            lookup.extract_context_from_image(u8[i]))
+        ctx[i] = f[0]
+    px = normalize_batch(torch.from_numpy(u8).to(dev))
+    F.reset_launch_counts()
+    logits = {impl: m.forward(px, ctx) for impl, m in models.items()}
+    d_logit = float((logits["auto"] - logits["torch"]).abs().max())
+    ok = d_logit <= V_LOGIT_ATOL and F.feature_adapter_blend_fused.launches
+    print(f"V eval logits (8 test images with cached contexts), kernels vs "
+          f"impl=torch: max abs diff {d_logit:.3e} (limit {V_LOGIT_ATOL}; "
+          f"scale exp(logit_scale) {float(clip['logit_scale'].exp()):.2f}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("V's logits with the kernels disagree with the "
+                         "plain path")
+    feats = models["auto"].encode_images(px)
+    labels = torch.arange(8, device=dev) % 7
+    ctx_t = torch.from_numpy(ctx).to(dev)
+    tx = optim.adam(3e-4)
+    # dropout 0 at B=8 against impl="torch"; then main_v's training step,
+    # dropout 0.1 at B=4, against K6's plain version (impl="auto" on CPU
+    # copies: the same hash masks, since both sides draw K6's seeds from
+    # generators seeded alike; impl="torch" draws another mask)
+    cpu = torch.device("cpu")
+    for drop, nb in ((0.0, 8), (0.1, V_B)):
+        sides = {"auto": (models["auto"], "auto", dev),
+                 "torch": (models["torch"], "torch", dev)} if not drop else \
+            {"auto": (models["auto"], "auto", dev),
+             "torch": (models["auto"], "auto", cpu)}
+        out = {}
+        for side, (m, impl, where) in sides.items():
+            params = _clone(m.adapter_params, where)
+            for leaf in tree_leaves(params):
+                leaf.requires_grad_(True)
+            step = make_v_train_step(tx, m.alpha, m.beta, m.gamma, drop,
+                                     impl)
+            gen = torch.Generator().manual_seed(7) if drop else None
+            loss = step(params, tx.init(tree_leaves(params)), 0,
+                        feats[:nb].to(where), ctx_t[:nb].to(where),
+                        labels[:nb].to(where),
+                        m.emotion_embedding_tensor.to(where),
+                        clip["logit_scale"].detach().to(where), gen)
+            out[side] = (float(loss), [p.grad.to(dev)
+                                       for p in tree_leaves(params)])
+        (lk, gk), (lp, gp) = out["auto"], out["torch"]
+        d_loss = abs(lk - lp) / abs(lp)
+        floor = 1e-2 * float(torch.sqrt(sum((g ** 2).sum() for g in gp)))
+        d_grad = max(float((a - b).norm()) / max(float(b.norm()), floor)
+                     for a, b in zip(gk, gp))
+        ok = d_loss <= T_STEP_TOL["loss"] and d_grad <= T_STEP_TOL["grad"]
+        plain = "K6's plain version on the CPU" if drop else "impl=torch"
+        print(f"V step B={nb} (dropout {drop}): kernels loss {lk:.7f}, "
+              f"{plain} {lp:.7f}; rel diff loss {d_loss:.2e}, worst adapter "
+              f"gradient {d_grad:.2e} (limits {T_STEP_TOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"the kernel V step (dropout {drop}) disagrees "
+                             f"with the plain step")
+    with torch.inference_mode():
+        for i, body in enumerate(bodies):
+            b8 = np.zeros((8, S, S, 3), np.uint8)  # the served batch
+            b8[0] = load_and_resize(Image.open(io.BytesIO(body)), S)
+            c8 = np.zeros((8, cfg.projection_dim), np.float32)
+            f = lookup.encode_context_descriptions(
+                lookup.extract_context_from_image(b8[0]))
+            if f is not None:
+                c8[0] = f[0]
+            want = models["torch"].predict_probs(normalize_batch(
+                torch.from_numpy(b8).to(dev)), c8).float().cpu().numpy()[0]
+            d = float(np.abs(want - served[i]).max())
+            ok = np.isfinite(served[i]).all() \
+                and abs(served[i].sum() - 1.0) < 1e-4 and d <= CLASSIFY_ATOL
+            print(f"/classify v-context[{i}] ({'cached' if f is not None else
+                  'no'} context) vs impl=torch: max abs diff {d:.3e} (limit "
+                  f"{CLASSIFY_ATOL}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok or (f is None) != (i == 2):
+                raise SystemExit("v-context /classify disagrees with the "
+                                 "plain path, or the cache lookup failed")
     return counts
 
 
@@ -2267,15 +2587,19 @@ def vlm_phase() -> dict:
 
 
 def redesign_times(root: str) -> None:
-    """CUDA-event and device times (torch.profiler) of the two kernels
-    this slice redesigned, in the package at root: K6's forward and
-    backward (which shares the forward's device function) at pipeline T's
-    three calls (32, 7, 35 rows, D=768, K=64, fp32) and K4's backward at
-    B=96, D=512 in bf16 and fp32, each the least of three
-    runs of 50 calls by events and a 20-call profile. Run once for each
-    checkout to compare, in turns, in one chip call:
+    """CUDA-event and device times (torch.profiler) of the kernels this
+    slice redesigned or touched, in the package at root: K4's forward
+    (one cluster launch) and backward at B=96, D=512 in bf16 and fp32,
+    and K6's forward and backward (their rank-order sums gained a global
+    route) at pipeline T's three calls (32, 7, 35 rows, D=768, K=64,
+    fp32), and K5's CUDA-core kernel (attention_fwd_kernel, whose pass
+    code it shares with the column-chunk kernel) at heads of 64 and 256
+    columns ([4, 16, 257, 64] fp32; [4, 4, 257, 256] fp32 and bf16), each
+    the least of three runs of 50 calls by events and a 20-call profile.
+    Run once for each checkout to compare, in turns, in one chip call:
     ``python3 chip_smoke.py --times <checkout>``."""
     from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.ops import attention as K5
     from vlm_clip_tpu_torch.ops import contrastive as K4
     from vlm_clip_tpu_torch.ops import fused_adapter as F
 
@@ -2290,6 +2614,16 @@ def redesign_times(root: str) -> None:
         launches = _device_events(fn, 20)
         return ev, sum(ms for _, ms in launches) / 20, len(launches) / 20
 
+    ls = torch.tensor(2.6592, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        t, m = (torch.randn(B, 512, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        with torch.no_grad():
+            ev, dv, nl = times(lambda: K4.contrastive_loss_fused(t, m, ls))
+        print(f"times {root}: K4 forward [{B}, 512] "
+              f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
+              f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
+              flush=True)
     total = [0.0, 0.0]
     for n in (32, 7, 35):
         x = torch.randn(n, 768, generator=gen, device=dev)
@@ -2318,13 +2652,25 @@ def redesign_times(root: str) -> None:
     print(f"times {root}: K6 backward, the three calls: events "
           f"{total[0]:.4f} ms, device {total[1]:.4f} ms on {card()}",
           flush=True)
-    ls, one = torch.tensor(2.6592, device=dev), torch.ones((), device=dev)
+    one = torch.ones((), device=dev)
     for dtype in (torch.bfloat16, torch.float32):
         t, m = (torch.randn(B, 512, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         ev, dv, nl = times(lambda: K4.contrastive_loss_bwd_cuda(t, m, ls,
                                                                 one))
         print(f"times {root}: K4 backward [{B}, 512] "
+              f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
+              f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
+              flush=True)
+    for shape, dtype in (((4, 16, 257, 64), torch.float32),
+                         ((4, 4, 257, 256), torch.float32),
+                         ((4, 4, 257, 256), torch.bfloat16)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        sc = shape[-1] ** -0.5
+        with torch.no_grad():
+            ev, dv, nl = times(lambda: K5.fused_attention(q, k, v, sc))
+        print(f"times {root}: K5 {list(shape)} "
               f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
               f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
               flush=True)
@@ -2352,6 +2698,7 @@ def main() -> None:
     train_counts = run("train", train_phase)
     run("route", route_phase)
     t_counts = run("pipeline_t", pipeline_t_phase)
+    v_counts = run("pipeline_v", pipeline_v_phase)
     serve_counts = run("serve", serve_phase)
     vlm_results = run("vlm_kernels", vlm_kernel_phase)
     vlm_counts = run("vlm", vlm_phase)
@@ -2376,6 +2723,8 @@ def main() -> None:
                  "shapes": r["shapes"]}
         if name in serve_counts:
             entry["launches_serve"] = serve_counts[name]
+        if name in v_counts:
+            entry["launches_v"] = v_counts[name]
         if name in KERNEL_HMMA:
             entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)

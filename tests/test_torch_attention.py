@@ -287,16 +287,89 @@ def test_narrow_heads_zero_padded_match_pallas(d):
 
 @pytest.mark.parametrize("d,width", [(1, 64), (64, 64), (65, 128),
                                      (128, 128), (129, 256), (160, 256),
-                                     (256, 256)])
+                                     (256, 256), (257, 320), (272, 320),
+                                     (512, 512), (600, 640)])
 def test_kernel_width_up_to_256(d, width):
-    """The kernel width a head runs at: 64, 128 or 256 columns (heads of
-    129-256 on the CUDA-core kernel's D = 256 instantiation); wider heads
-    raise, since that kernel's fp32 tiles at D = 512 would not fit a
-    block's shared memory."""
+    """The kernel width a head runs at: 64, 128 or 256 columns up to 256
+    (heads of 129-256 on the CUDA-core kernel's D = 256 instantiation);
+    past 256 the next multiple of 64, on the column-chunk kernel (whole-
+    head fp32 tiles at D = 512 would not fit a block's shared memory).
+    No width raises."""
     assert K5.HEAD_DIMS == (64, 128, 256)
     assert K5.kernel_width(d) == width
-    with pytest.raises(ValueError, match="up to 256"):
-        K5.kernel_width(257)
+    assert K5.kernel_width(257) == 320
+
+
+def _two_pass_chunked(q, k, v, scale, mask, wc=256):
+    """K5's column-chunk kernel (attention_wide_kernel) in torch: q, k, v
+    zero-padded to a multiple of 64 columns and taken in column chunks of
+    at most wc; each key chunk's scores are the chunks' q . k summed in
+    column order, times scale, plus the fp32 mask; pass 1 keeps each
+    row's max and sum of exp(s - max) over 64-key chunks; pass 2 writes
+    the output one column chunk at a time, adding round(exp(s - max) /
+    sum) v over each key chunk; the output is rounded once."""
+    T, d = q.shape[2], q.shape[3]
+    w = K5.kernel_width(d)
+    qf, kf, vf = (TF.pad(a.float(), (0, w - d)) for a in (q, k, v))
+    m4 = None if mask is None else (mask if mask.dim() == 4
+                                    else mask[None, None]).float()
+    chunks = [(c0, min(c0 + wc, w)) for c0 in range(0, w, wc)]
+
+    def scores(k0):
+        k1 = min(k0 + KEY_CHUNK, T)
+        s = torch.zeros(q.shape[:3] + (k1 - k0,))
+        for c0, c1 in chunks:
+            s = s + qf[..., c0:c1] @ kf[:, :, k0:k1, c0:c1].transpose(-1, -2)
+        s = s * scale
+        if m4 is not None:
+            s = s + m4[..., k0:k1]
+        return TF.pad(s, (0, KEY_CHUNK - (k1 - k0)), value=float("-inf"))
+
+    ninf = torch.tensor(float("-inf"))
+    m = torch.full(q.shape[:3] + (1,), float("-inf"))
+    l = torch.zeros(q.shape[:3] + (1,))
+    for k0 in range(0, T, KEY_CHUNK):
+        s = scores(k0)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        e = torch.where(mn == ninf, 0.0,
+                        torch.exp(s - mn).sum(-1, keepdim=True))
+        l = torch.where(m == ninf, 0.0, l * torch.exp(m - mn)) + e
+        m = mn
+    outs = []
+    for c0, c1 in chunks:
+        o = torch.zeros(q.shape[:3] + (c1 - c0,))
+        for k0 in range(0, T, KEY_CHUNK):
+            n = min(KEY_CHUNK, T - k0)
+            p = (torch.exp(scores(k0) - m) / l).to(v.dtype).float()
+            o = o + p[..., :n] @ vf[:, :, k0:k0 + n, c0:c1]
+        outs.append(o)
+    return torch.cat(outs, -1)[..., :d].to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [272, 512])
+def test_wide_heads_column_chunks_match_pallas(d, dtype):
+    """Heads wider than 256 columns: the column-chunk kernel's two passes,
+    emulated (272: padded to 320, chunks of 256 and 64; 512: two chunks
+    of 256), against the Pallas kernel at width d, with the text tower's
+    padding mask. fp32 1e-5, bf16 2e-2, as above."""
+    rng = np.random.default_rng(d)
+    b, h, t = 1, 2, 77
+    q, k, v = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+               for _ in range(3))
+    m = _tower_mask("padded", b, t, rng)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = RK5.fused_attention(*(jnp.asarray(a).astype(jdt)
+                                 for a in (q, k, v)), d ** -0.5,
+                               jnp.asarray(m))
+    got = _two_pass_chunked(*(torch.from_numpy(a).to(dtype)
+                              for a in (q, k, v)), d ** -0.5,
+                            torch.from_numpy(m))
+    assert got.dtype == dtype and got.shape == (b, h, t, d)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("d", [160, 256])

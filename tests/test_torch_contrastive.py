@@ -40,8 +40,10 @@ def _ranks(parts):
     return out
 
 
-def _k4_bwd_cluster(t, m, log_scale, g):
-    """(dt, dm, dls) in the cluster kernel's order; dt, dm in t's dtype."""
+def _k4_cluster_logits(t, m, log_scale):
+    """Steps 1-2 of both cluster kernels, in their order: (tn, mn, t_inv,
+    m_inv, s, Z, the rows' LSE, the columns' LSE merged in rank order,
+    R: the rows a block owns, the blocks' column slices)."""
     tf, mf = t.float(), m.float()
     b, d = tf.shape
     R = -(-b // CL)
@@ -70,6 +72,32 @@ def _k4_bwd_cluster(t, m, log_scale, g):
         top = torch.maximum(top, p)
     lse_c = top + torch.log(_ranks([e * torch.exp(p - top)
                                     for p, e in zip(pm, ps)]))
+    return tn, mn, t_inv, m_inv, s, z, lse_r, lse_c, R, cols
+
+
+def _k4_fwd_cluster(t, m, log_scale):
+    """The loss in the forward cluster kernel's order: each block's rows'
+    LSE_row(i) - Z_ii and LSE_col(i) - Z_ii summed in row order, the
+    blocks' sums added in rank order, (rows / B + columns / B) / 2."""
+    _, _, _, _, _, z, lse_r, lse_c, R, _ = _k4_cluster_logits(t, m,
+                                                              log_scale)
+    b = z.shape[0]
+    diag = torch.diagonal(z)
+    zero = torch.zeros(())
+    st = _ranks([_ranks([zero] + [lse_r[i] - diag[i] for i in
+                                  range(q * R, min(b, q * R + R))])
+                 for q in range(CL)])
+    si = _ranks([_ranks([zero] + [lse_c[i] - diag[i] for i in
+                                  range(q * R, min(b, q * R + R))])
+                 for q in range(CL)])
+    return 0.5 * (st / b + si / b)
+
+
+def _k4_bwd_cluster(t, m, log_scale, g):
+    """(dt, dm, dls) in the cluster kernel's order; dt, dm in t's dtype."""
+    tn, mn, t_inv, m_inv, s, z, lse_r, lse_c, R, cols = _k4_cluster_logits(
+        t, m, log_scale)
+    b = z.shape[0]
     eye = torch.eye(b)
     dz = g * ((torch.exp(z - lse_r[:, None]) - eye)
               + (torch.exp(z - lse_c[None, :]) - eye)) / (2.0 * b)
@@ -89,6 +117,25 @@ def _k4_bwd_cluster(t, m, log_scale, g):
 # pipeline-M batch (12 rows a block); 200: 25 rows a block (the
 # emulation's order at a batch the kernel sends to its multi-kernel route
 # at D = 64, past its cluster limit of 160)
+# the same batches as below: 1 row; blocks of one row, the last empty;
+# the M step's 96; 25 rows a block
+@pytest.mark.parametrize("b", [1, 7, 96, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_fwd_cluster_order_matches_pallas(b, dtype):
+    """K4's loss in its forward cluster kernel's order against the Pallas
+    ``_fwd_kernel`` (interpret mode): within 1e-5 of the loss (fp32 math
+    on the same widened inputs, summed in another order)."""
+    rng = np.random.default_rng(b + 1)
+    txt, img = (rng.normal(size=(b, 64)).astype(np.float32)
+                for _ in range(2))
+    ls = np.float32(2.6592)
+    jt, jm = (jnp.asarray(a).astype(JDT[dtype]) for a in (txt, img))
+    want = float(r_k4(jt, jm, jnp.asarray(ls)))
+    t, m = (torch.from_numpy(a).to(dtype) for a in (txt, img))
+    got = float(_k4_fwd_cluster(t, m, torch.tensor(ls)))
+    assert abs(got - want) <= 1e-5 * max(abs(want), 1.0), (got, want)
+
+
 @pytest.mark.parametrize("b", [1, 7, 96, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_bwd_cluster_order_matches_pallas(b, dtype):

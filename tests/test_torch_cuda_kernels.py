@@ -468,14 +468,23 @@ def test_cross_attn_block_kernels_other_head_widths(dev, dtype, h, heads,
 
 def _device_kernels(fn) -> list:
     """The names of the kernels fn launches on the card, one a launch
-    (torch.profiler)."""
+    (torch.profiler). A trace of one short call can come back empty (the
+    profiler recorded no device activity at all), so fn runs once first
+    and an empty trace is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 # K1 forward: 77 and 250 rows (ragged 128-row tiles) at the text and
@@ -669,6 +678,42 @@ def test_contrastive_bwd_cluster_kernel(dev, dtype, b):
                                            for nm in names), names
 
 
+# K4 forward: one cluster launch at B = 1, 7, 96 and the cluster's largest
+# batch at D = 512 (no other kernel), its row and column LSEs the bits
+# the backward recomputes; the four-kernel route at B = 1100; at D = 24
+# (five blocks own no columns); the loss bit for bit on a repeat and
+# within 1e-5 of the plain version's
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,d", [(1, 512), (7, 512), (96, 512),
+                                 ("max", 512), (1100, 512), (5, 24)])
+def test_contrastive_fwd_cluster_kernel(dev, dtype, b, d):
+    b = K4.bwd_cluster_max(d) if b == "max" else b
+    t = torch.randn(b, d, generator=_gen(dev, 1), device=dev).to(dtype)
+    m = torch.randn(b, d, generator=_gen(dev, 2), device=dev).to(dtype)
+    ls = torch.tensor(2.6592, device=dev)
+
+    def call():
+        return K4.contrastive_loss_fused(t, m, ls)
+
+    K4.reset_launch_counts()
+    got = call()
+    assert K4.launch_counts()["contrastive_loss_fused"] == 1
+    torch.testing.assert_close(got, K4.contrastive_loss_torch(t, m, ls),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, call())
+    names = _device_kernels(call)
+    if b <= K4.bwd_cluster_max(d):
+        assert len(names) == 1 and "contrastive_fwd_cluster_kernel" in \
+            names[0], names
+        fwd, bwd = (K4.cluster_lse(t, m, ls, backward)
+                    for backward in (False, True))
+        assert torch.isfinite(fwd).all() and torch.equal(fwd, bwd)
+    else:
+        assert len(names) == 4 and not any("cluster" in nm
+                                           for nm in names), names
+
+
 # K4 backward at D = 24: three blocks of the cluster own 8 columns each and
 # five own none (they load nothing and still reach every cluster.sync())
 @pytest.mark.cuda
@@ -730,8 +775,13 @@ def test_feature_adapter_kernels(dev, dtype, n, dropout):
 # groups across the hash's 256-row tiles, then one colsum launch), with
 # and without dx; 77 rows at d 1024, k 192 (two groups; slices too large
 # for shared memory beside 64 rows, read in place) and d 100 (ragged
-# slices); bit for bit on a repeat; no weight-gradient, column-sum (within
-# one group) or fill kernel
+# slices); d 4100, k 1100 (past the widths the wrapper once refused:
+# groups of 16 rows, slices in place) and widths whose row buffers do not
+# fit shared memory even at 8 rows (k 4000; d 30000), kept in the
+# workspace, in one group and (100 rows at k 4001 or d 30001) in two,
+# where the groups' partial gradients before the buffers hold a count of
+# floats that is not a multiple of 4; bit for bit on a repeat; no
+# weight-gradient, column-sum (within one group) or fill kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("need_dx", [True, False])
@@ -740,7 +790,12 @@ def test_feature_adapter_kernels(dev, dtype, n, dropout):
                                            (35, 768, 64, 0.0),
                                            (600, 768, 64, 0.1),
                                            (77, 1024, 192, 0.1),
-                                           (20, 100, 24, 0.0)])
+                                           (20, 100, 24, 0.0),
+                                           (20, 4100, 1100, 0.1),
+                                           (35, 768, 4000, 0.1),
+                                           (20, 30000, 64, 0.0),
+                                           (100, 768, 4001, 0.1),
+                                           (100, 30001, 64, 0.0)])
 def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
                                             dropout):
     x, args = _feat_case(dev, n, d, k, dtype)
@@ -760,8 +815,11 @@ def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
     names = _device_kernels(call)
+    # more than one group: past 64 rows, or past 16 where 24 rows' buffers
+    # overflow shared memory (d 4100, k 1100)
+    groups_of = 16 if (d, k) == (4100, 1100) else 64
     want_names = ["feature_adapter_bwd_cluster_kernel"] + (
-        ["colsum_kernel"] if n > 64 else [])
+        ["colsum_kernel"] if n > groups_of else [])
     assert len(names) == len(want_names), names
     assert all(any(frag in nm for nm in names) for frag in want_names), names
 
@@ -770,7 +828,10 @@ def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
 # five groups of 8), 600 rows with dropout (groups of 40 across the
 # hash's 256-row tiles), d 100 (ragged slices) and d 1024 with k 192
 # (weight slices too large for shared memory beside 8 rows: read in
-# place); bit for bit on a repeat; one launch a call and no other kernel
+# place), d 4100 with k 1100 and the widths whose row buffers live in
+# the workspace (k 4000; d 30000; and at 100 rows, 13 groups, k 4001 or
+# d 30001); bit for bit on a repeat; one launch a call and no other
+# kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,d,k,dropout", [(1, 768, 64, 0.0),
@@ -779,7 +840,12 @@ def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
                                            (35, 768, 64, 0.0),
                                            (600, 768, 64, 0.1),
                                            (20, 100, 24, 0.0),
-                                           (77, 1024, 192, 0.1)])
+                                           (77, 1024, 192, 0.1),
+                                           (20, 4100, 1100, 0.1),
+                                           (35, 768, 4000, 0.1),
+                                           (20, 30000, 64, 0.0),
+                                           (100, 768, 4001, 0.1),
+                                           (100, 30001, 64, 0.0)])
 def test_feature_adapter_fwd_cluster_kernel(dev, dtype, n, d, k, dropout):
     x, args = _feat_case(dev, n, d, k, dtype)
 
@@ -816,6 +882,23 @@ def test_feature_adapter_fwd_bits_at_every_group_size(dev, dtype, n0, n):
                                               0.2)
         big = F.feature_adapter_blend_fused(x, *args, 0.2)
     assert torch.equal(small, big[:n0])
+
+
+# The same at the widest shapes: d 4100, k 1100 (8-row groups at 35 rows,
+# 16 at 600: shared memory) and k 4000 (8 and 40 rows: the workspace),
+# with dropout; and the backward's recompute of y agrees with the forward
+# through dx at r = 1 (dx = dz + dh W1^T is not y, so the check is the
+# forward's bits at both group sizes, as above).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,k", [(4100, 1100), (768, 4000)])
+def test_feature_adapter_fwd_bits_wide(dev, dtype, d, k):
+    x, args = _feat_case(dev, 600, d, k, dtype)
+    with torch.no_grad():
+        small = F.feature_adapter_blend_fused(x[:35].contiguous(), *args,
+                                              0.2, 0.1, 77)
+        big = F.feature_adapter_blend_fused(x, *args, 0.2, 0.1, 77)
+    assert torch.equal(small, big[:35])
 
 
 @pytest.mark.cuda
@@ -921,7 +1004,7 @@ def test_mha_fused_toggle_on_card(dev):
 # kernel in both dtypes (256; 160 zero-padded to it)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [8, 40, 80, 96, 128, 160, 256])
+@pytest.mark.parametrize("d", [8, 40, 80, 96, 128, 160, 256, 272, 512])
 def test_fused_attention_other_head_widths(dev, dtype, d):
     q, k, v = (torch.randn(2, 3, 77, d, generator=_gen(dev, i),
                            device=dev).to(dtype) for i in range(3))
@@ -934,9 +1017,13 @@ def test_fused_attention_other_head_widths(dev, dtype, d):
 
 @pytest.mark.cuda
 def test_fused_attention_refusals(dev):
+    # a head past 256 columns is computed (the column-chunk kernel), not
+    # refused; mixed dtypes still are
     q = torch.randn(2, 2, 9, 272, device=dev)
-    with pytest.raises(ValueError, match="head width"):
-        K5.fused_attention(q, q, q, 0.1)
+    K5.reset_launch_counts()
+    got = K5.fused_attention(q, q, q, 0.1)
+    assert K5.launch_counts() == {"fused_attention": 1}
+    _close(got, K5.fused_attention_torch(q, q, q, 0.1), torch.float32)
     q = torch.randn(2, 2, 9, 64, device=dev)
     with pytest.raises(TypeError, match="share"):
         K5.fused_attention(q, q.bfloat16(), q, 0.1)

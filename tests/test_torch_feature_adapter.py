@@ -244,6 +244,57 @@ def test_k6_fwd_cluster_order_matches_pallas(n, d, dropout, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
 
 
+SMEM_FLOATS = 227 * 1024 // 4  # a block's shared memory (SMEM_MAX in C)
+
+
+def _k6_rows(want, d, k):
+    """Rows a group of K6's cluster kernels takes for ``want`` rows
+    (feat_rows in C): at most 64, a multiple of 8, cut by 8 while a
+    block's row buffers (x, z / dz of its ceil(d / 8) columns, A and h /
+    dh of k, per row, beside 4,096 floats of partials) overflow its
+    shared memory; where even 8 rows overflow, the buffers go to the
+    global workspace and the group keeps its rows."""
+    dsp, kp = (-(-d // 8) + 3) & ~3, (k + 3) & ~3
+
+    def floats(rows):
+        return rows * (2 * dsp + 2 * kp + 4) + 512 * 8
+
+    rows = min(64, -(-want // 8) * 8)
+    if floats(8) > SMEM_FLOATS:
+        return rows
+    while rows > 8 and floats(rows) > SMEM_FLOATS:
+        rows -= 8
+    return rows
+
+
+# D 4100, K 1100: past the widths the kernels once refused (D 4096, K
+# 1024). 20 rows with dropout: the forward's groups of 8 rows, the
+# backward's of 16 (24 rows' buffers overflow a block's shared memory).
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_k6_cluster_order_at_d4100_k1100_matches_pallas(direction):
+    """K6 in its cluster kernels' order at D 4100, K 1100 against the
+    Pallas kernel (interpret mode), fp32, dropout 0.1: y within 1e-5 of
+    max|y|, the gradients within 1e-5 of the largest one."""
+    n, d, k = 20, 4100, 1100
+    x, params, g = _case(n, d=d, k=k, seed=11)
+    want_y, want_g = _ref_fwd_bwd(x, params, g, 0.2, torch.float32, 0.1,
+                                  99)
+    tp = [torch.from_numpy(p) for p in params]
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    if direction == "fwd":
+        rows = _k6_rows(_k6_fwd_rows(n), d, k)
+        assert rows == 8
+        got = _k6_fwd_cluster(tx, *tp, 0.2, 0.1, 99, rows)
+        np.testing.assert_allclose(got.numpy(), want_y,
+                                   atol=1e-5 * float(np.abs(want_y).max()),
+                                   rtol=0)
+    else:
+        rows = _k6_rows(n, d, k)
+        assert rows == 16
+        got = _k6_bwd_cluster(tx, *tp, 0.2, tg, 0.1, 99, rows)
+        _assert_grads(got, want_g, 1e-5)
+
+
 @pytest.mark.parametrize("seed", [7, 2 ** 31 - 5])
 def test_dropout_mask_bit_equal_and_y_agrees(seed):
     """300 rows cross the 256-row tile the hash keys on. The Pallas

@@ -429,13 +429,14 @@ def test_serve_t_adapter_classify_matches_reference(bb, tmp_path):
     np.testing.assert_allclose(probs, np.asarray(ref_fn(u8))[0], atol=1e-4)
     assert out["label"] == EMOTIONS[int(np.argmax(probs))]
     assert not any(F.launch_counts().values())  # CPU: plain versions
-    # refusals: a file without the text adapter, and pipeline V
+    # refusals: a file without the text adapter; a T file where a V one
+    # is asked for (pipeline V's strict load: tests/test_torch_pipeline_v.py)
     RCK.save_v_adapters(str(tmp_path / "v.pt"), {"visual": _adapters(10)[
         "visual"]})
     with pytest.raises(ValueError, match="missing"):
         S.build_predict_fn("tiny", adapter_ckpt=str(tmp_path / "v.pt"),
                            backbone=port_bb, policy=FP32)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="not a V checkpoint"):
         S.build_predict_fn("tiny", v_adapter_ckpt=ckpt, backbone=port_bb)
 
 

@@ -196,14 +196,14 @@ def test_build_server_end_to_end_on_cpu(tmp_path):
 
 
 def test_serve_refusals(tmp_path, monkeypatch):
-    """No random weights without --allow-random-weights; pipeline V
-    refuses clearly (pipeline T's --adapter-ckpt is served: see
-    test_torch_pipeline_t.py); an absent CUDA device is an error, not a
-    CPU run."""
+    """No random weights without --allow-random-weights, whatever the
+    mode (pipeline T's --adapter-ckpt and pipeline V's --v-adapter-ckpt
+    are served: see test_torch_pipeline_t.py, test_torch_pipeline_v.py);
+    an absent CUDA device is an error, not a CPU run."""
     with pytest.raises(RuntimeError, match="random"):
         S.build_server(["--port", "0", "--device", "cpu",
                         "--hf-checkpoint", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(RuntimeError, match="random"):
         S.build_server(["--port", "0", "--device", "cpu",
                         "--v-adapter-ckpt", "x.pt"])
     with pytest.raises(RuntimeError, match="random"):

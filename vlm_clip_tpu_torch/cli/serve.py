@@ -6,7 +6,13 @@ A ThreadingHTTPServer front-end feeding a micro-batching worker:
 one fixed-size padded batch, scored by the zero-shot predict path — or,
 with ``--adapter-ckpt``, by pipeline T's CLIP-Adapter (``t-adapter``
 mode, the feature adapters loaded strictly from a T checkpoint; kernel
-K6 on a GPU) — and fanned back out. With ``--embed`` or
+K6 on a GPU), or, with ``--v-adapter-ckpt``, by pipeline V's
+context-fused adapter (``v-context`` mode: the three adapters loaded
+strictly from a V checkpoint; each image's context features from the
+``--context-cache`` directory, keyed by the decoded image's content
+hash, zeros for an image the cache has not seen or without a cache, the
+reference's own fallback; K6 on a GPU) — and fanned back out. With
+``--embed`` or
 ``--m-adapter-ckpt`` the server also answers ``/embed`` and
 ``/embed_text`` with unit-norm projected CLIP features;
 ``--m-adapter-ckpt`` applies pipeline M's adapters, whose fused CUDA
@@ -18,13 +24,12 @@ Endpoints:
 - ``POST /embed_text`` text (raw utf-8 or {"text": ...}) -> features
 - ``GET  /healthz``    liveness + model info
 
-Pipeline V (``--v-adapter-ckpt``, ``--context-cache``) is not ported yet
-and raises. Requests run under ``torch.inference_mode()`` on
-``--device`` (default ``cuda``).
+Requests run under ``torch.inference_mode()`` on ``--device`` (default
+``cuda``).
 
 Drive: ``python -m vlm_clip_tpu_torch.cli.serve --port 8899
 --allow-random-weights --allow-hash-tokenizer --m-adapter-ckpt m.pt
-[--adapter-ckpt t.pt]``.
+[--adapter-ckpt t.pt | --v-adapter-ckpt v.pt --context-cache DIR]``.
 """
 
 from __future__ import annotations
@@ -40,10 +45,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-
-NOT_PORTED = ("pipeline V not yet ported (ROADMAP.md): --v-adapter-ckpt is "
-              "not available in vlm_clip_tpu_torch")
-
 
 class _Pending:
     __slots__ = ("image", "event", "result", "error")
@@ -279,24 +280,20 @@ def make_handler(classifier: BatchingClassifier, model_name: str,
 
 
 def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
-                     v_adapter_ckpt=None, max_batch: int = 8,
-                     backbone=None, policy=None):
+                     v_adapter_ckpt=None, context_cache=None,
+                     max_batch: int = 8, backbone=None, policy=None):
     """(predict_fn, mode, cfg) for the requested serving mode: zero-shot,
-    or ``t-adapter`` with ``adapter_ckpt`` (strict T load); runs the
-    fixed-shape predict path once before returning (warmup).
+    ``t-adapter`` with ``adapter_ckpt`` (strict T load), or ``v-context``
+    with ``v_adapter_ckpt`` (strict V load: all three adapters) and the
+    optional ``context_cache`` directory; runs the fixed-shape predict
+    path once before returning (warmup).
 
     ``backbone=(clip_params, cfg, tokenizer)`` injects a preloaded tower
     (its params' device is the serving device); the default loads
     ``clip_model_name`` on the CPU.
     """
-    from vlm_clip_tpu_torch.data.preprocess import normalize_batch
-    from vlm_clip_tpu_torch.models.model_t import (CLIPAdapterT,
-                                                   ZeroShotEmotionRecognition)
-
     if adapter_ckpt and v_adapter_ckpt:
         raise ValueError("pass --adapter-ckpt OR --v-adapter-ckpt")
-    if v_adapter_ckpt:
-        raise NotImplementedError(NOT_PORTED)
     if backbone is not None:
         clip_params, cfg, tokenizer = backbone
     else:
@@ -306,6 +303,27 @@ def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
         tokenizer = make_tokenizer(cfg)
     device = clip_params["logit_scale"].device
     model_kw = {} if policy is None else {"policy": policy}
+    if v_adapter_ckpt:
+        predict = _v_predict_fn(clip_params, cfg, tokenizer, v_adapter_ckpt,
+                                context_cache, device, model_kw)
+        mode = "v-context" + ("+cache" if context_cache else "")
+    else:
+        predict, mode = _predict_fn(clip_params, cfg, tokenizer,
+                                    adapter_ckpt, device, model_kw)
+    t0 = time.time()
+    predict(np.zeros((max_batch, cfg.vision.image_size,
+                      cfg.vision.image_size, 3), np.uint8))
+    print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
+    return predict, mode, cfg
+
+
+def _predict_fn(clip_params, cfg, tokenizer, adapter_ckpt, device,
+                model_kw):
+    """(predict, mode): zero-shot, or pipeline T's adapters."""
+    from vlm_clip_tpu_torch.data.preprocess import normalize_batch
+    from vlm_clip_tpu_torch.models.model_t import (CLIPAdapterT,
+                                                   ZeroShotEmotionRecognition)
+
     with torch.inference_mode():
         if adapter_ckpt:
             model = CLIPAdapterT(clip_params, cfg, tokenizer, **model_kw)
@@ -321,11 +339,46 @@ def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
             px = normalize_batch(torch.from_numpy(images_u8).to(device))
             return model.predict(px).cpu().numpy()
 
-    t0 = time.time()
-    predict(np.zeros((max_batch, cfg.vision.image_size,
-                      cfg.vision.image_size, 3), np.uint8))
-    print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
-    return predict, mode, cfg
+    return predict, mode
+
+
+def _v_predict_fn(clip_params, cfg, tokenizer, v_adapter_ckpt,
+                  context_cache, device, model_kw):
+    """Pipeline V's predict: the three adapters from a V checkpoint
+    (strict: a file without one of them is refused), each image's context
+    features from the cache by the decoded image's content hash (the key
+    ``cli/build_context_cache`` writes beside the path key), zeros where
+    the cache has none."""
+    from vlm_clip_tpu_torch.data.preprocess import normalize_batch
+    from vlm_clip_tpu_torch.models.model_v import EnhancedCLIPAdapterV
+    from vlm_clip_tpu_torch.train.checkpoint import load_v_adapters
+    from vlm_clip_tpu_torch.vlm.extractor import CachedContextExtractor
+
+    loaded = load_v_adapters(v_adapter_ckpt, device=device)
+    missing = [n for n in ("visual", "text", "context") if n not in loaded]
+    if missing:
+        raise ValueError(f"{v_adapter_ckpt} is not a V checkpoint: "
+                         f"missing {missing}")
+    with torch.inference_mode():
+        model = EnhancedCLIPAdapterV(clip_params, cfg, tokenizer, **model_kw)
+        model.adapter_params = loaded
+        model.encode_emotion_descriptions()
+    cache = CachedContextExtractor(context_cache) if context_cache else None
+    P = cfg.projection_dim
+
+    def predict(images_u8: np.ndarray) -> np.ndarray:
+        ctx = np.zeros((images_u8.shape[0], P), np.float32)
+        if cache is not None:
+            for i in range(images_u8.shape[0]):
+                feats = cache.encode_context_descriptions(
+                    cache.extract_context_from_image(images_u8[i]))
+                if feats is not None:
+                    ctx[i] = feats[0]
+        with torch.inference_mode():
+            px = normalize_batch(torch.from_numpy(images_u8).to(device))
+            return model.predict_probs(px, ctx).cpu().numpy()
+
+    return predict
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -341,10 +394,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="T-adapter checkpoint (visual + text feature "
                         "adapters): /classify in t-adapter mode")
     p.add_argument("--v-adapter-ckpt", default=None,
-                   help="V 3-adapter checkpoint (not yet ported)")
+                   help="V 3-adapter checkpoint (context pipeline): "
+                        "/classify in v-context mode")
     p.add_argument("--context-cache", default=None,
-                   help="context cache dir for the V pipeline (not yet "
-                        "ported)")
+                   help="context cache dir for the V pipeline "
+                        "(cli/build_context_cache.py output)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--batch-window-ms", type=float, default=10.0)
     p.add_argument("--embed", action="store_true",
@@ -369,8 +423,6 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     """Load the model, warm it up, and bind the HTTP server (not yet
     serving). The server carries ``embedder`` and ``classifier``."""
     args = parse_args(argv)
-    if args.v_adapter_ckpt:
-        raise NotImplementedError(NOT_PORTED)
 
     from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
 
@@ -388,7 +440,9 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     tokenizer = make_tokenizer(cfg)
     predict_fn, mode, cfg = build_predict_fn(
         args.clip_model_name, adapter_ckpt=args.adapter_ckpt,
-        max_batch=args.max_batch, backbone=(clip_params, cfg, tokenizer))
+        v_adapter_ckpt=args.v_adapter_ckpt,
+        context_cache=args.context_cache, max_batch=args.max_batch,
+        backbone=(clip_params, cfg, tokenizer))
 
     embedder = None
     if args.embed or args.m_adapter_ckpt:

@@ -7,8 +7,10 @@
 //   o = softmax(q k^T * scale + mask) v   over [B, h, T, d] q, k, v
 //
 // for head widths d of 64 (every CLIP preset), 128 and 256, each its own
-// instantiation; the wrapper zero-pads a narrower head to the next of
-// them (zero columns add nothing to a score and give zero outputs).
+// instantiation, and past 256 a multiple of 64 streamed in column chunks
+// (attention_wide_kernel); the wrapper zero-pads a head to the next of
+// these widths (zero columns add nothing to a score and give zero
+// outputs).
 //
 // with the TPU kernel's rounding points: the scores are fp32 sums of
 // products of T values (bf16 products are exact in fp32), times scale,
@@ -58,7 +60,8 @@
 // rounding points of the tensor-core kernel and of the TPU kernel. At D =
 // 256 a block takes 4 (64 257 + 64 257 + 64 256 + 64 65 + 128) = 214,272
 // bytes of shared memory, under the 232,448 a Hopper block may use; D =
-// 512 would take 410,880, so heads past 256 columns raise.
+// 512 would take 410,880, so heads past 256 columns take the column-chunk
+// kernel below, whose tiles are those of D = 256.
 //
 // Plain C interface, loaded with ctypes. The entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -117,22 +120,15 @@ __device__ void load_tile(const T* __restrict__ src, int t, int r0,
   }
 }
 
-// s[i][j] = (q[row_i] . k[col_j]) * scale + mask(row_i, col_j) for the
-// thread's rows row_i = q0 + ty + 16 i and columns col_j = k0 + tx + 16 j;
-// -inf past the last key (and 0 mask past the last query row).
-template <int D>
-__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
-                                       const float* __restrict__ mask,
-                                       int t, int q0, int k0, float scale,
-                                       float (&s)[4][4]) {
+// s[i][j] += q[row_i] . k[col_j] over the first n columns of the tiles
+// Qs and Ks (row stride LD), in column order, for the thread's rows row_i
+// = ty + 16 i and columns col_j = tx + 16 j of the tiles.
+template <int LD>
+__device__ __forceinline__ void scores_add(const float* Qs, const float* Ks,
+                                           int n, float (&s)[4][4]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  constexpr int LD = D + 1;
 #pragma unroll 8
-  for (int dd = 0; dd < D; ++dd) {
+  for (int dd = 0; dd < n; ++dd) {
     float a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + dd];
@@ -143,6 +139,22 @@ __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
+}
+
+__device__ __forceinline__ void scores_zero(float (&s)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+}
+
+// s[i][j] = s[i][j] * scale + mask(row_i, col_j) for the thread's rows
+// row_i = q0 + ty + 16 i and columns col_j = k0 + tx + 16 j; -inf past
+// the last key (and 0 mask past the last query row).
+__device__ __forceinline__ void scores_finish(const float* __restrict__ mask,
+                                              int t, int q0, int k0,
+                                              float scale, float (&s)[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -153,6 +165,124 @@ __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
       if (mask != nullptr && r < t && c < t) v += mask[(size_t)r * t + c];
       s[i][j] = c < t ? v : -INFINITY;
     }
+  }
+}
+
+// s[i][j] = (q[row_i] . k[col_j]) * scale + mask(row_i, col_j) over the
+// whole head (D columns), as scores_finish says.
+template <int D>
+__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
+                                       const float* __restrict__ mask,
+                                       int t, int q0, int k0, float scale,
+                                       float (&s)[4][4]) {
+  scores_zero(s);
+  scores_add<D + 1>(Qs, Ks, D, s);
+  scores_finish(mask, t, q0, k0, scale, s);
+}
+
+// Pass 1's running statistics of a block's 64 query rows over the key
+// chunks: warp w owns rows 8w .. 8w + 7, each lane two keys of a chunk.
+struct RowStats {
+  float m[8], l[8];  // row max; row sum of exp(s - max)
+
+  __device__ __forceinline__ RowStats() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+  }
+
+  // Takes in a key chunk's scores s through Ss (free: every thread is
+  // past a barrier since it was last read); ends with Ss still to read.
+  __device__ __forceinline__ void add(float* Ss, const float (&s)[4][4]) {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Ss[(ty + 16 * i) * SLS + tx + 16 * j] = s[i][j];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float* sr = Ss + (warp * 8 + i) * SLS;
+      const float a = sr[lane], c = sr[lane + 32];
+      const float mn = fmaxf(m[i], warp_max(fmaxf(a, c)));
+      float e = 0.f;
+      if (mn != -INFINITY) e = expf(a - mn) + expf(c - mn);
+      e = warp_sum(e);
+      l[i] = (m[i] == -INFINITY ? 0.f : l[i] * expf(m[i] - mn)) + e;
+      m[i] = mn;
+    }
+  }
+
+  // the rows' max and sum to M and L [QT]
+  __device__ __forceinline__ void store(float* M, float* L) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        M[warp * 8 + i] = m[i];
+        L[warp * 8 + i] = l[i];
+      }
+    }
+  }
+};
+
+// Pass 2's p = exp(s - max) / sum of the thread's scores s, rounded to T
+// after it is normalized (the TPU kernel's rounding point), into Ss.
+template <typename T>
+__device__ __forceinline__ void p_store(float* Ss, const float* M,
+                                        const float* L,
+                                        const float (&s)[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const float m = M[r], l = L[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      Ss[r * SLS + tx + 16 * j] = to_f(from_f<T>(expf(s[i][j] - m) / l));
+  }
+}
+
+// o[i][j] += sum over the chunk's kn keys c of p(row_i, c) v(c, col_j),
+// in key order, for the thread's rows ty + 16 i and its first oj of the
+// columns tx + 16 j of the V tile Vs (row stride ldv).
+template <int OJ>
+__device__ __forceinline__ void pv_add(const float* Ss, const float* Vs,
+                                       int ldv, int kn, int oj,
+                                       float (&o)[4][OJ]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int c = 0; c < kn; ++c) {
+    float p[4], w[OJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SLS + c];
+#pragma unroll
+    for (int j = 0; j < OJ; ++j)
+      w[j] = j < oj ? Vs[c * ldv + tx + 16 * j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(p[i], w[j], o[i][j]);
+  }
+}
+
+// The thread's first oj output columns c0 + tx + 16 j of its rows q0 +
+// ty + 16 i below t, in T, into the [t, ld] head oh.
+template <typename T, int OJ>
+__device__ __forceinline__ void out_store(T* oh, int ld, int c0, int q0,
+                                          int t, int oj,
+                                          const float (&o)[4][OJ]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r < t)
+#pragma unroll
+      for (int j = 0; j < OJ; ++j)
+        if (j < oj) oh[(size_t)r * ld + c0 + tx + 16 * j] = from_f<T>(o[i][j]);
   }
 }
 
@@ -175,48 +305,19 @@ __global__ void __launch_bounds__(NT)
   const size_t head = ((size_t)b * heads + hd) * t * D;
   const T *qh = q + head, *kh = k + head, *vh = v + head;
   const float* mb = mask == nullptr ? nullptr : mask + b * mask_bstride;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float s[4][4];
 
   load_tile<D>(qh, t, q0, Qs, LD);
-  // pass 1: running max and sum per row; warp w owns rows 8w .. 8w + 7
-  float m_run[8], l_run[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
+  // pass 1: running max and sum per row
+  RowStats st;
   for (int k0 = 0; k0 < t; k0 += KC) {
     __syncthreads();  // Ks and Ss are free
     load_tile<D>(kh, t, k0, Ks, LD);
     __syncthreads();
     scores<D>(Qs, Ks, mb, t, q0, k0, scale, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ss[(ty + 16 * i) * SLS + tx + 16 * j] = s[i][j];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float* sr = Ss + (warp * 8 + i) * SLS;
-      const float a = sr[lane], c = sr[lane + 32];
-      const float mn = fmaxf(m_run[i], warp_max(fmaxf(a, c)));
-      float e = 0.f;
-      if (mn != -INFINITY) e = expf(a - mn) + expf(c - mn);
-      e = warp_sum(e);
-      l_run[i] = (m_run[i] == -INFINITY ? 0.f : l_run[i] * expf(m_run[i] - mn)) + e;
-      m_run[i] = mn;
-    }
+    st.add(Ss, s);
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      M[warp * 8 + i] = m_run[i];
-      L[warp * 8 + i] = l_run[i];
-    }
-  }
+  st.store(M, L);
   // pass 2: o = round(p) v, p = exp(s - max) / sum
   float o[4][OJ];
 #pragma unroll
@@ -229,37 +330,115 @@ __global__ void __launch_bounds__(NT)
     load_tile<D>(vh, t, k0, Vs, D);
     __syncthreads();
     scores<D>(Qs, Ks, mb, t, q0, k0, scale, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float m = M[r], l = L[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ss[r * SLS + tx + 16 * j] =
-            to_f(from_f<T>(expf(s[i][j] - m) / l));
-    }
+    p_store<T>(Ss, M, L, s);
     __syncthreads();
-    const int kn = min(KC, t - k0);
-    for (int c = 0; c < kn; ++c) {
-      float p[4], w[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SLS + c];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) w[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(p[i], w[j], o[i][j]);
-    }
+    pv_add<OJ>(Ss, Vs, D, min(KC, t - k0), OJ, o);
   }
-  T* oh = out + head;
+  out_store<T, OJ>(out + head, D, 0, q0, t, OJ, o);
+}
+
+// ---------------------------------------------------------------------------
+// Heads wider than 256 columns, streamed in column chunks
+// ---------------------------------------------------------------------------
+//
+// attention_wide_kernel takes heads of d > 256 columns (d a multiple of
+// 64: the wrapper zero-pads), for which attention_fwd_kernel's whole-head
+// tiles would not fit a block's shared memory (D = 512: 410,880 bytes).
+// The block, its threads' tiles and its two passes are
+// attention_fwd_kernel's, through the same device functions (RowStats,
+// p_store, pv_add, out_store); what changes is that q, k and v are
+// streamed in column chunks of at most WC = 256 into tiles of that width
+// (214,272 bytes, as at D = 256):
+//   - a key chunk's scores are the sums of q . k over the column chunks,
+//     taken in column order in each thread's registers (the same order
+//     as the whole-head kernel's), then scaled and masked;
+//   - pass 1 keeps each row's max and sum of exp(s - max) over the key
+//     chunks;
+//   - pass 2 writes the output one column chunk at a time: for each, it
+//     recomputes every key chunk's scores (the same bits as pass 1), takes
+//     p = exp(s - max) / sum rounded to T, and adds p v over the chunk's
+//     columns of v.
+// So p is rounded after it is normalized, as in the TPU kernel (no online
+// softmax), at the price of recomputing the scores once an output chunk
+// (twice at d = 512). No CLIP preset has such heads; this route is for
+// completeness, not speed.
+
+constexpr int WC = 256;  // columns of a chunk
+
+// rows [r0, r0 + 64) and columns [c0, c0 + cw) of a [t, d] head -> fp32
+// tile (row stride ldt); rows past t are 0.
+template <typename T>
+__device__ void load_chunk(const T* __restrict__ src, int t, int d, int r0,
+                           int c0, int cw, float* tile, int ldt) {
+  for (int e = threadIdx.x; e < 64 * cw; e += NT) {
+    const int r = e / cw, c = e % cw;
+    tile[r * ldt + c] =
+        (r0 + r < t) ? to_f(src[(size_t)(r0 + r) * d + c0 + c]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ mask,
+                          long long mask_bstride, float scale,
+                          T* __restrict__ out, int heads, int t, int d) {
+  constexpr int LD = WC + 1;   // padded row of the q / k chunk tiles
+  constexpr int OJ = WC / 16;  // output columns a thread, at most
+  extern __shared__ float smem[];
+  float* Qs = smem;           // [QT][LD] a column chunk of q
+  float* Ks = Qs + QT * LD;   // [KC][LD] a column chunk of k
+  float* Vs = Ks + KC * LD;   // [KC][WC] a column chunk of v
+  float* Ss = Vs + KC * WC;   // [QT][SLS]: scores, then p rounded to T
+  float* M = Ss + QT * SLS;   // [QT]: row max
+  float* L = M + QT;          // [QT]: row sum of exp(s - max)
+  const int q0 = blockIdx.x * QT, hd = blockIdx.y, b = blockIdx.z;
+  const size_t head = ((size_t)b * heads + hd) * t * d;
+  const T *qh = q + head, *kh = k + head, *vh = v + head;
+  const float* mb = mask == nullptr ? nullptr : mask + b * mask_bstride;
+  float s[4][4];
+
+  // the scores of the key chunk at k0: q . k summed over the column
+  // chunks in order, then scaled and masked (starts with a barrier: the
+  // tiles and Ss are free once every thread is past it)
+  auto chunk_scores = [&](int k0) {
+    scores_zero(s);
+    for (int c0 = 0; c0 < d; c0 += WC) {
+      const int cw = min(WC, d - c0);
+      __syncthreads();
+      load_chunk(qh, t, d, q0, c0, cw, Qs, LD);
+      load_chunk(kh, t, d, k0, c0, cw, Ks, LD);
+      __syncthreads();
+      scores_add<LD>(Qs, Ks, cw, s);
+    }
+    scores_finish(mb, t, q0, k0, scale, s);
+  };
+
+  // pass 1: running max and sum per row
+  RowStats st;
+  for (int k0 = 0; k0 < t; k0 += KC) {
+    chunk_scores(k0);
+    st.add(Ss, s);
+  }
+  st.store(M, L);
+  // pass 2, one output column chunk at a time: o = round(p) v over the
+  // chunk's columns, p = exp(s - max) / sum
+  for (int c0 = 0; c0 < d; c0 += WC) {
+    const int cw = min(WC, d - c0), oj = cw / 16;
+    float o[4][OJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r < t)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < OJ; ++j)
-        oh[(size_t)r * D + tx + 16 * j] = from_f<T>(o[i][j]);
+      for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
+    for (int k0 = 0; k0 < t; k0 += KC) {
+      chunk_scores(k0);  // its barriers also order M, L and Vs
+      p_store<T>(Ss, M, L, s);
+      load_chunk(vh, t, d, k0, c0, cw, Vs, WC);
+      __syncthreads();
+      pv_add<OJ>(Ss, Vs, WC, min(KC, t - k0), oj, o);
+    }
+    out_store<T, OJ>(out + head, d, c0, q0, t, oj, o);
   }
 }
 
@@ -513,25 +692,55 @@ int attention_launch(int bf16, const void* q, const void* k, const void* v,
                                         b, heads, t, smem, st);
 }
 
+// The column-chunk route for heads wider than 256 (d a multiple of 64):
+// its tiles are those of the fp32 kernel at D = 256.
+template <typename T>
+int attention_wide(const void* q, const void* k, const void* v,
+                   const float* m, long long mask_bstride, float scale,
+                   void* out, int b, int heads, int t, int d,
+                   cudaStream_t st) {
+  const size_t smem = attention_smem<WC>(0);
+  const dim3 grid((t + QT - 1) / QT, heads, b);
+  auto kern = attention_wide_kernel<T>;
+  int err;
+  if ((err = (int)cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
+                               mask_bstride, scale, (T*)out, heads, t, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory a block of the bf16 or the fp32 kernel takes at head width
-// d (64, 128 or 256), in bytes.
+// d (64, 128, 256, or a multiple of 64 past 256), in bytes.
 size_t vct_attention_smem(int bf16, int d) {
   return d <= 64    ? attention_smem<64>(bf16)
          : d <= 128 ? attention_smem<128>(bf16)
-                    : attention_smem<256>(bf16);
+         : d <= 256 ? attention_smem<256>(bf16)
+                    : attention_smem<WC>(0);
 }
 
 // q, k, v, out: [b, heads, t, d] contiguous in T (bf16 when bf16 != 0,
-// else fp32; bf16 heads 16-byte aligned), d 64, 128 or 256; mask: fp32
-// [t, t] rows at mask + batch * mask_bstride, or null.
+// else fp32; bf16 heads 16-byte aligned), d 64, 128, 256, or a multiple
+// of 64 past 256 (the column-chunk route); mask: fp32 [t, t] rows at
+// mask + batch * mask_bstride, or null.
 int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
                       const void* mask, long long mask_bstride, float scale,
                       void* out, int b, int heads, int t, int d,
                       void* stream) {
+  if (d > 256) {
+    if (d % 64) return (int)cudaErrorInvalidValue;
+    return bf16 ? attention_wide<vct::bf16>(q, k, v, (const float*)mask,
+                                            mask_bstride, scale, out, b,
+                                            heads, t, d, (cudaStream_t)stream)
+                : attention_wide<float>(q, k, v, (const float*)mask,
+                                        mask_bstride, scale, out, b, heads,
+                                        t, d, (cudaStream_t)stream);
+  }
   if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
   auto launch = d == 64    ? attention_launch<64>
                 : d == 128 ? attention_launch<128>

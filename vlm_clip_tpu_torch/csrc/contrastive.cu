@@ -28,9 +28,11 @@
 // cluster through distributed shared memory. Larger batches take the
 // first version, which keeps the [B, B] logits in device memory and runs
 // every pass as its own small kernel (eight launches, 16 x 16-tiled fp32
-// SIMT products), so every batch is covered. The forward is still that
-// first version (four launches); the cluster kernel's norm, logit and LSE
-// steps are its to take.
+// SIMT products), so every batch is covered. The forward is one launch of
+// the same cluster (contrastive_fwd_cluster_kernel) at the same batches,
+// built from the backward's norm, logit and LSE steps, so its row and
+// column LSEs are the backward's bits; past them, the first version's
+// four launches.
 //
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // given stream and returns the first cudaGetLastError() that is not 0.
@@ -644,6 +646,114 @@ __device__ void k4_row_stats(const float* ZO, float* LR, float* PM,
   }
 }
 
+// A cluster block's shared memory (k4_smem_floats floats; the forward
+// uses all but DTS, DMS and DZO) and its share: rows [r0, r0 + nr) of Z,
+// columns [c0, c0 + dsz) of d.
+struct K4Block {
+  int q, R, r0, nr, ds, c0, dsz, dsp, bp;
+  float* PUB;   // [k4_pub] read by the cluster
+  float* NS;    // [2b] each row's partial sum of squares
+  float* NB;    // [2b] each row's partial <dn, n> (the forward: its two
+                // partial loss sums)
+  float* LR;    // [R] the own rows' LSE
+  float* DL;    // [1] the own rows' partial of sum(dZ Z)
+  float* PM;    // [b] the own rows' maximum, each column
+  float* PS;    // [b] their sum of exp(z - max)
+  float* INV;   // [2b] 1 / |row|, txt then img
+  float* LSER;  // [b] every row's LSE
+  float* LSEC;  // [b] every column's LSE
+  float* TS;    // [bp][dsp] the slice of t, then of tn
+  float* MS;    // [bp][dsp] the slice of m, then of mn
+  float* DTS;   // [bp][dsp] the slice of dtn
+  float* DMS;   // [bp][dsp] the slice of dmn
+  float* ZP;    // [bp][bp] partial logits, then every dZ
+  float* ZO;    // [R][bp] the own rows of Z
+  float* DZO;   // [R][bp] the own rows of dZ, zero past b
+  __device__ K4Block(float* csm, int rank, int b, int d) {
+    q = rank;
+    R = k4_rows(b);
+    r0 = q * R;
+    nr = max(0, min(R, b - r0));
+    ds = k4_ds(d);
+    c0 = q * ds;
+    dsz = max(0, min(ds, d - c0));
+    dsp = k4_dsp(d);
+    bp = k4_bp(b);
+    PUB = csm;
+    NS = PUB;
+    NB = NS + 2 * b;
+    LR = NB + 2 * b;
+    DL = LR + R;
+    PM = DL + 1;
+    PS = PM + b;
+    INV = PUB + k4_pub(b);
+    LSER = INV + 2 * b;
+    LSEC = LSER + b;
+    TS = LSEC + b;
+    MS = TS + bp * dsp;
+    DTS = MS + bp * dsp;
+    DMS = DTS + bp * dsp;
+    ZP = DMS + bp * dsp;
+    ZO = ZP + bp * bp;
+    DZO = ZO + R * bp;
+  }
+};
+
+// K4's forward as one launch of the backward's cluster: steps 1-2 of
+// contrastive_bwd_cluster_kernel (the same device functions, so the same
+// row and column LSEs, bit for bit, as the backward recomputes), then
+// the loss. Each block takes its own rows i: the row term LSE_row(i) -
+// Z_ii and the column term LSE_col(i) - Z_ii (column i's LSE merged from
+// the blocks' partials in rank order, as the backward merges it), each
+// summed in row order; rank 0 adds the blocks' sums in rank order and
+// writes loss = (rows / b + columns / b) / 2. With lse not null, every
+// row's and column's LSE too ([2b]: rows, then columns).
+template <typename T>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(CNT)
+    contrastive_fwd_cluster_kernel(const T* __restrict__ t,
+                                   const T* __restrict__ m,
+                                   const float* __restrict__ log_scale,
+                                   float* __restrict__ loss,
+                                   float* __restrict__ lse, int b, int d) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float csm[];
+  const K4Block kb(csm, (int)cluster.block_rank(), b, d);
+  const int tid = threadIdx.x;
+  const float s = expf(log_scale[0]);
+
+  k4_norm_slices(cluster, t, m, b, d, kb.c0, kb.dsz, kb.bp, kb.dsp, kb.TS,
+                 kb.MS, kb.NS, kb.INV);
+  k4_logit_rows(cluster, kb.TS, kb.MS, kb.ZP, kb.ZO, s, kb.r0, kb.nr, kb.bp,
+                kb.dsz, kb.dsp);
+  k4_row_stats(kb.ZO, kb.LR, kb.PM, kb.PS, kb.nr, b, kb.bp);
+  cluster.sync();
+  for (int i = tid; i < kb.nr; i += CNT) {
+    const int j = kb.r0 + i;
+    kb.LSEC[j] = k4_col_lse(cluster, kb.PM, kb.PS, j);
+    if (lse != nullptr) {
+      lse[j] = kb.LR[i];
+      lse[b + j] = kb.LSEC[j];
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float st = 0.f, si = 0.f;
+    for (int i = 0; i < kb.nr; ++i) {
+      const float zd = kb.ZO[i * kb.bp + kb.r0 + i];
+      st += kb.LR[i] - zd;
+      si += kb.LSEC[kb.r0 + i] - zd;
+    }
+    kb.NB[0] = st;
+    kb.NB[1] = si;
+  }
+  cluster.sync();
+  if (kb.q == 0 && tid == 0) {
+    const float st = k4_sum(cluster, kb.NB, 0), si = k4_sum(cluster, kb.NB, 1);
+    loss[0] = 0.5f * (st / b + si / b);
+  }
+  cluster.sync();  // no block leaves while the cluster may read its PUB
+}
+
 template <typename T>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(CNT)
     contrastive_bwd_cluster_kernel(const T* __restrict__ t,
@@ -651,30 +761,17 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(CNT)
                                    const float* __restrict__ log_scale,
                                    const float* __restrict__ gp,
                                    T* __restrict__ dt, T* __restrict__ dm,
-                                   float* __restrict__ dls, int b, int d) {
+                                   float* __restrict__ dls,
+                                   float* __restrict__ lse, int b, int d) {
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float csm[];
-  const int q = (int)cluster.block_rank();
-  const int R = k4_rows(b), r0 = q * R, nr = max(0, min(R, b - r0));
-  const int ds = k4_ds(d), c0 = q * ds, dsz = max(0, min(ds, d - c0));
-  const int dsp = k4_dsp(d), bp = k4_bp(b);
-  float* PUB = csm;             // [k4_pub] read by the cluster
-  float* NS = PUB;              // [2b] each row's partial sum of squares
-  float* NB = NS + 2 * b;       // [2b] each row's partial <dn, n>
-  float* LR = NB + 2 * b;       // [R] the own rows' LSE
-  float* DL = LR + R;           // [1] the own rows' partial of sum(dZ Z)
-  float* PM = DL + 1;           // [b] the own rows' maximum, each column
-  float* PS = PM + b;           // [b] their sum of exp(z - max)
-  float* INV = PUB + k4_pub(b);  // [2b] 1 / |row|, txt then img
-  float* LSER = INV + 2 * b;     // [b] every row's LSE
-  float* LSEC = LSER + b;        // [b] every column's LSE
-  float* TS = LSEC + b;          // [bp][dsp] the slice of t, then of tn
-  float* MS = TS + bp * dsp;     // [bp][dsp] the slice of m, then of mn
-  float* DTS = MS + bp * dsp;    // [bp][dsp] the slice of dtn
-  float* DMS = DTS + bp * dsp;   // [bp][dsp] the slice of dmn
-  float* ZP = DMS + bp * dsp;    // [bp][bp] partial logits, then every dZ
-  float* ZO = ZP + bp * bp;      // [R][bp] the own rows of Z
-  float* DZO = ZO + R * bp;      // [R][bp] the own rows of dZ, zero past b
+  const K4Block kb(csm, (int)cluster.block_rank(), b, d);
+  const int q = kb.q, R = kb.R, r0 = kb.r0, nr = kb.nr, c0 = kb.c0;
+  const int dsz = kb.dsz, dsp = kb.dsp, bp = kb.bp;
+  float *NS = kb.NS, *NB = kb.NB, *LR = kb.LR, *DL = kb.DL, *PM = kb.PM,
+        *PS = kb.PS, *INV = kb.INV, *LSER = kb.LSER, *LSEC = kb.LSEC,
+        *TS = kb.TS, *MS = kb.MS, *DTS = kb.DTS, *DMS = kb.DMS,
+        *ZP = kb.ZP, *ZO = kb.ZO, *DZO = kb.DZO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float s = expf(log_scale[0]), g = gp[0];
 
@@ -691,6 +788,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(CNT)
     LSEC[i] = k4_col_lse(cluster, PM, PS, i);
   }
   __syncthreads();
+  if (lse != nullptr && q == 0)  // LSEC follows LSER
+    for (int i = tid; i < 2 * b; i += CNT) lse[i] = LSER[i];
   for (int e = tid; e < nr * bp; e += CNT) {
     const int i = e / bp, j = e % bp;
     DZO[e] = j < b ? k4_dz(ZO[e], LSER[r0 + i], LSEC[j], r0 + i == j, g, b)
@@ -801,16 +900,29 @@ inline int k4_cluster_max(int d) {
 }
 
 template <typename T>
+int forward_cluster(const T* t, const T* m, const float* log_scale,
+                    float* loss, float* lse, int b, int d, cudaStream_t st) {
+  int err;
+  if ((err = vct::cluster_ready<contrastive_fwd_cluster_kernel<T>, CL, CNT>(
+           SMEM_MAX)))
+    return err;
+  contrastive_fwd_cluster_kernel<T>
+      <<<CL, CNT, sizeof(float) * k4_smem_floats(b, d), st>>>(
+          t, m, log_scale, loss, lse, b, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int backward_cluster(const T* t, const T* m, const float* log_scale,
-                     const float* g, T* dt, T* dm, float* dls, int b, int d,
-                     cudaStream_t st) {
+                     const float* g, T* dt, T* dm, float* dls, float* lse,
+                     int b, int d, cudaStream_t st) {
   int err;
   if ((err = vct::cluster_ready<contrastive_bwd_cluster_kernel<T>, CL, CNT>(
            SMEM_MAX)))
     return err;
   contrastive_bwd_cluster_kernel<T>
       <<<CL, CNT, sizeof(float) * k4_smem_floats(b, d), st>>>(
-          t, m, log_scale, g, dt, dm, dls, b, d);
+          t, m, log_scale, g, dt, dm, dls, lse, b, d);
   return (int)cudaGetLastError();
 }
 
@@ -824,12 +936,22 @@ size_t vct_contrastive_work(int b, int d) {
   return 4 * (size_t)b * d + 4 * (size_t)b + 2 * (size_t)b * b;
 }
 
+// K4 forward: one cluster launch for b <= vct_contrastive_bwd_cluster_max
+// (work unused, may be null), else the four-kernel route over work
+// (vct_contrastive_work floats).
 int vct_contrastive_fwd(int bf16, const void* t, const void* m,
                         const void* log_scale, void* work, void* loss, int b,
                         int d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Work w((float*)work, b, d);
   const float* ls = (const float*)log_scale;
+  if (b <= k4_cluster_max(d)) {
+    typedef __nv_bfloat16 H;
+    return bf16 ? forward_cluster((const H*)t, (const H*)m, ls,
+                                  (float*)loss, nullptr, b, d, st)
+                : forward_cluster((const float*)t, (const float*)m, ls,
+                                  (float*)loss, nullptr, b, d, st);
+  }
+  const Work w((float*)work, b, d);
   int err = bf16 ? forward_passes((const __nv_bfloat16*)t,
                                   (const __nv_bfloat16*)m, ls, w, b, d, st)
                  : forward_passes((const float*)t, (const float*)m, ls, w, b,
@@ -855,10 +977,10 @@ int vct_contrastive_bwd(int bf16, const void* t, const void* m,
   if (b <= k4_cluster_max(d)) {
     typedef __nv_bfloat16 H;
     return bf16 ? backward_cluster((const H*)t, (const H*)m, ls, gg, (H*)dt,
-                                   (H*)dm, (float*)dls, b, d, st)
+                                   (H*)dm, (float*)dls, nullptr, b, d, st)
                 : backward_cluster((const float*)t, (const float*)m, ls, gg,
-                                   (float*)dt, (float*)dm, (float*)dls, b, d,
-                                   st);
+                                   (float*)dt, (float*)dm, (float*)dls,
+                                   nullptr, b, d, st);
   }
   if (bf16) {
     typedef __nv_bfloat16 T;
@@ -867,6 +989,32 @@ int vct_contrastive_bwd(int bf16, const void* t, const void* m,
   }
   return backward((const float*)t, (const float*)m, ls, gg, (float*)work,
                   (float*)dt, (float*)dm, (float*)dls, b, d, st);
+}
+
+// Every row's then every column's LSE of Z ([2b] in lse) as one of K4's
+// cluster kernels computes it, for b <= vct_contrastive_bwd_cluster_max:
+// the forward's (backward 0; out: the loss) or the backward's (backward
+// 1, cotangent g; out: dls, beside dt and dm). A check that the two are
+// the same bits; the training entries above write no LSE.
+int vct_contrastive_cluster_lse(int bf16, int backward, const void* t,
+                                const void* m, const void* log_scale,
+                                const void* g, void* out, void* dt,
+                                void* dm, void* lse, int b, int d,
+                                void* stream) {
+  if (b > k4_cluster_max(d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *ls = (const float*)log_scale, *gg = (const float*)g;
+  typedef __nv_bfloat16 H;
+  if (!backward)
+    return bf16 ? forward_cluster((const H*)t, (const H*)m, ls, (float*)out,
+                                  (float*)lse, b, d, st)
+                : forward_cluster((const float*)t, (const float*)m, ls,
+                                  (float*)out, (float*)lse, b, d, st);
+  return bf16 ? backward_cluster((const H*)t, (const H*)m, ls, gg, (H*)dt,
+                                 (H*)dm, (float*)out, (float*)lse, b, d, st)
+              : backward_cluster((const float*)t, (const float*)m, ls, gg,
+                                 (float*)dt, (float*)dm, (float*)out,
+                                 (float*)lse, b, d, st);
 }
 
 }  // extern "C"

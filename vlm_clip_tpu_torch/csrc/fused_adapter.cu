@@ -2192,6 +2192,14 @@ __global__ void __launch_bounds__(NT)
 // a block has 512 threads (16 warps, 4 a scheduler) and the weight
 // slices are copied with one 4-byte cp.async an element, all in flight
 // together.
+//
+// Every width runs: where a block's row buffers do not fit its shared
+// memory even at FRT rows (ceil(d / 8) + k past some 3,370), they live in
+// a global workspace the wrapper allocates, and the cluster's rank-order
+// sums read the other blocks' partials from it past L1 (FeatBlock::sum)
+// instead of through distributed shared memory: the same additions, so
+// the same bits, and the forward's y still equals the backward's
+// recompute.
 
 constexpr unsigned FEAT_TILE = 256;  // the TPU kernel's ROW_TILE
 
@@ -2217,12 +2225,6 @@ constexpr int FEAT_CLUSTER = 8;  // blocks a cluster: each owns 1/8 of d
 constexpr int FRT = 8;           // rows of a thread's register tile
 constexpr int FEAT_RMAX = 64;    // rows a group, at most
 constexpr int FNT = 512;         // threads a block: 16 warps
-
-// The rank-order sum over a K6 cluster (vct::cluster_sum).
-__device__ __forceinline__ float feat_sum(
-    const cooperative_groups::cluster_group& cluster, float* buf, int at) {
-  return vct::cluster_sum<FEAT_CLUSTER>(cluster, buf, at);
-}
 
 // store(e, load(e)) for e < count over the block's threads, eight loads
 // in flight a thread before their stores: every load is issued (an e past
@@ -2358,27 +2360,44 @@ inline size_t feat_grads(int d, int k) {
 // depth-range partials [FNT FRT]; with `resident` weights also W1's rows
 // [ds][k | 1] and W2's columns [k][ds | 1] of the slice (odd row strides:
 // a warp reading a column of either, one row a lane, hits 32 banks).
-inline size_t feat_smem(int rows, int d, int k, bool resident) {
+// Where even FRT rows' buffers do not fit (ceil(d / 8) + k past some
+// 3,370: d past 26,900 or k past 3,370), they live in a global workspace
+// instead, feat_buffers floats a block (feat_rows).
+inline size_t feat_buffers(int rows, int d, int k) {
   const int ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
   const int dsp = (ds + 3) & ~3, kp = (k + 3) & ~3;
+  return (size_t)rows * (2 * dsp + 2 * kp + 4) + (size_t)FNT * FRT;
+}
+
+inline size_t feat_smem(int rows, int d, int k, bool resident) {
+  const int ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
   return sizeof(float) *
-         ((size_t)rows * (2 * dsp + 2 * kp + 4) + (size_t)FNT * FRT +
+         (feat_buffers(rows, d, k) +
           (resident ? (size_t)ds * (k | 1) + (size_t)k * (ds | 1) : 0));
 }
 
 // A cluster block's share of K6: block rank q of cluster grp (blockIdx.x
 // / 8) owns columns [q ds, q ds + ds) of d (ds = ceil(d / 8); the last
 // ones may own fewer, or none) for the group's rows [grp * rows, ...)
-// (rows: a multiple of FRT), and lays out its shared memory as feat_smem
-// says. The weight slices: W1(c, j) = W1s[c * ld1 + j] and W2(j, c) =
-// W2s[j * ld2 + c] for c < dsz, j < k, in shared memory once
-// feat_cluster_forward has copied them there (resident), else in place.
+// (rows: a multiple of FRT), and lays out its buffers as feat_smem says:
+// in its shared memory fsm, or, with GLOBAL, in a global workspace at
+// gbuf + blockIdx.x * bstride, where every rank's copy lies bstride
+// floats from the next (a template parameter, so the shared-memory
+// kernels carry no trace of the other route). The weight slices: W1(c,
+// j) = W1s[c * ld1 + j] and W2(j, c) = W2s[j * ld2 + c] for c < dsz, j <
+// k, in shared memory once feat_cluster_forward has copied them there
+// (resident), else in place.
+template <bool GLOBAL>
 struct FeatBlock {
-  int ds, dsp, kp, c0, dsz, row0, nr, nrb, ld1, ld2;
+  int rank, ds, dsp, kp, c0, dsz, row0, nr, nrb, ld1, ld2;
+  size_t rs;  // floats between two ranks' buffers (GLOBAL)
   float *X, *Z, *A, *H, *RS, *ST, *P;
   const float *W1s, *W2s;
-  __device__ FeatBlock(float* fsm, int rank, int grp, int rows, int n,
-                       int d, int k, const float* w1, const float* w2) {
+  __device__ FeatBlock(float* fsm, float* gbuf, size_t bstride, int rank,
+                       int grp, int rows, int n, int d, int k,
+                       const float* w1, const float* w2)
+      : rank(rank), rs(bstride) {
+    if (GLOBAL) fsm = gbuf + (size_t)blockIdx.x * bstride;
     ds = (d + FEAT_CLUSTER - 1) / FEAT_CLUSTER;
     dsp = (ds + 3) & ~3;
     kp = (k + 3) & ~3;
@@ -2399,6 +2418,26 @@ struct FeatBlock {
     ld1 = k;
     ld2 = d;
   }
+
+  // The sum over the cluster's ranks, in rank order, of the float at
+  // offset `at` of each rank's copy of this block's buffer buf: through
+  // distributed shared memory (vct::cluster_sum), or from the global
+  // workspace past L1 (the other blocks wrote it before a cluster.sync(),
+  // whose release and acquire order the writes before these reads). The
+  // same additions either way.
+  __device__ __forceinline__ float sum(
+      const cooperative_groups::cluster_group& cluster, float* buf,
+      int at) const {
+    if constexpr (!GLOBAL) {
+      return vct::cluster_sum<FEAT_CLUSTER>(cluster, buf, at);
+    } else {
+      const float* p = buf - (size_t)rank * rs + at;
+      float s = __ldcg(p);
+#pragma unroll
+      for (int q = 1; q < FEAT_CLUSTER; ++q) s += __ldcg(p + (size_t)q * rs);
+      return s;
+    }
+  }
 };
 
 // K6's forward for a cluster block's share (both kernels run it, so they
@@ -2413,9 +2452,9 @@ struct FeatBlock {
 // than its tiles): it holds two cluster.sync() that all must reach. The
 // caller keeps the cluster together (cluster.sync()) before a block may
 // leave: the others read its A and RS.
-template <typename T, bool WITH_G>
+template <typename T, bool WITH_G, bool GLOBAL>
 __device__ __forceinline__ void feat_cluster_forward(
-    const cooperative_groups::cluster_group& cluster, FeatBlock& b,
+    const cooperative_groups::cluster_group& cluster, FeatBlock<GLOBAL>& b,
     const T* __restrict__ x, const float* __restrict__ b1,
     const float* __restrict__ b2, float r, unsigned seed, unsigned threshold,
     float scale, const T* __restrict__ g, int rows, int resident, int d,
@@ -2467,7 +2506,7 @@ __device__ __forceinline__ void feat_cluster_forward(
     const int rr = e / kp, j = e % kp;
     float v = 0.f;
     if (rr < nr && j < k) {
-      v = fmaxf(feat_sum(cluster, A, e) + b1[j], 0.f);
+      v = fmaxf(b.sum(cluster, A, e) + b1[j], 0.f);
       if (threshold) v *= feat_dropout(row0 + rr, j, seed, threshold, scale);
     }
     H[e] = v;
@@ -2498,28 +2537,28 @@ __device__ __forceinline__ void feat_cluster_forward(
   }
   cluster.sync();
   if (tid < nr) {  // the row's sums over d, in rank order
-    const float inv = rsqrtf(feat_sum(cluster, RS, 2 * tid));
+    const float inv = rsqrtf(b.sum(cluster, RS, 2 * tid));
     ST[2 * tid] = inv;
-    if (WITH_G) ST[2 * tid + 1] = feat_sum(cluster, RS, 2 * tid + 1) * inv;
+    if (WITH_G) ST[2 * tid + 1] = b.sum(cluster, RS, 2 * tid + 1) * inv;
   }
   __syncthreads();
 }
 
 // K6's forward for the rows [grp * rows, ...) of cluster grp: y = z / |z|
 // over the block's slice (the share and layout of FeatBlock).
-template <typename T>
+template <typename T, bool GLOBAL>
 __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
     feature_adapter_fwd_cluster_kernel(
         const T* __restrict__ x, const float* __restrict__ w1,
         const float* __restrict__ b1, const float* __restrict__ w2,
         const float* __restrict__ b2, float r, unsigned seed,
-        unsigned threshold, float scale, T* __restrict__ y, int rows,
-        int resident, int n, int d, int k) {
+        unsigned threshold, float scale, T* __restrict__ y, float* gbuf,
+        size_t bstride, int rows, int resident, int n, int d, int k) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float fsm[];
-  FeatBlock b(fsm, (int)cluster.block_rank(), blockIdx.x / FEAT_CLUSTER,
-              rows, n, d, k, w1, w2);
+  FeatBlock<GLOBAL> b(fsm, gbuf, bstride, (int)cluster.block_rank(),
+                      blockIdx.x / FEAT_CLUSTER, rows, n, d, k, w1, w2);
   feat_cluster_forward<T, false>(cluster, b, x, b1, b2, r, seed, threshold,
                                  scale, (const T*)nullptr, rows, resident, d,
                                  k);
@@ -2535,7 +2574,7 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
 // to grads + grp * gstride (the gradients themselves with one group, a
 // group's partials with more); dx when not null (the share and layout of
 // FeatBlock).
-template <typename T>
+template <typename T, bool GLOBAL>
 __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
     feature_adapter_bwd_cluster_kernel(
         const T* __restrict__ x, const float* __restrict__ w1,
@@ -2543,12 +2582,14 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
         const float* __restrict__ b2, float r, unsigned seed,
         unsigned threshold, float scale, const T* __restrict__ g,
         T* __restrict__ dx, float* __restrict__ grads, size_t gstride,
-        int rows, int resident, int n, int d, int k) {
+        float* gbuf, size_t bstride, int rows, int resident, int n, int d,
+        int k) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float fsm[];
   const int rank = (int)cluster.block_rank(), grp = blockIdx.x / FEAT_CLUSTER;
-  FeatBlock b(fsm, rank, grp, rows, n, d, k, w1, w2);
+  FeatBlock<GLOBAL> b(fsm, gbuf, bstride, rank, grp, rows, n, d, k, w1,
+                      w2);
   feat_cluster_forward<T, true>(cluster, b, x, b1, b2, r, seed, threshold,
                                 scale, g, rows, resident, d, k);
   const int dsp = b.dsp, kp = b.kp, c0 = b.c0, dsz = b.dsz;
@@ -2599,7 +2640,7 @@ __global__ void __cluster_dims__(FEAT_CLUSTER, 1, 1) __launch_bounds__(FNT)
   // (h > 0 exactly where pre > 0 and the mask keeps the element)
   for (int e = tid; e < nr * k; e += FNT) {
     const int at = (e / k) * kp + e % k;
-    float s = feat_sum(cluster, A, at);
+    float s = b.sum(cluster, A, at);
     if (threshold) s *= feat_dropout(row0 + e / k, e % k, seed, threshold,
                                      scale);
     H[at] = H[at] > 0.f ? s : 0.f;
@@ -3946,14 +3987,21 @@ int vct_cross_attn_block_bwd_bf16(
 }
 
 // Rows a group of K6's cluster kernels takes (a multiple of FRT, at most
-// FEAT_RMAX) from `want` rows, and whether each block keeps its weight
-// slices in shared memory: it does where they fit beside those rows, else
-// it takes the most rows that fit without them (FRT rows fit at every
-// width the wrapper takes, d <= 4096 and k <= 1024: 98 KB).
-static int feat_rows(int want, int d, int k, bool* resident) {
+// FEAT_RMAX) from `want` rows, whether each block keeps its weight slices
+// in shared memory, and where its buffers live: it keeps the weights
+// where they fit beside those rows, else it takes the most rows whose
+// buffers fit without them; where even FRT rows' buffers do not fit
+// (*global), they go to a global workspace of feat_buffers(rows, d, k)
+// floats a block, and the group keeps `want` rows (capped).
+static int feat_rows(int want, int d, int k, bool* resident, bool* global) {
   int rows = (want + FRT - 1) / FRT * FRT;
   if (rows > FEAT_RMAX) rows = FEAT_RMAX;
   *resident = feat_smem(rows, d, k, true) <= SMEM_MAX;
+  *global = feat_smem(FRT, d, k, false) > SMEM_MAX;
+  if (*global) {
+    *resident = false;
+    return rows;
+  }
   while (!*resident && rows > FRT && feat_smem(rows, d, k, false) > SMEM_MAX)
     rows -= FRT;
   return rows;
@@ -3962,8 +4010,8 @@ static int feat_rows(int want, int d, int k, bool* resident) {
 // The backward's groups: up to FEAT_RMAX rows, since it sums its weight
 // gradients over a group's rows in the launch and over the groups in one
 // more launch.
-static int feat_bwd_rows(int n, int d, int k, bool* resident) {
-  return feat_rows(n, d, k, resident);
+static int feat_bwd_rows(int n, int d, int k, bool* resident, bool* global) {
+  return feat_rows(n, d, k, resident, global);
 }
 
 // The forward's groups: it sums nothing across rows, so a group takes the
@@ -3972,98 +4020,157 @@ static int feat_bwd_rows(int n, int d, int k, bool* resident) {
 // up to 128 rows (pipeline T's 7-35 rows: one to five clusters, every
 // cluster's rows one register tile), more rows a group past that.
 constexpr int FEAT_WAVE = 16;
-static int feat_fwd_rows(int n, int d, int k, bool* resident) {
+static int feat_fwd_rows(int n, int d, int k, bool* resident, bool* global) {
   const int tiles = (n + FRT - 1) / FRT;
   return feat_rows(FRT * ((tiles + FEAT_WAVE - 1) / FEAT_WAVE), d, k,
-                   resident);
+                   resident, global);
 }
 
-// K6 forward: y [n, d] in T, one launch of 8-block clusters, a cluster
-// per group of feat_fwd_rows rows.
-int vct_feature_adapter_fwd(int bf16, const void* x, const void* w1,
-                            const void* b1, const void* w2, const void* b2,
-                            float r, unsigned seed, unsigned threshold,
-                            float scale, void* y, int n, int d, int k,
-                            void* stream) {
-  bool resident;
-  const int rows = feat_fwd_rows(n, d, k, &resident);
-  const int groups = (n + rows - 1) / rows;
-  const size_t smem = feat_smem(rows, d, k, resident);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
-              *fw2 = (const float*)w2, *fb2 = (const float*)b2;
+// Floats of a cluster launch's global buffers (feat_rows), 0 in shared
+// memory.
+static size_t feat_global_floats(int n, int rows, bool global, int d,
+                                 int k) {
+  const size_t groups = (n + rows - 1) / rows;
+  return global ? groups * FEAT_CLUSTER * feat_buffers(rows, d, k) : 0;
+}
+
+// Bytes of scratch vct_feature_adapter_fwd needs: the blocks' buffers
+// where they do not fit shared memory, none where they do.
+size_t vct_feature_adapter_fwd_ws(int n, int d, int k) {
+  bool resident, global;
+  const int rows = feat_fwd_rows(n, d, k, &resident, &global);
+  return sizeof(float) * feat_global_floats(n, rows, global, d, k);
+}
+
+}  // extern "C"
+
+namespace {
+
+// One launch of K6's forward (see vct_feature_adapter_fwd).
+template <typename T, bool GLOBAL>
+int feat_fwd_launch(const void* x, const float* w1, const float* b1,
+                    const float* w2, const float* b2, float r, unsigned seed,
+                    unsigned threshold, float scale, void* y, float* gbuf,
+                    size_t bstride, int groups, size_t smem, int rows,
+                    bool resident, int n, int d, int k, cudaStream_t st) {
   int err;
-  if (bf16) {
-    typedef __nv_bfloat16 T;
-    if ((err = vct::cluster_ready<feature_adapter_fwd_cluster_kernel<T>,
-                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
-      return err;
-    feature_adapter_fwd_cluster_kernel<T>
-        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
-            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
-            (T*)y, rows, (int)resident, n, d, k);
-  } else {
-    typedef float T;
-    if ((err = vct::cluster_ready<feature_adapter_fwd_cluster_kernel<T>,
-                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
-      return err;
-    feature_adapter_fwd_cluster_kernel<T>
-        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
-            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
-            (T*)y, rows, (int)resident, n, d, k);
-  }
+  if ((err = vct::cluster_ready<feature_adapter_fwd_cluster_kernel<T, GLOBAL>,
+                                FEAT_CLUSTER, FNT>(SMEM_MAX)))
+    return err;
+  feature_adapter_fwd_cluster_kernel<T, GLOBAL>
+      <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+          (const T*)x, w1, b1, w2, b2, r, seed, threshold, scale, (T*)y,
+          gbuf, bstride, rows, (int)resident, n, d, k);
   return (int)cudaGetLastError();
 }
 
-// Bytes of scratch vct_feature_adapter_bwd needs: the groups' partial
-// gradients past one group, none within one.
-size_t vct_feature_adapter_bwd_ws(int n, int d, int k) {
-  bool resident;
-  const int rows = feat_bwd_rows(n, d, k, &resident);
+}  // namespace
+
+extern "C" {
+
+// K6 forward: y [n, d] in T, one launch of 8-block clusters, a cluster
+// per group of feat_fwd_rows rows; ws: vct_feature_adapter_fwd_ws bytes
+// (null when that is 0).
+int vct_feature_adapter_fwd(int bf16, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            float r, unsigned seed, unsigned threshold,
+                            float scale, void* y, void* ws, int n, int d,
+                            int k, void* stream) {
+  typedef __nv_bfloat16 H;
+  bool resident, global;
+  const int rows = feat_fwd_rows(n, d, k, &resident, &global);
   const int groups = (n + rows - 1) / rows;
-  return groups > 1 ? sizeof(float) * groups * feat_grads(d, k) : 0;
+  const size_t smem = global ? 0 : feat_smem(rows, d, k, resident);
+  const size_t bstride = global ? feat_buffers(rows, d, k) : 0;
+  auto launch = bf16 ? (global ? feat_fwd_launch<H, true>
+                               : feat_fwd_launch<H, false>)
+                     : (global ? feat_fwd_launch<float, true>
+                               : feat_fwd_launch<float, false>);
+  return launch(x, (const float*)w1, (const float*)b1, (const float*)w2,
+                (const float*)b2, r, seed, threshold, scale, y, (float*)ws,
+                bstride, groups, smem, rows, resident, n, d, k,
+                (cudaStream_t)stream);
 }
+
+}  // extern "C"
+
+// Floats of the backward's workspace before the blocks' buffers: the
+// groups' partial gradients past one group (none within one), rounded up
+// to a multiple of 4 so that the buffers after them stay 16-byte aligned
+// for the float4 loads of X, Z and H.
+static size_t feat_bwd_partials(int groups, int d, int k) {
+  return groups > 1 ? (groups * feat_grads(d, k) + 3) & ~(size_t)3 : 0;
+}
+
+extern "C" {
+
+// Bytes of scratch vct_feature_adapter_bwd needs: the groups' partial
+// gradients (feat_bwd_partials), then the blocks' buffers where they do
+// not fit shared memory.
+size_t vct_feature_adapter_bwd_ws(int n, int d, int k) {
+  bool resident, global;
+  const int rows = feat_bwd_rows(n, d, k, &resident, &global);
+  const int groups = (n + rows - 1) / rows;
+  return sizeof(float) * (feat_bwd_partials(groups, d, k) +
+                          feat_global_floats(n, rows, global, d, k));
+}
+
+}  // extern "C"
+
+namespace {
+
+// One launch of K6's backward kernel (see vct_feature_adapter_bwd).
+template <typename T, bool GLOBAL>
+int feat_bwd_launch(const void* x, const float* w1, const float* b1,
+                    const float* w2, const float* b2, float r, unsigned seed,
+                    unsigned threshold, float scale, const void* g, void* dx,
+                    float* dst, size_t v, float* gbuf, size_t bstride,
+                    int groups, size_t smem, int rows, bool resident, int n,
+                    int d, int k, cudaStream_t st) {
+  int err;
+  if ((err = vct::cluster_ready<feature_adapter_bwd_cluster_kernel<T, GLOBAL>,
+                                FEAT_CLUSTER, FNT>(SMEM_MAX)))
+    return err;
+  feature_adapter_bwd_cluster_kernel<T, GLOBAL>
+      <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
+          (const T*)x, w1, b1, w2, b2, r, seed, threshold, scale,
+          (const T*)g, (T*)dx, dst, v, gbuf, bstride, rows, (int)resident, n,
+          d, k);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
 
 // K6 backward: writes dx (unless null) and grads [dW1 (d k) | db1 (k) |
 // dW2 (k d) | db2 (d)], every element; one launch of 8-block clusters, and
 // past one group of rows one colsum launch over ws
-// (vct_feature_adapter_bwd_ws bytes).
+// (vct_feature_adapter_bwd_ws bytes, null when that is 0).
 int vct_feature_adapter_bwd(int bf16, const void* x, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             float r, unsigned seed, unsigned threshold,
                             float scale, const void* g, void* dx,
                             void* grads, void* ws, int n, int d, int k,
                             void* stream) {
-  bool resident;
-  const int rows = feat_bwd_rows(n, d, k, &resident);
+  typedef __nv_bfloat16 H;
+  bool resident, global;
+  const int rows = feat_bwd_rows(n, d, k, &resident, &global);
   const int groups = (n + rows - 1) / rows;
-  const size_t smem = feat_smem(rows, d, k, resident);
+  const size_t smem = global ? 0 : feat_smem(rows, d, k, resident);
   const size_t v = feat_grads(d, k);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *fw1 = (const float*)w1, *fb1 = (const float*)b1,
-              *fw2 = (const float*)w2, *fb2 = (const float*)b2;
+  const size_t bstride = global ? feat_buffers(rows, d, k) : 0;
+  const size_t partials = feat_bwd_partials(groups, d, k);
   float* dst = groups > 1 ? (float*)ws : (float*)grads;
-  int err;
-  if (bf16) {
-    typedef __nv_bfloat16 T;
-    if ((err = vct::cluster_ready<feature_adapter_bwd_cluster_kernel<T>,
-                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
-      return err;
-    feature_adapter_bwd_cluster_kernel<T>
-        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
-            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
-            (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
-  } else {
-    typedef float T;
-    if ((err = vct::cluster_ready<feature_adapter_bwd_cluster_kernel<T>,
-                                     FEAT_CLUSTER, FNT>(SMEM_MAX)))
-      return err;
-    feature_adapter_bwd_cluster_kernel<T>
-        <<<groups * FEAT_CLUSTER, FNT, smem, st>>>(
-            (const T*)x, fw1, fb1, fw2, fb2, r, seed, threshold, scale,
-            (const T*)g, (T*)dx, dst, v, rows, (int)resident, n, d, k);
-  }
-  if ((err = (int)cudaGetLastError()) || groups == 1) return err;
+  auto launch = bf16 ? (global ? feat_bwd_launch<H, true>
+                               : feat_bwd_launch<H, false>)
+                     : (global ? feat_bwd_launch<float, true>
+                               : feat_bwd_launch<float, false>);
+  int err = launch(x, (const float*)w1, (const float*)b1, (const float*)w2,
+                   (const float*)b2, r, seed, threshold, scale, g, dx, dst, v,
+                   global ? (float*)ws + partials : nullptr, bstride, groups,
+                   smem, rows, resident, n, d, k, (cudaStream_t)stream);
+  if (err || groups == 1) return err;
   return vct_colsum(ws, groups, (int)v, grads, stream);
 }
 

@@ -16,7 +16,7 @@ the zero-shot baseline (port of ``vlm_clip_tpu/models/model_t.py``).
 - the frozen towers run without autograd; their pooled image features
   are what the trainer caches (``train/trainer_t.py``).
 
-Pipeline V (``model_v.py``) is not ported yet (ROADMAP.md).
+Pipeline V, which adds a VLM context branch, is ``model_v.py``.
 """
 
 from __future__ import annotations

@@ -8,20 +8,23 @@ the caller's ``stable_dtype``), p rounded to v's dtype after it is
 normalized, ``p v`` accumulated in fp32, the output in q's dtype. On a
 CUDA tensor it launches the kernel written by hand for Hopper in
 ``vlm_clip_tpu_torch/csrc/attention.cu`` (replaces ``_attn_kernel_nomask``
-:59 and ``_attn_kernel_mask`` :63; heads up to 256 wide): in bf16 with
+:59 and ``_attn_kernel_mask`` :63; heads of any width): in bf16 with
 heads up to 128 wide on the tensor cores, two passes over 64-key chunks
 (row max and sum, then p rounded after it is normalized, times v); in
 fp32, and in bf16 with heads of 129-256 columns, on the CUDA cores with
+the same passes and rounding points; heads wider than 256 on the CUDA
+cores too, streamed in column chunks of at most 256 (the scores summed
+over the chunks, the output written one column chunk at a time), with
 the same passes and rounding points. On a CPU
 tensor it takes :func:`fused_attention_torch` (the reference's
 ``_xla_attention``).
 
 Masks: none, ``[T, T]`` or ``[B|1, 1, T, T]`` (:func:`supports`); a
 batch-broadcast ``[1, 1, T, T]`` mask is expanded to B before the kernel
-reads it. The kernels take heads of 64, 128 and 256 columns; a narrower
-head runs zero-padded to the next of them (which changes no score), a
-head wider than 256 raises on a CUDA tensor (its fp32 tiles would not fit
-a block's shared memory). The backward is the
+reads it. The kernels take heads of 64, 128 and 256 columns, and past
+256 any multiple of 64; a head runs zero-padded to the next of these
+widths (:func:`kernel_width`; zero columns change no score). The
+backward is the
 reference's plain recompute (:func:`fused_attention_bwd_torch`,
 attention.py:160-189) inside a ``torch.autograd.Function``, mask
 cotangent included: the reference has no backward kernel, so the port
@@ -43,16 +46,17 @@ import torch.nn.functional as F
 from vlm_clip_tpu_torch.ops.build import aligned16, load_library
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' head widths (every CLIP preset: 64)
+WIDE_STEP = 64  # past 256: the column-chunk kernel's widths, multiples of 64
 
 
 def kernel_width(d: int) -> int:
     """The kernel width a head of d columns runs at, zero-padded: the
-    least of HEAD_DIMS that is at least d."""
+    least of HEAD_DIMS that is at least d, past 256 the least multiple of
+    WIDE_STEP (the column-chunk route)."""
     for w in HEAD_DIMS:
         if d <= w:
             return w
-    raise ValueError(f"fused_attention: the kernel takes head widths up "
-                     f"to {HEAD_DIMS[-1]}, got {d}")
+    return -(-d // WIDE_STEP) * WIDE_STEP
 
 _ENABLED = False
 

@@ -13,16 +13,17 @@ hand in CUDA C++ for Hopper in ``vlm_clip_tpu_torch/csrc/contrastive.cu``
 
 All math in fp32 on the inputs widened to fp32. The TPU version holds
 the batch in one block and hands batches above 1024 to XLA. Here the
-backward is one launch of an 8-block thread-block cluster for every
-batch whose rows fit its blocks' shared memory
+forward and the backward are one launch each of an 8-block thread-block
+cluster for every batch whose rows fit its blocks' shared memory
 (:func:`bwd_cluster_max`: B <= 128 at D = 512), the logits kept on the
-chip; past that, and in the forward, the logits live in device memory
-and each pass is its own kernel. So the kernels take every batch size
-and nothing switches to the plain version on the card. :func:`
-contrastive_loss_fused` launches the kernels for CUDA tensors (through a
-``torch.autograd.Function`` that saves only its inputs when a gradient
-is needed) and takes :func:`contrastive_loss_torch` only for CPU
-tensors. Launches are counted in ``contrastive_loss_fused.launches``
+chip, the forward built from the backward's steps (so its row and column
+LSEs are the bits the backward recomputes); past that the logits live
+in device memory and each pass is its own kernel. So the kernels take
+every batch size and nothing switches to the plain version on the card.
+:func:`contrastive_loss_fused` launches the kernels for CUDA tensors
+(through a ``torch.autograd.Function`` that saves only its inputs when a
+gradient is needed) and takes :func:`contrastive_loss_torch` only for
+CPU tensors. Launches are counted in ``contrastive_loss_fused.launches``
 (forward) and ``contrastive_loss_bwd_cuda.launches`` (backward).
 """
 
@@ -45,8 +46,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.vct_contrastive_fwd.argtypes = [_I] + [_P] * 5 + [_I, _I, _P]
         lib.vct_contrastive_bwd.argtypes = [_I] + [_P] * 8 + [_I, _I, _P]
+        lib.vct_contrastive_cluster_lse.argtypes = \
+            [_I, _I] + [_P] * 8 + [_I, _I, _P]
         lib.vct_contrastive_fwd.restype = _I
         lib.vct_contrastive_bwd.restype = _I
+        lib.vct_contrastive_cluster_lse.restype = _I
         lib.vct_contrastive_work.argtypes = [_I, _I]
         lib.vct_contrastive_work.restype = ctypes.c_size_t
         lib.vct_contrastive_bwd_cluster_max.argtypes = [_I]
@@ -111,14 +115,17 @@ def _work(txt):
 
 
 def _fwd_launch(txt, img, logit_scale):
+    """K4's forward, one C call: within :func:`bwd_cluster_max` one
+    cluster launch and only the loss allocated, past it the four-kernel
+    route with its workspace."""
     B, D = txt.shape
-    txt, img = txt.contiguous(), img.contiguous()
-    ls = logit_scale.float().reshape(1).contiguous()
+    txt, img = aligned16(txt), aligned16(img)  # the cluster's 16-byte loads
+    ls = _scalar_f32(logit_scale)
     loss = torch.empty((), dtype=torch.float32, device=txt.device)
-    work = _work(txt)
+    work = None if B <= bwd_cluster_max(D) else _work(txt)
     _launch("contrastive_loss_fused", _lib().vct_contrastive_fwd, txt,
-            txt.data_ptr(), img.data_ptr(), ls.data_ptr(), work.data_ptr(),
-            loss.data_ptr(), B, D)
+            txt.data_ptr(), img.data_ptr(), ls.data_ptr(),
+            None if work is None else work.data_ptr(), loss.data_ptr(), B, D)
     contrastive_loss_fused.launches += 1
     return loss
 
@@ -157,6 +164,37 @@ def contrastive_loss_bwd_cuda(txt, img, logit_scale, g):
             dm.data_ptr(), dls.data_ptr(), B, D)
     contrastive_loss_bwd_cuda.launches += 1
     return dt, dm, dls.to(logit_scale.dtype)
+
+
+def cluster_lse(txt, img, logit_scale, backward: bool) -> torch.Tensor:
+    """Every row's then every column's LSE of Z ([2B], fp32) as K4's
+    forward (``backward`` False) or backward cluster kernel computes it,
+    for CUDA [B, D] inputs with B within :func:`bwd_cluster_max`: the
+    check that the forward's LSEs are the bits the backward recomputes.
+    Not a launch of the training path, and not counted as one."""
+    B, D = txt.shape
+    if not (txt.is_cuda and img.device == txt.device
+            and img.shape == txt.shape and img.dtype == txt.dtype
+            and txt.dtype in (torch.float32, torch.bfloat16)
+            and B <= bwd_cluster_max(D)):
+        raise ValueError(f"cluster_lse: fp32 or bf16 [B, D] CUDA inputs "
+                         f"alike, within the cluster route (B <= "
+                         f"{bwd_cluster_max(D)}); got {txt.dtype} "
+                         f"{tuple(txt.shape)} on {txt.device}, {img.dtype} "
+                         f"{tuple(img.shape)} on {img.device}")
+    txt, img = aligned16(txt), aligned16(img)
+    ls = _scalar_f32(logit_scale)
+    f32 = dict(dtype=torch.float32, device=txt.device)
+    out, lse = torch.empty((), **f32), torch.empty(2 * B, **f32)
+    g = torch.ones(1, **f32)
+    dt, dm = (torch.empty_like(txt), torch.empty_like(img)) if backward \
+        else (None, None)
+    _launch("contrastive cluster_lse", _lib().vct_contrastive_cluster_lse,
+            txt, int(backward), txt.data_ptr(), img.data_ptr(),
+            ls.data_ptr(), g.data_ptr(), out.data_ptr(),
+            None if dt is None else dt.data_ptr(),
+            None if dm is None else dm.data_ptr(), lse.data_ptr(), B, D)
+    return lse
 
 
 class _ContrastiveFn(torch.autograd.Function):

@@ -98,7 +98,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_colsum.argtypes = [_P, _I, _I, _P, _P]
         feat = [_F, _U, _U, _F]  # ratio, seed, dropout threshold, 1/keep
         lib.vct_feature_adapter_fwd.argtypes = [_I] + [_P] * 5 + feat \
-            + [_P] + [_I] * 3 + [_P]
+            + [_P] * 2 + [_I] * 3 + [_P]
         lib.vct_feature_adapter_bwd.argtypes = [_I] + [_P] * 5 + feat \
             + [_P] * 4 + [_I] * 3 + [_P]
         for fn in (lib.vct_seq_adapter_fwd, lib.vct_prenorm_mlp_fwd,
@@ -123,6 +123,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_seq_adapter_bwd_tf32_ws.argtypes = [_I] * 3
         lib.vct_seq_adapter_fwd_ws.argtypes = [_I] * 3
         lib.vct_feature_adapter_bwd_ws.argtypes = [_I] * 3
+        lib.vct_feature_adapter_fwd_ws.argtypes = [_I] * 3
         lib.vct_cross_attn_block_bwd_bf16_ws.argtypes = [_I] * 5
         lib.vct_cross_attn_block_fwd_ws.argtypes = [_I] * 6
         for fn in (lib.vct_seq_adapter_smem, lib.vct_prenorm_mlp_smem,
@@ -134,6 +135,7 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_seq_adapter_bwd_tf32_ws,
                    lib.vct_seq_adapter_fwd_ws,
                    lib.vct_feature_adapter_bwd_ws,
+                   lib.vct_feature_adapter_fwd_ws,
                    lib.vct_cross_attn_block_bwd_bf16_ws,
                    lib.vct_cross_attn_block_fwd_ws):
             fn.restype = ctypes.c_size_t
@@ -1043,14 +1045,27 @@ def _f32(t):
 @functools.lru_cache(maxsize=256)
 def _feat_bwd_ws(n: int, d: int, k: int) -> int:
     """Bytes of scratch K6's backward needs at these shapes (0 within one
-    group of rows), asked of the library once a shape."""
+    group of rows whose buffers fit shared memory), asked of the library
+    once a shape."""
     return _lib().vct_feature_adapter_bwd_ws(n, d, k)
+
+
+@functools.lru_cache(maxsize=256)
+def _feat_fwd_ws(n: int, d: int, k: int) -> int:
+    """Bytes of scratch K6's forward needs: 0 unless a block's row
+    buffers do not fit its shared memory (D / 8 + K past some 3,370)."""
+    return _lib().vct_feature_adapter_fwd_ws(n, d, k)
+
+
+def _scratch(nbytes: int, device):
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) \
+        if nbytes else None
 
 
 def _feat_fwd_launch(x, w1, b1, w2, b2, ratio, dropout, seed):
     """K6's forward: one launch of 8-block clusters (a cluster per group
     of rows, each block an eighth of D), one C call; only y is
-    allocated."""
+    allocated, and a workspace for the widest shapes."""
     name = "feature_adapter_blend_fused"
     N, D = x.shape
     K = w1.shape[1]
@@ -1058,9 +1073,11 @@ def _feat_fwd_launch(x, w1, b1, w2, b2, ratio, dropout, seed):
     w1, b1, w2, b2 = _f32(w1), _f32(b1), _f32(w2), _f32(b2)
     y = torch.empty_like(x)
     if N:
+        ws = _scratch(_feat_fwd_ws(N, D, K), x.device)
         _launch(name, _lib().vct_feature_adapter_fwd, None, x, x.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                *_feat_args(ratio, dropout, seed), y.data_ptr(), N, D, K)
+                *_feat_args(ratio, dropout, seed), y.data_ptr(),
+                None if ws is None else ws.data_ptr(), N, D, K)
         feature_adapter_blend_fused.launches += 1
     return y
 
@@ -1073,7 +1090,9 @@ def feature_adapter_blend_bwd_cuda(x, w1, b1, w2, b2, ratio: float, g,
     of 8-block thread-block clusters, a cluster per group of up to 64 rows
     (each block an eighth of D), writes dx and the weight and bias
     gradients, views of one flat fp32 buffer; past one group, one more
-    launch adds the groups' partials in group order."""
+    launch adds the groups' partials in group order. Every D and K: where
+    a block's row buffers do not fit its shared memory they live in the
+    workspace."""
     name = "feature_adapter_blend_bwd"
     N, D = x.shape
     K = w1.shape[1]
@@ -1084,9 +1103,7 @@ def feature_adapter_blend_bwd_cuda(x, w1, b1, w2, b2, ratio: float, g,
     alloc = torch.empty if N else torch.zeros  # the kernel writes all
     flat = alloc(2 * D * K + K + D, dtype=torch.float32, device=x.device)
     if N:
-        nws = _feat_bwd_ws(N, D, K)  # past one group of rows only
-        ws = torch.empty(nws, dtype=torch.uint8, device=x.device) \
-            if nws else None
+        ws = _scratch(_feat_bwd_ws(N, D, K), x.device)
         _launch(name, _lib().vct_feature_adapter_bwd, None, x, x.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 *_feat_args(ratio, dropout, seed), g.data_ptr(),
@@ -1131,15 +1148,10 @@ def feature_adapter_blend_fused(x, w1, b1, w2, b2, ratio: float,
     if not _on_cuda(x, name):
         return feature_adapter_blend_torch(x, *params, ratio, dropout, seed)
     _check_inputs(name, x, params)
-    if D > FEAT_MAX_D or K > FEAT_MAX_K:
-        raise ValueError(f"{name}: the kernel takes D <= {FEAT_MAX_D} and "
-                         f"K <= {FEAT_MAX_K}; got D {D}, K {K}")
     if _needs_grad(x, *params):
         return _FeatureAdapterFn.apply(x, *params, ratio, dropout, seed)
     return _feat_fwd_launch(x, *params, ratio, dropout, seed)
 
-
-FEAT_MAX_D, FEAT_MAX_K = 4096, 1024  # K6's shared-memory row buffers
 
 seq_adapter_fused.launches = 0
 prenorm_mlp_fused.launches = 0
