@@ -51,8 +51,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    400, K2 at heads of 25 and 192 columns (forward and backward), and K5
    at heads of 160 and 256 columns in both dtypes; and the widths the
    kernels once refused, timed beside their plain versions: K5 at heads
-   of 272 and 512 columns (the column-chunk kernel) in both dtypes, K6
-   at D 4100, K 1100 with dropout, forward and backward, in both.
+   of 272 and 512 columns (the column-chunk kernel) in both dtypes
+   (beside SDPA's time and backend on the same inputs), K6 at D 4100, K
+   1100 with dropout, forward and backward, in both.
 5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
    at the rows pipeline T gives it (32 image features, 7 class means, 35
    descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
@@ -87,6 +88,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the plain versions (impl="torch"); every forward kernel must have
    launched. A second server in t-adapter mode (a T checkpoint) answers
    /classify, which must agree with the plain path and launch K6.
+   Real weights and EMOTIC (phase real_weights_emotic), ViT-B/16 at full
+   width, weights made from a seed on the card: an HF-layout checkpoint
+   directory (pytorch_model.bin, and model.safetensors by this script's
+   writer; config.json; a byte-level vocab) loads through
+   cli/common.load_backbone(require_real=True) bit for bit; cli/smoke on
+   it launches K1-K3 forward; cli/serve --hf-checkpoint (no --allow-*
+   flag) answers /classify as the in-process zero-shot does;
+   cli/train_emotic trains 2 epochs at B=32 on a synthetic 64/32 split
+   (K6 forward and backward must launch), one EMOTIC step and the eval
+   scores are held against impl="torch"; validate_parity's RAF-DB and
+   EMOTIC legs run on the loaded weights.
 9. VLM kernels: K7 (the int4 GEMV, csrc/quant.cu) at M = 1, 8, 32 on the
    8h4 LM head (K=2048, N=151,936) and the mixed preset's gateup
    (N=22,016) in bf16 and fp32, beside a bf16 matmul on the pre-dequantized
@@ -106,7 +118,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the port's cli/bench_decode (8h4, fused, B=8, 64 tokens) with K8 off
    and on.
 
-Prints one JSON line with the kernels' results, then the device line
+Prints one JSON line with the kernels' results (each kernel's launches
+on its main path, plus ``launches_serve``, ``launches_v`` and
+``launches_emotic`` where it also ran on the served path, in pipeline V
+or in cli/train_emotic), then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
 
 ``python3 chip_smoke.py --times <checkout>`` instead times the kernels
@@ -791,7 +806,13 @@ def _k4_forward_check(t, m, logit_scale, dtype, failures) -> None:
     lse_same = bool(torch.isfinite(lse[0]).all()) and torch.equal(*lse)
     per = _breakdown(f"kernel contrastive_loss_fused {list(t.shape)} "
                      f"{dtype}", call, K4_FWD_PASSES)
-    launches = len(_device_events(call, 5)) / 5
+    # a trace can drop a launch's record (seen: 4 of 5), never add one:
+    # the most of up to three traces is the count
+    launches = 0.0
+    for _ in range(3):
+        launches = max(launches, len(_device_events(call, 5)) / 5)
+        if launches >= 1:
+            break
     ev = _time_ms(call, 20)
     print(f"kernel contrastive_loss_fused {list(t.shape)} {dtype}: a second "
           f"call repeats the loss bit for bit: {same}; row and column LSEs "
@@ -1332,8 +1353,8 @@ def _repaired_widths_check(gen, dev) -> None:
     both dtypes; and the widths the kernels once refused: K5 at heads of
     272 and 512 columns (the column-chunk kernel) in both dtypes, K6 at
     D 4100, K 1100 (35 rows, dropout 0.1; forward, backward) in both,
-    those timed beside their plain versions. Each must launch its
-    kernel, once a call."""
+    those timed beside their plain versions (K5 also beside SDPA and
+    the backend it took). Each must launch its kernel, once a call."""
     from vlm_clip_tpu_torch.models import adapters as A
     from vlm_clip_tpu_torch.ops import attention as K5
     from vlm_clip_tpu_torch.ops import fused_adapter as F
@@ -1412,7 +1433,9 @@ def _repaired_widths_check(gen, dev) -> None:
                     _width_times(
                         what, lambda: K5.fused_attention(q, kq, vq, sc),
                         lambda: K5.fused_attention_torch(q, kq, vq, sc),
-                        t_cost("fused_attention", q))
+                        t_cost("fused_attention", q),
+                        lambda: torch.nn.functional.
+                        scaled_dot_product_attention(q, kq, vq, scale=sc))
     # K6 past the widths it once refused (D 4096, K 1024), dropout on
     d6, k6, r6, drop = 4100, 1100, 0.2, 0.1
     p6 = A.init_feature_adapter(gen, d6, k6, device=dev)
@@ -1454,15 +1477,35 @@ def _repaired_widths_check(gen, dev) -> None:
                          f"versions or did not launch: {failures}")
 
 
-def _width_times(what, kern, plain, work) -> None:
+def _sdpa_backend(names) -> str:
+    """The backend SDPA took, from the kernel names of one call."""
+    joined = " ".join(names).lower()
+    if not joined:
+        return "not traced"
+    for tag, backend in (("flash", "flash"), ("fmha", "efficient"),
+                         ("cudnn", "cudnn")):
+        if tag in joined:
+            return backend
+    return "math"
+
+
+def _width_times(what, kern, plain, work, library=None) -> None:
     """A repaired width's kernel and plain ms (CUDA events, in turns), its
-    device ms (profiler) and its bound, printed."""
-    t_k, t_p, _ = _turns(kern, plain, iters=5)
+    device ms (profiler) and its bound, printed; with ``library`` (SDPA
+    on the same inputs) its ms, device ms and backend too."""
+    t_k, t_p, t_l = _turns(kern, plain, library, iters=5)
     d_k = sum(ms for _, ms in _device_events(kern, 3)) / 3
     b_ms, b_by = bound(*work)
+    lib = ""
+    if library is not None:
+        events = _device_events(library, 3)
+        d_l = sum(ms for _, ms in events) / 3
+        lib = (f", library {t_l:.4f} ms (device {d_l:.4f} ms, SDPA "
+               f"backend {_sdpa_backend(n for n, _ in events)}: "
+               f"{sorted({n[:60] for n, _ in events})})")
     print(f"route: {what}: kernel {t_k:.4f} ms (device {d_k:.4f} ms), "
-          f"plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card()}",
-          flush=True)
+          f"plain {t_p:.4f} ms{lib}, bound {b_ms:.5f} ms ({b_by}) on "
+          f"{card()}", flush=True)
 
 
 def _wide_heads_check(gen, H, image_dim, heads, dev, tk=197) -> None:
@@ -2158,6 +2201,537 @@ def serve_t_adapter(images) -> dict:
     return {"feature_adapter_blend_fused": launched}
 
 
+# ---------------------------------------------------------------------------
+# real weights in, and the EMOTIC workload (phase real_weights_emotic)
+# ---------------------------------------------------------------------------
+
+RW_NAME = "vit-base-patch16"  # train_emotic's default backbone
+EMOTIC_TOL = {"loss": 1e-5, "grad": T_STEP_TOL["grad"], "scores": 1e-5}
+ST_DTYPES = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+
+
+def hf_state_dict(params, cfg) -> dict:
+    """The port's CLIP tree under HF ``CLIPModel``'s state-dict names, on
+    the CPU: the inverse of ``convert/hf.convert_hf_clip`` (linear
+    kernels back to [out, in], the patch kernel [P, P, 3, H] back to the
+    conv's [H, 3, P, P], stacked layers unstacked)."""
+    def c(t):
+        return t.detach().contiguous().cpu()
+
+    sd = {}
+    for tower, hf, n in (("vision", "vision_model", cfg.vision.num_layers),
+                         ("text", "text_model", cfg.text.num_layers)):
+        lay = params[tower]["layers"]
+        for i in range(n):
+            base = f"{hf}.encoder.layers.{i}"
+            for key, name in (("q", "self_attn.q_proj"),
+                              ("k", "self_attn.k_proj"),
+                              ("v", "self_attn.v_proj"),
+                              ("out", "self_attn.out_proj")):
+                lin = lay["attn"][key]
+                sd[f"{base}.{name}.weight"] = c(lin["kernel"][i].T)
+                sd[f"{base}.{name}.bias"] = c(lin["bias"][i])
+            for key in ("fc1", "fc2"):
+                lin = lay["mlp"][key]
+                sd[f"{base}.mlp.{key}.weight"] = c(lin["kernel"][i].T)
+                sd[f"{base}.mlp.{key}.bias"] = c(lin["bias"][i])
+            for key, name in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+                sd[f"{base}.{name}.weight"] = c(lay[key]["scale"][i])
+                sd[f"{base}.{name}.bias"] = c(lay[key]["bias"][i])
+    v, t = params["vision"], params["text"]
+    sd["vision_model.embeddings.class_embedding"] = c(v["class_embedding"])
+    sd["vision_model.embeddings.patch_embedding.weight"] = c(
+        v["patch_embedding"]["kernel"].permute(3, 2, 0, 1))
+    sd["vision_model.embeddings.position_embedding.weight"] = c(
+        v["position_embedding"])
+    for ln, name in (("pre_layernorm", "pre_layrnorm"),  # sic, HF's name
+                     ("post_layernorm", "post_layernorm")):
+        sd[f"vision_model.{name}.weight"] = c(v[ln]["scale"])
+        sd[f"vision_model.{name}.bias"] = c(v[ln]["bias"])
+    sd["text_model.embeddings.token_embedding.weight"] = c(
+        t["token_embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = c(
+        t["position_embedding"])
+    sd["text_model.final_layer_norm.weight"] = c(
+        t["final_layernorm"]["scale"])
+    sd["text_model.final_layer_norm.bias"] = c(t["final_layernorm"]["bias"])
+    sd["visual_projection.weight"] = c(params["visual_projection"]["kernel"].T)
+    sd["text_projection.weight"] = c(params["text_projection"]["kernel"].T)
+    sd["logit_scale"] = c(params["logit_scale"])
+    return sd
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A safetensors file of CPU tensors (header: dtype, shape, offsets;
+    padded with spaces to 8 bytes, as the format's own writer does)."""
+    import struct
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def hf_config_json(cfg) -> dict:
+    """A ``config.json`` carrying cfg's dims, as HF's CLIPConfig writes
+    it."""
+    t, v = cfg.text, cfg.vision
+    return {
+        "architectures": ["CLIPModel"], "model_type": "clip",
+        "projection_dim": cfg.projection_dim,
+        "logit_scale_init_value": cfg.logit_scale_init,
+        "text_config": {
+            "model_type": "clip_text_model", "hidden_size": t.hidden_size,
+            "intermediate_size": t.intermediate_size,
+            "num_hidden_layers": t.num_layers,
+            "num_attention_heads": t.num_heads, "vocab_size": t.vocab_size,
+            "max_position_embeddings": t.max_positions,
+            "hidden_act": t.hidden_act, "layer_norm_eps": t.layer_norm_eps,
+            "eos_token_id": t.eos_token_id},
+        "vision_config": {
+            "model_type": "clip_vision_model", "hidden_size": v.hidden_size,
+            "intermediate_size": v.intermediate_size,
+            "num_hidden_layers": v.num_layers,
+            "num_attention_heads": v.num_heads, "image_size": v.image_size,
+            "patch_size": v.patch_size, "hidden_act": v.hidden_act,
+            "layer_norm_eps": v.layer_norm_eps},
+    }
+
+
+def write_byte_vocab(d: str) -> None:
+    """A byte-level CLIP ``vocab.json``/``merges.txt``: the 256 byte
+    tokens and their ``</w>`` forms, a few merges, the two specials."""
+    from vlm_clip_tpu_torch.data.tokenizer import bytes_to_unicode
+
+    toks = list(bytes_to_unicode().values())
+    toks += [t + "</w>" for t in toks]
+    merges = [("h", "a"), ("p", "p"), ("pp", "y</w>"), ("ha", "ppy</w>"),
+              ("a", "n"), ("an", "g")]
+    toks += ["".join(m) for m in merges]
+    toks += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(toks)}, f, ensure_ascii=False)
+    with open(os.path.join(d, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges))
+
+
+def write_hf_checkpoint(d: str, params, cfg, fmt: str) -> None:
+    """An HF-layout checkpoint directory: the weights (``fmt``: ``bin``,
+    ``pytorch_model.bin`` by torch.save; ``safetensors``,
+    ``model.safetensors`` by :func:`write_safetensors`), ``config.json``
+    and a byte-level vocab."""
+    os.makedirs(d, exist_ok=True)
+    sd = hf_state_dict(params, cfg)
+    if fmt == "bin":
+        torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+    else:
+        write_safetensors(os.path.join(d, "model.safetensors"), sd)
+    with open(os.path.join(d, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(hf_config_json(cfg), f, indent=2)
+    write_byte_vocab(d)
+
+
+def write_emotic_split(d: str, split: str, n: int, seed: int) -> None:
+    """A synthetic split in data/emotic_mat's npy format: uint8 224^2
+    context and 128^2 body, 26-way one-hot categories (every class has a
+    positive once n >= 26), VAD in [0, 10)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    cat = (rng.random((n, 26)) > 0.8).astype(np.float32)
+    cat[np.arange(n), np.arange(n) % 26] = 1.0
+    arrays = {"context": rng.integers(0, 255, (n, 224, 224, 3), np.uint8),
+              "body": rng.integers(0, 255, (n, 128, 128, 3), np.uint8),
+              "cat": cat,
+              "cont": (rng.random((n, 3)) * 10).astype(np.float32)}
+    for name, arr in arrays.items():
+        np.save(os.path.join(d, f"{split}_{name}_arr.npy"), arr)
+
+
+def _same_tree(got, want, what: str) -> None:
+    """Every leaf of ``got`` equals ``want``'s bit for bit."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+
+    g, w = tree_leaves(got), tree_leaves(want)
+    bad = [i for i, (a, b) in enumerate(zip(g, w))
+           if a.dtype != b.dtype or a.shape != b.shape
+           or not torch.equal(a, b.to(a.device))]
+    if len(g) != len(w) or bad:
+        raise SystemExit(f"{what}: {len(bad)} of {len(w)} tensors differ "
+                         f"from the written ones (leaves {len(g)})")
+
+
+def _emotic_k6_times(visual, feats) -> None:
+    """K6 forward and backward (no dx, as the head trains) at the EMOTIC
+    step's shape, [32, 512] fp32 features, K 192: CUDA events in turns
+    with the plain versions, device time (profiler), the bound."""
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    w = tuple(t.detach() for t in (visual["fc1"]["kernel"],
+                                   visual["fc1"]["bias"],
+                                   visual["fc2"]["kernel"],
+                                   visual["fc2"]["bias"]))
+    g = torch.randn(feats.shape, device=feats.device,
+                    generator=torch.Generator(feats.device).manual_seed(8))
+    k = w[0].shape[1]
+    calls = {
+        "feature_adapter_blend_fused": (
+            lambda: F.feature_adapter_blend_fused(feats, *w, 0.2),
+            lambda: F.feature_adapter_blend_torch(feats, *w, 0.2)),
+        "feature_adapter_blend_bwd_cuda": (
+            lambda: F.feature_adapter_blend_bwd_cuda(feats, *w, 0.2, g,
+                                                     need_dx=False),
+            lambda: F.feature_adapter_blend_bwd_torch(feats, *w, 0.2, g,
+                                                      need_dx=False))}
+    tags = {"feature_adapter_blend_fused": K6_FWD_PASSES[0],
+            "feature_adapter_blend_bwd_cuda": K6_BWD_PASSES[0]}
+    for name, (kern, plain) in calls.items():
+        with torch.no_grad():
+            t_k, t_p, _ = _turns(kern, plain)
+            events = _device_events(kern, 10)
+        mine = [ms for n, ms in events if tags[name] in n]
+        if not mine:
+            raise SystemExit(f"K6 {name}: the trace holds no launch of "
+                             f"{tags[name]}")
+        b_ms, b_by = bound(*t_cost(name, feats, k, need_dx=False))
+        print(f"real weights: K6 {name} at EMOTIC's {list(feats.shape)} "
+              f"fp32, K {k}: kernel {t_k:.4f} ms (device "
+              f"{sum(mine) / len(mine):.4f} ms a launch of {tags[name]}, "
+              f"{len(mine)} of them and {len(events) - len(mine)} other "
+              f"kernels recorded in 10 calls), plain {t_p:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}) on {card()}",
+              flush=True)
+
+
+def _held_forward(fn):
+    """(fn(), {kernel: {calls, shapes, max_abs_err, ok}}): while fn runs,
+    every K1-K3 forward call the adapters make also runs its plain
+    version on the same inputs, and the kernel's output is held to it
+    (TOL). The adapters see a copy of the ops module with the held
+    calls; the ops module itself (whose wrappers count their launches on
+    their own names) is not touched."""
+    import types
+
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    plain = {"seq_adapter_fused": F.seq_adapter_torch,
+             "cross_attn_block_fused": F.cross_attn_block_torch,
+             "prenorm_mlp_fused": F.prenorm_mlp_torch}
+    held = {name: {"calls": 0, "shapes": [], "max_abs_err": 0.0, "ok": True}
+            for name in plain}
+
+    def holding(name):
+        kernel = getattr(F, name)
+
+        def call(*args, **kw):
+            y = kernel(*args, **kw)
+            want = plain[name](*args, **kw)
+            atol, rtol = TOL[y.dtype]
+            h = held[name]
+            h["calls"] += 1
+            h["shapes"].append(list(args[0].shape))
+            h["max_abs_err"] = max(h["max_abs_err"], float(
+                (y.float() - want.float()).abs().max()))
+            h["ok"] = h["ok"] and bool(torch.isclose(
+                y.float(), want.float(), atol=atol, rtol=rtol).all())
+            return y
+        return call
+
+    A.F = types.SimpleNamespace(**{**vars(F), **{
+        name: holding(name) for name in plain}})
+    try:
+        out = fn()
+    finally:
+        A.F = F
+    return out, held
+
+
+def real_weights_emotic_phase() -> dict:
+    """Real weights in, then the EMOTIC workload on them, at ViT-B/16
+    full width (12 + 12 layers, 768/512, projection 512), weights made
+    from a seed on the card:
+
+    1. a checkpoint directory in HF's layout, twice: pytorch_model.bin
+       (torch.save) and model.safetensors (this script's writer), each
+       with config.json and a byte-level vocab.json/merges.txt;
+    2. cli/common.load_backbone(require_real=True) on each: every tensor
+       equal to the written one bit for bit, last_backbone_was_real(),
+       make_tokenizer's BPE tokenizer from the directory, the seconds;
+    3. cli/smoke on the directory: a finite loss, K1-K3 forward launched;
+       its forward again with each K1-K3 call held against its plain
+       version (TOL), its features and loss against impl="torch" (TOL,
+       STEP_TOL);
+    4. cli/serve --hf-checkpoint without --allow-random-weights: three
+       /classify requests, held against the in-process zero-shot on the
+       same weights (CLASSIFY_ATOL), the HTTP latency;
+    5. EMOTIC: cli/train_emotic (B=32, 2 epochs) on a synthetic split of
+       64 train and 32 test items: a head npz and a finite test mAP, K6
+       launched forward and backward (counts zeroed just before, read
+       just after; the epoch seconds); one train step against
+       impl="torch" from the trained head (loss 1e-5 relative, gradients
+       T_STEP_TOL) with its launches by the profiler, and
+       evaluate_emotic's scores against impl="torch" (1e-5);
+    6. cli/validate_parity --eval-only on the directory (the RAF-DB
+       zero-shot and EMOTIC mAP legs, on the card): finite numbers.
+    Cut: the datasets and the epochs, never the widths."""
+    import shutil
+
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.cli import common, smoke, train_emotic
+    from vlm_clip_tpu_torch.cli import validate_parity as VP
+    from vlm_clip_tpu_torch.cli.serve import build_server
+    from vlm_clip_tpu_torch.core.config import EMOTIONS, clip_preset
+    from vlm_clip_tpu_torch.data import emotic as E
+    from vlm_clip_tpu_torch.data.preprocess import (load_and_resize,
+                                                    normalize_batch)
+    from vlm_clip_tpu_torch.data.rafdb import BatchLoader
+    from vlm_clip_tpu_torch.data.tokenizer import CLIPBPETokenizer
+    from vlm_clip_tpu_torch.eval.emotic import (encode_category_embeddings,
+                                                evaluate_emotic)
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.models.model_t import ZeroShotEmotionRecognition
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train import trainer_emotic as TE
+    from vlm_clip_tpu_torch.train.optim import adam
+
+    dev = torch.device("cuda")
+    work = os.path.join(REPO, "build", "chip_smoke", "real_weights")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = clip_preset(RW_NAME)
+    written = init_clip(torch.Generator(device=dev).manual_seed(5), cfg,
+                        device=dev)
+    dirs = {}
+    for fmt in ("bin", "safetensors"):
+        d = os.path.join(work, fmt, "clip-" + RW_NAME)
+        t0 = time.time()
+        write_hf_checkpoint(d, written, cfg, fmt)
+        dirs[fmt] = d
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        print(f"real weights: wrote {d} ({size / 1e6:.1f} MB) in "
+              f"{time.time() - t0:.2f}s", flush=True)
+
+    # 2. load each through the entry point every CLI calls
+    for fmt, d in dirs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, lcfg = common.load_backbone(RW_NAME, hf_checkpoint=d,
+                                           require_real=True, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _same_tree(params, written, f"load_backbone({fmt})")
+        if not common.last_backbone_was_real() or lcfg != cfg:
+            raise SystemExit(f"load_backbone({fmt}): not real weights")
+        tok = common.make_tokenizer(lcfg)
+        want = CLIPBPETokenizer.from_files(os.path.join(d, "vocab.json"),
+                                           os.path.join(d, "merges.txt"))
+        if not isinstance(tok, CLIPBPETokenizer) \
+                or tok.encode("a happy angry face") \
+                != want.encode("a happy angry face"):
+            raise SystemExit(f"make_tokenizer({fmt}): not the directory's "
+                             f"BPE vocab ({type(tok).__name__})")
+        print(f"real weights: load_backbone({fmt}) {secs:.3f}s for "
+              f"{len(tree_leaves(params))} tensors, bit for bit; tokenizer "
+              f"{type(tok).__name__} from the directory on {card()}",
+              flush=True)
+    ckpt = dirs["safetensors"]
+    clip = params
+
+    # 3. cli/smoke on the loaded backbone: K1-K3 forward
+    F.reset_launch_counts()
+    out = smoke.main(["--clip-model-name", ckpt, "--device", "cuda"])
+    counts = {k: F.launch_counts()[k] for k in REPLACES}
+    events = _device_events(
+        lambda: smoke.main(["--clip-model-name", ckpt, "--device", "cuda"]),
+        1)
+    prof = {name: sum(1 for n, _ in events if any(t in n for t in tags))
+            for name, tags in FWD_PASSES.items()}
+    print(f"real weights: cli/smoke loss {out['loss']:.4f}, launches "
+          f"{counts}, kernel passes by the profiler {prof}", flush=True)
+    if not np.isfinite(out["loss"]) or min(counts.values()) < 1 \
+            or min(prof.values()) < 1:
+        raise SystemExit("cli/smoke on real weights: bad loss or a K1-K3 "
+                         "forward never launched")
+    # K1-K3 at the smoke's own shapes (B=1, adapters of width 32, the
+    # shared block at 4 heads of 128) against their plain versions: each
+    # kernel call of the forward on the same inputs, then the features
+    # and the loss against the forward with impl="torch"
+    s = smoke.build(ckpt, dev)
+    got, held = _held_forward(lambda: smoke.forward(s, "auto"))
+    want = smoke.forward(s, "torch")
+    atol, rtol = TOL[torch.bfloat16]
+    errs = {k: float((getattr(got, k).float()
+                      - getattr(want, k).float()).abs().max())
+            for k in ("text_features", "image_features")}
+    ok = all(bool(torch.isclose(getattr(got, k).float(),
+                                getattr(want, k).float(), atol=atol,
+                                rtol=rtol).all()) for k in errs)
+    d_loss = abs(float(got.loss) - float(want.loss))
+    ok = ok and d_loss <= STEP_TOL["loss"] \
+        and all(h["calls"] >= 1 and h["ok"] for h in held.values())
+    print(f"real weights: cli/smoke's forward, each kernel call vs its "
+          f"plain version on the same inputs {held}; features vs "
+          f"impl=torch max abs err {errs} (atol {atol}, rtol {rtol}), loss "
+          f"{float(got.loss):.6f} / {float(want.loss):.6f} (limit "
+          f"{STEP_TOL['loss']}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("cli/smoke's forward disagrees with impl='torch'")
+
+    # 4. serving real weights: no --allow-* flag
+    server = build_server(["--port", "0", "--device", "cuda",
+                           "--clip-model-name", RW_NAME,
+                           "--hf-checkpoint", ckpt])
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    bodies = [_jpeg(20 + i, size) for i, size in
+              enumerate([(224, 224), (260, 200), (150, 190)])]
+    served, lat = [], []
+    try:
+        for body in bodies:
+            res, ms = _post(port, "/classify", body)
+            served.append(np.asarray([res["probs"][e] for e in EMOTIONS]))
+            lat.append(ms)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    S = cfg.vision.image_size
+    with torch.inference_mode():
+        zs = ZeroShotEmotionRecognition(clip, cfg, common.make_tokenizer(cfg))
+        for i, body in enumerate(bodies):
+            u8 = np.zeros((8, S, S, 3), np.uint8)  # the served batch
+            u8[0] = load_and_resize(Image.open(io.BytesIO(body)), S)
+            want = zs.predict(normalize_batch(torch.from_numpy(u8).to(
+                dev))).float().cpu().numpy()[0]
+            d = float(np.abs(want - served[i]).max())
+            ok = np.isfinite(served[i]).all() and d <= CLASSIFY_ATOL
+            print(f"real weights: /classify[{i}] vs in-process zero-shot: "
+                  f"max abs diff {d:.3e} (limit {CLASSIFY_ATOL}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit("/classify on real weights disagrees with "
+                                 "the in-process zero-shot")
+    print(f"real weights: /classify latency mean {np.mean(lat):.2f} ms, min "
+          f"{np.min(lat):.2f} ms over {len(lat)} requests (mode "
+          f"{server.mode}) on {card()}", flush=True)
+
+    # 5. EMOTIC through the entry point, then its kernels against plain
+    data = os.path.join(work, "emotic")
+    write_emotic_split(data, "train", 64, seed=6)
+    write_emotic_split(data, "test", 32, seed=7)
+    head_path = os.path.join(work, "emotic_head.npz")
+    os.environ["VLM_CLIP_LOG_DIR"] = os.path.join(work, "logs")
+    F.reset_launch_counts()
+    res = train_emotic.main(["--data-dir", data, "--clip-model-name", ckpt,
+                             "--batch-size", "32", "--num-epochs", "2",
+                             "--output", head_path, "--device", "cuda"])
+    launches = {k: F.launch_counts()[k] for k in T_REPLACES
+                if k.startswith("feature_adapter")}
+    mAP = res["eval"]["mAP"]
+    print(f"real weights: cli/train_emotic losses {res['losses']}, epoch "
+          f"seconds {[round(s, 4) for s in res['epoch_seconds']]}, test mAP "
+          f"{mAP:.4f} over {res['eval']['num_samples']}, K6 launches "
+          f"{launches} on {card()}", flush=True)
+    if not (os.path.isfile(head_path) and np.isfinite(mAP)
+            and np.isfinite(res["losses"]).all()
+            and min(launches.values()) >= 1):
+        raise SystemExit("cli/train_emotic: no head, a non-finite mAP or "
+                         "loss, or K6 never launched")
+    head = TE.load_emotic_head(head_path, device=dev)
+    tok = common.make_tokenizer(cfg)
+    train_ds = E.EmoticPreDataset.from_dir(data, "train")
+    cat_emb = encode_category_embeddings(clip, cfg, tok)
+    feats = TE.encode_all_contexts(clip, cfg, train_ds)[:32]
+    items = [train_ds[i] for i in range(32)]
+    cats = torch.from_numpy(np.stack([it[2] for it in items])).to(dev)
+    vads = torch.from_numpy(np.stack([it[3] for it in items])).to(dev)
+    valid = torch.ones(32, dtype=torch.bool, device=dev)
+    valid[-3:] = False  # a masked tail, as the trainer's last batch
+
+    def one_step(impl):
+        params = _clone(head)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        tx = adam(3e-4)
+        step = TE.make_emotic_train_step(tx, 0.2, 100.0, 0.5, impl)
+        loss = step(params, tx.init(leaves), 0, feats, cats, vads, valid,
+                    cat_emb)
+        return float(loss), [p.grad.clone() for p in leaves]
+
+    loss_k, grads_k = one_step("auto")
+    loss_p, grads_p = one_step("torch")
+    for _ in range(3):  # a trace can drop a launch's record
+        events = _device_events(lambda: one_step("auto"), 1)
+        step_prof = {tag: sum(1 for n, _ in events if tag in n)
+                     for tag in K6_FWD_PASSES + K6_BWD_PASSES[:1]}
+        if min(step_prof.values()) >= 1:
+            break
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_grad = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads_k, grads_p))
+    ok = rel_loss <= EMOTIC_TOL["loss"] and rel_grad <= EMOTIC_TOL["grad"] \
+        and min(step_prof.values()) >= 1
+    print(f"real weights: EMOTIC step vs impl=torch: loss {loss_k:.6f} / "
+          f"{loss_p:.6f} (relative {rel_loss:.2e}, limit "
+          f"{EMOTIC_TOL['loss']}), gradients relative {rel_grad:.2e} (limit "
+          f"{EMOTIC_TOL['grad']}); the step's K6 kernels by the profiler "
+          f"{step_prof} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the EMOTIC step disagrees with impl='torch'")
+    _emotic_k6_times(head["visual"], feats)
+    test_ds = E.EmoticPreDataset.from_dir(data, "test")
+    scores = {}
+    for impl in ("auto", "torch"):
+        loader = BatchLoader(test_ds, batch_size=32,
+                             collate_fn=E.emotic_collate)
+        scores[impl] = evaluate_emotic(clip, cfg, tok, loader,
+                                       adapter_params=head, alpha=0.2,
+                                       impl=impl)
+    d = float(np.abs(scores["auto"]["scores"]
+                     - scores["torch"]["scores"]).max())
+    print(f"real weights: evaluate_emotic scores vs impl=torch: max abs "
+          f"diff {d:.3e} (limit {EMOTIC_TOL['scores']}), mAP "
+          f"{scores['auto']['mAP']:.6f} / {scores['torch']['mAP']:.6f}",
+          flush=True)
+    if not d <= EMOTIC_TOL["scores"]:
+        raise SystemExit("evaluate_emotic disagrees with impl='torch'")
+
+    # 6. validate_parity's card legs: the entry point on the directory
+    rafdb = os.path.join(work, "rafdb")
+    VP._fixture_rafdb_tree(rafdb, cfg.vision.image_size)
+    md = os.path.join(work, "parity.md")
+    rc = VP.main(["--clip", ckpt, "--eval-only", "--rafdb", rafdb,
+                  "--emotic-npy", data, "--append", md])
+    with open(md, encoding="utf-8") as f:
+        block = f.read()
+    legs = json.loads(block[block.index("```json") + 7:block.rindex("```")])
+    zs_res, map_res = legs["rafdb-zeroshot"], legs["emotic-mAP"]
+    print(f"real weights: validate_parity --eval-only rc {rc}: "
+          f"rafdb-zeroshot {zs_res}, emotic-mAP {map_res}; the CLIP and "
+          "Qwen logit legs need transformers, which this machine lacks: "
+          "they ran only in the CPU tests "
+          "(tests/test_torch_validate_parity.py)", flush=True)
+    if rc != 0 or zs_res["num_images"] != 14 or zs_res["tokenizer_degraded"] \
+            or not (np.isfinite(zs_res["accuracy"])
+                    and np.isfinite(map_res["mAP"])):
+        raise SystemExit("validate_parity's card legs gave no finite result")
+    return launches
+
+
 def k7_cost(M: int, K: int, N: int, es: int):
     """(operations, bytes, peak kind) of one K7 call: 2*M*K*N FLOP at the
     peak of x's type (bf16 x: the nibbles are exact in bf16, so a bf16
@@ -2700,6 +3274,7 @@ def main() -> None:
     t_counts = run("pipeline_t", pipeline_t_phase)
     v_counts = run("pipeline_v", pipeline_v_phase)
     serve_counts = run("serve", serve_phase)
+    emotic_counts = run("real_weights_emotic", real_weights_emotic_phase)
     vlm_results = run("vlm_kernels", vlm_kernel_phase)
     vlm_counts = run("vlm", vlm_phase)
     print("phases:", ", ".join(phases), flush=True)
@@ -2725,6 +3300,8 @@ def main() -> None:
             entry["launches_serve"] = serve_counts[name]
         if name in v_counts:
             entry["launches_v"] = v_counts[name]
+        if name in emotic_counts:
+            entry["launches_emotic"] = emotic_counts[name]
         if name in KERNEL_HMMA:
             entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)

@@ -770,6 +770,31 @@ def test_feature_adapter_kernels(dev, dtype, n, dropout):
     _grads_close(gg, gw, dtype, "feature_adapter")
 
 
+# EMOTIC's head (train/trainer_emotic.py): 32 l2-normed features at
+# ViT-B/16's projection (512) and ViT-L/14's (768), bottleneck 192, fp32,
+# no dropout; the backward as the trainer runs it (no dx: the frozen
+# features need none) and with dx; one launch each way
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("d", [512, 768])
+def test_feature_adapter_kernels_at_emotic_shapes(dev, d, need_dx):
+    x, args = _feat_case(dev, 32, d, 192, torch.float32)
+    x = x / x.norm(dim=-1, keepdim=True)
+    g = torch.randn(32, d, generator=_gen(dev, 9), device=dev)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        got = F.feature_adapter_blend_fused(x, *args, 0.2)
+    _close(got, F.feature_adapter_blend_torch(x, *args, 0.2), torch.float32)
+    gg = F.feature_adapter_blend_bwd_cuda(x, *args, 0.2, g,
+                                          need_dx=need_dx)
+    gw = F.feature_adapter_blend_bwd_torch(x, *args, 0.2, g,
+                                           need_dx=need_dx)
+    assert F.launch_counts(F.T_KERNELS) == {
+        "feature_adapter_blend_fused": 1,
+        "feature_adapter_blend_bwd_cuda": 1}
+    _grads_close(gg, gw, torch.float32, "feature_adapter emotic")
+
+
 # K6 backward, one cluster launch: the T path's rows (1, 7, 35: one group;
 # the weight slices in shared memory) and 600 rows with dropout (ten
 # groups across the hash's 256-row tiles, then one colsum launch), with

@@ -2,7 +2,8 @@
 ``vlm_clip_tpu/cli/compare_t.py``).
 
 Builds the zero-shot baseline and the CLIP-Adapter on the same backbone
-(a seeded random init: HF weight loading is not ported), trains the
+(``cli/common.load_backbone``: HF weights, else a seeded random init),
+trains the
 adapters, then runs the 2x2 {model} x {avg, all-descriptions} comparison
 with plots. Same flags as the reference plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given).

@@ -2,8 +2,8 @@
 ``vlm_clip_tpu/cli/main_v.py``).
 
 Flow: logging and seeding -> context extractor (none, stub, cache or
-qwen backend) -> ``EnhancedCLIPAdapterV`` on a seeded random backbone (HF
-weight loading is not ported) -> the enhanced datasets (contexts
+qwen backend) -> ``EnhancedCLIPAdapterV`` on the backbone
+``cli/common.load_backbone`` gives -> the enhanced datasets (contexts
 resolved once, train cap 200 images, test cap 50) -> adapter training
 -> the 3-adapter export -> evaluation -> the context report -> the VLM
 quality analytics. The reference's flags and defaults, plus ``--device``

@@ -408,8 +408,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="M adapter checkpoint for the /embed endpoints "
                         "(reference adapter format; implies --embed)")
     p.add_argument("--hf-checkpoint", default=None,
-                   help="local HF CLIP checkpoint dir (loading not yet "
-                        "ported)")
+                   help="local HF CLIP checkpoint dir (its vocab.json/"
+                        "merges.txt are picked up) or a hub id in the HF "
+                        "cache")
     p.add_argument("--allow-random-weights", action="store_true",
                    help="come up with random-init weights when no HF "
                         "checkpoint loads (hermetic drives only)")
@@ -434,10 +435,10 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     clip_params, cfg = load_backbone(
         args.clip_model_name, hf_checkpoint=args.hf_checkpoint,
         require_real=not args.allow_random_weights, device=device)
-    # --allow-hash-tokenizer has nothing to allow yet: the reference
-    # refuses the hash tokenizer only beside REAL weights, which the port
-    # cannot load
-    tokenizer = make_tokenizer(cfg)
+    # auto mode (None): raise exactly when REAL weights would pair with
+    # the hash tokenizer; --allow-hash-tokenizer opts out
+    tokenizer = make_tokenizer(
+        cfg, require_real=False if args.allow_hash_tokenizer else None)
     predict_fn, mode, cfg = build_predict_fn(
         args.clip_model_name, adapter_ckpt=args.adapter_ckpt,
         v_adapter_ckpt=args.v_adapter_ckpt,

@@ -1,10 +1,11 @@
 """Pipeline-M training entry (port of ``vlm_clip_tpu/cli/train_m.py``).
 
 Same flags as the reference, plus ``--device`` (default ``cuda``; without
-a card it raises unless ``--device cpu`` is given). The backbone is a
-seeded random init (HF weight loading is not ported), logged as such,
-and the tokenizer the best available (the hash fallback when no CLIP
-vocab is installed), so a run is hermetic. ``--zero1`` is not ported and
+a card it raises unless ``--device cpu`` is given). The backbone is HF
+weights where ``--clip-model-name`` loads (a checkpoint directory or a
+hub id in the HF cache), else a seeded random init, logged as such, and
+the tokenizer the best available (the hash fallback when no CLIP vocab
+is installed beside random weights). ``--zero1`` is not ported and
 raises. After training, the test split's contrastive loss is logged.
 
     python -m vlm_clip_tpu_torch.cli.train_m --data-root RAF-DB/ \\

@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -615,12 +615,13 @@ class QwenVLContextExtractor(ClipTextEncoderMixin):
         return out
 
 
-def load_safetensors_dir(path: str) -> Dict[str, np.ndarray]:
-    """All tensors from every .safetensors shard in a directory (the
-    ``safetensors`` package is imported only here)."""
-    from safetensors.numpy import load_file
+def load_safetensors_dir(path: str) -> Dict[str, Any]:
+    """All tensors from every .safetensors shard in a directory, read by
+    the port's own reader (``convert/safetensors_io.py``: numpy arrays,
+    BF16 entries as torch tensors)."""
+    from vlm_clip_tpu_torch.convert.safetensors_io import load_file
 
-    out: Dict[str, np.ndarray] = {}
+    out: Dict[str, Any] = {}
     for fname in sorted(os.listdir(path)):
         if fname.endswith(".safetensors"):
             out.update(load_file(os.path.join(path, fname)))
