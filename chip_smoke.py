@@ -117,11 +117,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    across them, and K8 must launch once a layer a decode forward; then
    the port's cli/bench_decode (8h4, fused, B=8, 64 tokens) with K8 off
    and on.
+11. VLM engine (phase vlm_engine, the vlm phase's model): the
+   continuous-batching engine (vlm/engine.py) at 32 slots and 16 steps a
+   chunk drains 48 requests with budgets of 8-64 tokens; K8 must launch
+   once a layer a decode forward and K7 once a forward and once an
+   install. On 4 of them its prefill and first decode logits are held to
+   generate_from_ids's path and to the plain versions (impl="torch", K8
+   off) with VLM_TOL, first tokens equal; spec_k=4 (K8 at T=5) and an
+   int8 cache at 16 slots run the load; one chunk with a cancelled row
+   runs under torch.cuda.set_sync_debug_mode("error"); K7 and K8 are
+   timed at the engine's shapes; cli/serve_vlm answers /healthz, 3
+   concurrent /generate, a streamed one, a client that leaves mid-stream
+   (cancelled) and a bad image (400); then cli/bench_engine (mixed, 32
+   requests, one Poisson rate), cli/bench_spec's round cost at 8 slots,
+   cli/bench_context (B=8, 32 tokens) and cli/bench_vision (B=1).
 
 Prints one JSON line with the kernels' results (each kernel's launches
-on its main path, plus ``launches_serve``, ``launches_v`` and
-``launches_emotic`` where it also ran on the served path, in pipeline V
-or in cli/train_emotic), then the device line
+on its main path, plus ``launches_serve``, ``launches_v``,
+``launches_emotic`` and ``launches_engine`` where it also ran on the
+served path, in pipeline V, in cli/train_emotic or in the engine's mixed
+load), then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
 
 ``python3 chip_smoke.py --times <checkout>`` instead times the kernels
@@ -133,6 +148,7 @@ compare two checkouts in turns in one call (:func:`redesign_times`).
 from __future__ import annotations
 
 import contextlib
+import gc
 import http.client
 import io
 import json
@@ -195,6 +211,14 @@ K7_TOL = (1e-4, 1e-4)
 # versions 1e-4 again. Every row's first token must agree.
 VLM_TOL = {"k7": 1e-4, "k8": 5e-2}
 VLM_NEW = 32  # tokens generated per row in the VLM phase
+# The engine phase (vlm/engine.py, the vlm phase's model): the reference
+# engine's defaults (32 slots, 16 steps a chunk) on 48 requests whose
+# budgets are drawn from 8-64 by seed; its first logits are held to the
+# fixed-batch path and to the plain versions with the vlm phase's
+# tolerances (VLM_TOL).
+ENGINE_SLOTS, ENGINE_SYNC, ENGINE_REQUESTS = 32, 16, 48
+ENGINE_BUDGETS = (8, 64)
+_VLM: dict = {}  # the vlm phase's params and config, kept for vlm_engine
 K7_SOURCE = "vlm_clip_tpu_torch/csrc/quant.cu"
 K8_SOURCE = "vlm_clip_tpu_torch/csrc/decode_attention.cu"
 VLM_REPLACES = {
@@ -2758,12 +2782,31 @@ def k8_cost(case):
     return flops, nbytes, "bf16" if q.dtype == torch.bfloat16 else "fp32"
 
 
+def _k8_library(case, depth: int):
+    """SDPA on K8's inputs (a bf16 cache, every row at ``depth``): the
+    cache's columns below the depth and the fresh rows' causal triangle,
+    grouped heads; the library yardstick, used nowhere in the port."""
+    import torch.nn.functional as TF
+
+    q, k_old, v_old, k_cur, v_cur = case[:5]
+    b, T = q.shape[:2]
+    S = k_old.shape[1]
+    qh = q.transpose(1, 2)                                   # [B, h, T, d]
+    kf = torch.cat([k_old, k_cur], 1).transpose(1, 2)
+    vf = torch.cat([v_old, v_cur], 1).transpose(1, 2)
+    cols = torch.arange(S + T, device=q.device)
+    rows = torch.arange(T, device=q.device)
+    allowed = (cols[None] < depth) | (
+        (cols[None] >= S) & (cols[None] - S <= rows[:, None]))
+    amask = allowed[None, None].expand(b, 1, T, S + T)
+    return lambda: TF.scaled_dot_product_attention(
+        qh, kf, vf, attn_mask=amask, enable_gqa=True)
+
+
 def vlm_kernel_phase() -> dict:
     """K7 and K8 against their plain versions at the VLM path's shapes,
     timed beside their bounds and library yardsticks; then
     cli/check_decode_attn."""
-    import torch.nn.functional as TF
-
     from vlm_clip_tpu_torch.cli import check_decode_attn
     from vlm_clip_tpu_torch.ops import decode_attention as K8
     from vlm_clip_tpu_torch.ops import quant as K7
@@ -2835,20 +2878,8 @@ def vlm_kernel_phase() -> dict:
             tcase = list(case)
             tcase[5] = torch.full((b,), depth, dtype=torch.int32,
                                   device=dev)
-            lib = None
-            if dtype == torch.bfloat16 and not quant:
-                qh = tcase[0].transpose(1, 2)               # [B, h, T, d]
-                kf = torch.cat([tcase[1], tcase[3]], 1).transpose(1, 2)
-                vf = torch.cat([tcase[2], tcase[4]], 1).transpose(1, 2)
-                cols = torch.arange(S + T, device=dev)
-                rows = torch.arange(T, device=dev)
-                allowed = (cols[None] < depth) | (
-                    (cols[None] >= S) & (cols[None] - S <= rows[:, None]))
-                amask = allowed[None, None].expand(b, 1, T, S + T)
-
-                def lib():
-                    return TF.scaled_dot_product_attention(
-                        qh, kf, vf, attn_mask=amask, enable_gqa=True)
+            lib = (_k8_library(tcase, depth)
+                   if dtype == torch.bfloat16 and not quant else None)
             with torch.no_grad():
                 t = _turns(lambda: K8.decode_attention_kernel(*tcase),
                            lambda: K8.decode_attention_reference(*tcase),
@@ -3143,6 +3174,8 @@ def vlm_phase() -> dict:
             raise SystemExit(f"{name}: a row's first token differs from the "
                              "plain path's")
     print(f"VLM phase peak memory {peak:.2f} GiB on {card()}", flush=True)
+    # the vlm_engine phase serves this model (built once)
+    _VLM.update(params=qparams, cfg=cfg)
     del gk, gp, qparams, mixed
     torch.cuda.empty_cache()
 
@@ -3158,6 +3191,446 @@ def vlm_phase() -> dict:
         print(f"bench_decode K8 {'on' if on else 'off'}: {res['line']} on "
               f"{card()}", flush=True)
     return path
+
+
+def _engine_requests(cfg, n: int, seed: int = 13):
+    """(prompt ids, n vision inputs of random 448x448 images, n budgets
+    drawn from ENGINE_BUDGETS): the engine phase's load."""
+    from vlm_clip_tpu_torch.vlm.qwen_process import prepare_vision_inputs
+
+    rng = np.random.default_rng(seed)
+    visions = [prepare_vision_inputs(
+        rng.integers(0, 255, (448, 448, 3), dtype=np.uint8), cfg.vision,
+        fixed_resolution=448, raw_uint8=True) for _ in range(n)]
+    lo, hi = ENGINE_BUDGETS
+    return _qwen_prompt(cfg), visions, rng.integers(lo, hi + 1, n).tolist()
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str, record):
+    """Replace ``module.name`` by a wrapper that hands its arguments to
+    ``record`` before the call (a measurement; nothing of the port)."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        record(*args, **kw)
+        return fn(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _engine_run(eng, ids, visions, budgets):
+    """(results in request order, wall seconds, install groups) of one
+    engine draining these requests, queued at t0."""
+    groups = []
+    with _recorded(eng, "_install", lambda g, s: groups.append(len(g))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(ids, v, max_new_tokens=m)
+                for v, m in zip(visions, budgets)]
+        res = eng.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [res[r] for r in rids], wall, groups
+
+
+def _first_logits(eng, ids, visions, budgets):
+    """The engine's prefill logits and its first decode step's logits
+    ([n, V] each, the order of the slots = the requests') for one group
+    installed into an engine of that many slots, after one chunk."""
+    from vlm_clip_tpu_torch.vlm import engine as E
+
+    seen = []
+    with _recorded(E, "sample_token", lambda logits, *a: seen.append(
+            logits.float().clone())):
+        for v, m in zip(visions, budgets):
+            eng.submit(ids, v, max_new_tokens=m)
+        eng._refill()
+        eng._harvest(eng._dispatch())
+    return seen[0], seen[1]
+
+
+def _overlapped(eng, record: list):
+    """Record, at each harvest of ``eng``, whether another chunk was
+    already on the device's queue (pipelined dispatch at work)."""
+    return _recorded(eng, "_harvest", lambda pend: record.append(
+        eng._pend is not None and eng._pend is not pend))
+
+
+def vlm_engine_phase() -> dict:
+    """The continuous-batching engine (vlm/engine.py) on the vlm phase's
+    Qwen2.5-VL-3B (8h4, random weights, 448x448 images, the 291-token
+    prompt, max_len 768): the mixed load through K7 and K8 with their
+    launch counts; the first logits and tokens against the fixed-batch
+    path and against the plain versions; speculative and int8-cache
+    runs; a chunk under torch.cuda.set_sync_debug_mode("error");
+    cli/serve_vlm over HTTP; the four benches, shortened. Returns the
+    mixed run's launches."""
+    import http.client as hc
+    import threading as th
+    from http.server import ThreadingHTTPServer
+
+    from vlm_clip_tpu_torch.cli import (bench_context, bench_engine,
+                                        bench_spec, bench_vision, serve_vlm)
+    from vlm_clip_tpu_torch.cli import check_decode_attn
+    from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.ops import quant as K7
+    from vlm_clip_tpu_torch.vlm.engine import ContinuousBatchingEngine
+    from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator
+
+    params, cfg = _VLM.pop("params"), _VLM.pop("cfg")
+    L = cfg.text.num_layers
+    where = card()
+
+    def generator(impl="auto", kv_bits=16):
+        g = QwenVLGenerator(params, cfg, max_len=768, kv_bits=kv_bits,
+                            impl=impl)
+        g.u8_patches = True
+        return g
+
+    gen = generator()
+    ids, visions, budgets = _engine_requests(cfg, ENGINE_REQUESTS)
+    failures = []
+
+    # 1. the mixed load at the reference's defaults; K8 once a layer a
+    # decode forward, K7 once a decode forward (the int4 head at M = 32)
+    # and once an install (the prefill's head at M = the group's size)
+    def engine(g=gen, **kw):
+        kw.setdefault("n_slots", ENGINE_SLOTS)
+        return ContinuousBatchingEngine(g, sync_steps=ENGINE_SYNC, **kw)
+
+    _engine_run(engine(), ids, visions[:8], budgets[:8])  # warm
+    K7.reset_launch_counts()
+    K8.reset_launch_counts()
+    eng, overlaps = engine(), []
+    with _overlapped(eng, overlaps):
+        out, wall, groups = _engine_run(eng, ids, visions, budgets)
+    launches = {**K7.launch_counts(), **K8.launch_counts()}
+    rounds, tokens = eng.stats["rounds"], sum(len(o) for o in out)
+    want = {"decode_attention_kernel": L * rounds,
+            "quant_matmul_int4": rounds + len(groups)}
+    ok = launches == want and all(1 <= len(o) <= m
+                                  for o, m in zip(out, budgets))
+    print(f"engine mixed load ({ENGINE_REQUESTS} requests, budgets "
+          f"{ENGINE_BUDGETS[0]}-{ENGINE_BUDGETS[1]}, {ENGINE_SLOTS} slots, "
+          f"{ENGINE_SYNC} steps a chunk at least, pipelined): {tokens} "
+          f"tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s, {rounds} "
+          f"decode forwards in {eng.stats['chunks']} chunks "
+          f"({wall * 1e3 / rounds:.2f} ms a forward, installs included), "
+          f"{sum(overlaps)} of {len(overlaps)} harvests with the next chunk "
+          f"in flight, {len(groups)} installs {groups}; launches {launches} "
+          f"(expected {want}) {'ok' if ok else 'FAIL'} on {where}",
+          flush=True)
+    if not ok:
+        failures.append("engine launches")
+    # pipelined against unpipelined dispatch on the same load, in turns;
+    # the counted run above is the first pipelined one
+    turns = {True: [(wall, tokens, rounds, eng.stats["chunks"])], False: []}
+    chains = {True: out}
+    for pipe in (False, True, False):
+        e2, ov2 = engine(pipeline=pipe), []
+        with _overlapped(e2, ov2):
+            o2, w2, _ = _engine_run(e2, ids, visions, budgets)
+        turns[pipe].append((w2, sum(len(o) for o in o2), e2.stats["rounds"],
+                            e2.stats["chunks"]))
+        chains.setdefault(pipe, o2)
+        if any(ov2) != pipe:
+            failures.append(f"engine pipeline={pipe} overlap {ov2}")
+    del e2
+    rate = {p: [round(t / w, 1) for w, t, _, _ in v] for p, v in turns.items()}
+    same = sum(a == b for a, b in zip(chains[True], chains[False]))
+    print(f"engine mixed load, pipelined against unpipelined dispatch in "
+          f"turns (P, U, P, U): tok/s pipelined {rate[True]}, unpipelined "
+          f"{rate[False]}; (seconds, tokens, forwards, chunks) pipelined "
+          f"{turns[True]}, unpipelined {turns[False]}; {same} of "
+          f"{len(out)} chains equal (printed) on {where}", flush=True)
+
+    # 2. against the fixed-batch path (generate_from_ids's prefill and
+    # decode step on the same 4 requests) and against the plain versions
+    few_v, few_b = visions[:4], budgets[:4]
+    p_e, d_e = _first_logits(engine(n_slots=4, adaptive=False), ids, few_v,
+                             few_b)
+    with _k8_off():
+        p_p, d_p = _first_logits(engine(generator("torch"), n_slots=4,
+                                        adaptive=False), ids, few_v, few_b)
+    l0, cache, T, delta = gen.prefill_batch(ids, few_v)
+    l1, _ = gen._decode_step(l0.argmax(-1), T + delta, cache, T)
+    del cache
+    rel = {"prefill vs generate": _rel(p_e, l0),
+           "step 1 vs generate": _rel(d_e, l1),
+           "prefill vs plain": _rel(p_e, p_p),
+           "step 1 vs plain (K7, K8 off)": _rel(d_e, d_p)}
+    lim = {"prefill vs generate": VLM_TOL["k7"],
+           "step 1 vs generate": VLM_TOL["k8"],
+           "prefill vs plain": VLM_TOL["k7"],
+           "step 1 vs plain (K7, K8 off)": VLM_TOL["k8"]}
+    firsts = [t.argmax(-1).tolist() for t in (p_e, l0, p_p)]
+    fixed = gen.generate_batch_from_ids(ids, few_v, max_new_tokens=max(few_b))
+    fixed = [f[:m] for f, m in zip(fixed, few_b)]
+    same = [a == b for o, f in zip(out[:4], fixed) for a, b in zip(o, f)]
+    whole = sum(o == f for o, f in zip(out[:4], fixed))
+    ok = all(rel[k] <= lim[k] for k in rel) \
+        and firsts[0] == firsts[1] == firsts[2] \
+        and [o[:1] for o in out[:4]] == [[t] for t in firsts[0]] \
+        and all(bool(torch.isfinite(t).all()) for t in (p_e, d_e, p_p, d_p))
+    print(f"engine against the fixed batch and the plain versions (4 "
+          f"requests): logits max|diff| / max|logit| "
+          f"{ {k: round(v, 6) for k, v in rel.items()} } (limits {lim}); "
+          f"first tokens equal {firsts[0] == firsts[1] == firsts[2]}; "
+          f"whole chains equal to generate_batch_from_ids {whole} of 4, "
+          f"{100 * np.mean(same):.1f}% of {len(same)} tokens (printed, not "
+          f"held: near ties in bf16 flip later tokens) "
+          f"{'ok' if ok else 'FAIL'} on {where}", flush=True)
+    if not ok:
+        failures.append("engine against generate / plain")
+
+    # 3. speculative (K8 at T = spec_k + 1 = 5) and the int8 cache
+    Ts = []
+    K7.reset_launch_counts()
+    K8.reset_launch_counts()
+    with _recorded(K8, "_launch", lambda q, *a: Ts.append(q.shape[1])):
+        seng = engine(spec_k=4)
+        sout, swall, sgroups = _engine_run(seng, ids, visions, budgets)
+    sl = {**K7.launch_counts(), **K8.launch_counts()}
+    sr = seng.stats["rounds"]
+    stok = sum(len(o) for o in sout)
+    # the first 32 requests install in the same groups of 8 in both runs
+    n1 = ENGINE_SLOTS
+    ok = set(Ts) == {5} and sl["decode_attention_kernel"] == L * sr \
+        and sl["quant_matmul_int4"] == len(sgroups) \
+        and [o[:1] for o in sout[:n1]] == [o[:1] for o in out[:n1]]
+    sdiff = sum(a != b for a, b in zip(sout, out))
+    print(f"engine spec_k=4: {stok} tokens in {sr} verify rounds "
+          f"({stok / sr:.2f} tokens a round over up to {ENGINE_SLOTS} "
+          f"slots; plain: {tokens / rounds:.2f}), {swall:.2f} s = "
+          f"{stok / swall:.1f} tok/s; K8 new rows per launch {sorted(set(Ts))}"
+          f", launches {sl} (K7 only at the installs: a verify forward has "
+          f"{ENGINE_SLOTS * 5} rows, the row-pair route); first tokens of the "
+          f"first refill's {n1} requests equal the plain engine's; {sdiff} of"
+          f" {len(out)} chains differ "
+          f"(printed) {'ok' if ok else 'FAIL'} on {where}", flush=True)
+    if not ok:
+        failures.append("engine spec_k=4")
+    K8.reset_launch_counts()
+    int8 = {"cache": []}
+    with _recorded(K8, "_launch", lambda q, k_old, *a: int8["cache"].append(
+            k_old.dtype)):
+        ieng = engine(generator(kv_bits=8), n_slots=16)
+        iout, iwall, _ = _engine_run(ieng, ids, visions[:16], budgets[:16])
+    ok = set(int8["cache"]) == {torch.int8} \
+        and K8.launch_counts()["decode_attention_kernel"] \
+        == L * ieng.stats["rounds"] and all(len(o) >= 1 for o in iout)
+    print(f"engine int8 cache, 16 slots: {sum(len(o) for o in iout)} tokens "
+          f"in {iwall:.2f} s, K8 launches {K8.launch_counts()} on an int8 "
+          f"cache ({L} x {ieng.stats['rounds']} forwards); first tokens equal"
+          f" the bf16 cache's in {sum(a[:1] == b[:1] for a, b in zip(iout, out))}"
+          f" of 16 rows (printed) {'ok' if ok else 'FAIL'} on {where}",
+          flush=True)
+    if not ok:
+        failures.append("engine int8 cache")
+
+    # 4. one chunk of 32 rows with a cancel in it, no host sync allowed
+    ceng = engine(pipeline=False, adaptive=False)
+    for v, m in zip(visions[:ENGINE_SLOTS], [64] * ENGINE_SLOTS):
+        ceng.submit(ids, v, max_new_tokens=m)
+    ceng._refill()
+    ceng._harvest(ceng._dispatch())
+    ceng.cancel(ceng._slot_req[3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        pend = ceng._dispatch()
+        t_host = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    ceng._harvest(pend)
+    ok = bool(ceng.done[3]) and int(ceng.remaining[3]) == 0
+    print(f"engine chunk of {ENGINE_SYNC} steps at {ENGINE_SLOTS} rows under "
+          f"sync_debug_mode('error'): no host sync; launched in "
+          f"{t_host * 1e3:.1f} ms, done in {t_all * 1e3:.1f} ms = "
+          f"{t_all * 1e3 / ENGINE_SYNC:.2f} ms a step (beside the vlm "
+          f"phase's B=8 generate's ms/token above); the cancelled row "
+          f"stopped by the mask {'ok' if ok else 'FAIL'} on {where}",
+          flush=True)
+    if not ok:
+        failures.append("engine cancel mask")
+    # where a 32-row step's time goes: one more chunk under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pend = ceng._dispatch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / ENGINE_SYNC
+    ceng._harvest(pend)
+    kern = [(getattr(e, "self_device_time_total", 0) / 1e3 / ENGINE_SYNC,
+             e.count / ENGINE_SYNC, e.key) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy = sum(k[0] for k in kern)
+    top = [(round(t, 3), round(c, 1), n[:50])
+           for t, c, n in sorted(kern, reverse=True)[:6]]
+    print(f"engine step profile at {ENGINE_SLOTS} rows: host {wall:.2f} ms "
+          f"a step (profiler on), device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%), {sum(k[1] for k in kern):.0f} "
+          f"kernel launches a step; largest (ms a step, launches, name): "
+          f"{top} on {where}", flush=True)
+    del ceng
+
+    # 5. K7 and K8 alone at the engine's shapes: CUDA events beside the
+    # plain version, the library call and the bound; device time
+    g5 = torch.Generator(device="cuda").manual_seed(7)
+    H = cfg.text.hidden_size
+    x = torch.randn(ENGINE_SLOTS, H, generator=g5,
+                    device="cuda").to(torch.bfloat16)
+    head = params["text"]["lm_head"]
+    w_lib = K7.dequantize_weight(head).to(torch.bfloat16)
+    depth = len(ids) + 16
+    shapes = {}
+    with torch.no_grad():
+        t = _turns(lambda: K7.quant_matmul_int4(x, head),
+                   lambda: K7.quant_matmul_int4_torch(x, head),
+                   lambda: torch.matmul(x, w_lib), iters=20)
+        dev_ms = sum(_device_ms(lambda: K7.quant_matmul_int4(x, head)
+                                ).values())
+        shapes[f"K7 x[{ENGINE_SLOTS}, {H}] bf16, the 8h4 head"] = (
+            t, dev_ms, bound(*k7_cost(ENGINE_SLOTS, H, head.logical_out, 2)))
+        del w_lib
+        for T_, S_ in ((1, 384), (5, 384), (1, 768)):
+            case = list(check_decode_attn.rand_case(
+                g5, ENGINE_SLOTS, T_, 16, 2, 128, S_, torch.bfloat16, False,
+                "cuda"))
+            case[5] = torch.full((ENGINE_SLOTS,), depth, dtype=torch.int32,
+                                 device="cuda")
+            t = _turns(lambda: K8.decode_attention_kernel(*case),
+                       lambda: K8.decode_attention_reference(*case),
+                       _k8_library(case, depth), iters=20)
+            dev_ms = sum(ms for n, ms in _device_ms(
+                lambda: K8.decode_attention_kernel(*case)).items()
+                if "decode_attention" in n)
+            shapes[f"K8 B={ENGINE_SLOTS} T={T_} S={S_} depth {depth} bf16"] \
+                = (t, dev_ms, bound(*k8_cost(case)))
+    for shape, (t, dev_ms, (b_ms, b_by)) in shapes.items():
+        print(f"engine shapes, {shape}: kernel {t[0]:.4f} ms by events, "
+              f"{dev_ms:.4f} ms device (profiler); plain {t[1]:.4f} ms, "
+              f"library {t[2]:.4f} ms; bound {b_ms:.5f} ms ({b_by}) on "
+              f"{where}", flush=True)
+
+    # 6. cli/serve_vlm over HTTP on this model (8 slots)
+    from vlm_clip_tpu_torch.vlm.qwen_process import prepare_vision_inputs
+
+    def prep(img, prompt_text):
+        return ids, prepare_vision_inputs(
+            np.asarray(img.convert("RGB")), cfg.vision,
+            fixed_resolution=448, raw_uint8=True)
+
+    worker = serve_vlm.EngineWorker(engine(n_slots=8, refill_chunks=(8, 1)))
+    worker.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve_vlm.make_vlm_handler(
+        worker, prep, None, 16, "chip_smoke"))
+    th.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    try:
+        conn = hc.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        got, errs = [None] * 3, []
+
+        def hit(i):
+            try:
+                got[i] = _post(port, "/generate?max_new=16",
+                               _jpeg(40 + i, (448, 448)))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(str(e))
+
+        threads = [th.Thread(target=hit, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        conn = hc.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/generate?max_new=40&stream=1",
+                     body=_jpeg(43, (448, 448)))
+        r = conn.getresponse()
+        events = [json.loads(ln[6:]) for ln in r.read().decode().splitlines()
+                  if ln.startswith("data: ")]
+        conn.close()
+        deltas = [t for e in events[:-1] for t in e["tokens"]]
+        conn = hc.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/generate?max_new=400&stream=1",
+                     body=_jpeg(44, (448, 448)))
+        r = conn.getresponse()
+        r.read(16)
+        r.close()
+        conn.close()
+        deadline = time.time() + 60
+        while worker.total_cancelled < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        conn = hc.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/generate", body=b"not an image")
+        bad = conn.getresponse().status
+        conn.close()
+    finally:
+        srv.shutdown()
+        worker.stop()
+    ms = [g[1] for g in got if g is not None]
+    ok = health.get("status") == "ok" and not errs \
+        and all(g is not None and 1 <= len(g[0]["tokens"]) <= 16
+                for g in got) \
+        and events and events[-1].get("done") is True \
+        and len(events) >= 3 and deltas == events[-1]["tokens"] \
+        and worker.total_cancelled == 1 and bad == 400
+    print(f"serve_vlm: /healthz {health}; 3 concurrent /generate in "
+          f"{[round(m, 1) for m in ms]} ms, errors {errs}; streamed 40 "
+          f"tokens in {len(events) - 1} deltas; a client gone mid-stream "
+          f"cancelled ({worker.total_cancelled}); a bad image -> {bad} "
+          f"{'ok' if ok else 'FAIL'} on {where}", flush=True)
+    if not ok:
+        failures.append("serve_vlm")
+    del worker, eng, seng, ieng
+
+    # 7. the benches, shortened
+    be = bench_engine.main(["--workload", "mixed", "--slots", "32",
+                            "--requests", "32", "--budget-lo", "8",
+                            "--budget-hi", "64", "--refill-chunks", "8,1",
+                            "--arrivals", "6"], gen=gen)
+    arr = be["arrivals"][0]
+    print(f"bench_engine (mixed, 32 requests, 32 slots): engine "
+          f"{be['engine_tok_s']:.1f} tok/s, static {be['static_tok_s']:.1f} "
+          f"tok/s; Poisson {arr['rate']:g} req/s: engine "
+          f"{arr['engine_tok_s']:.1f} tok/s, TTFT p50 "
+          f"{arr['engine_ttft_p50']:.3f} s p95 {arr['engine_ttft_p95']:.3f} s;"
+          f" static {arr['static_tok_s']:.1f} tok/s, TTFT p50 "
+          f"{arr['static_ttft_p50']:.3f} s p95 {arr['static_ttft_p95']:.3f} s"
+          f" on {where}", flush=True)
+    bs = bench_spec.main(["--device", "cuda", "--slots", "8", "--requests",
+                          "8", "--budget", "32"], gen=gen)
+    print(f"bench_spec round cost at 8 slots: plain {bs['round_ms'][8][0]:.2f}"
+          f" ms a step, spec_k=4 {bs['round_ms'][8][1]:.2f} ms a round on "
+          f"{where}", flush=True)
+    # the 3B weights go before the next two benches build their own
+    del gen, params, engine, generator, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    bc = bench_context.main(["--batch", "8", "--new", "32", "--u8",
+                             "--max-len", "768", "--reps", "2"])
+    bv = bench_vision.main(["--batch", "1", "--dtype", "bf16", "--quant",
+                            "int8", "--reps", "5"])
+    print(f"bench_context: {bc['line']}; bench_vision: {bv['line']} on "
+          f"{where}", flush=True)
+    if not (bv["finite"] and bv["shape"] == (1, 256, cfg.vision.out_hidden_size)
+            and all(len(t) >= 1 for t in bc["tokens"])):
+        failures.append("benches")
+    if failures:
+        raise SystemExit(f"vlm_engine phase failed: {failures}")
+    return launches
 
 
 def redesign_times(root: str) -> None:
@@ -3277,6 +3750,7 @@ def main() -> None:
     emotic_counts = run("real_weights_emotic", real_weights_emotic_phase)
     vlm_results = run("vlm_kernels", vlm_kernel_phase)
     vlm_counts = run("vlm", vlm_phase)
+    engine_counts = run("vlm_engine", vlm_engine_phase)
     print("phases:", ", ".join(phases), flush=True)
     kernels = []
     sources = {**{n: SOURCE for n in REPLACES}, **{
@@ -3302,6 +3776,8 @@ def main() -> None:
             entry["launches_v"] = v_counts[name]
         if name in emotic_counts:
             entry["launches_emotic"] = emotic_counts[name]
+        if name in engine_counts:
+            entry["launches_engine"] = engine_counts[name]
         if name in KERNEL_HMMA:
             entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)

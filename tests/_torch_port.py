@@ -66,3 +66,11 @@ def tiny_qwen(seed: int = 7):
     params = {"text": QM.init_text(k1, cfg.text),
               "vision": QM.init_vision(k2, cfg.vision)}
     return cfg, port_qwen_config(cfg), params, to_torch(params)
+
+
+def port_vision(v):
+    """The port's VisionInputs with the field values of a reference one
+    (the two dataclasses have the same fields)."""
+    from vlm_clip_tpu_torch.vlm import qwen_process as PP
+
+    return PP.VisionInputs(**dataclasses.asdict(v))

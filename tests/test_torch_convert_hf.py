@@ -270,7 +270,7 @@ def tiny_ckpt(hf, pcfg, tmp_path, monkeypatch):
 
 def test_load_backbone_real_weights_and_provenance(tiny_ckpt, hf, pcfg):
     params, cfg = common.load_backbone("tiny", hf_checkpoint=tiny_ckpt,
-                                       require_real=True)
+                                       require_real=True, device="cpu")
     assert cfg is pcfg and common.last_backbone_was_real()
     assert common._last_load["checkpoint_dir"] == tiny_ckpt
     _trees_equal(params, PH.convert_hf_clip(hf.state_dict(), pcfg))
@@ -278,7 +278,8 @@ def test_load_backbone_real_weights_and_provenance(tiny_ckpt, hf, pcfg):
     assert isinstance(tok, T.CLIPBPETokenizer)
     assert tok.encode("hello") == [tok.encoder["hello</w>"]]
     # an unloadable source: random init with a warning, provenance reset
-    params2, _ = common.load_backbone("tiny", hf_checkpoint=tiny_ckpt + "x")
+    params2, _ = common.load_backbone("tiny", hf_checkpoint=tiny_ckpt + "x",
+                                      device="cpu")
     assert not common.last_backbone_was_real()
     assert common._last_load["checkpoint_dir"] is None
     want = C.init_clip(torch.Generator().manual_seed(0), pcfg)
@@ -311,6 +312,6 @@ def test_load_backbone_require_real_refuses(tmp_path, monkeypatch):
                                            "random init"):
         common.load_backbone("vit-base-patch32",
                              hf_checkpoint=str(tmp_path),
-                             require_real=True)
+                             require_real=True, device="cpu")
     assert not common.last_backbone_was_real()
     assert common._last_load["checkpoint_dir"] == str(tmp_path)

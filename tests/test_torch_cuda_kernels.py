@@ -1174,6 +1174,73 @@ def test_decode_attention_dispatch_on_card(dev):
                    span)[1] <= 1.0
 
 
+# K8 at the serving engine's shapes: 32 slots, T = 1 (a decode step) and
+# T = 5 (a speculative verify round), reading the first S columns of a
+# max_len-768 cache layer (the engine's kv_read_span bucket, a strided
+# view) at per-row depths, finished rows deeper than the span included
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 384, 768])
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_engine_shapes(dev, S, T, quant):
+    from vlm_clip_tpu_torch.cli.check_decode_attn import compare, rand_case
+
+    B = 32
+    case = list(rand_case(_gen(dev, S + T), B, T, 16, 2, 128, 768,
+                          torch.bfloat16, quant, dev))
+    for i in (1, 2, 6, 7):  # the span's columns of the cache layer
+        if case[i] is not None:
+            case[i] = case[i][:, :S]
+    depths = torch.randint(0, S + 1 - T, (B,), generator=_gen(dev, 3),
+                           device=dev, dtype=torch.int32)
+    depths[0], depths[1], depths[2] = 0, S - T, S + 40
+    case[5] = depths
+    K8.reset_launch_counts()
+    got = K8.decode_attention(*case)
+    assert K8.launch_counts() == {"decode_attention_kernel": 1}
+    want = K8.decode_attention_reference(*case)
+    assert torch.isfinite(got.float()).all()
+    err, ratio = compare(got, want, case)
+    assert ratio <= 1.0, (err, ratio)
+
+
+@pytest.mark.cuda
+def test_engine_places_int8_rows_on_card(dev):
+    """The engine's install copies a prefilled group's int8 rows and fp32
+    scales into arbitrary slots of the resident cache (index_copy_ on the
+    slot axis): on the card as on a CPU copy, bit for bit; the other
+    slots keep their rows."""
+    from vlm_clip_tpu_torch.vlm.engine import place_rows
+    from vlm_clip_tpu_torch.vlm.qwen_model import (QwenTextConfig,
+                                                   init_kv_cache)
+
+    cfg = QwenTextConfig(num_layers=3)  # the 3B heads: 2 kv of 128
+    g = _gen(dev, 11)
+    cache = init_kv_cache(cfg, 8, 256, quantized=True, device=dev)
+    sub = init_kv_cache(cfg, 3, 256, quantized=True, device=dev)
+    for c in (cache, sub):
+        c.k.random_(-127, 128, generator=g)
+        c.v.random_(-127, 128, generator=g)
+        c.k_scale.uniform_(0.005, 0.02, generator=g)
+        c.v_scale.uniform_(0.005, 0.02, generator=g)
+    names = ("k", "v", "k_scale", "v_scale")
+    cpu, cpu_sub = (type(c)(*(getattr(c, n).cpu() if n != "length" else 0
+                              for n in ("k", "v", "length", "k_scale",
+                                        "v_scale")))
+                    for c in (cache, sub))
+    before = {n: getattr(cache, n).clone() for n in names}
+    slots = [5, 0, 3]
+    place_rows(cache, sub, torch.tensor(slots, device=dev))
+    place_rows(cpu, cpu_sub, torch.tensor(slots))
+    torch.cuda.synchronize()
+    for n in names:
+        got = getattr(cache, n)
+        assert torch.equal(got.cpu(), getattr(cpu, n)), n
+        assert torch.equal(got[:, slots], getattr(sub, n)), n
+        keep = [i for i in range(8) if i not in slots]
+        assert torch.equal(got[:, keep], before[n][:, keep]), n
+
+
 @pytest.mark.cuda
 def test_decode_attention_kernel_casts_other_cache_types(dev):
     """fp32 q over a bf16 cache (the CPU tests' combination): the wrapper

@@ -25,11 +25,12 @@ import torch
 
 def synth_quantized_text_params(cfg, bits, head_bits: int = 0,
                                 seed: int = 0, fused: bool = False,
-                                device="cpu"):
+                                device="cuda"):
     """Random 3B-shape text params with quantized linears, in the layout
     of ``quantize_qwen_params``: stacked [L, ...] QuantizedLinear layers,
     a bf16 embedding, fp32 norms; ``head_bits`` adds a quantized untied
-    head."""
+    head. Made on ``device``: the card unless the caller asks for the
+    CPU."""
     from vlm_clip_tpu_torch.ops.quant import (_I4_TK, _I4_TN,
                                               QuantizedLinear,
                                               quantize_weight)

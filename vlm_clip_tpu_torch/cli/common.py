@@ -40,10 +40,11 @@ def last_backbone_was_real() -> bool:
 
 def load_backbone(model_name: str, hf_checkpoint: Optional[str] = None,
                   seed: int = 0, require_real: bool = False,
-                  device="cpu") -> Tuple[dict, CLIPConfig]:
-    """CLIP params on ``device`` for a preset name: HF-converted weights
-    when available (local path / cache), else a seeded random init with a
-    loud warning — or an error with ``require_real=True``."""
+                  device="cuda") -> Tuple[dict, CLIPConfig]:
+    """CLIP params on ``device`` (the card unless the caller asks for the
+    CPU) for a preset name: HF-converted weights when available (local
+    path / cache), else a seeded random init with a loud warning — or an
+    error with ``require_real=True``."""
     from vlm_clip_tpu_torch.convert.hf import load_hf_clip
     from vlm_clip_tpu_torch.models.clip import init_clip
 

@@ -281,7 +281,8 @@ def make_handler(classifier: BatchingClassifier, model_name: str,
 
 def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
                      v_adapter_ckpt=None, context_cache=None,
-                     max_batch: int = 8, backbone=None, policy=None):
+                     max_batch: int = 8, backbone=None, policy=None,
+                     device="cuda"):
     """(predict_fn, mode, cfg) for the requested serving mode: zero-shot,
     ``t-adapter`` with ``adapter_ckpt`` (strict T load), or ``v-context``
     with ``v_adapter_ckpt`` (strict V load: all three adapters) and the
@@ -290,7 +291,8 @@ def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
 
     ``backbone=(clip_params, cfg, tokenizer)`` injects a preloaded tower
     (its params' device is the serving device); the default loads
-    ``clip_model_name`` on the CPU.
+    ``clip_model_name`` on ``device`` (the card unless the caller asks
+    for the CPU).
     """
     if adapter_ckpt and v_adapter_ckpt:
         raise ValueError("pass --adapter-ckpt OR --v-adapter-ckpt")
@@ -299,7 +301,7 @@ def build_predict_fn(clip_model_name: str, adapter_ckpt=None,
     else:
         from vlm_clip_tpu_torch.cli.common import load_backbone, make_tokenizer
 
-        clip_params, cfg = load_backbone(clip_model_name)
+        clip_params, cfg = load_backbone(clip_model_name, device=device)
         tokenizer = make_tokenizer(cfg)
     device = clip_params["logit_scale"].device
     model_kw = {} if policy is None else {"policy": policy}

@@ -132,11 +132,10 @@ def dequantize_weight(q: QuantizedLinear) -> torch.Tensor:
     """fp32 [in, out] of the logical shape."""
     if q.bits == 8:
         return q.qweight * q.scale.unsqueeze(-2)  # int8 x fp32 -> fp32
-    lo, hi = _unpack(q.qweight)
-    out = torch.stack([lo, hi], dim=-2).reshape(
-        *q.qweight.shape[:-2], 2 * q.qweight.shape[-2], -1)
-    out = out.float() * q.scale.unsqueeze(-2)
-    return out[..., :q.logical_in, :q.logical_out]
+    K, N = q.logical_in, q.logical_out  # the tile padding is never read
+    lo, hi = _unpack(q.qweight[..., :K // 2, :N])
+    out = torch.stack([lo, hi], dim=-2).reshape(*q.qweight.shape[:-2], K, N)
+    return out.float() * q.scale[..., None, :N]
 
 
 def _int4_gemv_rowpair(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:

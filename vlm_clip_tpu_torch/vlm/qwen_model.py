@@ -315,13 +315,16 @@ def _gqa_attention_cached(q, k_old, v_old, k_cur, v_cur, mask,
 
 def _write_rows(dst: torch.Tensor, rows: torch.Tensor, cache_index):
     """Write [B, T, ...] rows into a [B, S, ...] cache layer in place, at
-    one depth (int) or per-row depths ([B] tensor)."""
+    one depth (int) or per-row depths ([B] tensor). Per-row positions
+    past the cache (the engine's finished rows and drafts past a row's
+    budget, which the reference's scatter drops) land on the last row,
+    which no later position reads."""
     T = rows.shape[1]
     if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
         bidx = torch.arange(dst.shape[0], device=dst.device)[:, None]
         idx = cache_index.to(dst.device).long()[:, None] \
             + torch.arange(T, device=dst.device)[None]
-        dst[bidx, idx] = rows
+        dst[bidx, idx.clamp(max=dst.shape[1] - 1)] = rows
     else:
         ci = int(cache_index)
         dst[:, ci:ci + T] = rows

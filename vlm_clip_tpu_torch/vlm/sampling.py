@@ -4,7 +4,8 @@ Port of ``vlm_clip_tpu/vlm/sampling.py``: repetition penalty ->
 temperature -> top-k -> top-p -> categorical, in HF's order, on fp32
 logits [B, V]. ``sample_token`` draws from a ``torch.Generator``, so its
 draws differ from the JAX package's; every deterministic part
-(``warp_logits``, greedy argmax) matches it.
+(``warp_logits``, greedy argmax) matches it. Draws read nothing back to
+the host (:func:`draw`), so a decode step on the card never waits on it.
 """
 
 from __future__ import annotations
@@ -91,12 +92,22 @@ def warp_logits(logits: torch.Tensor, presence: torch.Tensor,
     return logits
 
 
+def draw(probs: torch.Tensor,
+         generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One index along the last axis of probabilities [..., V], drawn as
+    ``torch.multinomial(probs, 1)`` draws it (argmax of p / q with q ~
+    Exp(1): the same indices from the same generator state) but without
+    multinomial's check of the inputs, which reads them back to the
+    host."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
+
+
 def sample_token(logits: torch.Tensor, presence: torch.Tensor,
                  generator: Optional[torch.Generator],
                  scfg: SamplingConfig) -> torch.Tensor:
     """One decode step's tokens [B] (int64) from fp32 logits [B, V]."""
     logits = warp_logits(logits, presence, scfg)
     if scfg.do_sample:
-        probs = torch.softmax(logits, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return draw(torch.softmax(logits, dim=-1), generator)
     return logits.argmax(dim=-1)
