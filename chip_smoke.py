@@ -131,12 +131,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (cancelled) and a bad image (400); then cli/bench_engine (mixed, 32
    requests, one Poisson rate), cli/bench_spec's round cost at 8 slots,
    cli/bench_context (B=8, 32 tokens) and cli/bench_vision (B=1).
+12. Data paths (phase data_paths, after real_weights_emotic): the C++
+   batch decoder (native/loader.cpp, built with g++ and libjpeg into
+   build/; where it cannot build, the line says why and PIL decodes)
+   on 64 448x448 JPEGs at 336, held against PIL; BASELINE config 5
+   through cli/bench_label_finetune (ViT-L/14-336, B=32, 16 images a
+   class, 2 epochs, stub labels, pixel cache, device prefetch): K1's and
+   K3's launches must equal the steps times the calls a step (C5_CALLS),
+   K2's 0; one step held against impl="torch" under FP32 on its batch
+   and under FAST with random caption ids, and K1 and K3 timed at its
+   shapes; full train-state resume of bench.py's step from a background
+   save, bit for bit; config 4's scorer on 64 seeded 480x640 frames with
+   K5 on and off, held against its plain version and the host-resize
+   path, with cli/bench_video --no-demux's rates, and the uint8 folded
+   tower against the normalize-then-tower path.
 
 Prints one JSON line with the kernels' results (each kernel's launches
 on its main path, plus ``launches_serve``, ``launches_v``,
-``launches_emotic`` and ``launches_engine`` where it also ran on the
-served path, in pipeline V, in cli/train_emotic or in the engine's mixed
-load), then the device line
+``launches_emotic``, ``launches_engine`` and ``launches_c5`` where it
+also ran on the served path, in pipeline V, in cli/train_emotic, in the
+engine's mixed load or in config 5), then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
 
 ``python3 chip_smoke.py --times <checkout>`` instead times the kernels
@@ -1135,9 +1149,11 @@ def _clone(tree, device=None):
     return tree_map(lambda t: t.detach().to(device).clone(), tree)
 
 
-def _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss):
+def _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss,
+                policy=None):
     """A train state from (clip, a copy of adapters) and bench.py's M
-    step (FAST, frozen towers) through impl."""
+    step (FAST unless policy says otherwise, frozen towers) through
+    impl."""
     from vlm_clip_tpu_torch.bridge import tree_leaves
     from vlm_clip_tpu_torch.core.dtypes import FAST
     from vlm_clip_tpu_torch.train.steps import (init_train_state,
@@ -1146,12 +1162,13 @@ def _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss):
     state = init_train_state(None, cfg, acfg, tx, clip_params=clip,
                              adapter_params=_clone(adapters),
                              device=tree_leaves(clip)[0].device)
-    return state, make_m_train_step(cfg, acfg, tx, FAST, freeze_clip=True,
-                                    fused_loss=fused_loss, impl=impl)
+    return state, make_m_train_step(cfg, acfg, tx, policy or FAST,
+                                    freeze_clip=True, fused_loss=fused_loss,
+                                    impl=impl)
 
 
 def _step_pair(cfg, acfg, tx, clip, adapters, batch, fused_loss,
-               label) -> dict:
+               label, policy=None) -> dict:
     """One M step with impl="auto" and one with impl="torch" from the same
     state: loss, grad norm and every adapter gradient within STEP_TOL;
     the plain step launches nothing. Returns the launch counts (pipeline
@@ -1170,11 +1187,11 @@ def _step_pair(cfg, acfg, tx, clip, adapters, batch, fused_loss,
         return [prefix[:-1]]
 
     state_k, step_k = _fresh_step(cfg, acfg, tx, clip, adapters, "auto",
-                                  fused_loss)
+                                  fused_loss, policy)
     state_k, mk = step_k(state_k, batch)
     counts = {**F.launch_counts(), **K4.launch_counts()}
     state_p, step_p = _fresh_step(cfg, acfg, tx, clip, adapters, "torch",
-                                  fused_loss)
+                                  fused_loss, policy)
     state_p, mp = step_p(state_p, batch)
     torch.cuda.synchronize()
     if {**F.launch_counts(), **K4.launch_counts()} != counts:
@@ -2756,6 +2773,435 @@ def real_weights_emotic_phase() -> dict:
     return launches
 
 
+# BASELINE config 5 in the data_paths phase: cli/bench_label_finetune at
+# ViT-L/14-336, B=32, 16 images a class (112 train images: 3 steps an
+# epoch), 2 epochs, stub labels, seeded weights; then its device-resident
+# rate over 20 steps after 1 warmup step. Cut: the dataset and the
+# epochs, not the widths.
+C5_B, C5_PER_CLASS, C5_EPOCHS, C5_RESIDENT = 32, 16, 2, 20
+C5_STEPS = C5_EPOCHS * (7 * C5_PER_CLASS // C5_B) + 1 + C5_RESIDENT
+# calls a config-5 step makes of each M kernel: K1 on the text and the
+# vision rows, K3 once for each of the 2 shared layers, forward and
+# backward; K2 none (Tk = 577 is past its 256 shared rows: plain, as in
+# the reference)
+C5_CALLS = {"seq_adapter_fused": 2, "seq_adapter_bwd_cuda": 2,
+            "prenorm_mlp_fused": 2, "prenorm_mlp_bwd_cuda": 2,
+            "cross_attn_block_fused": 0, "cross_attn_block_bwd_cuda": 0}
+NATIVE_PIL_BOUND = 30  # mean |native - PIL| (tests/test_native_loader.py)
+# config 4's video: 64 frames at 480x640 made from a seed (the scorer's
+# checks), cli/bench_video --no-demux over 256 (its rates)
+VIDEO_FRAMES, VIDEO_HW, VIDEO_BENCH_FRAMES = 64, (480, 640), 256
+
+
+def _native_loader_check(work: str) -> None:
+    """(a) The C++ batch decoder: built at first use into build/, 64
+    synthetic 448x448 JPEGs decoded at 336 and held against
+    data/preprocess.load_and_resize (mean |diff| < NATIVE_PIL_BOUND:
+    bilinear against bicubic), its images/s beside PIL's; where it does
+    not build, the line says why and the decode runs on PIL."""
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.data import native_loader as NL
+    from vlm_clip_tpu_torch.data.preprocess import load_and_resize
+
+    d = os.path.join(work, "jpegs")
+    os.makedirs(d)
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(64):
+        p = os.path.join(d, f"{i:02d}.jpg")
+        Image.fromarray(rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)
+                        ).resize((448, 448)).save(p, quality=90)
+        paths.append(p)
+    t0 = time.perf_counter()
+    pil = [load_and_resize(p, 336) for p in paths]
+    pil_rate = len(paths) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ok = NL.native_available()
+    built = time.perf_counter() - t0
+    if not ok:
+        print(f"data_paths native loader: unavailable "
+              f"({NL.unavailable_reason()}); decoder route PIL: 64 448x448 "
+              f"JPEGs at 336 -> {pil_rate:.1f} img/s", flush=True)
+        return
+    NL.load_batch_native(paths[:8], 336)
+    t0 = time.perf_counter()
+    imgs, good = NL.load_batch_native(paths, 336)
+    rate = len(paths) / (time.perf_counter() - t0)
+    worst = max(float(np.abs(imgs[i].astype(int) - pil[i].astype(int))
+                      .mean()) for i in range(len(paths)))
+    fine = bool(good.all()) and worst < NATIVE_PIL_BOUND
+    print(f"data_paths native loader: built {NL.library_path()} with g++ "
+          f"and libjpeg ({built:.1f}s); decoder route native "
+          f"({os.cpu_count()} threads): 64 448x448 JPEGs at 336 -> "
+          f"{rate:.1f} img/s (PIL {pil_rate:.1f}); worst mean |native - "
+          f"PIL| {worst:.2f} (limit {NATIVE_PIL_BOUND}) "
+          f"{'ok' if fine else 'FAIL'}", flush=True)
+    if not fine:
+        raise SystemExit("the native loader disagrees with PIL")
+
+
+def _c5_kernel_times(cfg, adapters) -> None:
+    """K1 (text [32*77, 768] with dx, vision [32*577, 1024] without) and
+    K3 (H = 768, 4H = 3072, with dx) forward and backward in bf16 at
+    config 5's shapes (cfg's) on its trained adapters, and K3 in fp32
+    there too (its backward's CUDA-core row pass keeps its row tiles in a
+    global workspace past H = 519), each against its plain version (TOL;
+    gradients relative to their largest element, K1's parameter
+    gradients at fp32's), timed in turns beside its bound."""
+    from vlm_clip_tpu_torch.models.layers import layer_slice
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    dt = torch.bfloat16
+
+    def seq_args(p):
+        return (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
+                p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
+
+    shared = layer_slice(adapters["shared_adapters"], 0)
+    mp = shared["mlp"]
+    mlp = (mp["fc1"]["kernel"], mp["fc1"]["bias"], mp["fc2"]["kernel"],
+           mp["fc2"]["bias"], shared["norm3"]["scale"],
+           shared["norm3"]["bias"])
+    text = [torch.randn(C5_B * cfg.text.max_positions, cfg.text.hidden_size,
+                        generator=gen, device=dev).to(dt) for _ in range(2)]
+    vis = [torch.randn(C5_B * cfg.vision.seq_len, cfg.vision.hidden_size,
+                       generator=gen, device=dev).to(dt) for _ in range(2)]
+    cases = (("seq_adapter", "text", text, seq_args(
+        adapters["text_adapter"]), True),
+             ("seq_adapter", "vision", vis, seq_args(
+                 adapters["vision_adapter"]), False),
+             ("prenorm_mlp", "text", text, mlp, True),
+             ("prenorm_mlp", "text", [t.float() for t in text], mlp, True))
+    failures = []
+    with torch.no_grad():
+        for stem, tag, (x, g), args, need_dx in cases:
+            dt = x.dtype
+            name = str(dt).replace("torch.", "")
+            fwd, bwd = f"{stem}_fused", f"{stem}_bwd_cuda"
+            got = getattr(F, fwd)(x, *args)
+            want = getattr(F, f"{stem}_torch")(x, *args)
+            atol, rtol = TOL[dt]
+            ratio = float(((got.float() - want.float()).abs()
+                           / (atol + rtol * want.float().abs())).max())
+            tk, tp, _ = _turns(lambda: getattr(F, fwd)(x, *args),
+                               lambda: getattr(F, f"{stem}_torch")(x, *args))
+            b_ms, b_by = bound(*cost(fwd, x))
+            print(f"config 5 {fwd}[{tag}] {name} x{list(x.shape)}: err/tol "
+                  f"{ratio:.3f} {'ok' if ratio <= 1 else 'FAIL'}; kernel "
+                  f"{tk:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+            if ratio > 1:
+                failures.append(f"{fwd}[{tag}] {name}")
+            call = (*args, g)
+            got = getattr(F, bwd)(x, *call, need_dx=need_dx)
+            want = getattr(F, f"{stem}_bwd_torch")(x, *call,
+                                                   need_dx=need_dx)
+            errs = _grad_errors(got, want, dt,
+                                1 if stem == "seq_adapter" else None)
+            worst = max(e[1] for e in errs)
+            tk, tp, _ = _turns(
+                lambda: getattr(F, bwd)(x, *call, need_dx=need_dx),
+                lambda: getattr(F, f"{stem}_bwd_torch")(x, *call,
+                                                        need_dx=need_dx),
+                iters=5)
+            b_ms, b_by = bound(*cost(bwd, x, need_dx))
+            print(f"config 5 {bwd}[{tag}] {name} x{list(x.shape)} dx "
+                  f"{need_dx}: worst err/tol {worst:.3f} "
+                  f"{'ok' if worst <= 1 else 'FAIL'}; kernel {tk:.4f} ms, "
+                  f"plain {tp:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+            if worst > 1:
+                failures.append(f"{bwd}[{tag}] {name}")
+    if failures:
+        raise SystemExit(f"config 5 kernels disagree with their plain "
+                         f"versions: {failures}")
+
+
+def _cancelling_grads(cfg, acfg, tx, clip, adapters, batch) -> None:
+    """On config 5's own batch under FAST: each path's worst adapter
+    gradient (Frobenius, relative to at least 1e-2 of the global norm, as
+    _step_pair holds them) against the plain versions' FP32 step, the
+    kernels' beside the plain versions' own. Printed, not held."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.core.dtypes import FAST, FP32
+
+    def grads(impl, policy):
+        state, step = _fresh_step(cfg, acfg, tx, clip, adapters, impl,
+                                  False, policy)
+        state, m = step(state, batch)
+        return [p.grad.detach().float().clone()
+                for p in tree_leaves(state.adapter_params)], m
+
+    want, m = grads("torch", FP32)
+    floor = 1e-2 * float(m.grad_norm)
+    worst = {}
+    for impl in ("auto", "torch"):
+        got, _ = grads(impl, FAST)
+        worst[impl] = max(float((a - b).norm()) / max(float(b.norm()), floor)
+                          for a, b in zip(got, want))
+    print(f"config 5 step, its batch, FAST against the plain FP32 step "
+          f"(loss {float(m.loss):.6f}, grad norm {float(m.grad_norm):.6f}): "
+          f"worst adapter gradient kernels {worst['auto']:.3e}, plain "
+          f"versions {worst['torch']:.3e}", flush=True)
+
+
+def _config5_check(work: str) -> dict:
+    """(b) BASELINE config 5 through cli/bench_label_finetune (its rates
+    printed there): K1's and K3's launches must equal C5_STEPS x the
+    calls a step (C5_CALLS), K2's 0 (counts zeroed just before, read just
+    after); one step with the kernels held against impl="torch" from the
+    trained state on the same batch (STEP_TOL), twice: on config 5's own
+    batch under FP32, and under FAST (config 5's policy) on its pixels
+    with random caption ids. Its captions all start with the same BOS
+    token, so CLS-slice pooling (the reference's quirk) gives every row
+    the same text feature and the loss is ln 32 to 3 digits: the adapter
+    gradients are what is left of sums that nearly cancel, so under FAST
+    on that batch the worst adapter gradient of each path, the kernels'
+    and the plain versions', is printed against the plain FP32 step's
+    (_cancelling_grads), not held. Then K1's and K3's times at its
+    shapes. Returns the launches."""
+    from vlm_clip_tpu_torch.cli import bench_label_finetune as BLF
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.train import optim
+
+    F.reset_launch_counts()
+    K4.reset_launch_counts()
+    K5.reset_launch_counts()
+    t0 = time.time()
+    out = BLF.main(["--model", "vit-large-patch14-336", "--batch",
+                    str(C5_B), "--per-class", str(C5_PER_CLASS), "--epochs",
+                    str(C5_EPOCHS), "--tmpdir", os.path.join(work, "config5"),
+                    "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = F.launch_counts(F.M_KERNELS)
+    want = {k: C5_STEPS * v for k, v in C5_CALLS.items()}
+    others = {**K4.launch_counts(), **K5.launch_counts()}
+    ok = out["steps"] == C5_STEPS and counts == want \
+        and not any(others.values())
+    print(f"config 5: bench_label_finetune in {time.time() - t0:.1f}s on "
+          f"{card()}: {C5_STEPS} steps; launches {counts} (want {want}; "
+          f"K4, K5 {others}) {'ok' if ok else 'FAIL'}; labels "
+          f"{out['labels_per_s']:.1f}/s, cache {out['cache_img_per_s']:.1f} "
+          f"img/s {out['cache_mb']:.1f} MB, epochs "
+          f"{[round(r, 1) for r in out['epoch_pairs_per_s']]} pairs/s, "
+          f"device-resident {out['step_ms']:.2f} ms a step "
+          f"({out['step_pairs_per_s']:.1f} pairs/s), losses "
+          f"{[round(v, 4) for v in out['losses']]}", flush=True)
+    if not ok or not all(np.isfinite(out["losses"])):
+        raise SystemExit("config 5: launches or losses not as predicted")
+    from vlm_clip_tpu_torch.core.dtypes import FP32
+
+    tr = out["trainer"]
+    args = (tr.cfg, tr.acfg, optim.adam(3e-4), tr.state.clip_params,
+            tr.state.adapter_params)
+    _step_pair(*args, out["batch"], False, f"config 5 step ViT-L/14-336 "
+               f"B={C5_B}, its batch, FP32", policy=FP32)
+    _cancelling_grads(*args, out["batch"])
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ids = torch.randint(1, tr.cfg.text.vocab_size, (C5_B, 77),
+                        generator=gen, device="cuda")
+    _step_pair(*args, {**out["batch"], "input_ids": ids,
+                       "attention_mask": torch.ones_like(ids)}, False,
+               f"config 5 step ViT-L/14-336 B={C5_B}, its pixels, random "
+               f"caption ids, FAST")
+    _c5_kernel_times(tr.cfg, tr.state.adapter_params)
+    return counts
+
+
+def _resume_check(work: str) -> None:
+    """(c) Full train-state resume at bench.py's step (ViT-B/16, adapters
+    256/256/2, FAST, Adam 3e-4, B=96; four fixed random batches): 2
+    steps, save_full_state(wait=False), a third step while the save is in
+    flight, finish_saves, a fresh trainer (other random adapters)
+    restored from the file, the third step again and a fourth: losses,
+    adapter params and Adam's moments bit for bit those of 4
+    uninterrupted steps."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.core.dtypes import FAST
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.train.trainer_m import CLIPAdapterTrainer
+
+    dev = torch.device("cuda")
+    cfg = clip_preset("vit-base-patch16")
+    acfg = AdapterConfig(text_adapter_size=256, vision_adapter_size=256,
+                         shared_adapter_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    clip = init_clip(gen, cfg, device=dev)
+    batches = [{
+        "input_ids": torch.randint(1, cfg.text.vocab_size, (B, 77),
+                                   generator=gen, device=dev),
+        "attention_mask": torch.ones(B, 77, dtype=torch.int32, device=dev),
+        "pixel_values": torch.randn(
+            B, 3, cfg.vision.image_size, cfg.vision.image_size,
+            generator=gen, device=dev).to(torch.bfloat16)}
+        for _ in range(4)]
+
+    def trainer(seed):
+        return CLIPAdapterTrainer(
+            clip, cfg, acfg, batches, learning_rate=3e-4, weight_decay=0.0,
+            max_grad_norm=None, schedule="constant", policy=FAST, seed=seed,
+            output_dir=os.path.join(work, f"resume{seed}"))
+
+    def run(tr, bs):
+        out = []
+        for b in bs:
+            tr.state, m = tr._step(tr.state, b)
+            out.append(float(m.loss))
+        return out
+
+    def state(tr):
+        return tree_leaves(tr.state.adapter_params) + [
+            t for s in tr.state.opt_state.state.values()
+            for t in s.values()]
+
+    whole = trainer(0)
+    want = run(whole, batches)
+    first = trainer(0)
+    got = run(first, batches[:2])
+    path = os.path.join(work, "train_state.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first.save_full_state(path, wait=False)
+    t_call = time.perf_counter() - t0
+    inflight = run(first, batches[2:3])
+    first.finish_saves()
+    t_done = time.perf_counter() - t0
+    fresh = trainer(1)
+    fresh.restore_full_state(path)
+    got += run(fresh, batches[2:])
+    same = got == want and inflight == want[2:3] \
+        and fresh.state.step == whole.state.step == 4 \
+        and all(torch.equal(a, b) for a, b in zip(state(fresh), state(whole)))
+    print(f"resume (ViT-B/16, B={B}, FAST, Adam 3e-4): losses "
+          f"{got} against uninterrupted {want}; the step during the save "
+          f"{inflight}; params and moments bit for bit: {same}; the save "
+          f"({os.path.getsize(path) / 1e6:.1f} MB) returned in "
+          f"{t_call * 1e3:.1f} ms and was on disk {t_done:.2f}s after",
+          flush=True)
+    if not same:
+        raise SystemExit("resume: the restored trainer does not continue "
+                         "bit for bit")
+
+
+def _video_check() -> None:
+    """(d) Config 4's scorer at ViT-B/16 full width under BF16 on 64
+    uint8 480x640 frames made from a seed: score_video_frames_raw with K5
+    on, then off (K5 launches once a tower layer with it on, never off);
+    rows finite and summing to 1 within 1e-3; held (ENCODE_TOL on the
+    probability rows) against the plain version (K5 off) and against
+    score_video_frames on the frames after the port's own shortest-edge
+    resize and crop; cli/bench_video --no-demux's chip-only and
+    device-resident frames/s; then the uint8 folded tower against the
+    normalize-then-tower path on the cropped frames (ENCODE_TOL on the
+    unit-norm features)."""
+    from vlm_clip_tpu_torch.cli import bench_video
+    from vlm_clip_tpu_torch.core.config import clip_preset
+    from vlm_clip_tpu_torch.core.dtypes import BF16
+    from vlm_clip_tpu_torch.data import video as V
+    from vlm_clip_tpu_torch.data.preprocess import normalize_batch
+    from vlm_clip_tpu_torch.models import clip as C
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.models.layers import l2_normalize
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops.image import resize_center_crop
+
+    dev = torch.device("cuda")
+    cfg = clip_preset("vit-base-patch16")
+    params = init_clip(torch.Generator(device=dev).manual_seed(7), cfg,
+                       device=dev)
+    rng = np.random.default_rng(13)
+    frames = rng.integers(0, 256, (VIDEO_FRAMES, *VIDEO_HW, 3),
+                          dtype=np.uint8)
+    emb = rng.normal(size=(7, cfg.projection_dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    size = cfg.vision.image_size
+
+    def close(a, b):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+        return float((a - b).abs().max()), float(cos.min())
+
+    was_on = K5.fused_attention_enabled()
+    probs, launches = {}, {}
+    try:
+        for on in (True, False):
+            K5.set_fused_attention(on)
+            K5.reset_launch_counts()
+            probs[on] = V.score_video_frames_raw(params, cfg, frames, emb,
+                                                 policy=BF16, size=size)
+            torch.cuda.synchronize()
+            launches[on] = K5.fused_attention.launches
+            print(f"video: cli/bench_video --no-demux with K5 "
+                  f"{'on' if on else 'off'}:", flush=True)
+            bench_video.main(["--no-demux", "--frames",
+                              str(VIDEO_BENCH_FRAMES), "--batch",
+                              str(VIDEO_FRAMES), "--height",
+                              str(VIDEO_HW[0]), "--width", str(VIDEO_HW[1]),
+                              "--size", str(size), "--device", "cuda"])
+    finally:
+        K5.set_fused_attention(was_on)
+    with torch.no_grad():
+        crop = resize_center_crop(torch.from_numpy(frames).to(dev), size)
+    host = V.score_video_frames(params, cfg, crop.cpu().numpy(), emb,
+                                policy=BF16, stats="imagenet")
+    sums = max(float(np.abs(p.sum(-1) - 1).max()) for p in probs.values())
+    finite = all(np.isfinite(p).all() for p in probs.values())
+    vs_plain, vs_host = close(probs[True], probs[False]), \
+        close(probs[True], host)
+    u8 = crop.round().clamp(0, 255).to(torch.uint8)
+    folded = dict(params)
+    folded["vision"] = C.fold_image_normalization(params["vision"])
+    with torch.no_grad():
+        a = l2_normalize(C.get_image_features_u8(folded, u8, cfg,
+                                                 BF16)).float()
+        b = l2_normalize(C.get_image_features(params, normalize_batch(u8),
+                                              cfg, BF16)).float()
+    vs_fold = close(a, b)
+    want_k5 = cfg.vision.num_layers
+    ok = finite and sums <= 1e-3 and launches == {True: want_k5, False: 0} \
+        and all(m <= ENCODE_TOL["max_abs"] and c >= ENCODE_TOL["cosine"]
+                for m, c in (vs_plain, vs_host, vs_fold))
+    print(f"video ViT-B/16 BF16, {VIDEO_FRAMES} frames {VIDEO_HW}: rows "
+          f"finite {finite}, |sum - 1| <= {sums:.2e}; K5 launches "
+          f"{launches}; (max abs diff, least cosine) K5 on vs off "
+          f"{vs_plain}, raw vs host resize {vs_host}, uint8 folded tower vs "
+          f"normalize-then-tower {vs_fold} (limits {ENCODE_TOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("video: the scorer disagrees")
+
+
+def data_paths_phase() -> dict:
+    """The CLIP data path and BASELINE configs 4-5 on the card:
+    (a) the native loader (_native_loader_check), (b) config 5
+    (_config5_check), (c) full train-state resume (_resume_check), (d)
+    config 4's video scorer and the uint8 folded tower (_video_check).
+    Returns config 5's launches of the M kernels."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "chip_smoke", "data_paths")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.time()
+    _native_loader_check(work)
+    t_a = time.time()
+    counts = _config5_check(work)
+    t_b = time.time()
+    _resume_check(work)
+    t_c = time.time()
+    _video_check()
+    print(f"data_paths: native loader {t_a - t0:.1f}s, config 5 "
+          f"{t_b - t_a:.1f}s, resume {t_c - t_b:.1f}s, video "
+          f"{time.time() - t_c:.1f}s", flush=True)
+    return counts
+
+
 def k7_cost(M: int, K: int, N: int, es: int):
     """(operations, bytes, peak kind) of one K7 call: 2*M*K*N FLOP at the
     peak of x's type (bf16 x: the nibbles are exact in bf16, so a bf16
@@ -3748,6 +4194,7 @@ def main() -> None:
     v_counts = run("pipeline_v", pipeline_v_phase)
     serve_counts = run("serve", serve_phase)
     emotic_counts = run("real_weights_emotic", real_weights_emotic_phase)
+    c5_counts = run("data_paths", data_paths_phase)
     vlm_results = run("vlm_kernels", vlm_kernel_phase)
     vlm_counts = run("vlm", vlm_phase)
     engine_counts = run("vlm_engine", vlm_engine_phase)
@@ -3776,6 +4223,8 @@ def main() -> None:
             entry["launches_v"] = v_counts[name]
         if name in emotic_counts:
             entry["launches_emotic"] = emotic_counts[name]
+        if name in c5_counts:
+            entry["launches_c5"] = c5_counts[name]
         if name in engine_counts:
             entry["launches_engine"] = engine_counts[name]
         if name in KERNEL_HMMA:

@@ -138,7 +138,7 @@ def test_adapter_checkpoints_cross_packages(tmp_path):
     ref = init_m_adapters(jax.random.PRNGKey(3), cfg, acfg)
     path = str(tmp_path / "ref.pt")
     RCK.save_adapter_weights(path, ref)
-    port = PCK.load_adapter_weights(path, pacfg)
+    port = PCK.load_adapter_weights(path, pacfg, device="cpu")
     a = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, ref))[0]
     b = jax.tree_util.tree_flatten_with_path(tree_to_numpy(port))[0]
     assert [p for p, _ in a] == [p for p, _ in b]
@@ -154,7 +154,7 @@ def test_adapter_checkpoints_cross_packages(tmp_path):
     # strict validation: a file holding a kind that is not enabled
     with pytest.raises(ValueError, match="not enabled"):
         PCK.load_adapter_weights(path, dataclasses.replace(
-            pacfg, use_text_adapter=False))
+            pacfg, use_text_adapter=False), device="cpu")
 
 
 def test_port_imports_neither_jax_nor_reference():

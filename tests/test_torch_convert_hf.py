@@ -64,12 +64,12 @@ def _trees_equal(got, want):
 def test_convert_hf_clip_matches_reference(hf, pcfg):
     sd = hf.state_dict()
     want = to_torch(RH.convert_hf_clip(sd, tiny_clip_config()))
-    _trees_equal(PH.convert_hf_clip(sd, pcfg), want)
+    _trees_equal(PH.convert_hf_clip(sd, pcfg, device="cpu"), want)
 
 
 def test_towers_and_logits_match_hf(hf, pcfg):
     px, ids, mask = rand_batch(seed=4)
-    params = PH.convert_hf_clip(hf.state_dict(), pcfg)
+    params = PH.convert_hf_clip(hf.state_dict(), pcfg, device="cpu")
     t = torch.from_numpy
     with torch.no_grad():
         w_txt = hf.get_text_features(input_ids=t(ids),
@@ -108,12 +108,12 @@ def test_load_hf_clip_equals_from_pretrained(hf, pcfg, tmp_path, safe,
     assert os.path.isfile(os.path.join(
         d, "model.safetensors" if safe else "pytorch_model.bin"))
     want = PH.convert_hf_clip(CLIPModel.from_pretrained(d).state_dict(),
-                              pcfg)
+                              pcfg, device="cpu")
     assert want["logit_scale"].dtype == torch.float32
-    got, cfg = PH.load_hf_clip(d, pcfg)
+    got, cfg = PH.load_hf_clip(d, pcfg, device="cpu")
     _trees_equal(got, want)
     assert cfg is pcfg
-    got2, cfg2 = PH.load_hf_clip(d)
+    got2, cfg2 = PH.load_hf_clip(d, device="cpu")
     _trees_equal(got2, want)
     assert cfg2 == PH.clip_config_from_hf(hf.config)
 
@@ -145,8 +145,8 @@ def test_hub_id_resolves_to_cache_snapshot(hf, pcfg, tmp_path, monkeypatch):
     monkeypatch.setenv("HF_HOME", str(tmp_path))
     monkeypatch.delenv("HF_HUB_CACHE", raising=False)
     assert PH.resolve_checkpoint_dir("acme/clip-tiny") == str(snap)
-    got, _ = PH.load_hf_clip("acme/clip-tiny", pcfg)
-    _trees_equal(got, PH.convert_hf_clip(hf.state_dict(), pcfg))
+    got, _ = PH.load_hf_clip("acme/clip-tiny", pcfg, device="cpu")
+    _trees_equal(got, PH.convert_hf_clip(hf.state_dict(), pcfg, device="cpu"))
     with pytest.raises(FileNotFoundError, match="HF cache"):
         PH.resolve_checkpoint_dir("acme/absent")
 
@@ -157,13 +157,13 @@ def test_exported_checkpoint_round_trips(hf, pcfg, tmp_path):
     to the same tensors, and the port's loader reads it bit for bit."""
     from transformers import CLIPModel
 
-    params = PH.convert_hf_clip(hf.state_dict(), pcfg)
+    params = PH.convert_hf_clip(hf.state_dict(), pcfg, device="cpu")
     for fmt in ("bin", "safetensors"):
         d = str(tmp_path / fmt)
         CS.write_hf_checkpoint(d, params, pcfg, fmt)
         back = CLIPModel.from_pretrained(d).state_dict()
-        _trees_equal(PH.convert_hf_clip(back, pcfg), params)
-        got, cfg = PH.load_hf_clip(d)
+        _trees_equal(PH.convert_hf_clip(back, pcfg, device="cpu"), params)
+        got, cfg = PH.load_hf_clip(d, device="cpu")
         _trees_equal(got, params)
         assert cfg == dataclasses.replace(pcfg, name="hf-clip")
         tok = T.get_tokenizer(os.path.join(d, "vocab.json"),
@@ -273,7 +273,8 @@ def test_load_backbone_real_weights_and_provenance(tiny_ckpt, hf, pcfg):
                                        require_real=True, device="cpu")
     assert cfg is pcfg and common.last_backbone_was_real()
     assert common._last_load["checkpoint_dir"] == tiny_ckpt
-    _trees_equal(params, PH.convert_hf_clip(hf.state_dict(), pcfg))
+    _trees_equal(params, PH.convert_hf_clip(hf.state_dict(), pcfg,
+                                            device="cpu"))
     tok = common.make_tokenizer(cfg)  # vocab picked up from the dir
     assert isinstance(tok, T.CLIPBPETokenizer)
     assert tok.encode("hello") == [tok.encoder["hello</w>"]]
@@ -282,7 +283,7 @@ def test_load_backbone_real_weights_and_provenance(tiny_ckpt, hf, pcfg):
                                       device="cpu")
     assert not common.last_backbone_was_real()
     assert common._last_load["checkpoint_dir"] is None
-    want = C.init_clip(torch.Generator().manual_seed(0), pcfg)
+    want = C.init_clip(torch.Generator().manual_seed(0), pcfg, device="cpu")
     for a, b in zip(tree_leaves(params2), tree_leaves(want)):
         assert torch.equal(a, b)
 

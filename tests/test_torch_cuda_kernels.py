@@ -244,15 +244,15 @@ def test_seq_adapter_bwd_repeats_bit_for_bit(dev, dtype):
         assert torch.equal(a, b)
 
 
-def _pnmlp_case(dev, n, dtype):
-    p = A.init_mlp_gelu(_gen(dev), 512, device=dev)
+def _pnmlp_case(dev, n, dtype, h=512):
+    p = A.init_mlp_gelu(_gen(dev), h, device=dev)
     p["fc1"]["bias"].normal_(generator=_gen(dev, 7)).mul_(0.1)
-    x = torch.randn(n, 512, generator=_gen(dev, 3), device=dev).to(dtype)
-    ls = 1 + 0.1 * torch.randn(512, generator=_gen(dev, 4), device=dev)
-    lb = 0.1 * torch.randn(512, generator=_gen(dev, 5), device=dev)
+    x = torch.randn(n, h, generator=_gen(dev, 3), device=dev).to(dtype)
+    ls = 1 + 0.1 * torch.randn(h, generator=_gen(dev, 4), device=dev)
+    lb = 0.1 * torch.randn(h, generator=_gen(dev, 5), device=dev)
     args = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
             p["fc2"]["bias"], ls, lb)
-    g = torch.randn(n, 512, generator=_gen(dev, 6), device=dev).to(dtype)
+    g = torch.randn(n, h, generator=_gen(dev, 6), device=dev).to(dtype)
     return x, args, g
 
 
@@ -281,6 +281,80 @@ def test_prenorm_mlp_bwd_repeats_bit_for_bit(dev, dtype):
     second = F.prenorm_mlp_bwd_cuda(x, *args, g)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# BASELINE config 5, pipeline M at ViT-L/14-336 and B=32: K1 on the text
+# rows [32*77, 768] (dx asked, as the shared layers' input needs) and the
+# vision rows [32*577, 1024] (no dx: frozen towers), K3 at H = 768,
+# 4H = 3072 on the text rows; forward and backward
+C5_TEXT, C5_VISION = 32 * 77, 32 * 577
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,h,need_dx", [(C5_TEXT, 768, True),
+                                         (C5_VISION, 1024, False)])
+def test_seq_adapter_kernels_config5(dev, dtype, n, h, need_dx):
+    x, args = _seq_case(dev, n, h, 256, dtype)
+    g = torch.randn(n, h, generator=_gen(dev, 3), device=dev).to(dtype)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        _close(F.seq_adapter_fused(x, *args), F.seq_adapter_torch(x, *args),
+               dtype)
+    got = F.seq_adapter_bwd_cuda(x, *args, g, need_dx=need_dx)
+    assert F.launch_counts()["seq_adapter_fused"] == 1
+    assert F.launch_counts()["seq_adapter_bwd_cuda"] == 1
+    _k1_grads_close(got, F.seq_adapter_bwd_torch(x, *args, g,
+                                                 need_dx=need_dx),
+                    dtype, f"seq_adapter config 5 [{n}, {h}]")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prenorm_mlp_kernels_config5(dev, dtype):
+    x, args, g = _pnmlp_case(dev, C5_TEXT, dtype, h=768)
+    assert args[0].shape == (768, 3072)
+    F.reset_launch_counts()
+    with torch.no_grad():
+        _close(F.prenorm_mlp_fused(x, *args), F.prenorm_mlp_torch(x, *args),
+               dtype)
+    got = F.prenorm_mlp_bwd_cuda(x, *args, g)
+    assert F.launch_counts()["prenorm_mlp_fused"] == 1
+    assert F.launch_counts()["prenorm_mlp_bwd_cuda"] == 1
+    _grads_close(got, F.prenorm_mlp_bwd_torch(x, *args, g), dtype,
+                 "prenorm_mlp config 5")
+
+
+@pytest.mark.cuda
+def test_native_loader_builds_into_build_dir(dev, tmp_path):
+    """Where libjpeg's header is installed, the C++ batch decoder builds
+    with g++ into build/ at first use and decodes close to PIL (the
+    reference's bilinear-against-bicubic bound: mean |diff| < 30)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from vlm_clip_tpu_torch.data import native_loader as N
+    from vlm_clip_tpu_torch.data.preprocess import load_and_resize
+    from vlm_clip_tpu_torch.ops.build import BUILD_DIR
+
+    if not any(os.path.isfile(os.path.join(d, "jpeglib.h")) for d in
+               ("/usr/include", "/usr/local/include",
+                "/usr/include/x86_64-linux-gnu")):
+        pytest.skip("no jpeglib.h: the loader falls back to PIL "
+                    f"({N.unavailable_reason()})")
+    assert N.native_available(), N.unavailable_reason()
+    assert os.path.dirname(N.library_path()) == BUILD_DIR
+    assert os.path.isfile(N.library_path())
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "x.jpg")
+    Image.fromarray(rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)
+                    ).resize((448, 448)).save(path, quality=90)
+    out, ok = N.load_batch_native([path, str(tmp_path / "missing.jpg")], 336)
+    assert list(ok) == [True, False] and out[1].sum() == 0
+    diff = np.abs(out[0].astype(int) - load_and_resize(path, 336).astype(int))
+    assert diff.mean() < 30, diff.mean()
 
 
 # the weight-gradient products alone: bf16 x bf16 on the tensor cores,

@@ -363,8 +363,8 @@ def test_v_checkpoints_round_trip(tmp_path):
     CK.save_v_adapters(str(tmp_path / "port.pt"), tp)
     RCK.save_v_adapters(str(tmp_path / "ref.pt"), p)
     back = RCK.load_v_adapters(str(tmp_path / "port.pt"))
-    mine = CK.load_v_adapters(str(tmp_path / "ref.pt"))
-    again = CK.load_v_adapters(str(tmp_path / "port.pt"))
+    mine = CK.load_v_adapters(str(tmp_path / "ref.pt"), device="cpu")
+    again = CK.load_v_adapters(str(tmp_path / "port.pt"), device="cpu")
     for name in ("visual", "text", "context"):
         for layer in ("fc1", "fc2"):
             for key in ("kernel", "bias"):
@@ -454,8 +454,8 @@ def test_cli_main_v_on_cpu_matches_reference(bb, root, monkeypatch,
     want_losses = [float(ln.rsplit(" ", 1)[1]) for ln in want_out.splitlines()
                    if "Average Training Loss" in ln]
     np.testing.assert_allclose(got["losses"], want_losses, atol=1e-4)
-    mine = CK.load_v_adapters(str(tmp_path / "port.pt"))
-    theirs = CK.load_v_adapters(str(tmp_path / "ref.pt"))
+    mine = CK.load_v_adapters(str(tmp_path / "port.pt"), device="cpu")
+    theirs = CK.load_v_adapters(str(tmp_path / "ref.pt"), device="cpu")
     for a, b in zip(tree_leaves(mine), tree_leaves(theirs)):
         _close(a, b.numpy())
     res = got["results"]
@@ -505,7 +505,7 @@ def test_cli_gen_label_matches_reference_and_isolates_failures(
     _tiny_cli(monkeypatch, bb)
     argv = ["--data-dir", root, "--image-size", "32", "--chunk", "8"]
     got = gen_label.main(argv + ["--out", str(tmp_path / "port.jsonl"),
-                                 "--device", "cpu"])
+                                 "--device", "cpu", "--no-native"])
     rgen.main(argv + ["--out", str(tmp_path / "ref.jsonl"), "--no-native"])
     rows = [[json.loads(ln) for ln in (tmp_path / f).read_text().split("\n")
              if ln] for f in ("port.jsonl", "ref.jsonl")]
@@ -526,7 +526,7 @@ def test_cli_gen_label_matches_reference_and_isolates_failures(
         monkeypatch.setattr(stub, "extract_contexts_batch", lambda self, ims:
                             [self.extract_context_from_image(i) for i in ims])
     got = gen_label.main(argv + ["--out", str(tmp_path / "port2.jsonl"),
-                                 "--device", "cpu"])
+                                 "--device", "cpu", "--no-native"])
     rgen.main(argv + ["--out", str(tmp_path / "ref2.jsonl"), "--no-native"])
     port2, ref2 = ([json.loads(ln) for ln in
                     (tmp_path / f).read_text().split("\n") if ln]

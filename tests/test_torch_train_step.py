@@ -200,7 +200,7 @@ def _step_pair(freeze_clip, fused_loss=False):
     pstate = S.init_train_state(None, pcfg, pacfg, ptx,
                                 clip_params=to_torch(params),
                                 freeze_clip=freeze_clip,
-                                adapter_params=to_torch(ap))
+                                adapter_params=to_torch(ap), device="cpu")
     pstep = S.make_m_train_step(pcfg, pacfg, ptx, FP32,
                                 freeze_clip=freeze_clip,
                                 fused_loss=fused_loss)

@@ -73,8 +73,12 @@ def test_loaders_yield_the_reference_batches(tree):
                     np.testing.assert_array_equal(getattr(a, f),
                                                   getattr(b, f), err_msg=f)
                 assert a.captions == b.captions
-    with pytest.raises(NotImplementedError, match="pixel cache"):
-        port["train"].dataset.attach_pixel_cache(object())
+    from vlm_clip_tpu_torch.data.pixel_cache import PixelCache
+
+    one = PixelCache(np.zeros((1, 32, 32, 3), np.uint8), ["x.jpg"],
+                     np.ones((1,), bool), 32)
+    with pytest.raises(ValueError, match="pixel cache .* does not match"):
+        port["train"].dataset.attach_pixel_cache(one)
 
 
 def test_trainer_epoch_matches_reference(tree, tmp_path):
@@ -127,7 +131,7 @@ def test_trainer_epoch_matches_reference(tree, tmp_path):
                         port.state.adapter_params))):
         np.testing.assert_array_equal(a, b)
     from_ref = PCK.load_adapter_weights(str(ref_dir / "final_adapter"),
-                                        pacfg)
+                                        pacfg, device="cpu")
     for a, b in zip(jax.tree.leaves(tree_to_numpy(from_ref)),
                     jax.tree.leaves(jax.tree.map(
                         np.asarray, ref.state.adapter_params))):
@@ -155,7 +159,7 @@ def test_train_cli_on_cpu(tree, tmp_path, monkeypatch):
     acfg = AdapterConfig(text_adapter_size=16, vision_adapter_size=16,
                          shared_adapter_layers=1)
     for name in ("best_adapter", "adapter_epoch_1", "final_adapter"):
-        PCK.load_adapter_weights(str(out / name), acfg)
+        PCK.load_adapter_weights(str(out / name), acfg, device="cpu")
     with pytest.raises(NotImplementedError, match="zero1"):
         train_m.main(["--data-root", tree, "--zero1", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -5,16 +5,15 @@ as a jsonl of ``{path, emotion, caption}`` records usable as contrastive
 captions (pipeline M) or contexts (pipeline V). Images go in chunks of
 ``--chunk``, each one batched extraction where the backend has one.
 
-Two differences from the reference:
+Each chunk is decoded by the threaded C++ batch decoder
+(``data/native_loader``, bilinear) where it builds, else, and with
+``--no-native``, image by image with PIL (bicubic, as CLIPProcessor).
 
-- where a chunk's batched extraction raises, the chunk is retried one
-  image at a time, so one bad image leaves only its own caption null
-  (the reference nulls the whole chunk's captions);
-- the images are decoded with PIL: the threaded C++ batch decoder is not
-  ported yet, so ``--no-native`` is accepted and is the only behaviour.
-
-Plus ``--device`` (default ``cuda``; ``--device cpu`` for a host without
-a card).
+One difference from the reference: where a chunk's batched extraction
+raises, the chunk is retried one image at a time, so one bad image
+leaves only its own caption null (the reference nulls the whole
+chunk's captions). Plus ``--device`` (default ``cuda``; ``--device
+cpu`` for a host without a card).
 
     python -m vlm_clip_tpu_torch.cli.gen_label --data-dir root/ \\
         --out labels.jsonl [--device cpu]
@@ -61,7 +60,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--chunk", type=int, default=64,
                    help="decode + extract batch size")
     p.add_argument("--no-native", action="store_true",
-                   help="per-image PIL decode (the only decoder here)")
+                   help="per-image PIL decode instead of the threaded "
+                        "C++ batch decoder")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default) needs a card")
     args = p.parse_args(argv)
@@ -72,6 +72,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                                resolve_device)
     from vlm_clip_tpu_torch.cli.main_v import make_extractor
     from vlm_clip_tpu_torch.core.config import EMOTIONS
+    from vlm_clip_tpu_torch.data import native_loader
     from vlm_clip_tpu_torch.data.preprocess import load_and_resize
     from vlm_clip_tpu_torch.data.rafdb import scan_class_folders
 
@@ -82,16 +83,24 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                tokenizer, qwen_weights=args.qwen_weights)
 
     samples = scan_class_folders(Path(args.data_dir))
+    use_native = not args.no_native and native_loader.native_available()
     n_ok = 0
     with open(args.out, "w") as f:
         for off in range(0, len(samples), args.chunk):
             group = samples[off:off + args.chunk]
             imgs = [None] * len(group)
-            for j, (path, _) in enumerate(group):
-                try:
-                    imgs[j] = load_and_resize(path, args.image_size)
-                except Exception:
-                    imgs[j] = None
+            if use_native:
+                batch, ok = native_loader.load_batch_native(
+                    [p for p, _ in group], args.image_size)
+                for j, good in enumerate(ok):
+                    if good:
+                        imgs[j] = batch[j]
+            else:
+                for j, (path, _) in enumerate(group):
+                    try:
+                        imgs[j] = load_and_resize(path, args.image_size)
+                    except Exception:
+                        imgs[j] = None
             valid = [j for j, im in enumerate(imgs) if im is not None]
             caps = [None] * len(group)
             if valid:
@@ -106,8 +115,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             done = off + len(group)
             if done % 256 < args.chunk:
                 print(f"  {done}/{len(samples)} labeled", flush=True)
-    print(f"wrote {len(samples)} records ({n_ok} with captions) "
-          f"-> {args.out}")
+    print(f"wrote {len(samples)} records ({n_ok} with captions, "
+          f"{'native' if use_native else 'PIL'} decode) -> {args.out}")
     return {"records": len(samples), "captions": n_ok}
 
 

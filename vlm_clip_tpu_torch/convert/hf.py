@@ -88,7 +88,7 @@ def _stack_layers(sd: Mapping[str, Any], tower: str,
 
 
 def convert_hf_clip(sd: Mapping[str, Any], cfg: CLIPConfig,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     """An HF CLIPModel state dict -> the port's parameter tree on
     ``device``."""
     patch_w = _t(sd["vision_model.embeddings.patch_embedding.weight"])
@@ -235,7 +235,7 @@ def read_state_dict(ckpt_dir: str) -> Dict[str, Any]:
 
 
 def load_hf_clip(model_name_or_path: str, cfg: Optional[CLIPConfig] = None,
-                 device="cpu") -> Tuple[Params, CLIPConfig]:
+                 device="cuda") -> Tuple[Params, CLIPConfig]:
     """Load and convert an HF CLIP checkpoint (a local directory or a hub
     id in the HF cache) onto ``device``; returns (params, cfg). ``cfg``
     defaults to the preset the name names, else the checkpoint's

@@ -668,7 +668,10 @@ __global__ void __launch_bounds__(NT)
 // chunks. Writes dx, um = round(LN(x)) [n, h], hm = round(gelu(pre))
 // [n, k], dpm = round(dpre) [n, k] (dW1 = um^T dpm, dW2 = hm^T g), and per
 // tile [db1 = sum dpre (k) | db2 = sum g (h) | dls = sum du xhat (h) |
-// dlb = sum du (h)].
+// dlb = sum du (h)]. Its three [ROWS][h] tiles live in shared memory
+// where they fit (h up to 519), else (rows_ws not null) in the block's
+// slice of a global workspace, with only P, the slab and the row stats in
+// shared memory: the same operations in the same order either way.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -680,12 +683,18 @@ __global__ void __launch_bounds__(NT)
                            const T* __restrict__ g, float eps,
                            T* __restrict__ dx, T* __restrict__ um_out,
                            T* __restrict__ hm_out, T* __restrict__ dpm_out,
-                           float* __restrict__ part, int n, int h, int k) {
+                           float* __restrict__ part,
+                           float* __restrict__ rows_ws, int n, int h,
+                           int k) {
   extern __shared__ float smem[];
-  float* U = smem;               // [ROWS][h]: round(LN(x))
+  float* U = rows_ws == nullptr  // [ROWS][h]: round(LN(x))
+                 ? smem
+                 : rows_ws + (size_t)blockIdx.x * 3 * ROWS * h;
   float* G = U + ROWS * h;       // [ROWS][h]: g
   float* DU = G + ROWS * h;      // [ROWS][h]: x, then the du accumulator
-  float* P = DU + ROWS * h;      // [ROWS][128]: pre, dpre, round(dpre)
+  float* P = rows_ws == nullptr  // [ROWS][128]: pre, dpre, round(dpre)
+                 ? DU + ROWS * h
+                 : smem;
   float* slab = P + ROWS * 128;  // SLAB_T
   float* mean = slab + SLAB_T;   // [ROWS]
   float* inv = mean + ROWS;      // [ROWS]
@@ -3249,6 +3258,7 @@ int seqfwd_launch(const void* x, const void* w1, const void* b1,
 
 extern "C" size_t vct_prenorm_mlp_smem(int h);
 extern "C" size_t vct_prenorm_mlp_bwd_smem(int h);
+extern "C" size_t vct_prenorm_mlp_bwd_ws(int n, int h);
 
 namespace {
 
@@ -3276,16 +3286,19 @@ template <typename T>
 int pnmlp_bwd_launch(const void* x, const void* w1, const void* b1,
                      const void* w2, const void* ls, const void* lb,
                      const void* g, float eps, void* dx, void* um_out,
-                     void* hm_out, void* dpm_out, void* part, int n, int h,
-                     int k, cudaStream_t st) {
+                     void* hm_out, void* dpm_out, void* part, void* ws,
+                     int n, int h, int k, cudaStream_t st) {
   const size_t smem = vct_prenorm_mlp_bwd_smem(h);
+  if (vct_prenorm_mlp_bwd_ws(n, h) && ws == nullptr)
+    return (int)cudaErrorInvalidValue;
   auto kern = prenorm_mlp_bwd_kernel<T>;
   int err;
   if ((err = allow_smem(kern, smem))) return err;
   kern<<<grid_for(n), NT, smem, st>>>(
       (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
       (const float*)ls, (const float*)lb, (const T*)g, eps, (T*)dx,
-      (T*)um_out, (T*)hm_out, (T*)dpm_out, (float*)part, n, h, k);
+      (T*)um_out, (T*)hm_out, (T*)dpm_out, (float*)part,
+      vct_prenorm_mlp_bwd_ws(n, h) ? (float*)ws : nullptr, n, h, k);
   return (int)cudaGetLastError();
 }
 // K2 backward's CUDA-core row pass at R = rows rows a block (R2 or R2 / 2).
@@ -3385,9 +3398,23 @@ size_t vct_seq_adapter_bwd_smem(int h, int k) {
   return sizeof(float) *
          ((size_t)ROWS * h + 2 * (size_t)ROWS * k + SLAB_T + 2 * ROWS);
 }
+// K3 backward's CUDA-core row pass: its three [ROWS][h] tiles in shared
+// memory where the block's total fits SMEM_MAX, else in a global
+// workspace of vct_prenorm_mlp_bwd_ws bytes (0 where they fit).
+static size_t pnmlp_bwd_rest(void) {
+  return sizeof(float) * (ROWS * 128 + SLAB_T + 2 * ROWS);
+}
+static size_t pnmlp_bwd_tiles(int h) {
+  return sizeof(float) * 3 * (size_t)ROWS * h;
+}
 size_t vct_prenorm_mlp_bwd_smem(int h) {
-  return sizeof(float) *
-         (3 * (size_t)ROWS * h + ROWS * 128 + SLAB_T + 2 * ROWS);
+  const size_t all = pnmlp_bwd_tiles(h) + pnmlp_bwd_rest();
+  return all <= SMEM_MAX ? all : pnmlp_bwd_rest();
+}
+size_t vct_prenorm_mlp_bwd_ws(int n, int h) {
+  return pnmlp_bwd_tiles(h) + pnmlp_bwd_rest() <= SMEM_MAX
+             ? 0
+             : (size_t)grid_for(n).x * pnmlp_bwd_tiles(h);
 }
 static size_t cab_bwd_smem(int rows, int din, int h) {
   const size_t ldq = din > h ? din : h;
@@ -3439,15 +3466,16 @@ int vct_prenorm_mlp_bwd(int bf16, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* ls,
                         const void* lb, const void* g, float eps, void* dx,
                         void* um_out, void* hm_out, void* dpm_out,
-                        void* part, int n, int h, int k, void* stream) {
+                        void* part, void* ws, int n, int h, int k,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16 && pnmlp_tc(h, k)) return (int)cudaErrorInvalidValue;
   return bf16 ? pnmlp_bwd_launch<__nv_bfloat16>(
                     x, w1, b1, w2, ls, lb, g, eps, dx, um_out, hm_out,
-                    dpm_out, part, n, h, k, st)
+                    dpm_out, part, ws, n, h, k, st)
               : pnmlp_bwd_launch<float>(x, w1, b1, w2, ls, lb, g, eps, dx,
-                                        um_out, hm_out, dpm_out, part, n, h,
-                                        k, st);
+                                        um_out, hm_out, dpm_out, part, ws, n,
+                                        h, k, st);
 }
 
 // K2 backward's CUDA-core row pass: fp32, and bf16 at head widths its

@@ -1,6 +1,7 @@
 """RAF-DB folder datasets + fixed-shape batch loader (copied from
 ``vlm_clip_tpu/data/rafdb.py``: numpy and PIL only, imports pointed at
-the port's ``core/config``, ``data/captions`` and ``data/preprocess``).
+the port's ``core/config``, ``data/captions``, ``data/preprocess`` and
+``data/native_loader``).
 
 Covers the reference's three dataset item schemas (SURVEY.md §1-L2) with
 one folder-scan core:
@@ -66,18 +67,24 @@ def _safe_load(path: str, image_size: int) -> np.ndarray:
 
 
 class _PixelCacheMixin:
-    """Where the reference attaches a decoded-uint8 pixel cache
-    (data/pixel_cache.py). The cache is not ported yet: attaching one
-    raises, and items are always decoded."""
+    """Opt-in decoded-uint8 cache: ``dataset[i]`` reads mmap row i
+    instead of decoding (data/pixel_cache.py). Attach via
+    ``PixelCache.for_dataset(ds, cache_dir)``."""
 
     pixel_cache = None
 
     def attach_pixel_cache(self, cache) -> None:
-        raise NotImplementedError(
-            "the pixel cache (data/pixel_cache.py) is not ported to "
-            "vlm_clip_tpu_torch yet (ROADMAP.md)")
+        if len(cache) != len(self.samples) \
+                or cache.image_size != self.image_size:
+            raise ValueError(
+                f"pixel cache ({len(cache)} @ {cache.image_size}) does "
+                f"not match dataset ({len(self.samples)} @ "
+                f"{self.image_size})")
+        self.pixel_cache = cache
 
     def _load_pixels(self, idx: int, path: str) -> np.ndarray:
+        if self.pixel_cache is not None:
+            return self.pixel_cache.get(idx)
         return _safe_load(path, self.image_size)
 
 
@@ -109,6 +116,16 @@ class FolderDataset(_PixelCacheMixin):
     def __getitem__(self, idx: int):
         path, label = self.samples[idx]
         return self._load_pixels(idx, path), label, path
+
+    def get_batch(self, idxs) -> "Batch":
+        """Batched mmap read (requires an attached pixel cache): one
+        fancy-index slice instead of B python __getitem__ calls."""
+        assert self.pixel_cache is not None
+        return Batch(
+            images=self.pixel_cache.get_batch(idxs),
+            labels=np.asarray([self.samples[i][1] for i in idxs],
+                              np.int32),
+            paths=[self.samples[i][0] for i in idxs])
 
 
 class RAFDBDataset(_PixelCacheMixin):
@@ -170,6 +187,23 @@ class RAFDBDataset(_PixelCacheMixin):
             "emotion": emotion,
             "caption": caption,
         }
+
+    def get_batch(self, idxs) -> "Batch":
+        """Batched mmap read + one batched tokenizer call (requires an
+        attached pixel cache). Per-item __getitem__ costs ~2 ms/img in
+        python; this path feeds the chip from the cache at memory
+        bandwidth."""
+        assert self.pixel_cache is not None
+        captions = []
+        labels = np.empty((len(idxs),), np.int32)
+        for j, i in enumerate(idxs):
+            path, emotion = self.samples[i]
+            captions.append(self._caption_for(path, emotion))
+            labels[j] = EMOTIONS.index(emotion)
+        ids, mask = self.tokenizer(captions, max_length=self.max_length)
+        return Batch(images=self.pixel_cache.get_batch(idxs),
+                     labels=labels, input_ids=ids, attention_mask=mask,
+                     captions=captions)
 
 
 @dataclasses.dataclass
@@ -250,10 +284,62 @@ class BatchLoader:
         self.collate_fn = collate_fn or _collate
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+        # native C++ batch decode path (throughput; bilinear resampling)
+        self.native = False
         if native:
-            raise NotImplementedError(
-                "the native C++ batch decoder (data/native_loader.py) is "
-                "not ported to vlm_clip_tpu_torch yet (ROADMAP.md)")
+            from vlm_clip_tpu_torch.data import native_loader
+
+            if getattr(dataset, "pixel_cache", None) is not None:
+                log.info("pixel cache attached; native decode unnecessary")
+            elif isinstance(dataset, FolderDataset) \
+                    and native_loader.native_available():
+                self.native = True
+            else:
+                log.warning("native loading requested but unavailable for "
+                            "%s; using the PIL path",
+                            type(dataset).__name__)
+
+    def _cached_batch(self, idxs) -> Batch:
+        """Batched mmap path via the dataset's ``get_batch`` (requires
+        an attached pixel cache) + final-batch padding."""
+        b = self.dataset.get_batch(idxs)
+        n = b.size
+        b.valid = np.ones((n,), bool)
+        if self.pad_final and n < self.batch_size:
+            reps = self.batch_size - n
+
+            def pad(x):
+                return None if x is None else \
+                    np.concatenate([x, np.repeat(x[-1:], reps, 0)])
+
+            b.images = pad(b.images)
+            b.labels = pad(b.labels)
+            b.input_ids = pad(b.input_ids)
+            b.attention_mask = pad(b.attention_mask)
+            b.valid = np.concatenate([b.valid, np.zeros((reps,), bool)])
+        return b
+
+    def _native_batch(self, idxs) -> Batch:
+        from vlm_clip_tpu_torch.data.native_loader import load_batch_native
+
+        paths = [self.dataset.samples[i][0] for i in idxs]
+        labels = np.asarray([self.dataset.samples[i][1] for i in idxs],
+                            np.int32)
+        images, ok = load_batch_native(paths, self.dataset.image_size)
+        if not ok.all():
+            for i in np.nonzero(~ok)[0]:
+                log.warning("native decode failed for %s; black dummy",
+                            paths[i])
+        n = len(idxs)
+        valid = np.ones((n,), bool)
+        if self.pad_final and n < self.batch_size:
+            reps = self.batch_size - n
+            images = np.concatenate(
+                [images, np.repeat(images[-1:], reps, 0)])
+            labels = np.concatenate([labels, np.repeat(labels[-1:], reps)])
+            valid = np.concatenate([valid, np.zeros((reps,), bool)])
+        return Batch(images=images, labels=labels, paths=paths,
+                     valid=valid)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -278,9 +364,17 @@ class BatchLoader:
         def producer():
             try:
                 for idxs in self._index_batches():
-                    items = [self.dataset[i] for i in idxs]
-                    b = self.collate_fn(items, self.batch_size,
-                                        self.pad_final)
+                    if getattr(self.dataset, "pixel_cache", None) \
+                            is not None \
+                            and hasattr(self.dataset, "get_batch") \
+                            and self.collate_fn is _collate:
+                        b = self._cached_batch(idxs)
+                    elif self.native:
+                        b = self._native_batch(idxs)
+                    else:
+                        items = [self.dataset[i] for i in idxs]
+                        b = self.collate_fn(items, self.batch_size,
+                                            self.pad_final)
                     if hasattr(b, "indices"):
                         padded = idxs + [idxs[-1]] * (
                             self.batch_size - len(idxs)

@@ -7,6 +7,12 @@ Same semantics as the reference (HF ``CLIPModel`` to fp32 tolerance):
   patch embedding, class token, learned positions, pre-LN, pre-norm
   encoder layers; ``last_hidden_state`` is returned **un**-post-
   layernormed and ``pooled`` = post_LN(x[:, 0]);
+- the uint8 path: :func:`fold_image_normalization` folds the per-channel
+  ``(x/255 - mean)/std`` into the patch-embed weights and a bias, so
+  :func:`vision_tower_u8` / :func:`get_image_features_u8` take raw uint8
+  HWC batches (4x fewer bytes to the card than fp32 pixels, no float
+  image materialized); its patch product accumulates in fp32 and the
+  folded bias is added before the cast to the compute dtype;
 - text tower: token + position embeddings, additive causal + padding
   mask, final LN, pooled at argmax(input_ids);
 - projections are bias-free linears; ``logit_scale`` a learned scalar.
@@ -39,7 +45,7 @@ def _normal(gen, shape, scale, device):
 
 
 def init_vision(gen: torch.Generator, cfg: VisionConfig,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     s = cfg.hidden_size ** -0.5
     H = cfg.hidden_size
     return {
@@ -55,7 +61,7 @@ def init_vision(gen: torch.Generator, cfg: VisionConfig,
     }
 
 
-def init_text(gen: torch.Generator, cfg: TextConfig, device="cpu") -> Params:
+def init_text(gen: torch.Generator, cfg: TextConfig, device="cuda") -> Params:
     H = cfg.hidden_size
     return {
         "token_embedding": _normal(gen, (cfg.vocab_size, H), 0.02, device),
@@ -68,7 +74,7 @@ def init_text(gen: torch.Generator, cfg: TextConfig, device="cpu") -> Params:
 
 
 def init_clip(gen: torch.Generator, cfg: CLIPConfig,
-              device="cpu") -> Params:
+              device="cuda") -> Params:
     vh, th = cfg.vision.hidden_size, cfg.text.hidden_size
     return {
         "vision": init_vision(gen, cfg.vision, device),
@@ -110,6 +116,70 @@ def vision_tower(p: Params, pixel_values: torch.Tensor, cfg: VisionConfig,
     x = patchify(pixel_values.to(cd), cfg.patch_size)
     kernel = p["patch_embedding"]["kernel"].reshape(-1, cfg.hidden_size)
     x = torch.matmul(x, kernel.to(cd))
+    return _vision_tower_tail(p, x, B, cfg, policy, remat)
+
+
+def fold_image_normalization(vision_params: Params, mean=None,
+                             std=None) -> Params:
+    """Fold ``(x/255 - mean)/std`` into the patch-embed weights.
+
+    Normalization is a per-channel affine map and the patch embedding is
+    linear, so ``norm(x) @ W = x @ W' + b'`` with ``W'[(c)] =
+    W[(c)]/(255*std_c)`` and ``b' = -sum_c (mean_c/std_c) * W[(c)]``.
+    Use with :func:`vision_tower_u8` / :func:`get_image_features_u8`.
+    """
+    from vlm_clip_tpu_torch.core.config import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+
+    kernel = vision_params["patch_embedding"]["kernel"].float()
+    mean = torch.tensor(mean if mean is not None else CLIP_IMAGE_MEAN,
+                        dtype=torch.float32, device=kernel.device)
+    std = torch.tensor(std if std is not None else CLIP_IMAGE_STD,
+                       dtype=torch.float32, device=kernel.device)
+    # kernel layout [P, P, 3, H]
+    scaled = kernel / (255.0 * std)[None, None, :, None]
+    bias = -torch.einsum("c,pqch->h", mean / std, kernel)
+    out = dict(vision_params)
+    out["patch_embedding"] = {"kernel": scaled, "bias": bias}
+    return out
+
+
+def patchify_hwc(u8: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, S, S, 3] (HWC, uint8 or float) -> [B, N, patch*patch*3] with
+    the same (ph, pw, c) flattening order as :func:`patchify`."""
+    B, H, W, C = u8.shape
+    gh, gw = H // patch, W // patch
+    x = u8.reshape(B, gh, patch, gw, patch, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # [B, gh, gw, ph, pw, C]
+    return x.reshape(B, gh * gw, patch * patch * C)
+
+
+def vision_tower_u8(p_folded: Params, u8_hwc: torch.Tensor,
+                    cfg: VisionConfig, policy: DTypePolicy = FP32,
+                    remat: bool = False) -> TowerOutput:
+    """Vision tower on raw uint8 HWC batches; requires params through
+    :func:`fold_image_normalization`."""
+    B = u8_hwc.shape[0]
+    if tuple(u8_hwc.shape[1:3]) != (cfg.image_size, cfg.image_size):
+        raise ValueError(
+            f"uint8 batch spatial shape {tuple(u8_hwc.shape[1:3])} does "
+            f"not match the model's image_size {cfg.image_size}")
+    cd = policy.compute_dtype
+    # the operands in the compute dtype (0..255 are exact in bf16), their
+    # product accumulated and returned in fp32, then the folded bias
+    x = patchify_hwc(u8_hwc, cfg.patch_size).to(cd).float()
+    kernel = p_folded["patch_embedding"]["kernel"].reshape(
+        -1, cfg.hidden_size).to(cd).float()
+    x = torch.matmul(x, kernel)
+    x = (x + p_folded["patch_embedding"]["bias"].float()).to(cd)
+    return _vision_tower_tail(p_folded, x, B, cfg, policy, remat)
+
+
+def _vision_tower_tail(p: Params, x: torch.Tensor, B: int,
+                       cfg: VisionConfig, policy: DTypePolicy,
+                       remat: bool) -> TowerOutput:
+    """Class token, positions, pre-LN, encoder layers and the pooled
+    post-LN over patch embeddings x [B, N, H] in the compute dtype."""
+    cd = policy.compute_dtype
     cls = p["class_embedding"].to(cd).expand(B, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
     x = x + p["position_embedding"].to(cd)[None]
@@ -174,6 +244,15 @@ def get_image_features(params: Params, pixel_values: torch.Tensor,
                        cfg: CLIPConfig,
                        policy: DTypePolicy = FP32) -> torch.Tensor:
     out = vision_tower(params["vision"], pixel_values, cfg.vision, policy)
+    return project(params["visual_projection"], out.pooled)
+
+
+def get_image_features_u8(params: Params, u8_hwc: torch.Tensor,
+                          cfg: CLIPConfig,
+                          policy: DTypePolicy = FP32) -> torch.Tensor:
+    """Projected image features from raw uint8 HWC batches; ``params``
+    must hold a vision subtree through :func:`fold_image_normalization`."""
+    out = vision_tower_u8(params["vision"], u8_hwc, cfg.vision, policy)
     return project(params["visual_projection"], out.pooled)
 
 

@@ -78,7 +78,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_seq_adapter_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
             + [_P] * 5 + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_bwd.argtypes = [_I] + [_P] * 7 + [_F] \
-            + [_P] * 5 + [_I] * 3 + [_P]
+            + [_P] * 6 + [_I] * 3 + [_P]
         lib.vct_prenorm_mlp_bwd_bf16.argtypes = [_P] * 7 + [_F] \
             + [_P] * 6 + [_I] * 4 + [_P]
         lib.vct_cross_attn_block_bwd.argtypes = [_I] + [_P] * 11 \
@@ -120,6 +120,7 @@ def _lib() -> ctypes.CDLL:
         lib.vct_cross_attn_block_bwd_rows.argtypes = [_I, _I]
         lib.vct_cross_attn_block_bwd_rows.restype = _I
         lib.vct_prenorm_mlp_fwd_bf16_ws.argtypes = [_I] * 3
+        lib.vct_prenorm_mlp_bwd_ws.argtypes = [_I] * 2
         lib.vct_seq_adapter_bwd_tf32_ws.argtypes = [_I] * 3
         lib.vct_seq_adapter_fwd_ws.argtypes = [_I] * 3
         lib.vct_feature_adapter_bwd_ws.argtypes = [_I] * 3
@@ -132,6 +133,7 @@ def _lib() -> ctypes.CDLL:
                    lib.vct_prenorm_mlp_bwd_smem,
                    lib.vct_cross_attn_block_bwd_smem,
                    lib.vct_prenorm_mlp_fwd_bf16_ws,
+                   lib.vct_prenorm_mlp_bwd_ws,
                    lib.vct_seq_adapter_bwd_tf32_ws,
                    lib.vct_seq_adapter_fwd_ws,
                    lib.vct_feature_adapter_bwd_ws,
@@ -771,12 +773,17 @@ def prenorm_mlp_bwd_cuda(x, w1, b1, w2, b2, ls, lb, g, eps: float = 1e-5,
         hm = torch.empty(N, K, dtype=mm, device=x.device)
         dpm = torch.empty(N, K, dtype=mm, device=x.device)
         part = torch.empty(-(-N // ROWS), K + 3 * H, **f32)
+        # its [32, H] row tiles past shared memory (H over 519): a slice
+        # of this workspace a block
+        ws = lib.vct_prenorm_mlp_bwd_ws(N, H)
+        rows = torch.empty(ws // 4, **f32) if ws else None
         _launch(name, lib.vct_prenorm_mlp_bwd,
                 lib.vct_prenorm_mlp_bwd_smem(H), x, x.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), ls.data_ptr(),
                 lb.data_ptr(), g.data_ptr(), float(eps),
                 None if dx is None else dx.data_ptr(), um.data_ptr(),
-                hm.data_ptr(), dpm.data_ptr(), part.data_ptr(), N, H, K)
+                hm.data_ptr(), dpm.data_ptr(), part.data_ptr(),
+                None if rows is None else rows.data_ptr(), N, H, K)
         _wgrad(um, dpm, dw1, H, K)
         _wgrad(hm, g, dw2, K, H)
         _colsum(part, vec)

@@ -1,5 +1,19 @@
-"""Adapter checkpoints in the reference's file formats (the
-adapter-export half of ``vlm_clip_tpu/train/checkpoint.py``).
+"""Checkpoints (port of ``vlm_clip_tpu/train/checkpoint.py``): full
+train-state resume, and adapter checkpoints in the reference's file
+formats.
+
+Full resume (:func:`save_train_state`, :class:`AsyncTrainStateSaver`,
+:func:`restore_train_state`): the port's own file, a ``torch.save`` of
+``{"format", "adapter_params", "clip_params", "optimizer", "step"}`` —
+the adapter params, the CLIP params when they train (``None`` when
+frozen), the torch optimizer's ``state_dict`` (Adam's moments and step
+counts) and the train step. The reference writes an orbax checkpoint
+of its whole TrainState; orbax is not on the card's machine, and the
+two formats are not interchangeable (ROADMAP.md, section 3). A restore
+copies into the live state's tensors, so a restored trainer continues
+bit for bit as if it had not stopped.
+
+Adapter export:
 
 - Pipeline M: a ``torch.save`` of ``{"text_adapter": sd,
   "vision_adapter": sd, "shared_adapters": {"<layer>.<key>": tensor}}``
@@ -11,24 +25,172 @@ adapter-export half of ``vlm_clip_tpu/train/checkpoint.py``).
   takes whichever adapters are present; the T load requires both of its
   own (a V file qualifies; its context adapter is ignored).
 
-The JAX package writes and reads the same files. Full train-state resume
-is not ported.
+The JAX package writes and reads the same adapter files.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+import threading
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from vlm_clip_tpu_torch.bridge import tree_map
+from vlm_clip_tpu_torch.bridge import tree_leaves, tree_map
 from vlm_clip_tpu_torch.convert import adapters as CA
 from vlm_clip_tpu_torch.core.config import AdapterConfig
 from vlm_clip_tpu_torch.models.layers import (layer_slice, num_layers,
                                               stack_trees)
 
 Params = Dict[str, Any]
+TRAIN_STATE_FORMAT = "vlm_clip_tpu_torch.train_state/1"
+
+
+# ---------------------------------------------------------------------------
+# full train-state resume
+# ---------------------------------------------------------------------------
+
+def _state_tree(state) -> Dict[str, Any]:
+    """What a full save holds, as a tree of the live tensors."""
+    clip = state.clip_params if any(
+        p.requires_grad for p in tree_leaves(state.clip_params)) else None
+    return {"format": TRAIN_STATE_FORMAT,
+            "adapter_params": state.adapter_params, "clip_params": clip,
+            "optimizer": state.opt_state.state_dict(), "step": state.step}
+
+
+def _map_tensors(fn, tree):
+    """fn on the tensors of a tree; its other leaves (the optimizer's
+    settings, the step) as they are."""
+    return tree_map(lambda t: fn(t) if isinstance(t, torch.Tensor) else t,
+                    tree)
+
+
+def _write(path: str, tree) -> None:
+    path = os.path.abspath(path)
+    d = os.path.dirname(path)
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(tree, tmp)
+    os.replace(tmp, path)
+
+
+def save_train_state(path: str, state) -> None:
+    """Write the full train state to ``path`` and return when it is on
+    disk."""
+    _write(path, _map_tensors(lambda t: t.detach().cpu(),
+                              _state_tree(state)))
+
+
+class AsyncTrainStateSaver:
+    """Background full-state saves: overlap checkpoint writes with
+    training.
+
+    ``save`` snapshots the state on the device (a copy on the current
+    stream, so the next step may update the live tensors at once) and
+    returns; a thread then copies the snapshot to pinned host memory on
+    a side stream that waits for the snapshot, and writes the file. At
+    most one save is in flight: a new ``save`` first waits for the
+    previous one. Call ``wait`` before reading the file or exiting. The
+    file is the one :func:`save_train_state` writes (restore with
+    :func:`restore_train_state`).
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, state) -> None:
+        self.wait()  # at most one in flight
+        snap = _map_tensors(lambda t: t.detach().clone(), _state_tree(state))
+        ready = None
+        dev = next(t.device for t in tree_leaves(state.adapter_params))
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        self._thread = threading.Thread(target=self._run,
+                                        args=(path, snap, dev, ready),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, path, snap, dev, ready) -> None:
+        try:
+            host = snap
+            if ready is not None:
+                with torch.cuda.device(dev):
+                    side = torch.cuda.Stream(dev)
+                    side.wait_event(ready)
+                    with torch.cuda.stream(side):
+                        host = _map_tensors(self._to_pinned, snap)
+                        done = torch.cuda.Event()
+                        done.record(side)
+                    # snap, on the device, stays referenced until here
+                    done.synchronize()
+            _write(path, host)
+        except BaseException as e:  # re-raised by wait()
+            self._error = e
+
+    @staticmethod
+    def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+        if not t.is_cuda:
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        return out
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("background train-state save failed") \
+                from err
+
+    def close(self) -> None:
+        self.wait()
+
+
+def copy_into(dst, src) -> None:
+    """Copy the tensors of tree src into those of tree dst, in place
+    (the optimizer stays bound to dst's)."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"param keys differ: {sorted(dst)} against "
+                             f"{sorted(src)}")
+        for k, v in dst.items():
+            copy_into(v, src[k])
+        return
+    if dst.shape != src.shape:
+        raise ValueError(f"param shape {tuple(src.shape)} does not match "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def restore_train_state(path: str, state):
+    """``state`` with the saved params copied into its tensors (the
+    optimizer stays bound to them), the optimizer's state loaded and the
+    step restored. The configuration must match the saved one."""
+    saved = torch.load(os.path.abspath(path), map_location="cpu",
+                       weights_only=True)
+    if saved.get("format") != TRAIN_STATE_FORMAT:
+        raise ValueError(f"{path} is not a {TRAIN_STATE_FORMAT} file")
+    trains_clip = any(p.requires_grad
+                      for p in tree_leaves(state.clip_params))
+    if (saved["clip_params"] is not None) != trains_clip:
+        raise ValueError("the saved state and this one disagree on "
+                         "whether the CLIP params train")
+    with torch.no_grad():
+        copy_into(state.adapter_params, saved["adapter_params"])
+        if trains_clip:
+            copy_into(state.clip_params, saved["clip_params"])
+    state.opt_state.load_state_dict(saved["optimizer"])
+    return state._replace(step=int(saved["step"]))
+
+
+# ---------------------------------------------------------------------------
+# adapter export in the reference's formats
+# ---------------------------------------------------------------------------
 
 
 def _m_adapters_to_torch_dicts(adapter_params: Params) -> Dict[str, Dict]:
@@ -79,7 +241,7 @@ def save_adapter_weights(save_path: str, adapter_params: Params) -> None:
 
 
 def load_adapter_weights(load_path: str, acfg: AdapterConfig,
-                         device="cpu") -> Params:
+                         device="cuda") -> Params:
     """Load + strictly validate an adapter checkpoint onto ``device``."""
     if not os.path.exists(load_path):
         raise FileNotFoundError(f"No adapter weights found at {load_path}")
@@ -116,7 +278,7 @@ def save_v_adapters(save_path: str, adapter_params: Params) -> None:
                save_path)
 
 
-def load_v_adapters(load_path: str, device="cpu") -> Params:
+def load_v_adapters(load_path: str, device="cuda") -> Params:
     """The feature adapters present in a T/V checkpoint, onto ``device``."""
     sd = torch.load(load_path, map_location="cpu", weights_only=True)
     return {name: tree_map(lambda t: t.to(device),
@@ -135,13 +297,14 @@ def save_t_adapters(save_path: str, adapter_params: Params) -> None:
     save_v_adapters(save_path, adapter_params)
 
 
-def load_t_adapters(load_path: str, device="cpu") -> Params:
+def load_t_adapters(load_path: str, device="cuda") -> Params:
     """Strict T-adapter load: both adapters must be present (a V export
     also qualifies; its context adapter is ignored)."""
-    out = load_v_adapters(load_path, device)
+    out = load_v_adapters(load_path, "cpu")
     missing = [n for n in ("visual", "text") if n not in out]
     if missing:
         raise ValueError(
             f"{load_path} is not a T/V adapter checkpoint: missing "
             f"{missing} (found {sorted(out)})")
-    return {"visual": out["visual"], "text": out["text"]}
+    return {name: tree_map(lambda t: t.to(device), out[name])
+            for name in ("visual", "text")}

@@ -140,7 +140,7 @@ def make_m_eval_step(cfg: CLIPConfig, acfg: AdapterConfig,
 def init_train_state(gen: torch.Generator, cfg: CLIPConfig,
                      acfg: AdapterConfig, tx: Optimizer,
                      clip_params: Optional[Params] = None,
-                     freeze_clip: bool = True, device="cpu",
+                     freeze_clip: bool = True, device="cuda",
                      adapter_params: Optional[Params] = None
                      ) -> TrainState:
     """Fresh (or given) params on ``device`` and an optimizer bound to the

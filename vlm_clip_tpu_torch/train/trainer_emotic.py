@@ -35,7 +35,7 @@ log = logging.getLogger(__name__)
 
 def init_emotic_head(gen: torch.Generator, feat_dim: int,
                      bottleneck: int = 192, with_vad: bool = True,
-                     device="cpu") -> Dict:
+                     device="cuda") -> Dict:
     """{'visual': feature adapter, 'vad': {'kernel','bias'}?}, drawn from
     ``gen`` with the reference's shapes and scales."""
     params = {"visual": A.init_feature_adapter(gen, feat_dim, bottleneck,
@@ -154,7 +154,7 @@ def save_emotic_head(path: str, params: Dict) -> None:
     np.savez(path, **flat)
 
 
-def load_emotic_head(path: str, device="cpu") -> Dict:
+def load_emotic_head(path: str, device="cuda") -> Dict:
     """A head saved by :func:`save_emotic_head` (or the reference's) as a
     tree of tensors on ``device``."""
     out: Dict = {}

@@ -5,26 +5,30 @@ AdamW(lr, weight_decay) over the adapters (or the whole model with
 clipping, a mean train loss per epoch, and best-val, periodic and final
 adapter checkpoints in the reference's file format (``best_adapter``,
 ``adapter_epoch_{n}``, ``final_adapter``). The device is the CLIP
-params' device. Host batches reach it through pinned memory with
-non-blocking copies; ``device_prefetch=n`` issues the copies of up to n
-batches ahead of the step. Full train-state save/restore is not ported
-(ROADMAP.md).
+params' device. Host batches reach it through
+``data/device_prefetch.prefetch_to_device`` (pinned memory, non-blocking
+copies on a side stream); ``device_prefetch=n`` issues the copies of
+n - 1 batches ahead of the step, as the reference's does. Full
+train-state save/restore: :meth:`CLIPAdapterTrainer.save_full_state`
+(``wait=False`` writes in the background, at most one save in flight),
+:meth:`~CLIPAdapterTrainer.finish_saves` and
+:meth:`~CLIPAdapterTrainer.restore_full_state`, after which training
+continues bit for bit as if it had not stopped (train/checkpoint.py).
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import os
 import time
-from typing import Dict, Iterable, Iterator, List
+from typing import Dict, Iterator, List
 
-import numpy as np
 import torch
 
 from vlm_clip_tpu_torch.core.config import AdapterConfig, CLIPConfig, \
     TrainConfig
 from vlm_clip_tpu_torch.core.dtypes import BF16, DTypePolicy
+from vlm_clip_tpu_torch.data.device_prefetch import prefetch_to_device
 from vlm_clip_tpu_torch.data.preprocess import normalize_batch
 from vlm_clip_tpu_torch.train import checkpoint as ckpt
 from vlm_clip_tpu_torch.train.optim import make_optimizer
@@ -36,37 +40,22 @@ from vlm_clip_tpu_torch.train.steps import (_check_no_zero1,
 log = logging.getLogger(__name__)
 
 
-def _device_batch(batch, device: torch.device) -> Dict[str, torch.Tensor]:
-    """A host Batch -> tensors on ``device`` (pixels normalized there)."""
-    def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
-
-    return {"input_ids": put(batch.input_ids),
-            "attention_mask": put(batch.attention_mask),
-            "pixel_values": normalize_batch(put(batch.images))}
+def _host_batch(batch) -> Dict:
+    """The arrays of a host Batch that the step reads."""
+    return {"input_ids": batch.input_ids,
+            "attention_mask": batch.attention_mask,
+            "pixel_values": batch.images}
 
 
-def _prefetch(batches: Iterable, device: torch.device,
-              size: int) -> Iterator[Dict[str, torch.Tensor]]:
-    """Device batches with the copies of up to ``size`` issued ahead."""
-    queue: collections.deque = collections.deque()
-    for b in batches:
-        queue.append(_device_batch(b, device))
-        if len(queue) > size:
-            yield queue.popleft()
-    while queue:
-        yield queue.popleft()
-
-
-def _copy_into(dst: dict, src: dict) -> None:
-    for k, v in dst.items():
-        if isinstance(v, dict):
-            _copy_into(v, src[k])
-        else:
-            v.copy_(src[k])
+def device_batches(loader, device: torch.device,
+                   size: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+    """A loader's batches as tensors on ``device``, the uint8 pixels
+    normalized there (fp32), the copies issued ``size`` batches ahead
+    (``prefetch_to_device``)."""
+    for b in prefetch_to_device(loader, size=size, transform=_host_batch,
+                                device=device):
+        b["pixel_values"] = normalize_batch(b["pixel_values"])
+        yield b
 
 
 class CLIPAdapterTrainer:
@@ -89,6 +78,7 @@ class CLIPAdapterTrainer:
         self.output_dir = output_dir
         self.freeze_clip = freeze_clip
         self.device_prefetch = device_prefetch
+        self._async_saver = None  # lazy AsyncTrainStateSaver
         self.device = clip_params["logit_scale"].device
         os.makedirs(output_dir, exist_ok=True)
 
@@ -109,7 +99,7 @@ class CLIPAdapterTrainer:
         self.history: List[Dict[str, float]] = []
 
     def _batches(self, loader) -> Iterator[Dict[str, torch.Tensor]]:
-        return _prefetch(loader, self.device, self.device_prefetch)
+        return device_batches(loader, self.device, self.device_prefetch)
 
     def train(self, num_epochs: int, save_every: int = 1,
               eval_every: int = 1) -> List[Dict[str, float]]:
@@ -152,7 +142,7 @@ class CLIPAdapterTrainer:
                   for batch in self._batches(self.val_dataloader)]
         return float(torch.stack(losses).mean())
 
-    # -- checkpoint API (reference save_model/load_model) ------------------
+    # -- checkpoints (reference save_model/load_model + full resume) ------
     def save_model(self, path: str) -> None:
         ckpt.save_adapter_weights(path, self.state.adapter_params)
 
@@ -162,4 +152,27 @@ class CLIPAdapterTrainer:
         params = ckpt.load_adapter_weights(path, self.acfg,
                                            device=self.device)
         with torch.no_grad():
-            _copy_into(self.state.adapter_params, params)
+            ckpt.copy_into(self.state.adapter_params, params)
+
+    def save_full_state(self, path: str, wait: bool = True) -> None:
+        """Full train-state save (train/checkpoint.py). ``wait=False``
+        takes a device snapshot and returns: the copy to pinned host
+        memory and the file write run in the background while training
+        continues; a later save or :meth:`finish_saves` joins it."""
+        if wait:
+            ckpt.save_train_state(path, self.state)
+            return
+        if self._async_saver is None:
+            self._async_saver = ckpt.AsyncTrainStateSaver()
+        self._async_saver.save(path, self.state)
+
+    def finish_saves(self) -> None:
+        """Block until any in-flight background save has fully written
+        (and raise its error, if it failed)."""
+        if self._async_saver is not None:
+            self._async_saver.wait()
+
+    def restore_full_state(self, path: str) -> None:
+        """Restore params, optimizer moments and step count in place."""
+        self.finish_saves()
+        self.state = ckpt.restore_train_state(path, self.state)
