@@ -39,6 +39,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    versions (impl="torch") from the same state, without and with the K4
    head, and must agree; then 3 warmup + 20 timed steps give pairs/s.
    Every kernel must have launched on this path.
+   Data parallel (phase data_parallel): cli/train_m --zero1 (B=96, Adam
+   3e-4, one epoch of 2 steps on the same tree) under the launcher's
+   variables (WORLD_SIZE=1, RANK=0, LOCAL_RANK=0, a free MASTER_PORT:
+   NCCL at world 1) and without them must write the same adapter files
+   bit for bit, K1-K3 launching in the NCCL run; in this process,
+   bench.py's step through the DP + ZeRO-1 route at world 1 must equal
+   the plain step bit for bit; both are timed in turns, and NCCL's
+   version and Adam's moment bytes on rank 0 are printed. At world 1
+   zero1_specs shards no leaf, so ZeRO-1's reduce-scatter, parameter
+   all-gather and state gather never run under NCCL here. Two ranks need
+   two GPUs: their semantics are held on the CPU by the tests (gloo).
    Route: one M step at ViT-L/14's widths (text 768, vision 1024, 8
    heads of 96, Tk = 257; B=8) with the kernels against the plain
    versions: K1 and K3 must launch, K2 must take its plain version (past
@@ -117,6 +128,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    across them, and K8 must launch once a layer a decode forward; then
    the port's cli/bench_decode (8h4, fused, B=8, 64 tokens) with K8 off
    and on.
+   NF4 (phase nf4): the same seeded 3B weights quantized to NF4 on the
+   card (ops/nf4.py, plain PyTorch; no hand kernel, as the reference has
+   no Pallas one): the quantizer against the CPU's, the row-pair matmul at
+   the head's shape and the materialize route at prefill's rows against
+   float64, NF4's RMS weight error below int4's; the extractor's "nf4"
+   preset and head_bits="nf4" generate 32 tokens for the 8 images with K8
+   on (once a layer a decode forward), beside 8h4's ms/token.
 11. VLM engine (phase vlm_engine, the vlm phase's model): the
    continuous-batching engine (vlm/engine.py) at 32 slots and 16 steps a
    chunk drains 48 requests with budgets of 8-64 tokens; K8 must launch
@@ -148,9 +166,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Prints one JSON line with the kernels' results (each kernel's launches
 on its main path, plus ``launches_serve``, ``launches_v``,
-``launches_emotic``, ``launches_engine`` and ``launches_c5`` where it
-also ran on the served path, in pipeline V, in cli/train_emotic, in the
-engine's mixed load or in config 5), then the device line
+``launches_emotic``, ``launches_engine``, ``launches_c5``,
+``launches_dp`` and ``launches_nf4`` where it also ran on the served
+path, in pipeline V, in cli/train_emotic, in the engine's mixed load, in
+config 5, in the NCCL run of cli/train_m --zero1 or in the NF4
+generation), then the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
 
 ``python3 chip_smoke.py --times <checkout>`` instead times the kernels
@@ -232,7 +252,8 @@ VLM_NEW = 32  # tokens generated per row in the VLM phase
 # tolerances (VLM_TOL).
 ENGINE_SLOTS, ENGINE_SYNC, ENGINE_REQUESTS = 32, 16, 48
 ENGINE_BUDGETS = (8, 64)
-_VLM: dict = {}  # the vlm phase's params and config, kept for vlm_engine
+_VLM: dict = {}  # the vlm phase's model, kept for the nf4 and vlm_engine
+# phases
 K7_SOURCE = "vlm_clip_tpu_torch/csrc/quant.cu"
 K8_SOURCE = "vlm_clip_tpu_torch/csrc/decode_attention.cu"
 VLM_REPLACES = {
@@ -381,24 +402,34 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_events(fn, n: int = 5) -> list:
+def _device_events(fn, n: int = 5, want=bool) -> list:
     """[(kernel name, device ms)], one entry a launch, over n calls of fn
     (torch.profiler): the card's own time, without the host's launch
-    overhead that CUDA events around a short kernel also measure."""
+    overhead that CUDA events around a short kernel also measure.
+
+    The profiler has dropped launches' records: a whole short trace, and
+    a cluster kernel's record in a trace that kept its neighbours. So each
+    trace opens with a launch of the spin kernel (``torch.cuda._sleep``),
+    whose record is left out, and a trace whose events fail ``want`` (by
+    default: an empty one) is taken again, up to five times; the caller's
+    check then holds the last trace as strictly as ever."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(3):  # a trace of a few short kernels can come back empty
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         events = [(e.name, e.time_range.elapsed_us() / 1e3)
                   for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        if want(events):
             break
     return events
 
@@ -1225,6 +1256,34 @@ def _step_pair(cfg, acfg, tx, clip, adapters, batch, fused_loss,
     return counts
 
 
+def _bench_setup():
+    """bench.py's step: ViT-B/16, adapters 256/256/2, Adam 3e-4 and one
+    fixed random B=96 batch, made on the card from seed 0: (cfg, acfg,
+    clip params, adapter params, batch, optimizer recipe)."""
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
+    from vlm_clip_tpu_torch.train import optim
+
+    dev = torch.device("cuda")
+    cfg = clip_preset("vit-base-patch16")
+    acfg = AdapterConfig(text_adapter_size=256, vision_adapter_size=256,
+                         shared_adapter_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    clip = init_clip(gen, cfg, device=dev)
+    adapters = init_m_adapters(gen, cfg, acfg, device=dev)
+    batch = {
+        "input_ids": torch.randint(1, cfg.text.vocab_size, (B, 77),
+                                   generator=gen, device=dev),
+        "attention_mask": torch.ones(B, 77, dtype=torch.int32,
+                                     device=dev),
+        "pixel_values": torch.randn(
+            B, 3, cfg.vision.image_size, cfg.vision.image_size,
+            generator=gen, device=dev).to(torch.bfloat16),
+    }
+    return cfg, acfg, clip, adapters, batch, optim.adam(3e-4)
+
+
 def train_phase() -> dict:
     """cli/train_m for one epoch, then bench.py's step: kernels against
     plain versions, then timed."""
@@ -1232,12 +1291,9 @@ def train_phase() -> dict:
 
     from vlm_clip_tpu_torch.bridge import tree_leaves
     from vlm_clip_tpu_torch.cli import train_m
-    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
-    from vlm_clip_tpu_torch.models.clip import init_clip
-    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
+    from vlm_clip_tpu_torch.core.config import AdapterConfig
     from vlm_clip_tpu_torch.ops import contrastive as K4
     from vlm_clip_tpu_torch.ops import fused_adapter as F
-    from vlm_clip_tpu_torch.train import optim
     from vlm_clip_tpu_torch.train.checkpoint import load_adapter_weights
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -1270,23 +1326,7 @@ def train_phase() -> dict:
     print("train_m: best_adapter, adapter_epoch_1, final_adapter written "
           "and read back", flush=True)
 
-    # bench.py's step: ViT-B/16, adapters 256/256/2, FAST, Adam 3e-4,
-    # one fixed random batch
-    dev = torch.device("cuda")
-    cfg = clip_preset("vit-base-patch16")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    clip = init_clip(gen, cfg, device=dev)
-    adapters = init_m_adapters(gen, cfg, acfg, device=dev)
-    batch = {
-        "input_ids": torch.randint(1, cfg.text.vocab_size, (B, 77),
-                                   generator=gen, device=dev),
-        "attention_mask": torch.ones(B, 77, dtype=torch.int32,
-                                     device=dev),
-        "pixel_values": torch.randn(
-            B, 3, cfg.vision.image_size, cfg.vision.image_size,
-            generator=gen, device=dev).to(torch.bfloat16),
-    }
-    tx = optim.adam(3e-4)
+    cfg, acfg, clip, adapters, batch, tx = _bench_setup()
 
     def fresh(impl, fused_loss):
         return _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss)
@@ -1318,6 +1358,202 @@ def train_phase() -> dict:
           f"Adam; 20 steps after 3 warmup, two rounds each): kernels "
           f"{rates['auto']}, plain versions {rates['torch']} on {smi}",
           flush=True)
+    return counts
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# the launcher's variables that bring a process group up at one rank
+LAUNCH_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT")
+DP_STEPS = (3, 20)  # warmup, timed steps of each round of the DP timing
+
+
+DP_RESULT = "train_m result: "
+
+
+def _train_m_child(args, env) -> subprocess.Popen:
+    """cli/train_m's main(args) in a fresh process under env; it prints
+    a DP_RESULT line with a JSON object of the history, the test loss and
+    K1-K3's launches in that process."""
+    code = ("import json, sys, torch\n"
+            "from vlm_clip_tpu_torch.cli import train_m\n"
+            "from vlm_clip_tpu_torch.ops import fused_adapter as F\n"
+            "F.reset_launch_counts()\n"
+            "res = train_m.main(sys.argv[1:])\n"
+            "torch.cuda.synchronize()\n"
+            f"print({DP_RESULT!r} + json.dumps({{'history': res['history'], "
+            "'test_loss': res['test_loss'], "
+            "'launches': F.launch_counts(F.M_KERNELS)}), flush=True)\n")
+    return subprocess.Popen([sys.executable, "-c", code, *args], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def data_parallel_phase() -> dict:
+    """Pipeline M's data-parallel step on the card at one rank (the machine
+    has one GPU, and NCCL takes one rank a GPU): cli/train_m --zero1 under
+    the launcher's variables (NCCL at world 1) and without them (one
+    process, no process group), both from seed 42 on the train phase's
+    synthetic tree, must write the same adapter files bit for bit; then,
+    in this process, bench.py's step through make_m_train_step's DP and
+    ZeRO-1 route against the plain step from the same state, bit for bit,
+    and both timed in turns. Returns K1-K3's launches in the launcher
+    run."""
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.core.dtypes import FAST
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+    from vlm_clip_tpu_torch.parallel import distributed as D
+    from vlm_clip_tpu_torch.parallel.sharding import zero1_place
+    from vlm_clip_tpu_torch.train.steps import (init_train_state,
+                                                make_m_train_step)
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    data = os.path.join(work, "rafdb")  # written by the train phase
+    outs = {name: os.path.join(work, f"train_m_{name}")
+            for name in ("launcher", "single")}
+    args = ["--data-root", data, "--clip-model-name", "vit-base-patch16",
+            "--batch-size", str(B), "--num-epochs", "1", "--warmup-steps",
+            "1", "--learning-rate", "3e-4", "--weight-decay", "0",
+            "--device", "cuda", "--zero1"]
+    plain_env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+    launcher_env = dict(plain_env, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                        LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                        MASTER_PORT=str(_free_port()))
+    t0 = time.time()
+    procs = {name: _train_m_child(args + ["--output-dir", outs[name]], env)
+             for name, env in (("launcher", launcher_env),
+                               ("single", plain_env))}
+    runs = {}
+    try:
+        for name, proc in procs.items():
+            text, err = proc.communicate(timeout=300)
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(DP_RESULT)]
+            if proc.returncode != 0 or not lines:
+                raise SystemExit(f"train_m --zero1 ({name}) failed:\n"
+                                 f"{text[-2000:]}\n{err[-4000:]}")
+            runs[name] = json.loads(lines[-1][len(DP_RESULT):])
+            print(f"train_m --zero1, {name}: {runs[name]['history']}, test "
+                  f"loss {runs[name]['test_loss']}", flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"both runs in {time.time() - t0:.1f}s (side by side)", flush=True)
+    for name in ("best_adapter", "adapter_epoch_1", "final_adapter"):
+        a, b = (torch.load(os.path.join(outs[k], name), weights_only=True)
+                for k in ("launcher", "single"))
+        same = a.keys() == b.keys() and all(
+            a[kind].keys() == b[kind].keys() and all(
+                torch.equal(a[kind][key], b[kind][key]) for key in a[kind])
+            for kind in a)
+        if not same:
+            raise SystemExit(f"train_m --zero1: {name} under NCCL at world "
+                             "1 differs from the single-process run")
+    counts = runs["launcher"]["launches"]
+    print(f"train_m --zero1 under NCCL at world 1 and in one process wrote "
+          f"the same adapter files bit for bit; K1-K3 launches in the "
+          f"NCCL run: {counts}", flush=True)
+    if min(counts.values()) < 1:
+        raise SystemExit(f"a kernel of the DP path never launched: {counts}")
+
+    # this process, at one rank: the DP + ZeRO-1 step against the plain
+    # step, bit for bit, then timed in turns
+    cfg, acfg, clip, adapters, batch, tx = _bench_setup()
+    D.maybe_initialize(D.DistributedConfig(
+        coordinator_address=f"localhost:{_free_port()}", num_processes=1,
+        process_id=0, local_rank=0, local_world_size=1), device="cuda")
+    try:
+        mesh = D.global_mesh(device="cuda")
+        print(f"NCCL {torch.cuda.nccl.version()} (backend "
+              f"{torch.distributed.get_backend()}), world "
+              f"{torch.distributed.get_world_size()}", flush=True)
+
+        def fresh(dp):
+            state = init_train_state(None, cfg, acfg, tx, clip_params=clip,
+                                     adapter_params=_clone(adapters),
+                                     device=torch.device("cuda"))
+            if dp:
+                state = state._replace(opt_state=zero1_place(
+                    state.opt_state, mesh, tx))
+            return state, make_m_train_step(
+                cfg, acfg, tx, FAST, freeze_clip=True,
+                zero1_mesh=mesh if dp else None)
+
+        steps = {}
+        for dp in (False, True):
+            state, step = fresh(dp)
+            state, m = step(state, batch)
+            steps[dp] = (m, _clone(state.adapter_params))
+        same = torch.equal(steps[False][0].loss, steps[True][0].loss) and \
+            torch.equal(steps[False][0].grad_norm,
+                        steps[True][0].grad_norm) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(steps[False][1]),
+                                              tree_leaves(steps[True][1])))
+        print(f"bench step, DP + ZeRO-1 at world 1 vs the plain step: loss "
+              f"{float(steps[True][0].loss):.6f}, bit for bit {same}",
+              flush=True)
+        if not same:
+            raise SystemExit("the DP step at world 1 differs from the plain "
+                             "step")
+        ms = {False: [], True: []}
+        for dp in (False, True, True, False):
+            state, step = fresh(dp)
+            for _ in range(DP_STEPS[0]):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            if dp:
+                F.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(DP_STEPS[1]):
+                state, m = step(state, batch)
+            float(m.loss)
+            ms[dp].append((time.perf_counter() - t0) * 1e3 / DP_STEPS[1])
+            if dp:
+                in_process = F.launch_counts(F.M_KERNELS)
+                moments = sum(
+                    t.numel() * t.element_size()
+                    for st in state.opt_state.optimizer.state.values()
+                    for k, t in st.items() if k.startswith("exp_avg"))
+        # the card's busy time a step (torch.profiler, 3 steps each)
+        busy, nccl = {}, {}
+        for dp in (False, True):
+            held = list(fresh(dp))
+
+            def one():
+                held[0], _ = held[1](held[0], batch)
+
+            per = _device_ms(one, 3)
+            busy[dp] = sum(per.values())
+            nccl[dp] = sum(ms for name, ms in per.items() if "nccl" in name)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"DP step ms (B={B}, ViT-B/16, adapters 256/256/2, FAST, Adam "
+          f"3e-4; {DP_STEPS[1]} steps after {DP_STEPS[0]} warmup, two "
+          f"rounds each): DP + ZeRO-1 under NCCL at world 1 {ms[True]}, "
+          f"plain step {ms[False]}, ratio "
+          f"{sum(ms[True]) / sum(ms[False]):.4f}; device busy a step "
+          f"{busy[True]:.3f} ms (NCCL kernels {nccl[True]:.3f}) against "
+          f"{busy[False]:.3f} on {card()}", flush=True)
+    print(f"K1-K3 launches in the timed DP steps: {in_process}; Adam's "
+          f"moments on rank 0: {moments} bytes (world 1: zero1_specs shards "
+          f"no leaf, so every moment is whole)", flush=True)
+    print("at world 1 no leaf is sharded, so the card runs the gather and "
+          "all-reduce route of the DP step but never ZeRO-1's "
+          "reduce-scatter, parameter all-gather or state gather under NCCL; "
+          "those, and the two-rank semantics (the global-batch loss, the "
+          "gradient average, the global grad norm and clipping, half of "
+          "every shardable moment a rank, the gathered resume), are held "
+          "only on the CPU, by tests/test_torch_data_parallel.py (gloo): "
+          "NCCL takes one rank a GPU and this machine has one", flush=True)
     return counts
 
 
@@ -2439,7 +2675,8 @@ def _emotic_k6_times(visual, feats) -> None:
     for name, (kern, plain) in calls.items():
         with torch.no_grad():
             t_k, t_p, _ = _turns(kern, plain)
-            events = _device_events(kern, 10)
+            events = _device_events(
+                kern, 10, want=lambda ev: any(tags[name] in n for n, _ in ev))
         mine = [ms for n, ms in events if tags[name] in n]
         if not mine:
             raise SystemExit(f"K6 {name}: the trace holds no launch of "
@@ -2594,11 +2831,13 @@ def real_weights_emotic_phase() -> dict:
     F.reset_launch_counts()
     out = smoke.main(["--clip-model-name", ckpt, "--device", "cuda"])
     counts = {k: F.launch_counts()[k] for k in REPLACES}
-    events = _device_events(
+    def smoke_kernels(events):
+        return {name: sum(1 for n, _ in events if any(t in n for t in tags))
+                for name, tags in FWD_PASSES.items()}
+
+    prof = smoke_kernels(_device_events(
         lambda: smoke.main(["--clip-model-name", ckpt, "--device", "cuda"]),
-        1)
-    prof = {name: sum(1 for n, _ in events if any(t in n for t in tags))
-            for name, tags in FWD_PASSES.items()}
+        1, want=lambda ev: min(smoke_kernels(ev).values()) >= 1))
     print(f"real weights: cli/smoke loss {out['loss']:.4f}, launches "
           f"{counts}, kernel passes by the profiler {prof}", flush=True)
     if not np.isfinite(out["loss"]) or min(counts.values()) < 1 \
@@ -2715,12 +2954,15 @@ def real_weights_emotic_phase() -> dict:
 
     loss_k, grads_k = one_step("auto")
     loss_p, grads_p = one_step("torch")
-    for _ in range(3):  # a trace can drop a launch's record
-        events = _device_events(lambda: one_step("auto"), 1)
-        step_prof = {tag: sum(1 for n, _ in events if tag in n)
-                     for tag in K6_FWD_PASSES + K6_BWD_PASSES[:1]}
-        if min(step_prof.values()) >= 1:
-            break
+    step_tags = K6_FWD_PASSES + K6_BWD_PASSES[:1]
+
+    def step_kernels(events):
+        return {tag: sum(1 for n, _ in events if tag in n)
+                for tag in step_tags}
+
+    step_prof = step_kernels(_device_events(
+        lambda: one_step("auto"), 1,
+        want=lambda ev: min(step_kernels(ev).values()) >= 1))
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     rel_grad = max(float((a - b).abs().max() / b.abs().max())
                    for a, b in zip(grads_k, grads_p))
@@ -2732,7 +2974,10 @@ def real_weights_emotic_phase() -> dict:
           f"{EMOTIC_TOL['grad']}); the step's K6 kernels by the profiler "
           f"{step_prof} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise SystemExit("the EMOTIC step disagrees with impl='torch'")
+        raise SystemExit(f"the EMOTIC step disagrees with impl='torch' or "
+                         f"missed a K6 kernel: loss relative {rel_loss:.2e},"
+                         f" gradients relative {rel_grad:.2e}, the "
+                         f"profiler's K6 kernels {step_prof}")
     _emotic_k6_times(head["visual"], feats)
     test_ds = E.EmoticPreDataset.from_dir(data, "test")
     scores = {}
@@ -3413,10 +3658,12 @@ def _k8_off(off: bool = True):
         K8.kernel_route = gate
 
 
-def _decode_breakdown(g, ids, visions, tcfg) -> None:
+def _decode_breakdown(g, ids, visions, tcfg,
+                      route="int8 route (dequantize to bf16, then "
+                            "torch.matmul)") -> None:
     """Where a decode step's time goes (B=8, the kernel path with K8 on
-    and off): CUDA-event times of one layer's four int8 linears (the
-    dequantize-then-matmul route) times the layers, K7's and K8's
+    and off): CUDA-event times of one layer's four quantized linears
+    (``route`` names their matmul) times the layers, K7's and K8's
     launches, and a profile of two steps (device busy share, the largest
     kernels)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3435,7 +3682,7 @@ def _decode_breakdown(g, ids, visions, tcfg) -> None:
         (f"o [{xo.shape[-1]}, {H}]", lp["attn"]["o"], xo),
         (f"gateup [{H}, {2 * inter}]", lp["mlp"]["gateup"], x),
         (f"down [{inter}, {H}]", lp["mlp"]["down"], xi))}
-    print(f"int8 route (dequantize to bf16, then torch.matmul), one layer "
+    print(f"{route}, one layer "
           f"at M={len(visions)}: { {k: round(v, 4) for k, v in ms.items()} }"
           f" ms; x {tcfg.num_layers} layers = "
           f"{sum(ms.values()) * tcfg.num_layers:.2f} ms a step", flush=True)
@@ -3549,7 +3796,7 @@ def vlm_phase() -> dict:
 
     # 2. timed generations: vision + prefill alone (1 token), then
     # VLM_NEW tokens; host clock to a synchronize
-    runs, counts, forwards = {}, {}, {}
+    runs, counts, forwards, ms_token = {}, {}, {}, {}
     for name, g, on, visions_b in (
             ("kernels, K8 off", gk, False, visions),
             ("kernels, K8 on", gk, True, visions),
@@ -3574,7 +3821,7 @@ def vlm_phase() -> dict:
             t_all = time.perf_counter() - t0
             counts[name] = {**K7.launch_counts(), **K8.launch_counts()}
             n_fwd = forwards[name] = _forwards(out)
-            ms_tok = (t_all - t_pf) * 1e3 / n_fwd
+            ms_tok = ms_token[name] = (t_all - t_pf) * 1e3 / n_fwd
             runs[name] = out
             print(f"generate {name}: vision + prefill {t_pf * 1e3:.1f} ms, "
                   f"decode {ms_tok:.2f} ms/token ({n_fwd} forwards), "
@@ -3620,8 +3867,11 @@ def vlm_phase() -> dict:
             raise SystemExit(f"{name}: a row's first token differs from the "
                              "plain path's")
     print(f"VLM phase peak memory {peak:.2f} GiB on {card()}", flush=True)
-    # the vlm_engine phase serves this model (built once)
-    _VLM.update(params=qparams, cfg=cfg)
+    # the vlm_engine phase serves this model (built once); the nf4 phase
+    # compares with its decode time and tokens
+    _VLM.update(params=qparams, cfg=cfg,
+                ms_token=ms_token["kernels, K8 on"],
+                tokens=runs["kernels, K8 on"])
     del gk, gp, qparams, mixed
     torch.cuda.empty_cache()
 
@@ -3637,6 +3887,171 @@ def vlm_phase() -> dict:
         print(f"bench_decode K8 {'on' if on else 'off'}: {res['line']} on "
               f"{card()}", flush=True)
     return path
+
+
+NF4_TOL = {"dequant": 1e-6, "rowpair": 1e-4, "materialize": 2e-2}
+NF4_PREFILL_ROWS = 8 * 547  # B=8 rows of prefill: past the row-pair cutoff
+
+
+def nf4_phase() -> dict:
+    """Qwen2.5-VL-3B at full width under NF4 (weights seeded as the vlm
+    phase's, quantized on the card one layer at a time): the quantizer on
+    the card against the CPU's on two layers of the stacked gate kernel
+    (qweight bit for bit, dequantized weights within NF4_TOL of the
+    largest |w|), nf4_matmul's row-pair route at the untied head's shape
+    (x [8, 2048], N 151,936) and its materialize route at prefill's rows
+    against float64, NF4's RMS weight error below int4's; then the
+    extractor's "nf4" preset (qwen.quantize_preset, tied head) and the
+    preset with head_bits="nf4" generate as the vlm phase does (B=8,
+    448x448, VLM_NEW tokens, K8 on), the latter timed beside 8h4. Returns
+    K8's launches in that generation."""
+    import dataclasses
+
+    from vlm_clip_tpu_torch.bridge import tree_leaves
+    from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.ops import nf4 as N
+    from vlm_clip_tpu_torch.ops import quant as K7
+    from vlm_clip_tpu_torch.vlm import qwen_model as QM
+    from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator, quantize_preset
+    from vlm_clip_tpu_torch.vlm.qwen_convert import (
+        fold_qwen_patch_normalization, quantize_qwen_params)
+    from vlm_clip_tpu_torch.vlm.qwen_process import prepare_vision_inputs
+
+    dev = torch.device("cuda")
+    cfg = QM.qwen25vl_3b()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"text": QM.init_text(gen, cfg.text, device=dev),
+              "vision": QM.init_vision(gen, cfg.vision, device=dev)}
+    params["vision"] = fold_qwen_patch_normalization(params["vision"],
+                                                     cfg.vision)
+
+    # 1. the quantizer, card against CPU; NF4's error against int4's
+    gate = params["text"]["layers"]["mlp"]["gate"]["kernel"][:2]
+    on_card = N.quantize_nf4_stacked(gate)
+    on_cpu = N.quantize_nf4_stacked(gate.cpu())
+    bits = torch.equal(on_card.qweight.cpu(), on_cpu.qweight)
+    deq = [N.dequantize_nf4(q.map(lambda t, i=i: t[i])).cpu()
+           for q in (on_card, on_cpu) for i in range(2)]
+    d_err = max(float((deq[i] - deq[2 + i]).abs().max()) for i in range(2))
+    amax = float(gate.abs().max())
+    w = gate[0].float()
+    rms_nf4 = float(((deq[0].to(dev) - w) ** 2).mean().sqrt())
+    rms_int4 = float(((K7.dequantize_weight(K7.quantize_weight(w, 4))
+                       - w) ** 2).mean().sqrt())
+    ok = bits and d_err <= NF4_TOL["dequant"] * amax and rms_nf4 < rms_int4
+    print(f"NF4 quantizer, gate layers 0-1 {list(gate.shape)}, card vs CPU: "
+          f"qweight bit for bit {bits}, dequantized max|diff| {d_err:.3e} "
+          f"(limit {NF4_TOL['dequant']} x max|w| {amax:.4f}); RMS weight "
+          f"error NF4 {rms_nf4:.6e}, int4 {rms_int4:.6e} "
+          f"({'ok' if ok else 'FAIL'})", flush=True)
+    if not ok:
+        raise SystemExit("NF4's quantizer failed on the card")
+    del on_card, on_cpu, deq, gate, w
+
+    # 2. the two presets, quantized on the card one layer at a time
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tied, tied_cfg = quantize_preset(params, cfg, "nf4")
+    torch.cuda.synchronize()
+    t_tied = time.time() - t0
+    t0 = time.time()
+    nf4 = quantize_qwen_params(params, "nf4", head_bits="nf4",
+                               fuse_decode=True)
+    torch.cuda.synchronize()
+    t_head = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    untied = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, tie_word_embeddings=False))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    print(f"quantize seconds: 'nf4' (tied head) {t_tied:.2f}, 'nf4' + "
+          f"head_bits='nf4' {t_head:.2f}; bytes: NF4 tree {nbytes(nf4)}, "
+          f"8h4 tree {nbytes(_VLM['params'])}, NF4 tied-head tree "
+          f"{nbytes(tied)}", flush=True)
+
+    # 3. the matmul routes against float64
+    head = nf4["text"]["lm_head"]
+    x = torch.randn(8, cfg.text.hidden_size, generator=gen, device=dev)
+    want = x.double() @ N.dequantize_nf4(head).double()
+    r_err = float((N.nf4_matmul(x, head).double() - want).abs().max()) \
+        / float(want.abs().max())
+    gateup = QM.layer(nf4["text"]["layers"], 0)["mlp"]["gateup"]
+    xp = torch.randn(NF4_PREFILL_ROWS, cfg.text.hidden_size, generator=gen,
+                     device=dev)
+    want = xp.double() @ N.dequantize_nf4(gateup).double()
+    m_err = float((N.nf4_matmul(xp, gateup).double() - want).abs().max()) \
+        / float(want.abs().max())
+    del want
+    t_head_ms = _time_ms(lambda: N.nf4_matmul(x, head))
+    ok = r_err <= NF4_TOL["rowpair"] and m_err <= NF4_TOL["materialize"]
+    print(f"nf4_matmul vs float64, max|diff| / max|y|: row-pair route at the "
+          f"head's {list(x.shape)} x [{head.in_features}, "
+          f"{head.out_features}] {r_err:.3e}, "
+          f"materialize route at layer 0's gateup, {NF4_PREFILL_ROWS} rows, "
+          f"{m_err:.3e} (limits {NF4_TOL}) {'ok' if ok else 'FAIL'}; the "
+          f"head's row-pair matmul {t_head_ms:.3f} ms", flush=True)
+    if not ok:
+        raise SystemExit("nf4_matmul disagrees with its float64 product")
+
+    # 4. generation, K8 on, as the vlm phase's
+    rng = np.random.default_rng(0)
+    visions = [prepare_vision_inputs(
+        rng.integers(0, 255, (448, 448, 3), dtype=np.uint8), cfg.vision,
+        fixed_resolution=448, raw_uint8=True) for _ in range(8)]
+    ids = _qwen_prompt(cfg)
+
+    def generator(p, c):
+        g = QwenVLGenerator(p, c, max_len=768)
+        g.u8_patches = True
+        return g
+
+    out = generator(tied, tied_cfg).generate_batch_from_ids(
+        ids, visions, max_new_tokens=VLM_NEW)
+    if len(out) != len(visions) or not all(out):
+        raise SystemExit(f"the tied-head NF4 preset generated {out}")
+    print(f"'nf4' preset (tied head): {sum(len(o) for o in out)} tokens over "
+          f"{len(out)} rows", flush=True)
+    del tied
+    g = generator(nf4, untied)
+    _decode_breakdown(g, ids, visions, untied.text,
+                      "NF4 route (dequantize to fp32, row-pair products)")
+    l0, cache, _, _ = g.prefill_batch(ids, visions)
+    if not bool(torch.isfinite(l0).all()):
+        raise SystemExit("NF4 prefill logits are not finite")
+    del cache
+    g.generate_batch_from_ids(ids, visions, max_new_tokens=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g.generate_batch_from_ids(ids, visions, max_new_tokens=1)
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    K7.reset_launch_counts()
+    K8.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = g.generate_batch_from_ids(ids, visions, max_new_tokens=VLM_NEW)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    counts = {**K7.launch_counts(), **K8.launch_counts()}
+    n_fwd = _forwards(out)
+    ms_tok = (t_all - t_pf) * 1e3 / n_fwd
+    same = [a == b for o, r in zip(out, _VLM["tokens"])
+            for a, b in zip(o, r)]
+    print(f"generate nf4 + nf4 head, K8 on: vision + prefill "
+          f"{t_pf * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token ({n_fwd} "
+          f"forwards; 8h4 {_VLM['ms_token']:.2f} ms/token in the vlm phase, "
+          f"ratio {ms_tok / _VLM['ms_token']:.3f}), "
+          f"{len(visions) * 1e3 / ms_tok:.1f} tokens/s; launches {counts}; "
+          f"{100 * np.mean(same):.1f}% of {len(same)} greedy tokens agree "
+          f"with 8h4's (printed, not held) on {card()}", flush=True)
+    if counts["decode_attention_kernel"] != cfg.text.num_layers * n_fwd \
+            or counts["quant_matmul_int4"]:
+        raise SystemExit(f"NF4 generation launches: {counts}")
+    del g, nf4
+    torch.cuda.empty_cache()
+    return {"decode_attention_kernel": counts["decode_attention_kernel"]}
 
 
 def _engine_requests(cfg, n: int, seed: int = 13):
@@ -4189,6 +4604,7 @@ def main() -> None:
     bwd_results = run("backward", backward_phase)
     t_results = run("t_kernels", t_kernel_phase)
     train_counts = run("train", train_phase)
+    dp_counts = run("data_parallel", data_parallel_phase)
     run("route", route_phase)
     t_counts = run("pipeline_t", pipeline_t_phase)
     v_counts = run("pipeline_v", pipeline_v_phase)
@@ -4197,6 +4613,7 @@ def main() -> None:
     c5_counts = run("data_paths", data_paths_phase)
     vlm_results = run("vlm_kernels", vlm_kernel_phase)
     vlm_counts = run("vlm", vlm_phase)
+    nf4_counts = run("nf4", nf4_phase)
     engine_counts = run("vlm_engine", vlm_engine_phase)
     print("phases:", ", ".join(phases), flush=True)
     kernels = []
@@ -4227,6 +4644,10 @@ def main() -> None:
             entry["launches_c5"] = c5_counts[name]
         if name in engine_counts:
             entry["launches_engine"] = engine_counts[name]
+        if name in dp_counts:
+            entry["launches_dp"] = dp_counts[name]
+        if name in nf4_counts:
+            entry["launches_nf4"] = nf4_counts[name]
         if name in KERNEL_HMMA:
             entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)

@@ -176,8 +176,8 @@ def test_rafdb_cached_batches_match_reference(m_tree, tmp_path):
 
 def test_prefetch_to_device_matches_reference():
     """Items come out in order with the same values as the reference's
-    prefetch, ``size`` ahead; the transform applies; a mesh raises the
-    parallelism message."""
+    prefetch, ``size`` ahead; the transform applies; with a mesh each
+    rank copies its rows of the data axis."""
     items = [{"a": np.arange(6, dtype=np.int32).reshape(2, 3) + i,
               "b": [np.full((2,), i, np.float32)]} for i in range(5)]
     for size in (0, 1, 2, 4):
@@ -200,5 +200,29 @@ def test_prefetch_to_device_matches_reference():
     first = next(PDP.prefetch_to_device(pulled(), size=3, device="cpu",
                                         transform=lambda it: it["a"]))
     assert seen == [0, 1, 2] and first.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="items 7-8"):
-        next(PDP.prefetch_to_device(iter(items), mesh=object()))
+    # with a mesh, rank r of a data axis of size w copies its rows
+    rank1 = _RankOfMesh(rank=1, data=2)
+    got = next(PDP.prefetch_to_device(iter(items), mesh=rank1,
+                                      device="cpu"))
+    np.testing.assert_array_equal(got["a"].numpy(), items[0]["a"][1:2])
+    np.testing.assert_array_equal(got["b"][0].numpy(),
+                                  items[0]["b"][0][1:2])
+    with pytest.raises(ValueError, match="do not divide"):
+        next(PDP.prefetch_to_device(iter(items), device="cpu",
+                                    mesh=_RankOfMesh(rank=0, data=4)))
+
+
+class _RankOfMesh:
+    """What prefetch_to_device reads of a ('data', 'model') device mesh
+    on one rank: its index along data and the axes' sizes."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, rank: int, data: int):
+        self.rank, self.data = rank, data
+
+    def get_local_rank(self, axis):
+        return self.rank if axis == "data" else 0
+
+    def size(self, dim):
+        return (self.data, 1)[dim]

@@ -417,8 +417,15 @@ def test_8h4_generation_matches_reference(tiny):
 
 
 def test_nf4_is_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PC.quantize_qwen_params(tiny[3], "nf4")
+    """The NF4 preset, once refused, now quantizes every linear (the
+    vision tower's too) into NF4Linear leaves; tests/test_torch_nf4.py
+    holds it against the reference."""
+    from vlm_clip_tpu_torch.ops.nf4 import NF4Linear
+
+    q = PC.quantize_qwen_params(tiny[3], "nf4")
+    assert isinstance(q["text"]["layers"]["mlp"]["gate"], NF4Linear)
+    assert isinstance(q["vision"]["blocks"]["attn"]["qkv"], NF4Linear)
+    assert "lm_head" not in q["text"]
 
 
 def test_convert_qwen_vl_matches_reference(hf_model):  # noqa: F811

@@ -141,8 +141,8 @@ def test_trainer_epoch_matches_reference(tree, tmp_path):
 
 def test_train_cli_on_cpu(tree, tmp_path, monkeypatch):
     """The train CLI end to end with --device cpu (the preset swapped for
-    the tiny config: the CLI's path is under test here), and its
-    refusals."""
+    the tiny config: the CLI's path is under test here), --zero1 in one
+    process, and its refusals."""
     from vlm_clip_tpu_torch.cli import common, train_m
     from vlm_clip_tpu_torch.core.config import AdapterConfig
 
@@ -160,8 +160,19 @@ def test_train_cli_on_cpu(tree, tmp_path, monkeypatch):
                          shared_adapter_layers=1)
     for name in ("best_adapter", "adapter_epoch_1", "final_adapter"):
         PCK.load_adapter_weights(str(out / name), acfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="zero1"):
-        train_m.main(["--data-root", tree, "--zero1", "--device", "cpu"])
+    # without a launcher --zero1 has one rank, which keeps the whole
+    # state: the same run, bit for bit
+    args = ["--data-root", tree, "--batch-size", "4", "--num-epochs", "1",
+            "--text-adapter-size", "16", "--vision-adapter-size", "16",
+            "--shared-adapter-layers", "1", "--device", "cpu",
+            "--warmup-steps", "1"]
+    train_m.main(args + ["--zero1", "--output-dir", str(tmp_path / "z")])
+    for name in ("best_adapter", "final_adapter"):
+        a = torch.load(str(out / name), weights_only=True)
+        b = torch.load(str(tmp_path / "z" / name), weights_only=True)
+        for kind in a:
+            for k in a[kind]:
+                assert torch.equal(a[kind][k], b[kind][k]), (name, kind, k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_m.main(["--data-root", tree])

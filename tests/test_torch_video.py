@@ -114,7 +114,7 @@ def test_score_video_frames_raw_matches_reference(avi, model):
 def test_sharded_scorer_raises(model):
     _, pcfg, _, pparams, emb = model
     frames = np.zeros((4, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="items 7-8"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         V.score_video_frames_sharded(pparams, pcfg, frames, emb,
                                      mesh=object())
     assert torch.is_tensor(pparams["logit_scale"])

@@ -6,8 +6,10 @@ so a tree crosses by converting its leaves. The JAX side hands over
 gets tensors on ``device``. A quantized linear (the JAX package's
 ``QuantizedLinear`` or the port's: anything with ``qweight``, ``scale``
 and ``bits``) crosses as the port's
-:class:`~vlm_clip_tpu_torch.ops.quant.QuantizedLinear`, its integer
-weight keeping its type.
+:class:`~vlm_clip_tpu_torch.ops.quant.QuantizedLinear`, and an NF4
+linear (anything with ``qweight`` and ``absmax_q``) as the port's
+:class:`~vlm_clip_tpu_torch.ops.nf4.NF4Linear`, their integer tensors
+keeping their types.
 """
 
 from __future__ import annotations
@@ -23,9 +25,16 @@ def _is_quantized(node) -> bool:
     return hasattr(node, "qweight") and hasattr(node, "bits")
 
 
+def _is_nf4(node) -> bool:
+    return hasattr(node, "qweight") and hasattr(node, "absmax_q")
+
+
+_NF4_TENSORS = ("qweight", "absmax_q", "dq_scale", "dq_offset", "bias")
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict/list/tuple tree (the
-    tensors of a quantized linear are leaves too)."""
+    tensors of a quantized or NF4 linear are leaves too)."""
     if _is_quantized(tree):
         from vlm_clip_tpu_torch.ops.quant import QuantizedLinear
 
@@ -33,6 +42,14 @@ def tree_map(fn, tree):
             qweight=fn(tree.qweight), scale=fn(tree.scale), bits=tree.bits,
             bias=None if tree.bias is None else fn(tree.bias),
             in_features=tree.in_features, out_features=tree.out_features)
+    if _is_nf4(tree):
+        from vlm_clip_tpu_torch.ops.nf4 import NF4Linear
+
+        return NF4Linear(
+            **{f: None if getattr(tree, f) is None else fn(getattr(tree, f))
+               for f in _NF4_TENSORS},
+            in_features=tree.in_features, out_features=tree.out_features,
+            block=tree.block)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -45,6 +62,9 @@ def tree_leaves(tree) -> list:
     if _is_quantized(tree):
         return [t for t in (tree.qweight, tree.scale, tree.bias)
                 if t is not None]
+    if _is_nf4(tree):
+        return [getattr(tree, f) for f in _NF4_TENSORS
+                if getattr(tree, f) is not None]
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):

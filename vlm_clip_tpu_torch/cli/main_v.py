@@ -9,8 +9,9 @@ resolved once, train cap 200 images, test cap 50) -> adapter training
 quality analytics. The reference's flags and defaults, plus ``--device``
 (default ``cuda``; without a card it raises unless ``--device cpu`` is
 given) and ``--no-plots`` (the confusion-matrix png needs matplotlib).
-The reference's multi-host ``maybe_initialize`` is left out: its module
-(``parallel/distributed.py``) is not ported yet.
+Under a PyTorch launcher's variables the process group comes up first
+(``parallel/distributed.maybe_initialize``) and only rank 0 logs, as in
+the reference.
 
     python -m vlm_clip_tpu_torch.cli.main_v --train-dir train/ \\
         --test-dir test/ [--vlm-backend stub] [--device cpu]
@@ -109,12 +110,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
         analyze_context_quality, display_results_with_contexts,
         evaluate_enhanced_model)
     from vlm_clip_tpu_torch.models.model_v import EnhancedCLIPAdapterV
+    from vlm_clip_tpu_torch.parallel.distributed import maybe_initialize
     from vlm_clip_tpu_torch.train import checkpoint as ckpt
     from vlm_clip_tpu_torch.train.trainer_v import train_model
     from vlm_clip_tpu_torch.utils.logging import (seed_everything,
                                                   setup_logging)
 
     device = resolve_device(args.device)
+    maybe_initialize(device=device.type)  # before the first use of the card
     setup_logging(name="training")
     seed_everything(args.seed)
     log = logging.getLogger(__name__)

@@ -366,24 +366,16 @@ def build_engine(weights: Optional[str], allow_synth: bool,
     cfg = qwen25vl_3b()
     if weights:
         from vlm_clip_tpu_torch.vlm.qwen import (QwenBPETokenizer,
-                                                 load_safetensors_dir)
-        from vlm_clip_tpu_torch.vlm.qwen_convert import (MIXED_DECODE_BITS,
-                                                         convert_qwen_vl)
+                                                 load_safetensors_dir,
+                                                 quantize_preset)
+        from vlm_clip_tpu_torch.vlm.qwen_convert import convert_qwen_vl
         from vlm_clip_tpu_torch.vlm.sampling import load_generation_config
 
         params = convert_qwen_vl(load_safetensors_dir(weights), cfg,
                                  device=device)
         params["vision"] = fold_qwen_patch_normalization(
             params["vision"], cfg.vision)
-        if quant_bits in ("mixed", "8h4"):
-            layer_bits = MIXED_DECODE_BITS if quant_bits == "mixed" else 8
-            params = quantize_qwen_params(params, layer_bits, head_bits=4,
-                                          fuse_decode=True)
-            cfg = _dc.replace(cfg, text=_dc.replace(
-                cfg.text, tie_word_embeddings=False))
-        elif quant_bits:
-            params = quantize_qwen_params(params, quant_bits,
-                                          fuse_decode=True)
+        params, cfg = quantize_preset(params, cfg, quant_bits)
         tokenizer = QwenBPETokenizer(os.path.join(weights,
                                                   "tokenizer.json"))
         if sampling is None:

@@ -5,11 +5,21 @@ a card it raises unless ``--device cpu`` is given). The backbone is HF
 weights where ``--clip-model-name`` loads (a checkpoint directory or a
 hub id in the HF cache), else a seeded random init, logged as such, and
 the tokenizer the best available (the hash fallback when no CLIP vocab
-is installed beside random weights). ``--zero1`` is not ported and
-raises. After training, the test split's contrastive loss is logged.
+is installed beside random weights). After training, the test split's
+contrastive loss is logged.
+
+Data parallelism: launched under a PyTorch launcher's variables
+(``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``; e.g. ``torchrun --nproc-per-node N``), every rank (one
+GPU) takes its rows of each ``--batch-size`` batch and the step computes
+the global-batch loss; ``--zero1`` also shards Adam's moments over the
+ranks. Without a launcher there is one rank, and ``--zero1`` keeps the
+whole state on it.
 
     python -m vlm_clip_tpu_torch.cli.train_m --data-root RAF-DB/ \\
         [--device cpu]
+    torchrun --nproc-per-node 8 -m vlm_clip_tpu_torch.cli.train_m \\
+        --data-root RAF-DB/ --zero1
 """
 
 from __future__ import annotations
@@ -51,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "their caption instead of a prompt-bank draw")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--zero1", action="store_true",
-                   help="shard the Adam moments (not ported: raises)")
+                   help="shard the Adam moments over the ranks of the "
+                        "process group (ZeRO-1; one rank per GPU)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default) needs a card; cpu runs the "
                         "kernels' plain versions")
@@ -62,13 +73,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Train, then evaluate on the test split; returns the epoch history
     and the test loss."""
     args = build_parser().parse_args(argv)
-    if args.zero1:
-        raise NotImplementedError("--zero1 is not ported to "
-                                  "vlm_clip_tpu_torch yet (ROADMAP.md)")
     from vlm_clip_tpu_torch.cli.common import (load_backbone, make_tokenizer,
                                                resolve_device)
+    from vlm_clip_tpu_torch.parallel.distributed import (global_mesh,
+                                                         maybe_initialize)
 
     device = resolve_device(args.device)
+    # multi-process: before the first use of the card
+    distributed = maybe_initialize(device=device.type)
     from vlm_clip_tpu_torch.core.config import AdapterConfig
     from vlm_clip_tpu_torch.data.rafdb import create_dataloaders
     from vlm_clip_tpu_torch.train.trainer_m import CLIPAdapterTrainer
@@ -97,7 +109,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,
         output_dir=args.output_dir, num_epochs_hint=args.num_epochs,
         freeze_clip=not args.full_finetune, schedule=args.schedule,
-        seed=args.seed)
+        seed=args.seed, zero1_mesh=global_mesh(device=device.type)
+        if args.zero1 and distributed else None)
     history = trainer.train(args.num_epochs, save_every=args.save_every,
                             eval_every=args.eval_every)
     log.info("training history: %s", history)

@@ -5,8 +5,9 @@ Wraps a host batch iterator so that the copies of the next batches are
 already issued when the train loop asks for them. On a CUDA device each
 array goes through pinned memory and is copied with ``non_blocking`` on
 a side stream; the stream that takes the batch waits for its copies (an
-event, not a host sync). On the CPU the arrays are moved plainly.
-Sharding the batch over a mesh is not ported (:data:`MESH_NOT_PORTED`).
+event, not a host sync). On the CPU the arrays are moved plainly. With a
+mesh, each rank copies only its rows along the mesh's data axis (the
+reference puts each row on its data shard).
 """
 
 from __future__ import annotations
@@ -18,15 +19,21 @@ import numpy as np
 import torch
 
 from vlm_clip_tpu_torch.bridge import tree_map
-
-MESH_NOT_PORTED = (
-    "sharding over a device mesh is not ported to vlm_clip_tpu_torch yet "
-    "(ROADMAP.md, modules to port, items 7-8: data and model parallelism)")
-
+from vlm_clip_tpu_torch.parallel.mesh import axis_coordinate
 
 def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) \
         else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _rows(x, mesh):
+    """This rank's rows of x along the mesh's data axis."""
+    r, w = axis_coordinate(mesh)
+    n = x.shape[0]
+    if n % w:
+        raise ValueError(f"{n} rows do not divide among the {w} ranks of "
+                         "the data axis")
+    return x[r * n // w:(r + 1) * n // w]
 
 
 class _Copier:
@@ -69,14 +76,16 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
 
     ``transform`` maps the host item to a tree (dicts, lists, tuples) of
     numpy arrays or CPU tensors before the copy (e.g. lambda b:
-    {'images': b.images, 'labels': b.labels}).
+    {'images': b.images, 'labels': b.labels}). ``mesh``: a
+    ``parallel.mesh`` device mesh; rank r of its data axis of size w
+    copies rows [r*n/w, (r+1)*n/w) of each array (n must divide by w).
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     copier = _Copier(torch.device(device))
     queue: collections.deque = collections.deque()
     for item in iterator:
         tree = transform(item) if transform is not None else item
+        if mesh is not None:
+            tree = tree_map(lambda x: _rows(x, mesh), tree)
         queue.append(copier.put(tree))
         if len(queue) >= size:
             yield copier.take(queue.popleft())

@@ -150,6 +150,6 @@ def score_video_frames_sharded(clip_params, cfg, frames_u8: np.ndarray,
                                stats: str = "clip") -> np.ndarray:
     """The reference shards the frame axis over its mesh's ``seq`` axis;
     the port has no mesh yet."""
-    from vlm_clip_tpu_torch.data.device_prefetch import MESH_NOT_PORTED
+    from vlm_clip_tpu_torch.parallel.mesh import MESH_NOT_PORTED
 
     raise NotImplementedError(MESH_NOT_PORTED)

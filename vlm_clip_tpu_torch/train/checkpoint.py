@@ -11,7 +11,10 @@ counts) and the train step. The reference writes an orbax checkpoint
 of its whole TrainState; orbax is not on the card's machine, and the
 two formats are not interchangeable (ROADMAP.md, section 3). A restore
 copies into the live state's tensors, so a restored trainer continues
-bit for bit as if it had not stopped.
+bit for bit as if it had not stopped. Under a process group the save is
+collective: a ZeRO-1 state gathers its moment shards on rank 0, rank 0
+alone writes the file, and every rank waits at a barrier until it is
+written; each rank's restore reads the whole file and keeps its shard.
 
 Adapter export:
 
@@ -35,12 +38,14 @@ import threading
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from vlm_clip_tpu_torch.bridge import tree_leaves, tree_map
 from vlm_clip_tpu_torch.convert import adapters as CA
 from vlm_clip_tpu_torch.core.config import AdapterConfig
 from vlm_clip_tpu_torch.models.layers import (layer_slice, num_layers,
                                               stack_trees)
+from vlm_clip_tpu_torch.parallel.distributed import is_primary
 
 Params = Dict[str, Any]
 TRAIN_STATE_FORMAT = "vlm_clip_tpu_torch.train_state/1"
@@ -75,11 +80,19 @@ def _write(path: str, tree) -> None:
     os.replace(tmp, path)
 
 
+def _barrier() -> None:
+    """Every rank waits here (a no-op without a process group)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save_train_state(path: str, state) -> None:
     """Write the full train state to ``path`` and return when it is on
-    disk."""
-    _write(path, _map_tensors(lambda t: t.detach().cpu(),
-                              _state_tree(state)))
+    disk (collective under a process group: rank 0 writes)."""
+    tree = _state_tree(state)
+    if is_primary():
+        _write(path, _map_tensors(lambda t: t.detach().cpu(), tree))
+    _barrier()
 
 
 class AsyncTrainStateSaver:
@@ -93,16 +106,23 @@ class AsyncTrainStateSaver:
     most one save is in flight: a new ``save`` first waits for the
     previous one. Call ``wait`` before reading the file or exiting. The
     file is the one :func:`save_train_state` writes (restore with
-    :func:`restore_train_state`).
+    :func:`restore_train_state`). Under a process group every rank calls
+    ``save`` and ``wait``: rank 0 writes, and ``wait`` ends at a barrier
+    once the file is written.
     """
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False  # a save started on every rank
 
     def save(self, path: str, state) -> None:
         self.wait()  # at most one in flight
-        snap = _map_tensors(lambda t: t.detach().clone(), _state_tree(state))
+        tree = _state_tree(state)
+        self._pending = True
+        if not is_primary():
+            return
+        snap = _map_tensors(lambda t: t.detach().clone(), tree)
         ready = None
         dev = next(t.device for t in tree_leaves(state.adapter_params))
         if dev.type == "cuda":
@@ -142,6 +162,9 @@ class AsyncTrainStateSaver:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("background train-state save failed") \

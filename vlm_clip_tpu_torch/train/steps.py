@@ -13,8 +13,19 @@ Two graphs, as in the reference:
 On the card the adapters' fused kernels carry the backward (K1-K3), and
 ``fused_loss=True`` routes the contrastive head through K4. After a step,
 each trainable param's ``.grad`` holds the gradient the optimizer applied
-(clipped when the optimizer clips). ZeRO-1 (``zero1_mesh``) is not
-ported.
+(clipped when the optimizer clips; under ZeRO-1, this rank's local
+gradient).
+
+Data parallelism (the reference's global-batch contract, its
+``train/steps.py:1-9``): when a process group of world size > 1 is up,
+or ``zero1_mesh`` is given, each rank's batch is its rows of the global
+batch (``data/device_prefetch.prefetch_to_device(mesh=...)``), the text
+and image features are all-gathered with autograd
+(``parallel/distributed.gather_rows``), so every rank computes the
+single-device B x B InfoNCE of the whole batch, and the parameter
+gradients are averaged over the ranks into that loss's gradient before
+the global norm and clipping. ``zero1_mesh`` shards the optimizer state
+over the mesh's data axis (``parallel/sharding.Zero1Optimizer``).
 """
 
 from __future__ import annotations
@@ -22,11 +33,16 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from vlm_clip_tpu_torch.bridge import tree_leaves
 from vlm_clip_tpu_torch.core.config import AdapterConfig, CLIPConfig
 from vlm_clip_tpu_torch.core.dtypes import BF16, DTypePolicy
 from vlm_clip_tpu_torch.models import model_m as M
+from vlm_clip_tpu_torch.parallel.distributed import (all_reduce_mean_,
+                                                     gather_rows, world_size)
+from vlm_clip_tpu_torch.parallel.mesh import axis_group
+from vlm_clip_tpu_torch.parallel.sharding import Zero1Optimizer
 from vlm_clip_tpu_torch.train.optim import Optimizer, global_norm
 
 Params = Dict[str, Any]
@@ -35,7 +51,8 @@ Params = Dict[str, Any]
 class TrainState(NamedTuple):
     adapter_params: Params
     clip_params: Params
-    opt_state: torch.optim.Optimizer  # bound to the trainable leaves
+    opt_state: Any  # a torch optimizer (or a Zero1Optimizer) bound to
+    # the trainable leaves
     step: int
 
 
@@ -61,12 +78,15 @@ def _pixels_on_device(px: torch.Tensor, policy: DTypePolicy,
     return px
 
 
-def _check_no_zero1(zero1_mesh) -> None:
+def _dp_group(zero1_mesh):
+    """The data-parallel process group of a step, or None for a
+    single-process step."""
     if zero1_mesh is not None:
-        raise NotImplementedError(
-            "ZeRO-1 optimizer-state sharding is not ported to "
-            "vlm_clip_tpu_torch yet (ROADMAP.md, modules to port, data "
-            "parallelism)")
+        if not dist.is_initialized():
+            raise ValueError("zero1_mesh needs a process group "
+                             "(parallel.distributed.maybe_initialize)")
+        return axis_group(zero1_mesh)
+    return dist.group.WORLD if world_size() > 1 else None
 
 
 def make_m_train_step(cfg: CLIPConfig, acfg: AdapterConfig, tx: Optimizer,
@@ -78,33 +98,44 @@ def make_m_train_step(cfg: CLIPConfig, acfg: AdapterConfig, tx: Optimizer,
     attention_mask, pixel_values) of tensors on the params' device.
     ``impl`` picks the adapters' implementation (models/adapters.py);
     ``fused_loss`` the K4 contrastive head (its plain version under
-    ``impl="torch"``)."""
-    _check_no_zero1(zero1_mesh)
+    ``impl="torch"``; single-process only, as in the reference: under
+    data parallelism the plain head takes the gathered features).
+    ``zero1_mesh``: a ``parallel.mesh`` device mesh over whose data axis
+    the state's optimizer is sharded (the caller places it with
+    ``parallel.sharding.zero1_place``)."""
+    group = _dp_group(zero1_mesh)
+    if fused_loss and group is not None \
+            and dist.get_world_size(group) > 1:
+        raise ValueError("fused_loss (the K4 head) is single-device: under "
+                         "data parallelism the plain head takes the "
+                         "gathered features")
 
     def loss_fn(adapter_params, clip_params, batch):
         ids = batch["input_ids"]
         mask = batch.get("attention_mask")
         px = _pixels_on_device(batch["pixel_values"], policy,
                                cfg.vision.image_size)
+        txt = M.m_get_text_features(clip_params, adapter_params, ids, mask,
+                                    cfg, acfg, policy, remat, impl,
+                                    freeze_clip)
+        img = M.m_get_image_features(clip_params, adapter_params, px, cfg,
+                                     acfg, policy, remat, impl, freeze_clip)
+        if group is not None:
+            txt, img = gather_rows(txt, group), gather_rows(img, group)
         if fused_loss:
             from vlm_clip_tpu_torch.ops import contrastive as K4
 
             head = K4.contrastive_loss_torch if impl == "torch" \
                 else K4.contrastive_loss_fused
-            txt = M.m_get_text_features(clip_params, adapter_params, ids,
-                                        mask, cfg, acfg, policy, remat,
-                                        impl, freeze_clip)
-            img = M.m_get_image_features(clip_params, adapter_params, px,
-                                         cfg, acfg, policy, remat, impl,
-                                         freeze_clip)
             return head(txt, img, clip_params["logit_scale"])
-        return M.m_forward(clip_params, adapter_params, ids, mask, px, cfg,
-                           acfg, policy, return_loss=True, remat=remat,
-                           impl=impl, freeze_clip=freeze_clip).loss
+        return M.contrastive_loss(txt, img, clip_params["logit_scale"])[0]
 
     def step(state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
-        params = [p for g in state.opt_state.param_groups
-                  for p in g["params"]]
+        opt = state.opt_state
+        if zero1_mesh is not None and not isinstance(opt, Zero1Optimizer):
+            raise ValueError("zero1_mesh needs a state placed with "
+                             "parallel.sharding.zero1_place")
+        params = trainable_params(opt)
         for p in params:
             p.grad = None
         loss = loss_fn(state.adapter_params, state.clip_params, batch)
@@ -112,27 +143,45 @@ def make_m_train_step(cfg: CLIPConfig, acfg: AdapterConfig, tx: Optimizer,
         for p in params:
             if p.grad is None:  # unused leaf: a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        gnorm = global_norm(grads)
-        tx.update(state.opt_state, state.step, grads, gnorm)
+        if isinstance(opt, Zero1Optimizer):
+            gnorm = opt.step(tx, state.step)
+        else:
+            grads = [p.grad for p in params]
+            if group is not None:
+                all_reduce_mean_(grads, group)
+            gnorm = global_norm(grads)
+            tx.update(opt, state.step, grads, gnorm)
         return (state._replace(step=state.step + 1),
                 StepMetrics(loss=loss.detach(), grad_norm=gnorm))
 
     return step
 
 
+def trainable_params(opt) -> list:
+    """The params a train state's optimizer updates (a torch optimizer's
+    or a ``Zero1Optimizer``'s full params)."""
+    if isinstance(opt, Zero1Optimizer):
+        return opt.params
+    return [p for g in opt.param_groups for p in g["params"]]
+
+
 def make_m_eval_step(cfg: CLIPConfig, acfg: AdapterConfig,
                      policy: DTypePolicy = BF16) -> Callable:
-    """(adapter_params, clip_params, batch) -> validation loss."""
+    """(adapter_params, clip_params, batch) -> validation loss; under a
+    process group of world size > 1 the batch is this rank's rows and
+    the loss the global batch's (the features all-gathered)."""
 
     @torch.no_grad()
     def eval_step(adapter_params, clip_params, batch):
-        return M.m_forward(
-            clip_params, adapter_params, batch["input_ids"],
-            batch.get("attention_mask"),
-            _pixels_on_device(batch["pixel_values"], policy,
-                              cfg.vision.image_size),
-            cfg, acfg, policy, return_loss=True).loss
+        px = _pixels_on_device(batch["pixel_values"], policy,
+                               cfg.vision.image_size)
+        out = M.m_forward(clip_params, adapter_params, batch["input_ids"],
+                          batch.get("attention_mask"), px, cfg, acfg,
+                          policy, return_loss=False)
+        txt, img = out.text_features, out.image_features
+        if world_size() > 1:
+            txt, img = gather_rows(txt), gather_rows(img)
+        return M.contrastive_loss(txt, img, clip_params["logit_scale"])[0]
 
     return eval_step
 

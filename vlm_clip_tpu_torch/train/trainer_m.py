@@ -14,6 +14,14 @@ train-state save/restore: :meth:`CLIPAdapterTrainer.save_full_state`
 :meth:`~CLIPAdapterTrainer.finish_saves` and
 :meth:`~CLIPAdapterTrainer.restore_full_state`, after which training
 continues bit for bit as if it had not stopped (train/checkpoint.py).
+
+Data parallelism: under a process group of world size > 1 (or with
+``zero1_mesh``, which also shards Adam's moments over the mesh's data
+axis), each rank copies its rows of every batch and the step computes
+the global-batch loss (train/steps.py); the batch size must divide among
+the ranks. Adapter files are written by rank 0 only; a full save gathers
+the moment shards on rank 0, which writes the file, and every rank waits
+for it before going on.
 """
 
 from __future__ import annotations
@@ -32,8 +40,11 @@ from vlm_clip_tpu_torch.data.device_prefetch import prefetch_to_device
 from vlm_clip_tpu_torch.data.preprocess import normalize_batch
 from vlm_clip_tpu_torch.train import checkpoint as ckpt
 from vlm_clip_tpu_torch.train.optim import make_optimizer
-from vlm_clip_tpu_torch.train.steps import (_check_no_zero1,
-                                            init_train_state,
+from vlm_clip_tpu_torch.parallel.distributed import (global_mesh,
+                                                     is_primary, world_size)
+from vlm_clip_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+from vlm_clip_tpu_torch.parallel.sharding import Zero1Optimizer, zero1_place
+from vlm_clip_tpu_torch.train.steps import (init_train_state,
                                             make_m_eval_step,
                                             make_m_train_step)
 
@@ -47,13 +58,13 @@ def _host_batch(batch) -> Dict:
             "pixel_values": batch.images}
 
 
-def device_batches(loader, device: torch.device,
-                   size: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+def device_batches(loader, device: torch.device, size: int = 0,
+                   mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
     """A loader's batches as tensors on ``device``, the uint8 pixels
     normalized there (fp32), the copies issued ``size`` batches ahead
-    (``prefetch_to_device``)."""
+    (``prefetch_to_device``); with ``mesh``, this rank's rows."""
     for b in prefetch_to_device(loader, size=size, transform=_host_batch,
-                                device=device):
+                                device=device, mesh=mesh):
         b["pixel_values"] = normalize_batch(b["pixel_values"])
         yield b
 
@@ -70,7 +81,6 @@ class CLIPAdapterTrainer:
                  schedule: str = "linear", device_prefetch: int = 0,
                  policy: DTypePolicy = BF16, seed: int = 0,
                  zero1_mesh=None):
-        _check_no_zero1(zero1_mesh)
         self.cfg = cfg
         self.acfg = acfg
         self.train_dataloader = train_dataloader
@@ -80,6 +90,16 @@ class CLIPAdapterTrainer:
         self.device_prefetch = device_prefetch
         self._async_saver = None  # lazy AsyncTrainStateSaver
         self.device = clip_params["logit_scale"].device
+        # the mesh whose data axis splits each batch (None: one process)
+        self.mesh = zero1_mesh if zero1_mesh is not None else (
+            global_mesh(device=self.device.type) if world_size() > 1
+            else None)
+        ranks = 1 if self.mesh is None else axis_size(self.mesh, DATA_AXIS)
+        for loader in (train_dataloader, val_dataloader):
+            n = getattr(loader, "batch_size", None)
+            if n is not None and n % ranks:
+                raise ValueError(f"batch size {n} does not divide among "
+                                 f"{ranks} ranks")
         os.makedirs(output_dir, exist_ok=True)
 
         total_steps = len(train_dataloader) * num_epochs_hint
@@ -93,13 +113,18 @@ class CLIPAdapterTrainer:
                                       clip_params=clip_params,
                                       freeze_clip=freeze_clip,
                                       device=self.device)
+        if zero1_mesh is not None:
+            self.state = self.state._replace(opt_state=zero1_place(
+                self.state.opt_state, zero1_mesh, self.tx))
         self._step = make_m_train_step(cfg, acfg, self.tx, policy,
-                                       freeze_clip=freeze_clip)
+                                       freeze_clip=freeze_clip,
+                                       zero1_mesh=zero1_mesh)
         self._eval_step = make_m_eval_step(cfg, acfg, policy)
         self.history: List[Dict[str, float]] = []
 
     def _batches(self, loader) -> Iterator[Dict[str, torch.Tensor]]:
-        return device_batches(loader, self.device, self.device_prefetch)
+        return device_batches(loader, self.device, self.device_prefetch,
+                              self.mesh)
 
     def train(self, num_epochs: int, save_every: int = 1,
               eval_every: int = 1) -> List[Dict[str, float]]:
@@ -144,15 +169,20 @@ class CLIPAdapterTrainer:
 
     # -- checkpoints (reference save_model/load_model + full resume) ------
     def save_model(self, path: str) -> None:
-        ckpt.save_adapter_weights(path, self.state.adapter_params)
+        """The reference-format adapter file, written by rank 0 (the
+        params are the same on every rank)."""
+        if is_primary():
+            ckpt.save_adapter_weights(path, self.state.adapter_params)
 
     def load_model(self, path: str) -> None:
         """Load adapter weights into the trained params in place (the
-        optimizer stays bound to them)."""
+        optimizer stays bound to them; under ZeRO-1 its shards follow)."""
         params = ckpt.load_adapter_weights(path, self.acfg,
                                            device=self.device)
         with torch.no_grad():
             ckpt.copy_into(self.state.adapter_params, params)
+        if isinstance(self.state.opt_state, Zero1Optimizer):
+            self.state.opt_state.sync_shards()
 
     def save_full_state(self, path: str, wait: bool = True) -> None:
         """Full train-state save (train/checkpoint.py). ``wait=False``

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vlm_clip_tpu_torch.parallel.mesh import MESH_NOT_PORTED
 from vlm_clip_tpu_torch.vlm import speculative as _spec
 from vlm_clip_tpu_torch.vlm.qwen_model import init_kv_cache, text_forward
 from vlm_clip_tpu_torch.vlm.qwen_process import (VisionInputs,
@@ -66,12 +67,6 @@ def place_rows(cache, sub, slots: torch.Tensor) -> None:
         dst = getattr(cache, name)
         if dst is not None:
             dst.index_copy_(1, slots, getattr(sub, name))
-
-
-MESH_NOT_PORTED = (
-    "the engine's tensor- and data-parallel mesh is not ported to "
-    "vlm_clip_tpu_torch yet (ROADMAP.md, modules to port, items 7-8: data "
-    "and model parallelism)")
 
 
 class _Pending:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -455,8 +455,7 @@ class QwenVLContextExtractor(ClipTextEncoderMixin):
     Needs a local weights directory (safetensors shards, tokenizer.json,
     optionally generation_config.json) and raises at construction without
     one: use StubContextExtractor or CachedContextExtractor then.
-    ``quant_bits``: 8 (default), 4, ``"8h4"`` (int8 layers, int4 untied
-    head) or ``"mixed"`` (int4 text gate/up too); decode layouts fused.
+    ``quant_bits``: a :func:`quantize_preset` preset, 8 by default.
     """
 
     def __init__(self, clip_params, clip_cfg, clip_tokenizer,
@@ -479,11 +478,8 @@ class QwenVLContextExtractor(ClipTextEncoderMixin):
                 "Qwen2.5-VL weights not found (expected a directory with "
                 "safetensors + tokenizer.json); pass weights_path or use "
                 "the stub/cache context backends")
-        import dataclasses as _dc
-
         from vlm_clip_tpu_torch.vlm.qwen_convert import (
-            MIXED_DECODE_BITS, convert_qwen_vl,
-            fold_qwen_patch_normalization, quantize_qwen_params)
+            convert_qwen_vl, fold_qwen_patch_normalization)
         from vlm_clip_tpu_torch.vlm.qwen_model import qwen25vl_3b
 
         sd = load_safetensors_dir(weights_path)
@@ -493,16 +489,8 @@ class QwenVLContextExtractor(ClipTextEncoderMixin):
         # raw uint8 patches: the normalization folds into the patch embed
         params["vision"] = fold_qwen_patch_normalization(
             params["vision"], self.qwen_cfg.vision)
-        if quant_bits in ("mixed", "8h4"):
-            layer_bits = MIXED_DECODE_BITS if quant_bits == "mixed" else 8
-            params = quantize_qwen_params(params, layer_bits,
-                                          head_bits=4, fuse_decode=True)
-            self.qwen_cfg = _dc.replace(
-                self.qwen_cfg, text=_dc.replace(
-                    self.qwen_cfg.text, tie_word_embeddings=False))
-        elif quant_bits:
-            params = quantize_qwen_params(params, quant_bits,
-                                          fuse_decode=True)
+        params, self.qwen_cfg = quantize_preset(params, self.qwen_cfg,
+                                                quant_bits)
         self.generator = QwenVLGenerator(params, self.qwen_cfg,
                                          max_len=max_len, kv_bits=kv_bits)
         self.generator.u8_patches = True
@@ -613,6 +601,29 @@ class QwenVLContextExtractor(ClipTextEncoderMixin):
                 for i in idxs:
                     out[i] = self.extract_context_from_image(images[i])
         return out
+
+
+def quantize_preset(params: Dict[str, Any], cfg: QwenVLConfig, quant_bits
+                    ) -> Tuple[Dict[str, Any], QwenVLConfig]:
+    """(params, cfg) under a weight-only preset, decode layouts fused:
+    8 or 4 (every linear), ``"nf4"`` (every linear NF4, the head tied),
+    ``"8h4"`` (int8 layers, int4 untied head) or ``"mixed"`` (int4 text
+    gate/up too); the two head presets untie the head in cfg. A falsy
+    ``quant_bits`` keeps the weights fp."""
+    import dataclasses
+
+    from vlm_clip_tpu_torch.vlm.qwen_convert import (MIXED_DECODE_BITS,
+                                                     quantize_qwen_params)
+
+    if quant_bits in ("mixed", "8h4"):
+        layer_bits = MIXED_DECODE_BITS if quant_bits == "mixed" else 8
+        params = quantize_qwen_params(params, layer_bits, head_bits=4,
+                                      fuse_decode=True)
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, tie_word_embeddings=False))
+    elif quant_bits:
+        params = quantize_qwen_params(params, quant_bits, fuse_decode=True)
+    return params, cfg
 
 
 def load_safetensors_dir(path: str) -> Dict[str, Any]:

@@ -15,6 +15,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from vlm_clip_tpu_torch.ops.nf4 import quantize_nf4, quantize_nf4_stacked
 from vlm_clip_tpu_torch.ops.quant import quantize_weight
 from vlm_clip_tpu_torch.vlm.qwen_model import (QwenTextConfig,
                                                QwenVisionConfig,
@@ -174,24 +175,21 @@ def _fuse_decode_layers(layers: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def quantize_qwen_params(params: Dict[str, Any], bits=8,
-                         head_bits: int = 0,
+                         head_bits=0,
                          fuse_decode: bool = False) -> Dict[str, Any]:
     """Quantize every linear kernel (weight-only); embeddings, norms and
     the patch embed stay fp.
 
-    ``bits``: 4, 8, or a {path-substring: bits} mapping with a "default"
+    ``bits``: 4, 8, ``"nf4"`` (blockwise NF4 with double quantization,
+    ``ops/nf4.py``), or a {path-substring: bits} mapping with a "default"
     key (e.g. :data:`MIXED_DECODE_BITS`) matched against slash-joined
-    paths like ``text/layers/mlp/gate``. ``"nf4"`` raises: the NF4 preset
-    (``ops/nf4.py``) is not ported yet (ROADMAP.md). ``head_bits``: also
-    quantize the tied head (``embed_tokens.T``) into an untied
-    ``lm_head``; run the model with ``tie_word_embeddings=False`` then.
-    ``fuse_decode``: concat text q/k/v and gate/up before quantizing.
+    paths like ``text/layers/mlp/gate``. Stacked [L, in, out] kernels are
+    quantized one layer at a time and stacked. ``head_bits`` (4, 8 or
+    ``"nf4"``): also quantize the tied head (``embed_tokens.T``) into an
+    untied ``lm_head``; run the model with ``tie_word_embeddings=False``
+    then. ``fuse_decode``: concat text q/k/v and gate/up before
+    quantizing.
     """
-    if "nf4" in (bits, head_bits) or (isinstance(bits, dict)
-                                      and "nf4" in bits.values()):
-        raise NotImplementedError(
-            "NF4 quantization (ops/nf4.py) is not ported to "
-            "vlm_clip_tpu_torch yet; see ROADMAP.md")
     if fuse_decode and "text" in params:
         params = dict(params)
         params["text"] = dict(params["text"])
@@ -206,11 +204,18 @@ def quantize_qwen_params(params: Dict[str, Any], bits=8,
                 return b
         return bits["default"]
 
+    def quantize_node(node, path):
+        b, kernel, bias = bits_for(path), node["kernel"], node.get("bias")
+        if b != "nf4":
+            return quantize_weight(kernel, b, bias)
+        if kernel.dim() == 2:
+            return quantize_nf4(kernel, bias)
+        return quantize_nf4_stacked(kernel, bias)
+
     def walk(node, path):
         if isinstance(node, dict):
             if "kernel" in node and node["kernel"].dim() in (2, 3):
-                return quantize_weight(node["kernel"], bits_for(path),
-                                       node.get("bias"))
+                return quantize_node(node, path)
             return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
         return node
 
@@ -221,6 +226,7 @@ def quantize_qwen_params(params: Dict[str, Any], bits=8,
                              else walk(val, f"{tower}/{name}"))
                       for name, val in sub.items()}
     if head_bits and "text" in out and "lm_head" not in out["text"]:
-        out["text"]["lm_head"] = quantize_weight(
-            params["text"]["embed_tokens"].float().T, head_bits)
+        head_w = params["text"]["embed_tokens"].float().T
+        out["text"]["lm_head"] = quantize_nf4(head_w) \
+            if head_bits == "nf4" else quantize_weight(head_w, head_bits)
     return out

@@ -3,8 +3,9 @@
 Port of ``vlm_clip_tpu/vlm/qwen_model.py`` (the reference's
 ``VLMContextExtractor`` model, model_v.py:43-142). Params keep the JAX
 package's keys and layouts: layers stacked on a leading [L] axis, linear
-kernels [in, out], weights fp or :class:`~vlm_clip_tpu_torch.ops.quant.
-QuantizedLinear` leaves. ``lax.scan`` over the stacked layers becomes a
+kernels [in, out], weights fp, :class:`~vlm_clip_tpu_torch.ops.quant.
+QuantizedLinear` or :class:`~vlm_clip_tpu_torch.ops.nf4.NF4Linear`
+leaves. ``lax.scan`` over the stacked layers becomes a
 Python loop over [L] slices (views, no copy).
 
 - text: pre-RMSNorm decoder, GQA attention (grouped: K/V are never
@@ -21,8 +22,9 @@ in place (the reference writes them once after its scan on a donated
 buffer). The vision tower's and the prefill's attention are plain
 matmuls with an fp32 softmax, as in the reference; the cached decode
 attention goes through ``ops/decode_attention.py`` (K8) and the int4
-GEMVs through ``ops/quant.py`` (K7). ``impl="torch"`` takes both kernels'
-plain versions.
+GEMVs through ``ops/quant.py`` (K7); NF4 linears through
+``ops/nf4.nf4_matmul`` (plain PyTorch, as the reference's is XLA).
+``impl="torch"`` takes both kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from vlm_clip_tpu_torch.ops.decode_attention import decode_attention
+from vlm_clip_tpu_torch.ops.nf4 import NF4Linear, nf4_matmul
 from vlm_clip_tpu_torch.ops.quant import QuantizedLinear, quant_matmul
 
 Params = Dict[str, Any]
@@ -117,20 +120,23 @@ def qwen25vl_72b() -> QwenVLConfig:
 # ---------------------------------------------------------------------------
 
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views; QuantizedLinear leaves too)."""
+    """Layer ``i`` of a stacked tree (views; quantized leaves too)."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, QuantizedLinear):
+    if isinstance(tree, (QuantizedLinear, NF4Linear)):
         return tree.map(lambda t: t[i])
     return tree[i]
 
 
 def linear(p, x: torch.Tensor, out_dtype=None,
            impl: str = "auto") -> torch.Tensor:
-    """fp {'kernel'[,'bias']} or QuantizedLinear; fp32 accumulation, the
-    output in ``out_dtype`` (default x's; the LM head passes float32)."""
+    """fp {'kernel'[,'bias']}, QuantizedLinear or NF4Linear; fp32
+    accumulation, the output in ``out_dtype`` (default x's; the LM head
+    passes float32)."""
     if isinstance(p, QuantizedLinear):
         return quant_matmul(x, p, out_dtype=out_dtype, impl=impl)
+    if isinstance(p, NF4Linear):
+        return nf4_matmul(x, p, out_dtype=out_dtype)
     y = torch.matmul(x, p["kernel"].to(x.dtype))
     if p.get("bias") is not None:
         y = y.float() + p["bias"].float()
