@@ -163,20 +163,48 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    K5 on and off, held against its plain version and the host-resize
    path, with cli/bench_video --no-demux's rates, and the uint8 folded
    tower against the normalize-then-tower path.
+13. Model parallelism (phase model_parallel, after vlm_engine, on its
+   3B 8h4 tree). One card, so NCCL at world 1 (the launcher's variables,
+   as data_parallel brings them up): the engine with a (data 1, model 1)
+   mesh on 16 requests of 8-32 tokens at 32 slots must give the
+   mesh-free engine's tokens; PipelineGenerator at one stage, greedy, 32
+   new tokens on 8 rows of 64 prompt ids, QwenVLGenerator's tokens;
+   score_video_frames_sharded at seq 1 (ViT-B/16, 64 frames, K5 on)
+   score_video_frames's scores within 1e-5; K7, K8 and K5 must launch
+   as counted. Then the tensor-parallel layers across four processes
+   on the card (gloo, whose all-reduce takes CUDA tensors through the
+   host; NCCL refuses ranks that share a device): model 4 and data 2 x
+   model 2, one Qwen2.5-VL-3B decoder layer (fp/unfused and 8h4, a
+   decode step with K8 at each rank's heads) and one ViT-B/16 encoder
+   layer (K5 on) through the model code in bf16, each rank against the
+   unsharded layer (MP_LAYER_TOL). Then each rank's shard for model 2
+   and 4, cut by parallel.sharding.cut_params in this process: K7 on
+   the 8h4 head's vocabulary shards (x [8, 2048]), K8 at the unfused
+   tree's local heads (8 q / 1 kv, 4 q / 1 kv; B=8, S=768, depth 307),
+   K5 at ViT-B/16's local heads ([32, 6, 197, 64], [32, 3, 197, 64]),
+   each against its plain version and timed beside it, its bound and
+   its library call; the ranks' results recombined (head shards
+   concatenated, row shards' partial products summed) against the
+   unsharded layer (MP_SUM_TOL).
 
 Prints one JSON line with the kernels' results (each kernel's launches
 on its main path, plus ``launches_serve``, ``launches_v``,
 ``launches_emotic``, ``launches_engine``, ``launches_c5``,
-``launches_dp`` and ``launches_nf4`` where it also ran on the served
-path, in pipeline V, in cli/train_emotic, in the engine's mixed load, in
-config 5, in the NCCL run of cli/train_m --zero1 or in the NF4
-generation), then the device line
+``launches_dp``, ``launches_nf4`` and ``launches_mp`` where it also ran
+on the served path, in pipeline V, in cli/train_emotic, in the engine's
+mixed load, in config 5, in the NCCL run of cli/train_m --zero1, in the
+NF4 generation or in the model_parallel phase's world-1 drives), then
+the device line
 ``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
 
 ``python3 chip_smoke.py --times <checkout>`` instead times the kernels
 this slice redesigned or touched (K4 forward and backward, K6 forward
 and backward, K5's CUDA-core kernel) in the package at <checkout>, to
 compare two checkouts in turns in one call (:func:`redesign_times`).
+
+``python3 chip_smoke.py --tp-layer-rank`` is one rank of the
+model_parallel phase's layer check, which starts four of them
+(:func:`tp_layer_rank`).
 """
 
 from __future__ import annotations
@@ -2318,7 +2346,7 @@ def serve_phase() -> dict:
     cfg = clip_preset("vit-base-patch16")
     acfg = AdapterConfig()
     save_adapter_weights(ckpt, init_m_adapters(
-        torch.Generator().manual_seed(1), cfg, acfg))
+        torch.Generator().manual_seed(1), cfg, acfg, device="cpu"))
 
     t0 = time.time()
     server = build_server([
@@ -2421,7 +2449,8 @@ def serve_t_adapter(images) -> dict:
     cfg = clip_preset(name)
     ckpt = os.path.join(REPO, "build", "chip_smoke", "t_adapters_vitb16.pt")
     save_t_adapters(ckpt, init_t_adapters(torch.Generator().manual_seed(2),
-                                          cfg.projection_dim, 64))
+                                          cfg.projection_dim, 64,
+                                          device="cpu"))
     F.reset_launch_counts()
     server = build_server(["--port", "0", "--device", "cuda",
                            "--clip-model-name", name,
@@ -4143,7 +4172,8 @@ def vlm_engine_phase() -> dict:
     from vlm_clip_tpu_torch.vlm.engine import ContinuousBatchingEngine
     from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator
 
-    params, cfg = _VLM.pop("params"), _VLM.pop("cfg")
+    params, cfg = _VLM["params"], _VLM["cfg"]  # the model_parallel
+    # phase drives this tree too and drops it
     L = cfg.text.num_layers
     where = card()
 
@@ -4494,6 +4524,664 @@ def vlm_engine_phase() -> dict:
     return launches
 
 
+# The model_parallel phase: the world-1 drives of the engine's mesh,
+# PipelineGenerator and the sharded video scorer (engine: 32 slots, 16
+# requests with budgets drawn from 8-32; the pipeline: 8 rows of 64
+# random prompt ids, 32 new tokens; 64 frames), then K7, K8 and K5 at
+# each rank's shard shapes for these model sizes.
+MP_MODELS = (2, 4)
+MP_REQUESTS, MP_BUDGETS, MP_ROWS, MP_FRAMES = 16, (8, 32), 8, 64
+# A shard's kernel against its plain version: K7_TOL, check_decode_attn's
+# limits, TOL[bf16] (the vlm and t_kernels phases' tolerances). The
+# ranks' results recombined against the unsharded layer on the card: the
+# head shards concatenated against the whole head's K7 call (K7_TOL: the
+# same nibbles and fp32 sums, the same depth splits at these widths);
+# the heads' K8 / K5 outputs concatenated against one call over every
+# head (check_decode_attn's limits / TOL[bf16]: another column split or
+# tile order may round p apart); the row-parallel o / out products of
+# those outputs, fp32 partial products summed over the ranks, against
+# the unsharded fp32 product within 1e-4 x max |want| (summation order).
+MP_SUM_TOL = 1e-4
+# The tensor-parallel layers across processes (_mp_layers): four ranks on
+# the one card, model 4 and data 2 x model 2. A sharded layer in bf16
+# against the unsharded layer in bf16, elementwise within TOL[bf16]:
+# the sharded row-parallel linears sum fp32 partials and round once, the
+# unsharded ones round their fp32 sums once, so a bf16 rounding flip in
+# a linear's output, carried through the layer's norm and MLP, parts
+# them by a few bf16 ulps.
+MP_LAYER_RANKS, MP_LAYER_TIMEOUT = 4, 300
+MP_LAYER_TOL = TOL[torch.bfloat16]
+MP_LAYER_RESULT = "tp layer result: "
+
+
+def _mp_world1(params, cfg, where) -> dict:
+    """NCCL at world 1: the engine with a (data 1, model 1) mesh against
+    mesh=None, PipelineGenerator at one stage against QwenVLGenerator on
+    the same prompt ids, score_video_frames_sharded at seq 1 against
+    score_video_frames (ViT-B/16, K5 on); each must agree, and K7, K8 and
+    K5 must launch on these drives as their counts say. Returns the
+    drives' launches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from vlm_clip_tpu_torch.core.config import clip_preset
+    from vlm_clip_tpu_torch.core.dtypes import BF16
+    from vlm_clip_tpu_torch.data import video as V
+    from vlm_clip_tpu_torch.models.clip import init_clip
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.ops import quant as K7
+    from vlm_clip_tpu_torch.parallel import distributed as D
+    from vlm_clip_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                                  create_pipe_mesh)
+    from vlm_clip_tpu_torch.parallel.pipeline import PipelineGenerator
+    from vlm_clip_tpu_torch.vlm.engine import ContinuousBatchingEngine
+    from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator
+
+    L = cfg.text.num_layers
+    dev = torch.device("cuda")
+    failures, launches = [], {}
+
+    def reset():
+        for k in (K5, K7, K8):
+            k.reset_launch_counts()
+
+    def counts():
+        return {**K5.launch_counts(), **K7.launch_counts(),
+                **K8.launch_counts()}
+
+    def gen():
+        g = QwenVLGenerator(params, cfg, max_len=768)
+        g.u8_patches = True
+        return g
+
+    ids, visions, budgets = _engine_requests(cfg, MP_REQUESTS, seed=17)
+    budgets = np.random.default_rng(17).integers(
+        MP_BUDGETS[0], MP_BUDGETS[1] + 1, MP_REQUESTS).tolist()
+    D.maybe_initialize(D.DistributedConfig(
+        coordinator_address=f"localhost:{_free_port()}", num_processes=1,
+        process_id=0, local_rank=0, local_world_size=1), device="cuda")
+    try:
+        # the engine, (data 1, model 1) mesh against no mesh
+        plain, _, _ = _engine_run(ContinuousBatchingEngine(
+            gen(), n_slots=ENGINE_SLOTS, sync_steps=ENGINE_SYNC), ids,
+            visions, budgets)
+        reset()
+        eng = ContinuousBatchingEngine(
+            gen(), n_slots=ENGINE_SLOTS, sync_steps=ENGINE_SYNC,
+            mesh=create_mesh(MeshConfig(data=1, model=1), "cuda"))
+        out, wall, groups = _engine_run(eng, ids, visions, budgets)
+        got = counts()
+        rounds = eng.stats["rounds"]
+        want = {"decode_attention_kernel": L * rounds,
+                "quant_matmul_int4": rounds + len(groups)}
+        ok = out == plain and all(got[k] == v for k, v in want.items())
+        launches["engine"] = got
+        print(f"model_parallel engine, (data 1, model 1) mesh under NCCL at "
+              f"world 1 vs mesh=None ({MP_REQUESTS} requests, budgets "
+              f"{MP_BUDGETS[0]}-{MP_BUDGETS[1]}, {ENGINE_SLOTS} slots): "
+              f"tokens equal {out == plain}, {sum(map(len, out))} tokens in "
+              f"{wall:.2f} s, launches {got} (expected {want}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("engine mesh")
+        del eng
+
+        # PipelineGenerator at one stage against QwenVLGenerator
+        g = gen()
+        rng = np.random.default_rng(19)
+        T = 64
+        pids = rng.integers(1, min(150000, cfg.text.vocab_size),
+                            (MP_ROWS, T)).astype(np.int64)
+        with torch.no_grad():
+            emb = params["text"]["embed_tokens"][torch.from_numpy(pids).to(
+                dev)].to(g.dtype)
+            pos3 = torch.arange(T, device=dev).expand(3, MP_ROWS, T)
+            logits, cache = g._prefill(emb, pos3, g._new_cache(MP_ROWS),
+                                       T - 1)
+            want_tok = g._run_decode_loop(logits, cache, T, 0, VLM_NEW, None,
+                                          0, pids)
+        del cache
+        reset()
+        pgen = PipelineGenerator.from_params(
+            params["text"], cfg.text, create_pipe_mesh(1, device="cuda"),
+            cfg.eos_token_id, max_len=768)
+        t0 = time.perf_counter()
+        got_tok = pgen.generate_text(pids[None], max_new_tokens=VLM_NEW)
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = {"decode_attention_kernel": L * VLM_NEW,
+                "quant_matmul_int4": 1 + VLM_NEW}
+        ok = got_tok == want_tok and all(got[k] == v
+                                         for k, v in want.items())
+        launches["pipeline"] = got
+        print(f"model_parallel PipelineGenerator, 1 stage under NCCL vs "
+              f"QwenVLGenerator ({MP_ROWS} rows of {T} prompt ids, "
+              f"{VLM_NEW} new tokens, greedy): tokens equal "
+              f"{got_tok == want_tok} ({sum(map(len, got_tok))} tokens, "
+              f"{wall:.2f} s), launches {got} (expected {want}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("pipeline")
+        del pgen, g
+
+        # the sharded video scorer at seq 1, ViT-B/16 with K5 on
+        ccfg = clip_preset("vit-base-patch16")
+        cp = init_clip(torch.Generator(device=dev).manual_seed(7), ccfg,
+                       device=dev)
+        vr = np.random.default_rng(23)
+        frames = vr.integers(0, 256, (MP_FRAMES, 224, 224, 3),
+                             dtype=np.uint8)
+        emb = vr.normal(size=(7, ccfg.projection_dim)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("data", "model", "seq"))
+        was = K5.fused_attention_enabled()
+        K5.set_fused_attention(True)
+        try:
+            want_s = V.score_video_frames(cp, ccfg, frames, emb,
+                                          policy=BF16)
+            reset()
+            got_s = V.score_video_frames_sharded(cp, ccfg, frames, emb,
+                                                 mesh, policy=BF16)
+        finally:
+            K5.set_fused_attention(was)
+        got = counts()
+        err = float(np.abs(got_s - want_s).max())
+        layers = ccfg.vision.num_layers
+        ok = got_s.shape == (MP_FRAMES, 7) and np.isfinite(got_s).all() \
+            and err <= 1e-5 and got["fused_attention"] == layers
+        launches["video"] = got
+        print(f"model_parallel score_video_frames_sharded at seq 1 vs "
+              f"score_video_frames (ViT-B/16, {MP_FRAMES} frames, BF16, K5 "
+              f"on): max |diff| {err:.3e} (limit 1e-5), launches {got} "
+              f"(expected K5 {layers}) {'ok' if ok else 'FAIL'} on {where}",
+              flush=True)
+        if not ok:
+            failures.append("video")
+    finally:
+        torch.distributed.destroy_process_group()
+    if failures:
+        raise SystemExit(f"model_parallel world-1 drives failed: {failures}")
+    total = {}
+    for c in launches.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _mp_row_sum(parts, full, what: str, failures) -> None:
+    """The ranks' fp32 partial products summed, against the unsharded
+    fp32 product."""
+    got = sum(parts)
+    err = float((got - full).abs().max())
+    lim = MP_SUM_TOL * float(full.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= lim
+    print(f"model_parallel {what}: ranks' partial products summed vs the "
+          f"unsharded product: max |diff| {err:.3e} (limit {lim:.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(what)
+
+
+def _mp_shards(params, cfg, where) -> dict:
+    """K7, K8 and K5 at each rank's shard shapes for model 2 and 4, cut by
+    parallel.sharding.cut_params (the pure cut, one rank at a time in this
+    process): each launch against its plain version, the ranks' results
+    recombined against the unsharded layer, each shape timed beside its
+    plain version, its bound and its library call. Returns the launches
+    of the checks."""
+    from vlm_clip_tpu_torch.cli import check_decode_attn
+    from vlm_clip_tpu_torch.core.config import clip_preset
+    from vlm_clip_tpu_torch.models import layers as LY
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.ops import quant as K7
+    from vlm_clip_tpu_torch.parallel.sharding import (cut_params,
+                                                      clip_param_rules,
+                                                      qwen_param_rules)
+    from vlm_clip_tpu_torch.vlm.qwen_model import local_heads
+
+    import torch.nn.functional as TF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    failures = []
+    for k in (K5, K7, K8):
+        k.reset_launch_counts()
+    tcfg = cfg.text
+    hd = tcfg.head_dim
+
+    def cut(tree, rules, m, r, head_dim):
+        return cut_params(tree, rules, {"model": m}, {"model": r},
+                          {"": head_dim})
+
+    # K7 on the 8h4 head's vocabulary shards, x [8, 2048] bf16
+    head = params["text"]["lm_head"]
+    x = (torch.randn(8, tcfg.hidden_size, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    with torch.no_grad():
+        whole = K7.quant_matmul_int4(x, head)
+    for m in MP_MODELS:
+        outs = []
+        for r in range(m):
+            sh = cut({"text": {"lm_head": head}}, qwen_param_rules(), m, r,
+                     hd)["text"]["lm_head"]
+            q = sh.inner
+            with torch.no_grad():
+                got = K7.quant_matmul_int4(x, q)
+                want = K7.quant_matmul_int4_torch(x, q)
+            err = (got - want).abs()
+            ratio = float((err / (K7_TOL[0] + K7_TOL[1] * want.abs())).max())
+            ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
+            outs.append(got)
+            shape = (f"model {m} rank {r}: x[8, {tcfg.hidden_size}] bf16 "
+                     f"against [{tcfg.hidden_size}, {q.logical_out}] "
+                     f"(packed {list(q.qweight.shape)})")
+            if r == 0:
+                w_lib = K7.dequantize_weight(q).to(torch.bfloat16)
+                t = _turns(lambda: K7.quant_matmul_int4(x, q),
+                           lambda: K7.quant_matmul_int4_torch(x, q),
+                           lambda: torch.matmul(x, w_lib), iters=20)
+                d_ms = sum(ms for n, ms in _device_ms(
+                    lambda: K7.quant_matmul_int4(x, q)).items()
+                    if "qmm4" in n)
+                b_ms, b_by = bound(*k7_cost(8, tcfg.hidden_size,
+                                            q.logical_out, 2))
+                print(f"model_parallel K7 {shape}: max_abs_err "
+                      f"{float(err.max()):.3e} err/tol {ratio:.3f} "
+                      f"{'ok' if ok else 'FAIL'}; kernel {t[0]:.4f} ms by "
+                      f"events, {d_ms:.4f} ms device, plain {t[1]:.4f} ms, "
+                      f"bf16 matmul on the dequantized shard {t[2]:.4f} ms; "
+                      f"bound {b_ms:.5f} ms ({b_by}) on {where}", flush=True)
+                del w_lib
+            else:
+                print(f"model_parallel K7 {shape}: max_abs_err "
+                      f"{float(err.max()):.3e} err/tol {ratio:.3f} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"K7 {shape}")
+        cat = torch.cat(outs, dim=1)
+        err = (cat - whole).abs()
+        ratio = float((err / (K7_TOL[0] + K7_TOL[1] * whole.abs())).max())
+        ok = cat.shape == whole.shape and ratio <= 1.0
+        print(f"model_parallel K7 model {m}: the {m} shards' logits "
+              f"concatenated vs the whole head's K7 call: max |diff| "
+              f"{float(err.max()):.3e}, err/tol {ratio:.3f}, bit for bit "
+              f"{torch.equal(cat, whole)} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"K7 model {m} recombined")
+
+    # K8 at the fp/unfused tree's local heads: one layer's attention at
+    # the 3B width, B=8, S=768, every row at depth 307
+    H = tcfg.hidden_size
+    attn = {n: {"kernel": (torch.randn(1, i, o, generator=gen, device=dev)
+                           * i ** -0.5).to(torch.bfloat16)}
+            for n, i, o in (("q", H, tcfg.num_heads * hd),
+                            ("k", H, tcfg.num_kv_heads * hd),
+                            ("v", H, tcfg.num_kv_heads * hd),
+                            ("o", tcfg.num_heads * hd, H))}
+    B, S, depth = 8, 768, len(_qwen_prompt()) + VLM_NEW // 2
+    case = list(check_decode_attn.rand_case(
+        gen, B, 1, tcfg.num_heads, tcfg.num_kv_heads, hd, S, torch.bfloat16,
+        False, dev))
+    case[5] = torch.full((B,), depth, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        full = K8.decode_attention_kernel(*case)
+        wo = attn["o"]["kernel"][0].float()
+        full_o = full[:, 0].float() @ wo
+    for m in MP_MODELS:
+        outs, parts = [], []
+        for r in range(m):
+            sh = cut({"layers": {"attn": attn}}, qwen_param_rules(), m, r,
+                     hd)["layers"]["attn"]
+            h, kv, pick = local_heads(sh, tcfg)
+            q0 = sh["q"].start // hd
+            if pick is None:  # k/v shards: this rank's kv heads
+                k0 = sh["k"].start // hd
+                pick = slice(k0, k0 + kv)
+            rc = [case[0][:, :, q0:q0 + h].contiguous()] + [
+                t[:, :, pick].contiguous() for t in case[1:5]] + [case[5],
+                                                                  None, None]
+            with torch.no_grad():
+                got = K8.decode_attention_kernel(*rc)
+                want = K8.decode_attention_reference(*rc)
+            err, ratio = check_decode_attn.compare(got, want, rc)
+            ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0
+            outs.append(got)
+            o = sh["o"]
+            parts.append(got[:, 0].float() @ o.inner["kernel"][0].float())
+            shape = (f"model {m} rank {r}: q [{B}, 1, {h}, {hd}] over "
+                     f"{kv} kv head(s) {pick}, S={S}, depth {depth}, bf16")
+            if r == 0:
+                lib = _k8_library(rc, depth)
+                with torch.no_grad():
+                    t = _turns(lambda: K8.decode_attention_kernel(*rc),
+                               lambda: K8.decode_attention_reference(*rc),
+                               lib, iters=20)
+                    d_ms = sum(ms for n, ms in _device_ms(
+                        lambda: K8.decode_attention_kernel(*rc)).items()
+                        if "decode_attention" in n)
+                b_ms, b_by = bound(*k8_cost(rc))
+                print(f"model_parallel K8 {shape}: max_abs_err {err:.3e} "
+                      f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}; "
+                      f"kernel {t[0]:.4f} ms by events, {d_ms:.4f} ms "
+                      f"device, {K8.kernel_splits(B, kv, hd, S)} column "
+                      f"splits; plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms; "
+                      f"bound {b_ms:.5f} ms ({b_by}) on {where}", flush=True)
+            else:
+                print(f"model_parallel K8 {shape}: max_abs_err {err:.3e} "
+                      f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+            if not ok:
+                failures.append(f"K8 {shape}")
+        cat = torch.cat(outs, dim=2)
+        err, ratio = check_decode_attn.compare(cat, full, case)
+        ok = ratio <= 1.0
+        print(f"model_parallel K8 model {m}: the ranks' heads concatenated "
+              f"vs one call over every head: max |diff| {err:.3e}, "
+              f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"K8 model {m} recombined")
+        _mp_row_sum(parts, cat[:, 0].float() @ wo, f"o rows, model {m}",
+                    failures)
+
+    # K5 at ViT-B/16's local heads, 32 images, K5 on
+    vcfg = clip_preset("vit-base-patch16").vision
+    W, nh = vcfg.hidden_size, vcfg.num_heads
+    vhd = W // nh
+    layer = LY.stack_trees([LY.init_encoder_layer(gen, W, vcfg.intermediate_size,
+                                                  dev)])
+    vattn = {n: {k: t.to(torch.bfloat16) for k, t in p.items()}
+             for n, p in layer["attn"].items()}
+    xs = torch.randn(32, 197, W, generator=gen, device=dev).to(torch.bfloat16)
+    sc = vhd ** -0.5
+
+    def heads(t):
+        return t.reshape(32, 197, -1, vhd).transpose(1, 2).contiguous()
+
+    with torch.no_grad():
+        full = K5.fused_attention(*(heads(LY._linear(
+            LY.layer_slice(vattn, 0)[n], xs)) for n in "qkv"), sc)
+        w_out = vattn["out"]["kernel"][0].float()
+    atol, rtol = TOL[torch.bfloat16]
+    for m in MP_MODELS:
+        outs, parts = [], []
+        for r in range(m):
+            sh = LY.layer_slice(cut({"layers": {"attn": vattn}},
+                                    clip_param_rules(), m, r,
+                                    vhd)["layers"]["attn"], 0)
+            q, k, v = (heads(LY._linear(sh[n].inner, xs)) for n in "qkv")
+            with torch.no_grad():
+                got = K5.fused_attention(q, k, v, sc)
+                want = K5.fused_attention_torch(q, k, v, sc)
+            err = (got.float() - want.float()).abs()
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (err <= atol + rtol * want.float().abs()).all())
+            outs.append(got)
+            parts.append(got.transpose(1, 2).reshape(32, 197, -1).float()
+                         @ sh["out"].inner["kernel"].float())
+            shape = f"model {m} rank {r}: {list(q.shape)} bf16"
+            if r == 0:
+                with torch.no_grad():
+                    t = _turns(lambda: K5.fused_attention(q, k, v, sc),
+                               lambda: K5.fused_attention_torch(q, k, v, sc),
+                               lambda: TF.scaled_dot_product_attention(
+                                   q, k, v, scale=sc), iters=20)
+                    d_ms = sum(ms for n, ms in _device_ms(
+                        lambda: K5.fused_attention(q, k, v, sc)).items()
+                        if "attention" in n)
+                b_ms, b_by = bound(*t_cost("fused_attention", q))
+                print(f"model_parallel K5 {shape}: max_abs_err "
+                      f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}; "
+                      f"kernel {t[0]:.4f} ms by events, {d_ms:.4f} ms "
+                      f"device; plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms; "
+                      f"bound {b_ms:.5f} ms ({b_by}) on {where}", flush=True)
+            else:
+                print(f"model_parallel K5 {shape}: max_abs_err "
+                      f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+            if not ok:
+                failures.append(f"K5 {shape}")
+        cat = torch.cat(outs, dim=1)
+        err = (cat.float() - full.float()).abs()
+        ok = bool((err <= atol + rtol * full.float().abs()).all())
+        print(f"model_parallel K5 model {m}: the ranks' heads concatenated "
+              f"vs one call over every head: max |diff| "
+              f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"K5 model {m} recombined")
+        _mp_row_sum(parts, cat.transpose(1, 2).reshape(32, 197, W).float()
+                    @ w_out, f"out rows, model {m}", failures)
+    checks = {**K5.launch_counts(), **K7.launch_counts(),
+              **K8.launch_counts()}
+    print(f"model_parallel shard checks' launches {checks}", flush=True)
+    if failures:
+        raise SystemExit(f"model_parallel shard checks failed: {failures}")
+    return checks
+
+
+def tp_layer_rank() -> None:
+    """One of the MP_LAYER_RANKS processes of :func:`_mp_layers`, all on
+    the one card (``python3 chip_smoke.py --tp-layer-rank`` under the
+    launcher's variables). NCCL refuses ranks that share a device, so
+    the process group is gloo, whose all-reduce takes CUDA tensors
+    through the host. Each rank makes the same seeded layers, cuts its
+    shard for model 4 (its rank) and model 2 (its rank in the pair
+    [0, 1] or [2, 3], a data 2 x model 2 layout), runs it in bf16
+    through the model code's layer functions, whose row-parallel
+    linears all-reduce over that group, and holds the result against
+    the unsharded layer; the last line of its output is its result."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vlm_clip_tpu_torch.bridge import tree_map
+    from vlm_clip_tpu_torch.core.config import clip_preset
+    from vlm_clip_tpu_torch.models import layers as LY
+    from vlm_clip_tpu_torch.ops import attention as K5
+    from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.parallel.sharding import (clip_param_rules,
+                                                      cut_params,
+                                                      qwen_param_rules)
+    from vlm_clip_tpu_torch.vlm import qwen_model as QM
+    from vlm_clip_tpu_torch.vlm.qwen_convert import quantize_qwen_params
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+        f"{os.environ['MASTER_PORT']}", rank=rank, world_size=world)
+    groups = {4: dist.new_group(list(range(4)))}
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    groups[2] = pairs[rank // 2]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    atol, rtol = MP_LAYER_TOL
+    checks = []
+
+    def hold(what, m, got, want, ref32, launches, expect):
+        err = (got.float() - want.float()).abs()
+        ratio = float((err / (atol + rtol * want.float().abs())).max())
+        ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0 \
+            and all(launches.get(k) == v for k, v in expect.items())
+        line = (f"{what}, model {m} rank {rank % m} of process {rank}: "
+                f"max |diff| {float(err.max()):.3e} to the unsharded bf16 "
+                f"layer, err/tol {ratio:.3f}")
+        if ref32 is not None:
+            line += (f"; to the fp32 layer: sharded "
+                     f"{float((got.float() - ref32).abs().max()):.3e}, "
+                     f"unsharded "
+                     f"{float((want.float() - ref32).abs().max()):.3e}")
+        line += (f"; launches {launches} (expected {expect}) "
+                 f"{'ok' if ok else 'FAIL'}")
+        print(f"tp layer {line}", flush=True)
+        checks.append({"what": what, "model": m, "ok": ok,
+                       "ratio": ratio, "launches": launches})
+
+    # Qwen2.5-VL-3B, one layer: one decode step, B=8, S=768, depth 307
+    tcfg = QM.qwen25vl_3b().text
+    hd = tcfg.head_dim
+    fp = QM.init_text(gen, dataclasses.replace(tcfg, num_layers=1,
+                                               vocab_size=16),
+                      dtype=torch.bfloat16, device=dev)["layers"]
+    trees = {"fp/unfused": fp,
+             "8h4": quantize_qwen_params({"text": {"layers": fp}}, 8,
+                                         fuse_decode=True)["text"]["layers"]}
+    B, S, depth = 8, 768, 307
+    x = torch.randn(B, 1, tcfg.hidden_size, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ck, cv = (torch.randn(B, S, tcfg.num_kv_heads, hd, generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    idx = torch.full((B,), depth, dtype=torch.int32, device=dev)
+    cos, sin = QM.mrope_cos_sin(idx.long()[None, :, None].expand(3, B, 1),
+                                hd, tcfg.rope_theta, tcfg.mrope_section)
+
+    def decode(p, dtype=torch.bfloat16):
+        attn = p["attn"]
+        _, _, pick = QM.local_heads(attn, tcfg)
+        k = attn.get("k")
+        if pick is None and getattr(k, "kind", None) == "column":
+            pick = slice(k.start // hd, k.stop // hd)
+        kv = [(c if pick is None else c[:, :, pick]).to(dtype).clone()
+              for c in (ck, cv)]
+        with torch.no_grad():
+            return QM.text_decoder_layer(
+                p, x.to(dtype), cos, sin, None, tcfg,
+                cache_kv=(kv[0], kv[1], None, None), cache_index=idx)[0]
+
+    for layout, tree in trees.items():
+        want = decode(QM.layer(tree, 0))
+        ref32 = (decode(QM.layer(tree_map(lambda t: t.float(), tree), 0),
+                        torch.float32) if layout == "fp/unfused" else None)
+        for m in MP_MODELS:
+            sh = cut_params({"layers": tree}, qwen_param_rules(),
+                            {"model": m}, {"model": rank % m}, {"": hd},
+                            {"model": groups[m]})["layers"]
+            K8.reset_launch_counts()
+            got = decode(QM.layer(sh, 0))
+            hold(f"Qwen2.5-VL-3B {layout} decoder layer, decode step",
+                 m, got, want, ref32, K8.launch_counts(),
+                 {"decode_attention_kernel": 1})
+
+    # CLIP ViT-B/16, one encoder layer on 32 images, K5 on
+    vcfg = clip_preset("vit-base-patch16").vision
+    W, nh = vcfg.hidden_size, vcfg.num_heads
+    clayer = tree_map(lambda t: t.to(torch.bfloat16), LY.stack_trees([
+        LY.init_encoder_layer(gen, W, vcfg.intermediate_size, dev)]))
+    xs = torch.randn(32, 197, W, generator=gen, device=dev).to(
+        torch.bfloat16)
+    K5.set_fused_attention(True)
+
+    def encode(p, dtype=torch.bfloat16):
+        with torch.no_grad():
+            return LY.encoder_layer(LY.layer_slice(p, 0), xs.to(dtype), nh,
+                                    vcfg.layer_norm_eps, vcfg.hidden_act)
+
+    want = encode(clayer)
+    ref32 = encode(tree_map(lambda t: t.float(), clayer), torch.float32)
+    for m in MP_MODELS:
+        sh = cut_params({"layers": clayer}, clip_param_rules(), {"model": m},
+                        {"model": rank % m}, {"": W // nh},
+                        {"model": groups[m]})["layers"]
+        K5.reset_launch_counts()
+        got = encode(sh)
+        hold("CLIP ViT-B/16 encoder layer, [32, 197, 768]", m, got, want,
+             ref32, K5.launch_counts(), {"fused_attention": 1})
+    dist.destroy_process_group()
+    print(MP_LAYER_RESULT + json.dumps({"rank": rank, "checks": checks}),
+          flush=True)
+
+
+def _mp_layers(where) -> dict:
+    """The tensor-parallel layers run by MP_LAYER_RANKS processes on the
+    card (:func:`tp_layer_rank`): every check of every rank must pass.
+    Returns the launches the ranks' sharded layers made."""
+    import tempfile
+
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+    procs, files, failures = [], [], []
+    t0 = time.time()
+    try:
+        for r in range(MP_LAYER_RANKS):
+            files.append((tempfile.TemporaryFile("w+"),
+                          tempfile.TemporaryFile("w+")))
+            env = dict(base, WORLD_SIZE=str(MP_LAYER_RANKS), RANK=str(r),
+                       LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(MP_LAYER_RANKS),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--tp-layer-rank"], cwd=REPO, env=env,
+                stdout=files[-1][0], stderr=files[-1][1], text=True))
+        deadline = time.time() + MP_LAYER_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        failures.append(f"a rank ran past {MP_LAYER_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    launches = {}
+    for r, (p, (out, err)) in enumerate(zip(procs, files)):
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().splitlines()
+        for ln in lines:
+            if ln.startswith("tp layer") and (r == 0 or "FAIL" in ln):
+                print(f"model_parallel {ln}", flush=True)
+        res = (json.loads(lines[-1][len(MP_LAYER_RESULT):])
+               if lines and lines[-1].startswith(MP_LAYER_RESULT) else None)
+        if p.returncode != 0 or res is None:
+            failures.append(f"process {r} exited {p.returncode}")
+            print(f"model_parallel tp layer process {r} exited "
+                  f"{p.returncode}; its stderr ends:\n"
+                  f"{err.read()[-3000:]}", file=sys.stderr, flush=True)
+            continue
+        for c in res["checks"]:
+            if not c["ok"]:
+                failures.append(f"process {r}: {c['what']} model "
+                                f"{c['model']}")
+            for k, v in c["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    print(f"model_parallel tp layers: {MP_LAYER_RANKS} processes (gloo) on "
+          f"{where}, {time.time() - t0:.1f} s, launches {launches}, "
+          f"{'FAIL' if failures else 'ok'}", flush=True)
+    if failures:
+        raise SystemExit(f"model_parallel tp layers failed: {failures}")
+    return launches
+
+
+def model_parallel_phase() -> dict:
+    """Model parallelism on the card (one H100, so NCCL at world 1; two
+    and four ranks run on the CPU in the tests): the world-1 drives
+    (:func:`_mp_world1`) on the vlm phase's Qwen2.5-VL-3B 8h4 tree, the
+    tensor-parallel layers in bf16 across four processes
+    (:func:`_mp_layers`), then the shard checks (:func:`_mp_shards`).
+    Returns the drives' launches (``launches_mp``)."""
+    params, cfg = _VLM.pop("params"), _VLM.pop("cfg")
+    where = card()
+    launches = _mp_world1(params, cfg, where)
+    print(f"model_parallel drives' launches {launches}", flush=True)
+    if min(launches.get(k, 0) for k in (
+            "quant_matmul_int4", "decode_attention_kernel",
+            "fused_attention")) < 1:
+        raise SystemExit(f"a kernel of the model-parallel path never "
+                         f"launched: {launches}")
+    _mp_layers(where)
+    _mp_shards(params, cfg, where)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def redesign_times(root: str) -> None:
     """CUDA-event and device times (torch.profiler) of the kernels this
     slice redesigned or touched, in the package at root: K4's forward
@@ -4585,6 +5273,9 @@ def redesign_times(root: str) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:] == ["--tp-layer-rank"]:
+        tp_layer_rank()
+        return
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         root = os.path.abspath(sys.argv[2])
         setup(root)
@@ -4615,6 +5306,7 @@ def main() -> None:
     vlm_counts = run("vlm", vlm_phase)
     nf4_counts = run("nf4", nf4_phase)
     engine_counts = run("vlm_engine", vlm_engine_phase)
+    mp_counts = run("model_parallel", model_parallel_phase)
     print("phases:", ", ".join(phases), flush=True)
     kernels = []
     sources = {**{n: SOURCE for n in REPLACES}, **{
@@ -4648,6 +5340,8 @@ def main() -> None:
             entry["launches_dp"] = dp_counts[name]
         if name in nf4_counts:
             entry["launches_nf4"] = nf4_counts[name]
+        if name in mp_counts:
+            entry["launches_mp"] = mp_counts[name]
         if name in KERNEL_HMMA:
             entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)

@@ -74,3 +74,45 @@ def port_vision(v):
     from vlm_clip_tpu_torch.vlm import qwen_process as PP
 
     return PP.VisionInputs(**dataclasses.asdict(v))
+
+
+def run_ranks(scenario: str, world: int, inputs: str, out_dir: str,
+              timeout: float = 300.0):
+    """Start ``world`` ranks of tests/_torch_mp_worker.py (gloo on
+    localhost, a free port, the launcher's variables) and return each
+    rank's results. The caller never brings a process group up."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import pytest
+    import torch
+
+    worker = os.path.join(os.path.dirname(__file__), "_torch_mp_worker.py")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        env.pop("XLA_FLAGS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, scenario, inputs, out_dir], env=env,
+            cwd=os.path.dirname(os.path.dirname(worker)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"a {scenario} worker timed out")
+        logs.append(out)
+    for p, log_text in zip(procs, logs):
+        assert p.returncode == 0, log_text[-4000:]
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]

@@ -241,8 +241,9 @@ def test_load_safetensors_dir_reads_the_qwen_fixture(tmp_path,
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     cfg = port_qwen_config(tiny_cfgs())
-    a = tree_leaves(PC.convert_qwen_vl(got, cfg))
-    b = tree_leaves(PC.convert_qwen_vl(model.state_dict(), cfg))
+    a = tree_leaves(PC.convert_qwen_vl(got, cfg, device="cpu"))
+    b = tree_leaves(PC.convert_qwen_vl(model.state_dict(), cfg,
+                                       device="cpu"))
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert torch.equal(x, y)

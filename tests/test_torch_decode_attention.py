@@ -278,7 +278,7 @@ def test_text_forward_mask_none_matches_reference():
     pos3 = np.broadcast_to(depths[None, :, None], (3, B, 1)).copy()
     rc = QM.init_kv_cache(rcfg, B, S)._replace(k=jnp.asarray(k0),
                                                v=jnp.asarray(k0 * 0.5))
-    pc = PM.init_kv_cache(pcfg, B, S, dtype=torch.float32)
+    pc = PM.init_kv_cache(pcfg, B, S, dtype=torch.float32, device="cpu")
     pc.k.copy_(torch.from_numpy(k0))
     pc.v.copy_(torch.from_numpy(k0 * 0.5))
     want, rcache = QM.text_forward(params, jnp.asarray(emb),

@@ -204,6 +204,9 @@ def test_create_mesh_at_one_rank_on_gloo(no_launcher):
         assert mesh.mesh_dim_names == ("data", "model")
         assert M.axis_coordinate(mesh) == (0, 1)
         assert M.axis_size(mesh, "seq") == 1
+        # a collective would read a None group as the whole world
+        with pytest.raises(ValueError, match="no 'seq' axis"):
+            M.axis_group(mesh, "seq")
         assert M.data_sharding(mesh, 4) == (Shard(0), Replicate())
         assert M.replicated(mesh) == (Replicate(), Replicate())
         with pytest.raises(ValueError, match="2x1x1 != 1"):

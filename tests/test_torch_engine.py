@@ -328,8 +328,17 @@ def test_engine_cancel_then_refill_keeps_the_new_request(ref):
 
 
 def test_engine_mesh_is_not_ported(ref):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """The engine's mesh is ported (tests/test_torch_model_parallel.py
+    runs it across ranks); what it refuses: a mesh that is not a
+    DeviceMesh, and a 'pipe' axis (as the reference does)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ContinuousBatchingEngine(ref.pgen(), n_slots=2, mesh=object())
+
+    class PipeMesh:
+        mesh_dim_names = ("pipe", "model")
+
+    with pytest.raises(ValueError, match="no 'pipe' axis"):
+        ContinuousBatchingEngine(ref.pgen(), n_slots=2, mesh=PipeMesh())
 
 
 def test_engine_sampled_is_seeded_and_inside_the_support(ref):

@@ -206,7 +206,7 @@ def test_feature_cache_equivalence(bb, ref_models, root):
                           learning_rate=1e-3, cache_image_features=cache)
 
     np.testing.assert_allclose(run(True), run(False), atol=1e-5)
-    cache = TT.FeatureCache(5, 3)
+    cache = TT.FeatureCache(5, 3, device="cpu")
     store = cache.feats
     calls = []
 

@@ -98,7 +98,8 @@ def test_cached_prefill_and_decode_match_reference(tiny, monkeypatch, route,
     pos = np.broadcast_to(np.arange(T), (3, B, T)).copy()
     pos1 = np.full((3, 1, 1), T)
     rc = RM.init_kv_cache(cfg.text, B, S, jnp.float32, quantized=quant)
-    pc = PM.init_kv_cache(pcfg.text, B, S, torch.float32, quantized=quant)
+    pc = PM.init_kv_cache(pcfg.text, B, S, torch.float32, quantized=quant,
+                          device="cpu")
     k_ptr = pc.k.data_ptr()
     w0, rc = RM.text_forward(jp["text"], jnp.asarray(emb), jnp.asarray(pos),
                              cfg.text, jnp.asarray(_mask(T, S)), rc,
@@ -135,7 +136,7 @@ def test_kv_read_span_and_last_index_match_reference(tiny):
     pos = np.broadcast_to(depths[None, :, None], (3, B, 1)).copy()
     rc = RM.init_kv_cache(cfg.text, B, S, jnp.float32)._replace(
         k=jnp.asarray(k0), v=jnp.asarray(-k0))
-    pc = PM.init_kv_cache(pcfg.text, B, S, torch.float32)
+    pc = PM.init_kv_cache(pcfg.text, B, S, torch.float32, device="cpu")
     pc.k.copy_(_t(k0))
     pc.v.copy_(_t(-k0))
     want, rc = RM.text_forward(jp["text"], jnp.asarray(emb),
@@ -434,7 +435,7 @@ def test_convert_qwen_vl_matches_reference(hf_model):  # noqa: F811
     cfg = tiny_cfgs()
     sd = hf_model.state_dict()
     want = RC.convert_qwen_vl(sd, cfg)
-    got = PC.convert_qwen_vl(sd, port_qwen_config(cfg))
+    got = PC.convert_qwen_vl(sd, port_qwen_config(cfg), device="cpu")
     _leaves_equal(got, want)
 
 

@@ -167,7 +167,7 @@ def test_build_server_end_to_end_on_cpu(tmp_path):
     save_adapter_weights(ckpt, init_m_adapters(
         torch.Generator().manual_seed(0), clip_preset("vit-base-patch32"),
         AdapterConfig(text_adapter_size=16, vision_adapter_size=16,
-                      shared_adapter_layers=1)))
+                      shared_adapter_layers=1), device="cpu"))
     F.reset_launch_counts()
     srv = S.build_server(["--port", "0", "--device", "cpu", "--max-batch",
                           "2", "--allow-random-weights",

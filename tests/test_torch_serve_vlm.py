@@ -161,13 +161,19 @@ def test_bad_image_400(server):
 
 
 def test_build_engine_refusals():
+    """No weights without the synth flag; --tp/--dp without a launcher of
+    tp x dp ranks, or with slots that --dp does not divide, refuse with
+    the reference's texts (tests/test_torch_model_parallel.py serves
+    --tp 2 on two ranks)."""
     with pytest.raises(SystemExit, match="refusing"):
         S.build_engine(None, allow_synth=False, device="cpu")
     for kw in ({"tp": 2}, {"dp": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(SystemExit, match="needs 2 devices"):
             S.build_engine(None, allow_synth=True, device="cpu", **kw)
+    with pytest.raises(SystemExit, match="not divisible by --dp 2"):
+        S.build_engine(None, allow_synth=True, device="cpu", dp=2, slots=3)
     for flag in ("--tp", "--dp"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(SystemExit, match="needs 2 devices"):
             S.build_server(["--allow-synth-weights", "--device", "cpu",
                             flag, "2"])
 

@@ -9,7 +9,8 @@ a small cv2-written AVI and bridged tiny-config weights (CPU).
   tests/test_emotic_video.py holds its raw scorer to its host-resize
   path with (fp32 through the resize, the tower and a softmax of
   100 x cosine);
-- the sharded scorer raises the parallelism message.
+- the sharded scorer's refusals (its runs across ranks:
+  tests/test_torch_model_parallel.py).
 """
 
 import numpy as np
@@ -112,9 +113,30 @@ def test_score_video_frames_raw_matches_reference(avi, model):
 
 
 def test_sharded_scorer_raises(model):
+    """What the sharded scorer refuses before any collective (it runs
+    across ranks in tests/test_torch_model_parallel.py): a mesh that is
+    not a DeviceMesh, one without a 'seq' axis, and frames that do not
+    divide over the axis."""
     _, pcfg, _, pparams, emb = model
-    frames = np.zeros((4, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    frames = np.zeros((3, 32, 32, 3), np.uint8)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         V.score_video_frames_sharded(pparams, pcfg, frames, emb,
                                      mesh=object())
+
+    class Mesh:
+        def __init__(self, names):
+            self.mesh_dim_names = names
+
+        def get_local_rank(self, axis):
+            return 0
+
+        def size(self, dim):
+            return 2
+
+    with pytest.raises(ValueError, match="no 'seq' axis"):
+        V.score_video_frames_sharded(pparams, pcfg, frames, emb,
+                                     mesh=Mesh(("data", "model")))
+    with pytest.raises(ValueError, match="do not divide"):
+        V.score_video_frames_sharded(pparams, pcfg, frames, emb,
+                                     mesh=Mesh(("data", "model", "seq")))
     assert torch.is_tensor(pparams["logit_scale"])

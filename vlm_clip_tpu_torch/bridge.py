@@ -49,7 +49,9 @@ def tree_map(fn, tree):
             **{f: None if getattr(tree, f) is None else fn(getattr(tree, f))
                for f in _NF4_TENSORS},
             in_features=tree.in_features, out_features=tree.out_features,
-            block=tree.block)
+            block=tree.block,
+            **{f: getattr(tree, f, 0)
+               for f in ("dq_cols", "dq_row0", "dq_col0")})
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -65,6 +67,9 @@ def tree_leaves(tree) -> list:
     if _is_nf4(tree):
         return [getattr(tree, f) for f in _NF4_TENSORS
                 if getattr(tree, f) is not None]
+    if hasattr(tree, "inner") and hasattr(tree, "map"):  # a TP shard
+        return tree_leaves(tree.inner) + (
+            [] if tree.bias is None else [tree.bias])
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):

@@ -34,6 +34,19 @@ on the card from a seed, token-id-only responses).
     python -m vlm_clip_tpu_torch.cli.serve_vlm --port 8898 \\
         --allow-synth-weights [--device cpu] &
     curl -s --data-binary @face.jpg 'localhost:8898/generate?max_new=32'
+
+Tensor and data parallelism (``--tp``, ``--dp``): one process a device
+under a launcher that sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``, with world size ``tp x dp``::
+
+    torchrun --nproc-per-node 4 -m vlm_clip_tpu_torch.cli.serve_vlm \\
+        --allow-synth-weights --tp 2 --dp 2
+
+Every rank builds the engine over a ``('data', 'model')`` mesh
+(``vlm/engine.py``). Rank 0 binds the HTTP server; each worker round it
+broadcasts the requests it admitted and the cancels it took to the other
+ranks, whose workers replay them, so every rank's engine steps in
+lockstep.
 """
 
 from __future__ import annotations
@@ -48,6 +61,12 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
+
+def _group_rank(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank(group)
+
 
 class _Job:
     __slots__ = ("ids", "vision", "max_new", "event", "tokens", "error",
@@ -77,10 +96,19 @@ class EngineWorker:
     stream (K8's workspace is shared per device), so every submit, poll
     and cancel happens on this thread, which :meth:`start` starts and
     :meth:`stop` ends.
+
+    ``group``: a process group whose ranks each run an engine over one
+    mesh. Its rank 0 is the leader (its HTTP threads hand it jobs); every
+    round it broadcasts the submits and cancels it made, and the other
+    ranks' workers (:meth:`follow`) make the same before every rank
+    polls. The leader's :meth:`stop` stops them too.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, group=None):
         self.engine = engine
+        self.group = group
+        self.leader = group is None or _group_rank(group) == 0
+        self._ops = {"submit": [], "cancel": []}
         self.q: "queue.Queue[_Job]" = queue.Queue()
         self.cancel_q: "queue.Queue[_Job]" = queue.Queue()
         self._by_rid = {}
@@ -119,6 +147,7 @@ class EngineWorker:
                     if self.engine.cancel(rid):
                         self._by_rid.pop(rid, None)
                         self.total_cancelled += 1
+                        self._ops["cancel"].append(rid)
                     break
 
     def submit(self, job: _Job, timeout: float = 300.0):
@@ -147,19 +176,58 @@ class EngineWorker:
                 self.total_cancelled += 1
                 self._fail(job, "cancelled")
                 continue
+            args = (job.ids, job.vision, job.max_new,
+                    job.stream_q is not None)
             try:
-                rid = self.engine.submit(
-                    job.ids, job.vision, max_new_tokens=job.max_new,
-                    stream=job.stream_q is not None)
+                rid = self.engine.submit(args[0], args[1],
+                                         max_new_tokens=args[2],
+                                         stream=args[3])
             except Exception as e:  # noqa: BLE001 — surface to the client
                 self._fail(job, str(e))
                 continue
+            self._ops["submit"].append(args + (rid,))
             self._by_rid[rid] = job
             self.total_requests += 1
+
+    def _share(self, stop: bool = False) -> dict:
+        """The leader's ops of this round (made on its engine), broadcast
+        to the other ranks; theirs replayed on a follower's engine."""
+        ops, self._ops = dict(self._ops, stop=stop), {"submit": [],
+                                                      "cancel": []}
+        if self.group is None:
+            return ops
+        import torch.distributed as dist
+
+        box = [ops if self.leader else None]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(
+            self.group, 0), group=self.group)
+        ops = box[0]
+        if not self.leader:
+            for ids, vision, max_new, stream, rid in ops["submit"]:
+                # the leader's engine took this request: a refusal here,
+                # or another id, means the ranks' host state diverged
+                got = self.engine.submit(ids, vision, max_new_tokens=max_new,
+                                         stream=stream)
+                if got != rid:
+                    raise RuntimeError(
+                        f"the leader's request {rid} is request {got} on "
+                        f"this rank: the ranks' host state diverged")
+            for rid in ops["cancel"]:
+                self.engine.cancel(rid)
+        return ops
+
+    def follow(self) -> None:
+        """A follower rank's loop: replay the leader's rounds until it
+        stops."""
+        while not self._share()["stop"]:
+            if self.engine.pending:
+                self.engine.poll()
 
     def _loop(self):
         while not self._stop.is_set():
             self._round()
+        if self.group is not None:
+            self._share(stop=True)
         for job in list(self._by_rid.values()):
             self._fail(job, "stopped")
         self._by_rid.clear()
@@ -174,6 +242,7 @@ class EngineWorker:
         its results."""
         self._drain_queue()
         self._drain_cancels()
+        self._share()
         if not self.engine.pending:
             try:
                 job = self.q.get(timeout=0.05)
@@ -346,13 +415,16 @@ def build_engine(weights: Optional[str], allow_synth: bool,
     (safetensors directory + tokenizer.json + generation_config.json's
     sampling defaults). Synth: 3B-shape random weights made on the
     device, a fixed pseudo-prompt (no tokenizer), greedy.
+
+    ``tp`` x ``dp`` > 1: under a launcher of that many ranks (the process
+    group comes up here, before the weights, so each rank's land on its
+    device), the engine runs over a ``(data=dp, model=tp)`` mesh.
     """
     import dataclasses as _dc
 
     import numpy as np
 
-    from vlm_clip_tpu_torch.vlm.engine import (MESH_NOT_PORTED,
-                                               ContinuousBatchingEngine)
+    from vlm_clip_tpu_torch.vlm.engine import ContinuousBatchingEngine
     from vlm_clip_tpu_torch.vlm.extractor import VLM_PROMPT
     from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator
     from vlm_clip_tpu_torch.vlm.qwen_convert import (
@@ -361,8 +433,29 @@ def build_engine(weights: Optional[str], allow_synth: bool,
     from vlm_clip_tpu_torch.vlm.qwen_process import (build_prompt_ids,
                                                      prepare_vision_inputs)
 
+    mesh = None
     if tp > 1 or dp > 1:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        from vlm_clip_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                             world_size)
+        from vlm_clip_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+        if dp > 1 and slots % dp:
+            raise SystemExit(
+                f"--slots {slots} is not divisible by --dp {dp}; each "
+                f"data replica owns an equal slot shard — adjust --slots "
+                f"(e.g. {slots - slots % dp or dp}) or --dp")
+        need = tp * dp
+        maybe_initialize(device="cuda" if str(device).startswith("cuda")
+                         else "cpu")
+        if world_size() != need:
+            raise SystemExit(
+                f"--tp {tp} --dp {dp} needs {need} devices, found "
+                f"{world_size()} ranks; start one process a device under "
+                f"a launcher (torchrun --nproc-per-node {need} -m "
+                f"vlm_clip_tpu_torch.cli.serve_vlm ...)")
+        mesh = create_mesh(MeshConfig(data=dp, model=tp),
+                           "cuda" if str(device).startswith("cuda")
+                           else "cpu")
     cfg = qwen25vl_3b()
     if weights:
         from vlm_clip_tpu_torch.vlm.qwen import (QwenBPETokenizer,
@@ -408,7 +501,7 @@ def build_engine(weights: Optional[str], allow_synth: bool,
                                       sync_steps=sync_steps,
                                       sampling=sampling,
                                       refill_chunks=refill_chunks,
-                                      spec_k=spec_k)
+                                      spec_k=spec_k, mesh=mesh)
 
     rng = np.random.default_rng(0)
     synth_tail = rng.integers(1, 10000, 24).tolist()
@@ -435,7 +528,9 @@ def build_engine(weights: Optional[str], allow_synth: bool,
 
 def build_server(argv=None) -> ThreadingHTTPServer:
     """Build the engine and bind the HTTP server (not yet serving). The
-    server carries ``worker``."""
+    server carries ``worker``. Under ``--tp``/``--dp`` only rank 0 binds
+    one; another rank gets a :class:`_Follower`, whose ``serve_forever``
+    replays rank 0's rounds until rank 0's worker stops."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.
                                 RawDescriptionHelpFormatter)
@@ -455,9 +550,13 @@ def build_server(argv=None) -> ThreadingHTTPServer:
                    choices=("4", "8", "8h4", "mixed"))
     p.add_argument("--size", type=int, default=448)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (not ported: > 1 raises)")
+                   help="tensor-parallel degree: shard the VLM weights "
+                        "over a 'model' axis of this many ranks (one "
+                        "process a device under a launcher)")
     p.add_argument("--dp", type=int, default=1,
-                   help="slot-shard degree (not ported: > 1 raises)")
+                   help="slot-shard degree: shard the engine's slot state "
+                        "and KV cache over a 'data' axis; composes with "
+                        "--tp on a (data, model) mesh of tp x dp ranks")
     p.add_argument("--spec-k", type=int, default=0,
                    help="n-gram speculative decoding over the prompt + "
                         "history window (lossless: token-identical under "
@@ -468,17 +567,21 @@ def build_server(argv=None) -> ThreadingHTTPServer:
 
     from vlm_clip_tpu_torch.cli.common import resolve_device
 
-    if args.tp > 1 or args.dp > 1:
-        from vlm_clip_tpu_torch.vlm.engine import MESH_NOT_PORTED
-
-        raise NotImplementedError(MESH_NOT_PORTED)
     bits = args.bits if args.bits in ("mixed", "8h4") else int(args.bits)
     engine, prep_fn, tokenizer, mode = build_engine(
         args.weights, args.allow_synth_weights, quant_bits=bits,
         kv_bits=args.kv_bits, max_len=args.max_len, slots=args.slots,
         sync_steps=args.sync_steps, resolution=args.size,
-        spec_k=args.spec_k, device=resolve_device(args.device))
-    worker = EngineWorker(engine)
+        spec_k=args.spec_k, tp=args.tp, dp=args.dp,
+        device=resolve_device(args.device))
+    group = None
+    if args.tp * args.dp > 1:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+    worker = EngineWorker(engine, group)
+    if not worker.leader:
+        return _Follower(worker)
     worker.start()
     srv = ThreadingHTTPServer((args.host, args.port),
                               make_vlm_handler(worker, prep_fn, tokenizer,
@@ -487,8 +590,21 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     print(f"serving VLM generation on {args.host}:{srv.server_address[1]} "
           f"({engine.device}) — mode: {mode}, {args.slots} slots, "
           f"kv{args.kv_bits}"
+          + (f", tp={args.tp}" if args.tp > 1 else "")
+          + (f", dp={args.dp}" if args.dp > 1 else "")
           + (f", spec_k={args.spec_k}" if args.spec_k else ""), flush=True)
     return srv
+
+
+class _Follower:
+    """What :func:`build_server` returns on a rank other than 0: its
+    ``serve_forever`` runs the worker's follower loop."""
+
+    def __init__(self, worker: EngineWorker):
+        self.worker = worker
+
+    def serve_forever(self) -> None:
+        self.worker.follow()
 
 
 def main(argv=None) -> None:

@@ -166,7 +166,7 @@ def validate_qwen_model(hf, params, cfg, seed: int = 0) -> Dict:
                                   t_logits)}
 
 
-def validate_qwen(weights_dir: str, device="cpu", seed: int = 0) -> Dict:
+def validate_qwen(weights_dir: str, device="cuda", seed: int = 0) -> Dict:
     """Dir wrapper: HF's model and the port's conversion from the same
     safetensors dir (read by the port's own reader)."""
     import torch

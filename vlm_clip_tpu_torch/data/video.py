@@ -14,8 +14,8 @@ Decode stays on the host (cv2, imported where it is used: the card's
 machine has none, and the scorers need none); uint8 frames go to the
 CLIP params' device, where normalization (and, for
 :func:`score_video_frames_raw`, the shortest-edge resize and center
-crop) and the per-frame scoring run. Sharding the frames over a mesh is
-not ported (:func:`score_video_frames_sharded` raises).
+crop) and the per-frame scoring run. :func:`score_video_frames_sharded`
+spreads the frames over a mesh's ``seq`` axis.
 """
 
 from __future__ import annotations
@@ -148,8 +148,41 @@ def score_video_frames_raw(clip_params, cfg, frames_u8: np.ndarray,
 def score_video_frames_sharded(clip_params, cfg, frames_u8: np.ndarray,
                                class_emb, mesh, policy=None,
                                stats: str = "clip") -> np.ndarray:
-    """The reference shards the frame axis over its mesh's ``seq`` axis;
-    the port has no mesh yet."""
-    from vlm_clip_tpu_torch.parallel.mesh import MESH_NOT_PORTED
+    """Per-frame scores with the frame axis sharded over the mesh's
+    ``seq`` axis (``parallel.mesh.MeshConfig(seq=k)``): each ``seq`` rank
+    scores its contiguous rows of frames on the params' device, and the
+    scores are all-gathered in frame order, so a longer ``frame_limit``
+    spreads across ranks instead of one device's batch memory. The frame
+    count must divide into the axis's ranks, as the reference's sharded
+    placement requires. Every rank of the axis calls it with the same
+    frames and gets every score."""
+    from vlm_clip_tpu_torch.core.dtypes import BF16
+    from vlm_clip_tpu_torch.data.preprocess import normalize_batch
+    from vlm_clip_tpu_torch.parallel.distributed import gather_rows
+    from vlm_clip_tpu_torch.parallel.mesh import (SEQ_AXIS, axis_coordinate,
+                                                  axis_group)
 
-    raise NotImplementedError(MESH_NOT_PORTED)
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a torch DeviceMesh "
+                        f"(parallel.mesh.create_mesh), got "
+                        f"{type(mesh).__name__}")
+    if SEQ_AXIS not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no '{SEQ_AXIS}' "
+                         f"axis: build it with MeshConfig(seq=k)")
+    r, n = axis_coordinate(mesh, SEQ_AXIS)
+    T = len(frames_u8)
+    if T % n:
+        raise ValueError(f"{T} frames do not divide over the {n} ranks of "
+                         f"the '{SEQ_AXIS}' axis")
+    rows = T // n
+    dev = clip_params["logit_scale"].device
+    mean, std = _stats(stats)
+    with torch.no_grad():
+        u8 = torch.as_tensor(np.asarray(frames_u8[r * rows:(r + 1) * rows]))
+        px = normalize_batch(u8.to(dev), mean, std)
+        emb = torch.as_tensor(np.asarray(class_emb), dtype=torch.float32,
+                              device=dev)
+        mine = _scores(clip_params, cfg, px, emb, policy or BF16)
+        if n > 1:
+            mine = gather_rows(mine, axis_group(mesh, SEQ_AXIS))
+    return mine.cpu().numpy()

@@ -12,6 +12,12 @@ where the reference keeps the fp32 result (attention scores) the
 operands are widened to fp32 first. One deviation: ``linear`` adds a
 bf16 bias through ``addmm`` (the bias is rounded to bf16 before the fp32
 add; the reference adds the fp32 bias).
+
+A tensor-parallel rank's tree (``parallel/sharding.shard_params`` with
+the CLIP rules) runs through the same functions: ``linear`` hands a
+sharded leaf to ``parallel/tensor_parallel.apply`` (column-parallel
+q/k/v and ``fc1``, row-parallel ``out`` and ``fc2``), and :func:`mha`
+attends over the heads its q/k/v shards hold.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vlm_clip_tpu_torch.ops import attention as fa
+from vlm_clip_tpu_torch.parallel import tensor_parallel as TP
 
 Params = Dict[str, Any]
 
@@ -63,9 +70,18 @@ def uniform(gen: torch.Generator, shape, bound: float,
 # ---------------------------------------------------------------------------
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ kernel + bias in x's dtype; a tensor-parallel shard across its
+    ranks."""
+    if isinstance(p, TP.TPLinear):
+        return TP.apply(p, x, _linear)
+    return _linear(p, x)
+
+
+def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     k = p["kernel"].to(x.dtype)
-    b = p["bias"].to(x.dtype)
-    y = torch.addmm(b, x.reshape(-1, x.shape[-1]), k)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = (torch.addmm(p["bias"].to(x.dtype), x2, k) if "bias" in p
+         else x2 @ k)  # a row shard's bias is added after its all-reduce
     return y.reshape(*x.shape[:-1], k.shape[-1])
 
 
@@ -111,20 +127,21 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
     ``stable_dtype``) when ``fused`` is True, or when ``fused`` is None and
     the global toggle ``set_fused_attention`` is on (off by default, as in
     the reference), and the mask is a layout it supports; ``fused=False``
-    never takes it.
+    never takes it. Tensor-parallel q/k/v shards give this rank's heads.
     """
     B, Tq, H = q_in.shape
     hd = H // num_heads
     scale = hd ** -0.5
-    q = linear(p["q"], q_in).reshape(B, Tq, num_heads, hd).transpose(1, 2)
-    k = linear(p["k"], kv_in).reshape(kv_in.shape[0], -1, num_heads, hd)
-    v = linear(p["v"], kv_in).reshape(kv_in.shape[0], -1, num_heads, hd)
+    q = linear(p["q"], q_in).reshape(B, Tq, -1, hd).transpose(1, 2)
+    h = q.shape[1]  # this rank's heads
+    k = linear(p["k"], kv_in).reshape(kv_in.shape[0], -1, h, hd)
+    v = linear(p["v"], kv_in).reshape(kv_in.shape[0], -1, h, hd)
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # [Bk, h, Tk, hd]
     if B == k.shape[0] and Tq == k.shape[2] and fused is not False \
             and (fused or fa.fused_attention_enabled()) \
             and fa.supports(mask, Tq):
         out = fa.fused_attention(q, k, v, scale, mask)
-        return linear(p["out"], out.transpose(1, 2).reshape(B, Tq, H))
+        return linear(p["out"], out.transpose(1, 2).reshape(B, Tq, h * hd))
     if k.shape[0] == 1 and B != 1:
         k, v = k[0], v[0]  # [h, Tk, hd], broadcast over the batch
     if stable_dtype == torch.float32:
@@ -141,7 +158,7 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
         e = torch.exp(scores - m)
         probs = e / e.sum(dim=-1, keepdim=True)
     out = torch.matmul(probs.to(q_in.dtype), v)  # [B, h, Tq, hd]
-    out = out.transpose(1, 2).reshape(B, Tq, H)
+    out = out.transpose(1, 2).reshape(B, Tq, h * hd)
     return linear(p["out"], out)
 
 
@@ -195,12 +212,15 @@ def layer_slice(stacked: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree (views, no copy)."""
     if isinstance(stacked, dict):
         return {k: layer_slice(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, TP.TPLinear):
+        return stacked.map(lambda t: t[i])
     return stacked[i]
 
 
 def num_layers(stacked: Params) -> int:
-    while isinstance(stacked, dict):
-        stacked = next(iter(stacked.values()))
+    while isinstance(stacked, (dict, TP.TPLinear)):
+        stacked = (stacked.inner if isinstance(stacked, TP.TPLinear)
+                   else next(iter(stacked.values())))
     return int(stacked.shape[0])
 
 

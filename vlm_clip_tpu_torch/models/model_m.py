@@ -40,7 +40,7 @@ Params = Dict[str, Any]
 
 
 def init_m_adapters(gen: torch.Generator, clip_cfg: CLIPConfig,
-                    acfg: AdapterConfig, device="cpu") -> Params:
+                    acfg: AdapterConfig, device="cuda") -> Params:
     """Init the M adapter set; only enabled kinds get entries."""
     params: Params = {}
     if acfg.use_text_adapter:

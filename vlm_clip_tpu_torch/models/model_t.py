@@ -64,7 +64,7 @@ def encode_emotion_bank(clip_params: Params, cfg: CLIPConfig, tokenizer,
 
 
 def init_t_adapters(gen: torch.Generator, feature_dim: int, bottleneck: int,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     return {"visual": A.init_feature_adapter(gen, feature_dim, bottleneck,
                                              device),
             "text": A.init_feature_adapter(gen, feature_dim, bottleneck,

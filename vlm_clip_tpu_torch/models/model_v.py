@@ -43,7 +43,7 @@ Params = Dict[str, Any]
 
 
 def init_v_adapters(gen: torch.Generator, feature_dim: int, bottleneck: int,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     return {name: A.init_feature_adapter(gen, feature_dim, bottleneck,
                                          device)
             for name in ("visual", "text", "context")}

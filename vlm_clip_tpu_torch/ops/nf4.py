@@ -72,6 +72,12 @@ class NF4Linear:
     shape (the input dim is zero-padded to a multiple of ``block``).
     Stacked layers carry a leading [L] axis on every tensor (``dq_offset``
     is then [L]).
+
+    A tensor-parallel shard (:func:`shard_nf4`) keeps the whole
+    ``dq_scale`` and ``dq_offset``, whose groups run over the unsharded
+    absmax flattened row-major: ``dq_cols`` is that absmax's width (0 for
+    a whole weight, set on every shard, rank 0's too), and ``dq_row0`` /
+    ``dq_col0`` place this ``absmax_q`` in it.
     """
     qweight: torch.Tensor
     absmax_q: torch.Tensor
@@ -81,6 +87,9 @@ class NF4Linear:
     in_features: int = 0
     out_features: int = 0
     block: int = NF4_BLOCK
+    dq_cols: int = 0
+    dq_row0: int = 0
+    dq_col0: int = 0
 
     @property
     def logical_in(self) -> int:
@@ -169,9 +178,43 @@ def quantize_nf4_stacked(w: torch.Tensor,
         out_features=first.out_features, block=first.block)
 
 
+def shard_nf4(q: NF4Linear, dim: int, start: int, stop: int) -> NF4Linear:
+    """The logical input rows (``dim`` -2; ``start`` and ``stop`` on block
+    boundaries) or output columns (``dim`` -1) [start, stop) of ``q``
+    (stacked or not): the codes and absmax blocks of those rows or
+    columns, the second-level scales whole. A column cut holds the codes
+    of quantizing the cut weight bit for bit (blocks run down a column);
+    either cut dequantizes to the same rows or columns of the whole
+    weight exactly."""
+    cols = q.dq_cols or q.absmax_q.shape[-1]
+    if dim == -1:
+        return dataclasses.replace(
+            q, qweight=q.qweight[..., start:stop].clone(),
+            absmax_q=q.absmax_q[..., start:stop].clone(),
+            bias=None if q.bias is None else q.bias[..., start:stop].clone(),
+            out_features=stop - start, dq_cols=cols,
+            dq_col0=q.dq_col0 + start)
+    if start % q.block or (stop - start) % q.block:
+        raise ValueError(f"an NF4 row cut must fall on {q.block}-row block "
+                         f"boundaries, got [{start}, {stop})")
+    b0, b1 = start // q.block, stop // q.block
+    return dataclasses.replace(
+        q, qweight=q.qweight[..., start // 2:stop // 2, :].clone(),
+        absmax_q=q.absmax_q[..., b0:b1, :].clone(),
+        in_features=stop - start, dq_cols=cols, dq_row0=q.dq_row0 + b0)
+
+
 def _dequant_absmax(q: NF4Linear) -> torch.Tensor:
     """[nblk, out] fp32 block absmax from the double-quantized form."""
     nblk, N = q.absmax_q.shape
+    if q.dq_cols:
+        # a shard: its elements' places in the unsharded absmax pick
+        # their second-level scales
+        dev = q.absmax_q.device
+        idx = ((torch.arange(nblk, device=dev)[:, None] + q.dq_row0)
+               * q.dq_cols + q.dq_col0 + torch.arange(N, device=dev)[None])
+        scale = q.dq_scale[idx // NF4_DQ_GROUP]
+        return q.absmax_q.float() * scale + q.dq_offset
     flat = q.absmax_q.reshape(-1).float()
     gpad = (-flat.shape[0]) % NF4_DQ_GROUP
     fg = F.pad(flat, (0, gpad)).reshape(-1, NF4_DQ_GROUP)

@@ -122,6 +122,42 @@ def quantize_weight(w: torch.Tensor, bits: int = 8,
                            out_features=N)
 
 
+def shard_quantized(q: QuantizedLinear, dim: int, start: int,
+                    stop: int) -> QuantizedLinear:
+    """The logical input rows (``dim`` -2) or output columns (``dim`` -1)
+    [start, stop) of ``q`` (stacked or not), for a tensor-parallel rank.
+    A column cut is bit for bit ``quantize_weight`` of the cut weight
+    (per-output-channel scales; an int4 cut re-padded to the tile grid,
+    which also gives K7 its multiple of 16 columns). A row cut keeps the
+    whole columns' scales (int4: ``start`` and ``stop`` even, the packed
+    rows re-padded), so it dequantizes to those rows of the whole
+    weight."""
+    bias = q.bias
+    if dim == -1:
+        bias = None if bias is None else bias[..., start:stop].clone()
+        qw, scale = q.qweight[..., start:stop], q.scale[..., start:stop]
+        if q.bits == 8:
+            return QuantizedLinear(qw.clone(), scale.clone(), 8, bias)
+        n = stop - start
+        pn = (-n) % _I4_TN
+        qw = torch.nn.functional.pad(qw, (0, pn), value=0x88)
+        scale = torch.nn.functional.pad(scale, (0, pn), value=1.0)
+        return QuantizedLinear(qw.contiguous(), scale.contiguous(), 4, bias,
+                               in_features=q.logical_in, out_features=n)
+    if q.bits == 8:
+        return QuantizedLinear(q.qweight[..., start:stop, :].clone(),
+                               q.scale, 8, bias)
+    if start % 2 or stop % 2:
+        raise ValueError(f"an int4 row cut must hold whole row pairs, got "
+                         f"[{start}, {stop})")
+    qw = q.qweight[..., start // 2:stop // 2, :]
+    pk2 = (-qw.shape[-2]) % (_I4_TK // 2)
+    qw = torch.nn.functional.pad(qw, (0, 0, 0, pk2), value=0x88)
+    return QuantizedLinear(qw.contiguous(), q.scale, 4, bias,
+                           in_features=stop - start,
+                           out_features=q.logical_out)
+
+
 def _unpack(qw: torch.Tensor):
     """Packed uint8 -> (lo, hi) int32 nibbles minus 8 (even, odd rows)."""
     q = qw.to(torch.int32)

@@ -1,8 +1,8 @@
-"""Data parallelism over ``torch.distributed`` (port of
-``vlm_clip_tpu/parallel``): the process group and rank gating
-(``distributed``), the device mesh (``mesh``) and ZeRO-1 (``sharding``).
-Tensor and pipeline parallelism are not ported yet
-(:data:`~vlm_clip_tpu_torch.parallel.mesh.MESH_NOT_PORTED`)."""
+"""Parallelism over ``torch.distributed`` (port of ``vlm_clip_tpu/parallel``):
+the process group and rank gating (``distributed``), the device mesh
+(``mesh``), tensor-parallel partition rules and ZeRO-1 (``sharding``),
+the collectives of a tensor-parallel forward (``tensor_parallel``) and
+pipeline parallelism for the Qwen decoder (``pipeline``)."""
 
 from vlm_clip_tpu_torch.parallel.distributed import (  # noqa: F401
     DistributedConfig,
@@ -15,12 +15,18 @@ from vlm_clip_tpu_torch.parallel.distributed import (  # noqa: F401
 from vlm_clip_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshConfig,
     create_mesh,
+    create_pipe_mesh,
     data_sharding,
     replicated,
     with_mesh,
 )
 from vlm_clip_tpu_torch.parallel.sharding import (  # noqa: F401
     Zero1Optimizer,
+    clip_param_rules,
+    partition_specs,
+    qwen_param_rules,
+    shard_params,
+    spec_for_path,
     zero1_place,
     zero1_specs,
 )

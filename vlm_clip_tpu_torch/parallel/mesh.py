@@ -5,9 +5,12 @@ axis names. Axes:
 
 - ``data``: batch (DP); the contrastive loss all-gathers its features
   over it;
-- ``model``: tensor parallelism (its rules are not ported yet:
-  :data:`MESH_NOT_PORTED`);
-- ``seq``: a sequence axis.
+- ``model``: tensor parallelism (``parallel/sharding`` cuts each rank's
+  shard, ``parallel/tensor_parallel`` issues its collectives);
+- ``seq``: a sequence axis (``data/video.score_video_frames_sharded``
+  shards frames over it);
+- ``pipe``: pipeline stages (:func:`create_pipe_mesh`,
+  ``parallel/pipeline``).
 
 A rank holds one device, so a mesh is laid over the ranks of the process
 group (``parallel/distributed.maybe_initialize`` brings it up). Where
@@ -31,10 +34,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 
-MESH_NOT_PORTED = (
-    "model parallelism over a device mesh is not ported to "
-    "vlm_clip_tpu_torch yet (ROADMAP.md, modules to port, item 8: model "
-    "parallelism)")
+PIPE_AXIS = "pipe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +66,28 @@ def create_mesh(cfg: MeshConfig = MeshConfig(), device: str = "cuda"):
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS, SEQ_AXIS))
 
 
+def create_pipe_mesh(n_stages: int, model: int = 1, device: str = "cuda"):
+    """A ``('pipe',)`` mesh over ``n_stages`` ranks, or a ``('pipe',
+    'model')`` one over ``n_stages x model`` ranks (tensor parallelism
+    within each stage), over the whole process group (port of
+    ``vlm_clip_tpu/parallel/pipeline.py`` ``create_pipe_mesh``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "create_pipe_mesh needs a process group: call parallel."
+            "distributed.maybe_initialize() under a launcher first")
+    need = n_stages * model
+    if dist.get_world_size() != need:
+        raise ValueError(f"need {need} devices, have "
+                         f"{dist.get_world_size()}")
+    if model == 1:
+        return init_device_mesh(device, (n_stages,),
+                                mesh_dim_names=(PIPE_AXIS,))
+    return init_device_mesh(device, (n_stages, model),
+                            mesh_dim_names=(PIPE_AXIS, MODEL_AXIS))
+
+
 _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar(
     "active_mesh", default=None)
 
@@ -91,14 +113,23 @@ def axis_size(mesh, axis: str) -> int:
 
 
 def axis_coordinate(mesh, axis: str = DATA_AXIS) -> Tuple[int, int]:
-    """(this rank's index along ``axis``, the axis's size)."""
+    """(this rank's index along ``axis``, the axis's size); (0, 1) when
+    the mesh has no such axis."""
+    if axis not in (mesh.mesh_dim_names or ()):
+        return 0, 1
     return mesh.get_local_rank(axis), axis_size(mesh, axis)
 
 
 def axis_group(mesh: Optional[object], axis: str = DATA_AXIS):
     """The process group along ``axis`` of ``mesh``; without a mesh the
-    whole world."""
-    return dist.group.WORLD if mesh is None else mesh.get_group(axis)
+    whole world. A mesh without ``axis`` raises (a collective reads a
+    None group as the whole world): check :func:`axis_size` first."""
+    if mesh is None:
+        return dist.group.WORLD
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh {mesh.mesh_dim_names} has no "
+                         f"'{axis}' axis")
+    return mesh.get_group(axis)
 
 
 def data_sharding(mesh, ndim: int = 1):

@@ -54,7 +54,7 @@ class FeatureCache:
     """Per-sample frozen-feature cache keyed by dataset index: an [N, P]
     fp32 tensor on the device, written in place."""
 
-    def __init__(self, n: int, dim: int, device="cpu"):
+    def __init__(self, n: int, dim: int, device="cuda"):
         self.feats = torch.zeros(n, dim, dtype=torch.float32, device=device)
         self.have = np.zeros((n,), bool)
 

@@ -39,6 +39,20 @@ between chunks.
 The engine is not thread-safe, and K8's per-device workspace is shared
 by every call on a device, which must run on one stream: all of an
 engine's calls belong on one thread (``cli/serve_vlm.EngineWorker``).
+
+``mesh`` (a ``('data', 'model')`` ``DeviceMesh`` over the process group,
+one rank a device): the generator's weights are cut to this rank's
+shard by ``qwen_param_rules`` over ``model`` (the reference's
+``shard_params``), so each rank's forwards issue the model axis's
+collectives; with ``data`` > 1 the slot state and the KV cache shard
+over ``data``, each replica decoding its own ``n_slots / data`` slots.
+Where the reference runs one SPMD program, every rank here runs the same
+host scheduler over all slots, prefills an install group when it owns a
+slot of it, decodes its slot shard, and all-gathers each chunk's tokens
+and slot state over ``data``, so every rank's host state stays equal
+(the caller submits and cancels the same requests on every rank, as
+``cli/serve_vlm`` does by broadcast). As in the reference, the engine
+takes no ``pipe`` axis.
 """
 
 from __future__ import annotations
@@ -50,9 +64,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vlm_clip_tpu_torch.parallel.mesh import MESH_NOT_PORTED
+from vlm_clip_tpu_torch.parallel.distributed import gather_rows
+from vlm_clip_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
+                                              axis_coordinate, axis_group)
 from vlm_clip_tpu_torch.vlm import speculative as _spec
-from vlm_clip_tpu_torch.vlm.qwen_model import init_kv_cache, text_forward
+from vlm_clip_tpu_torch.vlm.qwen_model import (cache_kv_heads, init_kv_cache,
+                                               text_forward)
 from vlm_clip_tpu_torch.vlm.qwen_process import (VisionInputs,
                                                  rope_index_single)
 from vlm_clip_tpu_torch.vlm.sampling import (GREEDY, SamplingConfig,
@@ -110,7 +127,7 @@ class ContinuousBatchingEngine:
     harvest reads. A slot freed by chunk N is refilled after N+1 is
     launched, so it idles through N+1; tokens do not change.
 
-    ``mesh`` (tensor or data parallelism) is not ported yet.
+    ``mesh``: tensor and data parallelism (see the module docstring).
     """
 
     def __init__(self, gen, n_slots: int = 32, sync_steps: int = 16,
@@ -121,12 +138,36 @@ class ContinuousBatchingEngine:
                  mesh=None, pipeline: bool = True,
                  adaptive: bool = True,
                  chunk_max: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.gen = gen
         self.cfg = gen.cfg
         self.device = gen.device
         self.n_slots = n_slots
+        self.mesh = mesh
+        # this rank's slot shard [_lo, _lo + n_local) of the data axis
+        self._dgroup, dp_rank, dp = None, 0, 1
+        if mesh is not None:
+            from vlm_clip_tpu_torch.parallel.sharding import (
+                qwen_head_dims, qwen_param_rules, shard_params)
+
+            if not hasattr(mesh, "mesh_dim_names"):
+                raise TypeError(f"mesh must be a torch DeviceMesh "
+                                f"(parallel.mesh.create_mesh), got "
+                                f"{type(mesh).__name__}")
+            if PIPE_AXIS in (mesh.mesh_dim_names or ()):
+                raise ValueError("the engine takes a ('data', 'model') "
+                                 "mesh, no 'pipe' axis")
+            gen.params = shard_params(gen.params, mesh,
+                                      rules=qwen_param_rules(),
+                                      head_dim=qwen_head_dims(gen.cfg))
+            dp_rank, dp = axis_coordinate(mesh, DATA_AXIS)
+            if dp > 1:
+                if n_slots % dp:
+                    raise ValueError(
+                        f"n_slots ({n_slots}) must be divisible by the "
+                        f"mesh data axis ({dp}) to shard slot state")
+                self._dgroup = axis_group(mesh, DATA_AXIS)
+        self.n_local = n_slots // dp
+        self._lo = dp_rank * self.n_local
         self.sync_steps = sync_steps
         self.adaptive = bool(adaptive)
         self.chunk_max = max(int(chunk_max) if chunk_max
@@ -153,26 +194,28 @@ class ContinuousBatchingEngine:
         self._stops = (self.cfg.eos_token_id,) + tuple(self.scfg.extra_eos)
 
         # --- device state --------------------------------------------------
+        # (this rank's slot shard; every slot without a data axis)
         dev = self.device
+        n = self.n_local
         self._gen = torch.Generator(device=dev).manual_seed(seed)
-        self.cache = init_kv_cache(self.cfg.text, n_slots, gen.max_len,
-                                   gen.dtype, gen.kv_quantized, device=dev)
-        self._rows = torch.arange(n_slots, device=dev)
-        self.tokens = torch.zeros(n_slots, dtype=torch.int64, device=dev)
-        self.pos = torch.zeros(n_slots, dtype=torch.int64, device=dev)
-        self.lengths = torch.zeros(n_slots, dtype=torch.int64, device=dev)
-        self.done = torch.ones(n_slots, dtype=torch.bool, device=dev)  # free
-        self.remaining = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+        self.cache = init_kv_cache(
+            self.cfg.text, n, gen.max_len, gen.dtype, gen.kv_quantized,
+            device=dev, kv_heads=cache_kv_heads(gen.params["text"],
+                                                self.cfg.text))
+        self._rows = torch.arange(n, device=dev)
+        self.tokens = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.pos = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.lengths = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.done = torch.ones(n, dtype=torch.bool, device=dev)  # free
+        self.remaining = torch.zeros(n, dtype=torch.int64, device=dev)
         pdim = self.cfg.text.vocab_size if self.scfg.needs_presence else 1
-        self.presence = torch.zeros(n_slots, pdim, dtype=torch.bool,
-                                    device=dev)
+        self.presence = torch.zeros(n, pdim, dtype=torch.bool, device=dev)
         if self.spec_k:
             # each slot's prompt + generated window for the n-gram lookup
             # (+1 scrap column for masked writes)
-            self.hist = torch.zeros(n_slots, gen.max_len + 1,
-                                    dtype=torch.int64, device=dev)
-            self.gen_count = torch.zeros(n_slots, dtype=torch.int64,
-                                         device=dev)
+            self.hist = torch.zeros(n, gen.max_len + 1, dtype=torch.int64,
+                                    device=dev)
+            self.gen_count = torch.zeros(n, dtype=torch.int64, device=dev)
         # a chunk's token block: k steps (spec: k rounds of up to K+1
         # tokens, plus a scrap column)
         self._buf_cols = (self._cap * (self.spec_k + 1) + 1 if self.spec_k
@@ -363,57 +406,73 @@ class ContinuousBatchingEngine:
     def _install(self, group: List[_Pending], slots: List[int]):
         """One batched vision + prefill for a same-layout group, its
         cache rows copied into ``slots`` and each slot's state reset.
-        The prep mirrors ``QwenVLGenerator.prefill_batch``."""
+        The prep mirrors ``QwenVLGenerator.prefill_batch``. Under a data
+        axis a rank prefills the group only when it owns one of
+        ``slots``, and keeps the rows of those it owns."""
         gen = self.gen
         cfg = self.cfg
         t0 = time.perf_counter() if self.profile else 0.0
         head = group[0]
         ids, v0 = head.ids, head.vision
-        pos, delta = rope_index_single(ids, v0.grid, cfg)
-        patches = np.stack([p.vision.patches for p in group])
-        wmask, fmask = gen._mask_args(v0)
         T = len(ids)
-        img_slots = np.nonzero(ids == cfg.image_token_id)[0]
-        rev, img_slots = gen._pad_slots(v0, img_slots)
-        ids_p, pos_p = (gen._pad_text(ids, np.asarray(pos),
-                                      head.pad_text_to)
-                        if head.pad_text_to else (ids, np.asarray(pos)))
-        c = len(group)
-        sub = gen._new_cache(c)
-        pos3 = np.broadcast_to(pos_p[:, None, :], (3, c, len(ids_p)))
-        logits0, sub = gen._embed_prefill(
-            self._to_device(patches), self._to_device(v0.rot_pos_emb),
-            wmask, fmask, self._to_device(rev), self._to_device(ids_p),
-            self._to_device(img_slots), self._to_device(pos3), sub, T - 1,
-            uw=v0.uniform_window)
+        mine = [(i, s - self._lo) for i, s in enumerate(slots)
+                if 0 <= s - self._lo < self.n_local]
+        if mine:
+            pos, delta = rope_index_single(ids, v0.grid, cfg)
+            patches = np.stack([p.vision.patches for p in group])
+            wmask, fmask = gen._mask_args(v0)
+            img_slots = np.nonzero(ids == cfg.image_token_id)[0]
+            rev, img_slots = gen._pad_slots(v0, img_slots)
+            ids_p, pos_p = (gen._pad_text(ids, np.asarray(pos),
+                                          head.pad_text_to)
+                            if head.pad_text_to else (ids, np.asarray(pos)))
+            c = len(group)
+            sub = gen._new_cache(c)
+            pos3 = np.broadcast_to(pos_p[:, None, :], (3, c, len(ids_p)))
+            logits0, sub = gen._embed_prefill(
+                self._to_device(patches), self._to_device(v0.rot_pos_emb),
+                wmask, fmask, self._to_device(rev), self._to_device(ids_p),
+                self._to_device(img_slots), self._to_device(pos3), sub,
+                T - 1, uw=v0.uniform_window)
 
-        sl = self._to_device(np.asarray(slots, np.int64))
-        place_rows(self.cache, sub, sl)
-        del sub
-        pdim = self.presence.shape[1]
-        prow = np.zeros((pdim,), bool)
-        if self.scfg.needs_presence:
-            prow[np.unique(ids)] = True
-        self.presence.index_copy_(
-            0, sl, self._to_device(np.broadcast_to(prow, (c, pdim))))
-        tok0 = sample_token(logits0, self.presence[sl], self._gen, self.scfg)
-        self.tokens.index_copy_(0, sl, tok0)
-        self.pos.index_fill_(0, sl, int(T + delta))
-        self.lengths.index_fill_(0, sl, T)
-        self.done.index_fill_(0, sl, False)
-        self.remaining.index_copy_(0, sl, self._to_device(
-            np.asarray([p.max_new for p in group], np.int64)))
-        if self.spec_k:
-            # seed the n-gram window with the prompt (prompt lookup
-            # proper): the group shares one prompt; gen_count is the
-            # window's valid tokens, the offset recorded tokens land at
-            H = self.hist.shape[1] - 1
-            seed = np.zeros((H + 1,), np.int64)
-            npids = np.asarray(ids[:H], np.int64)
-            seed[:len(npids)] = npids
-            self.hist.index_copy_(
-                0, sl, self._to_device(np.broadcast_to(seed, (c, H + 1))))
-            self.gen_count.index_fill_(0, sl, len(npids))
+            rows = [i for i, _ in mine]
+            n = len(rows)
+            sl = self._to_device(np.asarray([j for _, j in mine], np.int64))
+            if n < c:  # the group rows of this rank's slots
+                pick = self._to_device(np.asarray(rows, np.int64))
+                for name in ("k", "v", "k_scale", "v_scale"):
+                    t = getattr(sub, name)
+                    if t is not None:
+                        setattr(sub, name, t.index_select(1, pick))
+            place_rows(self.cache, sub, sl)
+            del sub
+            pdim = self.presence.shape[1]
+            prow = np.zeros((pdim,), bool)
+            if self.scfg.needs_presence:
+                prow[np.unique(ids)] = True
+            pres = self._to_device(np.broadcast_to(prow, (c, pdim)))
+            tok0 = sample_token(logits0, pres, self._gen, self.scfg)
+            if n < c:
+                tok0, pres = tok0[pick], pres[pick]
+            self.presence.index_copy_(0, sl, pres)
+            self.tokens.index_copy_(0, sl, tok0)
+            self.pos.index_fill_(0, sl, int(T + delta))
+            self.lengths.index_fill_(0, sl, T)
+            self.done.index_fill_(0, sl, False)
+            self.remaining.index_copy_(0, sl, self._to_device(
+                np.asarray([group[i].max_new for i in rows], np.int64)))
+            if self.spec_k:
+                # seed the n-gram window with the prompt (prompt lookup
+                # proper): the group shares one prompt; gen_count is the
+                # window's valid tokens, the offset recorded tokens land
+                # at
+                H = self.hist.shape[1] - 1
+                seed = np.zeros((H + 1,), np.int64)
+                npids = np.asarray(ids[:H], np.int64)
+                seed[:len(npids)] = npids
+                self.hist.index_copy_(0, sl, self._to_device(
+                    np.broadcast_to(seed, (n, H + 1))))
+                self.gen_count.index_fill_(0, sl, len(npids))
         self._cancel[slots] = False  # the old rows are gone
         if self.profile:
             self._sync()
@@ -485,16 +544,20 @@ class ContinuousBatchingEngine:
         cancel = None
         if self._cancel.any():
             hs["cancel"].copy_(torch.from_numpy(self._cancel))
-            cancel = hs["cancel"].to(self.device, non_blocking=True)
+            cancel = hs["cancel"][self._lo:self._lo + self.n_local].to(
+                self.device, non_blocking=True)
             self._cancel[:] = False
         buf = (self._spec_steps if self.spec_k else self._steps)(
             k, span, cancel)
         # the chunk's results, behind its work on the device's queue; the
         # next chunk's results go to the other set
         cuda = hs["event"] is not None
-        for name, t in (("buf", buf), ("lengths", self.lengths),
-                        ("done", self.done), ("remaining", self.remaining),
-                        ("tokens", self.tokens)):
+        state = (("buf", buf), ("lengths", self.lengths),
+                 ("done", self.done), ("remaining", self.remaining),
+                 ("tokens", self.tokens))
+        if self._dgroup is not None:
+            state = self._gather_slots(state)
+        for name, t in state:
             hs[name].copy_(t, non_blocking=cuda)
         if cuda:
             hs["event"].record()
@@ -507,12 +570,26 @@ class ContinuousBatchingEngine:
         # checks that the snapshot's request is still the slot's
         return {"host": hs, "slot_req": list(self._slot_req), "k": k}
 
+    def _gather_slots(self, state):
+        """Every data replica's slot shard of the chunk's results, in slot
+        order: one all-gather of them packed as int64 columns."""
+        cols = [t.reshape(self.n_local, -1).to(torch.int64)
+                for _, t in state]
+        out = gather_rows(torch.cat(cols, dim=1), self._dgroup)
+        res, i = [], 0
+        for (name, t), c in zip(state, cols):
+            w = c.shape[1]
+            res.append((name, out[:, i:i + w].reshape(
+                self.n_slots, *t.shape[1:]).to(t.dtype)))
+            i += w
+        return res
+
     def _steps(self, k: int, span: int, cancel) -> torch.Tensor:
         """k decode steps over every slot; done and free rows compute
         garbage that is never recorded. Each step records the current
         token (stop and budget checked), then forwards it: its K/V row
         lands at depth ``lengths`` and it attends ``cols <= lengths``."""
-        n = self.n_slots
+        n = self.n_local
         eos = self.cfg.eos_token_id
         params = self.gen.params["text"]
         tokens, pos, lengths = self.tokens, self.pos, self.lengths
@@ -553,7 +630,7 @@ class ContinuousBatchingEngine:
         model's next token: a accepted drafts emit a+1 tokens for one
         pass over the weights. ``buf`` packs each row's tokens from
         column 0 (the last column is scrap for masked writes)."""
-        n, K = self.n_slots, self.spec_k
+        n, K = self.n_local, self.spec_k
         eos = self.cfg.eos_token_id
         params = self.gen.params["text"]
         rows = self._rows

@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from vlm_clip_tpu_torch.vlm.extractor import VLM_PROMPT, ClipTextEncoderMixin
-from vlm_clip_tpu_torch.vlm.qwen_model import (QwenVLConfig, init_kv_cache,
-                                               text_forward, vision_forward)
+from vlm_clip_tpu_torch.vlm.qwen_model import (QwenVLConfig, cache_kv_heads,
+                                               init_kv_cache, text_forward,
+                                               vision_forward)
 from vlm_clip_tpu_torch.vlm.qwen_process import (VisionInputs,
                                                  build_prompt_ids,
                                                  prepare_vision_inputs,
@@ -124,7 +125,10 @@ class QwenVLGenerator:
 
     KV-cache contract: prefill writes rows ``0..T-1``; the decode step for
     the token at sequence position ``T+s`` writes row ``T+s`` and attends
-    columns ``<= T+s``. ``impl="torch"`` runs K7 and K8's plain versions
+    columns ``<= T+s``. Over a tensor-parallel rank's tree
+    (``parallel/sharding.shard_params``) the cache holds this rank's kv
+    heads and every rank samples the same token from the gathered
+    logits. ``impl="torch"`` runs K7 and K8's plain versions
     wherever the kernels would launch (the plain route of a check).
     """
 
@@ -147,8 +151,11 @@ class QwenVLGenerator:
     # -- device steps -------------------------------------------------------
 
     def _new_cache(self, n_rows: int):
+        """A cache at this rank's kv heads (all of them unsharded)."""
         return init_kv_cache(self.cfg.text, n_rows, self.max_len, self.dtype,
-                             self.kv_quantized, device=self.device)
+                             self.kv_quantized, device=self.device,
+                             kv_heads=cache_kv_heads(self.params["text"],
+                                                     self.cfg.text))
 
     @torch.no_grad()
     def _prefill(self, embeds, position_ids, cache, t_last: int):

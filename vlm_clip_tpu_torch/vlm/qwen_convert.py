@@ -60,7 +60,7 @@ def _root(sd: Mapping[str, Any]) -> Dict[str, str]:
 
 def convert_qwen_text(sd: Mapping[str, Any], cfg: QwenTextConfig,
                       root: Optional[str] = None,
-                      device="cpu") -> Dict[str, Any]:
+                      device="cuda") -> Dict[str, Any]:
     root = root or _root(sd)["text"]
     c = _Conv(sd, device)
     layers = []
@@ -87,7 +87,7 @@ def convert_qwen_text(sd: Mapping[str, Any], cfg: QwenTextConfig,
 
 def convert_qwen_vision(sd: Mapping[str, Any], cfg: QwenVisionConfig,
                         root: Optional[str] = None,
-                        device="cpu") -> Dict[str, Any]:
+                        device="cuda") -> Dict[str, Any]:
     root = root or _root(sd)["vision"]
     c = _Conv(sd, device)
     # Conv3d weight [H, C, t, P, P] -> [C*t*P*P, H], the (C, t, ph, pw)
@@ -115,7 +115,7 @@ def convert_qwen_vision(sd: Mapping[str, Any], cfg: QwenVisionConfig,
 
 
 def convert_qwen_vl(sd: Mapping[str, Any], cfg: QwenVLConfig,
-                    device="cpu") -> Dict[str, Any]:
+                    device="cuda") -> Dict[str, Any]:
     return {"text": convert_qwen_text(sd, cfg.text, device=device),
             "vision": convert_qwen_vision(sd, cfg.vision, device=device)}
 

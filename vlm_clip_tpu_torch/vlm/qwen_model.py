@@ -25,6 +25,14 @@ attention goes through ``ops/decode_attention.py`` (K8) and the int4
 GEMVs through ``ops/quant.py`` (K7); NF4 linears through
 ``ops/nf4.nf4_matmul`` (plain PyTorch, as the reference's is XLA).
 ``impl="torch"`` takes both kernels' plain versions.
+
+A tensor-parallel rank's tree (``parallel/sharding.shard_params``) runs
+through the same functions: ``linear`` hands a sharded leaf to
+``parallel/tensor_parallel.apply`` (row-parallel ``o``, ``down`` and
+vision ``proj`` all-reduce, column-parallel q/k/v and ``gate``/``up``
+stay local, the untied head all-gathers its vocabulary), and
+:func:`local_heads` gives the q and kv heads this rank attends with
+(picking, from replicated k/v, the kv heads of its q heads).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 from vlm_clip_tpu_torch.ops.decode_attention import decode_attention
 from vlm_clip_tpu_torch.ops.nf4 import NF4Linear, nf4_matmul
 from vlm_clip_tpu_torch.ops.quant import QuantizedLinear, quant_matmul
+from vlm_clip_tpu_torch.parallel import tensor_parallel as TP
 
 Params = Dict[str, Any]
 _NEG = float(torch.finfo(torch.float32).min)  # additive-mask -inf
@@ -123,7 +132,7 @@ def layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views; quantized leaves too)."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, (QuantizedLinear, NF4Linear)):
+    if isinstance(tree, (QuantizedLinear, NF4Linear, TP.TPLinear)):
         return tree.map(lambda t: t[i])
     return tree[i]
 
@@ -132,7 +141,10 @@ def linear(p, x: torch.Tensor, out_dtype=None,
            impl: str = "auto") -> torch.Tensor:
     """fp {'kernel'[,'bias']}, QuantizedLinear or NF4Linear; fp32
     accumulation, the output in ``out_dtype`` (default x's; the LM head
-    passes float32)."""
+    passes float32); a tensor-parallel shard across its ranks."""
+    if isinstance(p, TP.TPLinear):
+        return TP.apply(p, x, lambda q, v: linear(q, v, torch.float32,
+                                                 impl), out_dtype)
     if isinstance(p, QuantizedLinear):
         return quant_matmul(x, p, out_dtype=out_dtype, impl=impl)
     if isinstance(p, NF4Linear):
@@ -214,10 +226,44 @@ class KVCache:
     v_scale: Optional[torch.Tensor] = None
 
 
+def local_heads(attn, cfg: QwenTextConfig):
+    """(q heads, kv heads, kv pick) a layer's attention computes on this
+    rank: the config's counts and no pick for an unsharded (or fused, or
+    gathered) q; a q shard's heads, and its k/v shard's or, from
+    replicated k/v, the kv heads its q heads read: a slice when each kv
+    head serves an equal run of them (grouped attention at the local
+    counts), else one index per q head."""
+    q = attn.get("q")
+    if not isinstance(q, TP.TPLinear) or q.kind != TP.COLUMN:
+        return cfg.num_heads, cfg.num_kv_heads, None
+    hd = cfg.head_dim
+    if (q.stop - q.start) % hd:
+        raise ValueError(
+            f"a q shard of {q.stop - q.start} columns is not whole heads "
+            f"of {hd}: cut the tree with shard_params(..., head_dim=...)")
+    h0, h = q.start // hd, (q.stop - q.start) // hd
+    k = attn["k"]
+    if isinstance(k, TP.TPLinear) and k.kind == TP.COLUMN:
+        return h, (k.stop - k.start) // hd, None
+    rep = cfg.num_heads // cfg.num_kv_heads
+    kvs = [(h0 + i) // rep for i in range(h)]
+    n = kvs[-1] - kvs[0] + 1
+    if h % n == 0 and kvs == [kvs[0] + i // (h // n) for i in range(h)]:
+        return h, n, slice(kvs[0], kvs[-1] + 1)
+    return h, h, torch.tensor(kvs)
+
+
+def cache_kv_heads(text_params, cfg: QwenTextConfig) -> int:
+    """The kv heads of a rank's KV cache for this (sharded) text tree."""
+    return local_heads(text_params["layers"]["attn"], cfg)[1]
+
+
 def init_kv_cache(cfg: QwenTextConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, quantized: bool = False,
-                  device="cpu") -> KVCache:
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+                  device="cuda", kv_heads: Optional[int] = None) -> KVCache:
+    """``kv_heads``: a tensor-parallel rank's (default the config's)."""
+    shape = (cfg.num_layers, batch, max_len, kv_heads or cfg.num_kv_heads,
+             cfg.head_dim)
     if quantized:
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device),
@@ -346,22 +392,24 @@ def text_decoder_layer(p, x, cos, sin, mask, cfg: QwenTextConfig,
     scales) are written into it in place at ``cache_index``."""
     B, T, _ = x.shape
     h = rms_norm(p["ln1"], x, cfg.rms_norm_eps)
-    nq = cfg.num_heads * cfg.head_dim
-    nkv = cfg.num_kv_heads * cfg.head_dim
-    if "qkv" in p["attn"]:
+    nh, nkv, pick = local_heads(p["attn"], cfg)
+    if "qkv" in p["attn"]:  # decode-fused, replicated: every head
+        n_q = cfg.num_heads * cfg.head_dim
+        n_kv = cfg.num_kv_heads * cfg.head_dim
         q, k, v = linear(p["attn"]["qkv"], h, impl=impl).split(
-            (nq, nkv, nkv), dim=-1)
+            (n_q, n_kv, n_kv), dim=-1)
     else:
         q = linear(p["attn"]["q"], h, impl=impl)
         k = linear(p["attn"]["k"], h, impl=impl)
         v = linear(p["attn"]["v"], h, impl=impl)
-    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, nh, cfg.head_dim)
+    k = k.reshape(B, T, -1, cfg.head_dim)
+    v = v.reshape(B, T, -1, cfg.head_dim)
+    if pick is not None:  # replicated k/v: the kv heads of this rank's q
+        k, v = k[:, :, pick], v[:, :, pick]
     q, k = apply_rope(q, k, cos, sin)
     if cache_kv is None:
-        attn = _gqa_attention(q, k, v, mask, cfg.num_heads,
-                              cfg.num_kv_heads)
+        attn = _gqa_attention(q, k, v, mask, nh, nkv)
         rows = (k, v, None, None)
     else:
         ck, cv, cks, cvs = cache_kv
@@ -399,13 +447,12 @@ def text_decoder_layer(p, x, cos, sin, mask, cfg: QwenTextConfig,
                 dmask = torch.where(allowed, 0.0, _NEG)[None, None]
             else:
                 dmask = mask
-            attn = _gqa_attention(q, ck, cv, dmask, cfg.num_heads,
-                                  cfg.num_kv_heads, k_scale=cks,
+            attn = _gqa_attention(q, ck, cv, dmask, nh, nkv, k_scale=cks,
                                   v_scale=cvs)
         else:
             attn = _gqa_attention_cached(
                 q, read(ck), read(cv), k_cur, v_cur, mask, cache_index,
-                cfg.num_heads, cfg.num_kv_heads, k_scale=read(cks),
+                nh, nkv, k_scale=read(cks),
                 v_scale=read(cvs), impl=impl)
             for dst, src in targets:
                 _write_rows(dst, src, cache_index)
@@ -577,7 +624,7 @@ def _init_linear(gen, lead, din, dout, bias, dtype, device):
 
 
 def init_text(gen: torch.Generator, cfg: QwenTextConfig,
-              dtype=torch.float32, device="cpu") -> Params:
+              dtype=torch.float32, device="cuda") -> Params:
     """Random text params with the reference's tree (stacked layers)."""
     L, H, hd = (cfg.num_layers,), cfg.hidden_size, cfg.head_dim
 
@@ -607,7 +654,7 @@ def init_text(gen: torch.Generator, cfg: QwenTextConfig,
 
 
 def init_vision(gen: torch.Generator, cfg: QwenVisionConfig,
-                dtype=torch.float32, device="cpu") -> Params:
+                dtype=torch.float32, device="cuda") -> Params:
     L, H = (cfg.depth,), cfg.hidden_size
     in_dim = 3 * cfg.temporal_patch_size * cfg.patch_size ** 2
     merged = cfg.merge_unit * H
