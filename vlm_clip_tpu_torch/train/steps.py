@@ -16,6 +16,11 @@ each trainable param's ``.grad`` holds the gradient the optimizer applied
 (clipped when the optimizer clips; under ZeRO-1, this rank's local
 gradient).
 
+A step records the spans ``m.step`` and, inside it, ``m.text``,
+``m.image``, ``m.loss``, ``m.backward`` and ``m.optimizer``, and counts
+``m.steps`` and ``m.pairs`` (this process's rows) while tracing is on
+(``utils/profiling``).
+
 Data parallelism (the reference's global-batch contract, its
 ``train/steps.py:1-9``): when a process group of world size > 1 is up,
 or ``zero1_mesh`` is given, each rank's batch is its rows of the global
@@ -44,6 +49,7 @@ from vlm_clip_tpu_torch.parallel.distributed import (all_reduce_mean_,
 from vlm_clip_tpu_torch.parallel.mesh import axis_group
 from vlm_clip_tpu_torch.parallel.sharding import Zero1Optimizer
 from vlm_clip_tpu_torch.train.optim import Optimizer, global_norm
+from vlm_clip_tpu_torch.utils.profiling import annotate, count
 
 Params = Dict[str, Any]
 
@@ -113,46 +119,58 @@ def make_m_train_step(cfg: CLIPConfig, acfg: AdapterConfig, tx: Optimizer,
     def loss_fn(adapter_params, clip_params, batch):
         ids = batch["input_ids"]
         mask = batch.get("attention_mask")
-        px = _pixels_on_device(batch["pixel_values"], policy,
-                               cfg.vision.image_size)
-        txt = M.m_get_text_features(clip_params, adapter_params, ids, mask,
-                                    cfg, acfg, policy, remat, impl,
-                                    freeze_clip)
-        img = M.m_get_image_features(clip_params, adapter_params, px, cfg,
-                                     acfg, policy, remat, impl, freeze_clip)
-        if group is not None:
-            txt, img = gather_rows(txt, group), gather_rows(img, group)
-        if fused_loss:
-            from vlm_clip_tpu_torch.ops import contrastive as K4
+        with annotate("m.text"):
+            txt = M.m_get_text_features(clip_params, adapter_params, ids,
+                                        mask, cfg, acfg, policy, remat,
+                                        impl, freeze_clip)
+        with annotate("m.image"):
+            px = _pixels_on_device(batch["pixel_values"], policy,
+                                   cfg.vision.image_size)
+            img = M.m_get_image_features(clip_params, adapter_params, px,
+                                         cfg, acfg, policy, remat, impl,
+                                         freeze_clip)
+        with annotate("m.loss"):
+            if group is not None:
+                txt, img = gather_rows(txt, group), gather_rows(img, group)
+            if fused_loss:
+                from vlm_clip_tpu_torch.ops import contrastive as K4
 
-            head = K4.contrastive_loss_torch if impl == "torch" \
-                else K4.contrastive_loss_fused
-            return head(txt, img, clip_params["logit_scale"])
-        return M.contrastive_loss(txt, img, clip_params["logit_scale"])[0]
+                head = K4.contrastive_loss_torch if impl == "torch" \
+                    else K4.contrastive_loss_fused
+                return head(txt, img, clip_params["logit_scale"])
+            return M.contrastive_loss(txt, img,
+                                      clip_params["logit_scale"])[0]
 
     def step(state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
-        opt = state.opt_state
-        if zero1_mesh is not None and not isinstance(opt, Zero1Optimizer):
-            raise ValueError("zero1_mesh needs a state placed with "
-                             "parallel.sharding.zero1_place")
-        params = trainable_params(opt)
-        for p in params:
-            p.grad = None
-        loss = loss_fn(state.adapter_params, state.clip_params, batch)
-        loss.backward()
-        for p in params:
-            if p.grad is None:  # unused leaf: a zero gradient, as in JAX
-                p.grad = torch.zeros_like(p)
-        if isinstance(opt, Zero1Optimizer):
-            gnorm = opt.step(tx, state.step)
-        else:
-            grads = [p.grad for p in params]
-            if group is not None:
-                all_reduce_mean_(grads, group)
-            gnorm = global_norm(grads)
-            tx.update(opt, state.step, grads, gnorm)
-        return (state._replace(step=state.step + 1),
-                StepMetrics(loss=loss.detach(), grad_norm=gnorm))
+        with annotate("m.step"):
+            opt = state.opt_state
+            if zero1_mesh is not None \
+                    and not isinstance(opt, Zero1Optimizer):
+                raise ValueError("zero1_mesh needs a state placed with "
+                                 "parallel.sharding.zero1_place")
+            params = trainable_params(opt)
+            for p in params:
+                p.grad = None
+            loss = loss_fn(state.adapter_params, state.clip_params, batch)
+            with annotate("m.backward"):
+                loss.backward()
+            with annotate("m.optimizer"):
+                # an unused leaf gets a zero gradient, as in JAX
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if isinstance(opt, Zero1Optimizer):
+                    gnorm = opt.step(tx, state.step)
+                else:
+                    grads = [p.grad for p in params]
+                    if group is not None:
+                        all_reduce_mean_(grads, group)
+                    gnorm = global_norm(grads)
+                    tx.update(opt, state.step, grads, gnorm)
+            count("m.steps")
+            count("m.pairs", batch["input_ids"].shape[0])
+            return (state._replace(step=state.step + 1),
+                    StepMetrics(loss=loss.detach(), grad_norm=gnorm))
 
     return step
 

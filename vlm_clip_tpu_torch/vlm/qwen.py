@@ -7,6 +7,14 @@ tower, the embed scatter and the prefill, then a Python decode loop over
 one preallocated KV cache (written in place), with HF-parity sampling
 (``vlm/sampling.py``). The loop reads ``done.all()`` on the host once a
 step to skip the forward when every row has stopped.
+
+While tracing is on (``utils/profiling``), ``generate_batch`` records the
+span ``qwen.generate_batch`` and, inside it, ``qwen.prepare`` (vision
+inputs and prompt ids), ``qwen.prefill`` (``prefill_batch``), one
+``qwen.stop_check`` (the ``done.all()`` read, where the host waits on the
+device) and one ``qwen.decode_step`` (a forward and its sampling) a
+step, and ``qwen.readback``; it counts ``qwen.prefill_rows`` and
+``qwen.decode_forwards``.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vlm_clip_tpu_torch.utils.profiling import annotate, count
 from vlm_clip_tpu_torch.vlm.extractor import VLM_PROMPT, ClipTextEncoderMixin
 from vlm_clip_tpu_torch.vlm.qwen_model import (QwenVLConfig, cache_kv_heads,
                                                init_kv_cache, text_forward,
@@ -221,11 +230,17 @@ class QwenVLGenerator:
             n_out += ~done
             if scfg.needs_presence:
                 presence[rows, tokens] = True
-            if step + 1 >= max_new or bool(done.all()):
+            if step + 1 >= max_new:
                 break
-            logits, cache = self._decode_step(tokens, pos_start + step,
-                                              cache, length0 + step)
-            tokens = sample_token(logits, presence, generator, scfg)
+            with annotate("qwen.stop_check"):
+                stop = bool(done.all())
+            if stop:
+                break
+            with annotate("qwen.decode_step"):
+                logits, cache = self._decode_step(tokens, pos_start + step,
+                                                  cache, length0 + step)
+                tokens = sample_token(logits, presence, generator, scfg)
+            count("qwen.decode_forwards")
         return buf, n_out, cache
 
     def _merge_cache(self, big, sub, offset: int):
@@ -290,8 +305,9 @@ class QwenVLGenerator:
         buf, n_out, _ = self._decode_loop(logits, T + delta, cache, T,
                                           presence, gen, max_new_tokens,
                                           scfg)
-        buf, n_out = buf.cpu().numpy(), n_out.cpu().numpy()
-        return [buf[b, :n_out[b]].tolist() for b in range(B)]
+        with annotate("qwen.readback"):
+            buf, n_out = buf.cpu().numpy(), n_out.cpu().numpy()
+            return [buf[b, :n_out[b]].tolist() for b in range(B)]
 
     def generate(self, image, prompt_text: str, tokenizer,
                  max_new_tokens: int = 200,
@@ -333,15 +349,17 @@ class QwenVLGenerator:
                        ) -> List[List[int]]:
         """Batched decode over several images with one shared prompt (one
         fixed resolution, so every row shares the sequence layout)."""
-        visions = [prepare_vision_inputs(img, self.cfg.vision,
-                                         fixed_resolution=fixed_resolution,
-                                         raw_uint8=self.u8_patches)
-                   for img in images]
-        ids = build_prompt_ids(tokenizer, prompt_text,
-                               visions[0].num_vision_tokens, self.cfg)
-        return self.generate_batch_from_ids(ids, visions, max_new_tokens,
-                                            sampling=sampling, seed=seed,
-                                            prefill_chunk=prefill_chunk)
+        with annotate("qwen.generate_batch"):
+            with annotate("qwen.prepare"):
+                visions = [prepare_vision_inputs(
+                    img, self.cfg.vision, fixed_resolution=fixed_resolution,
+                    raw_uint8=self.u8_patches) for img in images]
+                ids = build_prompt_ids(tokenizer, prompt_text,
+                                       visions[0].num_vision_tokens,
+                                       self.cfg)
+            return self.generate_batch_from_ids(
+                ids, visions, max_new_tokens, sampling=sampling, seed=seed,
+                prefill_chunk=prefill_chunk)
 
     def generate_batch_from_ids(self, ids: np.ndarray,
                                 visions: List[VisionInputs],
@@ -376,43 +394,46 @@ class QwenVLGenerator:
                     f"vision input {i} has grid {v.grid} vs {v0.grid} — "
                     f"pass fixed_resolution (or bucket by grid) for "
                     f"mixed-resolution batches")
-        pos, delta = rope_index_single(ids, v0.grid, self.cfg)
-        patches = np.stack([v.patches for v in visions])
-        wmask, fmask = self._mask_args(v0)
-        T = len(ids)
-        img_slots = np.nonzero(ids == self.cfg.image_token_id)[0]
-        rev_np, img_slots = self._pad_slots(v0, img_slots)
-        ids_p, pos_p = (self._pad_text(ids, np.asarray(pos), pad_text_to)
-                        if pad_text_to else (ids, np.asarray(pos)))
-        if len(ids_p) > self.max_len:
-            raise ValueError(
-                f"padded prompt ({len(ids_p)} tokens) exceeds the KV "
-                f"cache max_len ({self.max_len})")
-        T_p = len(ids_p)
-        rev, jids, jslots = (self._t(a) for a in (rev_np, ids_p, img_slots))
-        rope = self._t(v0.rot_pos_emb)
+        count("qwen.prefill_rows", B)
+        with annotate("qwen.prefill"):
+            pos, delta = rope_index_single(ids, v0.grid, self.cfg)
+            patches = np.stack([v.patches for v in visions])
+            wmask, fmask = self._mask_args(v0)
+            T = len(ids)
+            img_slots = np.nonzero(ids == self.cfg.image_token_id)[0]
+            rev_np, img_slots = self._pad_slots(v0, img_slots)
+            ids_p, pos_p = (self._pad_text(ids, np.asarray(pos), pad_text_to)
+                            if pad_text_to else (ids, np.asarray(pos)))
+            if len(ids_p) > self.max_len:
+                raise ValueError(
+                    f"padded prompt ({len(ids_p)} tokens) exceeds the KV "
+                    f"cache max_len ({self.max_len})")
+            T_p = len(ids_p)
+            rev, jids, jslots = (self._t(a)
+                                 for a in (rev_np, ids_p, img_slots))
+            rope = self._t(v0.rot_pos_emb)
 
-        def run_prefill(chunk_patches, n_rows):
-            pos3 = self._t(np.broadcast_to(pos_p[:, None, :],
-                                           (3, n_rows, T_p)))
-            return self._embed_prefill(
-                self._t(chunk_patches), rope, wmask, fmask, rev, jids,
-                jslots, pos3, self._new_cache(n_rows), T - 1,
-                uw=v0.uniform_window)
+            def run_prefill(chunk_patches, n_rows):
+                pos3 = self._t(np.broadcast_to(pos_p[:, None, :],
+                                               (3, n_rows, T_p)))
+                return self._embed_prefill(
+                    self._t(chunk_patches), rope, wmask, fmask, rev, jids,
+                    jslots, pos3, self._new_cache(n_rows), T - 1,
+                    uw=v0.uniform_window)
 
-        if prefill_chunk is None or prefill_chunk >= B:
-            logits, cache = run_prefill(patches, B)
-        else:
-            cache = self._new_cache(B)
-            logit_parts = []
-            for off in range(0, B, prefill_chunk):
-                sub = patches[off:off + prefill_chunk]
-                logits_c, sub_cache = run_prefill(sub, len(sub))
-                cache = self._merge_cache(cache, sub_cache, off)
-                logit_parts.append(logits_c)
-            cache.length += T
-            logits = torch.cat(logit_parts, dim=0)
-        return logits, cache, T, delta
+            if prefill_chunk is None or prefill_chunk >= B:
+                logits, cache = run_prefill(patches, B)
+            else:
+                cache = self._new_cache(B)
+                logit_parts = []
+                for off in range(0, B, prefill_chunk):
+                    sub = patches[off:off + prefill_chunk]
+                    logits_c, sub_cache = run_prefill(sub, len(sub))
+                    cache = self._merge_cache(cache, sub_cache, off)
+                    logit_parts.append(logits_c)
+                cache.length += T
+                logits = torch.cat(logit_parts, dim=0)
+            return logits, cache, T, delta
 
     @staticmethod
     def _pad_slots(vision: VisionInputs, img_slots: np.ndarray):
