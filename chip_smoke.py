@@ -3674,17 +3674,22 @@ def _forwards(out) -> int:
 @contextlib.contextmanager
 def _k8_off(off: bool = True):
     """K8 off for a comparison: the dispatcher's gate answers False, so
-    the decode path takes the plain attention while K7 stays on. The
-    port has no such option; only these measurements need one."""
+    the decode path takes the plain attention while K7 stays on, and the
+    generators decode eagerly (a captured decode graph keeps the route
+    it was captured with). The port has no such option; only these
+    measurements need one."""
     from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator
 
-    gate = K8.kernel_route
+    gate, graph_for = K8.kernel_route, QwenVLGenerator._graph_for
     if off:
         K8.kernel_route = lambda q, k_old: False
+        QwenVLGenerator._graph_for = lambda self, cache: None
     try:
         yield
     finally:
         K8.kernel_route = gate
+        QwenVLGenerator._graph_for = graph_for
 
 
 def _decode_breakdown(g, ids, visions, tcfg,

@@ -122,6 +122,17 @@ def _workspace(device: torch.device, shape) -> torch.Tensor:
         return ws
 
 
+def reserve_workspace(device: torch.device, B: int, T: int, h: int,
+                      kv: int, d: int, S: int) -> torch.Tensor:
+    """The workspace the kernel takes at these shapes, grown now: call it
+    before a CUDA graph captures the kernel (a workspace grown during the
+    capture would come from the graph's private pool) and hold the
+    tensor as long as the graph, whose launches keep its address when a
+    later call grows the shared one."""
+    with torch.cuda.device(device):
+        return _workspace(device, (B, T, h, kv, d, S))
+
+
 def kernel_splits(B: int, kv: int, d: int, S: int) -> int:
     """The column splits a (batch row, kv head) takes on the current
     card: about two blocks an SM over B x kv x splits blocks."""

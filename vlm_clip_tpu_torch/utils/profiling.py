@@ -132,9 +132,10 @@ def tracing():
 
 def _launches_since_take() -> Dict[str, int]:
     """The op modules' kernel launches since the last take (their
-    ``launch_counts()``), as ``launches.<kernel>``. A module whose count
-    went down was reset (``reset_launch_counts()``) since: its whole
-    count is new."""
+    ``launch_counts()``, which a replayed decode graph credits with the
+    launches it holds: ``vlm/qwen._DecodeGraph``), as
+    ``launches.<kernel>``. A module whose count went down was reset
+    (``reset_launch_counts()``) since: its whole count is new."""
     from vlm_clip_tpu_torch.ops import (attention, contrastive,
                                         decode_attention, fused_adapter,
                                         quant)

@@ -15,10 +15,18 @@ inputs and prompt ids), ``qwen.prefill`` (``prefill_batch``), one
 device) and one ``qwen.decode_step`` (a forward and its sampling) a
 step, and ``qwen.readback``; it counts ``qwen.prefill_rows`` and
 ``qwen.decode_forwards``.
+
+On a CUDA device with an unsharded text tree, a whole batch's decode
+forward is one CUDA graph (:class:`_DecodeGraph`) over a cache the
+generator keeps for its batch size, captured at the first decode step
+(inside the span ``qwen.graph_capture``) and replayed at every later
+one: the counters ``qwen.decode_graph_captures`` and
+``qwen.decode_graph_replays``. Sampling and the stop check stay eager.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -27,10 +35,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vlm_clip_tpu_torch.ops import decode_attention, quant
+from vlm_clip_tpu_torch.parallel import tensor_parallel as TP
 from vlm_clip_tpu_torch.utils.profiling import annotate, count
 from vlm_clip_tpu_torch.vlm.extractor import VLM_PROMPT, ClipTextEncoderMixin
-from vlm_clip_tpu_torch.vlm.qwen_model import (QwenVLConfig, cache_kv_heads,
-                                               init_kv_cache, text_forward,
+from vlm_clip_tpu_torch.vlm.qwen_model import (KVCache, QwenVLConfig,
+                                               cache_kv_heads, init_kv_cache,
+                                               split_route, text_forward,
                                                vision_forward)
 from vlm_clip_tpu_torch.vlm.qwen_process import (VisionInputs,
                                                  build_prompt_ids,
@@ -128,6 +139,109 @@ class QwenBPETokenizer:
         return raw.decode("utf-8", errors="replace")
 
 
+def _sharded(tree) -> bool:
+    """Whether a tree holds a tensor-parallel leaf (``TP.TPLinear``)."""
+    if isinstance(tree, TP.TPLinear):
+        return True
+    return isinstance(tree, dict) and any(_sharded(v) for v in tree.values())
+
+
+class _DecodeGraph:
+    """One decode forward as a CUDA graph over a cache it keeps: the token
+    embedding gather, ``text_forward`` at the canonical decode mask with a
+    per-row [B] depth, and the head's fp32 logits. On a split-route cache
+    (``qwen_model.split_route``) the per-row route is the eager step's
+    arithmetic at its int depth, bit for bit.
+
+    The inputs are device buffers, set before each replay: ``tokens``
+    [B], the rope position ``pos`` [3, 1, 1] and ``depth`` [B]. The first
+    :meth:`run` runs the forward eagerly on a side stream (which loads
+    the kernels and sizes their workspaces) and captures it there; every
+    later one replays it and returns a copy of its logits. K7 and K8
+    launch on the current stream, so the capture records them as it does
+    torch's kernels; K8's workspace is reserved before the capture and
+    held here. A replay runs none of the op modules' Python, so their
+    launch counters (``ops/quant``, ``ops/decode_attention``) are credited
+    on each replay with the launches the capture recorded.
+    """
+
+    def __init__(self, text_params, cfg, dtype, impl: str, cache: KVCache):
+        B, dev = cache.k.shape[1], cache.k.device
+        self.params, self.cfg, self.dtype, self.impl = (text_params, cfg,
+                                                        dtype, impl)
+        self.cache = cache
+        self.tokens = torch.zeros(B, dtype=torch.long, device=dev)
+        self.pos = torch.zeros((3, 1, 1), dtype=torch.long, device=dev)
+        self.depth = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.graph = None
+        self.logits = None      # the graph's output
+        self.workspace = None   # K8's, at the captured shapes
+        self.launches = []      # (kernel function, launches a replay)
+
+    def reset(self) -> KVCache:
+        """The cache, emptied as a new one is, for a new batch."""
+        c = self.cache
+        c.k.zero_()
+        c.v.zero_()
+        if c.k_scale is not None:
+            c.k_scale.fill_(1.0)
+            c.v_scale.fill_(1.0)
+        return dataclasses.replace(c, length=0)
+
+    def forward(self) -> torch.Tensor:
+        """The step the graph holds, run eagerly: fp32 logits [B, V]."""
+        emb = self.params["embed_tokens"][self.tokens][:, None]
+        logits, _ = text_forward(self.params, emb.to(self.dtype), self.pos,
+                                 self.cfg, None, self.cache, self.depth,
+                                 impl=self.impl)
+        return logits[:, -1]
+
+    def run(self, tokens, pos: int, length: int) -> torch.Tensor:
+        """The step for ``tokens`` at rope position ``pos``, written at
+        cache row ``length``: fp32 logits [B, V]."""
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        self.depth.fill_(length)
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        for kernel, n in self.launches:
+            kernel.launches += n
+        count("qwen.decode_graph_replays")
+        return self.logits.clone()
+
+    def _capture(self) -> torch.Tensor:
+        kernels = [getattr(m, name) for m in (quant, decode_attention)
+                   for name in m.launch_counts()]
+        dev = self.tokens.device
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        with annotate("qwen.graph_capture"):
+            k8 = decode_attention.decode_attention_kernel.launches
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                logits = self.forward()  # this step's, eagerly
+            main.wait_stream(side)
+            logits.record_stream(main)
+            if decode_attention.decode_attention_kernel.launches > k8:
+                # K8 is on this step's route: its workspace, now sized
+                _, B, S, kv, d = self.cache.k.shape
+                self.workspace = decode_attention.reserve_workspace(
+                    dev, B, 1, self.cfg.num_heads, kv, d, S)
+            before = [k.launches for k in kernels]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.logits = self.forward()
+            # the capture ran no kernel: its launches count at each replay
+            self.launches = [(k, k.launches - n)
+                             for k, n in zip(kernels, before)]
+            for k, n in zip(kernels, before):
+                k.launches = n
+            self.graph = graph
+        count("qwen.decode_graph_captures")
+        return logits
+
+
 class QwenVLGenerator:
     """Batched generation over the port's Qwen2.5-VL on the device its
     params live on.
@@ -139,6 +253,15 @@ class QwenVLGenerator:
     heads and every rank samples the same token from the gathered
     logits. ``impl="torch"`` runs K7 and K8's plain versions
     wherever the kernels would launch (the plain route of a check).
+
+    On a CUDA device with an unsharded text tree and a split-route cache,
+    :meth:`prefill_batch` writes into one cache the generator keeps for
+    its batch size (a later batch overwrites the cache an earlier one
+    returned), and the decode steps over it replay one CUDA graph
+    (:class:`_DecodeGraph`), captured once at the first step; a new
+    batch size drops the graph and its cache. Every other generator (on
+    the CPU, over a tensor-parallel rank's tree, with a small cache) and
+    every other cache decodes eagerly.
     """
 
     def __init__(self, params: Dict, cfg: QwenVLConfig,
@@ -156,6 +279,7 @@ class QwenVLGenerator:
         # set True (with a normalization-folded patch embed) to have
         # generate()/generate_batch() ship raw uint8 patches
         self.u8_patches = False
+        self._decode_graph: Optional[_DecodeGraph] = None
 
     # -- device steps -------------------------------------------------------
 
@@ -165,6 +289,26 @@ class QwenVLGenerator:
                              self.kv_quantized, device=self.device,
                              kv_heads=cache_kv_heads(self.params["text"],
                                                      self.cfg.text))
+
+    def _batch_cache(self, n_rows: int):
+        """A whole batch's cache: where decode steps run as a graph, the
+        graph's own, emptied (see the class docstring)."""
+        dg = self._decode_graph
+        if dg is not None and dg.cache.k.shape[1] == n_rows:
+            return dg.reset()
+        self._decode_graph = None
+        cache = self._new_cache(n_rows)
+        if self.device.type == "cuda" and not _sharded(self.params["text"]) \
+                and split_route(cache.k[0]):
+            self._decode_graph = _DecodeGraph(self.params["text"],
+                                              self.cfg.text, self.dtype,
+                                              self.impl, cache)
+        return cache
+
+    def _graph_for(self, cache) -> Optional[_DecodeGraph]:
+        """The decode graph over ``cache``, if it is the graph's."""
+        dg = self._decode_graph
+        return dg if dg is not None and cache.k is dg.cache.k else None
 
     @torch.no_grad()
     def _prefill(self, embeds, position_ids, cache, t_last: int):
@@ -198,7 +342,12 @@ class QwenVLGenerator:
     @torch.no_grad()
     def _decode_step(self, tokens, pos: int, cache, length: int):
         """tokens [B] at rope position ``pos``, written at cache row
-        ``length``; the canonical decode mask (``mask=None``)."""
+        ``length``; the canonical decode mask (``mask=None``). Over the
+        decode graph's cache, the graph's step."""
+        dg = self._graph_for(cache)
+        if dg is not None:
+            return (dg.run(tokens, pos, length),
+                    dataclasses.replace(cache, length=cache.length + 1))
         emb = self.params["text"]["embed_tokens"][tokens][:, None]
         position_ids = torch.full((3, 1, 1), pos, device=self.device)
         logits, cache = text_forward(self.params["text"], emb.to(self.dtype),
@@ -413,22 +562,22 @@ class QwenVLGenerator:
                                  for a in (rev_np, ids_p, img_slots))
             rope = self._t(v0.rot_pos_emb)
 
-            def run_prefill(chunk_patches, n_rows):
+            def run_prefill(chunk_patches, n_rows, cache):
                 pos3 = self._t(np.broadcast_to(pos_p[:, None, :],
                                                (3, n_rows, T_p)))
                 return self._embed_prefill(
                     self._t(chunk_patches), rope, wmask, fmask, rev, jids,
-                    jslots, pos3, self._new_cache(n_rows), T - 1,
-                    uw=v0.uniform_window)
+                    jslots, pos3, cache, T - 1, uw=v0.uniform_window)
 
+            cache = self._batch_cache(B)
             if prefill_chunk is None or prefill_chunk >= B:
-                logits, cache = run_prefill(patches, B)
+                logits, cache = run_prefill(patches, B, cache)
             else:
-                cache = self._new_cache(B)
                 logit_parts = []
                 for off in range(0, B, prefill_chunk):
                     sub = patches[off:off + prefill_chunk]
-                    logits_c, sub_cache = run_prefill(sub, len(sub))
+                    logits_c, sub_cache = run_prefill(
+                        sub, len(sub), self._new_cache(len(sub)))
                     cache = self._merge_cache(cache, sub_cache, off)
                     logit_parts.append(logits_c)
                 cache.length += T

@@ -365,31 +365,49 @@ def _gqa_attention_cached(q, k_old, v_old, k_cur, v_cur, mask,
     return out.to(q.dtype).reshape(B, T, h * d)
 
 
-def _write_rows(dst: torch.Tensor, rows: torch.Tensor, cache_index):
-    """Write [B, T, ...] rows into a [B, S, ...] cache layer in place, at
-    one depth (int) or per-row depths ([B] tensor). Per-row positions
+def split_route(ck: torch.Tensor) -> bool:
+    """Whether a decode over this cache layer ([B, S, kv, d] k) with one
+    int depth takes the split route (the one a per-row depth always
+    takes): its bytes are past ``_DENSE_CACHE_ROUTE_MAX_BYTES``."""
+    return ck.numel() * ck.element_size() > _DENSE_CACHE_ROUTE_MAX_BYTES
+
+
+def row_positions(cache_index: torch.Tensor, T: int, S: int):
+    """The (batch [B, 1], position [B, T]) index pair of T fresh rows at
+    per-row depths ``cache_index`` [B] in a cache of S rows. Positions
     past the cache (the engine's finished rows and drafts past a row's
     budget, which the reference's scatter drops) land on the last row,
     which no later position reads."""
-    T = rows.shape[1]
-    if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
-        bidx = torch.arange(dst.shape[0], device=dst.device)[:, None]
-        idx = cache_index.to(dst.device).long()[:, None] \
-            + torch.arange(T, device=dst.device)[None]
-        dst[bidx, idx.clamp(max=dst.shape[1] - 1)] = rows
+    dev = cache_index.device
+    bidx = torch.arange(cache_index.shape[0], device=dev)[:, None]
+    idx = cache_index.long()[:, None] + torch.arange(T, device=dev)[None]
+    return bidx, idx.clamp(max=S - 1)
+
+
+def _write_rows(dst: torch.Tensor, rows: torch.Tensor, cache_index):
+    """Write [B, T, ...] rows into a [B, S, ...] cache layer in place, at
+    one depth (int), per-row depths ([B] tensor) or their
+    :func:`row_positions` pair."""
+    if isinstance(cache_index, tuple):
+        dst[cache_index] = rows
+    elif isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+        dst[row_positions(cache_index.to(dst.device), rows.shape[1],
+                          dst.shape[1])] = rows
     else:
         ci = int(cache_index)
-        dst[:, ci:ci + T] = rows
+        dst[:, ci:ci + rows.shape[1]] = rows
 
 
 def text_decoder_layer(p, x, cos, sin, mask, cfg: QwenTextConfig,
                        cache_kv: Optional[Tuple] = None,
                        cache_index=None, kv_read_span: Optional[int] = None,
-                       impl: str = "auto"):
+                       impl: str = "auto", write_at=None):
     """Returns (x, (k_rows, v_rows, k_scale, v_scale)). With a cache
     (``cache_kv`` = this layer's [B, S, kv, d] k, v and scales or None),
     the current tokens' rows (cast to the cache type, or int8 with their
-    scales) are written into it in place at ``cache_index``."""
+    scales) are written into it in place at ``cache_index`` (or at
+    ``write_at``, its :func:`row_positions` pair, when the caller made it
+    once for every layer)."""
     B, T, _ = x.shape
     h = rms_norm(p["ln1"], x, cfg.rms_norm_eps)
     nh, nkv, pick = local_heads(p["attn"], cfg)
@@ -427,6 +445,7 @@ def text_decoder_layer(p, x, cos, sin, mask, cfg: QwenTextConfig,
         rows = (k_rows, v_rows, k_sc, v_sc)
         targets = [(ck, k_rows), (cv, v_rows)] + (
             [(cks, k_sc), (cvs, v_sc)] if quant else [])
+        at = cache_index if write_at is None else write_at
         vector = isinstance(cache_index, torch.Tensor) \
             and cache_index.dim() == 1
         def read(t):  # the columns attention reads
@@ -434,11 +453,10 @@ def text_decoder_layer(p, x, cos, sin, mask, cfg: QwenTextConfig,
                 return t
             return t[:, :kv_read_span]
 
-        if not vector and ck.numel() * ck.element_size() \
-                <= _DENSE_CACHE_ROUTE_MAX_BYTES:
+        if not vector and not split_route(ck):
             # small cache: write the fresh rows, then attend over it
             for dst, src in targets:
-                _write_rows(dst, src, cache_index)
+                _write_rows(dst, src, at)
             if mask is None:
                 cols = torch.arange(ck.shape[1], device=x.device)
                 ci = int(cache_index)
@@ -455,7 +473,7 @@ def text_decoder_layer(p, x, cos, sin, mask, cfg: QwenTextConfig,
                 nh, nkv, k_scale=read(cks),
                 v_scale=read(cvs), impl=impl)
             for dst, src in targets:
-                _write_rows(dst, src, cache_index)
+                _write_rows(dst, src, at)
     x = x + linear(p["attn"]["o"], attn, impl=impl)
     x = x + swiglu_mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.rms_norm_eps),
                        impl=impl)
@@ -497,13 +515,17 @@ def text_forward(params: Params, embeds: torch.Tensor,
     rmask = mask if kv_read_span is None or mask is None \
         else mask[..., :kv_read_span]
     quant = cache is not None and cache.k_scale is not None
+    # per-row depths: the rows every layer writes, indexed once
+    write_at = row_positions(cache_index.to(cache.k.device), x.shape[1],
+                             cache.k.shape[2]) \
+        if vector and cache is not None else None
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         kv = None if cache is None else (
             cache.k[i], cache.v[i], cache.k_scale[i] if quant else None,
             cache.v_scale[i] if quant else None)
         x, _ = text_decoder_layer(lp, x, cos, sin, rmask, cfg, kv,
-                                  cache_index, kv_read_span, impl)
+                                  cache_index, kv_read_span, impl, write_at)
     new_cache = cache
     if cache is not None and not vector:
         new_cache = dataclasses.replace(cache,
