@@ -185,7 +185,9 @@ def test_m_train_step_records_its_spans(clean):
     children = [s[2] for s in spans if s[1] == top[0][0]]
     assert children == ["m.text", "m.image", "m.loss", "m.backward",
                         "m.optimizer"]
-    assert len(spans) == 6
+    text = [s for s in spans if s[2] == "m.text"][0]
+    assert [s[2] for s in spans if s[1] == text[0]] == ["m.cross_modal"]
+    assert len(spans) == 7
     assert rec["counts"]["m.steps"] == 1 and rec["counts"]["m.pairs"] == 3
     assert np.isfinite(float(m.loss))
 

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vlm_clip_tpu_torch.ops import attention as fa
 from vlm_clip_tpu_torch.parallel import tensor_parallel as TP
+from vlm_clip_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -128,6 +129,11 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
     the global toggle ``set_fused_attention`` is on (off by default, as in
     the reference), and the mask is a layout it supports; ``fused=False``
     never takes it. Tensor-parallel q/k/v shards give this rank's heads.
+
+    While tracing is on (``utils/profiling``) a call adds the bytes of the
+    attention scores it writes out to the counter
+    ``layers.attn_score_bytes``: the scores tensor of the unfused branch,
+    0 for K5, which keeps its scores on chip.
     """
     B, Tq, H = q_in.shape
     hd = H // num_heads
@@ -141,6 +147,7 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
             and (fused or fa.fused_attention_enabled()) \
             and fa.supports(mask, Tq):
         out = fa.fused_attention(q, k, v, scale, mask)
+        profiling.count("layers.attn_score_bytes", 0)
         return linear(p["out"], out.transpose(1, 2).reshape(B, Tq, h * hd))
     if k.shape[0] == 1 and B != 1:
         k, v = k[0], v[0]  # [h, Tk, hd], broadcast over the batch
@@ -157,6 +164,8 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
         m = scores.amax(dim=-1, keepdim=True)
         e = torch.exp(scores - m)
         probs = e / e.sum(dim=-1, keepdim=True)
+    profiling.count("layers.attn_score_bytes",
+                    scores.numel() * scores.element_size())
     out = torch.matmul(probs.to(q_in.dtype), v)  # [B, h, Tq, hd]
     out = out.transpose(1, 2).reshape(B, Tq, h * hd)
     return linear(p["out"], out)

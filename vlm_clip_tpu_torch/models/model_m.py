@@ -18,7 +18,9 @@ Reference quirks kept:
 adapters carry gradients (backward kernels on the card). ``remat=True``
 checkpoints each tower layer. ``freeze_clip=True`` runs the towers under
 ``torch.no_grad()``: gradients then reach the adapters only and no tower
-graph is kept (the reference's frozen ``static_clip`` argument).
+graph is kept (the reference's frozen ``static_clip`` argument). The
+shared adapters' loop runs in the span ``m.cross_modal``
+(``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from vlm_clip_tpu_torch.core.dtypes import BF16, DTypePolicy
 from vlm_clip_tpu_torch.models import adapters as A
 from vlm_clip_tpu_torch.models import clip as C
 from vlm_clip_tpu_torch.models import layers as L
+from vlm_clip_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
 
@@ -82,9 +85,10 @@ def m_get_text_features(clip_params: Params, adapter_params: Params,
         # pseudo image sequence = vision position-embedding table, batch 1
         img = clip_params["vision"]["position_embedding"][None].to(x.dtype)
         shared = adapter_params["shared_adapters"]
-        for i in range(L.num_layers(shared)):
-            x = A.cross_modal_adapter(L.layer_slice(shared, i), x, img,
-                                      acfg.shared_num_heads, impl=impl)
+        with annotate("m.cross_modal"):
+            for i in range(L.num_layers(shared)):
+                x = A.cross_modal_adapter(L.layer_slice(shared, i), x, img,
+                                          acfg.shared_num_heads, impl=impl)
     pooled = x[:, 0, :]  # CLS-slice quirk
     return C.project(clip_params["text_projection"], pooled)
 

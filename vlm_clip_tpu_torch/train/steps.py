@@ -16,8 +16,10 @@ each trainable param's ``.grad`` holds the gradient the optimizer applied
 (clipped when the optimizer clips; under ZeRO-1, this rank's local
 gradient).
 
-A step records the spans ``m.step`` and, inside it, ``m.text``,
-``m.image``, ``m.loss``, ``m.backward`` and ``m.optimizer``, and counts
+A step records the spans ``m.step`` and, inside it, ``m.text`` (and in
+it ``m.cross_modal``, the shared adapters' forward:
+``models/model_m``), ``m.image``, ``m.loss``, ``m.backward`` and
+``m.optimizer``, and counts
 ``m.steps`` and ``m.pairs`` (this process's rows) while tracing is on
 (``utils/profiling``).
 
