@@ -271,7 +271,12 @@ K7_TOL = (1e-4, 1e-4)
 # against off carries K8's bf16 rounding of p through 36 bf16 layers:
 # max |diff| <= 5e-2 x max |logit|, and with K8 off against the plain
 # versions 1e-4 again. Every row's first token must agree.
-VLM_TOL = {"k7": 1e-4, "k8": 5e-2}
+# The int8 GEMM on against off (its twin) at step 1, K8 off: its bf16
+# outputs differ from the twin's by a rounding flip where their fp32 sums
+# (in another order) straddle a bf16 boundary, carried through 36 bf16
+# layers as K8's rounding of p is: K8's limit. The K7 checks hold the
+# int8 route the same on both sides.
+VLM_TOL = {"k7": 1e-4, "k8": 5e-2, "int8": 5e-2}
 VLM_NEW = 32  # tokens generated per row in the VLM phase
 # The engine phase (vlm/engine.py, the vlm phase's model): the reference
 # engine's defaults (32 slots, 16 steps a chunk) on 48 requests whose
@@ -287,7 +292,17 @@ K8_SOURCE = "vlm_clip_tpu_torch/csrc/decode_attention.cu"
 VLM_REPLACES = {
     "quant_matmul_int4": "vlm_clip_tpu/ops/quant.py:233",
     "decode_attention_kernel": "vlm_clip_tpu/ops/decode_attention.py:130",
+    # no Pallas kernel: XLA's int8 dequantize fused into the dot's operand
+    "quant_matmul_int8": "none (XLA's fused int8 dequant-dot, "
+                         "vlm_clip_tpu/ops/quant.py:225-230)",
 }
+# The int8 GEMM at the 8h4 text linears of Qwen2.5-VL-3B (K, N, bias): a
+# decode forward makes 36 calls of each. Against its plain twin: fp32
+# sums of the same bf16-valued operands, bf16 out cast once from them
+# (a rounding flip at most: 2e-2 of |want| + 2e-2).
+INT8_SHAPES = {"qkv": (2048, 2560, True), "o": (2048, 2048, False),
+               "gateup": (2048, 22016, False), "down": (11008, 2048, False)}
+INT8_TOL = 2e-2
 SOURCE = "vlm_clip_tpu_torch/csrc/fused_adapter.cu"
 K4_SOURCE = "vlm_clip_tpu_torch/csrc/contrastive.cu"
 K5_SOURCE = "vlm_clip_tpu_torch/csrc/attention.cu"
@@ -326,6 +341,7 @@ KERNEL_HMMA = {
                              "seqbwd_dpre_kernel", "seqbwd_dx_kernel",
                              "wgrad_tf32_kernel"),
     "quant_matmul_int4": ("qmm4_mma_kernel",),
+    "quant_matmul_int8": ("qmm8_mma_kernel",),
     "fused_attention": ("attention_mma_kernel",),
     "prenorm_mlp_fused": ("pnmlp_fwd_hidden_kernel", "pnmlp_fwd_out_kernel"),
     "prenorm_mlp_bwd_cuda": ("pnmlp_bwd_hidden_kernel",
@@ -3523,6 +3539,147 @@ def _k8_library(case, depth: int):
         qh, kf, vf, attn_mask=amask, enable_gqa=True)
 
 
+def int8_cost(M: int, K: int, N: int, bias: bool):
+    """(operations, bytes, peak kind) of one int8 GEMM call: 2*M*K*N at the
+    bf16 peak; the int8 weight, its scale (and bias), x and the bf16
+    output once each."""
+    return (2 * M * K * N,
+            K * N + 4 * N * (2 if bias else 1) + 2 * M * K + 2 * M * N,
+            "bf16")
+
+
+def _graph_ms(fns, reps: int = 20) -> float:
+    """ms of one pass over fns, captured as one CUDA graph and replayed
+    (CUDA events around reps replays): the decode step's launch path."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    best = float("inf")
+    for _ in range(3):
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def _materialize(x, q):
+    """The parent's route for an int8 linear (the library yardstick, no
+    longer on the port's decode path): dequantize to fp32, cast to x's
+    dtype, torch.matmul, the bias added in fp32, one more cast."""
+    from vlm_clip_tpu_torch.ops import quant as K7
+
+    y = torch.matmul(x, K7.dequantize_weight(q).to(x.dtype))
+    if q.bias is not None:
+        y = y.float() + q.bias.float()
+    return y.to(x.dtype)
+
+
+def int8_phase(results: dict, failures: list, layers: int = 36) -> None:
+    """The int8 GEMM at the four 8h4 text shapes: against its plain twin
+    (M = 1, 32, bf16 x), timed per call over `layers` weights of a shape
+    (an L2-cold stream, as a decode forward reads them) in a CUDA graph,
+    with its device time (profiler), bound, the twin's time and the
+    parent's materialize route's; then the 144 calls of a forward at M = 1
+    and 32, and the rows up to which it beats the materialize route at
+    every shape (the route's KERNEL_MAX_M_INT8)."""
+    from vlm_clip_tpu_torch.ops import quant as K7
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    r = results["quant_matmul_int8"]
+    weights = {}
+    for name, (K, N, bias) in INT8_SHAPES.items():
+        weights[name] = [K7.quantize_weight(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02, 8,
+            torch.randn(N, generator=gen, device=dev) if bias else None)
+            for _ in range(layers)]
+    torch.cuda.synchronize()
+    wins = {}
+    for M in (1, 8, 16, 32, 48, 64):
+        xs = {name: torch.randn(M, K, generator=gen, device=dev).bfloat16()
+              for name, (K, _, _) in INT8_SHAPES.items()}
+        for name, (K, N, bias) in INT8_SHAPES.items():
+            qs, x = weights[name], xs[name]
+            shape = f"{name} x[{M}, {K}] bf16 N={N}"
+            with torch.no_grad():
+                got = K7.quant_matmul_int8(x, qs[0])
+                want = K7.quant_matmul_int8_torch(x, qs[0])
+                torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            ratio = float((err / (INT8_TOL + INT8_TOL * want.float().abs())
+                           ).max())
+            ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0
+            r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
+            if not ok:
+                failures.append(f"quant_matmul_int8 {shape}")
+            with torch.no_grad():
+                t_k = _graph_ms([lambda q=q: K7.quant_matmul_int8(x, q)
+                                 for q in qs]) / layers
+                t_l = _graph_ms([lambda q=q: _materialize(x, q)
+                                 for q in qs], reps=5) / layers
+            wins.setdefault(M, []).append(t_k < t_l)
+            if M not in (1, 32):
+                print(f"kernel quant_matmul_int8 {shape}: kernel {t_k:.4f} "
+                      f"ms, materialize route {t_l:.4f} ms", flush=True)
+                continue
+            with torch.no_grad():
+                t_p = _time_ms(lambda: K7.quant_matmul_int8_torch(x, qs[0]),
+                               iters=10)
+                ring = iter(range(10 ** 9))
+                dev_ms = sum(ms for kname, ms in _device_ms(
+                    lambda: K7.quant_matmul_int8(x, qs[next(ring) % layers]),
+                    n=layers).items() if "qmm8" in kname)
+            work = int8_cost(M, K, N, bias)
+            b_ms, b_by = bound(*work)
+            print(f"kernel quant_matmul_int8 {shape}: max_abs_err "
+                  f"{float(err.max()):.3e} err/tol {ratio:.3f} "
+                  f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms by events "
+                  f"(graph, L2-cold), {dev_ms:.4f} ms device (profiler); "
+                  f"plain {t_p:.4f} ms, materialize route {t_l:.4f} ms; "
+                  f"bound {b_ms:.4f} ms ({b_by}); "
+                  f"{K7.int8_splits(N, K)} depth slices", flush=True)
+            if M == 32:
+                _add_time(r, t_k, t_p, work, shape)
+                r["library_ms"] = (r["library_ms"] or 0.0) + t_l
+    # a decode forward's 144 calls (36 layers of the four), as a graph
+    for M in (1, 32):
+        xs = {name: torch.randn(M, K, generator=gen, device=dev).bfloat16()
+              for name, (K, _, _) in INT8_SHAPES.items()}
+        calls = [(weights[name][i], xs[name]) for i in range(layers)
+                 for name in INT8_SHAPES]
+        with torch.no_grad():
+            t_k = _graph_ms([lambda q=q, x=x: K7.quant_matmul_int8(x, q)
+                             for q, x in calls])
+            t_l = _graph_ms([lambda q=q, x=x: _materialize(x, q)
+                             for q, x in calls], reps=5)
+        b_ms = sum(bound(*int8_cost(M, *INT8_SHAPES[n]))[0]
+                   for n in INT8_SHAPES) * layers
+        print(f"int8 forward M={M}: {len(calls)} calls {t_k:.4f} ms (bound "
+              f"{b_ms:.4f} ms, {100 * b_ms / t_k:.1f}% of it); the "
+              f"materialize route {t_l:.4f} ms on {card()}", flush=True)
+    top = max((M for M, w in wins.items() if all(w)), default=0)
+    print(f"int8 crossover: the kernel beats the materialize route at every "
+          f"text shape up to M={top} of those timed {sorted(wins)}; "
+          f"KERNEL_MAX_M_INT8 = {K7.KERNEL_MAX_M_INT8}", flush=True)
+    if K7.KERNEL_MAX_M_INT8 > top:
+        failures.append(f"KERNEL_MAX_M_INT8 {K7.KERNEL_MAX_M_INT8} past the "
+                        f"measured crossover {top}")
+    del weights
+    torch.cuda.empty_cache()
+
+
 def vlm_kernel_phase() -> dict:
     """K7 and K8 against their plain versions at the VLM path's shapes,
     timed beside their bounds and library yardsticks; then
@@ -3576,6 +3733,8 @@ def vlm_kernel_phase() -> dict:
                     _add_time(r7, t[0], t[1], k7_cost(M, K, N, 2), shape)
                     r7["library_ms"] = t[2]
         del q, w_lib
+
+    int8_phase(results, failures)
 
     # K8 at the 3B heads; timed with every row at the VLM phase's mid-
     # decode depth (its prompt plus half of VLM_NEW)
@@ -3692,6 +3851,27 @@ def _k8_off(off: bool = True):
         QwenVLGenerator._graph_for = graph_for
 
 
+@contextlib.contextmanager
+def _int8_off(off: bool = True):
+    """The int8 GEMM off for a comparison: quant_matmul routes the rows it
+    would take to its plain twin, and the generators decode eagerly (a
+    captured decode graph keeps the route it was captured with)."""
+    from vlm_clip_tpu_torch.ops import quant as K7
+    from vlm_clip_tpu_torch.vlm.qwen import QwenVLGenerator
+
+    route, graph_for = K7.int8_route, QwenVLGenerator._graph_for
+    if off:
+        K7.int8_route = lambda M, device_type: (
+            "plain" if route(M, device_type) == "kernel"
+            else route(M, device_type))
+        QwenVLGenerator._graph_for = lambda self, cache: None
+    try:
+        yield
+    finally:
+        K7.int8_route = route
+        QwenVLGenerator._graph_for = graph_for
+
+
 def _decode_breakdown(g, ids, visions, tcfg,
                       route="int8 route (dequantize to bf16, then "
                             "torch.matmul)") -> None:
@@ -3796,30 +3976,40 @@ def vlm_phase() -> dict:
 
     gk, gp = generator(), generator("torch")
     torch.cuda.reset_peak_memory_stats()
-    # 1. prefill and first-step logits: kernels (K8 off, on), plain
+    # 1. prefill and first-step logits: kernels (K8 off, on; the int8
+    # GEMM off), plain
     logits = {}
-    for name, g, on in (("off", gk, False), ("on", gk, True),
-                        ("plain", gp, True)):
-        with _k8_off(not on):
+    for name, g, on, int8 in (("off", gk, False, True),
+                              ("off, int8 off", gk, False, False),
+                              ("on", gk, True, True),
+                              ("plain", gp, True, True)):
+        with _k8_off(not on), _int8_off(not int8):
             l0, cache, T, delta = g.prefill_batch(ids, visions)
             l1, _ = g._decode_step(l0.argmax(-1), T + delta, cache, T)
             logits[name] = (l0, l1)
             del cache
     d = {"prefill K7 vs plain": _rel(logits["off"][0],
                                      logits["plain"][0]),
-         "step 1 K7 vs plain (K8 off)": _rel(logits["off"][1],
-                                             logits["plain"][1]),
+         "step 1 K7 vs plain (K8 off, int8 GEMM off)": _rel(
+             logits["off, int8 off"][1], logits["plain"][1]),
+         "step 1 int8 GEMM on vs off (K8 off)": _rel(
+             logits["off"][1], logits["off, int8 off"][1]),
          "step 1 K8 on vs off": _rel(logits["on"][1], logits["off"][1])}
     first = [logits[n][0].argmax(-1) for n in ("off", "on", "plain")]
+    first += [logits[n][1].argmax(-1) for n in ("off", "off, int8 off")]
     ok = d["prefill K7 vs plain"] <= VLM_TOL["k7"] \
-        and d["step 1 K7 vs plain (K8 off)"] <= VLM_TOL["k7"] \
+        and d["step 1 K7 vs plain (K8 off, int8 GEMM off)"] \
+        <= VLM_TOL["k7"] \
+        and d["step 1 int8 GEMM on vs off (K8 off)"] <= VLM_TOL["int8"] \
         and d["step 1 K8 on vs off"] <= VLM_TOL["k8"] \
-        and all(torch.equal(first[0], f) for f in first[1:]) \
+        and all(torch.equal(first[0], f) for f in first[1:3]) \
+        and torch.equal(first[3], first[4]) \
         and all(bool(torch.isfinite(v).all()) for p in logits.values()
                 for v in p)
     print(f"Qwen2.5-VL-3B 8h4 B=8 T={T}: logits max|diff| / max|logit| "
           f"{d} (limits {VLM_TOL}); first tokens equal: "
-          f"{all(torch.equal(first[0], f) for f in first[1:])} "
+          f"{all(torch.equal(first[0], f) for f in first[1:3])}, step 1 "
+          f"int8 GEMM on vs off {torch.equal(first[3], first[4])} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit("the VLM's kernel path disagrees with the "
@@ -4194,7 +4384,9 @@ def vlm_engine_phase() -> dict:
 
     # 1. the mixed load at the reference's defaults; K8 once a layer a
     # decode forward, K7 once a decode forward (the int4 head at M = 32)
-    # and once an install (the prefill's head at M = the group's size)
+    # and once an install (the prefill's head at M = the group's size),
+    # the int8 GEMM four times a layer a decode forward (32 rows; an
+    # install's prefill rows take the materialize route)
     def engine(g=gen, **kw):
         kw.setdefault("n_slots", ENGINE_SLOTS)
         return ContinuousBatchingEngine(g, sync_steps=ENGINE_SYNC, **kw)
@@ -4208,7 +4400,8 @@ def vlm_engine_phase() -> dict:
     launches = {**K7.launch_counts(), **K8.launch_counts()}
     rounds, tokens = eng.stats["rounds"], sum(len(o) for o in out)
     want = {"decode_attention_kernel": L * rounds,
-            "quant_matmul_int4": rounds + len(groups)}
+            "quant_matmul_int4": rounds + len(groups),
+            "quant_matmul_int8": 4 * L * rounds}
     ok = launches == want and all(1 <= len(o) <= m
                                   for o, m in zip(out, budgets))
     print(f"engine mixed load ({ENGINE_REQUESTS} requests, budgets "
@@ -4618,7 +4811,8 @@ def _mp_world1(params, cfg, where) -> dict:
         got = counts()
         rounds = eng.stats["rounds"]
         want = {"decode_attention_kernel": L * rounds,
-                "quant_matmul_int4": rounds + len(groups)}
+                "quant_matmul_int4": rounds + len(groups),
+                "quant_matmul_int8": 4 * L * rounds}
         ok = out == plain and all(got[k] == v for k, v in want.items())
         launches["engine"] = got
         print(f"model_parallel engine, (data 1, model 1) mesh under NCCL at "
@@ -4655,7 +4849,8 @@ def _mp_world1(params, cfg, where) -> dict:
         wall = time.perf_counter() - t0
         got = counts()
         want = {"decode_attention_kernel": L * VLM_NEW,
-                "quant_matmul_int4": 1 + VLM_NEW}
+                "quant_matmul_int4": 1 + VLM_NEW,
+                "quant_matmul_int8": 4 * L * VLM_NEW}
         ok = got_tok == want_tok and all(got[k] == v
                                          for k, v in want.items())
         launches["pipeline"] = got
@@ -5281,6 +5476,17 @@ def main() -> None:
     if sys.argv[1:] == ["--tp-layer-rank"]:
         tp_layer_rank()
         return
+    if sys.argv[1:] == ["--int8"]:  # the int8 GEMM's entry alone
+        setup()
+        results = {"quant_matmul_int8": {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": "", "shapes": [], "library_ms": None}}
+        failures = []
+        int8_phase(results, failures)
+        print(json.dumps(results), flush=True)
+        if failures:
+            raise SystemExit(f"int8 GEMM: {failures}")
+        return
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         root = os.path.abspath(sys.argv[2])
         setup(root)
@@ -5318,7 +5524,8 @@ def main() -> None:
         n: K4_SOURCE if n.startswith("contrastive") else SOURCE
         for n in BWD_REPLACES}, **{n: K5_SOURCE if n == "fused_attention"
                                    else SOURCE for n in T_REPLACES},
-        "quant_matmul_int4": K7_SOURCE, "decode_attention_kernel": K8_SOURCE}
+        "quant_matmul_int4": K7_SOURCE, "quant_matmul_int8": K7_SOURCE,
+        "decode_attention_kernel": K8_SOURCE}
     replaces = {**REPLACES, **BWD_REPLACES, **T_REPLACES, **VLM_REPLACES}
     for name, r in {**results, **bwd_results, **t_results,
                     **vlm_results}.items():

@@ -12,6 +12,8 @@ gradients sum over every row, so an elementwise bound would be set by
 cancellation, not by the kernel.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1156,13 +1158,15 @@ def test_int4_gemv_kernel(dev, dtype, M, N):
     x = torch.randn(M, 2048, generator=_gen(dev, 1), device=dev).to(dtype)
     K7.reset_launch_counts()
     got = K7.quant_matmul_int4(x, q)
-    assert K7.launch_counts() == {"quant_matmul_int4": 1}
+    assert K7.launch_counts() == {"quant_matmul_int4": 1,
+                                  "quant_matmul_int8": 0}
     want = K7.quant_matmul_int4_torch(x, q)
     assert got.dtype == torch.float32 and got.shape == (M, N)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     # quant_matmul routes a decode GEMV on a wide weight to the kernel
     y = K7.quant_matmul(x, q, out_dtype=torch.float32)
-    assert K7.launch_counts() == {"quant_matmul_int4": 2}
+    assert K7.launch_counts() == {"quant_matmul_int4": 2,
+                                  "quant_matmul_int8": 0}
     torch.testing.assert_close(y, got, atol=0, rtol=0)
 
 
@@ -1173,6 +1177,90 @@ def test_int4_gemv_refusals(dev):
         K7.quant_matmul_int4(torch.randn(33, 256, device=dev), q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K7.quant_matmul_int4(torch.randn(2, 256, device=dev).half(), q)
+
+
+# The int8 GEMM against its plain twin. Both take the same bf16-valued
+# operands (bf16(q * s), exactly; an fp32 x: its three exact bf16 terms
+# times the exact int8 values) and sum in fp32, so only the summation
+# order separates them: fp32 out within 1e-4 (1 + |want|); bf16 out the
+# same sums cast once, a rounding flip at most (TOL's bf16 2e-2). Shapes:
+# the 8h4 text linears (qkv with its bias, o, gateup, down), a ragged N
+# (3,420: byte loads, a ragged last tile) and a K not a multiple of 16 (a
+# padded x, a ragged last stage).
+INT8_SHAPES = {"qkv": (2048, 2560, True), "o": (2048, 2048, False),
+               "gateup": (2048, 22016, False), "down": (11008, 2048, False),
+               "ragged_n": (2048, 3420, True), "ragged_k": (1000, 2048, True)}
+
+
+def _int8_case(dev, shape, seed=0):
+    K, N, bias = INT8_SHAPES[shape]
+    gen = _gen(dev, seed)
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+    b = torch.randn(N, generator=gen, device=dev) if bias else None
+    return K7.quantize_weight(w, 8, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [1, 5, 32, "max"])
+@pytest.mark.parametrize("shape", sorted(INT8_SHAPES))
+def test_int8_gemm_kernel(dev, shape, M, dtype, out_dtype):
+    M = K7.KERNEL_MAX_M_INT8 if M == "max" else M
+    q = _int8_case(dev, shape)
+    x = torch.randn(M, q.qweight.shape[0], generator=_gen(dev, 1),
+                    device=dev).to(dtype)
+    K7.reset_launch_counts()
+    got = K7.quant_matmul_int8(x, q, out_dtype)
+    assert K7.launch_counts() == {"quant_matmul_int4": 0,
+                                  "quant_matmul_int8": 1}
+    want = K7.quant_matmul_int8_torch(x, q, out_dtype)
+    assert got.dtype == (out_dtype or dtype) and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    tol = TOL[out_dtype or dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # quant_matmul routes these rows on the card to the kernel
+    y = K7.quant_matmul(x, q, out_dtype=out_dtype)
+    assert K7.launch_counts()["quant_matmul_int8"] == 2
+    assert torch.equal(y, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(INT8_SHAPES))
+def test_int8_gemm_operand_bit_for_bit(dev, shape):
+    """A one-hot x row k returns bf16(q[k] * s), the reference's operand,
+    exactly (fp32 out: one product by 1 and sums of zeros); a second call
+    repeats the first bit for bit (the depth slices merge in order)."""
+    q = _int8_case(dev, shape)
+    K = q.qweight.shape[0]
+    plain = dataclasses.replace(q, bias=None)
+    rows = [0, K // 2 + 1, K - 1]
+    x = torch.zeros(len(rows), K, dtype=torch.bfloat16, device=dev)
+    for i, k in enumerate(rows):
+        x[i, k] = 1
+    got = K7.quant_matmul_int8(x, plain, torch.float32)
+    want = K7.dequantize_weight(plain)[rows].to(torch.bfloat16).float()
+    assert torch.equal(got, want)
+    xr = torch.randn(32, K, generator=_gen(dev, 2), device=dev).bfloat16()
+    first = K7.quant_matmul_int8(xr, q)
+    assert torch.equal(first, K7.quant_matmul_int8(xr, q))
+
+
+@pytest.mark.cuda
+def test_int8_gemm_refusals(dev):
+    q = K7.quantize_weight(torch.randn(256, 512, device=dev), 8)
+    with pytest.raises(ValueError, match="rows"):
+        K7.quant_matmul_int8(torch.randn(K7.INT8_TILE_M + 1, 256,
+                                         device=dev), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K7.quant_matmul_int8(torch.randn(2, 256, device=dev).half(), q)
+    with pytest.raises(ValueError, match="int8 weight"):
+        K7.quant_matmul_int8(torch.randn(2, 128, device=dev), q)
+    # past the route's rows the card takes the materialize route, no launch
+    K7.reset_launch_counts()
+    K7.quant_matmul(torch.randn(K7.KERNEL_MAX_M_INT8 + 1, 256, device=dev),
+                    q)
+    assert K7.launch_counts()["quant_matmul_int8"] == 0
 
 
 # K8 against its plain version, elementwise, within cli/check_decode_attn's

@@ -7,7 +7,8 @@ per-row route), gives the eager step's logits and cache bit for bit on a
 split-route cache; and a CPU generator never graphs. On the card (marker
 ``cuda``; they skip without one): a small 8h4 model decodes the same
 tokens through the graph as eagerly, over two batches with one capture,
-and the launch counters match. This file imports neither jax nor
+and the launch counters match (the int8 GEMM: 144 launches a forward
+at 36 layers). This file imports neither jax nor
 vlm_clip_tpu, so on a machine without jax it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_decode_graph.py -s
@@ -197,3 +198,30 @@ def test_graph_decodes_as_the_eager_step_on_the_card(dev):
         assert g_counts[k] == e_counts[k] > 0, k
     assert e_counts["launches.decode_attention_kernel"] == \
         forwards * text_cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_graph_replays_credit_the_int8_gemm(dev):
+    """36 layers of small width: each decode forward launches the int8
+    GEMM 144 times (qkv, o, gateup, down a layer), eagerly and as a graph
+    replay (which credits the launches its capture recorded); the graph's
+    logits equal the eager step's bit for bit."""
+    text_cfg = dataclasses.replace(
+        TINY, hidden_size=512, intermediate_size=1024, num_layers=36,
+        num_heads=4, num_kv_heads=2, head_dim=128, vocab_size=8192,
+        mrope_section=(16, 24, 24))
+    B, T, steps, seeds = 4, 300, 6, (5,)
+    graphed = _generator(text_cfg, dev, 1536)
+    eager = _generator(text_cfg, dev, 1536)
+    eager._graph_for = lambda cache: None
+    g_toks, g_logits, g_counts = _decode(graphed, B, T, steps, seeds)
+    e_toks, e_logits, e_counts = _decode(eager, B, T, steps, seeds)
+    forwards = steps - 1
+    assert g_counts["qwen.decode_graph_replays"] == forwards - 1
+    assert e_counts["launches.quant_matmul_int8"] == 144 * forwards
+    assert g_counts["launches.quant_matmul_int8"] == 144 * forwards
+    assert len(g_logits) == len(e_logits) == forwards
+    for g, e in zip(g_logits, e_logits):
+        assert torch.equal(g, e)
+    for g, e in zip(g_toks, e_toks):
+        assert torch.equal(g, e)

@@ -1,7 +1,8 @@
 """vlm_clip_tpu_torch.ops.quant against vlm_clip_tpu.ops.quant: the
 quantizer bit for bit, K7's plain version against the Pallas kernel (in
-interpret mode on the CPU), the row-pair GEMV, the CPU route and the
-routing table. Inputs come from numpy; fp32 throughout."""
+interpret mode on the CPU), the row-pair GEMV, the int8 kernel's plain
+twin and its arithmetic, the CPU route and the routing tables. Inputs
+come from numpy; fp32 unless a case says bf16."""
 
 import dataclasses
 
@@ -73,7 +74,8 @@ def test_int4_plain_matches_pallas_kernel(M, K, N):
     PQ.reset_launch_counts()
     np.testing.assert_array_equal(
         PQ.quant_matmul_int4(torch.from_numpy(x), got).numpy(), out.numpy())
-    assert PQ.launch_counts() == {"quant_matmul_int4": 0}
+    assert PQ.launch_counts() == {"quant_matmul_int4": 0,
+                                  "quant_matmul_int8": 0}
 
 
 @pytest.mark.parametrize("M", [1, 40])
@@ -282,6 +284,148 @@ def test_k7_tensor_core_emulation_matches_pallas(dtype, M):
                                        out_features=N, in_features=K)
     out = _k7_tensor_cores(x, got)
     np.testing.assert_allclose(out, np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The int8 GEMM (csrc/quant.cu qmm8_mma_kernel): its twin, arithmetic, route
+# ---------------------------------------------------------------------------
+
+def _int8_bf16_case(M, K, N, bias, seed):
+    """(reference QuantizedLinear, port QuantizedLinear, bf16 x [M, K])."""
+    _, ref, got = _pair((K, N), 8, seed=seed, bias=bias)
+    x = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(M, K)).astype(np.float32)).bfloat16()
+    return ref, got, x
+
+
+def _reference_fp32(ref, x: torch.Tensor) -> np.ndarray:
+    """The reference's quant_matmul on a bf16 x, fp32 out: its operand
+    bf16(q * s), fp32 accumulation, the bias added in fp32."""
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    return np.asarray(RQ.quant_matmul(xj, ref, out_dtype=jnp.float32))
+
+
+def _fp32_gap(got: torch.Tensor, want: np.ndarray) -> float:
+    """max |got - want| over 1e-5 (1 + |want|): at most 1 when the two
+    differ only in the order of their fp32 sums (the bf16-valued operands
+    are exact, products too), as the twin and the kernel do."""
+    g = got.float().numpy()
+    return float((np.abs(g - want) / (1e-5 * (1 + np.abs(want)))).max())
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 40), (5, 300, 130),
+                                   (32, 2048, 96)])
+def test_int8_twin_matches_reference_bf16(bias, M, K, N):
+    """The int8 kernel's twin on a bf16 x against the reference's
+    quant_matmul: fp32 out within fp32's summation order; bf16 out, one
+    cast of those sums, within half a bf16 ulp of the fp32 result."""
+    ref, got, x = _int8_bf16_case(M, K, N, bias, seed=30 + M)
+    want = _reference_fp32(ref, x)
+    y32 = PQ.quant_matmul_int8_torch(x, got, torch.float32)
+    assert y32.dtype == torch.float32 and y32.shape == (M, N)
+    assert _fp32_gap(y32, want) <= 1.0
+    y = PQ.quant_matmul_int8_torch(x, got)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  y32.bfloat16().float().numpy())
+    # quant_matmul takes the twin on the CPU, a 3-D x keeping its axes
+    y3 = PQ.quant_matmul(x.reshape(1, M, K), got, out_dtype=torch.float32)
+    assert y3.shape == (1, M, N) and torch.equal(y3[0], y32)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_int8_parent_arithmetic_fails_the_check(bias):
+    """Negative control for the check above: the materialize route's
+    arithmetic (a bf16 product, rounded to bf16 before the bias is added)
+    is out by about a bf16 ulp, far past fp32's summation order."""
+    ref, got, x = _int8_bf16_case(32, 2048, 96, bias, seed=41)
+    want = _reference_fp32(ref, x)
+    y = torch.matmul(x, PQ.dequantize_weight(got).to(torch.bfloat16))
+    if got.bias is not None:
+        y = y.float() + got.bias.float()
+    assert _fp32_gap(y.float(), want) > 10.0
+
+
+def test_int8_byte_conversion_all_values():
+    """The kernel's operand, emulated on uint32 words: every int8 value,
+    stored as b + 128 (xor 0x80) under the exponent bits of 2^23 (prmt
+    with 0x4B000000), less 2^23 + 128, is b exactly; times an fp32 scale
+    and rounded to bf16 it is dequantize_weight's value in bf16, bit for
+    bit, over scales of many binades."""
+    b = np.arange(-128, 128, dtype=np.int8)
+    u = b.view(np.uint8).astype(np.uint32) ^ 0x80
+    f = (u | np.uint32(0x4B000000)).view(np.float32) - np.float32(8388736.0)
+    np.testing.assert_array_equal(f, b.astype(np.float32))
+    rng = np.random.default_rng(5)
+    scale = (rng.uniform(0.5, 1.0, 64) * np.exp2(rng.integers(-30, 10, 64))
+             ).astype(np.float32)
+    q = PQ.QuantizedLinear(torch.from_numpy(np.tile(b[:, None], (1, 64))),
+                           torch.from_numpy(scale), 8)
+    want = PQ.dequantize_weight(q).to(torch.bfloat16)
+    got = torch.from_numpy(f[:, None] * scale[None, :]).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_int8_route_by_rows():
+    """The int8 route reads the rows alone: the kernel on CUDA for 1..
+    KERNEL_MAX_M_INT8 (decode steps, the engine's chunks, speculative
+    verify when it fits), the materialized weight past it (the text
+    prefill's 9,504 rows, the vision tower's 32,768), the twin off the
+    card."""
+    top = PQ.KERNEL_MAX_M_INT8
+    assert 32 <= top <= PQ.INT8_TILE_M
+    for M in (1, 32, top):
+        assert PQ.int8_route(M, "cuda") == "kernel"
+    for M in (0, top + 1, 9504, 32768):
+        assert PQ.int8_route(M, "cuda") == "dequant"
+    assert PQ.int8_route(32, "cpu") == "plain"
+
+
+def test_int8_splits_fill_the_card():
+    """Ordered depth slices (a cluster's blocks) where the 128-column tiles
+    leave the SMs idle, about 96 blocks, at most 6: the 8h4 gateup (172
+    tiles) in one, o and down (16 tiles) in 6, qkv (20) in 5, a tensor-
+    parallel half of o (8) in 6; never a slice under two 64-deep stages."""
+    assert PQ.int8_splits(22016, 2048) == 1
+    assert PQ.int8_splits(2048, 2048) == 6
+    assert PQ.int8_splits(2048, 11008) == 6
+    assert PQ.int8_splits(2560, 2048) == 5
+    assert PQ.int8_splits(1024, 2048) == 6
+    assert PQ.int8_splits(2048, 128) == 1
+
+
+@pytest.mark.parametrize("M", [1, 32, "top", "past"])
+def test_int8_quant_matmul_routes_by_rows(monkeypatch, M):
+    """quant_matmul on a device read as CUDA: the kernel's wrapper at
+    1..KERNEL_MAX_M_INT8 rows (impl="torch": the twin there), the
+    materialize route past them."""
+    top = PQ.KERNEL_MAX_M_INT8
+    M = {"top": top, "past": top + 1}.get(M, M)
+    route = PQ.int8_route
+    monkeypatch.setattr(PQ, "int8_route", lambda m, _: route(m, "cuda"))
+    calls = []
+
+    def spy(x, q, out_dtype=None):
+        calls.append((tuple(x.shape), out_dtype))
+        return PQ.quant_matmul_int8_torch(x, q, out_dtype)
+
+    monkeypatch.setattr(PQ, "quant_matmul_int8", spy)
+    _, _, got = _pair((64, 40), 8, seed=7, bias=True)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(M, 64)).astype(np.float32)).bfloat16()
+    y = PQ.quant_matmul(x.reshape(1, M, 64), got)
+    assert y.shape == (1, M, 40) and y.dtype == torch.bfloat16
+    if M <= top:
+        assert calls == [((M, 64), None)]
+        assert torch.equal(y[0], PQ.quant_matmul_int8_torch(x, got))
+        PQ.quant_matmul(x, got, impl="torch")
+        assert len(calls) == 1
+    else:
+        assert calls == []
+        w = PQ.dequantize_weight(got).to(torch.bfloat16)
+        want = (torch.matmul(x, w).float() + got.bias).bfloat16()
+        assert torch.equal(y[0], want)
 
 
 def test_bridge_carries_quantized_linears():

@@ -50,7 +50,7 @@ def decode_attention_reference(q, k_old, v_old, k_cur, v_cur, depths,
     dev = q.device
     qg = q.reshape(B, T, kv, rep, d)
     cols = torch.arange(S, device=dev)
-    neg = torch.tensor(_NEG, device=dev)
+    neg = torch.full((), _NEG, device=dev)  # a fill: a graph capture takes it
     zero = torch.zeros((), device=dev)
     mask_past = torch.where(
         cols[None, None, None] >= depths.to(dev)[:, None, None, None],

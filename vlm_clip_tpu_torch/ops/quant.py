@@ -8,8 +8,16 @@ nibble row 2k+1, each offset by +8), int4 weights pre-padded at
 quantization time to a 1024 x 2048 (packed 1024 x 1024) tile grid.
 
 int8 has no kernel in the reference (its matmul is XLA's fused
-dequantize-then-dot): here it dequantizes to the activation dtype and
-calls ``torch.matmul``. int4 routes as the reference does on its chip
+dequantize-then-dot, no fp weight in memory). Here it routes by the rows
+M of x alone (:func:`int8_route`): on CUDA, 1 <= M <=
+``KERNEL_MAX_M_INT8`` (the decode steps) launches
+:func:`quant_matmul_int8`, the int8-weight GEMM of ``csrc/quant.cu``,
+which forms the reference's operand bf16(q * s) in registers, sums in
+fp32, adds the bias in fp32 and casts once; a larger M (prefill, the
+vision tower: compute-bound) dequantizes to x's dtype and calls
+``torch.matmul``; a CPU tensor takes the kernel's plain twin
+:func:`quant_matmul_int8_torch`. ``quant_matmul_int8.launches`` counts
+the kernel's launches. int4 routes as the reference does on its chip
 (:func:`int4_route`): a GEMV of at most 32 rows on a wide weight launches
 :func:`quant_matmul_int4`, the kernel written by hand for Hopper in
 ``vlm_clip_tpu_torch/csrc/quant.cu`` (replaces ``_qmm4_kernel``
@@ -51,6 +59,16 @@ _I4_TN, _I4_TK = 1024, 2048
 KERNEL_MAX_M = 32
 _COLS_PER_BLOCK = 64
 _SMS = 132  # H100 SXM
+# the int8 GEMM: the rows its tiles take, its columns per block, its most
+# depth slices (blocks of a cluster), and the rows up to which
+# quant_matmul routes a CUDA int8 matmul to it: the kernel beat the
+# materialize route at all four 8h4 text shapes at every M timed up to
+# its tiles' 64 (chip_smoke.py --int8, H100; PERF.md)
+INT8_TILE_M = 64
+_INT8_COLS_PER_BLOCK = 128
+_INT8_MAX_SPLITS = 6
+_INT8_BLOCKS = 96  # the blocks the depth slices aim for (H100 sweeps)
+KERNEL_MAX_M_INT8 = 64
 
 
 @dataclasses.dataclass
@@ -203,6 +221,8 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.vct_qmm4.argtypes = [I, I, P, P, P, P, P, P] + [I] * 6 + [P]
         lib.vct_qmm4.restype = I
+        lib.vct_qmm8.argtypes = [I, P, I, P, P, P, P, I, I, I, I, I, I, P]
+        lib.vct_qmm8.restype = I
         lib._typed = True
     return lib
 
@@ -288,6 +308,111 @@ def quant_matmul_int4(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
 quant_matmul_int4.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# int8: the decode linears' GEMM
+# ---------------------------------------------------------------------------
+
+def quant_matmul_int8_torch(x: torch.Tensor, q: QuantizedLinear,
+                            out_dtype=None) -> torch.Tensor:
+    """The int8 kernel's plain twin, the reference's int8 ``quant_matmul``:
+    x [.., K] times the operand ``dequantize_weight(q)`` in x's dtype
+    (bf16(q * s) for a bf16 x), the product of those values in fp32, the
+    fp32 bias added, one cast to ``out_dtype`` (default x's)."""
+    w = dequantize_weight(q).to(x.dtype)
+    y = torch.matmul(x.float(), w.float())
+    if q.bias is not None:
+        y = y + q.bias.float()
+    return y.to(out_dtype or x.dtype)
+
+
+def int8_splits(n_cols: int, k_rows: int) -> int:
+    """How many ordered depth slices (blocks of one thread-block cluster)
+    the int8 kernel cuts a column tile's depth into: about _INT8_BLOCKS
+    blocks over the 128-column tiles, at most 6 (past that the cluster's
+    merge and scheduling cost more than the blocks bring, H100), and never
+    so many that a slice gets under two of the 64-deep stages."""
+    tiles = -(-n_cols // _INT8_COLS_PER_BLOCK)
+    return max(1, min((_INT8_BLOCKS + tiles // 2) // tiles,
+                      _INT8_MAX_SPLITS, k_rows // 128))
+
+
+def _launch_int8(x: torch.Tensor, q: QuantizedLinear,
+                 out_dtype) -> torch.Tensor:
+    M, K = x.shape
+    out_dtype = out_dtype or x.dtype
+    if not 1 <= M <= INT8_TILE_M:
+        raise ValueError(f"quant_matmul_int8: the kernel takes 1..."
+                         f"{INT8_TILE_M} rows, got {M}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quant_matmul_int8: x must be float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quant_matmul_int8: out_dtype must be float32 or "
+                        f"bfloat16, got {out_dtype}")
+    if q.bits != 8 or q.qweight.dim() != 2 \
+            or q.qweight.dtype != torch.int8 or q.qweight.shape[0] != K:
+        raise ValueError(f"quant_matmul_int8: need an int8 weight [{K}, N] "
+                         f"for x {tuple(x.shape)}, got qweight "
+                         f"{tuple(q.qweight.shape)} {q.qweight.dtype} "
+                         f"(bits {q.bits})")
+    N = q.qweight.shape[1]
+    bias = q.bias
+    if q.scale.dtype != torch.float32 or q.scale.shape != (N,) or (
+            bias is not None and bias.shape != (N,)):
+        raise ValueError(f"quant_matmul_int8: need a float32 scale [{N}] "
+                         f"and a bias [{N}] or none, got scale "
+                         f"{tuple(q.scale.shape)} {q.scale.dtype}")
+    if any(t.device != x.device for t in (q.qweight, q.scale)) or (
+            bias is not None and bias.device != x.device):
+        raise ValueError(f"quant_matmul_int8: all tensors must be on "
+                         f"{x.device}")
+    x = x.contiguous()
+    f32 = x.dtype == torch.float32
+    # rows of x that copy in 16-byte chunks are read in place; another x
+    # is copied once into zero-padded rows
+    per = 4 if f32 else 8
+    ldx = -(-K // per) * per
+    if ldx != K or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, ldx - K))
+    qweight = q.qweight.contiguous()
+    scale = q.scale.contiguous()
+    bias = None if bias is None else bias.float().contiguous()
+    vec = N % 16 == 0 and qweight.data_ptr() % 16 == 0
+    splits = int8_splits(N, K)
+    out = torch.empty(M, N, dtype=out_dtype, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.vct_qmm8(
+            int(f32), x.data_ptr(), ldx, qweight.data_ptr(),
+            scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.float32), M, K, N,
+            int(vec), splits,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"quant_matmul_int8: CUDA kernel launch failed "
+                           f"with cudaError {err}")
+    quant_matmul_int8.launches += 1
+    return out
+
+
+def quant_matmul_int8(x: torch.Tensor, q: QuantizedLinear,
+                      out_dtype=None) -> torch.Tensor:
+    """x [M <= 64, K] @ bf16(q * s) (+bias) -> [M, N] in ``out_dtype``
+    (default x's). A CUDA tensor launches the int8 kernel (an fp32 x as
+    three exact bf16 terms times the exact int8 values, its scale applied
+    to the fp32 sum: see ``csrc/quant.cu``) or raises; a CPU tensor takes
+    :func:`quant_matmul_int8_torch`."""
+    if x.device.type == "cpu":
+        return quant_matmul_int8_torch(x, q, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul_int8: no kernel for device "
+                         f"{x.device}")
+    return _launch_int8(x, q, out_dtype)
+
+
+quant_matmul_int8.launches = 0
+
+
 def int4_route(M: int, q: QuantizedLinear, device_type: str) -> str:
     """The reference's int4 routing (quant.py:204-223), "on TPU" read as
     "on CUDA": ``kernel`` (GEMV on a wide weight), ``rowpair``
@@ -299,13 +424,30 @@ def int4_route(M: int, q: QuantizedLinear, device_type: str) -> str:
     return "rowpair" if M <= 1024 else "bf16"
 
 
+def int8_route(M: int, device_type: str) -> str:
+    """An int8 matmul's route by its rows alone: ``kernel`` (CUDA, 1 <= M
+    <= ``KERNEL_MAX_M_INT8``), ``dequant`` (CUDA, larger M: the
+    materialized weight) or ``plain`` (off the card: the twin)."""
+    if device_type != "cuda":
+        return "plain"
+    return "kernel" if 1 <= M <= KERNEL_MAX_M_INT8 else "dequant"
+
+
 def quant_matmul(x: torch.Tensor, q: QuantizedLinear, out_dtype=None,
                  impl: str = "auto") -> torch.Tensor:
     """x [.., in] @ dequant(q) [in, out] (+bias), fp32 accumulation, cast
-    to ``out_dtype`` (default x's). ``impl="torch"`` takes K7's plain
-    version where the kernel would launch (the plain route of a check)."""
+    to ``out_dtype`` (default x's). ``impl="torch"`` takes K7's or the
+    int8 kernel's plain version where the kernel would launch (the plain
+    route of a check)."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
+    if q.bits == 8:
+        route = int8_route(x2.shape[0], x.device.type)
+        if route != "dequant":
+            y = (quant_matmul_int8(x2, q, out_dtype)
+                 if route == "kernel" and impl != "torch"
+                 else quant_matmul_int8_torch(x2, q, out_dtype))
+            return y.reshape(*shape[:-1], -1)
     route = int4_route(x2.shape[0], q, x.device.type) if q.bits == 4 \
         else "dequant"
     if route == "kernel":
@@ -326,7 +468,9 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear, out_dtype=None,
 
 def reset_launch_counts() -> None:
     quant_matmul_int4.launches = 0
+    quant_matmul_int8.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"quant_matmul_int4": quant_matmul_int4.launches}
+    return {"quant_matmul_int4": quant_matmul_int4.launches,
+            "quant_matmul_int8": quant_matmul_int8.launches}

@@ -157,12 +157,12 @@ class _DecodeGraph:
     [B], the rope position ``pos`` [3, 1, 1] and ``depth`` [B]. The first
     :meth:`run` runs the forward eagerly on a side stream (which loads
     the kernels and sizes their workspaces) and captures it there; every
-    later one replays it and returns a copy of its logits. K7 and K8
-    launch on the current stream, so the capture records them as it does
-    torch's kernels; K8's workspace is reserved before the capture and
-    held here. A replay runs none of the op modules' Python, so their
-    launch counters (``ops/quant``, ``ops/decode_attention``) are credited
-    on each replay with the launches the capture recorded.
+    later one replays it and returns a copy of its logits. K7, K8 and
+    the int8 GEMM launch on the current stream, so the capture records
+    them as it does torch's kernels; K8's workspace is reserved before the
+    capture and held here. A replay runs none of the op modules' Python,
+    so their launch counters (``ops/quant``, ``ops/decode_attention``) are
+    credited on each replay with the launches the capture recorded.
     """
 
     def __init__(self, text_params, cfg, dtype, impl: str, cache: KVCache):
