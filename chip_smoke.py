@@ -2,209 +2,103 @@
 """Smoke test of the PyTorch port (vlm_clip_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It runs what neither the card tests nor the benchmark runs. The kernels'
+correctness against their plain versions is the card tests' (``python -m
+pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+tests/test_torch_decode_graph.py``); the end-to-end rates are the
+benchmark's (``h100_bench/``). Each phase raises (exit != 0) on the
+failure it names.
 
-1. Setup: prints the card's name and power limit, refuses to run without
-   CUDA, builds the hand-written kernels (csrc/fused_adapter.cu,
-   csrc/contrastive.cu, csrc/attention.cu, csrc/quant.cu and
-   csrc/decode_attention.cu, one nvcc each, in parallel), prints ptxas's
-   registers and spills and the HMMA instructions in the SASS of each
-   tensor-core kernel (in bf16: K5, K3 and K2 forward and backward, the
-   weight gradients, K7, K8; in compensated TF32: K1 forward and backward
-   and the fp32 weight gradients), and fails if one of them has none.
-2. Kernels: each forward kernel against its plain PyTorch version at the
-   B=96 pipeline-M shapes (ViT-B/16, adapters 256/256/2, 8 heads) and at
-   the batch-1 shapes of a served request, in bf16 and fp32, with the
-   tolerance stated below, and both timed with CUDA events; K1's, K3's
-   and K2's bf16 passes timed one by one (torch.profiler), K1's bound
-   printed for its compensated TF32 passes and for its fp32 products.
-3. Backward kernels: K1 (text, vision), K2 and K3 backward and the K4
-   contrastive head (forward and backward, [96, 512]) against their
-   plain versions at the B=96 shapes, in bf16 and fp32, timed the same
-   way beside their bounds (K1's fp32 parameter gradients at the fp32
-   tolerance in both dtypes: its function is fp32); K1's, K2's and K3's
-   gradients must repeat bit for bit on a second call; their passes are
-   timed one by one (torch.profiler; K1's in both dtypes, beside the
-   bound of its fp32 products at the CUDA cores' peak), and the bf16
-   weight-gradient route alone. K4's backward (one cluster launch) must
-   repeat bit for bit too; its launches a call, device time and CUDA-
-   event time are printed beside its earlier time (PERF.md's table). K4's
-   forward must be one cluster launch a call, repeat its loss bit for bit
-   and give the row and column LSEs the backward recomputes, bit for bit;
-   its device and CUDA-event times are printed beside its earlier time.
-4. Train: the port's cli/train_m trains one epoch of ViT-B/16 at full
-   width (seeded random weights) on a synthetic RAF-DB tree on the card
-   and writes its checkpoints, which must load back; then bench.py's
-   step (ViT-B/16, adapters 256/256/2, FAST, Adam 3e-4, one fixed random
-   B=96 batch) runs once with the kernels and once with the plain
-   versions (impl="torch") from the same state, without and with the K4
-   head, and must agree; then 3 warmup + 20 timed steps give pairs/s.
-   Every kernel must have launched on this path.
-   Data parallel (phase data_parallel): cli/train_m --zero1 (B=96, Adam
-   3e-4, one epoch of 2 steps on the same tree) under the launcher's
-   variables (WORLD_SIZE=1, RANK=0, LOCAL_RANK=0, a free MASTER_PORT:
-   NCCL at world 1) and without them must write the same adapter files
-   bit for bit, K1-K3 launching in the NCCL run; in this process,
-   bench.py's step through the DP + ZeRO-1 route at world 1 must equal
-   the plain step bit for bit; both are timed in turns, and NCCL's
-   version and Adam's moment bytes on rank 0 are printed. At world 1
-   zero1_specs shards no leaf, so ZeRO-1's reduce-scatter, parameter
-   all-gather and state gather never run under NCCL here. Two ranks need
-   two GPUs: their semantics are held on the CPU by the tests (gloo).
-   Route: one M step at ViT-L/14's widths (text 768, vision 1024, 8
-   heads of 96, Tk = 257; B=8) with the kernels against the plain
-   versions: K1 and K3 must launch, K2 must take its plain version (past
-   256 shared rows the reference computes plainly too); then K2 at these
-   widths with a 197-row pseudo-image, where the reference runs its
-   kernel: K2 (96-wide heads) must launch, forward and backward, and
-   agree with its plain version; its forward's passes timed one by one.
-   Then each width the bf16 tensor-core passes do not take runs once on
-   its CUDA-core kernel against its plain version: K3 at H = 100, K =
-   400, K2 at heads of 25 and 192 columns (forward and backward), and K5
-   at heads of 160 and 256 columns in both dtypes; and the widths the
-   kernels once refused, timed beside their plain versions: K5 at heads
-   of 272 and 512 columns (the column-chunk kernel) in both dtypes
-   (beside SDPA's time and backend on the same inputs), K6 at D 4100, K
-   1100 with dropout, forward and backward, in both.
-5. Pipeline-T kernels: K6 (the feature adapter, forward and backward)
-   at the rows pipeline T gives it (32 image features, 7 class means, 35
-   descriptions; D=768, K=64, r=0.2) and at 600 rows with dropout 0.1,
-   whose mask must equal the plain version's bit for bit; K6 forward's
-   and backward's kernels and launches a call (torch.profiler, one
-   cluster launch each), the forward bit for bit on a repeat, its three
-   T-path calls' device and CUDA-event time beside its earlier time
-   (PERF.md's table); K5 (the towers'
-   attention) at ViT-L/14's and ViT-B/16's shapes with each mask layout
-   the towers give it, beside F.scaled_dot_product_attention's time on
-   the same inputs (timed only, never used by the port).
-6. Pipeline T at ViT-L/14 full width (seeded random weights), with K5
-   switched on: cli/compare_t trains the T adapters for 3 epochs at B=32
-   on a synthetic flat tree and prints the 2x2 accuracies; one T train
-   step with the kernels against one with impl="torch" from the same
-   state; image features and the prompt bank with K5 on against off;
-   cli/predict_image on one JPEG with a T checkpoint the port saved; the
-   cached-feature T step's time and the ViT-L/14 encode time.
-7. Pipeline V at ViT-L/14 full width (seeded random weights, stub
-   contexts): cli/main_v trains the three V adapters for 2 epochs at B=4
-   (bottleneck 192, dropout 0.1 through K6's hash) on 42 synthetic
-   images and evaluates 21; cli/build_context_cache caches the test
-   tree's contexts; serve --v-adapter-ckpt --context-cache answers 3
-   /classify requests. K6 must launch forward and backward on that path;
-   V's eval logits, one V step and the served probabilities are held
-   against impl="torch" from the trained adapters.
-8. Serve: the port's cli/serve.py server in-process (ViT-B/16 at full
-   width, seeded random weights, M adapters loaded from a reference-format
-   .pt) answers /embed, /embed_text and /classify over HTTP. Responses must
-   be 200s with finite unit-norm features and 7 probabilities summing to
-   1; /embed and /embed_text must agree with the same weights run through
-   the plain versions (impl="torch"); every forward kernel must have
-   launched. A second server in t-adapter mode (a T checkpoint) answers
-   /classify, which must agree with the plain path and launch K6.
-   Real weights and EMOTIC (phase real_weights_emotic), ViT-B/16 at full
-   width, weights made from a seed on the card: an HF-layout checkpoint
-   directory (pytorch_model.bin, and model.safetensors by this script's
-   writer; config.json; a byte-level vocab) loads through
-   cli/common.load_backbone(require_real=True) bit for bit; cli/smoke on
-   it launches K1-K3 forward; cli/serve --hf-checkpoint (no --allow-*
-   flag) answers /classify as the in-process zero-shot does;
-   cli/train_emotic trains 2 epochs at B=32 on a synthetic 64/32 split
-   (K6 forward and backward must launch), one EMOTIC step and the eval
-   scores are held against impl="torch"; validate_parity's RAF-DB and
-   EMOTIC legs run on the loaded weights.
-9. VLM kernels: K7 (the int4 GEMV, csrc/quant.cu) at M = 1, 8, 32 on the
-   8h4 LM head (K=2048, N=151,936) and the mixed preset's gateup
-   (N=22,016) in bf16 and fp32, beside a bf16 matmul on the pre-dequantized
-   weight; K8 (decode attention, csrc/decode_attention.cu) at the 3B heads
-   (16 q, 2 kv, d=128), S=768, T=1 and T=5, a bf16 cache at B=8, an int8
-   cache at B=16 and fp32 at B=2, depths 0 and S - T included, beside
-   F.scaled_dot_product_attention on the bf16 cache, with K8's device
-   time (torch.profiler), column splits and blocks; then the port's
-   cli/check_decode_attn.
-10. VLM: Qwen2.5-VL-3B at full width (seeded random weights made on the
-   card, the 8h4 preset through quantize_qwen_params, the folded patch
-   embed with raw uint8 patches) describes 8 synthetic 448x448 images:
-   generate_batch_from_ids with 32 new tokens with K8 off and on, with an
-   int8 KV cache at B=16, and through the plain versions (impl="torch");
-   prefill and first-step logits and every row's first token are held
-   across them, and K8 must launch once a layer a decode forward; then
-   the port's cli/bench_decode (8h4, fused, B=8, 64 tokens) with K8 off
-   and on.
-   NF4 (phase nf4): the same seeded 3B weights quantized to NF4 on the
-   card (ops/nf4.py, plain PyTorch; no hand kernel, as the reference has
-   no Pallas one): the quantizer against the CPU's, the row-pair matmul at
-   the head's shape and the materialize route at prefill's rows against
-   float64, NF4's RMS weight error below int4's; the extractor's "nf4"
-   preset and head_bits="nf4" generate 32 tokens for the 8 images with K8
-   on (once a layer a decode forward), beside 8h4's ms/token.
-11. VLM engine (phase vlm_engine, the vlm phase's model): the
-   continuous-batching engine (vlm/engine.py) at 32 slots and 16 steps a
-   chunk drains 48 requests with budgets of 8-64 tokens; K8 must launch
-   once a layer a decode forward and K7 once a forward and once an
-   install. On 4 of them its prefill and first decode logits are held to
-   generate_from_ids's path and to the plain versions (impl="torch", K8
-   off) with VLM_TOL, first tokens equal; spec_k=4 (K8 at T=5) and an
-   int8 cache at 16 slots run the load; one chunk with a cancelled row
-   runs under torch.cuda.set_sync_debug_mode("error"); K7 and K8 are
-   timed at the engine's shapes; cli/serve_vlm answers /healthz, 3
-   concurrent /generate, a streamed one, a client that leaves mid-stream
-   (cancelled) and a bad image (400); then cli/bench_engine (mixed, 32
-   requests, one Poisson rate), cli/bench_spec's round cost at 8 slots,
-   cli/bench_context (B=8, 32 tokens) and cli/bench_vision (B=1).
-12. Data paths (phase data_paths, after real_weights_emotic): the C++
-   batch decoder (native/loader.cpp, built with g++ and libjpeg into
-   build/; where it cannot build, the line says why and PIL decodes)
-   on 64 448x448 JPEGs at 336, held against PIL; BASELINE config 5
-   through cli/bench_label_finetune (ViT-L/14-336, B=32, 16 images a
-   class, 2 epochs, stub labels, pixel cache, device prefetch): K1's and
-   K3's launches must equal the steps times the calls a step (C5_CALLS),
-   K2's 0; one step held against impl="torch" under FP32 on its batch
-   and under FAST with random caption ids, and K1 and K3 timed at its
-   shapes; full train-state resume of bench.py's step from a background
-   save, bit for bit; config 4's scorer on 64 seeded 480x640 frames with
-   K5 on and off, held against its plain version and the host-resize
-   path, with cli/bench_video --no-demux's rates, and the uint8 folded
-   tower against the normalize-then-tower path.
-13. Model parallelism (phase model_parallel, after vlm_engine, on its
-   3B 8h4 tree). One card, so NCCL at world 1 (the launcher's variables,
-   as data_parallel brings them up): the engine with a (data 1, model 1)
-   mesh on 16 requests of 8-32 tokens at 32 slots must give the
-   mesh-free engine's tokens; PipelineGenerator at one stage, greedy, 32
-   new tokens on 8 rows of 64 prompt ids, QwenVLGenerator's tokens;
-   score_video_frames_sharded at seq 1 (ViT-B/16, 64 frames, K5 on)
-   score_video_frames's scores within 1e-5; K7, K8 and K5 must launch
-   as counted. Then the tensor-parallel layers across four processes
-   on the card (gloo, whose all-reduce takes CUDA tensors through the
-   host; NCCL refuses ranks that share a device): model 4 and data 2 x
-   model 2, one Qwen2.5-VL-3B decoder layer (fp/unfused and 8h4, a
-   decode step with K8 at each rank's heads) and one ViT-B/16 encoder
-   layer (K5 on) through the model code in bf16, each rank against the
-   unsharded layer (MP_LAYER_TOL). Then each rank's shard for model 2
-   and 4, cut by parallel.sharding.cut_params in this process: K7 on
-   the 8h4 head's vocabulary shards (x [8, 2048]), K8 at the unfused
-   tree's local heads (8 q / 1 kv, 4 q / 1 kv; B=8, S=768, depth 307),
-   K5 at ViT-B/16's local heads ([32, 6, 197, 64], [32, 3, 197, 64]),
-   each against its plain version and timed beside it, its bound and
-   its library call; the ranks' results recombined (head shards
-   concatenated, row shards' partial products summed) against the
-   unsharded layer (MP_SUM_TOL).
+setup: prints the card and its power limit, builds the kernels (one nvcc
+each), prints ptxas's registers and spills and the HMMA instructions in
+the SASS of each tensor-core kernel. Fails without CUDA, or on a
+tensor-core kernel with no HMMA instruction.
 
-Prints one JSON line with the kernels' results (each kernel's launches
-on its main path, plus ``launches_serve``, ``launches_v``,
-``launches_emotic``, ``launches_engine``, ``launches_c5``,
-``launches_dp``, ``launches_nf4`` and ``launches_mp`` where it also ran
-on the served path, in pipeline V, in cli/train_emotic, in the engine's
-mixed load, in config 5, in the NCCL run of cli/train_m --zero1, in the
-NF4 generation or in the model_parallel phase's world-1 drives), then
-the device line
-``{"ok": true, "device": {...}}`` last. Any failure raises (exit != 0).
+times: the timing table (:func:`kernel_times`): each kernel at the
+shapes its paths give it (bf16 and fp32, batch 96 and 1), beside its
+plain version, a library call where one exists and the bound its cost
+gives, in turns by CUDA events, then its device time by kernel
+(torch.profiler). Fails on a row whose kernel is past its limit against
+its plain version (TOL elementwise for a forward, per gradient for a
+backward, K7_TOL, check_decode_attn's limit for K8, INT8_TOL), or when
+the int8 GEMM's route (``KERNEL_MAX_M_INT8``) takes rows where the
+kernel lost to the materialize route.
 
-``python3 chip_smoke.py --times <checkout>`` instead times the kernels
-this slice redesigned or touched (K4 forward and backward, K6 forward
-and backward, K5's CUDA-core kernel) in the package at <checkout>, to
-compare two checkouts in turns in one call (:func:`redesign_times`).
+train: cli/train_m trains one epoch of ViT-B/16 on a synthetic RAF-DB
+tree and its checkpoints load back; bench.py's step runs with the kernels
+and with impl="torch" from the same state, without and with the K4 head.
+Fails on a non-finite loss or weight, steps apart by more than STEP_TOL,
+a plain step that launched a kernel, or a kernel of the path that never
+launched.
 
+data_parallel: cli/train_m --zero1 under NCCL at world 1 and in one
+process must write the same adapter files; bench.py's step through the
+DP + ZeRO-1 route must equal the plain step bit for bit (both timed in
+turns). Fails on a difference or on K1-K3 not launching under NCCL.
+
+pipeline_t: cli/compare_t at ViT-L/14 with K5 on; one T step with the
+kernels against impl="torch"; image features and the prompt bank with K5
+on against off; cli/predict_image with a T checkpoint. Fails on bad
+losses or accuracies, a disagreement, or a kernel that never launched.
+
+pipeline_v: cli/main_v, cli/build_context_cache and serve in v-context
+mode at ViT-L/14; V's eval logits, two V steps and the served
+probabilities against impl="torch". Fails on a disagreement, a wrong
+cache or mode, or K6 not launching.
+
+serve: cli/serve in-process (ViT-B/16, M adapters) answers /embed,
+/embed_text and /classify, held to impl="torch"; a second server in
+t-adapter mode. Fails on a bad response, a disagreement, a kernel that
+never launched, or a plain path that launched one.
+
+real_weights_emotic: an HF-layout checkpoint (pytorch_model.bin, and
+model.safetensors by this script's writer) loads bit for bit; cli/smoke,
+cli/serve --hf-checkpoint, cli/train_emotic and cli/validate_parity's
+card legs run on it, each held to impl="torch" or the in-process path.
+Fails on a difference, a non-finite result or a kernel that never
+launched.
+
+data_paths: the native JPEG decoder's rate beside PIL's; BASELINE config
+5 through cli/bench_label_finetune (its launches as C5_CALLS predicts,
+one step held to impl="torch" twice); a full train-state resume bit for
+bit; config 4's video scorer with K5 on and off and the uint8 folded
+tower. Fails on a launch count, a disagreement or a resume that differs.
+
+vlm: cli/check_decode_attn; Qwen2.5-VL-3B at full width under 8h4 (and
+the mixed preset, an int8 cache) generates for 8 images with K8 off and
+on and through impl="torch"; logits and first tokens held (VLM_TOL),
+launches counted; a decode step's profile. Fails on a disagreement or a
+launch count.
+
+nf4: the NF4 quantizer on the card against the CPU's, its matmul routes
+against float64, both NF4 presets generate. Fails on a disagreement or a
+launch count.
+
+vlm_engine: the continuous-batching engine on the vlm phase's model:
+launch counts, logits against the fixed batch and the plain versions,
+speculative and int8-cache loads, a chunk with a cancelled row under
+sync_debug_mode("error"), cli/serve_vlm over HTTP, the engine's benches
+and cli/bench_decode, shortened. Fails on any of these.
+
+model_parallel: NCCL at world 1 (the engine's mesh, PipelineGenerator,
+the sharded video scorer) against the unsharded paths; the
+tensor-parallel layers across four gloo processes on the card; K7, K8
+and K5 on each rank's shard against the plain versions and recombined.
+Fails on a disagreement or a launch count.
+
+The last two lines: ``{"kernels": [...]}`` (each kernel's times, bound
+and shapes from the table, its launches on its main path and, as
+``launches_serve``, ``launches_v``, ``launches_emotic``, ``launches_c5``,
+``launches_dp``, ``launches_nf4``, ``launches_engine`` and
+``launches_mp``, on the other paths it ran) and ``{"ok": true, "device":
+{...}}``.
+
+``python3 chip_smoke.py --int8`` runs the int8 GEMM's rows of the table
+alone and prints its entry. ``python3 chip_smoke.py --times <checkout>``
+runs the table's K4, K6 and K5 rows on the package at <checkout>, to
+compare two checkouts in turns in one call.
 ``python3 chip_smoke.py --tp-layer-rank`` is one rank of the
-model_parallel phase's layer check, which starts four of them
-(:func:`tp_layer_rank`).
+model_parallel phase's layer check (:func:`tp_layer_rank`).
 """
 
 from __future__ import annotations
@@ -220,6 +114,8 @@ import sys
 import threading
 import time
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -231,9 +127,6 @@ B = 96  # the bench batch of the pipeline-M train step
 # fp32: summation order alone, over at most 2048 terms.
 TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 EMBED_ATOL = 5e-3  # unit-norm features, served kernel path vs plain path
-# Gradients: |got - want| <= tol * max|want| per gradient (weight
-# gradients sum over every row, so an elementwise bound would be set by
-# cancellation), tol as above for the dtype.
 # The train step, kernels vs plain versions from the same state (bf16
 # towers under FAST; the kernels and the plain versions differ by bf16
 # rounding flips, which the backward carries into every gradient): loss
@@ -260,11 +153,6 @@ V_LOGIT_ATOL = 1e-4
 # sum 2048 fp32 products in another order: |got - want| <= 1e-4 + 1e-4 *
 # |want| elementwise, in bf16 and fp32 x alike (the output is fp32).
 K7_TOL = (1e-4, 1e-4)
-# K8 against its plain version, elementwise, shared with
-# cli/check_decode_attn (its limits()): bf16 q (bf16 or int8 cache)
-# |got - want| <= 2^-6 * sum_j p_j |v_j| + 1e-5: the two versions round p
-# to bf16 at different points (2^-8 of each term) and both round the
-# output; fp32 |got - want| <= 2e-5 (summation order).
 # Qwen2.5-VL-3B (8h4, bf16), kernels against the plain versions from the
 # same weights: the prefill differs only in K7's fp32 summation order:
 # max |diff| <= 1e-4 x max |logit|; the first decode step with K8 on
@@ -287,14 +175,35 @@ ENGINE_SLOTS, ENGINE_SYNC, ENGINE_REQUESTS = 32, 16, 48
 ENGINE_BUDGETS = (8, 64)
 _VLM: dict = {}  # the vlm phase's model, kept for the nf4 and vlm_engine
 # phases
-K7_SOURCE = "vlm_clip_tpu_torch/csrc/quant.cu"
-K8_SOURCE = "vlm_clip_tpu_torch/csrc/decode_attention.cu"
-VLM_REPLACES = {
-    "quant_matmul_int4": "vlm_clip_tpu/ops/quant.py:233",
-    "decode_attention_kernel": "vlm_clip_tpu/ops/decode_attention.py:130",
+FUSED = "vlm_clip_tpu_torch/csrc/fused_adapter.cu"
+QUANT = "vlm_clip_tpu_torch/csrc/quant.cu"
+# The {"kernels"} line's entries, in its order: each kernel's source and
+# the TPU kernel it replaces.
+KERNELS = {
+    "seq_adapter_fused": (FUSED, "vlm_clip_tpu/ops/fused_adapter.py:310"),
+    "cross_attn_block_fused": (FUSED,
+                               "vlm_clip_tpu/ops/fused_adapter.py:796"),
+    "prenorm_mlp_fused": (FUSED, "vlm_clip_tpu/ops/fused_adapter.py:532"),
+    "seq_adapter_bwd_cuda": (FUSED, "vlm_clip_tpu/ops/fused_adapter.py:328"),
+    "cross_attn_block_bwd_cuda": (FUSED,
+                                  "vlm_clip_tpu/ops/fused_adapter.py:807"),
+    "prenorm_mlp_bwd_cuda": (FUSED, "vlm_clip_tpu/ops/fused_adapter.py:550"),
+    "contrastive_loss_fused": ("vlm_clip_tpu_torch/csrc/contrastive.cu",
+                               "vlm_clip_tpu/ops/contrastive.py:52"),
+    "contrastive_loss_bwd_cuda": ("vlm_clip_tpu_torch/csrc/contrastive.cu",
+                                  "vlm_clip_tpu/ops/contrastive.py:68"),
+    "feature_adapter_blend_fused": (FUSED,
+                                    "vlm_clip_tpu/ops/fused_adapter.py:109"),
+    "feature_adapter_blend_bwd_cuda": (
+        FUSED, "vlm_clip_tpu/ops/fused_adapter.py:127"),
+    "fused_attention": ("vlm_clip_tpu_torch/csrc/attention.cu",
+                        "vlm_clip_tpu/ops/attention.py:59"),
+    "quant_matmul_int4": (QUANT, "vlm_clip_tpu/ops/quant.py:233"),
+    "decode_attention_kernel": ("vlm_clip_tpu_torch/csrc/decode_attention.cu",
+                                "vlm_clip_tpu/ops/decode_attention.py:130"),
     # no Pallas kernel: XLA's int8 dequantize fused into the dot's operand
-    "quant_matmul_int8": "none (XLA's fused int8 dequant-dot, "
-                         "vlm_clip_tpu/ops/quant.py:225-230)",
+    "quant_matmul_int8": (QUANT, "none (XLA's fused int8 dequant-dot, "
+                                 "vlm_clip_tpu/ops/quant.py:225-230)"),
 }
 # The int8 GEMM at the 8h4 text linears of Qwen2.5-VL-3B (K, N, bias): a
 # decode forward makes 36 calls of each. Against its plain twin: fp32
@@ -303,26 +212,6 @@ VLM_REPLACES = {
 INT8_SHAPES = {"qkv": (2048, 2560, True), "o": (2048, 2048, False),
                "gateup": (2048, 22016, False), "down": (11008, 2048, False)}
 INT8_TOL = 2e-2
-SOURCE = "vlm_clip_tpu_torch/csrc/fused_adapter.cu"
-K4_SOURCE = "vlm_clip_tpu_torch/csrc/contrastive.cu"
-K5_SOURCE = "vlm_clip_tpu_torch/csrc/attention.cu"
-T_REPLACES = {
-    "feature_adapter_blend_fused": "vlm_clip_tpu/ops/fused_adapter.py:109",
-    "feature_adapter_blend_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:127",
-    "fused_attention": "vlm_clip_tpu/ops/attention.py:59",
-}
-REPLACES = {
-    "seq_adapter_fused": "vlm_clip_tpu/ops/fused_adapter.py:310",
-    "cross_attn_block_fused": "vlm_clip_tpu/ops/fused_adapter.py:796",
-    "prenorm_mlp_fused": "vlm_clip_tpu/ops/fused_adapter.py:532",
-}
-BWD_REPLACES = {
-    "seq_adapter_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:328",
-    "cross_attn_block_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:807",
-    "prenorm_mlp_bwd_cuda": "vlm_clip_tpu/ops/fused_adapter.py:550",
-    "contrastive_loss_fused": "vlm_clip_tpu/ops/contrastive.py:52",
-    "contrastive_loss_bwd_cuda": "vlm_clip_tpu/ops/contrastive.py:68",
-}
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a kernel
 # could take is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type.
@@ -436,7 +325,8 @@ def hmma_counts(lib: str) -> dict:
     return counts
 
 
-def _time_ms(fn, iters: int = 10) -> float:
+def _timed(fn, iters: int = 10) -> float:
+    """fn's ms a call on the card by CUDA events around iters calls."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(iters):
@@ -446,22 +336,18 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_events(fn, n: int = 5, want=bool) -> list:
-    """[(kernel name, device ms)], one entry a launch, over n calls of fn
-    (torch.profiler): the card's own time, without the host's launch
-    overhead that CUDA events around a short kernel also measure.
-
-    The profiler has dropped launches' records: a whole short trace, and
-    a cluster kernel's record in a trace that kept its neighbours. So each
+def _profiled(fn, n: int = 5) -> dict:
+    """{kernel: [device ms, launches] a call} by torch.profiler over n calls
+    of fn after one more. The profiler has dropped launches' records (a
+    whole short trace; a cluster kernel's beside its neighbours): each
     trace opens with a launch of the spin kernel (``torch.cuda._sleep``),
-    whose record is left out, and a trace whose events fail ``want`` (by
-    default: an empty one) is taken again, up to five times; the caller's
-    check then holds the last trace as strictly as ever."""
+    whose record is left out, and an empty trace is taken again, up to
+    five times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    events = []
+    per = {}
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -469,174 +355,107 @@ def _device_events(fn, n: int = 5, want=bool) -> list:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        events = [(e.name, e.time_range.elapsed_us() / 1e3)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name]
-        if want(events):
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and "spin_kernel" not in e.name:
+                d = per.setdefault(e.name, [0.0, 0.0])
+                d[0] += e.time_range.elapsed_us() / 1e3 / n
+                d[1] += 1 / n
+        if per:
             break
-    return events
-
-
-def _device_ms(fn, n: int = 5) -> dict:
-    """{kernel name: device ms per call of fn} (torch.profiler, n calls)."""
-    per = {}
-    for name, ms in _device_events(fn, n):
-        per[name] = per.get(name, 0.0) + ms / n
     return per
 
 
-def _turns(kern, plain, library=None, iters=10):
-    """(kernel ms, plain ms, library ms or None): plain, kernel, kernel,
-    plain (and the library call twice after a warmup)."""
-    t_plain = _time_ms(plain, iters)
-    t_kern = _time_ms(kern, iters)
-    t_kern = (t_kern + _time_ms(kern, iters)) / 2
-    t_plain = (t_plain + _time_ms(plain, iters)) / 2
-    t_lib = None
-    if library is not None:
-        library()  # its first call at a shape picks a backend
-        torch.cuda.synchronize()
-        t_lib = (_time_ms(library, iters) + _time_ms(library, iters)) / 2
-    return t_kern, t_plain, t_lib
+# ---------------------------------------------------------------------------
+# The timing table (phase times; --int8 runs its int8 rows alone, --times
+# its K4, K6 and K5 rows)
+# ---------------------------------------------------------------------------
+
+class Row(NamedTuple):
+    """One row of the timing table. kern, plain and library (or None) are
+    calls of no argument, each making `calls` calls of its op (the int8
+    GEMM's: a CUDA graph over a ring of weights, as a decode forward reads
+    them); work is (operations, bytes, peak kind) of one call; check(the
+    kernel's output, the plain one's) is their error over its limit, and a
+    row past 1 fails the table. An entry row adds its times, bound and
+    shape to its kernel's entry of the {"kernels"} line (the shapes of
+    PERF.md's kernel table); every row adds its largest error there."""
+    name: str
+    entry: bool
+    shape: str
+    kern: Callable
+    plain: Callable
+    library: Callable | None
+    work: tuple
+    check: Callable
+    calls: int = 1
+    iters: int = 10
 
 
-def kernel_phase() -> dict:
-    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
-    from vlm_clip_tpu_torch.models import adapters as A
-    from vlm_clip_tpu_torch.models.layers import layer_slice
-    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    dev = torch.device("cuda")
-    cfg = clip_preset("vit-base-patch16")
-    acfg = AdapterConfig()  # 256/256/2, 8 heads
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ad = init_m_adapters(gen, cfg, acfg, device=dev)
-    Tt, Tv = cfg.text.max_positions, cfg.vision.seq_len
-    Ht, Hv = cfg.text.hidden_size, cfg.vision.hidden_size
-    x_text = torch.randn(B * Tt, Ht, generator=gen, device=dev)
-    x_vis = torch.randn(B * Tv, Hv, generator=gen, device=dev)
-    # the pseudo-image: a [1, 197, 768] table at the position table's scale
-    pseudo = torch.randn(1, Tv, Hv, generator=gen, device=dev) * Hv ** -0.5
-    # batch 1: the shapes each served request gives the kernels
-    x_text1 = torch.randn(Tt, Ht, generator=gen, device=dev)
-    x_vis1 = torch.randn(Tv, Hv, generator=gen, device=dev)
-    shared = layer_slice(ad["shared_adapters"], 0)
-
-    def seq_args(p):
-        return (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
-                p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
-
-    def cab_args(dtype):
-        k, v = A.shared_kv(shared, pseudo.to(dtype))
-        ap = shared["attn"]
-        return (shared["text_proj"]["kernel"], shared["text_proj"]["bias"],
-                shared["norm2"]["scale"], shared["norm2"]["bias"],
-                ap["q"]["kernel"], ap["q"]["bias"], k, v,
-                ap["out"]["kernel"], ap["out"]["bias"], acfg.shared_num_heads)
-
-    mp = shared["mlp"]
-    mlp_args = (mp["fc1"]["kernel"], mp["fc1"]["bias"], mp["fc2"]["kernel"],
-                mp["fc2"]["bias"], shared["norm3"]["scale"],
-                shared["norm3"]["bias"])
-    cases = [
-        (name, tag, batch, x, make_args)
-        for batch, xt, xv in ((B, x_text, x_vis), (1, x_text1, x_vis1))
-        for name, tag, x, make_args in (
-            ("seq_adapter_fused", "text", xt,
-             lambda dt: seq_args(ad["text_adapter"])),
-            ("seq_adapter_fused", "vision", xv,
-             lambda dt: seq_args(ad["vision_adapter"])),
-            ("cross_attn_block_fused", "text", xt, cab_args),
-            ("prenorm_mlp_fused", "text", xt, lambda dt: mlp_args))]
-    # ms / plain_ms: sums over the B=96 bf16 shapes (the serving dtype)
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": "", "shapes": []}
-               for name in REPLACES}
-    failures = []
-    with torch.inference_mode():
-        for dtype in (torch.bfloat16, torch.float32):
-            atol, rtol = TOL[dtype]
-            for name, tag, batch, x32, make_args in cases:
-                kern = getattr(F, name)
-                plain = getattr(F, name.replace("_fused", "_torch"))
-                x = x32.to(dtype)
-                args = make_args(dtype)
-                got = kern(x, *args)
-                want = plain(x, *args)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                lim = atol + rtol * want.float().abs()
-                ratio = float((err / lim).max())
-                big = want.float().abs() >= 1e-2
-                max_abs = float(err.max())
-                max_rel = float((err[big] / want.float().abs()[big]).max())
-                finite = bool(torch.isfinite(got.float()).all())
-                # plain, kernel, kernel, plain: both sides see the same
-                # clocks; each timed over 10 launches after a warmup
-                t_plain = _time_ms(lambda: plain(x, *args))
-                t_kern = _time_ms(lambda: kern(x, *args))
-                t_kern = (t_kern + _time_ms(lambda: kern(x, *args))) / 2
-                t_plain = (t_plain + _time_ms(lambda: plain(x, *args))) / 2
-                dt = str(dtype).replace("torch.", "")
-                ok = finite and ratio <= 1.0
-                print(f"kernel {name}[{tag}] B={batch} {dt} "
-                      f"x{list(x.shape)}: "
-                      f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
-                      f"err/tol {ratio:.3f} (atol {atol}, rtol {rtol}) "
-                      f"{'ok' if ok else 'FAIL'}; kernel {t_kern:.4f} ms, "
-                      f"plain {t_plain:.4f} ms, bound "
-                      f"{bound(*cost(name, x))[0]:.4f} ms", flush=True)
-                if not ok:
-                    failures.append(f"{name}[{tag}] B={batch} {dt}")
-                r = results[name]
-                r["max_abs_err"] = max(r["max_abs_err"], max_abs)
-                if dtype == torch.bfloat16 and batch == B:
-                    _add_time(r, t_kern, t_plain, cost(name, x),
-                              f"{tag} {list(x.shape)} bf16")
-                if dtype == torch.bfloat16 and name in FWD_PASSES:
-                    _breakdown(f"kernel {name}[{tag}] B={batch} bf16",
-                               lambda: kern(x, *args), FWD_PASSES[name])
-                if name == "seq_adapter_fused":
-                    yard = bound(*cost(name, x, fp32_yardstick=True))[0]
-                    print(f"kernel {name}[{tag}] B={batch} {dt}: bound of "
-                          f"its fp32 products at the CUDA cores' peak (67 "
-                          f"TFLOP/s) {yard:.4f} ms, of its compensated TF32 "
-                          f"passes (495 TFLOP/s) "
-                          f"{bound(*cost(name, x))[0]:.4f} ms", flush=True)
-    if failures:
-        raise SystemExit(f"kernels disagree with their plain versions: "
-                         f"{failures}")
-    return results
+def _dt(dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype]
 
 
-def _add_time(r: dict, t_kern: float, t_plain: float, work, shape: str):
-    """Sum a case's times and bound into a kernel's entry."""
-    b_ms, b_by = bound(*work)
-    r["ms"] += t_kern
-    r["plain_ms"] += t_plain
-    if b_ms >= r.get("_largest", 0.0):
-        r["_largest"], r["bound_by"] = b_ms, b_by
-    r["bound_ms"] += b_ms
-    r["shapes"].append(shape)
+def _worst(ratios) -> float:
+    """The largest of ratios; inf if one is NaN (a non-finite output)."""
+    ratios = list(ratios)
+    return float("inf") if any(r != r for r in ratios) \
+        else max(ratios, default=0.0)
+
+
+def _leaves(out) -> list:
+    """The tensors of a call's output (a tensor, or tuples and lists of
+    tensors and Nones), Nones kept."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _leaves(o)]
+    return [out]
+
+
+def _elementwise(atol: float, rtol: float):
+    """check: max |got - want| / (atol + rtol |want|) over every element."""
+    def check(got, want):
+        return _worst(
+            float(((g.float() - w.float()).abs()
+                   / (atol + rtol * w.float().abs())).max())
+            for g, w in zip(_leaves(got), _leaves(want), strict=True))
+    return check
+
+
+def _per_grad(dtype, fp32_from=None):
+    """check, per gradient: max |got - want| / (tol x max(max |want|,
+    1e-2)); tol is dtype's TOL, or fp32's for the gradients from index
+    fp32_from on (K1's function is fp32 in both dtypes). A gradient that
+    was not asked for, or is missing, fails."""
+    def check(got, want):
+        ratios = []
+        for i, (g, w) in enumerate(zip(_leaves(got), _leaves(want),
+                                       strict=True)):
+            if g is None or w is None:
+                ratios.append(0.0 if g is w else float("inf"))
+                continue
+            tol = TOL[torch.float32 if fp32_from is not None
+                      and i >= fp32_from else dtype][0]
+            ratios.append(float((g.float() - w.float()).abs().max())
+                          / (tol * max(float(w.float().abs().max()), 1e-2)))
+        return _worst(ratios)
+    return check
 
 
 def cost(name: str, x: torch.Tensor, need_dx: bool = True,
-         fp32_yardstick: bool = False):
-    """(operations, bytes, peak kind) of one call at x's shape on the
-    pipeline-M widths: each product counts 2*m*n*k; each input is read
-    once and each output written once (params and their fp32 gradients
-    at 4 bytes, x, g, dx and k, v in x's type). K1 counts the TF32
-    tensor-core passes it runs, forward and backward (fp32_yardstick, or
-    widths off those passes: its fp32 products at the CUDA cores' peak,
-    the yardstick of its first version)."""
+         fp32_yardstick: bool = False, hidden: int = 512):
+    """(operations, bytes, peak kind) of one call of K1-K4 at x's shape
+    on the pipeline-M widths: each product counts 2*m*n*k; each input is
+    read once and each output written once (params and their fp32
+    gradients at 4 bytes, x, g, dx and k, v in x's type). K1 counts the
+    TF32 tensor-core passes it runs, forward and backward (fp32_yardstick,
+    or widths off those passes: its fp32 products at the CUDA cores' peak,
+    the yardstick of its first version). K2's hidden width: ``hidden``."""
     from vlm_clip_tpu_torch.ops.fused_adapter import seq_adapter_tensor_cores
 
     N, D = x.shape
     es = x.element_size()
     mm = "bf16" if x.dtype == torch.bfloat16 else "fp32"
-    K, Tk, H = 256, 197, 512
+    K, Tk, H = 256, 197, hidden
     if name in ("seq_adapter_fused", "seq_adapter_bwd_cuda"):
         params = (2 * D * K + K + 3 * D) * 4
         fwd = name == "seq_adapter_fused"
@@ -673,317 +492,6 @@ def cost(name: str, x: torch.Tensor, need_dx: bool = True,
     raise KeyError(name)
 
 
-def _grad_errors(got, want, dtype, fp32_from=None):
-    """Per gradient: (max abs err, err / (tol * max|want|), max rel err
-    where |want| >= 1e-2 * max|want|); tol is the dtype's, or fp32's for
-    the gradients from index fp32_from on (K1's function is fp32 in both
-    dtypes: its parameter gradients are held to fp32's tolerance)."""
-    out = []
-    for i, (g, w) in enumerate(zip(got, want)):
-        tol = TOL[torch.float32 if fp32_from is not None and i >= fp32_from
-                  else dtype][0]
-        if w is None:
-            if g is not None:
-                raise SystemExit("a gradient that was not asked for")
-            continue
-        if not bool(torch.isfinite(g.float()).all()):
-            out.append((float("inf"),) * 3)
-            continue
-        err = (g.float() - w.float()).abs()
-        scale = max(float(w.float().abs().max()), 1e-2)
-        big = w.float().abs() >= 1e-2 * scale
-        rel = float((err[big] / w.float().abs()[big]).max()) if bool(
-            big.any()) else 0.0
-        out.append((float(err.max()), float(err.max()) / (tol * scale), rel))
-    return out
-
-
-def backward_phase() -> dict:
-    """The backward kernels and K4 against their plain versions at the
-    B=96 shapes of the train step."""
-    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
-    from vlm_clip_tpu_torch.models import adapters as A
-    from vlm_clip_tpu_torch.models.layers import layer_slice
-    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
-    from vlm_clip_tpu_torch.ops import contrastive as K4
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    dev = torch.device("cuda")
-    cfg = clip_preset("vit-base-patch16")
-    acfg = AdapterConfig()
-    gen = torch.Generator(device=dev).manual_seed(2)
-    ad = init_m_adapters(gen, cfg, acfg, device=dev)
-    for leaf in (ad["text_adapter"]["down"]["bias"],
-                 ad["vision_adapter"]["down"]["bias"]):
-        leaf.normal_(generator=gen).mul_(0.1)
-    Tt, Tv = cfg.text.max_positions, cfg.vision.seq_len
-    Ht, Hv = cfg.text.hidden_size, cfg.vision.hidden_size
-    x_text = torch.randn(B * Tt, Ht, generator=gen, device=dev)
-    x_vis = torch.randn(B * Tv, Hv, generator=gen, device=dev)
-    g_text = torch.randn(B * Tt, Ht, generator=gen, device=dev)
-    g_vis = torch.randn(B * Tv, Hv, generator=gen, device=dev)
-    pseudo = torch.randn(1, Tv, Hv, generator=gen, device=dev) * Hv ** -0.5
-    shared = layer_slice(ad["shared_adapters"], 0)
-    feats = [torch.randn(B, cfg.projection_dim, generator=gen, device=dev)
-             for _ in range(2)]
-    logit_scale = torch.tensor(cfg.logit_scale_init, device=dev)
-
-    def seq_args(p):
-        return (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
-                p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
-
-    def cab_args(dtype):
-        k, v = A.shared_kv(shared, pseudo.to(dtype))
-        ap = shared["attn"]
-        return (shared["text_proj"]["kernel"], shared["text_proj"]["bias"],
-                shared["norm2"]["scale"], shared["norm2"]["bias"],
-                ap["q"]["kernel"], ap["q"]["bias"], k, v,
-                ap["out"]["kernel"], ap["out"]["bias"])
-
-    mp = shared["mlp"]
-    mlp_args = (mp["fc1"]["kernel"], mp["fc1"]["bias"], mp["fc2"]["kernel"],
-                mp["fc2"]["bias"], shared["norm3"]["scale"],
-                shared["norm3"]["bias"])
-    # (name, tag, x, g, args(dtype), extra, need_dx). K1's dx: the text
-    # case computes it (as the shared layers' input needs), the vision
-    # case skips it as the train step does (frozen towers).
-    cases = [
-        ("seq_adapter_bwd_cuda", "text", x_text, g_text,
-         lambda dt: seq_args(ad["text_adapter"]), (), True),
-        ("seq_adapter_bwd_cuda", "vision", x_vis, g_vis,
-         lambda dt: seq_args(ad["vision_adapter"]), (), False),
-        ("cross_attn_block_bwd_cuda", "text", x_text, g_text, cab_args,
-         (acfg.shared_num_heads,), True),
-        ("prenorm_mlp_bwd_cuda", "text", x_text, g_text,
-         lambda dt: mlp_args, (), True)]
-    names = list(BWD_REPLACES)
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": "", "shapes": []}
-               for name in names}
-    failures = []
-
-    def record(name, tag, dtype, errs, kern, plain, work, shape):
-        worst = max(e[1] for e in errs)
-        t_plain = _time_ms(plain, 5)
-        t_kern = _time_ms(kern, 5)
-        t_kern = (t_kern + _time_ms(kern, 5)) / 2
-        t_plain = (t_plain + _time_ms(plain, 5)) / 2
-        dt = str(dtype).replace("torch.", "")
-        ok = worst <= 1.0
-        print(f"backward {name}[{tag}] {dt} {shape}: per gradient max_abs_err "
-              f"{[f'{e[0]:.2e}' for e in errs]} max_rel_err "
-              f"{[f'{e[2]:.2e}' for e in errs]} worst err/tol {worst:.3f} "
-              f"(tol {TOL[dtype][0]} x max|grad|) {'ok' if ok else 'FAIL'}; "
-              f"kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, bound "
-              f"{bound(*work)[0]:.4f} ms ({bound(*work)[1]})", flush=True)
-        if not ok:
-            failures.append(f"{name}[{tag}] {dt}")
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], max(e[0] for e in errs))
-        if dtype == torch.bfloat16:
-            _add_time(r, t_kern, t_plain, work, f"{tag} {shape} bf16")
-
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, tag, x32, g32, make_args, extra, need_dx in cases:
-            kern = getattr(F, name)
-            plain = getattr(F, name.replace("_cuda", "_torch"))
-            x, g, args = x32.to(dtype), g32.to(dtype), make_args(dtype)
-            call = (*args, g, *extra)
-            with torch.no_grad():
-                got = kern(x, *call, need_dx=need_dx)
-                want = plain(x, *call, need_dx=need_dx)
-                torch.cuda.synchronize()
-                record(name, tag, dtype, _grad_errors(
-                    got, want, dtype,
-                    1 if name == "seq_adapter_bwd_cuda" else None),
-                       lambda: kern(x, *call, need_dx=need_dx),
-                       lambda: plain(x, *call, need_dx=need_dx),
-                       cost(name, x, need_dx), list(x.shape))
-                if name in ("prenorm_mlp_bwd_cuda", "seq_adapter_bwd_cuda",
-                            "cross_attn_block_bwd_cuda"):
-                    again = kern(x, *call, need_dx=need_dx)
-                    same = all((a is None and b is None) or torch.equal(a, b)
-                               for a, b in zip(got, again))
-                    print(f"backward {name} {dtype}: a second call repeats "
-                          f"every gradient bit for bit: {same}", flush=True)
-                    if not same:
-                        failures.append(f"{name} {dtype} not deterministic")
-                if dtype == torch.bfloat16 and name == "prenorm_mlp_bwd_cuda":
-                    _k3_breakdown(x, call)
-                if name == "seq_adapter_bwd_cuda":
-                    _breakdown(f"backward {name}[{tag}] {dtype}",
-                               lambda: kern(x, *call, need_dx=need_dx),
-                               K1_BWD_PASSES)
-                    b_ms = bound(*cost(name, x, need_dx, True))[0]
-                    print(f"backward {name}[{tag}] {dtype}: bound of its "
-                          f"fp32 products at the CUDA cores' peak (67 "
-                          f"TFLOP/s) {b_ms:.4f} ms, of its compensated TF32 "
-                          f"passes (495 TFLOP/s) "
-                          f"{bound(*cost(name, x, need_dx))[0]:.4f} ms",
-                          flush=True)
-                if dtype == torch.bfloat16 and \
-                        name == "cross_attn_block_bwd_cuda":
-                    _breakdown(f"backward {name} bf16",
-                               lambda: kern(x, *call, need_dx=need_dx),
-                               CAB_BWD_PASSES)
-        # K4: the loss (forward) and its gradients (backward), fp32 math
-        t, m = (f.to(dtype) for f in feats)
-        one = torch.ones((), device=dev)
-        with torch.no_grad():
-            loss = K4.contrastive_loss_fused(t, m, logit_scale)
-            want = K4.contrastive_loss_torch(t, m, logit_scale)
-            torch.cuda.synchronize()
-            record("contrastive_loss_fused", "loss", dtype,
-                   _grad_errors([loss], [want], torch.float32),
-                   lambda: K4.contrastive_loss_fused(t, m, logit_scale),
-                   lambda: K4.contrastive_loss_torch(t, m, logit_scale),
-                   cost("contrastive_loss_fused", t), list(t.shape))
-            got = K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one)
-            want = K4.contrastive_loss_bwd_torch(t, m, logit_scale, one)
-            torch.cuda.synchronize()
-            record("contrastive_loss_bwd_cuda", "grads", dtype,
-                   _grad_errors(got, want, dtype),
-                   lambda: K4.contrastive_loss_bwd_cuda(t, m, logit_scale,
-                                                        one),
-                   lambda: K4.contrastive_loss_bwd_torch(t, m, logit_scale,
-                                                         one),
-                   cost("contrastive_loss_bwd_cuda", t), list(t.shape))
-            again = K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            print(f"backward contrastive_loss_bwd_cuda {dtype}: a second "
-                  f"call repeats every gradient bit for bit: {same}",
-                  flush=True)
-            if not same:
-                failures.append(f"contrastive_loss_bwd_cuda {dtype} not "
-                                "deterministic")
-            _k4_forward_check(t, m, logit_scale, dtype, failures)
-            per = _breakdown(
-                f"backward contrastive_loss_bwd_cuda {list(t.shape)} {dtype}",
-                lambda: K4.contrastive_loss_bwd_cuda(t, m, logit_scale, one),
-                K4_BWD_PASSES)
-            ev = _time_ms(lambda: K4.contrastive_loss_bwd_cuda(
-                t, m, logit_scale, one), 20)
-            print(f"backward contrastive_loss_bwd_cuda {list(t.shape)} "
-                  f"{dtype}: device {sum(per.values()):.4f} ms, events "
-                  f"{ev:.4f} ms a call; earlier (PERF.md table, bf16) "
-                  f"{EARLIER_MS['contrastive_loss_bwd_cuda']} ms", flush=True)
-    if failures:
-        raise SystemExit(f"backward kernels disagree with their plain "
-                         f"versions: {failures}")
-    return results
-
-
-# the passes of the redesigned kernels, by kernel name fragment
-K3_FWD_PASSES = ("pnmlp_fwd_ln", "pnmlp_fwd_hidden", "pnmlp_fwd_out")
-K2_FWD_PASSES = ("cab_fwd_t_", "cab_fwd_ln", "cab_fwd_q_", "cab_fwd_attn",
-                 "cab_fwd_out", "cross_attn_block_fwd")
-K1_FWD_PASSES = ("seqfwd_pre", "seqfwd_z", "seqfwd_ln", "seq_adapter_fwd")
-FWD_PASSES = {"seq_adapter_fused": K1_FWD_PASSES,
-              "prenorm_mlp_fused": K3_FWD_PASSES,
-              "cross_attn_block_fused": K2_FWD_PASSES}
-K1_BWD_PASSES = ("seqbwd_pre", "seqbwd_z", "seqbwd_ln", "seqbwd_dpre",
-                 "seqbwd_dx", "wgrad_tf32", "split_sum", "colsum")
-K3_BWD_PASSES = ("pnmlp_ln_fwd", "pnmlp_bwd_hidden", "pnmlp_bwd_du",
-                 "pnmlp_bwd_ln", "wgrad_mma", "split_sum", "colsum")
-CAB_BWD_PASSES = ("cab_bwd_t_", "cab_bwd_ln_fwd", "cab_bwd_q_",
-                  "cab_bwd_dom", "cab_bwd_attn", "cab_bwd_du", "cab_bwd_ln_",
-                  "cab_bwd_dx", "wgrad_mma", "split_sum", "colsum")
-K6_BWD_PASSES = ("feature_adapter_bwd_cluster", "colsum", "wgrad",
-                 "split_sum", "fill")
-K6_FWD_PASSES = ("feature_adapter_fwd_cluster",)
-K4_BWD_PASSES = ("contrastive_bwd_cluster",)
-K4_FWD_PASSES = ("contrastive_fwd_cluster",)
-# The redesigned kernels' earlier times by CUDA events, from PERF.md's
-# kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's:
-# K6 forward, the three pipeline-T calls (32, 7, 35 rows, fp32) summed;
-# K4 backward and forward at B=96, bf16. A comparison of two trees runs
-# each tree's own phases in one call.
-EARLIER_MS = {"feature_adapter_blend_fused": 0.1949,
-              "contrastive_loss_bwd_cuda": 0.0871,
-              "contrastive_loss_fused": 0.0780}
-
-
-def _k4_forward_check(t, m, logit_scale, dtype, failures) -> None:
-    """K4's forward, one cluster launch a call at the M step's [96, 512]:
-    the loss bit for bit on a repeat, every row's and column's LSE the
-    bits the backward recomputes, its device and CUDA-event time beside
-    its earlier time (PERF.md's table)."""
-    from vlm_clip_tpu_torch.ops import contrastive as K4
-
-    def call():
-        return K4.contrastive_loss_fused(t, m, logit_scale)
-
-    same = torch.equal(call(), call())
-    lse = [K4.cluster_lse(t, m, logit_scale, backward)
-           for backward in (False, True)]
-    lse_same = bool(torch.isfinite(lse[0]).all()) and torch.equal(*lse)
-    per = _breakdown(f"kernel contrastive_loss_fused {list(t.shape)} "
-                     f"{dtype}", call, K4_FWD_PASSES)
-    # a trace can drop a launch's record (seen: 4 of 5), never add one:
-    # the most of up to three traces is the count
-    launches = 0.0
-    for _ in range(3):
-        launches = max(launches, len(_device_events(call, 5)) / 5)
-        if launches >= 1:
-            break
-    ev = _time_ms(call, 20)
-    print(f"kernel contrastive_loss_fused {list(t.shape)} {dtype}: a second "
-          f"call repeats the loss bit for bit: {same}; row and column LSEs "
-          f"equal the backward's bit for bit: {lse_same}; {launches:g} "
-          f"launches a call; device {sum(per.values()):.4f} ms, events "
-          f"{ev:.4f} ms a call; earlier (PERF.md table, bf16) "
-          f"{EARLIER_MS['contrastive_loss_fused']} ms", flush=True)
-    if not (same and lse_same and launches == 1):
-        failures.append(f"contrastive_loss_fused {dtype}: repeat {same}, "
-                        f"LSEs as the backward's {lse_same}, {launches:g} "
-                        "launches a call")
-
-
-def _breakdown(label: str, fn, passes) -> dict:
-    """fn's device ms per call by pass and its launches a call
-    (torch.profiler over 5 calls; a kernel is filed under the first
-    fragment of passes in its name)."""
-    n = 5
-    per = {}
-    events = _device_events(fn, n)
-    for name, ms in events:
-        key = next((k for k in passes if k in name), "other")
-        per[key] = per.get(key, 0.0) + ms / n
-    print(f"{label} per call by kernel (ms, profiler): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
-          + f"; device {sum(per.values()):.4f} ms in all, "
-          f"{len(events) / n:g} launches a call", flush=True)
-    return per
-
-
-def _k3_breakdown(x, call) -> None:
-    """K3 backward's bf16 passes at the B=96 text shape: device time per
-    kernel (torch.profiler over 5 calls), and the bf16 weight-gradient
-    route alone (dW1 = um^T dpm, dW2 = hm^T g) beside its bound."""
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    _breakdown("backward prenorm_mlp_bwd_cuda bf16",
-               lambda: F.prenorm_mlp_bwd_cuda(x, *call), K3_BWD_PASSES)
-    N, H = x.shape
-    K = 4 * H
-    gen = torch.Generator(device=x.device).manual_seed(5)
-    um, g = (torch.randn(N, H, generator=gen, device=x.device).bfloat16()
-             for _ in range(2))
-    dpm = torch.randn(N, K, generator=gen, device=x.device).bfloat16()
-    dw1 = torch.empty(H, K, device=x.device)
-    dw2 = torch.empty(K, H, device=x.device)
-
-    def route():
-        F._wgrad(um, dpm, dw1, H, K)
-        F._wgrad(dpm, g, dw2, K, H)
-
-    t = (_time_ms(route) + _time_ms(route)) / 2
-    b_ms, b_by = bound(4 * N * H * K, 2 * (N * H + N * K) * 2 + 2 * H * K * 4,
-                       "bf16")
-    print(f"wgrad bf16 x bf16 route (dW1 + dW2 at N={N}, H={H}, K={K}): "
-          f"{t:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-
-
 def t_cost(name: str, x: torch.Tensor, k: int = 64, mask=None,
            need_dx: bool = True):
     """(operations, bytes, peak kind) of one call of K5 or K6: each
@@ -1005,10 +513,331 @@ def t_cost(name: str, x: torch.Tensor, k: int = 64, mask=None,
             (3 if need_dx else 2) * N * D * es + 2 * params, "fp32")
 
 
-def t_kernel_phase() -> dict:
-    """K6 forward and backward and K5 against their plain versions at
-    pipeline T's shapes (and ViT-B/16's for K5), in bf16 and fp32; the
-    dropout mask bit for bit; times beside SDPA's for K5."""
+def k7_cost(M: int, K: int, N: int, es: int):
+    """(operations, bytes, peak kind) of one K7 call: 2*M*K*N FLOP at the
+    peak of x's type (bf16 x: the nibbles are exact in bf16, so a bf16
+    tensor-core product with fp32 sums computes the same function); the
+    logical packed bytes, x, scale and the fp32 output each once."""
+    return (2 * M * K * N, K // 2 * N + M * K * es + 4 * N + 4 * M * N,
+            "bf16" if es == 2 else "fp32")
+
+
+def k8_cost(case):
+    """(operations, bytes, peak kind) of one K8 call on these inputs: the
+    cache rows below each row's depth (and their scales) once, q, the
+    fresh rows and the output once; 4 d FLOP per (query head, attended
+    column) at the peak of q's type (an int8 cache widens exactly)."""
+    q, k_old, _, k_cur, _, depths, k_scale, _ = case
+    B, T, h, d = q.shape
+    kv = k_old.shape[2]
+    cols = int(depths.sum())
+    nbytes = 2 * cols * kv * d * k_old.element_size() \
+        + (2 * cols * kv * 4 if k_scale is not None else 0) \
+        + 2 * q.numel() * q.element_size() \
+        + 2 * k_cur.numel() * q.element_size()
+    flops = 4 * h * T * d * (cols + B * T)
+    return flops, nbytes, "bf16" if q.dtype == torch.bfloat16 else "fp32"
+
+
+def int8_cost(M: int, K: int, N: int, bias: bool):
+    """(operations, bytes, peak kind) of one int8 GEMM call: 2*M*K*N at the
+    bf16 peak; the int8 weight, its scale (and bias), x and the bf16
+    output once each."""
+    return (2 * M * K * N,
+            K * N + 4 * N * (2 if bias else 1) + 2 * M * K + 2 * M * N,
+            "bf16")
+
+
+def _k8_library(case, depth: int):
+    """SDPA on K8's inputs (a bf16 cache, every row at ``depth``): the
+    cache's columns below the depth and the fresh rows' causal triangle,
+    grouped heads; the library yardstick, used nowhere in the port."""
+    import torch.nn.functional as TF
+
+    q, k_old, v_old, k_cur, v_cur = case[:5]
+    b, T = q.shape[:2]
+    S = k_old.shape[1]
+    qh = q.transpose(1, 2)                                   # [B, h, T, d]
+    kf = torch.cat([k_old, k_cur], 1).transpose(1, 2)
+    vf = torch.cat([v_old, v_cur], 1).transpose(1, 2)
+    cols = torch.arange(S + T, device=q.device)
+    rows = torch.arange(T, device=q.device)
+    allowed = (cols[None] < depth) | (
+        (cols[None] >= S) & (cols[None] - S <= rows[:, None]))
+    amask = allowed[None, None].expand(b, 1, T, S + T)
+    return lambda: TF.scaled_dot_product_attention(
+        qh, kf, vf, attn_mask=amask, enable_gqa=True)
+
+
+def _materialize(x, q):
+    """The parent's route for an int8 linear (the library yardstick, no
+    longer on the port's decode path): dequantize to fp32, cast to x's
+    dtype, torch.matmul, the bias added in fp32, one more cast."""
+    from vlm_clip_tpu_torch.ops import quant as K7
+
+    y = torch.matmul(x, K7.dequantize_weight(q).to(x.dtype))
+    if q.bias is not None:
+        y = y.float() + q.bias.float()
+    return y.to(x.dtype)
+
+
+def _graph(fns):
+    """One pass over fns captured as one CUDA graph (the decode step's
+    launch path); the returned call replays it and returns fns' outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in fns]
+
+    def replay():
+        graph.replay()
+        return outs
+    return replay
+
+
+def _time_row(results: dict, row: Row, failures: list,
+              label: str = "time"):
+    """One row of the table: the kernel against its plain version (the
+    row's check), then CUDA-event turns plain, kernel, kernel, plain (and
+    the library call twice after a first call), then the kernel's device
+    time and launches by kernel (and the library's) from one profile.
+    Prints them with the bound; returns (kernel, plain, library or None)
+    ms a call."""
+    with torch.no_grad():
+        got, want = row.kern(), row.plain()
+        ratio = row.check(got, want)
+        err = _worst(float((g.float() - w.float()).abs().max())
+                     for g, w in zip(_leaves(got), _leaves(want))
+                     if g is not None and w is not None)
+        del got, want
+        ms = {"kernel": 0.0, "plain": 0.0}
+        for side, fn in (("plain", row.plain), ("kernel", row.kern),
+                         ("kernel", row.kern), ("plain", row.plain)):
+            ms[side] += _timed(fn, row.iters) / 2 / row.calls
+        if row.library is not None:
+            row.library()  # its first call at a shape picks a backend
+            ms["library"] = sum(_timed(row.library, row.iters)
+                                for _ in range(2)) / 2 / row.calls
+        per = _profiled(row.kern)
+        lib_per = None if row.library is None else _profiled(row.library)
+    ok = ratio <= 1.0
+    if not ok:
+        failures.append(f"{row.name} {row.shape}")
+    device = sum(v[0] for v in per.values()) / row.calls
+    launches = sum(v[1] for v in per.values()) / row.calls
+    by_kernel = {n[:48]: round(v[0] / row.calls, 5) for n, v in per.items()}
+    b_ms, b_by = bound(*row.work)
+    lib = ""
+    if lib_per is not None:
+        lib = (f", library {ms['library']:.4f} ms (device "
+               f"{sum(v[0] for v in lib_per.values()) / row.calls:.4f} ms: "
+               f"{sorted(n[:48] for n in lib_per)})")
+    print(f"{label} {row.name} {row.shape}: kernel {ms['kernel']:.4f} ms "
+          f"(device {device:.4f} ms, {launches:g} launches a call: "
+          f"{by_kernel}), plain {ms['plain']:.4f} ms{lib}, bound "
+          f"{b_ms:.5f} ms ({b_by}); max |kernel - plain| {err:.3e}, "
+          f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}", flush=True)
+    r = results.setdefault(row.name, {
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": "", "shapes": [], "library_ms": None})
+    r["max_abs_err"] = _worst([r["max_abs_err"], err])
+    if row.entry:
+        r["ms"] += ms["kernel"]
+        r["plain_ms"] += ms["plain"]
+        if b_ms >= r.get("_largest", 0.0):
+            r["_largest"], r["bound_by"] = b_ms, b_by
+        r["bound_ms"] += b_ms
+        r["shapes"].append(row.shape)
+        if row.library is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + ms["library"]
+    return ms["kernel"], ms["plain"], ms.get("library")
+
+
+def _m_rows():
+    """K1-K4 at bench.py's B=96 shapes (ViT-B/16, adapters 256/256/2, 8
+    heads, a 197-row pseudo-image; K1's vision rows without dx, as the
+    frozen towers need none) in bf16, the table's entries, and in fp32;
+    K1-K3's forwards at batch 1 (a served request's shapes) in both;
+    K3 backward's bf16 weight-gradient route alone; then K1 and K3 at
+    config 5's shapes (ViT-L/14-336, B=32), K3 in fp32 too."""
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.models import adapters as A
+    from vlm_clip_tpu_torch.models.layers import layer_slice
+    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
+    from vlm_clip_tpu_torch.ops import contrastive as K4
+    from vlm_clip_tpu_torch.ops import fused_adapter as F
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def seq_args(p):
+        return (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
+                p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
+
+    def mlp_args(shared):
+        mp = shared["mlp"]
+        return (mp["fc1"]["kernel"], mp["fc1"]["bias"], mp["fc2"]["kernel"],
+                mp["fc2"]["bias"], shared["norm3"]["scale"],
+                shared["norm3"]["bias"])
+
+    def rows(stem, tag, x, args, need_dx, entry, extra=(), bwd=True,
+             hidden=512):
+        """The forward (and backward) rows of K1, K2 or K3 (``stem``) at
+        x; extra follows the gradient (K2's heads, K2's hidden width
+        ``hidden``)."""
+        shape = f"{tag} {list(x.shape)} {_dt(x.dtype)}"
+        fwd = f"{stem}_fused"
+        yield Row(fwd, entry, shape,
+                  lambda: getattr(F, fwd)(x, *args, *extra),
+                  lambda: getattr(F, f"{stem}_torch")(x, *args, *extra),
+                  None, cost(fwd, x, hidden=hidden),
+                  _elementwise(*TOL[x.dtype]))
+        if stem == "seq_adapter":
+            print(f"bound of {fwd} {shape}: its fp32 products at the CUDA "
+                  f"cores' peak {bound(*cost(fwd, x, fp32_yardstick=True))[0]:.4f}"
+                  f" ms (the yardstick)", flush=True)
+        if not bwd:
+            return
+        g = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        name, call = f"{stem}_bwd_cuda", (*args, g, *extra)
+        yield Row(name, entry, shape + ("" if need_dx else " no dx"),
+                  lambda: getattr(F, name)(x, *call, need_dx=need_dx),
+                  lambda: getattr(F, f"{stem}_bwd_torch")(x, *call,
+                                                          need_dx=need_dx),
+                  None, cost(name, x, need_dx, hidden=hidden),
+                  _per_grad(x.dtype, 1 if stem == "seq_adapter" else None))
+        if stem == "seq_adapter":
+            print(f"bound of {name} {shape}: its fp32 products at the CUDA "
+                  f"cores' peak "
+                  f"{bound(*cost(name, x, need_dx, True))[0]:.4f} ms (the "
+                  f"yardstick)", flush=True)
+
+    cfg = clip_preset("vit-base-patch16")
+    ad = init_m_adapters(gen, cfg, AdapterConfig(), device=dev)
+    for leaf in (ad["text_adapter"]["down"]["bias"],
+                 ad["vision_adapter"]["down"]["bias"]):
+        leaf.normal_(generator=gen).mul_(0.1)
+    shared = layer_slice(ad["shared_adapters"], 0)
+    heads = (AdapterConfig().shared_num_heads,)
+    Tt, Tv = cfg.text.max_positions, cfg.vision.seq_len
+    Ht, Hv = cfg.text.hidden_size, cfg.vision.hidden_size
+    text = {n: torch.randn(n * Tt, Ht, generator=gen, device=dev)
+            for n in (B, 1)}
+    vis = {n: torch.randn(n * Tv, Hv, generator=gen, device=dev)
+           for n in (B, 1)}
+    # the pseudo-image: a [1, 197, 768] table at the position table's scale
+    pseudo = torch.randn(1, Tv, Hv, generator=gen, device=dev) * Hv ** -0.5
+    feats = [torch.randn(B, cfg.projection_dim, generator=gen, device=dev)
+             for _ in range(2)]
+    ls = torch.tensor(cfg.logit_scale_init, device=dev)
+    one = torch.ones((), device=dev)
+    for dtype in (bf, torch.float32):
+        entry = dtype == bf
+        k, v = A.shared_kv(shared, pseudo.to(dtype))
+        ap = shared["attn"]
+        cab = (shared["text_proj"]["kernel"], shared["text_proj"]["bias"],
+               shared["norm2"]["scale"], shared["norm2"]["bias"],
+               ap["q"]["kernel"], ap["q"]["bias"], k, v, ap["out"]["kernel"],
+               ap["out"]["bias"])
+        for n in (B, 1):  # batch 1: the forwards alone
+            xt, xv = text[n].to(dtype), vis[n].to(dtype)
+            full = n == B
+            tag = "" if full else "batch 1 "
+            yield from rows("seq_adapter", f"{tag}text", xt,
+                            seq_args(ad["text_adapter"]), True,
+                            entry and full, bwd=full)
+            yield from rows("seq_adapter", f"{tag}vision", xv,
+                            seq_args(ad["vision_adapter"]), False,
+                            entry and full, bwd=full)
+            yield from rows("cross_attn_block", f"{tag}text", xt, cab, True,
+                            entry and full, heads, bwd=full)
+            yield from rows("prenorm_mlp", f"{tag}text", xt,
+                            mlp_args(shared), True, entry and full, bwd=full)
+        # K4 on the step's [96, 512] features, fp32 math
+        t, m = (f.to(dtype) for f in feats)
+        yield Row("contrastive_loss_fused", entry,
+                  f"loss {list(t.shape)} {_dt(dtype)}",
+                  lambda: K4.contrastive_loss_fused(t, m, ls),
+                  lambda: K4.contrastive_loss_torch(t, m, ls), None,
+                  cost("contrastive_loss_fused", t),
+                  _per_grad(torch.float32))
+        yield Row("contrastive_loss_bwd_cuda", entry,
+                  f"grads {list(t.shape)} {_dt(dtype)}",
+                  lambda: K4.contrastive_loss_bwd_cuda(t, m, ls, one),
+                  lambda: K4.contrastive_loss_bwd_torch(t, m, ls, one), None,
+                  cost("contrastive_loss_bwd_cuda", t), _per_grad(dtype))
+
+    # K3 backward's bf16 x bf16 weight gradients alone at the B=96 text
+    # rows (dW1 = um^T dpm, dW2 = dpm^T g), fp32 sums on both sides
+    N, H = B * Tt, Ht
+    K = 4 * H
+    um, g = (torch.randn(N, H, generator=gen, device=dev).to(bf)
+             for _ in range(2))
+    dpm = torch.randn(N, K, generator=gen, device=dev).to(bf)
+    dw1 = torch.empty(H, K, device=dev)
+    dw2 = torch.empty(K, H, device=dev)
+
+    def route():
+        F._wgrad(um, dpm, dw1, H, K)
+        F._wgrad(dpm, g, dw2, K, H)
+        return dw1, dw2
+
+    yield Row("prenorm_mlp_bwd_cuda", False,
+              f"its bf16 weight-gradient route alone (dW1 + dW2) at N={N}, "
+              f"H={H}, K={K}", route,
+              lambda: (um.float().t() @ dpm.float(),
+                       dpm.float().t() @ g.float()), None,
+              (4 * N * H * K, 2 * (N * H + N * K) * 2 + 2 * H * K * 4,
+               "bf16"), _per_grad(torch.float32))
+
+    # K2 at ViT-L/14's widths: 8 heads of 96 (text 768, image 1024)
+    # against a 197-row pseudo-image, 8 captions; backward without dx
+    p = A.init_cross_modal_adapter(gen, text_dim=768, image_dim=1024,
+                                   hidden=768, device=dev)
+    image = (torch.randn(1, Tv, 1024, generator=gen, device=dev)
+             * 1024 ** -0.5).to(bf)
+    k, v = A.shared_kv(p, image)
+    ap = p["attn"]
+    cab = (p["text_proj"]["kernel"], p["text_proj"]["bias"],
+           p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
+           ap["q"]["bias"], k, v, ap["out"]["kernel"], ap["out"]["bias"])
+    x = torch.randn(8 * Tt, 768, generator=gen, device=dev).to(bf)
+    yield from rows("cross_attn_block", "ViT-L/14 widths, heads of 96, text",
+                    x, cab, False, False, heads, hidden=768)
+
+    # config 5: text [32*77, 768], vision [32*577, 1024], K3 at 768
+    cfg = clip_preset("vit-large-patch14-336")
+    ad = init_m_adapters(gen, cfg, AdapterConfig(), device=dev)
+    text = torch.randn(C5_B * cfg.text.max_positions, cfg.text.hidden_size,
+                       generator=gen, device=dev).to(bf)
+    vis = torch.randn(C5_B * cfg.vision.seq_len, cfg.vision.hidden_size,
+                      generator=gen, device=dev).to(bf)
+    shared = layer_slice(ad["shared_adapters"], 0)
+    for stem, tag, x, args, need_dx in (
+            ("seq_adapter", "text", text, seq_args(ad["text_adapter"]), True),
+            ("seq_adapter", "vision", vis, seq_args(ad["vision_adapter"]),
+             False),
+            ("prenorm_mlp", "text", text, mlp_args(shared), True),
+            ("prenorm_mlp", "text", text.float(), mlp_args(shared), True)):
+        yield from rows(stem, f"config 5 {tag}", x, args, need_dx, False)
+
+
+def _t_rows():
+    """K6 at pipeline T's three calls (32 image features, 7 class means,
+    35 descriptions; D 768, K 64; backward without dx) in fp32, the
+    table's entries, and in bf16; K6 at EMOTIC's head ([32, 512], K 192)
+    and at D 4100, K 1100 (35 rows, dropout 0.1). K5 (SDPA beside it) at
+    pipeline T's ViT-L/14 encodes in bf16 (32 images; 35 descriptions
+    with their padding mask), the table's entries, at those with the
+    broadcast mask and at ViT-B/16's towers (96 images, 96 captions), in
+    bf16 and fp32; K5 at heads of 256, 272 and 512 columns (the CUDA-core
+    and column-chunk kernels) and at ViT-B/16's heads split over model 2
+    and 4."""
     import torch.nn.functional as TF
 
     from vlm_clip_tpu_torch.models import adapters as A
@@ -1016,185 +845,243 @@ def t_kernel_phase() -> dict:
     from vlm_clip_tpu_torch.ops import attention as K5
     from vlm_clip_tpu_torch.ops import fused_adapter as F
 
-    dev = torch.device("cuda")
+    dev, bf, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(3)
-    D, K, R = 768, 64, 0.2
-    p = A.init_feature_adapter(gen, D, K, device=dev)
-    for leaf in (p["fc1"]["bias"], p["fc2"]["bias"]):
-        leaf.normal_(generator=gen).mul_(0.1)
-    params = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
-              p["fc2"]["bias"])
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": "", "shapes": [],
-                      "library_ms": None} for name in T_REPLACES}
-    failures = []
-    k6_fwd = []  # (rows, device ms, events ms) of the T path's calls
-
-    # K6: rows 32 (image features), 7 (class means), 35 (descriptions),
-    # then 600 rows with dropout 0.1 across the 256-row tiles of the hash
-    for dtype in (torch.float32, torch.bfloat16):
-        dt = str(dtype).replace("torch.", "")
-        atol, rtol = TOL[dtype]
-        for n, drop in ((32, 0.0), (7, 0.0), (35, 0.0), (600, 0.1)):
-            x = torch.randn(n, D, generator=gen, device=dev)
-            x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
-            g = torch.randn(n, D, generator=gen, device=dev).to(dtype)
-            args = (*params, R, drop, 1234)
-            with torch.no_grad():
-                got = F.feature_adapter_blend_fused(x, *args)
-                want = F.feature_adapter_blend_torch(x, *args)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                ratio = float((err / (atol + rtol * want.float().abs())).max())
-                ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1
-                gg = F.feature_adapter_blend_bwd_cuda(x, *params, R, g, drop,
-                                                      1234, need_dx=False)
-                gw = F.feature_adapter_blend_bwd_torch(x, *params, R, g,
-                                                       drop, 1234,
-                                                       need_dx=False)
-                torch.cuda.synchronize()
-                errs = _grad_errors(gg, gw, dtype)
-                worst = max(e[1] for e in errs)
-            fwd_t = bwd_t = (0.0, 0.0, None)
-            if drop == 0.0:
-                with torch.no_grad():
-                    fwd_t = _turns(
-                        lambda: F.feature_adapter_blend_fused(x, *args),
-                        lambda: F.feature_adapter_blend_torch(x, *args))
-                    bwd_t = _turns(
-                        lambda: F.feature_adapter_blend_bwd_cuda(
-                            x, *params, R, g, need_dx=False),
-                        lambda: F.feature_adapter_blend_bwd_torch(
-                            x, *params, R, g, need_dx=False))
-            print(f"kernel feature_adapter_blend_fused N={n} dropout={drop} "
-                  f"{dt}: max_abs_err {float(err.max()):.3e} err/tol "
-                  f"{ratio:.3f} {'ok' if ok else 'FAIL'}; kernel "
-                  f"{fwd_t[0]:.4f} ms, plain {fwd_t[1]:.4f} ms", flush=True)
-            print(f"backward feature_adapter_blend_bwd_cuda N={n} "
-                  f"dropout={drop} {dt}: per gradient max_abs_err "
-                  f"{[f'{e[0]:.2e}' for e in errs]} worst err/tol "
-                  f"{worst:.3f} {'ok' if worst <= 1 else 'FAIL'}; kernel "
-                  f"{bwd_t[0]:.4f} ms, plain {bwd_t[1]:.4f} ms", flush=True)
-            if not ok:
-                failures.append(f"feature_adapter_blend_fused N={n} {dt}")
-            if worst > 1:
-                failures.append(f"feature_adapter_blend_bwd_cuda N={n} {dt}")
-            rf = results["feature_adapter_blend_fused"]
-            rb = results["feature_adapter_blend_bwd_cuda"]
-            rf["max_abs_err"] = max(rf["max_abs_err"], float(err.max()))
-            rb["max_abs_err"] = max(rb["max_abs_err"],
-                                    max(e[0] for e in errs))
-            # the T path runs K6 on fp32 features: its times are fp32's
-            if dtype == torch.float32 and drop == 0.0:
-                with torch.no_grad():
-                    _breakdown(
-                        f"backward feature_adapter_blend_bwd_cuda N={n} fp32",
-                        lambda: F.feature_adapter_blend_bwd_cuda(
-                            x, *params, R, g, need_dx=False), K6_BWD_PASSES)
-                    per = _breakdown(
-                        f"kernel feature_adapter_blend_fused N={n} fp32",
-                        lambda: F.feature_adapter_blend_fused(x, *args),
-                        K6_FWD_PASSES)
-                    again = F.feature_adapter_blend_fused(x, *args)
-                k6_fwd.append((n, sum(per.values()), fwd_t[0]))
-                if not torch.equal(got, again):
-                    failures.append(f"feature_adapter_blend_fused N={n} not "
-                                    "bit for bit on a repeat")
-                _add_time(rf, fwd_t[0], fwd_t[1],
-                          t_cost("feature_adapter_blend_fused", x),
-                          f"[{n}, {D}] fp32")
-                _add_time(rb, bwd_t[0], bwd_t[1],
-                          t_cost("feature_adapter_blend_bwd_cuda", x,
-                                 need_dx=False), f"[{n}, {D}] fp32 no dx")
-    print(f"K6 forward, pipeline T's calls (rows, device ms, events ms): "
-          f"{[(n, round(dv, 4), round(ev, 4)) for n, dv, ev in k6_fwd]}; "
-          f"sum by events {sum(ev for _, _, ev in k6_fwd):.4f} ms, device "
-          f"{sum(dv for _, dv, _ in k6_fwd):.4f} ms; earlier (PERF.md "
-          f"table) {EARLIER_MS['feature_adapter_blend_fused']} ms by events",
-          flush=True)
-    # the dropout mask, bit for bit: with relu(x@W1+b1) = 1, W2 = [I | 0],
-    # b2 = 0 and r = 1, y's first K columns are the kernel's mask over its
-    # row norm
-    n = 600
-    w1 = torch.zeros(D, K, device=dev)
-    b1 = torch.ones(K, device=dev)
-    w2 = torch.zeros(K, D, device=dev)
-    w2[:, :K] = torch.eye(K, device=dev)
-    b2 = torch.zeros(D, device=dev)
-    mask = F.feature_dropout_mask(n, K, 1234, 0.1, dev)
-    with torch.no_grad():
-        y = F.feature_adapter_blend_fused(torch.ones(n, D, device=dev), w1,
-                                          b1, w2, b2, 1.0, 0.1, 1234)
-    same = bool(torch.equal(y[:, :K] > 0, mask > 0))
-    print(f"K6 dropout mask (600 rows, p=0.1, seed 1234): kernel equals the "
-          f"plain hash bit for bit: {same} (kept {int((mask > 0).sum())} of "
-          f"{mask.numel()})", flush=True)
-    if not same:
-        failures.append("K6 dropout mask")
-
-    # K5: (tag, B, heads, T, mask kind); the ViT-L/14 vision and text
-    # encodes of pipeline T, the broadcast mask, ViT-B/16's towers
-    cases = [("ViT-L/14 vision", 32, 16, 257, None),
-             ("ViT-L/14 text", 35, 12, 77, "batch"),
-             ("ViT-L/14 text", 35, 12, 77, "broadcast"),
-             ("ViT-B/16 vision", 96, 12, 197, None),
-             ("ViT-B/16 text", 96, 8, 77, "batch")]
-    r5 = results["fused_attention"]
-    r5["library_ms"] = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        dt = str(dtype).replace("torch.", "")
-        atol, rtol = TOL[dtype]
-        for tag, b, h, t, kind in cases:
-            q, k, v = (torch.randn(b, h, t, 64, generator=gen,
-                                   device=dev).to(dtype) for _ in range(3))
+    fwd, bwd = "feature_adapter_blend_fused", "feature_adapter_blend_bwd_cuda"
+    for n, d, k, drop, dtype, need_dx, entry in (
+            *((n, 768, 64, 0.0, dtype, False, dtype == f32)
+              for dtype in (f32, bf) for n in (32, 7, 35)),
+            (32, 512, 192, 0.0, f32, False, False),
+            (35, 4100, 1100, 0.1, f32, True, False),
+            (35, 4100, 1100, 0.1, bf, True, False)):
+        p = A.init_feature_adapter(gen, d, k, device=dev)
+        for leaf in (p["fc1"]["bias"], p["fc2"]["bias"]):
+            leaf.normal_(generator=gen).mul_(0.1)
+        w = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+             p["fc2"]["bias"])
+        x = torch.randn(n, d, generator=gen, device=dev)
+        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+        g = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+        shape = f"[{n}, {d}] {_dt(dtype)}" + (f", K {k}" if k != 64 else "") \
+            + (f", dropout {drop}" if drop else "")
+        yield Row(fwd, entry, shape,
+                  lambda: F.feature_adapter_blend_fused(x, *w, 0.2, drop,
+                                                        1234),
+                  lambda: F.feature_adapter_blend_torch(x, *w, 0.2, drop,
+                                                        1234),
+                  None, t_cost(fwd, x, k), _elementwise(*TOL[dtype]))
+        yield Row(bwd, entry, shape + ("" if need_dx else " no dx"),
+                  lambda: F.feature_adapter_blend_bwd_cuda(
+                      x, *w, 0.2, g, drop, 1234, need_dx=need_dx),
+                  lambda: F.feature_adapter_blend_bwd_torch(
+                      x, *w, 0.2, g, drop, 1234, need_dx=need_dx),
+                  None, t_cost(bwd, x, k, need_dx=need_dx),
+                  _per_grad(dtype))
+    for tag, b, h, t, d, kind, dtypes in (
+            ("ViT-L/14 vision", 32, 16, 257, 64, None, (bf, f32)),
+            ("ViT-L/14 text", 35, 12, 77, 64, "batch", (bf, f32)),
+            ("ViT-L/14 text", 35, 12, 77, 64, "broadcast", (bf, f32)),
+            ("ViT-B/16 vision", 96, 12, 197, 64, None, (bf, f32)),
+            ("ViT-B/16 text", 96, 8, 77, 64, "batch", (bf, f32)),
+            ("wide heads", 4, 4, 77, 256, None, (bf, f32)),
+            ("wide heads", 4, 4, 77, 272, None, (bf, f32)),
+            ("wide heads", 4, 4, 77, 512, None, (bf, f32)),
+            ("ViT-B/16 vision, model 2", 32, 6, 197, 64, None, (bf,)),
+            ("ViT-B/16 vision, model 4", 32, 3, 197, 64, None, (bf,))):
+        for dtype in dtypes:
+            q, kk, vv = (torch.randn(b, h, t, d, generator=gen,
+                                     device=dev).to(dtype) for _ in range(3))
             mask = None
-            if kind is not None:
+            if kind is not None:  # the captions' padding, 8 to 77 tokens
                 am = torch.ones(b, t, dtype=torch.int32, device=dev)
                 lens = torch.randint(8, t + 1, (b,), generator=gen,
                                      device=dev)
                 am[torch.arange(t, device=dev)[None] >= lens[:, None]] = 0
                 mask = text_mask(am if kind == "batch" else None, t,
                                  device=dev)
-            scale = 64 ** -0.5
-            with torch.no_grad():
-                got = K5.fused_attention(q, k, v, scale, mask)
-                want = K5.fused_attention_torch(q, k, v, scale, mask)
-                torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            ratio = float((err / (atol + rtol * want.float().abs())).max())
-            ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1
             lib_mask = None if mask is None else mask.to(dtype)
-            with torch.no_grad():
-                t_k, t_p, t_l = _turns(
-                    lambda: K5.fused_attention(q, k, v, scale, mask),
-                    lambda: K5.fused_attention_torch(q, k, v, scale, mask),
-                    lambda: TF.scaled_dot_product_attention(
-                        q, k, v, attn_mask=lib_mask, scale=scale))
-            shape = f"{tag} [{b}, {h}, {t}, 64] mask {kind}"
-            b_ms, b_by = bound(*t_cost("fused_attention", q, mask=mask))
-            with torch.no_grad():
-                d_k = sum(_device_ms(lambda: K5.fused_attention(
-                    q, k, v, scale, mask)).values())
-                d_l = sum(_device_ms(lambda: TF.scaled_dot_product_attention(
-                    q, k, v, attn_mask=lib_mask, scale=scale)).values())
-            print(f"kernel fused_attention {shape} {dt}: max_abs_err "
-                  f"{float(err.max()):.3e} err/tol {ratio:.3f} (atol {atol}, "
-                  f"rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} "
-                  f"ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}); device time (profiler) kernel "
-                  f"{d_k:.4f} ms, SDPA {d_l:.4f} ms", flush=True)
-            if not ok:
-                failures.append(f"fused_attention {shape} {dt}")
-            r5["max_abs_err"] = max(r5["max_abs_err"], float(err.max()))
-            # the pipeline-T encode's shapes, in the BF16 policy's type
-            if dtype == torch.bfloat16 and tag.startswith("ViT-L") \
-                    and kind != "broadcast":
-                _add_time(r5, t_k, t_p, t_cost("fused_attention", q,
-                                               mask=mask), f"{shape} bf16")
-                r5["library_ms"] += t_l
+            sc = d ** -0.5
+            yield Row("fused_attention",
+                      dtype == bf and tag.startswith("ViT-L")
+                      and kind != "broadcast",
+                      f"{tag} [{b}, {h}, {t}, {d}] mask {kind} {_dt(dtype)} "
+                      f"(kernel width {K5.kernel_width(d)})",
+                      lambda: K5.fused_attention(q, kk, vv, sc, mask),
+                      lambda: K5.fused_attention_torch(q, kk, vv, sc, mask),
+                      lambda: TF.scaled_dot_product_attention(
+                          q, kk, vv, attn_mask=lib_mask, scale=sc),
+                      t_cost("fused_attention", q, mask=mask),
+                      _elementwise(*TOL[dtype]))
+
+
+def _vlm_rows():
+    """K7 (a bf16 matmul on the dequantized weight beside it) on the 8h4
+    head (N 151,936) at x [1, 2048], [8, 2048] (the table's entry) and
+    [32, 2048] (the engine's slots), on the mixed preset's gateup (N
+    22,016) at the same rows and on each rank's head shard of model 2 and
+    4 (re-padded as ``shard_quantized`` cuts them); K8 at the 3B heads (16
+    q and 2 kv of 128, S=768, every row at the vlm phase's mid-decode
+    depth; SDPA beside it on a bf16 cache) on a bf16 cache at B=8 (T = 1:
+    the table's entry; and a T = 5 verify), an int8 cache at B=16 and an
+    fp32 one at B=2, each also after 256 MB written over the 50 MB L2 (the
+    decode step streams the weights between two layers' calls, so there
+    the cache comes from HBM); then at the engine's shapes (32 rows) and
+    each rank's local heads under model 2 and 4."""
+    from vlm_clip_tpu_torch.cli.check_decode_attn import compare, rand_case
+    from vlm_clip_tpu_torch.ops import decode_attention as K8
+    from vlm_clip_tpu_torch.ops import quant as K7
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    K = 2048
+    for N, cases in ((151936, ((1, False, "8h4 head"), (8, True, "8h4 head"),
+                               (ENGINE_SLOTS, False, "8h4 head, engine"))),
+                     (22016, ((1, False, "mixed gateup"),
+                              (8, False, "mixed gateup"),
+                              (32, False, "mixed gateup"))),
+                     (151936 // 2, ((8, False, "head shard, model 2"),)),
+                     (151936 // 4, ((8, False, "head shard, model 4"),))):
+        q = K7.quantize_weight(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02, 4)
+        w_lib = K7.dequantize_weight(q).to(bf)
+        for M, entry, what in cases:
+            x = torch.randn(M, K, generator=gen, device=dev).to(bf)
+            yield Row("quant_matmul_int4", entry,
+                      f"{what} x[{M}, {K}] bf16 N={N}",
+                      lambda: K7.quant_matmul_int4(x, q),
+                      lambda: K7.quant_matmul_int4_torch(x, q),
+                      lambda: torch.matmul(x, w_lib), k7_cost(M, K, N, 2),
+                      _elementwise(*K7_TOL), iters=20)
+    del q, w_lib
+    depth = len(_qwen_prompt()) + VLM_NEW // 2
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for b, T, h, kv, S, dtype, quant, what in (
+            (8, 1, 16, 2, 768, bf, False, "bf16 cache"),
+            (8, 5, 16, 2, 768, bf, False, "bf16 cache"),
+            (16, 1, 16, 2, 768, bf, True, "int8 cache"),
+            (16, 5, 16, 2, 768, bf, True, "int8 cache"),
+            (2, 1, 16, 2, 768, torch.float32, False, "fp32"),
+            (2, 5, 16, 2, 768, torch.float32, False, "fp32"),
+            (ENGINE_SLOTS, 1, 16, 2, 384, bf, False, "engine"),
+            (ENGINE_SLOTS, 5, 16, 2, 384, bf, False, "engine"),
+            (ENGINE_SLOTS, 1, 16, 2, 768, bf, False, "engine"),
+            (8, 1, 8, 1, 768, bf, False, "local heads, model 2"),
+            (8, 1, 4, 1, 768, bf, False, "local heads, model 4")):
+        case = list(rand_case(gen, b, T, h, kv, 128, S, dtype, quant, dev))
+        case[5] = torch.full((b,), depth, dtype=torch.int32, device=dev)
+        shape = (f"{what} B={b} T={T} heads {h}/{kv} S={S} depth {depth} "
+                 f"{_dt(dtype)} ({K8.kernel_splits(b, kv, 128, S)} column "
+                 f"splits)")
+
+        def kern(case=case):
+            return K8.decode_attention_kernel(*case)
+
+        def plain(case=case):
+            return K8.decode_attention_reference(*case)
+
+        def check(got, want, case=case):
+            return compare(got, want, case)[1]
+
+        yield Row("decode_attention_kernel", what == "bf16 cache" and T == 1,
+                  shape, kern, plain,
+                  _k8_library(case, depth) if dtype == bf and not quant
+                  else None, k8_cost(case), check, iters=20)
+        if what in ("bf16 cache", "int8 cache", "fp32"):
+            yield Row("decode_attention_kernel", False,
+                      f"{shape}, each call after an L2 flush",
+                      lambda: (flush.zero_(), kern())[1],
+                      lambda: (flush.zero_(), plain())[1], None,
+                      k8_cost(case), check, iters=20)
+
+
+def _int8_times(results: dict, failures: list, layers: int = 36) -> None:
+    """The int8 GEMM at the four 8h4 text shapes, M = 1 to 64 rows of bf16
+    x, each side a CUDA graph over `layers` weights of the shape (an
+    L2-cold ring, as a decode forward reads them): the kernel, its plain
+    twin (INT8_TOL) and the parent's materialize route (the library
+    column); M = 32 is the table's entry. Then a decode forward's 144
+    calls at M = 1 and 32, and the rows up to which the kernel beats the
+    materialize route at every shape: the route's KERNEL_MAX_M_INT8 must
+    not pass them."""
+    from vlm_clip_tpu_torch.ops import quant as K7
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    weights = {name: [K7.quantize_weight(
+        torch.randn(K, N, generator=gen, device=dev) * 0.02, 8,
+        torch.randn(N, generator=gen, device=dev) if bias else None)
+        for _ in range(layers)] for name, (K, N, bias) in INT8_SHAPES.items()}
+
+    def ring(calls, fn):
+        return _graph([lambda q=q, x=x: fn(x, q) for q, x in calls])
+
+    check = _elementwise(INT8_TOL, INT8_TOL)
+    wins = {}
+    for M in (1, 8, 16, 32, 48, 64):
+        for name, (K, N, bias) in INT8_SHAPES.items():
+            x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+            calls = [(q, x) for q in weights[name]]
+            t_k, _, t_l = _time_row(results, Row(
+                "quant_matmul_int8", M == 32,
+                f"{name} x[{M}, {K}] bf16 N={N} ({K7.int8_splits(N, K)} "
+                f"depth slices)", ring(calls, K7.quant_matmul_int8),
+                ring(calls, K7.quant_matmul_int8_torch),
+                ring(calls, _materialize), int8_cost(M, K, N, bias), check,
+                layers, 20), failures)
+            wins.setdefault(M, []).append(t_k < t_l)
+    for M in (1, 32):
+        xs = {name: torch.randn(M, K, generator=gen, device=dev).bfloat16()
+              for name, (K, _, _) in INT8_SHAPES.items()}
+        calls = [(weights[name][i], xs[name]) for i in range(layers)
+                 for name in INT8_SHAPES]
+        work = [int8_cost(M, *INT8_SHAPES[name]) for name in INT8_SHAPES]
+        _time_row(results, Row(
+            "quant_matmul_int8", False,
+            f"a decode forward's {len(calls)} calls at M={M}",
+            ring(calls, K7.quant_matmul_int8),
+            ring(calls, K7.quant_matmul_int8_torch),
+            ring(calls, _materialize),
+            (layers * sum(w[0] for w in work),
+             layers * sum(w[1] for w in work), "bf16"), check, 1, 20),
+            failures)
+    top = max((M for M, w in wins.items() if all(w)), default=0)
+    print(f"int8 crossover: the kernel beats the materialize route at every "
+          f"text shape up to M={top} of those timed {sorted(wins)}; "
+          f"KERNEL_MAX_M_INT8 = {K7.KERNEL_MAX_M_INT8}", flush=True)
+    if K7.KERNEL_MAX_M_INT8 > top:
+        failures.append(f"KERNEL_MAX_M_INT8 {K7.KERNEL_MAX_M_INT8} past the "
+                        f"measured crossover {top}")
+    del weights
+    torch.cuda.empty_cache()
+
+
+# the kernels --times compares across checkouts: K4, K6 and K5
+TIMES_KERNELS = ("contrastive_loss_fused", "contrastive_loss_bwd_cuda",
+                 "feature_adapter_blend_fused",
+                 "feature_adapter_blend_bwd_cuda", "fused_attention")
+
+
+def kernel_times(root: str | None = None) -> dict:
+    """The timing table on the card: every row of :func:`_m_rows`,
+    :func:`_t_rows`, :func:`_vlm_rows` and :func:`_int8_times`; with a
+    root (``--times``), the TIMES_KERNELS rows of the package there, each
+    line tagged with it. Raises on a row past its limit or on the int8
+    route's crossover; returns the entries of the {"kernels"} line by
+    kernel."""
+    label = "time" if root is None else f"times {root}:"
+    print(f"timing table on {card()}", flush=True)
+    results, failures = {}, []
+    for rows in ((_m_rows, _t_rows, _vlm_rows) if root is None
+                 else (_m_rows, _t_rows)):
+        for row in rows():
+            if root is None or row.name in TIMES_KERNELS:
+                _time_row(results, row, failures, label)
+        torch.cuda.empty_cache()
+    if root is None:
+        _int8_times(results, failures)
     if failures:
-        raise SystemExit(f"pipeline-T kernels disagree with their plain "
-                         f"versions: {failures}")
+        raise SystemExit(f"timing table: kernels past their limits against "
+                         f"their plain versions: {failures}")
     return results
 
 
@@ -1330,7 +1217,7 @@ def _bench_setup():
 
 def train_phase() -> dict:
     """cli/train_m for one epoch, then bench.py's step: kernels against
-    plain versions, then timed."""
+    plain versions, without and with K4."""
     import shutil
 
     from vlm_clip_tpu_torch.bridge import tree_leaves
@@ -1371,37 +1258,14 @@ def train_phase() -> dict:
           "and read back", flush=True)
 
     cfg, acfg, clip, adapters, batch, tx = _bench_setup()
-
-    def fresh(impl, fused_loss):
-        return _fresh_step(cfg, acfg, tx, clip, adapters, impl, fused_loss)
-
     for fused_loss in (False, True):
         _step_pair(cfg, acfg, tx, clip, adapters, batch, fused_loss,
                    f"bench step fused_loss={fused_loss}")
-
-    # steps/s: 3 warmup + 20 timed steps, kernels and plain versions in
-    # turns (kernels, plain, kernels, plain)
-    rates = {"auto": [], "torch": []}
-    for impl in ("auto", "torch", "auto", "torch"):
-        state, step = fresh(impl, False)
-        for _ in range(3):
-            state, m = step(state, batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            state, m = step(state, batch)
-        float(m.loss)
-        rates[impl].append(20 * B / (time.perf_counter() - t0))
     counts = {**F.launch_counts(F.M_KERNELS), **K4.launch_counts()}
     print(f"launches on the train path: {counts}", flush=True)
     if min(counts.values()) < 1:
         raise SystemExit(f"a kernel of the train path never launched: "
                          f"{counts}")
-    smi = card()
-    print(f"train step pairs/s (B={B}, ViT-B/16, adapters 256/256/2, FAST, "
-          f"Adam; 20 steps after 3 warmup, two rounds each): kernels "
-          f"{rates['auto']}, plain versions {rates['torch']} on {smi}",
-          flush=True)
     return counts
 
 
@@ -1575,9 +1439,9 @@ def data_parallel_phase() -> dict:
             def one():
                 held[0], _ = held[1](held[0], batch)
 
-            per = _device_ms(one, 3)
-            busy[dp] = sum(per.values())
-            nccl[dp] = sum(ms for name, ms in per.items() if "nccl" in name)
+            per = _profiled(one, 3)
+            busy[dp] = sum(v[0] for v in per.values())
+            nccl[dp] = sum(v[0] for name, v in per.items() if "nccl" in name)
     finally:
         torch.distributed.destroy_process_group()
     print(f"DP step ms (B={B}, ViT-B/16, adapters 256/256/2, FAST, Adam "
@@ -1599,305 +1463,6 @@ def data_parallel_phase() -> dict:
           "only on the CPU, by tests/test_torch_data_parallel.py (gloo): "
           "NCCL takes one rank a GPU and this machine has one", flush=True)
     return counts
-
-
-ROUTE_B = 8  # the batch of the ViT-L/14 route check
-
-
-def route_phase() -> dict:
-    """The adapter kernels' shape gates on the card: one pipeline-M train
-    step at ViT-L/14's widths (text 768, vision 1024, adapters 256/256/2,
-    8 heads of 96 over the cross-modal hidden of 768, a pseudo-image of
-    Tk = 257 rows; all 24 + 12 tower layers, B=8, seeded random weights)
-    with impl="auto" against impl="torch" from the same state, within
-    STEP_TOL. K1 and K3 must launch (forward and backward); K2's gate
-    refuses Tk = 257 (the reference computes plainly past 256 shared
-    rows), so impl="auto" must route it to its plain version: its launch
-    counts stay 0. Then one cross-modal adapter at these widths against
-    a 197-row pseudo-image (ViT-L/14 at 196 pixels), where the reference
-    runs its kernel: K2 and K3 must launch, forward and backward, and
-    agree with impl="torch" within TOL (gradients relative to their
-    largest element)."""
-    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
-    from vlm_clip_tpu_torch.models.clip import init_clip
-    from vlm_clip_tpu_torch.models.model_m import init_m_adapters
-    from vlm_clip_tpu_torch.ops import contrastive as K4
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-    from vlm_clip_tpu_torch.train import optim
-
-    dev = torch.device("cuda")
-    cfg = clip_preset("vit-large-patch14")
-    acfg = AdapterConfig()
-    gen = torch.Generator(device=dev).manual_seed(4)
-    clip = init_clip(gen, cfg, device=dev)
-    adapters = init_m_adapters(gen, cfg, acfg, device=dev)
-    batch = {
-        "input_ids": torch.randint(1, cfg.text.vocab_size, (ROUTE_B, 77),
-                                   generator=gen, device=dev),
-        "attention_mask": torch.ones(ROUTE_B, 77, dtype=torch.int32,
-                                     device=dev),
-        "pixel_values": torch.randn(
-            ROUTE_B, 3, cfg.vision.image_size, cfg.vision.image_size,
-            generator=gen, device=dev).to(torch.bfloat16),
-    }
-    H, Tk = cfg.text.hidden_size, cfg.vision.seq_len
-    supported = {"K2": F.cross_attn_block_supported(Tk)}
-    F.reset_launch_counts()
-    K4.reset_launch_counts()
-    counts = _step_pair(cfg, acfg, optim.adam(3e-4), clip, adapters, batch,
-                        False, f"route step ViT-L/14 B={ROUTE_B} (text {H}, "
-                        f"vision {cfg.vision.hidden_size}, heads "
-                        f"{acfg.shared_num_heads} of "
-                        f"{H // acfg.shared_num_heads}, Tk {Tk})")
-    print(f"route: predicates {supported}; launches {counts}", flush=True)
-    want = {"K2": False}
-    launched = {"seq_adapter_fused", "seq_adapter_bwd_cuda",
-                "prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"}
-    plain = {"cross_attn_block_fused", "cross_attn_block_bwd_cuda"}
-    if supported != want or any(counts[k] < 1 for k in launched) \
-            or any(counts[k] for k in plain):
-        raise SystemExit(f"route: want predicates {want}, launches of "
-                         f"{sorted(launched)} and none of {sorted(plain)}; "
-                         f"got {supported}, {counts}")
-    _wide_heads_check(gen, H, cfg.vision.hidden_size,
-                      acfg.shared_num_heads, dev)
-    _repaired_widths_check(gen, dev)
-    return counts
-
-
-def _repaired_widths_check(gen, dev) -> None:
-    """The widths the bf16 tensor-core passes do not take, each once on
-    its CUDA-core kernel against its plain version (TOL; gradients
-    relative to their largest element): K3 in bf16 at H = 100, K = 400
-    (forward, backward); K2 in bf16 at 8 heads of 25 and 2 heads of 192
-    (forward, backward; Tk 197); K5 at heads of 160 and 256 columns in
-    both dtypes; and the widths the kernels once refused: K5 at heads of
-    272 and 512 columns (the column-chunk kernel) in both dtypes, K6 at
-    D 4100, K 1100 (35 rows, dropout 0.1; forward, backward) in both,
-    those timed beside their plain versions (K5 also beside SDPA and
-    the backend it took). Each must launch its kernel, once a call."""
-    from vlm_clip_tpu_torch.models import adapters as A
-    from vlm_clip_tpu_torch.ops import attention as K5
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    bf, failures = torch.bfloat16, []
-
-    def check(what, y, want_y, grads, want_g, dtype, counts, names):
-        atol, rtol = TOL[dtype]
-        y_ok = bool(torch.isclose(y.float(), want_y.float(), atol=atol,
-                                  rtol=rtol).all())
-        worst = max(e[1] for e in _grad_errors(grads, want_g, dtype)) \
-            if grads is not None else 0.0
-        ok = y_ok and worst <= 1.0 and all(counts[k] == 1 for k in names)
-        print(f"route: {what}: y max abs err "
-              f"{float((y.float() - want_y.float()).abs().max()):.3e}, "
-              f"worst gradient err / (tol * max) {worst:.3f}; launches "
-              f"{ {k: counts[k] for k in names} } {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            failures.append(what)
-
-    h, k = 100, 400
-    w1 = torch.randn(h, k, generator=gen, device=dev) * h ** -0.5
-    w2 = torch.randn(k, h, generator=gen, device=dev) * k ** -0.5
-    b1, b2, ls, lb = (0.1 * torch.randn(w, generator=gen, device=dev)
-                      for w in (k, h, h, h))
-    args = (w1, b1, w2, b2, 1 + ls, lb)
-    x = torch.randn(ROUTE_B * 77, h, generator=gen, device=dev).to(bf)
-    g = torch.randn(x.shape, generator=gen, device=dev).to(bf)
-    F.reset_launch_counts()
-    with torch.no_grad():
-        y = F.prenorm_mlp_fused(x, *args)
-        grads = F.prenorm_mlp_bwd_cuda(x, *args, g)
-    check(f"K3 bf16 H {h} K {k} (CUDA cores)", y,
-          F.prenorm_mlp_torch(x, *args), grads,
-          F.prenorm_mlp_bwd_torch(x, *args, g), bf, F.launch_counts(),
-          ("prenorm_mlp_fused", "prenorm_mlp_bwd_cuda"))
-    for H, heads in ((200, 8), (384, 2)):
-        p = A.init_cross_modal_adapter(gen, text_dim=H, image_dim=256,
-                                       hidden=H, device=dev)
-        image = (torch.randn(1, 197, 256, generator=gen, device=dev)
-                 * 256 ** -0.5).to(bf)
-        kk, vv = A.shared_kv(p, image)
-        ap = p["attn"]
-        cab = (p["text_proj"]["kernel"], p["text_proj"]["bias"],
-               p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
-               ap["q"]["bias"], kk, vv, ap["out"]["kernel"],
-               ap["out"]["bias"])
-        x = torch.randn(ROUTE_B * 77, H, generator=gen, device=dev).to(bf)
-        g = torch.randn(x.shape, generator=gen, device=dev).to(bf)
-        F.reset_launch_counts()
-        with torch.no_grad():
-            y = F.cross_attn_block_fused(x, *cab, heads)
-            grads = F.cross_attn_block_bwd_cuda(x, *cab, g, heads)
-        check(f"K2 bf16 {heads} heads of {H // heads} (CUDA cores)", y,
-              F.cross_attn_block_torch(x, *cab, heads), grads,
-              F.cross_attn_block_bwd_torch(x, *cab, g, heads), bf,
-              F.launch_counts(), ("cross_attn_block_fused",
-                                  "cross_attn_block_bwd_cuda"))
-    # K5 past 256 columns: the column-chunk kernel (272 runs at 320)
-    for d in (160, 256, 272, 512):
-        for dtype in (bf, torch.float32):
-            q, kq, vq = (torch.randn(4, 4, 77, d, generator=gen,
-                                     device=dev).to(dtype)
-                         for _ in range(3))
-            K5.reset_launch_counts()
-            with torch.no_grad():
-                y = K5.fused_attention(q, kq, vq, d ** -0.5)
-            what = (f"K5 {str(dtype).replace('torch.', '')} heads of {d} "
-                    f"(kernel width {K5.kernel_width(d)})")
-            check(what, y, K5.fused_attention_torch(q, kq, vq, d ** -0.5),
-                  None, None, dtype, K5.launch_counts(), ("fused_attention",))
-            if d > 256:
-                sc = d ** -0.5
-                with torch.no_grad():
-                    _width_times(
-                        what, lambda: K5.fused_attention(q, kq, vq, sc),
-                        lambda: K5.fused_attention_torch(q, kq, vq, sc),
-                        t_cost("fused_attention", q),
-                        lambda: torch.nn.functional.
-                        scaled_dot_product_attention(q, kq, vq, scale=sc))
-    # K6 past the widths it once refused (D 4096, K 1024), dropout on
-    d6, k6, r6, drop = 4100, 1100, 0.2, 0.1
-    p6 = A.init_feature_adapter(gen, d6, k6, device=dev)
-    for leaf in (p6["fc1"]["bias"], p6["fc2"]["bias"]):
-        leaf.normal_(generator=gen).mul_(0.1)
-    w6 = (p6["fc1"]["kernel"], p6["fc1"]["bias"], p6["fc2"]["kernel"],
-          p6["fc2"]["bias"])
-    for dtype in (torch.float32, bf):
-        x = torch.randn(35, d6, generator=gen, device=dev)
-        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
-        g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
-        F.reset_launch_counts()
-        with torch.no_grad():
-            y = F.feature_adapter_blend_fused(x, *w6, r6, drop, 1234)
-            grads = F.feature_adapter_blend_bwd_cuda(x, *w6, r6, g, drop,
-                                                     1234)
-        what = (f"K6 {str(dtype).replace('torch.', '')} [35, {d6}], K {k6}, "
-                f"dropout {drop}")
-        check(what, y, F.feature_adapter_blend_torch(x, *w6, r6, drop, 1234),
-              grads, F.feature_adapter_blend_bwd_torch(x, *w6, r6, g, drop,
-                                                       1234), dtype,
-              F.launch_counts(), ("feature_adapter_blend_fused",
-                                  "feature_adapter_blend_bwd_cuda"))
-        with torch.no_grad():
-            _width_times(f"{what} forward",
-                         lambda: F.feature_adapter_blend_fused(
-                             x, *w6, r6, drop, 1234),
-                         lambda: F.feature_adapter_blend_torch(
-                             x, *w6, r6, drop, 1234),
-                         t_cost("feature_adapter_blend_fused", x, k6))
-            _width_times(f"{what} backward",
-                         lambda: F.feature_adapter_blend_bwd_cuda(
-                             x, *w6, r6, g, drop, 1234),
-                         lambda: F.feature_adapter_blend_bwd_torch(
-                             x, *w6, r6, g, drop, 1234),
-                         t_cost("feature_adapter_blend_bwd_cuda", x, k6))
-    if failures:
-        raise SystemExit(f"route: repaired widths disagree with their plain "
-                         f"versions or did not launch: {failures}")
-
-
-def _sdpa_backend(names) -> str:
-    """The backend SDPA took, from the kernel names of one call."""
-    joined = " ".join(names).lower()
-    if not joined:
-        return "not traced"
-    for tag, backend in (("flash", "flash"), ("fmha", "efficient"),
-                         ("cudnn", "cudnn")):
-        if tag in joined:
-            return backend
-    return "math"
-
-
-def _width_times(what, kern, plain, work, library=None) -> None:
-    """A repaired width's kernel and plain ms (CUDA events, in turns), its
-    device ms (profiler) and its bound, printed; with ``library`` (SDPA
-    on the same inputs) its ms, device ms and backend too."""
-    t_k, t_p, t_l = _turns(kern, plain, library, iters=5)
-    d_k = sum(ms for _, ms in _device_events(kern, 3)) / 3
-    b_ms, b_by = bound(*work)
-    lib = ""
-    if library is not None:
-        events = _device_events(library, 3)
-        d_l = sum(ms for _, ms in events) / 3
-        lib = (f", library {t_l:.4f} ms (device {d_l:.4f} ms, SDPA "
-               f"backend {_sdpa_backend(n for n, _ in events)}: "
-               f"{sorted({n[:60] for n, _ in events})})")
-    print(f"route: {what}: kernel {t_k:.4f} ms (device {d_k:.4f} ms), "
-          f"plain {t_p:.4f} ms{lib}, bound {b_ms:.5f} ms ({b_by}) on "
-          f"{card()}", flush=True)
-
-
-def _wide_heads_check(gen, H, image_dim, heads, dev, tk=197) -> None:
-    """One cross-modal adapter (bf16) at ViT-L/14's widths against a
-    pseudo-image of tk <= 256 rows: the kernels against impl="torch",
-    forward and the gradients of every parameter."""
-    from vlm_clip_tpu_torch.bridge import tree_leaves
-    from vlm_clip_tpu_torch.models import adapters as A
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    p = A.init_cross_modal_adapter(gen, text_dim=H, image_dim=image_dim,
-                                   hidden=H, device=dev)
-    text = torch.randn(ROUTE_B, 77, H, generator=gen,
-                       device=dev).bfloat16()
-    image = (torch.randn(1, tk, image_dim, generator=gen, device=dev)
-             * image_dim ** -0.5).bfloat16()
-    leaves = tree_leaves(p)
-
-    def run(impl):
-        for t in leaves:
-            t.grad = None
-            t.requires_grad_(True)
-        y = A.cross_modal_adapter(p, text, image, heads, impl=impl)
-        (y.float() ** 2).mean().backward()
-        return y.detach(), [t.grad.clone() for t in leaves]
-
-    want_y, want_g = run("torch")
-    F.reset_launch_counts()
-    got_y, got_g = run("auto")
-    counts = F.launch_counts()
-    atol, rtol = TOL[torch.bfloat16]
-    y_err = float((got_y.float() - want_y.float()).abs().max())
-    y_ok = bool(torch.isclose(got_y.float(), want_y.float(), atol=atol,
-                              rtol=rtol).all())
-    errs = _grad_errors(got_g, want_g, torch.bfloat16)
-    worst = max(e[1] for e in errs)
-    ok = y_ok and worst <= 1.0 and all(
-        counts[k] == 1 for k in ("cross_attn_block_fused",
-                                 "cross_attn_block_bwd_cuda",
-                                 "prenorm_mlp_fused",
-                                 "prenorm_mlp_bwd_cuda"))
-    print(f"route: K2 at {heads} heads of {H // heads}, Tk {tk}, "
-          f"{ROUTE_B * 77} rows: y max abs err {y_err:.3e}, worst gradient "
-          f"err / (tol * max) {worst:.3f}; launches {counts} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise SystemExit("route: K2 at wide heads disagrees with its plain "
-                         "version or did not launch")
-    # K2's own calls at these widths, kernel and plain, by CUDA events
-    with torch.no_grad():
-        k, v = A.shared_kv(p, image)
-        ap = p["attn"]
-        args = (p["text_proj"]["kernel"], p["text_proj"]["bias"],
-                p["norm2"]["scale"], p["norm2"]["bias"], ap["q"]["kernel"],
-                ap["q"]["bias"], k, v, ap["out"]["kernel"], ap["out"]["bias"])
-        x = text.reshape(-1, H)
-        g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
-        ms = {
-            "fwd": _time_ms(lambda: F.cross_attn_block_fused(x, *args,
-                                                             heads)),
-            "fwd plain": _time_ms(lambda: F.cross_attn_block_torch(
-                x, *args, heads)),
-            "bwd": _time_ms(lambda: F.cross_attn_block_bwd_cuda(
-                x, *args, g, heads, need_dx=False)),
-            "bwd plain": _time_ms(lambda: F.cross_attn_block_bwd_torch(
-                x, *args, g, heads, need_dx=False))}
-        print(f"route: K2 at heads of {H // heads} ms by events "
-              f"{ {k: round(t, 4) for k, t in ms.items()} }", flush=True)
-        _breakdown(f"route: K2 fwd at heads of {H // heads} bf16",
-                   lambda: F.cross_attn_block_fused(x, *args, heads),
-                   K2_FWD_PASSES)
 
 
 def _write_flat_tree(root: str, per_class: int, seed: int) -> None:
@@ -2693,49 +2258,6 @@ def _same_tree(got, want, what: str) -> None:
                          f"from the written ones (leaves {len(g)})")
 
 
-def _emotic_k6_times(visual, feats) -> None:
-    """K6 forward and backward (no dx, as the head trains) at the EMOTIC
-    step's shape, [32, 512] fp32 features, K 192: CUDA events in turns
-    with the plain versions, device time (profiler), the bound."""
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    w = tuple(t.detach() for t in (visual["fc1"]["kernel"],
-                                   visual["fc1"]["bias"],
-                                   visual["fc2"]["kernel"],
-                                   visual["fc2"]["bias"]))
-    g = torch.randn(feats.shape, device=feats.device,
-                    generator=torch.Generator(feats.device).manual_seed(8))
-    k = w[0].shape[1]
-    calls = {
-        "feature_adapter_blend_fused": (
-            lambda: F.feature_adapter_blend_fused(feats, *w, 0.2),
-            lambda: F.feature_adapter_blend_torch(feats, *w, 0.2)),
-        "feature_adapter_blend_bwd_cuda": (
-            lambda: F.feature_adapter_blend_bwd_cuda(feats, *w, 0.2, g,
-                                                     need_dx=False),
-            lambda: F.feature_adapter_blend_bwd_torch(feats, *w, 0.2, g,
-                                                      need_dx=False))}
-    tags = {"feature_adapter_blend_fused": K6_FWD_PASSES[0],
-            "feature_adapter_blend_bwd_cuda": K6_BWD_PASSES[0]}
-    for name, (kern, plain) in calls.items():
-        with torch.no_grad():
-            t_k, t_p, _ = _turns(kern, plain)
-            events = _device_events(
-                kern, 10, want=lambda ev: any(tags[name] in n for n, _ in ev))
-        mine = [ms for n, ms in events if tags[name] in n]
-        if not mine:
-            raise SystemExit(f"K6 {name}: the trace holds no launch of "
-                             f"{tags[name]}")
-        b_ms, b_by = bound(*t_cost(name, feats, k, need_dx=False))
-        print(f"real weights: K6 {name} at EMOTIC's {list(feats.shape)} "
-              f"fp32, K {k}: kernel {t_k:.4f} ms (device "
-              f"{sum(mine) / len(mine):.4f} ms a launch of {tags[name]}, "
-              f"{len(mine)} of them and {len(events) - len(mine)} other "
-              f"kernels recorded in 10 calls), plain {t_p:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}) on {card()}",
-              flush=True)
-
-
 def _held_forward(fn):
     """(fn(), {kernel: {calls, shapes, max_abs_err, ok}}): while fn runs,
     every K1-K3 forward call the adapters make also runs its plain
@@ -2803,7 +2325,7 @@ def real_weights_emotic_phase() -> dict:
        launched forward and backward (counts zeroed just before, read
        just after; the epoch seconds); one train step against
        impl="torch" from the trained head (loss 1e-5 relative, gradients
-       T_STEP_TOL) with its launches by the profiler, and
+       T_STEP_TOL), K6 launching forward and backward in it, and
        evaluate_emotic's scores against impl="torch" (1e-5);
     6. cli/validate_parity --eval-only on the directory (the RAF-DB
        zero-shot and EMOTIC mAP legs, on the card): finite numbers.
@@ -2875,18 +2397,10 @@ def real_weights_emotic_phase() -> dict:
     # 3. cli/smoke on the loaded backbone: K1-K3 forward
     F.reset_launch_counts()
     out = smoke.main(["--clip-model-name", ckpt, "--device", "cuda"])
-    counts = {k: F.launch_counts()[k] for k in REPLACES}
-    def smoke_kernels(events):
-        return {name: sum(1 for n, _ in events if any(t in n for t in tags))
-                for name, tags in FWD_PASSES.items()}
-
-    prof = smoke_kernels(_device_events(
-        lambda: smoke.main(["--clip-model-name", ckpt, "--device", "cuda"]),
-        1, want=lambda ev: min(smoke_kernels(ev).values()) >= 1))
+    counts = {fn.__name__: fn.launches for fn in F.FORWARD}
     print(f"real weights: cli/smoke loss {out['loss']:.4f}, launches "
-          f"{counts}, kernel passes by the profiler {prof}", flush=True)
-    if not np.isfinite(out["loss"]) or min(counts.values()) < 1 \
-            or min(prof.values()) < 1:
+          f"{counts}", flush=True)
+    if not np.isfinite(out["loss"]) or min(counts.values()) < 1:
         raise SystemExit("cli/smoke on real weights: bad loss or a K1-K3 "
                          "forward never launched")
     # K1-K3 at the smoke's own shapes (B=1, adapters of width 32, the
@@ -2963,8 +2477,7 @@ def real_weights_emotic_phase() -> dict:
     res = train_emotic.main(["--data-dir", data, "--clip-model-name", ckpt,
                              "--batch-size", "32", "--num-epochs", "2",
                              "--output", head_path, "--device", "cuda"])
-    launches = {k: F.launch_counts()[k] for k in T_REPLACES
-                if k.startswith("feature_adapter")}
+    launches = F.launch_counts(F.T_KERNELS)
     mAP = res["eval"]["mAP"]
     print(f"real weights: cli/train_emotic losses {res['losses']}, epoch "
           f"seconds {[round(s, 4) for s in res['epoch_seconds']]}, test mAP "
@@ -2997,33 +2510,25 @@ def real_weights_emotic_phase() -> dict:
                     cat_emb)
         return float(loss), [p.grad.clone() for p in leaves]
 
+    F.reset_launch_counts()
     loss_k, grads_k = one_step("auto")
+    step_launches = F.launch_counts(F.T_KERNELS)
     loss_p, grads_p = one_step("torch")
-    step_tags = K6_FWD_PASSES + K6_BWD_PASSES[:1]
-
-    def step_kernels(events):
-        return {tag: sum(1 for n, _ in events if tag in n)
-                for tag in step_tags}
-
-    step_prof = step_kernels(_device_events(
-        lambda: one_step("auto"), 1,
-        want=lambda ev: min(step_kernels(ev).values()) >= 1))
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     rel_grad = max(float((a - b).abs().max() / b.abs().max())
                    for a, b in zip(grads_k, grads_p))
     ok = rel_loss <= EMOTIC_TOL["loss"] and rel_grad <= EMOTIC_TOL["grad"] \
-        and min(step_prof.values()) >= 1
+        and min(step_launches.values()) >= 1
     print(f"real weights: EMOTIC step vs impl=torch: loss {loss_k:.6f} / "
           f"{loss_p:.6f} (relative {rel_loss:.2e}, limit "
           f"{EMOTIC_TOL['loss']}), gradients relative {rel_grad:.2e} (limit "
-          f"{EMOTIC_TOL['grad']}); the step's K6 kernels by the profiler "
-          f"{step_prof} {'ok' if ok else 'FAIL'}", flush=True)
+          f"{EMOTIC_TOL['grad']}); the step's K6 launches "
+          f"{step_launches} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"the EMOTIC step disagrees with impl='torch' or "
                          f"missed a K6 kernel: loss relative {rel_loss:.2e},"
-                         f" gradients relative {rel_grad:.2e}, the "
-                         f"profiler's K6 kernels {step_prof}")
-    _emotic_k6_times(head["visual"], feats)
+                         f" gradients relative {rel_grad:.2e}, K6 "
+                         f"launches {step_launches}")
     test_ds = E.EmoticPreDataset.from_dir(data, "test")
     scores = {}
     for impl in ("auto", "torch"):
@@ -3077,18 +2582,16 @@ C5_STEPS = C5_EPOCHS * (7 * C5_PER_CLASS // C5_B) + 1 + C5_RESIDENT
 C5_CALLS = {"seq_adapter_fused": 2, "seq_adapter_bwd_cuda": 2,
             "prenorm_mlp_fused": 2, "prenorm_mlp_bwd_cuda": 2,
             "cross_attn_block_fused": 0, "cross_attn_block_bwd_cuda": 0}
-NATIVE_PIL_BOUND = 30  # mean |native - PIL| (tests/test_native_loader.py)
 # config 4's video: 64 frames at 480x640 made from a seed (the scorer's
 # checks), cli/bench_video --no-demux over 256 (its rates)
 VIDEO_FRAMES, VIDEO_HW, VIDEO_BENCH_FRAMES = 64, (480, 640), 256
 
 
-def _native_loader_check(work: str) -> None:
-    """(a) The C++ batch decoder: built at first use into build/, 64
-    synthetic 448x448 JPEGs decoded at 336 and held against
-    data/preprocess.load_and_resize (mean |diff| < NATIVE_PIL_BOUND:
-    bilinear against bicubic), its images/s beside PIL's; where it does
-    not build, the line says why and the decode runs on PIL."""
+def _native_loader_rate(work: str) -> None:
+    """(a) The C++ batch decoder, built at first use into build/: 64
+    synthetic 448x448 JPEGs decoded at 336, its images/s beside
+    data/preprocess.load_and_resize's (PIL); where it does not build, the
+    line says why and the decode runs on PIL."""
     from PIL import Image
 
     from vlm_clip_tpu_torch.data import native_loader as NL
@@ -3104,7 +2607,8 @@ def _native_loader_check(work: str) -> None:
                         ).resize((448, 448)).save(p, quality=90)
         paths.append(p)
     t0 = time.perf_counter()
-    pil = [load_and_resize(p, 336) for p in paths]
+    for p in paths:
+        load_and_resize(p, 336)
     pil_rate = len(paths) / (time.perf_counter() - t0)
     t0 = time.perf_counter()
     ok = NL.native_available()
@@ -3116,98 +2620,12 @@ def _native_loader_check(work: str) -> None:
         return
     NL.load_batch_native(paths[:8], 336)
     t0 = time.perf_counter()
-    imgs, good = NL.load_batch_native(paths, 336)
+    NL.load_batch_native(paths, 336)
     rate = len(paths) / (time.perf_counter() - t0)
-    worst = max(float(np.abs(imgs[i].astype(int) - pil[i].astype(int))
-                      .mean()) for i in range(len(paths)))
-    fine = bool(good.all()) and worst < NATIVE_PIL_BOUND
     print(f"data_paths native loader: built {NL.library_path()} with g++ "
           f"and libjpeg ({built:.1f}s); decoder route native "
           f"({os.cpu_count()} threads): 64 448x448 JPEGs at 336 -> "
-          f"{rate:.1f} img/s (PIL {pil_rate:.1f}); worst mean |native - "
-          f"PIL| {worst:.2f} (limit {NATIVE_PIL_BOUND}) "
-          f"{'ok' if fine else 'FAIL'}", flush=True)
-    if not fine:
-        raise SystemExit("the native loader disagrees with PIL")
-
-
-def _c5_kernel_times(cfg, adapters) -> None:
-    """K1 (text [32*77, 768] with dx, vision [32*577, 1024] without) and
-    K3 (H = 768, 4H = 3072, with dx) forward and backward in bf16 at
-    config 5's shapes (cfg's) on its trained adapters, and K3 in fp32
-    there too (its backward's CUDA-core row pass keeps its row tiles in a
-    global workspace past H = 519), each against its plain version (TOL;
-    gradients relative to their largest element, K1's parameter
-    gradients at fp32's), timed in turns beside its bound."""
-    from vlm_clip_tpu_torch.models.layers import layer_slice
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(12)
-    dt = torch.bfloat16
-
-    def seq_args(p):
-        return (p["down"]["kernel"], p["down"]["bias"], p["up"]["kernel"],
-                p["up"]["bias"], p["ln"]["scale"], p["ln"]["bias"])
-
-    shared = layer_slice(adapters["shared_adapters"], 0)
-    mp = shared["mlp"]
-    mlp = (mp["fc1"]["kernel"], mp["fc1"]["bias"], mp["fc2"]["kernel"],
-           mp["fc2"]["bias"], shared["norm3"]["scale"],
-           shared["norm3"]["bias"])
-    text = [torch.randn(C5_B * cfg.text.max_positions, cfg.text.hidden_size,
-                        generator=gen, device=dev).to(dt) for _ in range(2)]
-    vis = [torch.randn(C5_B * cfg.vision.seq_len, cfg.vision.hidden_size,
-                       generator=gen, device=dev).to(dt) for _ in range(2)]
-    cases = (("seq_adapter", "text", text, seq_args(
-        adapters["text_adapter"]), True),
-             ("seq_adapter", "vision", vis, seq_args(
-                 adapters["vision_adapter"]), False),
-             ("prenorm_mlp", "text", text, mlp, True),
-             ("prenorm_mlp", "text", [t.float() for t in text], mlp, True))
-    failures = []
-    with torch.no_grad():
-        for stem, tag, (x, g), args, need_dx in cases:
-            dt = x.dtype
-            name = str(dt).replace("torch.", "")
-            fwd, bwd = f"{stem}_fused", f"{stem}_bwd_cuda"
-            got = getattr(F, fwd)(x, *args)
-            want = getattr(F, f"{stem}_torch")(x, *args)
-            atol, rtol = TOL[dt]
-            ratio = float(((got.float() - want.float()).abs()
-                           / (atol + rtol * want.float().abs())).max())
-            tk, tp, _ = _turns(lambda: getattr(F, fwd)(x, *args),
-                               lambda: getattr(F, f"{stem}_torch")(x, *args))
-            b_ms, b_by = bound(*cost(fwd, x))
-            print(f"config 5 {fwd}[{tag}] {name} x{list(x.shape)}: err/tol "
-                  f"{ratio:.3f} {'ok' if ratio <= 1 else 'FAIL'}; kernel "
-                  f"{tk:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
-            if ratio > 1:
-                failures.append(f"{fwd}[{tag}] {name}")
-            call = (*args, g)
-            got = getattr(F, bwd)(x, *call, need_dx=need_dx)
-            want = getattr(F, f"{stem}_bwd_torch")(x, *call,
-                                                   need_dx=need_dx)
-            errs = _grad_errors(got, want, dt,
-                                1 if stem == "seq_adapter" else None)
-            worst = max(e[1] for e in errs)
-            tk, tp, _ = _turns(
-                lambda: getattr(F, bwd)(x, *call, need_dx=need_dx),
-                lambda: getattr(F, f"{stem}_bwd_torch")(x, *call,
-                                                        need_dx=need_dx),
-                iters=5)
-            b_ms, b_by = bound(*cost(bwd, x, need_dx))
-            print(f"config 5 {bwd}[{tag}] {name} x{list(x.shape)} dx "
-                  f"{need_dx}: worst err/tol {worst:.3f} "
-                  f"{'ok' if worst <= 1 else 'FAIL'}; kernel {tk:.4f} ms, "
-                  f"plain {tp:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
-            if worst > 1:
-                failures.append(f"{bwd}[{tag}] {name}")
-    if failures:
-        raise SystemExit(f"config 5 kernels disagree with their plain "
-                         f"versions: {failures}")
+          f"{rate:.1f} img/s (PIL {pil_rate:.1f})", flush=True)
 
 
 def _cancelling_grads(cfg, acfg, tx, clip, adapters, batch) -> None:
@@ -3251,8 +2669,7 @@ def _config5_check(work: str) -> dict:
     gradients are what is left of sums that nearly cancel, so under FAST
     on that batch the worst adapter gradient of each path, the kernels'
     and the plain versions', is printed against the plain FP32 step's
-    (_cancelling_grads), not held. Then K1's and K3's times at its
-    shapes. Returns the launches."""
+    (_cancelling_grads), not held. Returns the launches."""
     from vlm_clip_tpu_torch.cli import bench_label_finetune as BLF
     from vlm_clip_tpu_torch.ops import attention as K5
     from vlm_clip_tpu_torch.ops import contrastive as K4
@@ -3262,7 +2679,6 @@ def _config5_check(work: str) -> dict:
     F.reset_launch_counts()
     K4.reset_launch_counts()
     K5.reset_launch_counts()
-    t0 = time.time()
     out = BLF.main(["--model", "vit-large-patch14-336", "--batch",
                     str(C5_B), "--per-class", str(C5_PER_CLASS), "--epochs",
                     str(C5_EPOCHS), "--tmpdir", os.path.join(work, "config5"),
@@ -3273,14 +2689,9 @@ def _config5_check(work: str) -> dict:
     others = {**K4.launch_counts(), **K5.launch_counts()}
     ok = out["steps"] == C5_STEPS and counts == want \
         and not any(others.values())
-    print(f"config 5: bench_label_finetune in {time.time() - t0:.1f}s on "
-          f"{card()}: {C5_STEPS} steps; launches {counts} (want {want}; "
-          f"K4, K5 {others}) {'ok' if ok else 'FAIL'}; labels "
-          f"{out['labels_per_s']:.1f}/s, cache {out['cache_img_per_s']:.1f} "
-          f"img/s {out['cache_mb']:.1f} MB, epochs "
-          f"{[round(r, 1) for r in out['epoch_pairs_per_s']]} pairs/s, "
-          f"device-resident {out['step_ms']:.2f} ms a step "
-          f"({out['step_pairs_per_s']:.1f} pairs/s), losses "
+    print(f"config 5: bench_label_finetune, {C5_STEPS} steps; launches "
+          f"{counts} (want {want}; K4, K5 {others}) "
+          f"{'ok' if ok else 'FAIL'}; losses "
           f"{[round(v, 4) for v in out['losses']]}", flush=True)
     if not ok or not all(np.isfinite(out["losses"])):
         raise SystemExit("config 5: launches or losses not as predicted")
@@ -3299,7 +2710,6 @@ def _config5_check(work: str) -> dict:
                        "attention_mask": torch.ones_like(ids)}, False,
                f"config 5 step ViT-L/14-336 B={C5_B}, its pixels, random "
                f"caption ids, FAST")
-    _c5_kernel_times(tr.cfg, tr.state.adapter_params)
     return counts
 
 
@@ -3469,7 +2879,7 @@ def _video_check() -> None:
 
 def data_paths_phase() -> dict:
     """The CLIP data path and BASELINE configs 4-5 on the card:
-    (a) the native loader (_native_loader_check), (b) config 5
+    (a) the native loader's rate (_native_loader_rate), (b) config 5
     (_config5_check), (c) full train-state resume (_resume_check), (d)
     config 4's video scorer and the uint8 folded tower (_video_check).
     Returns config 5's launches of the M kernels."""
@@ -3479,7 +2889,7 @@ def data_paths_phase() -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t0 = time.time()
-    _native_loader_check(work)
+    _native_loader_rate(work)
     t_a = time.time()
     counts = _config5_check(work)
     t_b = time.time()
@@ -3490,312 +2900,6 @@ def data_paths_phase() -> dict:
           f"{t_b - t_a:.1f}s, resume {t_c - t_b:.1f}s, video "
           f"{time.time() - t_c:.1f}s", flush=True)
     return counts
-
-
-def k7_cost(M: int, K: int, N: int, es: int):
-    """(operations, bytes, peak kind) of one K7 call: 2*M*K*N FLOP at the
-    peak of x's type (bf16 x: the nibbles are exact in bf16, so a bf16
-    tensor-core product with fp32 sums computes the same function); the
-    logical packed bytes, x, scale and the fp32 output each once."""
-    return (2 * M * K * N, K // 2 * N + M * K * es + 4 * N + 4 * M * N,
-            "bf16" if es == 2 else "fp32")
-
-
-def k8_cost(case):
-    """(operations, bytes, peak kind) of one K8 call on these inputs: the
-    cache rows below each row's depth (and their scales) once, q, the
-    fresh rows and the output once; 4 d FLOP per (query head, attended
-    column) at the peak of q's type (an int8 cache widens exactly)."""
-    q, k_old, _, k_cur, _, depths, k_scale, _ = case
-    B, T, h, d = q.shape
-    kv = k_old.shape[2]
-    cols = int(depths.sum())
-    nbytes = 2 * cols * kv * d * k_old.element_size() \
-        + (2 * cols * kv * 4 if k_scale is not None else 0) \
-        + 2 * q.numel() * q.element_size() \
-        + 2 * k_cur.numel() * q.element_size()
-    flops = 4 * h * T * d * (cols + B * T)
-    return flops, nbytes, "bf16" if q.dtype == torch.bfloat16 else "fp32"
-
-
-def _k8_library(case, depth: int):
-    """SDPA on K8's inputs (a bf16 cache, every row at ``depth``): the
-    cache's columns below the depth and the fresh rows' causal triangle,
-    grouped heads; the library yardstick, used nowhere in the port."""
-    import torch.nn.functional as TF
-
-    q, k_old, v_old, k_cur, v_cur = case[:5]
-    b, T = q.shape[:2]
-    S = k_old.shape[1]
-    qh = q.transpose(1, 2)                                   # [B, h, T, d]
-    kf = torch.cat([k_old, k_cur], 1).transpose(1, 2)
-    vf = torch.cat([v_old, v_cur], 1).transpose(1, 2)
-    cols = torch.arange(S + T, device=q.device)
-    rows = torch.arange(T, device=q.device)
-    allowed = (cols[None] < depth) | (
-        (cols[None] >= S) & (cols[None] - S <= rows[:, None]))
-    amask = allowed[None, None].expand(b, 1, T, S + T)
-    return lambda: TF.scaled_dot_product_attention(
-        qh, kf, vf, attn_mask=amask, enable_gqa=True)
-
-
-def int8_cost(M: int, K: int, N: int, bias: bool):
-    """(operations, bytes, peak kind) of one int8 GEMM call: 2*M*K*N at the
-    bf16 peak; the int8 weight, its scale (and bias), x and the bf16
-    output once each."""
-    return (2 * M * K * N,
-            K * N + 4 * N * (2 if bias else 1) + 2 * M * K + 2 * M * N,
-            "bf16")
-
-
-def _graph_ms(fns, reps: int = 20) -> float:
-    """ms of one pass over fns, captured as one CUDA graph and replayed
-    (CUDA events around reps replays): the decode step's launch path."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in fns:
-            fn()
-    graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    best = float("inf")
-    for _ in range(3):
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / reps)
-    return best
-
-
-def _materialize(x, q):
-    """The parent's route for an int8 linear (the library yardstick, no
-    longer on the port's decode path): dequantize to fp32, cast to x's
-    dtype, torch.matmul, the bias added in fp32, one more cast."""
-    from vlm_clip_tpu_torch.ops import quant as K7
-
-    y = torch.matmul(x, K7.dequantize_weight(q).to(x.dtype))
-    if q.bias is not None:
-        y = y.float() + q.bias.float()
-    return y.to(x.dtype)
-
-
-def int8_phase(results: dict, failures: list, layers: int = 36) -> None:
-    """The int8 GEMM at the four 8h4 text shapes: against its plain twin
-    (M = 1, 32, bf16 x), timed per call over `layers` weights of a shape
-    (an L2-cold stream, as a decode forward reads them) in a CUDA graph,
-    with its device time (profiler), bound, the twin's time and the
-    parent's materialize route's; then the 144 calls of a forward at M = 1
-    and 32, and the rows up to which it beats the materialize route at
-    every shape (the route's KERNEL_MAX_M_INT8)."""
-    from vlm_clip_tpu_torch.ops import quant as K7
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(8)
-    r = results["quant_matmul_int8"]
-    weights = {}
-    for name, (K, N, bias) in INT8_SHAPES.items():
-        weights[name] = [K7.quantize_weight(
-            torch.randn(K, N, generator=gen, device=dev) * 0.02, 8,
-            torch.randn(N, generator=gen, device=dev) if bias else None)
-            for _ in range(layers)]
-    torch.cuda.synchronize()
-    wins = {}
-    for M in (1, 8, 16, 32, 48, 64):
-        xs = {name: torch.randn(M, K, generator=gen, device=dev).bfloat16()
-              for name, (K, _, _) in INT8_SHAPES.items()}
-        for name, (K, N, bias) in INT8_SHAPES.items():
-            qs, x = weights[name], xs[name]
-            shape = f"{name} x[{M}, {K}] bf16 N={N}"
-            with torch.no_grad():
-                got = K7.quant_matmul_int8(x, qs[0])
-                want = K7.quant_matmul_int8_torch(x, qs[0])
-                torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            ratio = float((err / (INT8_TOL + INT8_TOL * want.float().abs())
-                           ).max())
-            ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0
-            r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
-            if not ok:
-                failures.append(f"quant_matmul_int8 {shape}")
-            with torch.no_grad():
-                t_k = _graph_ms([lambda q=q: K7.quant_matmul_int8(x, q)
-                                 for q in qs]) / layers
-                t_l = _graph_ms([lambda q=q: _materialize(x, q)
-                                 for q in qs], reps=5) / layers
-            wins.setdefault(M, []).append(t_k < t_l)
-            if M not in (1, 32):
-                print(f"kernel quant_matmul_int8 {shape}: kernel {t_k:.4f} "
-                      f"ms, materialize route {t_l:.4f} ms", flush=True)
-                continue
-            with torch.no_grad():
-                t_p = _time_ms(lambda: K7.quant_matmul_int8_torch(x, qs[0]),
-                               iters=10)
-                ring = iter(range(10 ** 9))
-                dev_ms = sum(ms for kname, ms in _device_ms(
-                    lambda: K7.quant_matmul_int8(x, qs[next(ring) % layers]),
-                    n=layers).items() if "qmm8" in kname)
-            work = int8_cost(M, K, N, bias)
-            b_ms, b_by = bound(*work)
-            print(f"kernel quant_matmul_int8 {shape}: max_abs_err "
-                  f"{float(err.max()):.3e} err/tol {ratio:.3f} "
-                  f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms by events "
-                  f"(graph, L2-cold), {dev_ms:.4f} ms device (profiler); "
-                  f"plain {t_p:.4f} ms, materialize route {t_l:.4f} ms; "
-                  f"bound {b_ms:.4f} ms ({b_by}); "
-                  f"{K7.int8_splits(N, K)} depth slices", flush=True)
-            if M == 32:
-                _add_time(r, t_k, t_p, work, shape)
-                r["library_ms"] = (r["library_ms"] or 0.0) + t_l
-    # a decode forward's 144 calls (36 layers of the four), as a graph
-    for M in (1, 32):
-        xs = {name: torch.randn(M, K, generator=gen, device=dev).bfloat16()
-              for name, (K, _, _) in INT8_SHAPES.items()}
-        calls = [(weights[name][i], xs[name]) for i in range(layers)
-                 for name in INT8_SHAPES]
-        with torch.no_grad():
-            t_k = _graph_ms([lambda q=q, x=x: K7.quant_matmul_int8(x, q)
-                             for q, x in calls])
-            t_l = _graph_ms([lambda q=q, x=x: _materialize(x, q)
-                             for q, x in calls], reps=5)
-        b_ms = sum(bound(*int8_cost(M, *INT8_SHAPES[n]))[0]
-                   for n in INT8_SHAPES) * layers
-        print(f"int8 forward M={M}: {len(calls)} calls {t_k:.4f} ms (bound "
-              f"{b_ms:.4f} ms, {100 * b_ms / t_k:.1f}% of it); the "
-              f"materialize route {t_l:.4f} ms on {card()}", flush=True)
-    top = max((M for M, w in wins.items() if all(w)), default=0)
-    print(f"int8 crossover: the kernel beats the materialize route at every "
-          f"text shape up to M={top} of those timed {sorted(wins)}; "
-          f"KERNEL_MAX_M_INT8 = {K7.KERNEL_MAX_M_INT8}", flush=True)
-    if K7.KERNEL_MAX_M_INT8 > top:
-        failures.append(f"KERNEL_MAX_M_INT8 {K7.KERNEL_MAX_M_INT8} past the "
-                        f"measured crossover {top}")
-    del weights
-    torch.cuda.empty_cache()
-
-
-def vlm_kernel_phase() -> dict:
-    """K7 and K8 against their plain versions at the VLM path's shapes,
-    timed beside their bounds and library yardsticks; then
-    cli/check_decode_attn."""
-    from vlm_clip_tpu_torch.cli import check_decode_attn
-    from vlm_clip_tpu_torch.ops import decode_attention as K8
-    from vlm_clip_tpu_torch.ops import quant as K7
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(5)
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": "", "shapes": [],
-                      "library_ms": None} for name in VLM_REPLACES}
-    failures = []
-    atol, rtol = K7_TOL
-    r7 = results["quant_matmul_int4"]
-    for tag, N in (("8h4 head", 151936), ("mixed gateup", 22016)):
-        K = 2048
-        q = K7.quantize_weight(
-            torch.randn(K, N, generator=gen, device=dev) * 0.02, 4)
-        w_lib = K7.dequantize_weight(q).to(torch.bfloat16)
-        for M in (1, 8, 32):
-            for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
-                with torch.no_grad():
-                    got = K7.quant_matmul_int4(x, q)
-                    want = K7.quant_matmul_int4_torch(x, q)
-                    torch.cuda.synchronize()
-                err = (got - want).abs()
-                ratio = float((err / (atol + rtol * want.abs())).max())
-                ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
-                r7["max_abs_err"] = max(r7["max_abs_err"], float(err.max()))
-                dt = str(dtype).replace("torch.", "")
-                shape = f"{tag} x[{M}, {K}] {dt} N={N}"
-                t = ("not timed", "not timed", None)
-                if dtype == torch.bfloat16:
-                    xb = x.to(torch.bfloat16)
-                    t = _turns(lambda: K7.quant_matmul_int4(x, q),
-                               lambda: K7.quant_matmul_int4_torch(x, q),
-                               lambda: torch.matmul(xb, w_lib), iters=20)
-                b_ms, b_by = bound(*k7_cost(M, K, N, x.element_size()))
-                print(f"kernel quant_matmul_int4 {shape}: max_abs_err "
-                      f"{float(err.max()):.3e} err/tol {ratio:.3f} "
-                      f"{'ok' if ok else 'FAIL'}; kernel {t[0]} ms, "
-                      f"plain {t[1]} ms, bf16 matmul on the dequantized "
-                      f"weight {t[2]} ms; bound {b_ms:.4f} ms ({b_by})",
-                      flush=True)
-                if not ok:
-                    failures.append(f"quant_matmul_int4 {shape}")
-                if tag == "8h4 head" and M == 8 and dtype == torch.bfloat16:
-                    _add_time(r7, t[0], t[1], k7_cost(M, K, N, 2), shape)
-                    r7["library_ms"] = t[2]
-        del q, w_lib
-
-    int8_phase(results, failures)
-
-    # K8 at the 3B heads; timed with every row at the VLM phase's mid-
-    # decode depth (its prompt plus half of VLM_NEW)
-    r8 = results["decode_attention_kernel"]
-    depth, S = len(_qwen_prompt()) + VLM_NEW // 2, 768
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    for tag, b, dtype, quant in (("bf16 cache", 8, torch.bfloat16, False),
-                                 ("int8 cache", 16, torch.bfloat16, True),
-                                 ("fp32", 2, torch.float32, False)):
-        for T in (1, 5):
-            case = check_decode_attn.rand_case(gen, b, T, 16, 2, 128, S,
-                                               dtype, quant, dev)
-            with torch.no_grad():
-                got = K8.decode_attention_kernel(*case)
-                want = K8.decode_attention_reference(*case)
-                torch.cuda.synchronize()
-            err, ratio = check_decode_attn.compare(got, want, case)
-            ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0
-            r8["max_abs_err"] = max(r8["max_abs_err"], err)
-            tcase = list(case)
-            tcase[5] = torch.full((b,), depth, dtype=torch.int32,
-                                  device=dev)
-            lib = (_k8_library(tcase, depth)
-                   if dtype == torch.bfloat16 and not quant else None)
-            with torch.no_grad():
-                t = _turns(lambda: K8.decode_attention_kernel(*tcase),
-                           lambda: K8.decode_attention_reference(*tcase),
-                           lib, iters=20)
-            b_ms, b_by = bound(*k8_cost(tcase))
-            with torch.no_grad():
-                dev_ms = sum(_device_ms(
-                    lambda: K8.decode_attention_kernel(*tcase)).values())
-                # the decode step streams the model's weights between two
-                # layers' calls, so there the cache is read from HBM: the
-                # same call after 256 MB written over the 50 MB L2
-                cold = sum(ms for name, ms in _device_ms(lambda: (
-                    flush.zero_(), K8.decode_attention_kernel(*tcase))
-                ).items() if "decode_attention" in name)
-            splits = K8.kernel_splits(b, 2, 128, S)
-            dt = str(dtype).replace("torch.", "")
-            shape = (f"{tag} B={b} T={T} S={S} depth {depth} (check: depths "
-                     f"0..{S - T})")
-            print(f"kernel decode_attention_kernel {shape} {dt}: max_abs_err "
-                  f"{err:.3e} err/limit {ratio:.3f} {'ok' if ok else 'FAIL'};"
-                  f" kernel {t[0]:.4f} ms by events, {dev_ms:.4f} ms device "
-                  f"(profiler), {cold:.4f} ms device after an L2 flush, "
-                  f"{splits} column splits, {b * 2 * splits} blocks; plain "
-                  f"{t[1]:.4f} ms, SDPA "
-                  f"{t[2] if t[2] is None else round(t[2], 4)} ms; bound "
-                  f"{b_ms:.5f} ms ({b_by})", flush=True)
-            if not ok:
-                failures.append(f"decode_attention_kernel {shape} {dt}")
-            if tag == "bf16 cache" and T == 1:
-                _add_time(r8, t[0], t[1], k8_cost(tcase), f"{shape} {dt}")
-                r8["library_ms"] = t[2]
-    del flush
-    if failures:
-        raise SystemExit(f"VLM kernels disagree with their plain versions: "
-                         f"{failures}")
-    check_decode_attn.main()
-    return results
 
 
 class _Words:
@@ -3873,15 +2977,11 @@ def _int8_off(off: bool = True):
 
 
 def _decode_breakdown(g, ids, visions, tcfg,
-                      route="int8 route (dequantize to bf16, then "
-                            "torch.matmul)") -> None:
+                      route="int8 route (the int8 GEMM)") -> None:
     """Where a decode step's time goes (B=8, the kernel path with K8 on
-    and off): CUDA-event times of one layer's four quantized linears
-    (``route`` names their matmul) times the layers, K7's and K8's
-    launches, and a profile of two steps (device busy share, the largest
-    kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    and off): the times of one layer's four quantized linears (``route``
+    names their matmul) times the layers, and a decode step's time, its
+    device busy share, launches and largest kernels."""
     from vlm_clip_tpu_torch.vlm import qwen_model as QM
 
     lp = QM.layer(g.params["text"]["layers"], 0)
@@ -3891,7 +2991,7 @@ def _decode_breakdown(g, ids, visions, tcfg,
     xi = torch.randn(len(visions), 1, inter,
                      device=g.device).to(torch.bfloat16)
     xo = x[..., :tcfg.num_heads * tcfg.head_dim]
-    ms = {name: _time_ms(lambda: QM.linear(w, a), 20) for name, w, a in (
+    ms = {name: _timed(lambda: QM.linear(w, a), 20) for name, w, a in (
         (f"qkv [{H}, {nq}]", lp["attn"]["qkv"], x),
         (f"o [{xo.shape[-1]}, {H}]", lp["attn"]["o"], xo),
         (f"gateup [{H}, {2 * inter}]", lp["mlp"]["gateup"], x),
@@ -3904,36 +3004,32 @@ def _decode_breakdown(g, ids, visions, tcfg,
         with _k8_off(not on):
             l0, cache, T, delta = g.prefill_batch(ids, visions)
             tok = l0.argmax(-1)
-            g._decode_step(tok, T + delta, cache, T)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for s in (1, 2):
-                    g._decode_step(tok, T + delta + s, cache, T + s)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / 2
-            kern = [(getattr(e, "self_device_time_total", 0) / 2e3, e.count
-                     // 2, e.key) for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA")]
-            busy = sum(k[0] for k in kern)
-            top = [(round(t, 3), c, n[:60]) for t, c, n in
-                   sorted(kern, reverse=True)[:8]]
-            print(f"decode step profile, K8 {'on' if on else 'off'}: host "
-                  f"{wall:.2f} ms a step (profiler on), device busy "
-                  f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
-                  f"{sum(k[1] for k in kern)} kernel launches; largest "
-                  f"(ms a step, launches, name): {top}", flush=True)
+
+            def step_fn():
+                return g._decode_step(tok, T + delta, cache, T)
+
+            step_fn()  # a first step captures the decode graph
+            step = _timed(step_fn, 2)
+            per = _profiled(step_fn, 2)
+            busy = sum(v[0] for v in per.values())
+            top = sorted(((round(v[0], 3), round(v[1]), n[:60])
+                          for n, v in per.items()), reverse=True)[:8]
+            print(f"decode step profile, K8 {'on' if on else 'off'}: "
+                  f"{step:.2f} ms a step by events, device busy "
+                  f"{busy:.2f} ms ({100 * busy / step:.1f}%), "
+                  f"{sum(v[1] for v in per.values()):.0f} kernel launches; "
+                  f"largest (ms a step, launches, name): {top}", flush=True)
             del cache
 
 
 def vlm_phase() -> dict:
-    """Qwen2.5-VL-3B at full width under 8h4: generate_batch_from_ids
-    through the kernels (K8 off, on; int8 cache at B=16) and the plain
-    versions, logits and first tokens held; then cli/bench_decode."""
+    """cli/check_decode_attn; then Qwen2.5-VL-3B at full width under
+    8h4: generate_batch_from_ids through the kernels (K8 off, on; int8
+    cache at B=16) and the plain versions, logits and first tokens
+    held."""
     import dataclasses
 
-    from vlm_clip_tpu_torch.cli import bench_decode
+    from vlm_clip_tpu_torch.cli import check_decode_attn
     from vlm_clip_tpu_torch.ops import decode_attention as K8
     from vlm_clip_tpu_torch.ops import quant as K7
     from vlm_clip_tpu_torch.vlm import qwen_model as QM
@@ -3943,6 +3039,7 @@ def vlm_phase() -> dict:
         quantize_qwen_params)
     from vlm_clip_tpu_torch.vlm.qwen_process import prepare_vision_inputs
 
+    check_decode_attn.main()
     dev = torch.device("cuda")
     t0 = time.time()
     cfg = QM.qwen25vl_3b()
@@ -4099,17 +3196,6 @@ def vlm_phase() -> dict:
     del gk, gp, qparams, mixed
     torch.cuda.empty_cache()
 
-    # 3. cli/bench_decode, K8 off then on
-    for on in (False, True):
-        with _k8_off(not on):
-            # max_len 768 (the extractor's): at the CLI's default 256 the
-            # per-layer cache (1 MB) takes the dense route and K8 is never
-            # reached
-            res = bench_decode.main(["--bits", "8", "--head-bits", "4",
-                                     "--fused", "--batch", "8", "--new",
-                                     "64", "--max-len", "768"])
-        print(f"bench_decode K8 {'on' if on else 'off'}: {res['line']} on "
-              f"{card()}", flush=True)
     return path
 
 
@@ -4209,7 +3295,7 @@ def nf4_phase() -> dict:
     m_err = float((N.nf4_matmul(xp, gateup).double() - want).abs().max()) \
         / float(want.abs().max())
     del want
-    t_head_ms = _time_ms(lambda: N.nf4_matmul(x, head))
+    t_head_ms = _timed(lambda: N.nf4_matmul(x, head))
     ok = r_err <= NF4_TOL["rowpair"] and m_err <= NF4_TOL["materialize"]
     print(f"nf4_matmul vs float64, max|diff| / max|y|: row-pair route at the "
           f"head's {list(x.shape)} x [{head.in_features}, "
@@ -4353,15 +3439,15 @@ def vlm_engine_phase() -> dict:
     launch counts; the first logits and tokens against the fixed-batch
     path and against the plain versions; speculative and int8-cache
     runs; a chunk under torch.cuda.set_sync_debug_mode("error");
-    cli/serve_vlm over HTTP; the four benches, shortened. Returns the
+    cli/serve_vlm over HTTP; the five benches, shortened. Returns the
     mixed run's launches."""
     import http.client as hc
     import threading as th
     from http.server import ThreadingHTTPServer
 
-    from vlm_clip_tpu_torch.cli import (bench_context, bench_engine,
-                                        bench_spec, bench_vision, serve_vlm)
-    from vlm_clip_tpu_torch.cli import check_decode_attn
+    from vlm_clip_tpu_torch.cli import (bench_context, bench_decode,
+                                        bench_engine, bench_spec,
+                                        bench_vision, serve_vlm)
     from vlm_clip_tpu_torch.ops import decode_attention as K8
     from vlm_clip_tpu_torch.ops import quant as K7
     from vlm_clip_tpu_torch.vlm.engine import ContinuousBatchingEngine
@@ -4572,46 +3658,7 @@ def vlm_engine_phase() -> dict:
           f"{top} on {where}", flush=True)
     del ceng
 
-    # 5. K7 and K8 alone at the engine's shapes: CUDA events beside the
-    # plain version, the library call and the bound; device time
-    g5 = torch.Generator(device="cuda").manual_seed(7)
-    H = cfg.text.hidden_size
-    x = torch.randn(ENGINE_SLOTS, H, generator=g5,
-                    device="cuda").to(torch.bfloat16)
-    head = params["text"]["lm_head"]
-    w_lib = K7.dequantize_weight(head).to(torch.bfloat16)
-    depth = len(ids) + 16
-    shapes = {}
-    with torch.no_grad():
-        t = _turns(lambda: K7.quant_matmul_int4(x, head),
-                   lambda: K7.quant_matmul_int4_torch(x, head),
-                   lambda: torch.matmul(x, w_lib), iters=20)
-        dev_ms = sum(_device_ms(lambda: K7.quant_matmul_int4(x, head)
-                                ).values())
-        shapes[f"K7 x[{ENGINE_SLOTS}, {H}] bf16, the 8h4 head"] = (
-            t, dev_ms, bound(*k7_cost(ENGINE_SLOTS, H, head.logical_out, 2)))
-        del w_lib
-        for T_, S_ in ((1, 384), (5, 384), (1, 768)):
-            case = list(check_decode_attn.rand_case(
-                g5, ENGINE_SLOTS, T_, 16, 2, 128, S_, torch.bfloat16, False,
-                "cuda"))
-            case[5] = torch.full((ENGINE_SLOTS,), depth, dtype=torch.int32,
-                                 device="cuda")
-            t = _turns(lambda: K8.decode_attention_kernel(*case),
-                       lambda: K8.decode_attention_reference(*case),
-                       _k8_library(case, depth), iters=20)
-            dev_ms = sum(ms for n, ms in _device_ms(
-                lambda: K8.decode_attention_kernel(*case)).items()
-                if "decode_attention" in n)
-            shapes[f"K8 B={ENGINE_SLOTS} T={T_} S={S_} depth {depth} bf16"] \
-                = (t, dev_ms, bound(*k8_cost(case)))
-    for shape, (t, dev_ms, (b_ms, b_by)) in shapes.items():
-        print(f"engine shapes, {shape}: kernel {t[0]:.4f} ms by events, "
-              f"{dev_ms:.4f} ms device (profiler); plain {t[1]:.4f} ms, "
-              f"library {t[2]:.4f} ms; bound {b_ms:.5f} ms ({b_by}) on "
-              f"{where}", flush=True)
-
-    # 6. cli/serve_vlm over HTTP on this model (8 slots)
+    # 5. cli/serve_vlm over HTTP on this model (8 slots)
     from vlm_clip_tpu_torch.vlm.qwen_process import prepare_vision_inputs
 
     def prep(img, prompt_text):
@@ -4685,7 +3732,7 @@ def vlm_engine_phase() -> dict:
         failures.append("serve_vlm")
     del worker, eng, seng, ieng
 
-    # 7. the benches, shortened
+    # 6. the benches, shortened
     be = bench_engine.main(["--workload", "mixed", "--slots", "32",
                             "--requests", "32", "--budget-lo", "8",
                             "--budget-hi", "64", "--refill-chunks", "8,1",
@@ -4705,17 +3752,23 @@ def vlm_engine_phase() -> dict:
           f" ms a step, spec_k=4 {bs['round_ms'][8][1]:.2f} ms a round on "
           f"{where}", flush=True)
     # the 3B weights go before the next two benches build their own
-    del gen, params, engine, generator, head
+    del gen, params, engine, generator
     gc.collect()
     torch.cuda.empty_cache()
     bc = bench_context.main(["--batch", "8", "--new", "32", "--u8",
                              "--max-len", "768", "--reps", "2"])
     bv = bench_vision.main(["--batch", "1", "--dtype", "bf16", "--quant",
                             "int8", "--reps", "5"])
-    print(f"bench_context: {bc['line']}; bench_vision: {bv['line']} on "
-          f"{where}", flush=True)
+    # max_len 768 (the extractor's): at the CLI's default 256 the per-layer
+    # cache takes the dense route and K8 is never reached
+    bd = bench_decode.main(["--bits", "8", "--head-bits", "4", "--fused",
+                            "--batch", "8", "--new", "8", "--max-len", "768"])
+    print(f"bench_context: {bc['line']}; bench_vision: {bv['line']}; "
+          f"bench_decode: {bd['line']} on {where}", flush=True)
     if not (bv["finite"] and bv["shape"] == (1, 256, cfg.vision.out_hidden_size)
-            and all(len(t) >= 1 for t in bc["tokens"])):
+            and all(len(t) >= 1 for t in bc["tokens"])
+            and bd["tokens"].shape == (8, 8)
+            and np.isfinite(bd["ms_per_token"])):
         failures.append("benches")
     if failures:
         raise SystemExit(f"vlm_engine phase failed: {failures}")
@@ -4923,13 +3976,12 @@ def _mp_row_sum(parts, full, what: str, failures) -> None:
         failures.append(what)
 
 
-def _mp_shards(params, cfg, where) -> dict:
+def _mp_shards(params, cfg) -> dict:
     """K7, K8 and K5 at each rank's shard shapes for model 2 and 4, cut by
     parallel.sharding.cut_params (the pure cut, one rank at a time in this
     process): each launch against its plain version, the ranks' results
-    recombined against the unsharded layer, each shape timed beside its
-    plain version, its bound and its library call. Returns the launches
-    of the checks."""
+    recombined against the unsharded layer (the shapes' times are rows of
+    the timing table). Returns the launches of the checks."""
     from vlm_clip_tpu_torch.cli import check_decode_attn
     from vlm_clip_tpu_torch.core.config import clip_preset
     from vlm_clip_tpu_torch.models import layers as LY
@@ -4940,8 +3992,6 @@ def _mp_shards(params, cfg, where) -> dict:
                                                       clip_param_rules,
                                                       qwen_param_rules)
     from vlm_clip_tpu_torch.vlm.qwen_model import local_heads
-
-    import torch.nn.functional as TF
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -4977,27 +4027,9 @@ def _mp_shards(params, cfg, where) -> dict:
             shape = (f"model {m} rank {r}: x[8, {tcfg.hidden_size}] bf16 "
                      f"against [{tcfg.hidden_size}, {q.logical_out}] "
                      f"(packed {list(q.qweight.shape)})")
-            if r == 0:
-                w_lib = K7.dequantize_weight(q).to(torch.bfloat16)
-                t = _turns(lambda: K7.quant_matmul_int4(x, q),
-                           lambda: K7.quant_matmul_int4_torch(x, q),
-                           lambda: torch.matmul(x, w_lib), iters=20)
-                d_ms = sum(ms for n, ms in _device_ms(
-                    lambda: K7.quant_matmul_int4(x, q)).items()
-                    if "qmm4" in n)
-                b_ms, b_by = bound(*k7_cost(8, tcfg.hidden_size,
-                                            q.logical_out, 2))
-                print(f"model_parallel K7 {shape}: max_abs_err "
-                      f"{float(err.max()):.3e} err/tol {ratio:.3f} "
-                      f"{'ok' if ok else 'FAIL'}; kernel {t[0]:.4f} ms by "
-                      f"events, {d_ms:.4f} ms device, plain {t[1]:.4f} ms, "
-                      f"bf16 matmul on the dequantized shard {t[2]:.4f} ms; "
-                      f"bound {b_ms:.5f} ms ({b_by}) on {where}", flush=True)
-                del w_lib
-            else:
-                print(f"model_parallel K7 {shape}: max_abs_err "
-                      f"{float(err.max()):.3e} err/tol {ratio:.3f} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+            print(f"model_parallel K7 {shape}: max_abs_err "
+                  f"{float(err.max()):.3e} err/tol {ratio:.3f} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"K7 {shape}")
         cat = torch.cat(outs, dim=1)
@@ -5053,26 +4085,9 @@ def _mp_shards(params, cfg, where) -> dict:
             parts.append(got[:, 0].float() @ o.inner["kernel"][0].float())
             shape = (f"model {m} rank {r}: q [{B}, 1, {h}, {hd}] over "
                      f"{kv} kv head(s) {pick}, S={S}, depth {depth}, bf16")
-            if r == 0:
-                lib = _k8_library(rc, depth)
-                with torch.no_grad():
-                    t = _turns(lambda: K8.decode_attention_kernel(*rc),
-                               lambda: K8.decode_attention_reference(*rc),
-                               lib, iters=20)
-                    d_ms = sum(ms for n, ms in _device_ms(
-                        lambda: K8.decode_attention_kernel(*rc)).items()
-                        if "decode_attention" in n)
-                b_ms, b_by = bound(*k8_cost(rc))
-                print(f"model_parallel K8 {shape}: max_abs_err {err:.3e} "
-                      f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}; "
-                      f"kernel {t[0]:.4f} ms by events, {d_ms:.4f} ms "
-                      f"device, {K8.kernel_splits(B, kv, hd, S)} column "
-                      f"splits; plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms; "
-                      f"bound {b_ms:.5f} ms ({b_by}) on {where}", flush=True)
-            else:
-                print(f"model_parallel K8 {shape}: max_abs_err {err:.3e} "
-                      f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}",
-                      flush=True)
+            print(f"model_parallel K8 {shape}: max_abs_err {err:.3e} "
+                  f"err/limit {ratio:.3f} {'ok' if ok else 'FAIL'}",
+                  flush=True)
             if not ok:
                 failures.append(f"K8 {shape}")
         cat = torch.cat(outs, dim=2)
@@ -5122,25 +4137,9 @@ def _mp_shards(params, cfg, where) -> dict:
             parts.append(got.transpose(1, 2).reshape(32, 197, -1).float()
                          @ sh["out"].inner["kernel"].float())
             shape = f"model {m} rank {r}: {list(q.shape)} bf16"
-            if r == 0:
-                with torch.no_grad():
-                    t = _turns(lambda: K5.fused_attention(q, k, v, sc),
-                               lambda: K5.fused_attention_torch(q, k, v, sc),
-                               lambda: TF.scaled_dot_product_attention(
-                                   q, k, v, scale=sc), iters=20)
-                    d_ms = sum(ms for n, ms in _device_ms(
-                        lambda: K5.fused_attention(q, k, v, sc)).items()
-                        if "attention" in n)
-                b_ms, b_by = bound(*t_cost("fused_attention", q))
-                print(f"model_parallel K5 {shape}: max_abs_err "
-                      f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}; "
-                      f"kernel {t[0]:.4f} ms by events, {d_ms:.4f} ms "
-                      f"device; plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms; "
-                      f"bound {b_ms:.5f} ms ({b_by}) on {where}", flush=True)
-            else:
-                print(f"model_parallel K5 {shape}: max_abs_err "
-                      f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}",
-                      flush=True)
+            print(f"model_parallel K5 {shape}: max_abs_err "
+                  f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
             if not ok:
                 failures.append(f"K5 {shape}")
         cat = torch.cat(outs, dim=1)
@@ -5375,114 +4374,21 @@ def model_parallel_phase() -> dict:
         raise SystemExit(f"a kernel of the model-parallel path never "
                          f"launched: {launches}")
     _mp_layers(where)
-    _mp_shards(params, cfg, where)
+    _mp_shards(params, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def redesign_times(root: str) -> None:
-    """CUDA-event and device times (torch.profiler) of the kernels this
-    slice redesigned or touched, in the package at root: K4's forward
-    (one cluster launch) and backward at B=96, D=512 in bf16 and fp32,
-    and K6's forward and backward (their rank-order sums gained a global
-    route) at pipeline T's three calls (32, 7, 35 rows, D=768, K=64,
-    fp32), and K5's CUDA-core kernel (attention_fwd_kernel, whose pass
-    code it shares with the column-chunk kernel) at heads of 64 and 256
-    columns ([4, 16, 257, 64] fp32; [4, 4, 257, 256] fp32 and bf16), each
-    the least of three runs of 50 calls by events and a 20-call profile.
-    Run once for each checkout to compare, in turns, in one chip call:
-    ``python3 chip_smoke.py --times <checkout>``."""
-    from vlm_clip_tpu_torch.models import adapters as A
-    from vlm_clip_tpu_torch.ops import attention as K5
-    from vlm_clip_tpu_torch.ops import contrastive as K4
-    from vlm_clip_tpu_torch.ops import fused_adapter as F
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    p = A.init_feature_adapter(gen, 768, 64, device=dev)
-    params = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
-              p["fc2"]["bias"])
-
-    def times(fn):
-        ev = min(_time_ms(fn, 50) for _ in range(3))
-        launches = _device_events(fn, 20)
-        return ev, sum(ms for _, ms in launches) / 20, len(launches) / 20
-
-    ls = torch.tensor(2.6592, device=dev)
-    for dtype in (torch.bfloat16, torch.float32):
-        t, m = (torch.randn(B, 512, generator=gen, device=dev).to(dtype)
-                for _ in range(2))
-        with torch.no_grad():
-            ev, dv, nl = times(lambda: K4.contrastive_loss_fused(t, m, ls))
-        print(f"times {root}: K4 forward [{B}, 512] "
-              f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
-              f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
-              flush=True)
-    total = [0.0, 0.0]
-    for n in (32, 7, 35):
-        x = torch.randn(n, 768, generator=gen, device=dev)
-        x = x / x.norm(dim=-1, keepdim=True)
-        with torch.no_grad():
-            ev, dv, nl = times(
-                lambda: F.feature_adapter_blend_fused(x, *params, 0.2))
-        total[0] += ev
-        total[1] += dv
-        print(f"times {root}: K6 forward N={n} fp32: events {ev:.4f} ms, "
-              f"device {dv:.4f} ms, {nl:g} launches a call", flush=True)
-    print(f"times {root}: K6 forward, the three calls: events "
-          f"{total[0]:.4f} ms, device {total[1]:.4f} ms", flush=True)
-    total = [0.0, 0.0]
-    for n in (32, 7, 35):  # the T step's backward: no dx (frozen features)
-        x = torch.randn(n, 768, generator=gen, device=dev)
-        x = x / x.norm(dim=-1, keepdim=True)
-        g = torch.randn(n, 768, generator=gen, device=dev)
-        with torch.no_grad():
-            ev, dv, nl = times(lambda: F.feature_adapter_blend_bwd_cuda(
-                x, *params, 0.2, g, need_dx=False))
-        total[0] += ev
-        total[1] += dv
-        print(f"times {root}: K6 backward N={n} fp32: events {ev:.4f} ms, "
-              f"device {dv:.4f} ms, {nl:g} launches a call", flush=True)
-    print(f"times {root}: K6 backward, the three calls: events "
-          f"{total[0]:.4f} ms, device {total[1]:.4f} ms on {card()}",
-          flush=True)
-    one = torch.ones((), device=dev)
-    for dtype in (torch.bfloat16, torch.float32):
-        t, m = (torch.randn(B, 512, generator=gen, device=dev).to(dtype)
-                for _ in range(2))
-        ev, dv, nl = times(lambda: K4.contrastive_loss_bwd_cuda(t, m, ls,
-                                                                one))
-        print(f"times {root}: K4 backward [{B}, 512] "
-              f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
-              f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
-              flush=True)
-    for shape, dtype in (((4, 16, 257, 64), torch.float32),
-                         ((4, 4, 257, 256), torch.float32),
-                         ((4, 4, 257, 256), torch.bfloat16)):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
-        sc = shape[-1] ** -0.5
-        with torch.no_grad():
-            ev, dv, nl = times(lambda: K5.fused_attention(q, k, v, sc))
-        print(f"times {root}: K5 {list(shape)} "
-              f"{str(dtype).replace('torch.', '')}: events {ev:.4f} ms, "
-              f"device {dv:.4f} ms, {nl:g} launches a call on {card()}",
-              flush=True)
-
-
 def main() -> None:
     if sys.argv[1:] == ["--tp-layer-rank"]:
         tp_layer_rank()
         return
-    if sys.argv[1:] == ["--int8"]:  # the int8 GEMM's entry alone
+    if sys.argv[1:] == ["--int8"]:  # the int8 GEMM's rows alone
         setup()
-        results = {"quant_matmul_int8": {
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "bound_by": "", "shapes": [], "library_ms": None}}
-        failures = []
-        int8_phase(results, failures)
+        results, failures = {}, []
+        _int8_times(results, failures)
         print(json.dumps(results), flush=True)
         if failures:
             raise SystemExit(f"int8 GEMM: {failures}")
@@ -5490,7 +4396,7 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         root = os.path.abspath(sys.argv[2])
         setup(root)
-        redesign_times(root)
+        kernel_times(root)
         return
     kind = setup()
     phases = []
@@ -5502,58 +4408,35 @@ def main() -> None:
         print(f"phase {name}: {time.time() - t0:.1f}s", flush=True)
         return out
 
-    results = run("kernels", kernel_phase)
-    bwd_results = run("backward", backward_phase)
-    t_results = run("t_kernels", t_kernel_phase)
+    results = run("times", kernel_times)
     train_counts = run("train", train_phase)
     dp_counts = run("data_parallel", data_parallel_phase)
-    run("route", route_phase)
     t_counts = run("pipeline_t", pipeline_t_phase)
     v_counts = run("pipeline_v", pipeline_v_phase)
     serve_counts = run("serve", serve_phase)
     emotic_counts = run("real_weights_emotic", real_weights_emotic_phase)
     c5_counts = run("data_paths", data_paths_phase)
-    vlm_results = run("vlm_kernels", vlm_kernel_phase)
     vlm_counts = run("vlm", vlm_phase)
     nf4_counts = run("nf4", nf4_phase)
     engine_counts = run("vlm_engine", vlm_engine_phase)
     mp_counts = run("model_parallel", model_parallel_phase)
     print("phases:", ", ".join(phases), flush=True)
+    launches = {**train_counts, **t_counts, **vlm_counts}
+    others = {"launches_serve": serve_counts, "launches_v": v_counts,
+              "launches_emotic": emotic_counts, "launches_c5": c5_counts,
+              "launches_engine": engine_counts, "launches_dp": dp_counts,
+              "launches_nf4": nf4_counts, "launches_mp": mp_counts}
     kernels = []
-    sources = {**{n: SOURCE for n in REPLACES}, **{
-        n: K4_SOURCE if n.startswith("contrastive") else SOURCE
-        for n in BWD_REPLACES}, **{n: K5_SOURCE if n == "fused_attention"
-                                   else SOURCE for n in T_REPLACES},
-        "quant_matmul_int4": K7_SOURCE, "quant_matmul_int8": K7_SOURCE,
-        "decode_attention_kernel": K8_SOURCE}
-    replaces = {**REPLACES, **BWD_REPLACES, **T_REPLACES, **VLM_REPLACES}
-    for name, r in {**results, **bwd_results, **t_results,
-                    **vlm_results}.items():
-        entry = {"name": name, "route": "cuda", "source": sources[name],
-                 "replaces": replaces[name],
-                 "launches": {**train_counts, **t_counts,
-                              **vlm_counts}[name],
+    for name, (source, replaces) in KERNELS.items():
+        r = results[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"],
-                 "library_ms": r.get("library_ms"),
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "shapes": r["shapes"]}
-        if name in serve_counts:
-            entry["launches_serve"] = serve_counts[name]
-        if name in v_counts:
-            entry["launches_v"] = v_counts[name]
-        if name in emotic_counts:
-            entry["launches_emotic"] = emotic_counts[name]
-        if name in c5_counts:
-            entry["launches_c5"] = c5_counts[name]
-        if name in engine_counts:
-            entry["launches_engine"] = engine_counts[name]
-        if name in dp_counts:
-            entry["launches_dp"] = dp_counts[name]
-        if name in nf4_counts:
-            entry["launches_nf4"] = nf4_counts[name]
-        if name in mp_counts:
-            entry["launches_mp"] = mp_counts[name]
+        entry.update({key: counts[name] for key, counts in others.items()
+                      if name in counts})
         if name in KERNEL_HMMA:
             entry["hmma"] = {k: HMMA[k] for k in KERNEL_HMMA[name]}
         kernels.append(entry)

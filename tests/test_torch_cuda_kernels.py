@@ -51,11 +51,15 @@ def _gen(dev, seed=0):
 
 
 # 77 and 250 rows: a ragged last 32-row tile; widths that are not
-# multiples of 128 (K = 64, H = 200 with K = 100: ragged last chunks)
+# multiples of 128 (K = 64, H = 200 with K = 100: ragged last chunks);
+# the train step's B=96 text and vision rows (7392 at 512, 18912 at 768)
+# and one served image's (197 at 768)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h,k", [(77, 512, 256), (250, 768, 128),
-                                   (77, 512, 64), (40, 200, 100)])
+                                   (77, 512, 64), (40, 200, 100),
+                                   (7392, 512, 256), (18912, 768, 256),
+                                   (197, 768, 256)])
 def test_seq_adapter_kernel(dev, dtype, n, h, k):
     p = A.init_seq_adapter(_gen(dev), h, k, device=dev)
     p["down"]["bias"].normal_(generator=_gen(dev, 1))
@@ -236,15 +240,19 @@ def test_seq_adapter_bwd_kernel_offset_weights(dev, dtype, n, h, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_seq_adapter_bwd_repeats_bit_for_bit(dev, dtype):
+@pytest.mark.parametrize("n,h,need_dx", [(18912, 768, True),
+                                         (18912, 768, False),
+                                         (7392, 512, True)])
+def test_seq_adapter_bwd_repeats_bit_for_bit(dev, dtype, n, h, need_dx):
     """No atomics: two calls on the same inputs give the same bits, at
-    the B=96 vision shape (ordered row chunks in both weight gradients)."""
-    x, args = _seq_case(dev, 18912, 768, 256, dtype)
-    g = torch.randn(18912, 768, generator=_gen(dev, 3), device=dev).to(dtype)
-    first = F.seq_adapter_bwd_cuda(x, *args, g)
-    second = F.seq_adapter_bwd_cuda(x, *args, g)
+    the B=96 vision and text shapes (ordered row chunks in both weight
+    gradients), with and without dx as the train step asks."""
+    x, args = _seq_case(dev, n, h, 256, dtype)
+    g = torch.randn(n, h, generator=_gen(dev, 3), device=dev).to(dtype)
+    first = F.seq_adapter_bwd_cuda(x, *args, g, need_dx=need_dx)
+    second = F.seq_adapter_bwd_cuda(x, *args, g, need_dx=need_dx)
     for a, b in zip(first, second):
-        assert torch.equal(a, b)
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def _pnmlp_case(dev, n, dtype, h=512):
@@ -513,7 +521,8 @@ def test_cross_modal_adapter_routes_vit_l_widths(dev):
 # fp32 forward in 16-row tiles, backward in 8-row tiles), 4 heads of 24
 # over 96 and 2 heads of 128 over 256; Tk 197 and 5; and heads the bf16
 # tensor-core passes do not take, which bf16 runs on the CUDA-core
-# kernels in both directions: 8 heads of 25 over 200, 2 of 192 over 384
+# kernels in both directions: 8 heads of 25 over 200, 2 of 192 over 384;
+# each of the three again at 616 rows (8 captions of 77)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h,heads,tk,n", [(768, 8, 197, 300),
@@ -521,7 +530,10 @@ def test_cross_modal_adapter_routes_vit_l_widths(dev):
                                           (96, 4, 197, 200),
                                           (256, 2, 197, 200),
                                           (200, 8, 197, 200),
-                                          (384, 2, 197, 77)])
+                                          (384, 2, 197, 77),
+                                          (768, 8, 197, 616),
+                                          (200, 8, 197, 616),
+                                          (384, 2, 197, 616)])
 def test_cross_attn_block_kernels_other_head_widths(dev, dtype, h, heads,
                                                     tk, n):
     p = A.init_cross_modal_adapter(_gen(dev), text_dim=h, image_dim=256,
@@ -655,22 +667,24 @@ def test_cross_attn_block_fwd_kernel(dev, dtype, n, din, h, tk):
 
 
 # K3 at widths that are not multiples of 128 (bf16: multiples of 8 on the
-# tensor cores; fp32 any), forward and backward
+# tensor cores; fp32 any), forward and backward; 300 rows, and 616 (8
+# captions of 77) at H 100, K 400
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,h,k", [(torch.bfloat16, 200, 800),
-                                       (torch.bfloat16, 64, 136),
-                                       (torch.bfloat16, 100, 390),
-                                       (torch.float32, 200, 800),
-                                       (torch.float32, 100, 390)])
-def test_prenorm_mlp_kernels_other_widths(dev, dtype, h, k):
+@pytest.mark.parametrize("dtype,h,k,n", [(torch.bfloat16, 200, 800, 300),
+                                         (torch.bfloat16, 64, 136, 300),
+                                         (torch.bfloat16, 100, 390, 300),
+                                         (torch.float32, 200, 800, 300),
+                                         (torch.float32, 100, 390, 300),
+                                         (torch.bfloat16, 100, 400, 616)])
+def test_prenorm_mlp_kernels_other_widths(dev, dtype, h, k, n):
     gen = _gen(dev, 8)
     w1 = torch.randn(h, k, generator=gen, device=dev) * h ** -0.5
     w2 = torch.randn(k, h, generator=gen, device=dev) * k ** -0.5
     b1, b2, ls, lb = (0.1 * torch.randn(w, generator=gen, device=dev)
                       for w in (k, h, h, h))
     args = (w1, b1, w2, b2, 1 + ls, lb)
-    x = torch.randn(300, h, generator=gen, device=dev).to(dtype)
-    g = torch.randn(300, h, generator=gen, device=dev).to(dtype)
+    x = torch.randn(n, h, generator=gen, device=dev).to(dtype)
+    g = torch.randn(n, h, generator=gen, device=dev).to(dtype)
     F.reset_launch_counts()
     with torch.no_grad():
         y = F.prenorm_mlp_fused(x, *args)
@@ -884,28 +898,31 @@ def test_feature_adapter_kernels_at_emotic_shapes(dev, d, need_dx):
     _grads_close(gg, gw, torch.float32, "feature_adapter emotic")
 
 
-# K6 backward, one cluster launch: the T path's rows (1, 7, 35: one group;
-# the weight slices in shared memory) and 600 rows with dropout (ten
-# groups across the hash's 256-row tiles, then one colsum launch), with
-# and without dx; 77 rows at d 1024, k 192 (two groups; slices too large
-# for shared memory beside 64 rows, read in place) and d 100 (ragged
-# slices); d 4100, k 1100 (past the widths the wrapper once refused:
-# groups of 16 rows, slices in place) and widths whose row buffers do not
-# fit shared memory even at 8 rows (k 4000; d 30000), kept in the
-# workspace, in one group and (100 rows at k 4001 or d 30001) in two,
-# where the groups' partial gradients before the buffers hold a count of
-# floats that is not a multiple of 4; bit for bit on a repeat; no
-# weight-gradient, column-sum (within one group) or fill kernel
+# K6 backward, one cluster launch: the T path's rows (1, 7, 32, 35: one
+# group; the weight slices in shared memory) and 600 rows with dropout
+# (ten groups across the hash's 256-row tiles, then one colsum launch),
+# with and without dx; 77 rows at d 1024, k 192 (two groups; slices too
+# large for shared memory beside 64 rows, read in place) and d 100
+# (ragged slices); d 4100, k 1100 at 20 and 35 rows (past the widths the
+# wrapper once refused: groups of 16 rows, slices in place) and widths
+# whose row buffers do not fit shared memory even at 8 rows (k 4000; d
+# 30000), kept in the workspace, in one group and (100 rows at k 4001 or
+# d 30001) in two, where the groups' partial gradients before the buffers
+# hold a count of floats that is not a multiple of 4; bit for bit on a
+# repeat; no weight-gradient, column-sum (within one group) or fill
+# kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("need_dx", [True, False])
 @pytest.mark.parametrize("n,d,k,dropout", [(1, 768, 64, 0.0),
                                            (7, 768, 64, 0.0),
+                                           (32, 768, 64, 0.0),
                                            (35, 768, 64, 0.0),
                                            (600, 768, 64, 0.1),
                                            (77, 1024, 192, 0.1),
                                            (20, 100, 24, 0.0),
                                            (20, 4100, 1100, 0.1),
+                                           (35, 4100, 1100, 0.1),
                                            (35, 768, 4000, 0.1),
                                            (20, 30000, 64, 0.0),
                                            (100, 768, 4001, 0.1),
@@ -942,10 +959,10 @@ def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
 # five groups of 8), 600 rows with dropout (groups of 40 across the
 # hash's 256-row tiles), d 100 (ragged slices) and d 1024 with k 192
 # (weight slices too large for shared memory beside 8 rows: read in
-# place), d 4100 with k 1100 and the widths whose row buffers live in
-# the workspace (k 4000; d 30000; and at 100 rows, 13 groups, k 4001 or
-# d 30001); bit for bit on a repeat; one launch a call and no other
-# kernel
+# place), d 4100 with k 1100 (20 and 35 rows) and the widths whose row
+# buffers live in the workspace (k 4000; d 30000; and at 100 rows, 13
+# groups, k 4001 or d 30001); bit for bit on a repeat; one launch a call
+# and no other kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,d,k,dropout", [(1, 768, 64, 0.0),
@@ -956,6 +973,7 @@ def test_feature_adapter_bwd_cluster_kernel(dev, dtype, need_dx, n, d, k,
                                            (20, 100, 24, 0.0),
                                            (77, 1024, 192, 0.1),
                                            (20, 4100, 1100, 0.1),
+                                           (35, 4100, 1100, 0.1),
                                            (35, 768, 4000, 0.1),
                                            (20, 30000, 64, 0.0),
                                            (100, 768, 4001, 0.1),
@@ -1015,23 +1033,26 @@ def test_feature_adapter_fwd_bits_wide(dev, dtype, d, k):
     assert torch.equal(small, big[:35])
 
 
+# 600 rows at k 64 across the hash's 256-row tiles, at d 128 and at the
+# T path's d 768
 @pytest.mark.cuda
-def test_feature_dropout_mask_bits(dev):
+@pytest.mark.parametrize("d,seed", [(128, 99), (768, 1234)])
+def test_feature_dropout_mask_bits(dev, d, seed):
     """The kernel keeps exactly the elements the plain hash keeps: with
     W2 = I-like probes, y is zero where the mask dropped h."""
     n, k = 600, 64
-    mask = F.feature_dropout_mask(n, k, 99, 0.1, dev)
-    cpu = F.feature_dropout_mask(n, k, 99, 0.1)
+    mask = F.feature_dropout_mask(n, k, seed, 0.1, dev)
+    cpu = F.feature_dropout_mask(n, k, seed, 0.1)
     assert torch.equal(mask.cpu(), cpu)
     # relu(x W1 + b1) = 1 everywhere, W2 = [I_k | 0]: a = mask (+ b2 = 0),
     # so with r = 1, y = mask / |mask| per row
-    x = torch.ones(n, 128, device=dev)
-    w1 = torch.zeros(128, k, device=dev)
+    x = torch.ones(n, d, device=dev)
+    w1 = torch.zeros(d, k, device=dev)
     b1 = torch.ones(k, device=dev)
-    w2 = torch.zeros(k, 128, device=dev)
+    w2 = torch.zeros(k, d, device=dev)
     w2[:, :k] = torch.eye(k, device=dev)
-    b2 = torch.zeros(128, device=dev)
-    y = F.feature_adapter_blend_fused(x, w1, b1, w2, b2, 1.0, 0.1, 99)
+    b2 = torch.zeros(d, device=dev)
+    y = F.feature_adapter_blend_fused(x, w1, b1, w2, b2, 1.0, 0.1, seed)
     assert torch.equal(y[:, :k] > 0, mask > 0)
 
 
@@ -1077,13 +1098,17 @@ def _attn_mask(kind, b, t, dev):
 
 
 # ViT-L/14 vision (257) and text (77) at small batches, ViT-B/16 vision
-# (197), ViT-L/14-336 (577) and 50 (shorter than one 64-key chunk)
+# (197), ViT-L/14-336 (577) and 50 (shorter than one 64-key chunk); the
+# batches of pipeline T's encodes (32 images, 35 descriptions) and of the
+# B=96 train step's towers
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,h,t,kind", [
     (3, 16, 257, "none"), (5, 12, 77, "padded"), (5, 12, 77, "broadcast"),
     (2, 8, 77, "causal"), (2, 12, 197, "none"), (1, 16, 577, "none"),
-    (3, 4, 50, "none"), (3, 4, 50, "padded")])
+    (3, 4, 50, "none"), (3, 4, 50, "padded"), (32, 16, 257, "none"),
+    (35, 12, 77, "padded"), (35, 12, 77, "broadcast"),
+    (96, 12, 197, "none"), (96, 8, 77, "padded")])
 def test_fused_attention_kernel(dev, dtype, b, h, t, kind):
     q, k, v = (torch.randn(b, h, t, 64, generator=_gen(dev, i),
                            device=dev).to(dtype) for i in range(3))
@@ -1114,15 +1139,18 @@ def test_mha_fused_toggle_on_card(dev):
 
 
 # head widths other than 64: the 128-wide kernels (128), narrower heads
-# zero-padded to 64 (8, 40) or to 128 (80, 96), and the CUDA-core D = 256
-# kernel in both dtypes (256; 160 zero-padded to it)
+# zero-padded to 64 (8, 40) or to 128 (80, 96), the CUDA-core D = 256
+# kernel in both dtypes (256; 160 zero-padded to it) and the column-chunk
+# kernel past 256 (272, 512); the widths past 128 also unmasked at 4 x 4
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [8, 40, 80, 96, 128, 160, 256, 272, 512])
-def test_fused_attention_other_head_widths(dev, dtype, d):
-    q, k, v = (torch.randn(2, 3, 77, d, generator=_gen(dev, i),
+@pytest.mark.parametrize("b,h,d,kind", [
+    *((2, 3, d, "padded") for d in (8, 40, 80, 96, 128, 160, 256, 272, 512)),
+    *((4, 4, d, "none") for d in (160, 256, 272, 512))])
+def test_fused_attention_other_head_widths(dev, dtype, b, h, d, kind):
+    q, k, v = (torch.randn(b, h, 77, d, generator=_gen(dev, i),
                            device=dev).to(dtype) for i in range(3))
-    mask = _attn_mask("padded", 2, 77, dev)
+    mask = _attn_mask(kind, b, 77, dev)
     K5.reset_launch_counts()
     got = K5.fused_attention(q, k, v, d ** -0.5, mask)
     assert K5.launch_counts() == {"fused_attention": 1}
@@ -1203,7 +1231,7 @@ def _int8_case(dev, shape, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M", [1, 5, 32, "max"])
+@pytest.mark.parametrize("M", [1, 5, 8, 16, 32, 48, "max"])
 @pytest.mark.parametrize("shape", sorted(INT8_SHAPES))
 def test_int8_gemm_kernel(dev, shape, M, dtype, out_dtype):
     M = K7.KERNEL_MAX_M_INT8 if M == "max" else M

@@ -39,7 +39,7 @@ needs a gradient goes through a
 saves only the inputs (as the TPU rules do), and whose backward launches
 the backward kernel (``*_bwd_cuda``), which recomputes the rest. The
 plain backwards (``*_bwd_torch``) write out the TPU kernels' formulas;
-the tests and ``chip_smoke.py`` hold the backward kernels against them.
+the card tests hold the backward kernels against them.
 
 The plain versions compute what the TPU kernels compute, rounding point
 for rounding point: K1 and K6 in fp32 with fp32 weights; K2 and K3 with every
