@@ -912,6 +912,19 @@ def _t_rows():
                           q, kk, vv, attn_mask=lib_mask, scale=sc),
                       t_cost("fused_attention", q, mask=mask),
                       _elementwise(*TOL[dtype]))
+    # the frozen ViT-L/14-336 tower's attention as mha passes it: [B, h, T,
+    # d] views of the [B, T, h d] projections, read where they lie
+    b, h, t, d = 32, 16, 577, 64
+    q, kk, vv = (torch.randn(b, t, h * d, generator=gen, device=dev).to(bf)
+                 .view(b, t, h, d).transpose(1, 2) for _ in range(3))
+    sc = d ** -0.5
+    yield Row("fused_attention", False,
+              f"ViT-L/14-336 vision [{b}, {h}, {t}, {d}] mask None bf16, "
+              "strided as mha passes it",
+              lambda: K5.fused_attention(q, kk, vv, sc),
+              lambda: K5.fused_attention_torch(q, kk, vv, sc),
+              lambda: TF.scaled_dot_product_attention(q, kk, vv, scale=sc),
+              t_cost("fused_attention", q), _elementwise(*TOL[bf]))
 
 
 def _vlm_rows():
@@ -1606,28 +1619,24 @@ def pipeline_t_phase() -> dict:
     am = torch.as_tensor(am, device=dev)
     enc = {}
     encode_ms = {False: [], True: []}
-    try:
-        for on in (False, True, True, False):
-            K5.set_fused_attention(on)
+    for on in (False, True, True, False):
+        with _k5_off(not on), torch.no_grad():
             K5.reset_launch_counts()
-            with torch.no_grad():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                img = model.encode_images(px)
-                torch.cuda.synchronize()
-                encode_ms[on].append((time.perf_counter() - t0) * 1e3)
-                n_img = K5.fused_attention.launches
-                txt = l2_normalize(get_text_features(
-                    model.clip_params, ids, am, cfg, model.policy)).float()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = model.encode_images(px)
+            torch.cuda.synchronize()
+            encode_ms[on].append((time.perf_counter() - t0) * 1e3)
+            n_img = K5.fused_attention.launches
+            txt = l2_normalize(get_text_features(
+                model.clip_params, ids, am, cfg, model.policy)).float()
             enc[on] = (img, txt, n_img, K5.fused_attention.launches - n_img)
-    finally:
-        K5.set_fused_attention(was_on)
     (img0, txt0, _, _), (img1, txt1, n_img, n_txt) = enc[False], enc[True]
     if (n_img, n_txt) != (cfg.vision.num_layers, cfg.text.num_layers) \
             or enc[False][2] or enc[False][3]:
         raise SystemExit(f"K5 launches: image batch {n_img}, bank {n_txt} "
                          f"(want {cfg.vision.num_layers}, "
-                         f"{cfg.text.num_layers}; none with the toggle off)")
+                         f"{cfg.text.num_layers}; none with K5 off)")
     worst = {}
     for what, a, b in (("image", img1, img0), ("bank", txt1, txt0)):
         worst[what] = (float((a - b).abs().max()),
@@ -2578,10 +2587,11 @@ C5_STEPS = C5_EPOCHS * (7 * C5_PER_CLASS // C5_B) + 1 + C5_RESIDENT
 # calls a config-5 step makes of each M kernel: K1 on the text and the
 # vision rows, K3 once for each of the 2 shared layers, forward and
 # backward; K2 none (Tk = 577 is past its 256 shared rows: plain, as in
-# the reference)
+# the reference); and K5 once a frozen tower layer (24 vision, 12 text)
 C5_CALLS = {"seq_adapter_fused": 2, "seq_adapter_bwd_cuda": 2,
             "prenorm_mlp_fused": 2, "prenorm_mlp_bwd_cuda": 2,
             "cross_attn_block_fused": 0, "cross_attn_block_bwd_cuda": 0}
+C5_K5_CALLS = 24 + 12
 # config 4's video: 64 frames at 480x640 made from a seed (the scorer's
 # checks), cli/bench_video --no-demux over 256 (its rates)
 VIDEO_FRAMES, VIDEO_HW, VIDEO_BENCH_FRAMES = 64, (480, 640), 256
@@ -2659,11 +2669,12 @@ def _cancelling_grads(cfg, acfg, tx, clip, adapters, batch) -> None:
 def _config5_check(work: str) -> dict:
     """(b) BASELINE config 5 through cli/bench_label_finetune (its rates
     printed there): K1's and K3's launches must equal C5_STEPS x the
-    calls a step (C5_CALLS), K2's 0 (counts zeroed just before, read just
-    after); one step with the kernels held against impl="torch" from the
-    trained state on the same batch (STEP_TOL), twice: on config 5's own
-    batch under FP32, and under FAST (config 5's policy) on its pixels
-    with random caption ids. Its captions all start with the same BOS
+    calls a step (C5_CALLS), K2's and K4's 0, K5's C5_STEPS x C5_K5_CALLS
+    (counts zeroed just before, read just after); one step with the
+    kernels held against impl="torch" from the trained state on the same
+    batch (STEP_TOL), twice: on config 5's own batch under FP32, and
+    under FAST (config 5's policy) on its pixels with random caption
+    ids. Its captions all start with the same BOS
     token, so CLS-slice pooling (the reference's quirk) gives every row
     the same text feature and the loss is ln 32 to 3 digits: the adapter
     gradients are what is left of sums that nearly cancel, so under FAST
@@ -2687,8 +2698,9 @@ def _config5_check(work: str) -> dict:
     counts = F.launch_counts(F.M_KERNELS)
     want = {k: C5_STEPS * v for k, v in C5_CALLS.items()}
     others = {**K4.launch_counts(), **K5.launch_counts()}
-    ok = out["steps"] == C5_STEPS and counts == want \
-        and not any(others.values())
+    ok = out["steps"] == C5_STEPS and counts == want and others == {
+        "contrastive_loss_fused": 0, "contrastive_loss_bwd_cuda": 0,
+        "fused_attention": C5_STEPS * C5_K5_CALLS}
     print(f"config 5: bench_label_finetune, {C5_STEPS} steps; launches "
           f"{counts} (want {want}; K4, K5 {others}) "
           f"{'ok' if ok else 'FAIL'}; losses "
@@ -2827,11 +2839,9 @@ def _video_check() -> None:
         cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
         return float((a - b).abs().max()), float(cos.min())
 
-    was_on = K5.fused_attention_enabled()
     probs, launches = {}, {}
-    try:
-        for on in (True, False):
-            K5.set_fused_attention(on)
+    for on in (True, False):
+        with _k5_off(not on):
             K5.reset_launch_counts()
             probs[on] = V.score_video_frames_raw(params, cfg, frames, emb,
                                                  policy=BF16, size=size)
@@ -2844,8 +2854,6 @@ def _video_check() -> None:
                               str(VIDEO_FRAMES), "--height",
                               str(VIDEO_HW[0]), "--width", str(VIDEO_HW[1]),
                               "--size", str(size), "--device", "cuda"])
-    finally:
-        K5.set_fused_attention(was_on)
     with torch.no_grad():
         crop = resize_center_crop(torch.from_numpy(frames).to(dev), size)
     host = V.score_video_frames(params, cfg, crop.cpu().numpy(), emb,
@@ -2953,6 +2961,23 @@ def _k8_off(off: bool = True):
     finally:
         K8.kernel_route = gate
         QwenVLGenerator._graph_for = graph_for
+
+
+@contextlib.contextmanager
+def _k5_off(off: bool = True):
+    """K5 off for a comparison: ``layers.fused_route`` answers False, so
+    mha takes the unfused branch where the frozen towers would take K5 by
+    themselves (and where the toggle would force it). The port has no
+    such option; only these comparisons need one."""
+    from vlm_clip_tpu_torch.models import layers as LY
+
+    route = LY.fused_route
+    if off:
+        LY.fused_route = lambda *args: False
+    try:
+        yield
+    finally:
+        LY.fused_route = route
 
 
 @contextlib.contextmanager

@@ -153,6 +153,91 @@ def test_mha_toggle_takes_k5_and_is_restored():
                                atol=0, rtol=0)
 
 
+# mask layouts mha meets: none, [T, T], padded [B, 1, T, T], a
+# batch-broadcast [1, 1, T, T], and a per-head [B, h, T, T] K5 does not take
+ROUTE_MASKS = {"none": None, "square": (T, T), "padded": (B, 1, T, T),
+               "broadcast": (1, 1, T, T), "per_head": (B, H, T, T)}
+
+
+def _route_want(device, dtype, d, self_attention, mask, grad, fused,
+                toggle):
+    """The route as specified: never under fused=False, nor for
+    cross-attention or a mask layout K5 does not take; else always under
+    fused=True or the toggle; else only on the card in bf16, at heads of
+    at most 128 columns, with no input needing a gradient."""
+    if fused is False or not self_attention or mask == "per_head":
+        return False
+    if fused or toggle:
+        return True
+    return device == "cuda" and dtype == torch.bfloat16 and d <= 128 \
+        and not grad
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fused_route_decides_every_combination(device):
+    """layers.fused_route over every combination of dtype, head width
+    (64, 128; 256 and 512 past the tensor-core kernel; 8 and 96 padded to
+    it), self- or cross-attention, mask layout, grad mode, ``fused`` and
+    the toggle, against the route as specified; no case on the CPU takes
+    the kernel by itself."""
+    import itertools
+
+    cases = itertools.product(
+        (torch.float32, torch.bfloat16), (8, 64, 96, 128, 256, 512),
+        (True, False), ROUTE_MASKS, (False, True), (None, True, False),
+        (False, True))
+    taken = 0
+    try:
+        for dtype, d, self_attn, mk, grad, fused, toggle in cases:
+            K5.set_fused_attention(toggle)
+            shape = ROUTE_MASKS[mk]
+            mask = None if shape is None else torch.zeros(shape)
+            got = L.fused_route(device, dtype, d, self_attn, mask, T, grad,
+                                fused)
+            want = _route_want(device, dtype, d, self_attn, mk, grad, fused,
+                               toggle)
+            assert got == want, (device, dtype, d, self_attn, mk, grad,
+                                 fused, toggle)
+            taken += got and not (fused or toggle)
+    finally:
+        K5.set_fused_attention(False)
+    # by itself: bf16, 4 widths, self-attention, 4 layouts, no grad
+    assert taken == (0 if device == "cpu" else 4 * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_on_the_cpu_takes_the_unfused_branch(dtype, monkeypatch):
+    """On the CPU, with no ``fused`` and the toggle off, mha never calls K5
+    (in either grad mode, for self- and cross-attention, with every mask
+    layout) and computes what ``fused=False`` computes, bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_mha(gen, 32)
+    x = torch.randn(B, T, 32, generator=gen).to(dtype)
+    masks = {mk: None if shape is None else torch.randn(shape, generator=gen)
+             for mk, shape in ROUTE_MASKS.items()}
+
+    def calls(fused):
+        # FAST's softmax in bf16 for bf16, fp32 for fp32; H heads
+        out = {}
+        for mk, mask in masks.items():
+            for grad in (False, True):
+                with torch.set_grad_enabled(grad):
+                    out[mk, grad] = (
+                        L.mha(p, x, x, H, mask, dtype, fused=fused),
+                        L.mha(p, x, x[:1], H, None, dtype, fused=fused))
+        return out
+
+    want = calls(False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K5 taken on the CPU")
+
+    monkeypatch.setattr(K5, "fused_attention", refuse)
+    for key, got in calls(None).items():
+        for g, w in zip(got, want[key]):
+            torch.testing.assert_close(g, w, atol=0, rtol=0, msg=str(key))
+
+
 def test_towers_with_the_toggle_match_reference():
     """The text tower (batch-broadcast causal mask plus padding) and the
     vision tower (no mask) with K5 on equal the reference with its own

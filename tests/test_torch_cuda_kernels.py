@@ -1138,6 +1138,174 @@ def test_mha_fused_toggle_on_card(dev):
     _close(got, want, torch.float32)
 
 
+def _projected(b, h, t, d, dtype, dev, seed, offset=0):
+    """q, k, v as mha makes them: [b, h, t, d] views of [b, t, h d]
+    projections (each starting ``offset`` elements into its buffer)."""
+    out = []
+    for i in range(3):
+        buf = torch.randn(b * t * h * d + offset,
+                          generator=_gen(dev, seed + i), device=dev)
+        buf = buf.to(dtype)
+        out.append(buf[offset:].view(b, t, h, d).transpose(1, 2))
+    return out
+
+
+# the towers' shapes as mha passes them: ViT-L/14-336 vision (577) and
+# text (77, padded) at B=32, ViT-B/16's at B=96; then a view off a 16-byte
+# boundary, which the tensor-core kernel reads from a contiguous copy
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,t,kind,offset", [
+    (32, 16, 577, "none", 0), (32, 12, 77, "padded", 0),
+    (96, 12, 197, "none", 0), (96, 8, 77, "padded", 0),
+    (4, 12, 77, "padded", 1)])
+def test_fused_attention_strided_bit_for_bit(dev, dtype, b, h, t, kind,
+                                             offset):
+    """K5 on the non-contiguous views and with the output in q's layout
+    equals the call on contiguous copies bit for bit, and the output's
+    [b, t, h d] reshape is a view (but where the tensor-core kernel
+    reads a contiguous copy of a view off a 16-byte boundary: the output
+    follows the copy)."""
+    q, k, v = _projected(b, h, t, 64, dtype, dev, 0, offset)
+    assert not q.is_contiguous()
+    mask = _attn_mask(kind, b, t, dev)
+    K5.reset_launch_counts()
+    got = K5.fused_attention(q, k, v, 0.125, mask)
+    want = K5.fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              0.125, mask)
+    assert K5.launch_counts() == {"fused_attention": 2}
+    assert want.is_contiguous() and torch.equal(got, want)
+    if offset and dtype == torch.bfloat16:
+        return
+    flat = got.transpose(1, 2).reshape(b, t, h * 64)
+    assert flat.data_ptr() == got.data_ptr() and flat.is_contiguous()
+
+
+def _tower_case(dev, policy, b):
+    """A 2-layer ViT-L/14-336 vision and text tower (published widths),
+    b images at 336 and b captions of 8-77 tokens padded to 77."""
+    from vlm_clip_tpu_torch.core import dtypes
+    from vlm_clip_tpu_torch.core.config import clip_preset
+    from vlm_clip_tpu_torch.models import clip as C
+
+    ccfg = clip_preset("vit-large-patch14-336")
+    vcfg = dataclasses.replace(ccfg.vision, num_layers=2)
+    tcfg = dataclasses.replace(ccfg.text, num_layers=2)
+    params = C.init_clip(_gen(dev), dataclasses.replace(
+        ccfg, vision=vcfg, text=tcfg), device=dev)
+    pol = getattr(dtypes, policy)
+    px = torch.randn(b, 3, 336, 336, generator=_gen(dev, 1),
+                     device=dev).to(pol.compute_dtype)
+    ids = torch.randint(1, tcfg.vocab_size, (b, 77), generator=_gen(dev, 2),
+                        device=dev)
+    lens = torch.randint(8, 78, (b,), generator=_gen(dev, 3), device=dev)
+    am = (torch.arange(77, device=dev)[None] < lens[:, None]).int()
+    return {"vision": lambda x=px: C.vision_tower(
+                params["vision"], x, vcfg, pol).last_hidden_state,
+            "text": lambda: C.text_tower(
+                params["text"], ids, am, tcfg, pol).last_hidden_state}, px
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["FAST", "BF16"])
+def test_frozen_towers_take_k5_by_themselves(dev, policy, monkeypatch):
+    """A bf16 no-grad pass of each tower at ViT-L/14-336's widths (32
+    images at 577 tokens; captions under the padded [32, 1, 77, 77] mask)
+    launches K5 once a layer and writes no scores (the counter adds 0).
+    It matches the same pass on the unfused branch within TOL[bf16] of
+    the largest output (a rounding flip in the bf16 chain of two layers
+    moves a near-zero element past an elementwise bound, on either
+    branch), and is as close to the FP32 pass as that branch is: K5 keeps
+    the softmax in fp32 where FAST's unfused branch rounds it to bf16."""
+    from vlm_clip_tpu_torch.utils import profiling as P
+
+    towers, px = _tower_case(dev, policy, 32)
+    fp32, _ = _tower_case(dev, "FP32", 32)
+    for name, run in towers.items():
+        with torch.no_grad():
+            P.take()
+            K5.reset_launch_counts()
+            with P.tracing():
+                got = run().float()
+            assert K5.launch_counts() == {"fused_attention": 2}, name
+            assert P.take()["counts"]["layers.attn_score_bytes"] == 0, name
+            with monkeypatch.context() as m:
+                m.setattr(L, "fused_route", lambda *args: False)
+                want = run().float()
+            ref = fp32[name](px.float()) if name == "vision" \
+                else fp32[name]()
+            assert K5.launch_counts() == {"fused_attention": 2}, name
+        assert torch.isfinite(got).all()
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= TOL[torch.bfloat16] * top
+        k5_err = float((got - ref).abs().mean())
+        unfused_err = float((want - ref).abs().mean())
+        assert k5_err <= 1.05 * unfused_err, (name, k5_err, unfused_err)
+
+
+@pytest.mark.cuda
+def test_towers_keep_the_unfused_branch_off_the_route(dev):
+    """No K5 launch where the route keeps the unfused branch: a pass that
+    needs a gradient (pixels that require one, grad mode on), an fp32
+    pass, a batch-1 kv, ``fused=False``; the same attention under
+    no_grad in bf16 launches it once."""
+    towers, px = _tower_case(dev, "BF16", 4)
+    p = L.init_mha(_gen(dev), 1024, device=dev)
+    x = torch.randn(4, 577, 1024, generator=_gen(dev, 4),
+                    device=dev).bfloat16()
+    K5.reset_launch_counts()
+    with torch.enable_grad():
+        towers["vision"](px.clone().requires_grad_(True)).float().sum() \
+            .backward()
+    fp32, _ = _tower_case(dev, "FP32", 4)
+    with torch.no_grad():
+        fp32["vision"]()
+        fp32["text"]()
+        L.mha(p, x, x[:1], 16, None, torch.bfloat16)
+        L.mha(p, x, x, 16, None, torch.bfloat16, fused=False)
+    assert K5.launch_counts() == {"fused_attention": 0}
+    with torch.no_grad():
+        L.mha(p, x, x, 16, None, torch.bfloat16)
+    assert K5.launch_counts() == {"fused_attention": 1}
+
+
+# the benchmark's training cells: a step launches K5 once a tower layer
+# (24 + 12 at ViT-L/14-336, 12 + 12 at ViT-B/16) and writes no scores
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,b,launches", [
+    ("vit-large-patch14-336", 32, 36), ("vit-base-patch16", 96, 24)])
+def test_m_train_step_launches_k5_every_tower_layer(dev, preset, b,
+                                                    launches):
+    from vlm_clip_tpu_torch.core import dtypes
+    from vlm_clip_tpu_torch.core.config import AdapterConfig, clip_preset
+    from vlm_clip_tpu_torch.train import optim
+    from vlm_clip_tpu_torch.train.steps import (init_train_state,
+                                                make_m_train_step)
+    from vlm_clip_tpu_torch.utils import profiling as P
+
+    ccfg = clip_preset(preset)
+    acfg = AdapterConfig(text_adapter_size=256, vision_adapter_size=256,
+                         shared_adapter_layers=2)
+    tx = optim.adam(3e-4)
+    state = init_train_state(_gen(dev), ccfg, acfg, tx, device=dev)
+    step = make_m_train_step(ccfg, acfg, tx, dtypes.FAST)
+    S = ccfg.vision.image_size
+    batch = {"input_ids": torch.randint(1, ccfg.text.vocab_size, (b, 77),
+                                        generator=_gen(dev, 1), device=dev),
+             "attention_mask": torch.ones(b, 77, dtype=torch.int32,
+                                          device=dev),
+             "pixel_values": torch.randn(b, 3, S, S, generator=_gen(dev, 2),
+                                         device=dev).bfloat16()}
+    state, _ = step(state, batch)  # warm-up
+    P.take()
+    K5.reset_launch_counts()
+    with P.tracing():
+        state, m = step(state, batch)
+    assert K5.launch_counts() == {"fused_attention": launches}
+    assert P.take()["counts"]["layers.attn_score_bytes"] == 0
+    assert torch.isfinite(m.loss)
+
+
 # head widths other than 64: the 128-wide kernels (128), narrower heads
 # zero-padded to 64 (8, 40) or to 128 (80, 96), the CUDA-core D = 256
 # kernel in both dtypes (256; 160 zero-padded to it) and the column-chunk

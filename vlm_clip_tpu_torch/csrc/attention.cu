@@ -19,6 +19,11 @@
 // none, [T, T] (batch stride 0) or [B, 1, T, T] (a batch-broadcast mask
 // comes in expanded, batch stride 0).
 //
+// q, k, v and o are read and written through their batch, head and row
+// strides (Strides; a head's d columns are contiguous), so the [B, h, T,
+// d] views of [B, T, h d] projections need no transposed copy and o can be
+// written where the out-projection reads it.
+//
 // The TPU kernel holds a whole head's [T, T] scores in VMEM; at T = 257
 // that is 264 KB of fp32, more than the 227 KB of shared memory a Hopper
 // block may use. So each block takes (batch, head, a tile of 64 query
@@ -95,6 +100,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// Element strides of a [b, heads, t, d] operand: batch, head and row (a
+// row's d columns are contiguous).
+struct Strides {
+  long long b, h, r;
+
+  __device__ __forceinline__ size_t head(int bi, int hi) const {
+    return (size_t)bi * b + (size_t)hi * h;
+  }
+};
+
+// Strides of q, k, v and o, in that order.
+struct AttnStrides {
+  Strides q, k, v, o;
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -108,14 +128,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// rows [r0, r0 + 64) of a [T, D] head -> fp32 tile (ld = ldt); rows past
-// t are 0.
+// rows [r0, r0 + 64) of a [T, D] head (row stride ld) -> fp32 tile (row
+// stride ldt); rows past t are 0.
 template <int D, typename T>
-__device__ void load_tile(const T* __restrict__ src, int t, int r0,
-                          float* tile, int ldt) {
+__device__ void load_tile(const T* __restrict__ src, long long ld, int t,
+                          int r0, float* tile, int ldt) {
   for (int e = threadIdx.x; e < 64 * D; e += NT) {
     const int r = e / D, c = e % D;
-    tile[r * ldt + c] = (r0 + r < t) ? to_f(src[(size_t)(r0 + r) * D + c])
+    tile[r * ldt + c] = (r0 + r < t) ? to_f(src[(size_t)(r0 + r) * ld + c])
                                      : 0.f;
   }
 }
@@ -270,10 +290,10 @@ __device__ __forceinline__ void pv_add(const float* Ss, const float* Vs,
 }
 
 // The thread's first oj output columns c0 + tx + 16 j of its rows q0 +
-// ty + 16 i below t, in T, into the [t, ld] head oh.
+// ty + 16 i below t, in T, into the head oh (row stride ld).
 template <typename T, int OJ>
-__device__ __forceinline__ void out_store(T* oh, int ld, int c0, int q0,
-                                          int t, int oj,
+__device__ __forceinline__ void out_store(T* oh, long long ld, int c0,
+                                          int q0, int t, int oj,
                                           const float (&o)[4][OJ]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
@@ -291,7 +311,8 @@ __global__ void __launch_bounds__(NT)
     attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const float* __restrict__ mask, long long mask_bstride,
-                         float scale, T* __restrict__ out, int heads, int t) {
+                         float scale, T* __restrict__ out, AttnStrides strides,
+                         int t) {
   constexpr int LD = D + 1;  // padded row of the q / k tiles
   constexpr int OJ = D / 16;  // output columns a thread
   extern __shared__ float smem[];
@@ -302,17 +323,18 @@ __global__ void __launch_bounds__(NT)
   float* M = Ss + QT * SLS;   // [QT]: row max
   float* L = M + QT;          // [QT]: row sum of exp(s - max)
   const int q0 = blockIdx.x * QT, hd = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * heads + hd) * t * D;
-  const T *qh = q + head, *kh = k + head, *vh = v + head;
+  const T* qh = q + strides.q.head(b, hd);
+  const T* kh = k + strides.k.head(b, hd);
+  const T* vh = v + strides.v.head(b, hd);
   const float* mb = mask == nullptr ? nullptr : mask + b * mask_bstride;
   float s[4][4];
 
-  load_tile<D>(qh, t, q0, Qs, LD);
+  load_tile<D>(qh, strides.q.r, t, q0, Qs, LD);
   // pass 1: running max and sum per row
   RowStats st;
   for (int k0 = 0; k0 < t; k0 += KC) {
     __syncthreads();  // Ks and Ss are free
-    load_tile<D>(kh, t, k0, Ks, LD);
+    load_tile<D>(kh, strides.k.r, t, k0, Ks, LD);
     __syncthreads();
     scores<D>(Qs, Ks, mb, t, q0, k0, scale, s);
     st.add(Ss, s);
@@ -326,15 +348,16 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
   for (int k0 = 0; k0 < t; k0 += KC) {
     __syncthreads();  // Ks, Vs, Ss free; M, L written
-    load_tile<D>(kh, t, k0, Ks, LD);
-    load_tile<D>(vh, t, k0, Vs, D);
+    load_tile<D>(kh, strides.k.r, t, k0, Ks, LD);
+    load_tile<D>(vh, strides.v.r, t, k0, Vs, D);
     __syncthreads();
     scores<D>(Qs, Ks, mb, t, q0, k0, scale, s);
     p_store<T>(Ss, M, L, s);
     __syncthreads();
     pv_add<OJ>(Ss, Vs, D, min(KC, t - k0), OJ, o);
   }
-  out_store<T, OJ>(out + head, D, 0, q0, t, OJ, o);
+  out_store<T, OJ>(out + strides.o.head(b, hd), strides.o.r, 0, q0, t, OJ,
+                   o);
 }
 
 // ---------------------------------------------------------------------------
@@ -365,15 +388,15 @@ __global__ void __launch_bounds__(NT)
 
 constexpr int WC = 256;  // columns of a chunk
 
-// rows [r0, r0 + 64) and columns [c0, c0 + cw) of a [t, d] head -> fp32
-// tile (row stride ldt); rows past t are 0.
+// rows [r0, r0 + 64) and columns [c0, c0 + cw) of a [t, d] head (row
+// stride ld) -> fp32 tile (row stride ldt); rows past t are 0.
 template <typename T>
-__device__ void load_chunk(const T* __restrict__ src, int t, int d, int r0,
-                           int c0, int cw, float* tile, int ldt) {
+__device__ void load_chunk(const T* __restrict__ src, long long ld, int t,
+                           int r0, int c0, int cw, float* tile, int ldt) {
   for (int e = threadIdx.x; e < 64 * cw; e += NT) {
     const int r = e / cw, c = e % cw;
     tile[r * ldt + c] =
-        (r0 + r < t) ? to_f(src[(size_t)(r0 + r) * d + c0 + c]) : 0.f;
+        (r0 + r < t) ? to_f(src[(size_t)(r0 + r) * ld + c0 + c]) : 0.f;
   }
 }
 
@@ -383,7 +406,8 @@ __global__ void __launch_bounds__(NT)
                           const T* __restrict__ v,
                           const float* __restrict__ mask,
                           long long mask_bstride, float scale,
-                          T* __restrict__ out, int heads, int t, int d) {
+                          T* __restrict__ out, AttnStrides strides, int t,
+                          int d) {
   constexpr int LD = WC + 1;   // padded row of the q / k chunk tiles
   constexpr int OJ = WC / 16;  // output columns a thread, at most
   extern __shared__ float smem[];
@@ -394,8 +418,9 @@ __global__ void __launch_bounds__(NT)
   float* M = Ss + QT * SLS;   // [QT]: row max
   float* L = M + QT;          // [QT]: row sum of exp(s - max)
   const int q0 = blockIdx.x * QT, hd = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * heads + hd) * t * d;
-  const T *qh = q + head, *kh = k + head, *vh = v + head;
+  const T* qh = q + strides.q.head(b, hd);
+  const T* kh = k + strides.k.head(b, hd);
+  const T* vh = v + strides.v.head(b, hd);
   const float* mb = mask == nullptr ? nullptr : mask + b * mask_bstride;
   float s[4][4];
 
@@ -407,8 +432,8 @@ __global__ void __launch_bounds__(NT)
     for (int c0 = 0; c0 < d; c0 += WC) {
       const int cw = min(WC, d - c0);
       __syncthreads();
-      load_chunk(qh, t, d, q0, c0, cw, Qs, LD);
-      load_chunk(kh, t, d, k0, c0, cw, Ks, LD);
+      load_chunk(qh, strides.q.r, t, q0, c0, cw, Qs, LD);
+      load_chunk(kh, strides.k.r, t, k0, c0, cw, Ks, LD);
       __syncthreads();
       scores_add<LD>(Qs, Ks, cw, s);
     }
@@ -434,11 +459,12 @@ __global__ void __launch_bounds__(NT)
     for (int k0 = 0; k0 < t; k0 += KC) {
       chunk_scores(k0);  // its barriers also order M, L and Vs
       p_store<T>(Ss, M, L, s);
-      load_chunk(vh, t, d, k0, c0, cw, Vs, WC);
+      load_chunk(vh, strides.v.r, t, k0, c0, cw, Vs, WC);
       __syncthreads();
       pv_add<OJ>(Ss, Vs, WC, min(KC, t - k0), oj, o);
     }
-    out_store<T, OJ>(out + head, d, c0, q0, t, oj, o);
+    out_store<T, OJ>(out + strides.o.head(b, hd), strides.o.r, c0, q0, t, oj,
+                     o);
   }
 }
 
@@ -454,11 +480,12 @@ constexpr int MT_N = 32 * MMA_WARPS;
 template <int D>
 constexpr int mma_blocks() { return D <= 64 ? 16 / MMA_WARPS : 1; }
 
-// rows [r0, r0 + R) of a [t, D] bf16 head -> tile (row stride D + 8; rows
-// past t zeroed)
+// rows [r0, r0 + R) of a [t, D] bf16 head (row stride ld, 16-byte
+// aligned rows) -> tile (row stride D + 8; rows past t zeroed)
 template <int R, int D>
 __device__ __forceinline__ void load_head_rows(vct::bf16* tile,
-                                               const vct::bf16* src, int t,
+                                               const vct::bf16* src,
+                                               long long ld, int t,
                                                int r0) {
   constexpr int SLD = D + 8;
 #pragma unroll
@@ -467,7 +494,7 @@ __device__ __forceinline__ void load_head_rows(vct::bf16* tile,
     const int r = e / (D / 8), c = (e % (D / 8)) * 8;
     const bool ok = r0 + r < t;
     vct::cp_async16(tile + r * SLD + c,
-                    ok ? src + (size_t)(r0 + r) * D + c : src, ok);
+                    ok ? src + (size_t)(r0 + r) * ld + c : src, ok);
   }
 }
 
@@ -487,7 +514,8 @@ __global__ void __launch_bounds__(MT_N, mma_blocks<D>())
                          const vct::bf16* __restrict__ v,
                          const float* __restrict__ mask,
                          long long mask_bstride, float scale,
-                         vct::bf16* __restrict__ out, int heads, int t) {
+                         vct::bf16* __restrict__ out, AttnStrides strides,
+                         int t) {
   using vct::bf16;
   constexpr int SLD = D + 8;  // shared row of a bf16 q / k / v tile
   extern __shared__ __align__(16) unsigned char attn_smem[];
@@ -495,8 +523,9 @@ __global__ void __launch_bounds__(MT_N, mma_blocks<D>())
   bf16* Ks = Qs + MQ * SLD;                       // [2][KC][SLD]
   bf16* Vs = Ks + 2 * KC * SLD;                   // [2][KC][SLD]
   const int q0 = blockIdx.x * MQ, hd = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * heads + hd) * t * D;
-  const bf16 *qh = q + head, *kh = k + head, *vh = v + head;
+  const bf16* qh = q + strides.q.head(b, hd);
+  const bf16* kh = k + strides.k.head(b, hd);
+  const bf16* vh = v + strides.v.head(b, hd);
   const float* mb = mask == nullptr ? nullptr : mask + b * mask_bstride;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -506,11 +535,13 @@ __global__ void __launch_bounds__(MT_N, mma_blocks<D>())
 
   auto issue = [&](int s) {
     const int c = s < nc ? s : s - nc;
-    load_head_rows<KC, D>(Ks + (s & 1) * KC * SLD, kh, t, c * KC);
+    load_head_rows<KC, D>(Ks + (s & 1) * KC * SLD, kh, strides.k.r, t,
+                          c * KC);
     if (s >= nc)
-      load_head_rows<KC, D>(Vs + (s & 1) * KC * SLD, vh, t, c * KC);
+      load_head_rows<KC, D>(Vs + (s & 1) * KC * SLD, vh, strides.v.r, t,
+                            c * KC);
   };
-  load_head_rows<MQ, D>(Qs, qh, t, q0);
+  load_head_rows<MQ, D>(Qs, qh, strides.q.r, t, q0);
   issue(0);
   vct::cp_async_commit();
 
@@ -626,15 +657,16 @@ __global__ void __launch_bounds__(MT_N, mma_blocks<D>())
     __syncthreads();  // buffer s & 1 is free for step s + 2
   }
   if (!active) return;
-  bf16* oh = out + head;
+  bf16* oh = out + strides.o.head(b, hd);
+  const long long ldo = strides.o.r;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * tq;
     if (r_lo < t)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_lo * D + c) =
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_lo * ldo + c) =
           vct::pack_bf16(o[j][0], o[j][1]);
     if (r_hi < t)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_hi * D + c) =
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_hi * ldo + c) =
           vct::pack_bf16(o[j][2], o[j][3]);
   }
 }
@@ -651,8 +683,8 @@ size_t attention_smem(int bf16) {
 template <typename T, int D>
 int attention_cuda_cores(const void* q, const void* k, const void* v,
                          const float* m, long long mask_bstride, float scale,
-                         void* out, int b, int heads, int t, size_t smem,
-                         cudaStream_t st) {
+                         void* out, const AttnStrides& strides, int b,
+                         int heads, int t, size_t smem, cudaStream_t st) {
   const dim3 grid((t + QT - 1) / QT, heads, b);
   auto kern = attention_fwd_kernel<T, D>;
   int err;
@@ -660,14 +692,15 @@ int attention_cuda_cores(const void* q, const void* k, const void* v,
            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return err;
   kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
-                               mask_bstride, scale, (T*)out, heads, t);
+                               mask_bstride, scale, (T*)out, strides, t);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int attention_launch(int bf16, const void* q, const void* k, const void* v,
                      const float* m, long long mask_bstride, float scale,
-                     void* out, int b, int heads, int t, cudaStream_t st) {
+                     void* out, const AttnStrides& strides, int b, int heads,
+                     int t, cudaStream_t st) {
   const size_t smem = attention_smem<D>(bf16);
   if constexpr (D <= 128) {
     if (bf16) {
@@ -679,17 +712,17 @@ int attention_launch(int bf16, const void* q, const void* k, const void* v,
                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
         return err;
       kern<<<grid, MT_N, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                     m, mask_bstride, scale, (T*)out, heads,
-                                     t);
+                                     m, mask_bstride, scale, (T*)out,
+                                     strides, t);
       return (int)cudaGetLastError();
     }
   } else if (bf16) {
     return attention_cuda_cores<vct::bf16, D>(q, k, v, m, mask_bstride,
-                                              scale, out, b, heads, t, smem,
-                                              st);
+                                              scale, out, strides, b, heads,
+                                              t, smem, st);
   }
   return attention_cuda_cores<float, D>(q, k, v, m, mask_bstride, scale, out,
-                                        b, heads, t, smem, st);
+                                        strides, b, heads, t, smem, st);
 }
 
 // The column-chunk route for heads wider than 256 (d a multiple of 64):
@@ -697,8 +730,8 @@ int attention_launch(int bf16, const void* q, const void* k, const void* v,
 template <typename T>
 int attention_wide(const void* q, const void* k, const void* v,
                    const float* m, long long mask_bstride, float scale,
-                   void* out, int b, int heads, int t, int d,
-                   cudaStream_t st) {
+                   void* out, const AttnStrides& strides, int b, int heads,
+                   int t, int d, cudaStream_t st) {
   const size_t smem = attention_smem<WC>(0);
   const dim3 grid((t + QT - 1) / QT, heads, b);
   auto kern = attention_wide_kernel<T>;
@@ -707,8 +740,17 @@ int attention_wide(const void* q, const void* k, const void* v,
            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return err;
   kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, m,
-                               mask_bstride, scale, (T*)out, heads, t, d);
+                               mask_bstride, scale, (T*)out, strides, t, d);
   return (int)cudaGetLastError();
+}
+
+// Whether the tensor-core kernel can take an operand: its 16-byte copies
+// need every row to start on a 16-byte boundary (in, 16-byte aligned),
+// its 4-byte output stores an even element offset (out).
+bool mma_aligned(const void* p, const Strides& s, bool in) {
+  const long long e = in ? 8 : 2;  // bf16 elements
+  return (size_t)p % (2 * e) == 0 && s.b % e == 0 && s.h % e == 0 &&
+         s.r % e == 0;
 }
 
 }  // namespace
@@ -724,29 +766,40 @@ size_t vct_attention_smem(int bf16, int d) {
                     : attention_smem<WC>(0);
 }
 
-// q, k, v, out: [b, heads, t, d] contiguous in T (bf16 when bf16 != 0,
-// else fp32; bf16 heads 16-byte aligned), d 64, 128, 256, or a multiple
-// of 64 past 256 (the column-chunk route); mask: fp32 [t, t] rows at
-// mask + batch * mask_bstride, or null.
+// q, k, v, out: [b, heads, t, d] in T (bf16 when bf16 != 0, else fp32),
+// each row's d columns contiguous, at the element strides st[3 i .. 3 i +
+// 2] (batch, head, row) of operand i in the order q, k, v, out; on the
+// tensor-core route (bf16, d <= 128) every q, k, v row 16-byte aligned and
+// out's rows 4-byte aligned, else cudaErrorMisalignedAddress. d 64, 128,
+// 256, or a multiple of 64 past 256 (the column-chunk route); mask: fp32
+// [t, t] rows at mask + batch * mask_bstride, or null.
 int vct_attention_fwd(int bf16, const void* q, const void* k, const void* v,
-                      const void* mask, long long mask_bstride, float scale,
-                      void* out, int b, int heads, int t, int d,
-                      void* stream) {
+                      const long long* st, const void* mask,
+                      long long mask_bstride, float scale, void* out, int b,
+                      int heads, int t, int d, void* stream) {
+  const AttnStrides strides{{st[0], st[1], st[2]},
+                            {st[3], st[4], st[5]},
+                            {st[6], st[7], st[8]},
+                            {st[9], st[10], st[11]}};
+  const float* m = (const float*)mask;
+  const cudaStream_t cs = (cudaStream_t)stream;
   if (d > 256) {
     if (d % 64) return (int)cudaErrorInvalidValue;
-    return bf16 ? attention_wide<vct::bf16>(q, k, v, (const float*)mask,
-                                            mask_bstride, scale, out, b,
-                                            heads, t, d, (cudaStream_t)stream)
-                : attention_wide<float>(q, k, v, (const float*)mask,
-                                        mask_bstride, scale, out, b, heads,
-                                        t, d, (cudaStream_t)stream);
+    return bf16 ? attention_wide<vct::bf16>(q, k, v, m, mask_bstride, scale,
+                                            out, strides, b, heads, t, d, cs)
+                : attention_wide<float>(q, k, v, m, mask_bstride, scale, out,
+                                        strides, b, heads, t, d, cs);
   }
   if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  if (bf16 && d <= 128 &&
+      !(mma_aligned(q, strides.q, true) && mma_aligned(k, strides.k, true) &&
+        mma_aligned(v, strides.v, true) && mma_aligned(out, strides.o, false)))
+    return (int)cudaErrorMisalignedAddress;
   auto launch = d == 64    ? attention_launch<64>
                 : d == 128 ? attention_launch<128>
                            : attention_launch<256>;
-  return launch(bf16, q, k, v, (const float*)mask, mask_bstride, scale, out,
-                b, heads, t, (cudaStream_t)stream);
+  return launch(bf16, q, k, v, m, mask_bstride, scale, out, strides, b, heads,
+                t, cs);
 }
 
 }  // extern "C"

@@ -111,6 +111,27 @@ ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu_exact,
                "relu": torch.relu}
 
 
+def fused_route(device: str, dtype: torch.dtype, head_dim: int,
+                self_attention: bool, mask: Optional[torch.Tensor], T: int,
+                grad: bool, fused: Optional[bool]) -> bool:
+    """Whether :func:`mha` takes K5 for attention over heads of
+    ``head_dim`` columns on ``device`` (its type) in ``dtype``:
+    self-attention (k's batch and length equal q's) under a mask layout K5
+    supports, and then under ``fused=True`` or the global toggle, or else
+    by itself where the kernel computes the same function at no lower
+    precision and nothing is lost: on a CUDA device in bf16, at heads the
+    tensor-core kernel takes, with no input needing a gradient (``grad``
+    False: K5's backward is a plain recompute). ``fused=False`` never
+    takes it. So the CPU, fp32, trained towers and cross-attention keep
+    the unfused branch unless asked."""
+    if fused is False or not (self_attention and fa.supports(mask, T)):
+        return False
+    if fused or fa.fused_attention_enabled():
+        return True
+    return (device == "cuda" and dtype == torch.bfloat16
+            and fa.kernel_width(head_dim) <= 128 and not grad)
+
+
 def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
         mask: Optional[torch.Tensor] = None,
         stable_dtype=torch.float32,
@@ -123,12 +144,14 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
     Softmax runs in fp32, or max-subtracted in bf16 when ``stable_dtype``
     is bf16 (FAST).
 
-    Self-attention (k's batch and length equal q's) takes the fused
-    attention K5 (``ops/attention.py``, fp32 softmax whatever
-    ``stable_dtype``) when ``fused`` is True, or when ``fused`` is None and
-    the global toggle ``set_fused_attention`` is on (off by default, as in
-    the reference), and the mask is a layout it supports; ``fused=False``
-    never takes it. Tensor-parallel q/k/v shards give this rank's heads.
+    Self-attention takes the fused attention K5 (``ops/attention.py``,
+    fp32 softmax whatever ``stable_dtype``) where :func:`fused_route`
+    says: by itself on the card in bf16 when no input needs a gradient
+    (the frozen towers), everywhere it applies under ``fused=True`` or the
+    global toggle ``set_fused_attention``, never under ``fused=False``.
+    K5 reads q, k and v as the projections leave them and writes its
+    output where the out-projection reads it. Tensor-parallel q/k/v
+    shards give this rank's heads.
 
     While tracing is on (``utils/profiling``) a call adds the bytes of the
     attention scores it writes out to the counter
@@ -143,9 +166,11 @@ def mha(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor, num_heads: int,
     k = linear(p["k"], kv_in).reshape(kv_in.shape[0], -1, h, hd)
     v = linear(p["v"], kv_in).reshape(kv_in.shape[0], -1, h, hd)
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # [Bk, h, Tk, hd]
-    if B == k.shape[0] and Tq == k.shape[2] and fused is not False \
-            and (fused or fa.fused_attention_enabled()) \
-            and fa.supports(mask, Tq):
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, mask))
+    if fused_route(q.device.type, q.dtype, hd,
+                   B == k.shape[0] and Tq == k.shape[2], mask, Tq, grad,
+                   fused):
         out = fa.fused_attention(q, k, v, scale, mask)
         profiling.count("layers.attn_score_bytes", 0)
         return linear(p["out"], out.transpose(1, 2).reshape(B, Tq, h * hd))

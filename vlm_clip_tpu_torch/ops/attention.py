@@ -30,9 +30,20 @@ attention.py:160-189) inside a ``torch.autograd.Function``, mask
 cotangent included: the reference has no backward kernel, so the port
 has none either.
 
-The towers take this path when ``set_fused_attention(True)`` is on (or
-``mha(..., fused=True)``), as in the reference, where it is off by
-default. ``fused_attention.launches`` counts the kernel's launches.
+The kernels read q, k and v, and write the output, through their batch,
+head and row strides (each row's columns contiguous): the [B, h, T, d]
+views of [B, T, h d] projections are read where they lie, and the output
+takes q's layout, so the out-projection reads it without a copy. A view
+whose rows the tensor-core kernel's 16-byte copies cannot take is copied
+first.
+
+The towers' self-attention takes this path on the card in bf16, at heads
+the tensor-core kernel takes and with no input needing a gradient
+(``models/layers.fused_route``: the frozen towers under ``no_grad``);
+``set_fused_attention(True)`` or ``mha(..., fused=True)`` takes it
+wherever it applies, on the CPU too (the reference's opt-in, off by
+default there). ``fused_attention.launches`` counts the kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -62,7 +73,9 @@ _ENABLED = False
 
 
 def set_fused_attention(on: bool) -> None:
-    """Global opt-in consulted by models/layers.py:mha."""
+    """Global opt-in consulted by models/layers.py:mha: on, mha takes K5
+    wherever it applies; off (the default), only where
+    ``layers.fused_route`` routes it by itself."""
     global _ENABLED
     _ENABLED = bool(on)
 
@@ -87,8 +100,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         P = ctypes.c_void_p
         lib.vct_attention_fwd.argtypes = [
-            ctypes.c_int, P, P, P, P, ctypes.c_longlong, ctypes.c_float, P,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
+            ctypes.c_int, P, P, P, ctypes.POINTER(ctypes.c_longlong), P,
+            ctypes.c_longlong, ctypes.c_float, P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, P]
         lib.vct_attention_fwd.restype = ctypes.c_int
         lib.vct_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.vct_attention_smem.restype = ctypes.c_size_t
@@ -135,6 +149,19 @@ def fused_attention_bwd_torch(q, k, v, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dmask
 
 
+def _operand(t, tensor_cores: bool):
+    """t as the kernels read it, through its batch, head and row strides:
+    as it is where each row's columns are contiguous (and, on the
+    tensor-core route, every row starts on a 16-byte boundary, as its
+    16-byte copies need), else a contiguous copy."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    if tensor_cores and (t.data_ptr() % 16
+                         or any(s % 8 for s in t.stride()[:3])):
+        t = aligned16(t)
+    return t
+
+
 def _launch(q, k, v, scale, mask):
     B, h, T, d = q.shape
     w = kernel_width(d)
@@ -150,7 +177,8 @@ def _launch(q, k, v, scale, mask):
         # narrower heads run zero-padded to the kernel's width: the zero
         # columns add nothing to a score and give zero output columns
         q, k, v = (F.pad(t, (0, w - d)) for t in (q, k, v))
-    q, k, v = (aligned16(t) for t in (q, k, v))
+    tensor_cores = q.dtype == torch.bfloat16 and w <= 128
+    q, k, v = (_operand(t, tensor_cores) for t in (q, k, v))
     m, bstride = None, 0
     if mask is not None:
         m = mask.float()
@@ -163,14 +191,19 @@ def _launch(q, k, v, scale, mask):
             bstride = m.stride(0)
         else:
             m = m.contiguous()
+    # in q's layout: for the [B, h, T, d] view of a [B, T, h d] projection
+    # a [B, T, h, d] buffer, whose [B, T, h d] view is the out-projection's
+    # input with no copy
     out = torch.empty_like(q)
     if B * h * T:
         lib = _lib()
         bf16 = int(q.dtype == torch.bfloat16)
+        strides = (ctypes.c_longlong * 12)(
+            *(s for t in (q, k, v, out) for s in t.stride()[:3]))
         with torch.cuda.device(q.device):
             err = lib.vct_attention_fwd(
-                bf16, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), None if m is None else m.data_ptr(), bstride,
+                bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+                None if m is None else m.data_ptr(), bstride,
                 float(scale), out.data_ptr(), B, h, T, w,
                 torch.cuda.current_stream(q.device).cuda_stream)
         if err:
